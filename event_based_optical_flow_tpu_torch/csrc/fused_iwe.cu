@@ -1,6 +1,7 @@
-// Fused flow gather + multi-reference-time warp + bilinear vote, and its
-// flow gradient, for NVIDIA Hopper (sm_90a).  Plain C interface, loaded
-// with ctypes by event_based_optical_flow_tpu_torch/ops/fused_iwe.py.
+// Fused flow gather + multi-reference-time warp + bilinear vote, its flow
+// gradient, its tangent along a flow direction and the second-order
+// backward of the analytic HVP, for NVIDIA Hopper (sm_90a).  Plain C
+// interface, loaded with ctypes by event_based_optical_flow_tpu_torch/ops/fused_iwe.py.
 //
 // Replaces the Pallas TPU kernels of the JAX package
 //   ops/pallas_objective.py          _fwd_kernel / _bwd_kernel
@@ -52,6 +53,37 @@
 // PyTorch's separate elementwise ops in the plain version, so both make the
 // same floor decisions and differ only by summation order (and, in
 // float64, by the fixed-point unit: at most 2^-37 per vote).
+//
+// Second order (the analytic Gauss-Newton HVP), replacing
+//   ops/pallas_objective_banded.py   _jvp_kernel     (fused_multi_iwe_banded_jvp)
+//                                    _hvp_bwd_kernel (fused_multi_iwe_banded_hvp_bwd)
+// JVP (K3), given a tangent flow dflow: per event the tangent flow du, dv is
+// gathered at the same truncated source pixel (zero outside), the warped
+// position moves by dxw = -(dt du), dyw = -(dt dv), and each corner weight's
+// directional derivative, e.g. ((-dxw)(1-fy) + (1-fx)(-dyw)) wt at (fl, cl),
+// is voted into the tangent image.  With emit_value the value images are
+// voted too, by K1's own code into K1's accumulator: they are K1's bits.
+// A tangent's scale follows the CG direction, so K1's fixed 2^-36 unit
+// could overflow or lose its digits.  The tangent images are summed in 64-bit
+// fixed point with a unit chosen per call on the device: one pass takes
+// b = max over events of |wt| max_k|dtf - o_k| (|du| + |dv|) (an integer
+// atomicMax on the bits of a non-negative double: order-free), and the unit
+// is the power of two 2^-s with 2 N b 2^s < 2^62 (N events; the factor 2
+// covers the corner weights' eps slack), so no pixel's sum can overflow and
+// every vote keeps ~2^-(60 - log2 N) of b.  No host sync: the vote and
+// conversion kernels read b themselves.  A non-finite b (a NaN or inf
+// tangent) gives NaN tangent images.  Integer sums again make the tangent
+// the same bits on every run.
+// HVP backward (K4), given the cost cotangent g1 and its directional
+// derivative g2 [K, H, W]: per event
+//   term B   K2's du, dv against g2 (the same code: with term A off this is
+//            fused_iwe_bwd(g2) bit for bit);
+//   term A   s = wt (g1[fl,cl] - g1[fl,cl+1] - g1[fl+1,cl] + g1[fl+1,cl+1])
+//            (the vote's mixed second derivative against g1),
+//            du += dt^2 s dv_g,  dv += dt^2 s du_g,
+// per offset, then K2's ordered run sums onto the source pixel.
+// Both are bound like K1/K2 (scattered int64 atomics and gathers); K4 reads
+// g1 only with term A.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -166,11 +198,13 @@ __device__ __forceinline__ T g_at(const T* g, int r, int c, int H, int W) {
   return (r >= 0 && r < H && c >= 0 && c < W) ? g[r * W + c] : T(0);
 }
 
-// du, dv of one event (summed over the offsets).
-template <typename T>
+// du, dv of one event (summed over the offsets) against the cotangent g;
+// with TermA also the vote's mixed second derivative against g1 along the
+// tangent flow (du_g, dv_g) gathered at the event's source pixel (K4).
+template <typename T, bool TermA>
 __device__ __forceinline__ void event_grad(T xi, T yi, T d, T w, T u, T v, const Offsets<T>& offs,
-                                           int k0, int H, int W, T eps, const T* g, T* du,
-                                           T* dv) {
+                                           int k0, int H, int W, T eps, const T* g, const T* g1,
+                                           T du_g, T dv_g, T* du, T* dv) {
   const int hw = H * W;
   for (int k = 0; k < offs.n; ++k) {
     const T dt = d - offs.v[k];
@@ -188,6 +222,13 @@ __device__ __forceinline__ void event_grad(T xi, T yi, T d, T w, T u, T v, const
     const T dyw = w * ((T(1) - fx) * (g01 - g00) + fx * (g11 - g10));
     *du += -dt * dxw;
     *dv += -dt * dyw;
+    if constexpr (TermA) {
+      const T* hk = g1 + k * hw;
+      const T s = w * ((g_at(hk, r0, c0, H, W) - g_at(hk, r0, c0 + 1, H, W)) -
+                       (g_at(hk, r0 + 1, c0, H, W) - g_at(hk, r0 + 1, c0 + 1, H, W)));
+      *du += dt * dt * s * dv_g;
+      *dv += dt * dt * s * du_g;
+    }
   }
 }
 
@@ -207,10 +248,155 @@ __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restric
     const int p = source_pixel(xi, yi, H, W);
     T du = T(0), dv = T(0);
     if (p >= 0 && w != T(0)) {
-      event_grad(xi, yi, dtf[i], w, flow[p], flow[hw + p], offs, k0, H, W, eps, g, &du, &dv);
+      event_grad<T, false>(xi, yi, dtf[i], w, flow[p], flow[hw + p], offs, k0, H, W, eps, g,
+                           nullptr, T(0), T(0), &du, &dv);
     }
     duv[i] = du;
     duv[n + i] = dv;
+  }
+}
+
+// K4, step 1: as fused_iwe_bwd_kernel against g2 (no orig image), plus term
+// A against g1 when TermA.  Step 2 is fused_iwe_bwd_sum_kernel.
+template <typename T, bool TermA>
+__global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                                         const T* __restrict__ dtf, const T* __restrict__ wt,
+                                         int n, const T* __restrict__ flow,
+                                         const T* __restrict__ dflow, Offsets<T> offs, int H,
+                                         int W, T eps, const T* __restrict__ g1,
+                                         const T* __restrict__ g2, T* __restrict__ duv) {
+  const int hw = H * W;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const T xi = x[i], yi = y[i], w = wt[i];
+    const int p = source_pixel(xi, yi, H, W);
+    T du = T(0), dv = T(0);
+    if (p >= 0 && w != T(0)) {
+      const T du_g = TermA ? dflow[p] : T(0);
+      const T dv_g = TermA ? dflow[hw + p] : T(0);
+      event_grad<T, TermA>(xi, yi, dtf[i], w, flow[p], flow[hw + p], offs, 0, H, W, eps, g2, g1,
+                           du_g, dv_g, &du, &dv);
+    }
+    duv[i] = du;
+    duv[n + i] = dv;
+  }
+}
+
+// --- K3: the tangent's fixed-point unit -------------------------------------
+
+constexpr int kNonFinite = -100000;  // tangent_exponent's mark for a non-finite bound
+
+// Bits of the per-call bound b (see the header).  A NaN or inf bound is
+// stored as +inf, the largest non-negative double's bits but NaN's.  Each
+// block reduces its events (warp shuffles, then shared memory) to one
+// atomicMax: one address takes ~N / 256 atomics, not N.
+template <typename T>
+__global__ void jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                                 const T* __restrict__ dtf, const T* __restrict__ wt, int n,
+                                 const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
+                                 unsigned long long* __restrict__ bound) {
+  __shared__ unsigned long long warp_max[kThreads / 32];
+  const int hw = H * W;
+  unsigned long long m = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const T w = wt[i];
+    if (w == T(0)) continue;
+    const int p = source_pixel(x[i], y[i], H, W);
+    if (p < 0) continue;  // zero tangent flow
+    const double d = static_cast<double>(dtf[i]);
+    double dt_max = 0.0;
+    for (int k = 0; k < offs.n; ++k) dt_max = fmax(dt_max, fabs(d - static_cast<double>(offs.v[k])));
+    double b = fabs(static_cast<double>(w)) * dt_max *
+               (fabs(static_cast<double>(dflow[p])) + fabs(static_cast<double>(dflow[hw + p])));
+    if (!(b <= 1.7976931348623157e308)) b = INFINITY;
+    const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(b));
+    m = bits > m ? bits : m;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, o);
+    m = other > m ? other : m;
+  }
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < kThreads / 32; ++k) m = warp_max[k] > m ? warp_max[k] : m;
+    if (m) atomicMax(bound, m);
+  }
+}
+
+// s of the unit 2^-s for the bound's bits; scale_bits = 61 - ceil(log2 N).
+__device__ __forceinline__ int tangent_exponent(unsigned long long bits, int scale_bits) {
+  const double b = __longlong_as_double(static_cast<long long>(bits));
+  if (!(b <= 1.7976931348623157e308)) return kNonFinite;
+  if (b == 0.0) return 0;  // every tangent vote is 0
+  int e;
+  frexp(b, &e);  // b < 2^e
+  return scale_bits - e;
+}
+
+template <typename T>
+__device__ __forceinline__ void add_scaled(unsigned long long* acc, T value, int ex) {
+  const long long q = __double2ll_rn(ldexp(static_cast<double>(value), ex));
+  atomicAdd(acc, static_cast<unsigned long long>(q));
+}
+
+// Tangent votes of one warped position moving by (dxw, dyw).
+template <typename T>
+__device__ __forceinline__ void vote_tangent(unsigned long long* img, T xw, T yw, T dxw, T dyw,
+                                             T wt, T eps, int H, int W, int ex) {
+  int r0, c0;
+  T fx, fy;
+  if (!corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy)) return;
+  const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H;
+  const bool in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
+  if (in_r0 && in_c0) add_scaled(img + r0 * W + c0, ((-dxw) * (T(1) - fy) + (T(1) - fx) * (-dyw)) * wt, ex);
+  if (in_r1 && in_c0) add_scaled(img + (r0 + 1) * W + c0, (dxw * (T(1) - fy) + fx * (-dyw)) * wt, ex);
+  if (in_r0 && in_c1) add_scaled(img + r0 * W + c0 + 1, ((-dxw) * fy + (T(1) - fx) * dyw) * wt, ex);
+  if (in_r1 && in_c1) add_scaled(img + (r0 + 1) * W + c0 + 1, (dxw * fy + fx * dyw) * wt, ex);
+}
+
+// K3: value votes (K1's code, K1's unit) when emit_value, and tangent votes
+// in the per-call unit.
+template <typename T>
+__global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                                     const T* __restrict__ dtf, const T* __restrict__ wt,
+                                     int n, const T* __restrict__ flow,
+                                     const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
+                                     T eps, int emit_value,
+                                     const unsigned long long* __restrict__ bound, int scale_bits,
+                                     unsigned long long* __restrict__ acc_val,
+                                     unsigned long long* __restrict__ acc_tan) {
+  const int hw = H * W;
+  const int ex = tangent_exponent(*bound, scale_bits);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const T w = wt[i];
+    if (w == T(0)) continue;
+    const T xi = x[i], yi = y[i];
+    const int p = source_pixel(xi, yi, H, W);
+    const T u = p >= 0 ? flow[p] : T(0);
+    const T v = p >= 0 ? flow[hw + p] : T(0);
+    const T du = p >= 0 ? dflow[p] : T(0);
+    const T dv = p >= 0 ? dflow[hw + p] : T(0);
+    const T d = dtf[i];
+    for (int k = 0; k < offs.n; ++k) {
+      const T dt = d - offs.v[k];
+      const T xw = xi - dt * u;
+      const T yw = yi - dt * v;
+      if (emit_value) vote(acc_val + k * hw, xw, yw, w, eps, H, W);
+      if (p >= 0 && ex != kNonFinite) {
+        vote_tangent(acc_tan + k * hw, xw, yw, -(dt * du), -(dt * dv), w, eps, H, W, ex);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void from_scaled_kernel(const long long* __restrict__ acc, int n,
+                                   const unsigned long long* __restrict__ bound, int scale_bits,
+                                   T* __restrict__ out) {
+  const int ex = tangent_exponent(*bound, scale_bits);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    out[i] = ex == kNonFinite ? static_cast<T>(NAN)
+                              : static_cast<T>(ldexp(static_cast<double>(acc[i]), -ex));
   }
 }
 
@@ -284,6 +470,52 @@ int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T
   return static_cast<int>(cudaGetLastError());
 }
 
+// bound: zeroed 1-element scratch; acc_val (emit_value only) and acc_tan:
+// zeroed int64 scratch of the outputs' size; out_val may be null without
+// emit_value.
+template <typename T>
+int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, int n, const T* flow,
+               const T* dflow, const double* offsets, int n_off, int H, int W, double eps,
+               int emit_value, int scale_bits, unsigned long long* bound, long long* acc_val,
+               long long* acc_tan, T* out_val, T* out_tan, void* stream) {
+  if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Offsets<T> offs = make_offsets<T>(offsets, n_off);
+  if (n > 0) {
+    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, n, dflow, offs, H, W, bound);
+    fused_iwe_jvp_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
+        x, y, dtf, wt, n, flow, dflow, offs, H, W, static_cast<T>(eps), emit_value, bound,
+        scale_bits, reinterpret_cast<unsigned long long*>(acc_val),
+        reinterpret_cast<unsigned long long*>(acc_tan));
+  }
+  const int n_out = n_off * H * W;
+  if (emit_value) from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_val, n_out, out_val);
+  from_scaled_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_tan, n_out, bound, scale_bits,
+                                                             out_tan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// duv: scratch of 2 * n elements; dflow_out: zeroed.
+template <typename T>
+int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T* flow,
+                   const T* dflow, const double* offsets, int n_off, int H, int W, double eps,
+                   int term_a, const T* g1, const T* g2, T* duv, T* dflow_out, void* stream) {
+  if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Offsets<T> offs = make_offsets<T>(offsets, n_off);
+  if (n > 0) {
+    if (term_a) {
+      fused_iwe_hvp_bwd_kernel<T, true><<<grid_for(n), kThreads, 0, s>>>(
+          x, y, dtf, wt, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
+    } else {
+      fused_iwe_hvp_bwd_kernel<T, false><<<grid_for(n), kThreads, 0, s>>>(
+          x, y, dtf, wt, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
+    }
+    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, n, H, W, duv, dflow_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -320,6 +552,43 @@ int evflow_fused_iwe_bwd_f64(const double* x, const double* y, const double* dtf
                              const double* g, double* duv, double* dflow, void* stream) {
   return launch_bwd<double>(x, y, dtf, wt, n, flow, offsets, n_off, include_orig, H, W, eps, g, duv,
                             dflow, stream);
+}
+
+int evflow_fused_iwe_jvp_f32(const float* x, const float* y, const float* dtf, const float* wt,
+                             int n, const float* flow, const float* dflow, const double* offsets,
+                             int n_off, int H, int W, double eps, int emit_value, int scale_bits,
+                             unsigned long long* bound, long long* acc_val, long long* acc_tan,
+                             float* out_val, float* out_tan, void* stream) {
+  return launch_jvp<float>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, emit_value,
+                           scale_bits, bound, acc_val, acc_tan, out_val, out_tan, stream);
+}
+
+int evflow_fused_iwe_jvp_f64(const double* x, const double* y, const double* dtf,
+                             const double* wt, int n, const double* flow, const double* dflow,
+                             const double* offsets, int n_off, int H, int W, double eps,
+                             int emit_value, int scale_bits, unsigned long long* bound,
+                             long long* acc_val, long long* acc_tan, double* out_val,
+                             double* out_tan, void* stream) {
+  return launch_jvp<double>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, emit_value,
+                            scale_bits, bound, acc_val, acc_tan, out_val, out_tan, stream);
+}
+
+int evflow_fused_iwe_hvp_bwd_f32(const float* x, const float* y, const float* dtf,
+                                 const float* wt, int n, const float* flow, const float* dflow,
+                                 const double* offsets, int n_off, int H, int W, double eps,
+                                 int term_a, const float* g1, const float* g2, float* duv,
+                                 float* dflow_out, void* stream) {
+  return launch_hvp_bwd<float>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, term_a,
+                               g1, g2, duv, dflow_out, stream);
+}
+
+int evflow_fused_iwe_hvp_bwd_f64(const double* x, const double* y, const double* dtf,
+                                 const double* wt, int n, const double* flow, const double* dflow,
+                                 const double* offsets, int n_off, int H, int W, double eps,
+                                 int term_a, const double* g1, const double* g2, double* duv,
+                                 double* dflow_out, void* stream) {
+  return launch_hvp_bwd<double>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, term_a,
+                                g1, g2, duv, dflow_out, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,9 @@
 """Fused flow gather + multi-reference-time warp + bilinear vote: the CMax
-objective's rasterizer, as a hand-written CUDA kernel pair with a plain
-PyTorch version beside it.
+objective's rasterizer, as hand-written CUDA kernels with a plain PyTorch
+version beside each: the forward (K1) and its backward (K2), and the two
+kernels of the analytic Hessian-vector product, the tangent of the
+forward along a flow direction (K3, ``fused_iwe_jvp``) and the
+second-order backward (K4, ``fused_iwe_hvp_bwd``).
 
 Replaces the TPU kernels of the JAX package (one contract, two TPU
 layouts):
@@ -20,9 +23,9 @@ and corners at ``floor(c + eps)``; image 0 is the unwarped vote when
 derivatives; ``x, y, dtf, wt`` get no gradient.  Band/tile packing, row
 windows and bf16 splits were TPU layout and are not carried over.
 
-Routing: ``fused_iwe`` runs the plain version for a tensor on the CPU and
-the kernel (``FusedIWE``) for a CUDA tensor; a CUDA tensor never falls
-back — an unsupported input raises.
+Routing: ``fused_iwe``, ``fused_iwe_jvp`` and ``fused_iwe_hvp_bwd`` run the
+plain version for a tensor on the CPU and the kernel for a CUDA tensor; a
+CUDA tensor never falls back — an unsupported input raises.
 
 On the H100 the kernel is bound by scattered atomic adds (votes) and
 gathers (cotangent reads), not FLOPs: see ``csrc/fused_iwe.cu``.  Float
@@ -32,7 +35,9 @@ run instead: the forward sums the votes in 64-bit fixed point (integer
 atomics, whose order cannot change the sum), and the backward sums each
 source pixel's events in index order, one add per pixel when the events
 are sorted by source pixel, as ``FrameEvents`` sorts them.  The plain
-version sums in another order, so the two agree to rounding.
+version sums in another order, so the two agree to rounding.  K3 sums its
+tangent images in fixed point too, in a unit scaled per call on the
+device to the largest tangent vote, and K4 reuses K2's ordered run sums.
 """
 
 import ctypes
@@ -48,6 +53,9 @@ KERNEL_SOURCE = "event_based_optical_flow_tpu_torch/csrc/fused_iwe.cu"
 MAX_OFFSETS = 8  # kMaxOffsets in csrc/fused_iwe.cu
 # The forward's fixed-point sums (2^-36 units in an int64) hold 2^27 weight
 # units per pixel: with |wt| <= 2, fewer than 2^26 events never overflow.
+# K3's tangent unit 2^-s is chosen per call so that 2 N b 2^s < 2^62 (b the
+# largest event's tangent bound): no overflow at any N, and below 2^26 events
+# every tangent vote keeps at least 2^-35 of b.
 MAX_EVENTS = 2**26
 
 _PTR = ctypes.c_void_p
@@ -55,6 +63,8 @@ _INT = ctypes.c_int
 _DBL = ctypes.c_double
 _FWD_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
 _BWD_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _PTR]
+_JVP_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT, _INT] + [_PTR] * 6
+_HVP_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 5
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -62,7 +72,8 @@ def _library():
     kl = load_kernel_library("fused_iwe")
     lib = kl.lib
     if not getattr(lib, "_evflow_bound", False):
-        for direction, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS)):
+        for direction, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS), ("jvp", _JVP_ARGS),
+                                ("hvp_bwd", _HVP_ARGS)):
             for suffix in _SUFFIX.values():
                 fn = getattr(lib, f"evflow_fused_iwe_{direction}_{suffix}")
                 fn.argtypes = args
@@ -74,8 +85,15 @@ def _library():
     return lib
 
 
+def _check_like(name: str, t: Tensor, shape, flow: Tensor):
+    if tuple(t.shape) != tuple(shape) or t.dtype != flow.dtype or t.device != flow.device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} tensor like the flow, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float]):
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernels do not take."""
     if flow.device.type != "cuda":
         raise ValueError(f"the fused_iwe kernel runs on CUDA tensors, got a {flow.device} tensor")
     if flow.dtype not in _SUFFIX:
@@ -131,10 +149,7 @@ def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g
     cotangent ``g [(orig) + len(offsets), H, W]``."""
     _check(flow, (x, y, dtf, wt), offsets)
     k_total = len(offsets) + int(include_orig)
-    if g.shape != (k_total,) + tuple(flow.shape[1:]) or g.dtype != flow.dtype \
-            or g.device != flow.device or not g.is_contiguous():
-        raise ValueError(f"g must be a contiguous {(k_total,) + tuple(flow.shape[1:])} tensor "
-                         f"like the flow, got {tuple(g.shape)} {g.dtype}")
+    _check_like("g", g, (k_total,) + tuple(flow.shape[1:]), flow)
     h, w = flow.shape[1], flow.shape[2]
     duv = torch.empty((2, x.shape[0]), dtype=flow.dtype, device=flow.device)  # per-event du, dv
     dflow = torch.zeros_like(flow)
@@ -149,17 +164,85 @@ def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g
     return dflow
 
 
-fused_iwe_fwd.launches = 0
-fused_iwe_bwd.launches = 0
+def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
+                  offsets: Sequence[float], emit_value: bool, eps: float = 1e-6):
+    """K3: the direction images' tangent along ``dflow`` (``[K, H, W]``,
+    ``K = len(offsets)``, no orig image: its tangent is 0), and with
+    ``emit_value`` first the images themselves, ``fused_iwe_fwd``'s bits:
+    ``(images, dimages)``.  The plain version for CPU tensors, the kernel
+    for CUDA tensors."""
+    if flow.device.type == "cpu":
+        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps)
+    _check(flow, (x, y, dtf, wt), offsets)
+    _check_like("dflow", dflow, flow.shape, flow)
+    if not offsets:
+        raise ValueError("fused_iwe_jvp computes direction images: give at least one offset")
+    n, (h, w) = x.shape[0], flow.shape[1:]
+    shape = (len(offsets), h, w)
+    bound = torch.zeros(1, dtype=torch.int64, device=flow.device)  # bits of the tangent bound
+    acc_tan = torch.zeros(shape, dtype=torch.int64, device=flow.device)
+    acc_val = torch.zeros(shape, dtype=torch.int64, device=flow.device) if emit_value else None
+    out_tan = torch.empty(shape, dtype=flow.dtype, device=flow.device)
+    out_val = torch.empty(shape, dtype=flow.dtype, device=flow.device) if emit_value else None
+    offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
+    scale_bits = 61 - max(0, (n - 1).bit_length())  # 61 - ceil(log2 N)
+    _launch(
+        f"evflow_fused_iwe_jvp_{_SUFFIX[flow.dtype]}", flow,
+        (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(), n, flow.data_ptr(),
+         dflow.data_ptr(), offs, len(offsets), h, w, float(eps), int(bool(emit_value)), scale_bits,
+         bound.data_ptr(), acc_val.data_ptr() if emit_value else None, acc_tan.data_ptr(),
+         out_val.data_ptr() if emit_value else None, out_tan.data_ptr()),
+    )
+    fused_iwe_jvp.launches += 1
+    return (out_val, out_tan) if emit_value else out_tan
+
+
+def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor, y: Tensor,
+                      dtf: Tensor, wt: Tensor, offsets: Sequence[float], term_a: bool,
+                      eps: float = 1e-6) -> Tensor:
+    """K4: the vote's flow-space HVP contribution ``[2, H, W]`` from the
+    cost cotangent ``g1`` and its directional derivative ``g2`` (``[K, H,
+    W]``): term B, the backward against ``g2`` (``fused_iwe_bwd(g2)``'s bits
+    with ``term_a`` off), plus with ``term_a`` the vote's mixed second
+    derivative against ``g1`` along ``dflow``.  The plain version for CPU
+    tensors, the kernel for CUDA tensors."""
+    if flow.device.type == "cpu":
+        return fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, x, y, dtf, wt, offsets, term_a, eps)
+    _check(flow, (x, y, dtf, wt), offsets)
+    _check_like("dflow", dflow, flow.shape, flow)
+    for name, g in (("g1", g1), ("g2", g2)):
+        _check_like(name, g, (len(offsets),) + tuple(flow.shape[1:]), flow)
+    if not offsets:
+        raise ValueError("fused_iwe_hvp_bwd computes direction terms: give at least one offset")
+    n, (h, w) = x.shape[0], flow.shape[1:]
+    duv = torch.empty((2, n), dtype=flow.dtype, device=flow.device)  # per-event du, dv
+    out = torch.zeros_like(flow)
+    offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
+    _launch(
+        f"evflow_fused_iwe_hvp_bwd_{_SUFFIX[flow.dtype]}", flow,
+        (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(), n, flow.data_ptr(),
+         dflow.data_ptr(), offs, len(offsets), h, w, float(eps), int(bool(term_a)),
+         g1.data_ptr(), g2.data_ptr(), duv.data_ptr(), out.data_ptr()),
+    )
+    fused_iwe_hvp_bwd.launches += 1
+    return out
+
+
+_KERNELS = {"fwd": fused_iwe_fwd, "bwd": fused_iwe_bwd, "jvp": fused_iwe_jvp,
+            "hvp_bwd": fused_iwe_hvp_bwd}
 
 
 def launch_counts() -> dict:
-    return {"fwd": fused_iwe_fwd.launches, "bwd": fused_iwe_bwd.launches}
+    """Kernel launches per kernel since the last reset."""
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    fused_iwe_fwd.launches = 0
-    fused_iwe_bwd.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
+
+
+reset_launch_counts()
 
 
 class FusedIWE(torch.autograd.Function):
@@ -229,3 +312,30 @@ def fused_iwe(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
         return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps)
     return FusedIWE.apply(flow, x, y, dtf, wt, tuple(float(o) for o in offsets),
                           bool(include_orig), float(eps))
+
+
+def fused_iwe_jvp_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
+                            wt: Tensor, offsets: Sequence[float], emit_value: bool,
+                            eps: float = 1e-6):
+    """K3's plain version: ``torch.func.jvp`` of ``fused_iwe_reference``."""
+    images, dimages = torch.func.jvp(
+        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps), (flow,), (dflow,))
+    return (images, dimages) if emit_value else dimages
+
+
+def fused_iwe_hvp_bwd_reference(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor,
+                                y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                                term_a: bool, eps: float = 1e-6) -> Tensor:
+    """K4's plain version: term B is the VJP of ``fused_iwe_reference``
+    against ``g2``; term A the double backward of ``<vjp(flow)(g1),
+    dflow>``."""
+    with torch.enable_grad():
+        fl = flow.detach().requires_grad_(True)
+        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps)
+        (out,) = torch.autograd.grad(images, fl, g2, retain_graph=term_a)
+        if term_a:
+            (vjp1,) = torch.autograd.grad(images, fl, g1, create_graph=True)
+            (term,) = torch.autograd.grad((vjp1 * dflow).sum(), fl, allow_unused=True)
+            if term is not None:
+                out = out + term
+    return out.detach()

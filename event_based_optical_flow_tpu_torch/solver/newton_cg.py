@@ -1,15 +1,24 @@
-"""Truncated Newton (Newton-CG) with a central finite-difference
-Hessian-vector product (port of
-``event_based_optical_flow_tpu/solver/newton_cg.py::build_newton_cg``,
-``hvp_mode="fd"``).
+"""Truncated Newton (Newton-CG) (port of
+``event_based_optical_flow_tpu/solver/newton_cg.py::build_newton_cg``).
 
 Same algorithm, step for step: scipy's forcing sequence
 ``eta = min(0.5, sqrt|g|) |g|`` and negative-curvature fallback in the
 inner CG; the two-sided backtracking line search; the outward
-plateau-escape probe; best-iterate tracking.  The HVP differences two
-gradients at ``x +- eps p`` with ``eps = 0.1 (1 + 1e-3 |x|) / |p|``
-(pixel-scale steps: the CMax objective is piecewise smooth in sub-pixel
-structure, and the fused kernel's backward is not itself differentiable).
+plateau-escape probe; best-iterate tracking.  Hessian-vector products:
+
+* ``hvp_mode="fd"``: the difference of two gradients at ``x +- eps p`` with
+  ``eps = 0.1 (1 + 1e-3 |x|) / |p|`` (pixel-scale steps: the CMax
+  objective is piecewise smooth in sub-pixel structure, and the fused
+  kernel's backward is not itself differentiable); one-sided against the
+  iterate's gradient with ``fd_central=False``;
+* ``hvp_mode="analytic"``: ``hvp_fn`` supplied by the caller (the CMax
+  objective's analytic Gauss-Newton HVP through the JVP and HVP-backward
+  kernels), staged when ``hvp_prep_fn`` is given: ``aux = hvp_prep_fn(x,
+  *args)`` once per CG solve, then ``hvp_fn(aux, x, p, *args)``.  The a.e.
+  curvature misses the washboard's floor-crossing curvature, so the
+  Newton direction is clipped per component to ``max_step``, and
+  ``fd_polish`` central-FD iterations follow from the best iterate (no
+  step clip, no escape probe), counted in the iterations.
 
 The JAX package runs each loop as a ``lax.while_loop`` inside one device
 program.  Here the loops are Python loops over device tensors: every loop
@@ -17,7 +26,7 @@ condition reads one boolean back to the host, a device synchronization.
 ``NewtonCG.syncs`` counts them (CUDA graphs can remove them later).
 """
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -48,7 +57,12 @@ class NewtonCG:
         gtol: float = 1e-5,
         ls_maxiter: int = 16,
         armijo_c1: float = 1e-4,
+        hvp_mode: str = "fd",
         fd_central: bool = True,
+        hvp_fn: Optional[Callable] = None,
+        hvp_prep_fn: Optional[Callable] = None,
+        max_step: Optional[float] = None,
+        fd_polish: int = 0,
     ):
         self.value_fn = value_fn
         self.maxiter = maxiter
@@ -57,7 +71,12 @@ class NewtonCG:
         self.gtol = gtol
         self.ls_maxiter = ls_maxiter
         self.armijo_c1 = armijo_c1
+        self.hvp_mode = hvp_mode
         self.fd_central = fd_central
+        self.hvp_fn = hvp_fn
+        self.hvp_prep_fn = hvp_prep_fn
+        self.max_step = max_step
+        self.fd_polish = fd_polish
         self.syncs = 0
 
     # --- host reads -----------------------------------------------------
@@ -77,27 +96,34 @@ class NewtonCG:
             (g,) = torch.autograd.grad(f, xr)
         return f.detach(), g
 
-    def _hvp(self, x, p, args, g0):
+    def _hvp(self, x, p, args, g0, aux, mode):
+        if mode == "analytic":
+            if self.hvp_prep_fn is not None:
+                return self.hvp_fn(aux, x, p, *args)
+            return self.hvp_fn(x, p, *args)
         p_norm = _norm(p) + 1e-12
         eps = _FD_EPS_SCALE * (1.0 + 1e-3 * _norm(x)) / p_norm
         g_plus = self._value_grad(x + eps * p, args)[1]
-        if not self.fd_central:
+        if not (self.fd_central or mode == "fd-central"):
             # one-sided difference against the iterate's gradient
             return (g_plus - g0) / eps
         g_minus = self._value_grad(x - eps * p, args)[1]
         return (g_plus - g_minus) / (2.0 * eps)
 
     # --- inner CG ---------------------------------------------------------
-    def _cg_solve(self, x, g, args):
+    def _cg_solve(self, x, g, args, mode):
         """Truncated CG on H p = -g (scipy forcing sequence and
         negative-curvature handling)."""
         g_norm = _norm(g)
         eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
         r, d, p = g, -g, torch.zeros_like(g)
+        aux = None  # the staged analytic HVP's per-solve values, at the first HVP
         i = 0
         go = i < self.cg_maxiter and self._flag(_norm(r) > eta)
         while go:
-            hd = self._hvp(x, d, args, g)
+            if aux is None and mode == "analytic" and self.hvp_prep_fn is not None:
+                aux = self.hvp_prep_fn(x, *args)
+            hd = self._hvp(x, d, args, g, aux, mode)
             curv = _dot(d, hd)
             rs = _dot(r, r)
             neg_curv = curv <= 1e-16 * _dot(d, d)
@@ -166,22 +192,27 @@ class NewtonCG:
         ok = best_f < f0
         return torch.where(ok, best_a, torch.zeros_like(best_a)), p_hat
 
-    # --- outer loop -------------------------------------------------------
-    def __call__(self, x0: Tensor, *args):
-        x = x0.detach()
-        f, g = self._value_grad(x, args)
-        best_x, best_f = x, f
+    # --- outer loops ------------------------------------------------------
+    def _iterate(self, x, f, g, best_x, best_f, maxiter, args, mode, cap, escape):
+        """Newton iterations with one curvature model (``make_body`` of the
+        JAX package): ``cap`` clips the Newton direction per component,
+        ``escape`` arms the plateau-escape probe.  Returns (best_x, best_f,
+        iterations)."""
         k = 0
         done = False
-        while not done and k < self.maxiter:
-            p = self._cg_solve(x, g, args)
+        while not done and k < maxiter:
+            p = self._cg_solve(x, g, args, mode)
+            if cap is not None:
+                # per component, not an inf-norm rescale: one tile's large
+                # update must not shrink every other tile's step
+                p = p.clamp(-cap, cap)
             alpha, f_new = self._line_search(x, f, g, p, args)
             # plateau escape: outward probe when backtracking failed OR the
             # first iteration found only a negligible decrease
             trigger = alpha == 0.0
             if k == 0:
                 trigger = trigger | (f - f_new <= 1e-6 * (1.0 + f.abs()))
-            if self._flag(trigger):
+            if escape and self._flag(trigger):
                 a_esc, p_hat = self._escape_probe(x, f, p, args)
                 use_esc = a_esc != 0.0
                 alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
@@ -200,6 +231,21 @@ class NewtonCG:
             k += 1
         return best_x, best_f, k
 
+    def __call__(self, x0: Tensor, *args):
+        x = x0.detach()
+        f, g = self._value_grad(x, args)
+        best_x, best_f, k = self._iterate(x, f, g, x, f, self.maxiter, args, self.hvp_mode,
+                                          self.max_step, True)
+        if self.fd_polish > 0 and self.hvp_mode == "analytic":
+            # central-FD refinement from the analytic solve's best iterate:
+            # the Gauss-Newton a.e. curvature can read ~0 at warm
+            # near-stationary points; no step clip, no escape probe
+            fb, gb = self._value_grad(best_x, args)
+            best_x, best_f, k2 = self._iterate(best_x, fb, gb, best_x, fb, self.fd_polish, args,
+                                               "fd-central", None, False)
+            k += k2
+        return best_x, best_f, k
+
 
 def build_newton_cg(
     value_fn: Callable,
@@ -211,10 +257,18 @@ def build_newton_cg(
     armijo_c1: float = 1e-4,
     hvp_mode: str = "fd",
     fd_central: bool = True,
+    hvp_fn: Optional[Callable] = None,
+    hvp_prep_fn: Optional[Callable] = None,
+    max_step: Optional[float] = None,
+    fd_polish: int = 0,
 ) -> NewtonCG:
-    """Return ``solve(x0, *args) -> (x_best, f_best, n_iters)``.  Only the
-    finite-difference HVP (``hvp_mode="fd"``) is ported: the analytic
-    JVP/HVP kernels it would need are still to be ported."""
-    if hvp_mode != "fd":
-        raise NotImplementedError(f"hvp_mode {hvp_mode!r} is not ported yet (only 'fd')")
-    return NewtonCG(value_fn, maxiter, cg_maxiter, xtol, gtol, ls_maxiter, armijo_c1, fd_central)
+    """Return ``solve(x0, *args) -> (x_best, f_best, n_iters)``.
+    ``hvp_mode`` is ``"fd"`` or ``"analytic"`` (with ``hvp_fn``); the JAX
+    package's ``"autodiff"`` grad-of-gradient mode serves objectives
+    without fused kernels, which the port does not have."""
+    if hvp_mode not in ("fd", "analytic"):
+        raise ValueError(f"hvp_mode must be 'fd' or 'analytic', got {hvp_mode!r}")
+    if (hvp_mode == "analytic") != (hvp_fn is not None) or (hvp_prep_fn is not None and hvp_fn is None):
+        raise ValueError("hvp_fn (and hvp_prep_fn) go with hvp_mode='analytic' only")
+    return NewtonCG(value_fn, maxiter, cg_maxiter, xtol, gtol, ls_maxiter, armijo_c1, hvp_mode,
+                    fd_central, hvp_fn, hvp_prep_fn, max_step, fd_polish)

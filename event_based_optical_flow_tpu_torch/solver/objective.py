@@ -1,7 +1,8 @@
 """The CMax objective of one pyramid scale (port of
 ``event_based_optical_flow_tpu/solver/objective.py``: ``motion_to_dense_flow``
-for tiles, the objective body of ``build_objective_banded`` and the
-hoisted orig IWE of ``build_orig_iwe_banded``).
+for tiles, the objective body of ``build_objective_banded``, the hoisted
+orig IWE of ``build_orig_iwe_banded``, and the analytic Hessian-vector
+products ``build_objective_banded_hvp`` / ``_hvp_staged``).
 
 One evaluation: tile motion -> dense flow (x ``t_scale``) -> the fused
 warp+vote kernel for the reference-time offsets the cost needs (0 first,
@@ -9,6 +10,15 @@ warp+vote kernel for the reference-time offsets the cost needs (0 first,
 gradient magnitude + total variation of the raw tile motion) ->
 ``nan_to_penalty``.  The orig IWE never depends on the motion: it is
 voted and blurred once per frame and passed in.
+
+The analytic HVP (Gauss-Newton by default): with L(m) = C(F(flow(m)), m),
+F the vote and flow(m) linear in m,
+``H p = flow^T [dF(flow)[dflow]^T g1 + F(flow)^T g2] + dC_mm`` where
+``dflow = flow(p)``, ``g1 = dC/dimages`` and ``(g2, dC_mm)`` its
+directional derivative along ``(dimages, p)``.  The kernels give
+``dimages`` (K3) and the bracket (K4; its first term, the vote's own
+curvature, only without Gauss-Newton); the cost (blur, Sobel, hybrid, TV)
+is differentiated by ``torch.func``: ``jvp`` of its ``grad``.
 
 Per-frame event inputs (``FrameEvents``) are built on the host in float64
 from the masked time min/max, as the JAX banded path packs them, and cast
@@ -24,7 +34,7 @@ import torch
 from .. import costs as costs_mod
 from ..costs.functional import nan_to_penalty
 from ..ops.blur import gaussian_blur3
-from ..ops.fused_iwe import fused_iwe
+from ..ops.fused_iwe import fused_iwe, fused_iwe_hvp_bwd, fused_iwe_jvp
 from ..ops.interp import tile_to_dense_flow
 
 Tensor = torch.Tensor
@@ -120,17 +130,15 @@ def build_orig_iwe(spec: ObjectiveSpec):
     return orig_fn
 
 
-def build_objective(spec: ObjectiveSpec):
-    """fn(motion_flat, orig_blurred, frame) -> (loss, components)."""
+def _cost_of_images(spec: ObjectiveSpec):
+    """(offsets, fn(raw direction images, motion_flat, orig_blurred) ->
+    (loss, components)): the objective after the vote."""
     cost = make_cost(spec)
     required = set(cost.required_keys)
     directions = _directions(required)
-    offsets = tuple(o for _, o in directions)
     need_orig = "orig_iwe" in required
 
-    def objective(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
-        flow = motion_to_dense_flow(spec, motion_flat) * frame.t_scale
-        imgs = fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+    def cost_of(imgs: Tensor, motion_flat: Tensor, orig_blurred: Optional[Tensor]):
         if spec.blur_sigma > 0:
             imgs = gaussian_blur3(imgs, spec.blur_sigma)
         arg = {"omit_boundary": True, "clip": True}
@@ -150,4 +158,91 @@ def build_objective(spec: ObjectiveSpec):
             components = {cost.name: loss}
         return nan_to_penalty(loss), components
 
+    return tuple(o for _, o in directions), cost_of
+
+
+def _flow(spec: ObjectiveSpec, motion_flat: Tensor, frame: FrameEvents) -> Tensor:
+    return motion_to_dense_flow(spec, motion_flat) * frame.t_scale
+
+
+def build_objective(spec: ObjectiveSpec):
+    """fn(motion_flat, orig_blurred, frame) -> (loss, components)."""
+    offsets, cost_of = _cost_of_images(spec)
+
+    def objective(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
+        flow = _flow(spec, motion_flat, frame)
+        imgs = fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+        return cost_of(imgs, motion_flat, orig_blurred)
+
     return objective
+
+
+def objective_supports_analytic_hvp(spec: ObjectiveSpec, gauss_newton: bool = True) -> bool:
+    """Whether the analytic HVP applies to this objective: the port's
+    objective always runs the fused kernels on dense tile motion, whose
+    motion -> flow map is linear, so the assembly is exact, full Hessian
+    included; it needs at least one warped direction image (the kernels
+    compute no orig image).  Time-aware (voxel) objectives, which the JAX
+    package admits for Gauss-Newton only, are not ported."""
+    del gauss_newton  # both forms apply to every linear motion -> flow map
+    return bool(_cost_of_images(spec)[0])
+
+
+def _hvp_assembly(spec: ObjectiveSpec, gauss_newton: bool):
+    """(offsets, fn(images, dimages, motion, p, orig, frame) -> H p) around
+    the two kernels: g1 and (g2, dC_mm) from the cost's jvp-of-grad, K4,
+    and the transpose of the motion -> flow map."""
+    offsets, cost_of = _cost_of_images(spec)
+    grad_cost = torch.func.grad(lambda ii, mm, oo: cost_of(ii, mm, oo)[0], argnums=(0, 1))
+
+    def assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame):
+        (g1, _), (g2, dgm) = torch.func.jvp(
+            lambda ii, mm: grad_cost(ii, mm, orig_blurred), (images, motion_flat), (dimages, p))
+        dgflow = fused_iwe_hvp_bwd(flow, dflow, g1.contiguous(), g2.contiguous(), frame.x, frame.y,
+                                   frame.dtf, frame.wt, offsets, not gauss_newton)
+        return flow_vjp(dgflow)[0] + dgm
+
+    return offsets, assemble
+
+
+def _flow_and_tangent(spec: ObjectiveSpec, motion_flat: Tensor, p: Tensor, frame: FrameEvents):
+    """(flow, dflow, the map's transpose): the map is linear, so its
+    tangent along p is the map of p."""
+    flow, flow_vjp = torch.func.vjp(lambda m: _flow(spec, m, frame), motion_flat)
+    return flow.contiguous(), _flow(spec, p, frame).contiguous(), flow_vjp
+
+
+def build_objective_hvp(spec: ObjectiveSpec, gauss_newton: bool = True):
+    """hvp(motion_flat, p, orig_blurred, frame) -> H p in one call: K3
+    emits the direction images and their tangent together (the unstaged
+    form; ``build_objective_hvp_staged`` is the CG loop's)."""
+    offsets, assemble = _hvp_assembly(spec, gauss_newton)
+
+    def hvp(motion_flat: Tensor, p: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
+        flow, dflow, flow_vjp = _flow_and_tangent(spec, motion_flat, p, frame)
+        images, dimages = fused_iwe_jvp(flow, dflow, frame.x, frame.y, frame.dtf, frame.wt,
+                                        offsets, True)
+        return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)
+
+    return hvp
+
+
+def build_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool = True):
+    """``(prep, hvp)`` for the CG loop: ``aux = prep(motion, orig, frame)``
+    votes the direction images once per CG solve (K1: they depend on the
+    iterate, not on the CG direction); ``hvp(aux, motion, p, orig, frame)``
+    runs K3 for the tangent only, the cost's jvp-of-grad and K4."""
+    offsets, assemble = _hvp_assembly(spec, gauss_newton)
+
+    def prep(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents) -> Tensor:
+        with torch.no_grad():
+            flow = _flow(spec, motion_flat, frame)
+            return fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+
+    def hvp(images: Tensor, motion_flat: Tensor, p: Tensor, orig_blurred: Optional[Tensor],
+            frame: FrameEvents):
+        flow, dflow, flow_vjp = _flow_and_tangent(spec, motion_flat, p, frame)
+        dimages = fused_iwe_jvp(flow, dflow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+        return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)
+
+    return prep, hvp

@@ -3,9 +3,12 @@
 construction, cold init, the per-scale objective and Newton-CG solve, and
 the per-patch init sweep.
 
-Route (the JAX package's fused-kernel route, ``patch_base.py:414-419``):
-the banded objective with a central finite-difference HVP.  The orig IWE
-is voted once per frame and shared by every scale's solve.
+Route (the JAX package's fused-kernel route, ``patch_base.py:287-456``):
+the banded objective, with the HVP chosen per (warmth, scale) by
+``optimizer.hvp_mode`` (``_want_analytic``): the central (or one-sided)
+finite-difference HVP, or the analytic Gauss-Newton HVP through the JVP
+and HVP-backward kernels (full Hessian with ``analytic-full``).  The orig
+IWE is voted once per event set and passed to the solve.
 """
 
 import logging
@@ -17,7 +20,13 @@ import torch
 from ..types import FlowPatch
 from .base import SolverBase
 from .newton_cg import build_newton_cg
-from .objective import FrameEvents, ObjectiveSpec, build_objective
+from .objective import (
+    FrameEvents,
+    ObjectiveSpec,
+    build_objective,
+    build_objective_hvp_staged,
+    objective_supports_analytic_hvp,
+)
 from .sampling import build_patch_search, gather_patch_events
 
 logger = logging.getLogger(__name__)
@@ -43,6 +52,9 @@ def prepare_patch(
         for i in range(len(xx))
     }
     return patches, patch_shape
+
+
+HVP_MODES = ("fd", "analytic", "analytic-warm", "analytic-coldfd", "analytic-all", "analytic-full")
 
 
 def _next_pow2(x: int) -> int:
@@ -92,11 +104,51 @@ class PatchContrastMaximization(SolverBase):
             ),
         )
 
+    def _want_analytic(self, warm: bool, finest: bool) -> bool:
+        """The hvp-mode routing table: does the solve of this (warmth,
+        scale) pair use the analytic HVP?  ``analytic``: the finest scale
+        only (cold-start basin selection on the coarse scales needs the FD
+        curvature); ``analytic-warm``: also every scale of a warm frame;
+        ``analytic-coldfd``: the finest scale of warm frames only;
+        ``analytic-all`` / ``analytic-full``: every scale (Gauss-Newton /
+        full Hessian)."""
+        mode = str(self.opt_config.get("hvp_mode", "fd")).lower()
+        if mode in ("analytic-all", "analytic-full"):
+            return True
+        if mode == "analytic":
+            return bool(finest)
+        if mode == "analytic-warm":
+            return bool(finest or warm)
+        if mode == "analytic-coldfd":
+            return bool(warm and finest)
+        return False
+
     def _run_newton(self, spec: ObjectiveSpec, x0: torch.Tensor, frame: FrameEvents,
-                    orig: torch.Tensor, maxiter: int, cg_maxiter=None):
+                    orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
+                    warm: bool = False):
         """One Newton-CG solve of this scale's objective from ``x0``
-        (flat [2 * n_patch]); returns (best_x, best_f, n_iter)."""
+        (flat [2 * n_patch]); returns (best_x, best_f, n_iter, hvp), hvp
+        naming the curvature model: "fd", "analytic-gn" or
+        "analytic-full"."""
+        mode = str(self.opt_config.get("hvp_mode", "fd")).lower()
+        if mode not in HVP_MODES and not getattr(self, "_warned_hvp_mode", False):
+            logger.warning(f"optimizer.hvp_mode: {mode!r} is not recognized ({' | '.join(HVP_MODES)}) "
+                           "— using fd")
+            self._warned_hvp_mode = True
+        gauss_newton = mode != "analytic-full"
+        analytic = (self._want_analytic(warm, finest)
+                    and objective_supports_analytic_hvp(spec, gauss_newton=gauss_newton))
         obj = build_objective(spec)
+        hvp_kw = {"hvp_mode": "fd"}
+        if analytic:
+            prep, hvp = build_objective_hvp_staged(spec, gauss_newton=gauss_newton)
+            hvp_kw = {
+                "hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep,
+                # the analytic curvature needs the per-component step clip (px/s)
+                "max_step": float(self.opt_config.get("hvp_max_step", 10.0)),
+                # central-FD refinement iterations: finest scale only
+                "fd_polish": int(self.opt_config.get("fd_polish", 0)) if finest else 0,
+            }
         solve = build_newton_cg(
             lambda x, *a: obj(x, *a)[0],
             maxiter=maxiter,
@@ -104,12 +156,13 @@ class PatchContrastMaximization(SolverBase):
                            else self.opt_config.get("cg_maxiter", 32)),
             xtol=1e-5,
             gtol=1e-5,
-            hvp_mode="fd",
             fd_central=bool(self.opt_config.get("hvp_central", True)),
+            **hvp_kw,
         )
         best_x, best_f, n_iter = solve(x0.reshape(-1).to(self.dtype), orig, frame)
         self.syncs += solve.syncs
-        return best_x, best_f, n_iter
+        hvp_name = ("analytic-gn" if gauss_newton else "analytic-full") if analytic else "fd"
+        return best_x, best_f, n_iter, hvp_name
 
     # --- per-patch init sweep -----------------------------------------------
     def _patch_capacity(self, n_events: int) -> int:

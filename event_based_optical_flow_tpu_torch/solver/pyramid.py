@@ -9,6 +9,10 @@ motion or the cold init; every finer scale starts from the expanded
 coarser solution (averaged with the previous frame's when warm), refined
 per patch by the sampling sweep; each scale is then solved by Newton-CG.
 A fine-to-coarse pyramid_reduce feedback produces the per-scale result.
+With ``optimizer.coarse_event_fraction`` below 1, every scale but the
+finest solves its Newton problem on a stride subsample of the events (its
+own ``FrameEvents`` and its own orig IWE); the init sweep and the finest
+scale see every event.
 
 The JAX package's whole-frame device chains (``_optimize_chain``,
 ``optimize_with_metrics``) fuse this same loop into one TPU dispatch;
@@ -30,6 +34,24 @@ from .objective import FrameEvents, build_orig_iwe
 from .patch_base import PatchContrastMaximization, prepare_patch
 
 logger = logging.getLogger(__name__)
+
+# below this many events a stride subsample is not statistically
+# meaningful for a coarse-scale solve
+COARSE_SUBSAMPLE_MIN_EVENTS = 512
+
+
+def coarse_subsample(events_np: np.ndarray, frac: float):
+    """Stride-k subsample (k = round(1/frac)) of a time-sorted event array
+    for the coarse pyramid scales, keeping temporal and spatial coverage;
+    None when ``frac`` >= 1 or the subsample would hold fewer than
+    ``COARSE_SUBSAMPLE_MIN_EVENTS`` events."""
+    if frac >= 1.0:
+        return None
+    k = max(1, int(round(1.0 / max(frac, 1e-3))))
+    sub = np.ascontiguousarray(np.asarray(events_np)[::k])
+    if len(sub) < COARSE_SUBSAMPLE_MIN_EVENTS:
+        return None
+    return sub
 
 
 class PyramidalPatchContrastMaximization(PatchContrastMaximization):
@@ -93,17 +115,30 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
     def optimize(self, events: np.ndarray) -> Dict[int, torch.Tensor]:
         """Solve one frame: {scale: motion [2, h_s, w_s]} on the solver's
         device (the finest scale is the output flow's tile motion)."""
+        from ..ops import fused_iwe
+
         logger.info(f"Start optimization. DoF {self.motion_vector_size * self.total_n_patch}")
         events = np.asarray(events, dtype=np.float64)
-        frame = FrameEvents.from_numpy(events, self.device, self.dtype)
         self.overload_patch_configuration(self.coarsest_scale)
-        orig = build_orig_iwe(self._current_spec())(frame)
+        orig_fn = build_orig_iwe(self._current_spec())
+        # (FrameEvents, orig IWE) of the full frame and of the coarse scales'
+        # subsample: the orig IWE depends on the events only
+        full = FrameEvents.from_numpy(events, self.device, self.dtype)
+        newton_events = {"full": (full, orig_fn(full))}
+        sub = coarse_subsample(events, float(self.opt_config.get("coarse_event_fraction", 1.0)))
+        if sub is not None:
+            coarse = FrameEvents.from_numpy(sub, self.device, self.dtype)
+            newton_events["coarse"] = (coarse, orig_fn(coarse))
+        warm = self.previous_frame_best_estimation is not None
         self.syncs = 0
-        stats = {"iters": {}, "loss": {}}
+        stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}}
         best_motion_per_scale: Dict[int, torch.Tensor] = {}
         for s in range(self.coarsest_scale, self.patch_scales):
             self.overload_patch_configuration(s)
             spec = self._current_spec()
+            finest = s == self.patch_scales - 1
+            frame, orig = newton_events["full" if finest or sub is None else "coarse"]
+            before = fused_iwe.launch_counts()
             presearch = self._presearch_motion(s, best_motion_per_scale)
             if presearch is None:
                 x0 = self._init_scale(s)
@@ -111,12 +146,17 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
                 motion0, n_cand = presearch
                 x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
             scale_mi, scale_cg = self._scale_budget(s)
-            best_x, best_f, n_iter = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg)
+            best_x, best_f, n_iter, hvp = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg,
+                                                           finest=finest, warm=warm)
             best_motion_per_scale[s] = best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
             loss = float(best_f)
             self.syncs += 1
-            stats["iters"][s], stats["loss"][s] = n_iter, loss
-            logger.info(f"Scale {s} done: {n_iter} iters, loss {loss:.6f}")
+            after = fused_iwe.launch_counts()
+            stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, loss, hvp
+            stats["events"][s] = frame.x.shape[0]
+            stats["launches"][s] = {k: after[k] - before[k] for k in after}
+            logger.info(f"Scale {s} done: {n_iter} iters ({hvp} HVP, {frame.x.shape[0]} events), "
+                        f"loss {loss:.6f}")
         stats["syncs"] = self.syncs
         self.last_frame_stats = stats
         return self.update_coarse_from_fine(best_motion_per_scale)

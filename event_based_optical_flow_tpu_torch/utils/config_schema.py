@@ -70,9 +70,7 @@ _KNOWN_OPT_KEYS = {
 _UNPORTED = (
     ("solver", "time_aware", False, "time-aware solving"),
     ("solver", "outer_padding", 0, "outer padding"),
-    ("optimizer", "hvp_mode", "fd", "the analytic Hessian-vector product"),
     ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solver"),
-    ("optimizer", "coarse_event_fraction", 1.0, "coarse-scale event subsampling"),
     ("optimizer", "warm_finest_only", False, "the warm finest-only fast path"),
     ("data", "fleet_batch", 1, "fleet (batched-frame) evaluation"),
     ("data", "remove_car", False, "MVSEC car cropping"),
@@ -155,6 +153,9 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
                 raise ConfigError(
                     f"'optimizer.parameters.{pname}': min ({box['min']}) > max ({box['max']})"
                 )
+    frac = opt.get("coarse_event_fraction", 1.0)
+    if not isinstance(frac, (int, float)) or not (0.0 < float(frac) <= 1.0):
+        raise ConfigError(f"'optimizer.coarse_event_fraction' must be in (0, 1], got {frac!r}")
     for budget_key in ("coarse_max_iter", "coarse_cg_maxiter", "cg_maxiter"):
         if budget_key in opt:
             val = opt[budget_key]

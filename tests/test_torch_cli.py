@@ -226,9 +226,31 @@ def test_config_validation(name):
         assert validate_config(config) == want
         config["optimizer"]["surprise"] = 1
         assert validate_config(config) == jax_validate(config) == ["unknown config key 'optimizer.surprise' (ignored?)"]
-        for section, key, value in (("solver", "time_aware", True), ("optimizer", "hvp_mode", "analytic")):
+        for section, key, value in (("solver", "time_aware", True), ("optimizer", "device_solver", "lbfgs")):
             with pytest.raises(ConfigError, match="not ported yet"):
                 validate_config({**config, section: {**config[section], key: value}})
     else:
         with pytest.raises(ConfigError, match="not ported yet|must be one of"):
             validate_config(config)
+
+
+def test_dsec_solver_and_optimizer_blocks_validate(tmp_path):
+    """configs/dsec_zurich_city.yaml's solver and optimizer blocks (the
+    analytic HVP, the coarse-scale event subsample, the FD polish) validate
+    in the port with the JAX package's warnings, under a synthetic data
+    block (the DSEC loader is not ported); a coarse_event_fraction outside
+    (0, 1] is refused by both."""
+    from event_based_optical_flow_tpu.utils import validate_config as jax_validate
+    from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
+
+    config = yaml.safe_load((REPO / "configs" / "dsec_zurich_city.yaml").read_text())
+    assert config["optimizer"]["hvp_mode"] == "analytic"
+    assert config["optimizer"]["coarse_event_fraction"] == 0.25
+    config["data"] = _config(tmp_path)["data"]
+    assert validate_config(config) == jax_validate(config) == []
+    for frac in (0.0, 1.5):
+        bad = {**config, "optimizer": {**config["optimizer"], "coarse_event_fraction": frac}}
+        for validate in (validate_config, jax_validate):
+            with pytest.raises(ConfigError if validate is validate_config else Exception,
+                               match="coarse_event_fraction"):
+                validate(bad)

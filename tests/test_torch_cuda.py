@@ -1,7 +1,8 @@
-"""GPU tests of the PyTorch port: the hand-written CUDA kernel pair against
-its plain PyTorch version, and the fused objective on the GPU against the
-same objective on the CPU.  Every test needs an NVIDIA GPU and skips
-without one (``cuda`` marker).
+"""GPU tests of the PyTorch port: the hand-written CUDA kernels (the fused
+vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4)
+against their plain PyTorch versions, and the fused objective and its
+analytic HVP on the GPU against the same on the CPU.  Every test needs an
+NVIDIA GPU and skips without one (``cuda`` marker).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -18,8 +19,10 @@ from event_based_optical_flow_tpu_torch.solver.objective import (
     FrameEvents,
     ObjectiveSpec,
     build_objective,
+    build_objective_hvp_staged,
     build_orig_iwe,
 )
+from event_based_optical_flow_tpu_torch.utils import set_numerics
 
 H, W = 40, 52
 OFFSETS = (0.0, 1.0, 0.5)
@@ -98,9 +101,124 @@ def test_launch_counters_and_autograd(cuda_device):
     FI.reset_launch_counts()
     imgs = FI.fused_iwe(fl, *ev, OFFSETS, False)
     (imgs * t(g_np[1:])).sum().backward()
-    assert FI.launch_counts() == {"fwd": 1, "bwd": 1}
+    assert FI.launch_counts() == {"fwd": 1, "bwd": 1, "jvp": 0, "hvp_bwd": 0}
     with pytest.raises(ValueError):
         FI.fused_iwe_fwd(fl.detach(), *ev, tuple(range(FI.MAX_OFFSETS + 1)), False)
+
+
+def _second_order_inputs(dtype, device):
+    """Events sorted by source pixel (as ``FrameEvents`` sorts them), a
+    flow, a tangent flow and two cotangents of the direction images."""
+    (x, y, dtf, wt), flow_np, _ = _inputs()
+    rng = np.random.default_rng(1)
+    frame = FrameEvents.from_numpy(np.stack([x, y, dtf, np.ones_like(x)], 1), device, dtype)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    ev = (frame.x, frame.y, frame.dtf, t(rng.uniform(0.3, 1.5, len(x))))
+    g1, g2 = (t(rng.normal(size=(len(OFFSETS), H, W))) for _ in range(2))
+    return ev, t(flow_np), t(rng.normal(0, 3.0, (2, H, W))), g1, g2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_jvp_and_hvp_kernels_match_plain_versions(cuda_device, dtype, tol):
+    """K3 (both ways of ``emit_value``) and K4 (both ways of ``term_a``)
+    against their plain versions, to ``tol`` x the largest value; K3's
+    value half is ``fused_iwe_fwd``'s bits and K4 without term A is
+    ``fused_iwe_bwd(g2)``'s bits."""
+    ev, fl, dfl, g1, g2 = _second_order_inputs(dtype, cuda_device)
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        assert want.abs().max().item() > 0.1
+        return (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+    ref_img, ref_tan = FI.fused_iwe_jvp_reference(fl, dfl, *ev, OFFSETS, True)
+    img, tan = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, True)
+    assert torch.equal(img, FI.fused_iwe_fwd(fl, *ev, OFFSETS, False))
+    assert close(img, ref_img) and close(tan, ref_tan)
+    assert torch.equal(FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, False), tan)
+    for term_a in (False, True):
+        got = FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, term_a)
+        assert close(got, FI.fused_iwe_hvp_bwd_reference(fl, dfl, g1, g2, *ev, OFFSETS, term_a))
+        if not term_a:
+            assert torch.equal(got, FI.fused_iwe_bwd(fl, *ev, g2, OFFSETS, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_jvp_and_hvp_kernels_are_reproducible(cuda_device, dtype):
+    """The tangent's per-call fixed-point unit and K4's ordered run sums:
+    every call gives the same bits, at tangent scales 1e-6 to 1e6 apart."""
+    ev, fl, dfl, g1, g2 = _second_order_inputs(dtype, cuda_device)
+    for scale in (1e-6, 1.0, 1e6):
+        d = dfl * scale
+        first = (FI.fused_iwe_jvp(fl, d, *ev, OFFSETS, False),
+                 FI.fused_iwe_hvp_bwd(fl, d, g1, g2, *ev, OFFSETS, True))
+        want = FI.fused_iwe_jvp_reference(fl, d, *ev, OFFSETS, False)
+        torch.cuda.synchronize()
+        assert (first[0] - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        for _ in range(3):
+            assert torch.equal(FI.fused_iwe_jvp(fl, d, *ev, OFFSETS, False), first[0])
+            assert torch.equal(FI.fused_iwe_hvp_bwd(fl, d, g1, g2, *ev, OFFSETS, True), first[1])
+
+
+@pytest.mark.cuda
+def test_second_order_launch_counts_and_checks(cuda_device):
+    ev, fl, dfl, g1, g2 = _second_order_inputs(torch.float64, cuda_device)
+    FI.reset_launch_counts()
+    FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, True)
+    FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, False)
+    assert FI.launch_counts() == {"fwd": 0, "bwd": 0, "jvp": 1, "hvp_bwd": 1}
+    with pytest.raises(ValueError):
+        FI.fused_iwe_jvp(fl, dfl[:, :-1].contiguous(), *ev, OFFSETS, False)
+    with pytest.raises(ValueError):
+        FI.fused_iwe_hvp_bwd(fl, dfl, g1[:2].contiguous(), g2, *ev, OFFSETS, False)
+    nan = torch.full_like(dfl, float("nan"))
+    assert torch.isnan(FI.fused_iwe_jvp(fl, nan, *ev, OFFSETS, False)).all()
+
+
+def _objective_problem(rng):
+    n = 4000
+    events = np.stack([np.round(rng.uniform(0, H - 1, n)), np.round(rng.uniform(0, W - 1, n)),
+                       np.sort(rng.uniform(0, 0.1, n)), rng.integers(0, 2, n)], 1)
+    spec = ObjectiveSpec((H, W), (2, 2), (16, 24), (16, 24), (4, 2), "bilinear", 1.0, "hybrid",
+                         (("multi_focal_normalized_gradient_magnitude", 1.0), ("total_variation", 0.01)))
+    return events, spec
+
+
+@pytest.fixture
+def deterministic():
+    """The port's numerics (``set_numerics``), restored afterwards."""
+    before = torch.are_deterministic_algorithms_enabled()
+    set_numerics()
+    yield
+    torch.use_deterministic_algorithms(before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gauss_newton", [True, False])
+def test_analytic_hvp_on_gpu_matches_cpu(cuda_device, deterministic, gauss_newton):
+    """The staged analytic HVP (K1 values, K3 tangent, the cost's
+    jvp-of-grad under deterministic algorithms, K4) in float64 on the GPU
+    against the plain version on the CPU, to 1e-9 of max|Hp|; float32
+    twice gives the same bits."""
+    rng = np.random.default_rng(4)
+    events, spec = _objective_problem(rng)
+    motion, p = rng.uniform(-20, 20, 8), rng.normal(0, 1, 8)
+    out = {}
+    for dev, dtype in (("cpu", torch.float64), (cuda_device, torch.float64),
+                       (cuda_device, torch.float32), (cuda_device, torch.float32)):
+        frame = FrameEvents.from_numpy(events, dev, dtype)
+        orig = build_orig_iwe(spec)(frame)
+        m, pp = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (motion, p))
+        prep, hvp = build_objective_hvp_staged(spec, gauss_newton)
+        out.setdefault((str(dev), dtype), []).append(hvp(prep(m, orig, frame), m, pp, orig, frame).cpu())
+    want = out[("cpu", torch.float64)][0]
+    got = out[(str(cuda_device), torch.float64)][0]
+    assert want.abs().max().item() > 0
+    assert (got - want).abs().max().item() <= 1e-9 * want.abs().max().item()
+    a, b = out[(str(cuda_device), torch.float32)]
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -108,11 +226,7 @@ def test_objective_on_gpu_matches_cpu(cuda_device):
     """The whole fused objective (kernel, blur, hybrid cost) and its
     gradient in float64 on the GPU against the plain version on the CPU."""
     rng = np.random.default_rng(3)
-    n = 4000
-    events = np.stack([np.round(rng.uniform(0, H - 1, n)), np.round(rng.uniform(0, W - 1, n)),
-                       np.sort(rng.uniform(0, 0.1, n)), rng.integers(0, 2, n)], 1)
-    spec = ObjectiveSpec((H, W), (2, 2), (16, 24), (16, 24), (4, 2), "bilinear", 1.0, "hybrid",
-                         (("multi_focal_normalized_gradient_magnitude", 1.0), ("total_variation", 0.01)))
+    events, spec = _objective_problem(rng)
     motion = rng.uniform(-20, 20, 8)
     out = {}
     for dev in ("cpu", cuda_device):

@@ -1,6 +1,9 @@
 """The port's host-driven Newton-CG against the JAX package's device
-Newton-CG (``build_newton_cg(hvp_mode="fd")``, central-FD HVP) at float64:
-same objective, same x0 -> same best iterate, loss and iteration count.
+Newton-CG at float64: same objective, same x0 -> same best iterate, loss
+and iteration count.  FD HVPs (``hvp_mode="fd"``, central and one-sided),
+and the analytic mode (``hvp_mode="analytic"``) with the same exact
+``hvp_fn`` on both sides, its per-component step clip ``max_step`` and
+its central-FD polish ``fd_polish``.
 
 Smooth test functions converge to the same point to 1e-9.  On the real
 CMax objective (fused-kernel route, JAX in Pallas interpret mode) the
@@ -89,9 +92,55 @@ def test_one_sided_fd_hvp_matches_jax():
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-9)
 
 
-def test_only_fd_hvp_is_ported():
-    with pytest.raises(NotImplementedError):
+def _exact_hvps(fn, staged):
+    """The same exact Hessian-vector product for both frameworks (forward
+    over reverse), unstaged or staged (``prep`` hands the iterate over)."""
+    jgrad, tgrad = jax.grad(lambda x: fn(x, jnp)), torch.func.grad(lambda x: fn(x, torch))
+    if staged:
+        return ((lambda aux, x, p: jax.jvp(jgrad, (aux,), (p,))[1], lambda x: x),
+                (lambda aux, x, p: torch.func.jvp(tgrad, (aux,), (p,))[1], lambda x: x))
+    return ((lambda x, p: jax.jvp(jgrad, (x,), (p,))[1], None),
+            (lambda x, p: torch.func.jvp(tgrad, (x,), (p,))[1], None))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("name", ["rosenbrock", "washboard"])
+def test_analytic_mode_matches_jax(name, staged, monkeypatch):
+    """Same iterations and iterates to 1e-9 with the step clip engaged;
+    the clip is per component (the clipped directions keep components
+    below the cap, unlike an inf-norm rescale); the central-FD polish
+    iterations are counted in the iterations."""
+    fn, x0, _ = CASES[name]
+    cap = 0.3
+    (jh, jprep), (th, tprep) = _exact_hvps(fn, staged)
+    directions = []
+    orig = NewtonCG._line_search
+    monkeypatch.setattr(NewtonCG, "_line_search",
+                        lambda self, x, f, g, p, a: directions.append(p) or orig(self, x, f, g, p, a))
+    ks = []
+    for polish in (0, 2):
+        kw = dict(maxiter=6, cg_maxiter=8, hvp_mode="analytic", max_step=cap, fd_polish=polish)
+        jx, jf, jk = jax.jit(jax_newton(lambda x: fn(x, jnp), hvp_fn=jh, hvp_prep_fn=jprep, **kw))(
+            jnp.asarray(x0))
+        directions.clear()
+        tx, tf, tk = build_newton_cg(lambda x: fn(x, torch), hvp_fn=th, hvp_prep_fn=tprep, **kw)(
+            torch.as_tensor(x0))
+        assert tk == int(jk)
+        assert tf.item() == pytest.approx(float(jf), rel=1e-9, abs=1e-12)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=0, atol=1e-9)
+        ks.append(tk)
+        if polish == 0:  # every direction is an analytic one
+            assert all(d.abs().max() <= cap for d in directions)
+            clipped = [d for d in directions if d.abs().max() == cap]
+            assert clipped and any(((d.abs() > 0) & (d.abs() < cap)).any() for d in clipped)
+    assert 0 < ks[1] - ks[0] <= 2
+
+
+def test_analytic_mode_needs_its_hvp():
+    with pytest.raises(ValueError):
         build_newton_cg(lambda x: x.sum(), hvp_mode="analytic")
+    with pytest.raises(ValueError):
+        build_newton_cg(lambda x: x.sum(), hvp_mode="autodiff")
 
 
 def _cmax_problem():

@@ -8,6 +8,11 @@ banded objective and central-FD HVP, the TPU route), on a small aperiodic
   from the same starts.  Newton budgets stay short (2 iterations): the
   piecewise objective amplifies last-bit differences ~30x per iteration
   (tests/test_torch_newton_cg.py), so per-scale motions agree to 1e-6.
+* The DSEC config's solver block (``hvp_mode: analytic``, ``fd_polish: 2``,
+  ``cg_maxiter: 8``, ``coarse_event_fraction: 0.25``): per-scale parity
+  with JAX's draws again, the coarse scale solved on the stride-4
+  subsample with its own orig IWE, the finest on every event with the
+  analytic Gauss-Newton HVP.
 * Whole solve: the port with its own ``torch.Generator`` draws and a
   longer budget recovers the flow as well as JAX does with its own draws:
   every EPE below 0.7 x the zero-flow EPE, the port's mean over three
@@ -116,6 +121,33 @@ def test_per_scale_parity(scene):
     assert sorted(bj) == sorted(bt) == [1, 2]
     for s in bj:
         np.testing.assert_allclose(bt[s].numpy(), bj[s], atol=1e-6)
+    ej = sj.calculate_flow_error(bj, gt_flow, dt, events)
+    et = st.calculate_flow_error(bt, gt_flow, dt, events)
+    for k in ("EPE", "AE", "GT_FWL", "PRED_FWL"):
+        assert et[k] == pytest.approx(ej[k], rel=1e-6, abs=1e-9), k
+
+
+def test_per_scale_parity_analytic_dsec_solver(scene):
+    events, gt_flow, dt = scene
+    assert len(events) > 4 * 512  # the stride-4 subsample engages
+    opt = dict(OPTIMIZER, hvp_mode="analytic", fd_polish=2, cg_maxiter=8, coarse_event_fraction=0.25)
+    sj = _jax_solver(opt)
+    st = tsolver.collections[SOLVER["method"]]((H, W), {}, SOLVER, opt, {}, device="cpu",
+                                               candidates_fn=JaxDraws())
+    got_j, got_t = [], []
+    _record(sj, ["_run_newton_device", "_run_fused_scale_device"], got_j, np.asarray)
+    _record(st, ["_run_newton"], got_t, lambda out: out[0].numpy().copy())
+    bj = sj.optimize(events)
+    bt = st.optimize(events)
+    assert len(got_j) == len(got_t) == 2
+    for a, b in zip(got_j, got_t):
+        np.testing.assert_allclose(b.reshape(-1), a.reshape(-1), atol=1e-6)
+    for s in bj:
+        np.testing.assert_allclose(bt[s].numpy(), bj[s], atol=1e-6)
+    stats = st.last_frame_stats
+    assert stats["hvp"] == {1: "fd", 2: "analytic-gn"}
+    assert stats["events"] == {1: len(events[::4]), 2: len(events)}
+    assert stats["iters"][2] > opt["max_iter"]  # the polish iterations are counted
     ej = sj.calculate_flow_error(bj, gt_flow, dt, events)
     et = st.calculate_flow_error(bt, gt_flow, dt, events)
     for k in ("EPE", "AE", "GT_FWL", "PRED_FWL"):

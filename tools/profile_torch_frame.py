@@ -2,7 +2,11 @@
 """Where one eval frame of the PyTorch port spends its time on the GPU.
 
     python3 tools/profile_torch_frame.py [--config configs/synthetic_mvsec_geometry.yaml]
-        [--pattern dots] [--max_iter 2]
+        [--pattern dots] [--max_iter 2] [--dsec]
+
+``--dsec`` profiles the analytic HVP path instead: the solver and optimizer
+blocks of configs/dsec_zurich_city.yaml on the synthetic loader at DSEC
+geometry (``chip_smoke.DSEC_DATA``: 480x640, 300 000-event windows).
 
 Solves frame 0 once as a warm-up (kernel build, allocator), once timed
 alone, and once under ``torch.profiler`` (CPU + CUDA activities), all
@@ -33,11 +37,17 @@ def main() -> int:
     ap.add_argument("--pattern", default="dots")
     ap.add_argument("--max_iter", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--dsec", action="store_true", help="the DSEC config's solver on DSEC geometry")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: needs a CUDA device")
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    if args.dsec:
+        from chip_smoke import dsec_config
+
+        config = dsec_config()
+    else:
+        with open(args.config) as f:
+            config = yaml.safe_load(f)
     config["data"]["pattern"] = args.pattern
     config["optimizer"]["max_iter"] = args.max_iter
     port_main.set_numerics()
@@ -67,12 +77,13 @@ def main() -> int:
     print(f"[profile] {torch.cuda.get_device_name(0)}: frame 0, max_iter {args.max_iter}: wall {plain_wall:.3f} s, "
           f"{wall:.3f} s profiled, "
           f"device busy {device_us / 1e6:.3f} s, idle share {1 - device_us / 1e6 / plain_wall:.3f} of the unprofiled wall, "
-          f"host syncs {stats['syncs']}, Newton iters {stats['iters']}", flush=True)
+          f"host syncs {stats['syncs']}, Newton iters {stats['iters']}, HVP {stats['hvp']}", flush=True)
     fwd = sum(e.count for e in kernels if "fused_iwe_fwd" in e.key)
     n_kernels = sum(e.count for e in kernels)
     print(f"[profile] {n_kernels} kernels launched, {n_kernels / max(1, fwd):.1f} per fused forward", flush=True)
     for e in kernels:
-        if "fused_iwe" in e.key or "from_fixed" in e.key:  # the forward's conversion kernel
+        # the kernels of csrc/fused_iwe.cu, conversion and bound passes included
+        if any(k in e.key for k in ("fused_iwe", "from_fixed", "from_scaled", "jvp_bound")):
             print(f"[profile] {e.key}: {e.count} launches, {e.self_device_time_total / e.count:.2f} us "
                   f"each, {e.self_device_time_total / 1e3:.3f} ms in all", flush=True)
     print(averages.table(sort_by="self_device_time_total", row_limit=args.top, max_name_column_width=60))
