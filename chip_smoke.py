@@ -17,9 +17,10 @@ Phases (each prints one informative line; any failure exits nonzero):
    and the float32 value and gradient again, bit for bit;
 5. timing: kernel and plain version, forward and backward, CUDA events;
 6. the slice: the port's eval loop (the function its CLI runs) on
-   configs/synthetic_mvsec_geometry.yaml, frames 0..2, fresh output dir;
-   asserts kernel launches, finite EPE clearly below the zero-flow EPE,
-   finite PRED_FWL, three metric lines; then frame 0 once more in a fresh
+   configs/synthetic_mvsec_geometry.yaml, frames 0..1 (``LAST_FRAME``),
+   fresh output dir; asserts kernel launches, finite EPE clearly below the
+   zero-flow EPE, finite PRED_FWL, one metric line per frame; then frame 0
+   once more in a fresh
    run, which must reproduce its metrics bit for bit (the solve on the
    card is deterministic, so this run's verdict is every run's).  The
    slice sets the synthetic
@@ -35,13 +36,27 @@ Phases (each prints one informative line; any failure exits nonzero):
    ``DSEC_DATA``).  ``[check]`` holds the tangent (K3) and HVP-backward
    (K4) kernels to their plain versions at the first window's shape,
    ``[hvp]`` the finest scale's whole staged HVP on the card to the plain
-   version on the CPU, ``[time]`` times K3/K4, then frames 0..2 through the
+   version on the CPU, ``[time]`` times K3/K4, then frames 0..1 through the
    CLI's eval loop (EPE, PRED_FWL, K3/K4 launched on the finest scale only,
-   coarse scales on the subsample) and frame 0 again, bit for bit.
+   coarse scales on the subsample) and frame 0 again, bit for bit;
+8. the time-aware path: the solver and optimizer blocks of
+   configs/mvsec_indoor_burgers.yaml (Burgers flow voxel, 10 time bins, t0
+   in the middle, FD HVP) on the MVSEC slice's synthetic data block
+   (``ta_config``).  ``[voxel-check]`` holds the voxel kernels (K5 forward
+   and backward, K6 tangent and HVP backward) to their plain versions at
+   the first window's shape, ``[voxel-objective]`` / ``[voxel-hvp]`` the
+   finest scale's objective with its gradient through the Burgers chain
+   and its staged Gauss-Newton HVP on the card to the CPU, ``[voxel-time]``
+   times K5/K6, then ``[ta-frame]`` frames 0..1 through the CLI's eval loop (EPE,
+   PRED_FWL through the voxel, K5 launched on every scale), ``[ta-repeat]``
+   frame 0 again, bit for bit, and ``[ta-analytic-frame]`` frame 0 with
+   ``optimizer.hvp_mode: analytic`` (K6 launched on the finest scale only).
 
-The last two lines of standard output are one JSON object describing the
-kernels, then ``{"ok": true, "device": {...}}``.  The script imports
-nothing of JAX.
+Each path's run starts with every kernel launch count at 0 and reads them
+at its end; the checks and timings launch outside those runs.  The last two
+lines of standard output are one JSON object describing the kernels (each
+with its launches on the paths, error, times and bound), then ``{"ok":
+true, "device": {...}}``.  The script imports nothing of JAX.
 """
 
 import copy
@@ -58,6 +73,7 @@ import yaml
 
 CONFIG = "configs/synthetic_mvsec_geometry.yaml"
 DSEC_CONFIG = "configs/dsec_zurich_city.yaml"
+TA_CONFIG = "configs/mvsec_indoor_burgers.yaml"
 # The DSEC config's data block, replaced by the synthetic loader at DSEC
 # geometry (the JAX package's DSEC gate, tools/gate_study.py): 300 000-event
 # windows, cut from the config's 1 500 000, as the JAX package measured it.
@@ -82,6 +98,21 @@ OFFSETS = (0.0, 1.0, 0.5)
 TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 # a solved frame's EPE must be below this fraction of the zero-flow EPE
 EPE_FRACTION = 0.5
+# the last eval frame each path solves (frames 0..N): a time-aware frame takes
+# ~2 min on an H100 (host-bound), so the earlier paths were cut from frames
+# 0..2 to 0..1 to keep the whole script well inside its 1200 s time limit
+LAST_FRAME = 1
+# One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores, for each kernel's least time on the card.
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS = 67e12
+# floating-point operations per event and reference-time offset, counted
+# from the kernels' arithmetic in csrc/fused_iwe.cu (warp, corner split,
+# weights or their derivatives, fixed-point scaling); the gathers and
+# atomics are counted as bytes, not operations
+OPS_PER_EVENT_OFFSET = {"fwd": 30, "bwd": 40, "jvp": 45, "hvp_bwd": 40}
+KERNEL_LINES = {"fwd": 986, "bwd": 1092, "jvp": 1637, "hvp_bwd": 1806,
+                "voxel_fwd": 1223, "voxel_bwd": 1272, "voxel_jvp": 1941, "voxel_hvp_bwd": 1986}
 
 
 def phase(name: str, msg: str) -> None:
@@ -127,19 +158,20 @@ def compare(fi, frame, flow, g, include_orig, offsets):
     """(forward err, backward err or None, forward scale, backward scale,
     whether a second kernel call gave the same bits)."""
     ev = (frame.x, frame.y, frame.dtf, frame.wt)
-    ref = fi.fused_iwe_reference(flow, *ev, offsets, include_orig)
-    got = fi.fused_iwe_fwd(flow, *ev, offsets, include_orig)
+    kw = {"bins": frame.bins}  # a voxel's time bins, or None for a dense flow
+    ref = fi.fused_iwe_reference(flow, *ev, offsets, include_orig, **kw)
+    got = fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, **kw)
     torch.cuda.synchronize()
     fwd_err = (got - ref).abs().max().item()
     fwd_scale = max(1.0, ref.abs().max().item())
-    same = torch.equal(got, fi.fused_iwe_fwd(flow, *ev, offsets, include_orig))
+    same = torch.equal(got, fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, **kw))
     if not offsets:
         return fwd_err, None, fwd_scale, None, same
     gk = g[: ref.shape[0]].contiguous()
     flr = flow.clone().requires_grad_(True)
-    (want,) = torch.autograd.grad((fi.fused_iwe_reference(flr, *ev, offsets, include_orig) * gk).sum(), flr)
-    got_d = fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig)
-    same = same and torch.equal(got_d, fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig))
+    (want,) = torch.autograd.grad((fi.fused_iwe_reference(flr, *ev, offsets, include_orig, **kw) * gk).sum(), flr)
+    got_d = fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig, **kw)
+    same = same and torch.equal(got_d, fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig, **kw))
     torch.cuda.synchronize()
     return (fwd_err, (got_d - want).abs().max().item(), fwd_scale, max(1.0, want.abs().max().item()),
             same)
@@ -159,9 +191,10 @@ def cuda_ms(fn, n_warm: int = 5, n_iter: int = 50) -> float:
 
 
 def objective_check(config: dict, events: np.ndarray, rng) -> str:
-    """The finest scale's whole objective (kernel, blur, hybrid cost) and
-    its autograd gradient on the card against the plain version on the CPU
-    at float64, on the first window at random tile motions of a few px/s.
+    """The finest scale's whole objective (kernel, blur, hybrid cost; for a
+    time-aware config the Burgers chain too) and its autograd gradient on
+    the card against the plain version on the CPU at float64, on the first
+    window at random tile motions of a few px/s.
     float64 on both sides: the sums' order is all that differs (1e-9);
     float32 on the card: its rounding (1e-4 of the value), and for the
     gradient also corner decisions that flip where a warped coordinate
@@ -176,7 +209,7 @@ def objective_check(config: dict, events: np.ndarray, rng) -> str:
     out = {}
     for dev, dtype, rep in (("cpu", torch.float64, 0), ("cuda", torch.float64, 0),
                             ("cuda", torch.float32, 0), ("cuda", torch.float32, 1)):
-        frame = FrameEvents.from_numpy(events, dev, dtype)
+        frame = FrameEvents.from_numpy(events, dev, dtype, solv.time_bin)
         m = torch.as_tensor(motion, dtype=dtype, device=dev).requires_grad_(True)
         loss, _ = build_objective(spec)(m, build_orig_iwe(spec)(frame), frame)
         (grad,) = torch.autograd.grad(loss, m)
@@ -223,6 +256,19 @@ def dsec_config() -> dict:
     return config
 
 
+def ta_config() -> dict:
+    """The time-aware path: configs/synthetic_mvsec_geometry.yaml's data
+    block (the MVSEC loader and files are not in the repository) with the
+    solver and optimizer blocks of configs/mvsec_indoor_burgers.yaml as
+    they are (Burgers voxel, 10 bins, t0 in the middle)."""
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    with open(TA_CONFIG) as f:
+        burgers = yaml.safe_load(f)
+    config["solver"], config["optimizer"] = burgers["solver"], burgers["optimizer"]
+    return config
+
+
 def slice_config(config: dict, last_frame: int, out_dir: str) -> dict:
     """The smoke's slice: frames 0..last_frame of the `dots` scene."""
     run_config = copy.deepcopy(config)
@@ -242,11 +288,13 @@ def run_slice(port_main, config: dict, dev, last_frame: int):
     return records, out_dir, time.perf_counter() - t0
 
 
-def check_second_order(fi, frame, flow, dflow, g1, g2, tol):
+def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
     """K3 (both ways of emit_value) and K4 (both ways of term_a) against
-    their plain versions on the same tensors: (lines, max abs err of K3's
-    tangent, of K4 without term A, all ok)."""
+    their plain versions on the same tensors (K6's two kernels for a voxel
+    and the frame's time bins): (lines, max abs err of the tangent, of the
+    HVP backward without term A, all ok)."""
     ev = (frame.x, frame.y, frame.dtf, frame.wt)
+    kw = {"bins": frame.bins}
 
     def err(got, want):
         torch.cuda.synchronize()
@@ -254,35 +302,37 @@ def check_second_order(fi, frame, flow, dflow, g1, g2, tol):
         e = (got - want).abs().max().item()
         return e, scale, e <= tol * scale
 
-    img, tan = fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, True)
-    ref_img, ref_tan = fi.fused_iwe_jvp_reference(flow, dflow, *ev, OFFSETS, True)
-    tan_only = fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False)
-    value_bits = torch.equal(img, fi.fused_iwe_fwd(flow, *ev, OFFSETS, False))
-    repeat = torch.equal(tan_only, tan) and torch.equal(tan_only, fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False))
+    img, tan = fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, True, **kw)
+    ref_img, ref_tan = fi.fused_iwe_jvp_reference(flow, dflow, *ev, OFFSETS, True, **kw)
+    tan_only = fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False, **kw)
+    value_bits = torch.equal(img, fi.fused_iwe_fwd(flow, *ev, OFFSETS, False, **kw))
+    repeat = torch.equal(tan_only, tan) and torch.equal(tan_only, fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False,
+                                                                                  **kw))
     (ev_, sv, okv), (et, st, okt) = err(img, ref_img), err(tan, ref_tan)
-    lines = [f"K3 jvp: value max|err| {ev_:.3e} (scale {sv:.3g}), tangent max|err| {et:.3e} (scale {st:.3g}), "
-             f"tol {tol:g} x scale; value == fused_iwe_fwd bits: {value_bits}; emit_value=False and a "
-             f"repeat same bits: {repeat}"]
+    lines = [f"{names[0]} jvp: value max|err| {ev_:.3e} (scale {sv:.3g}), tangent max|err| {et:.3e} "
+             f"(scale {st:.3g}), tol {tol:g} x scale; value == fused_iwe_fwd bits: {value_bits}; "
+             f"emit_value=False and a repeat same bits: {repeat}"]
     ok = okv and okt and value_bits and repeat
     errs = {"jvp": et}
     for term_a in (False, True):
-        got = fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a)
-        e, sc, good = err(got, fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, term_a))
-        same = torch.equal(got, fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a))
+        got = fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw)
+        e, sc, good = err(got, fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
+        same = torch.equal(got, fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
         extra = ""
         if not term_a:
-            k2 = torch.equal(got, fi.fused_iwe_bwd(flow, *ev, g2, OFFSETS, False))
+            k2 = torch.equal(got, fi.fused_iwe_bwd(flow, *ev, g2, OFFSETS, False, **kw))
             extra, same, errs["hvp_bwd"] = f"; == fused_iwe_bwd(g2) bits: {k2}", same and k2, e
-        lines.append(f"K4 hvp_bwd term_a={term_a}: max|err| {e:.3e} (scale {sc:.3g}), tol {tol:g} x scale; "
-                     f"repeat same bits{extra}: {same}")
+        lines.append(f"{names[1]} hvp_bwd term_a={term_a}: max|err| {e:.3e} (scale {sc:.3g}), tol {tol:g} x "
+                     f"scale; repeat same bits{extra}: {same}")
         ok = ok and good and same
     return lines, errs, ok
 
 
 def hvp_check(config: dict, events: np.ndarray, rng) -> str:
-    """The finest DSEC scale's staged analytic HVP (K1 values, K3 tangent,
-    the cost's jvp-of-grad, K4, the tile map's transpose) on the card
-    against the plain version on the CPU at float64: 1e-9 of max|Hp|
+    """The finest scale's staged analytic HVP (K1 values, K3 tangent, the
+    cost's jvp-of-grad, K4, the tile map's transpose; for a time-aware
+    config K5, K6 and the Burgers chain's jvp and vjp) on the card against
+    the plain version on the CPU at float64: 1e-9 of max|Hp|
     (the sums' order); float32 on the card: 1e-2 of the largest component
     (the gradient's rule: corner decisions that flip under float32
     rounding); a float32 repeat gives the same bits."""
@@ -298,7 +348,7 @@ def hvp_check(config: dict, events: np.ndarray, rng) -> str:
     out = {}
     for dev, dtype, rep in (("cpu", torch.float64, 0), ("cuda", torch.float64, 0),
                             ("cuda", torch.float32, 0), ("cuda", torch.float32, 1)):
-        frame = FrameEvents.from_numpy(events, dev, dtype)
+        frame = FrameEvents.from_numpy(events, dev, dtype, solv.time_bin)
         orig = build_orig_iwe(spec)(frame)
         m, pp = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (motion, p))
         out[(dev, dtype, rep)] = hvp(prep(m, orig, frame), m, pp, orig, frame).double().cpu().numpy()
@@ -317,9 +367,88 @@ def hvp_check(config: dict, events: np.ndarray, rng) -> str:
             "(cpu float64); " + "; ".join(lines) + "; float32 repeat same bits: ok")
 
 
+def sector_bytes(index: torch.Tensor, itemsize: int) -> int:
+    """Bytes of the distinct 32-byte sectors that the element offsets
+    ``index`` fall in: the least a gather of those elements moves."""
+    return 32 * np.unique(index.numpy() * itemsize // 32).size
+
+
+def bound(kind: str, frame, flow: torch.Tensor):
+    """(least milliseconds one H100 needs, what bounds it: "bytes" or
+    "operations") for one call of a kernel on ``frame``'s events, the flow
+    ``flow`` [2, H, W] (a voxel [T, 2, H, W] with the frame's bins) and
+    ``OFFSETS``, counted from these inputs: the event arrays read once; of
+    the flow (and the tangent flow) and of the cotangent images only the
+    32-byte sectors that this frame's gathers touch (each voting event's
+    source pixel in its bin's slice; the four corners of each warped
+    position); the images and the flow gradient written whole; over the HBM
+    rate.  The operations of ``OPS_PER_EVENT_OFFSET`` for each voting event
+    over the float32 rate.  The timed forms: the forward without the orig
+    image, the tangent only, the HVP backward without term A (which reads
+    neither g1 nor the tangent flow)."""
+    frame = {k: getattr(frame, k) for k in ("x", "y", "dtf", "wt", "bins")}
+    frame = {k: None if a is None else a.cpu() for k, a in frame.items()}
+    flow = flow.cpu()
+    h, w = flow.shape[-2:]
+    hw, item = h * w, flow.element_size()
+    x, y, d, bins = frame["x"], frame["y"], frame["dtf"], frame["bins"]
+    voting = (frame["wt"] != 0) & (x > -1) & (x < h) & (y > -1) & (y < w)
+    x, y, d = x[voting], y[voting], d[voting]
+    b = torch.zeros_like(x, dtype=torch.int64) if bins is None else bins[voting].long().clamp(0, len(flow) - 1)
+    at = b * 2 * hw + x.long() * w + y.long()  # .long() truncates toward zero, as the kernels do
+    flow_read = sector_bytes(torch.cat([at, at + hw]), item)
+    u, v = flow.reshape(-1)[at], flow.reshape(-1)[at + hw]
+    corners = []
+    for k, off in enumerate(OFFSETS):
+        r0, c0 = torch.floor(x - (d - off) * u).long(), torch.floor(y - (d - off) * v).long()
+        for r, c in ((r0, c0), (r0 + 1, c0), (r0, c0 + 1), (r0 + 1, c0 + 1)):
+            inside = (r >= 0) & (r < h) & (c >= 0) & (c < w)
+            corners.append((k * hw + r * w + c)[inside])
+    g_read = sector_bytes(torch.cat(corners), item)
+    events = len(frame["x"]) * (4 * item + (0 if bins is None else 4))  # x, y, dtf, wt (, int32 bins)
+    images = len(OFFSETS) * hw * item
+    grad = flow.numel() * item
+    moved = {"fwd": events + flow_read + images, "bwd": events + flow_read + g_read + grad,
+             "jvp": events + 2 * flow_read + images, "hvp_bwd": events + flow_read + g_read + grad}[kind]
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_EVENT_OFFSET[kind] * len(x) * len(OFFSETS) / H100_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernels(fi, frame, flow, dflow, g1, g2, names) -> dict:
+    """Float32 times (ms per call: CUDA events, mean of 50 after 5
+    warm-up) of the named kernels and their plain versions on one frame."""
+    ev = (frame.x, frame.y, frame.dtf, frame.wt)
+    kw = {"bins": frame.bins}
+    flr = flow.clone().requires_grad_(True)
+    with torch.enable_grad():
+        graph = fi.fused_iwe_reference(flr, *ev, OFFSETS, False, **kw)
+    calls = {
+        "fwd": (lambda: fi.fused_iwe_fwd(flow, *ev, OFFSETS, False, **kw),
+                lambda: fi.fused_iwe_reference(flow, *ev, OFFSETS, False, **kw)),
+        "bwd": (lambda: fi.fused_iwe_bwd(flow, *ev, g2, OFFSETS, False, **kw),
+                lambda: torch.autograd.grad(graph, flr, g2, retain_graph=True)),
+        "jvp": (lambda: fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False, **kw),
+                lambda: fi.fused_iwe_jvp_reference(flow, dflow, *ev, OFFSETS, False, **kw)),
+        "hvp_bwd": (lambda: fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, False, **kw),
+                    lambda: fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, False, **kw)),
+    }
+    times = {}
+    for name in names:
+        kernel, plain = calls[name]
+        times[name], times[f"{name}_plain"] = cuda_ms(kernel), cuda_ms(plain)
+    return times
+
+
+def time_line(smi, times, names, what) -> str:
+    return (f"{smi}: float32 {what}: " + "; ".join(
+        f"kernel {name} {times[name]:.4f} ms vs plain {times[f'{name}_plain']:.4f} ms" for name in names)
+        + " (CUDA events, mean of 50 after 5 warm-up; jvp tangent only, hvp_bwd term_a=False)")
+
+
 def dsec_path(port_main, fi, dev, smi, rng):
     """Phase 7; returns (launches of the path's run, K3/K4 max abs errors,
-    K3/K4 times)."""
+    K3/K4 times, their bounds)."""
     from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents
 
     config = dsec_config()
@@ -342,24 +471,16 @@ def dsec_path(port_main, fi, dev, smi, rng):
     phase("hvp", hvp_check(config, events, rng))
 
     frame = FrameEvents.from_numpy(events, dev, torch.float32)
-    ev = (frame.x, frame.y, frame.dtf, frame.wt)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
-    flow, dflow, g1, g2 = t(flow_np), t(dflow_np), t(g_np[0]), t(g_np[1])
-    times = {
-        "jvp": cuda_ms(lambda: fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False)),
-        "jvp_plain": cuda_ms(lambda: fi.fused_iwe_jvp_reference(flow, dflow, *ev, OFFSETS, False)),
-        "hvp_bwd": cuda_ms(lambda: fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, False)),
-        "hvp_bwd_plain": cuda_ms(lambda: fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, False)),
-    }
-    phase("time", f"{smi}: float32 N={len(events)} {h}x{w} offsets={OFFSETS}: kernel jvp (tangent only) "
-                  f"{times['jvp']:.4f} ms vs plain {times['jvp_plain']:.4f} ms; kernel hvp_bwd (term_a=False) "
-                  f"{times['hvp_bwd']:.4f} ms vs plain {times['hvp_bwd_plain']:.4f} ms "
-                  "(CUDA events, mean of 50 after 5 warm-up)")
+    times = time_kernels(fi, frame, t(flow_np), t(dflow_np), t(g_np[0]), t(g_np[1]), ("jvp", "hvp_bwd"))
+    phase("time", time_line(smi, times, ("jvp", "hvp_bwd"), f"N={len(events)} {h}x{w} offsets={OFFSETS}"))
+    bounds = {k: bound(k, frame, t(flow_np)) for k in ("jvp", "hvp_bwd")}
 
+    last = LAST_FRAME
     fi.reset_launch_counts()
-    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=2)
+    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
     launches = fi.launch_counts()
-    run_config = slice_config(config, last_frame=2, out_dir=out_dir)
+    run_config = slice_config(config, last_frame=last, out_dir=out_dir)
     loader, solv = port_main.build(run_config, dev)
     finest = solv.patch_scales - 1
     failed = []
@@ -387,11 +508,118 @@ def dsec_path(port_main, fi, dev, smi, rng):
                          f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
     if failed:
         raise SystemExit(f"chip_smoke: DSEC frames {failed}: metrics, K3/K4 launches or subsample wrong")
-    if len(records) != 3 or 0 in launches.values():
-        raise SystemExit("chip_smoke: the DSEC path did not run 3 windows through all four kernels")
+    if len(records) != last + 1 or 0 in (launches[k] for k in fi.KERNELS):
+        raise SystemExit("chip_smoke: the DSEC path did not run its windows through all four kernels")
     if same != [True]:
         raise SystemExit("chip_smoke: a second run of DSEC frame 0 did not reproduce its result")
-    return launches, errs, times
+    return launches, errs, times, bounds
+
+
+def smooth_voxel(h: int, w: int, n_bins: int, rng) -> np.ndarray:
+    """A random voxel of smooth displacement fields of a few px, one per
+    time bin."""
+    return np.stack([smooth_flow(h, w, rng) for _ in range(n_bins)])
+
+
+def ta_run_checks(records, stats_rule, loader, run_config, solv, name) -> list:
+    """Print one line per eval frame of a time-aware run; the frames that
+    fail the EPE rule, PRED_FWL or ``stats_rule`` (kernel launches per
+    scale)."""
+    failed = []
+    for r in records:
+        m, st = r["metrics"], r["stats"]
+        zero = zero_flow_epe(loader, run_config["data"], r["frame"], solv)
+        voxel = {s: {k: c[k] for k in ("voxel_fwd", "voxel_bwd", "voxel_jvp", "voxel_hvp_bwd")}
+                 for s, c in st["launches"].items()}
+        ok = (np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and np.isfinite(m["PRED_FWL"])
+              and stats_rule(st))
+        phase(name, f"{r['frame']}: {r['seconds']:.3f} s, EPE {m['EPE']:.4f} (zero flow {zero:.4f}), "
+                    f"3PE {m['3PE']:.4f}, AE {m['AE']:.4f}, GT_FWL {m['GT_FWL']:.4f}, "
+                    f"PRED_FWL {m['PRED_FWL']:.4f}, host syncs {st['syncs']}, Newton iters {st['iters']}, "
+                    f"HVP {st['hvp']}, voxel kernel launches per scale {voxel}, "
+                    f"loss {({s: round(v, 6) for s, v in st['loss'].items()})}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(r["frame"])
+    return failed
+
+
+def ta_path(port_main, fi, dev, smi, rng):
+    """Phase 8; returns (launches of the path's two runs, K5/K6 max abs
+    errors, K5/K6 times, their bounds)."""
+    from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents
+
+    config = ta_config()
+    _, events = first_window(config)
+    h, w = config["data"]["height"], config["data"]["width"]
+    n_bins = config["solver"]["time_bin"]
+    vox_np, dvox_np = smooth_voxel(h, w, n_bins, rng), smooth_voxel(h, w, n_bins, rng)
+    g_np = rng.normal(size=(3, len(OFFSETS), h, w))
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        frame = FrameEvents.from_numpy(events, dev, dtype, time_bin=n_bins)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+        vox, dvox, g1, g2 = t(vox_np), t(dvox_np), t(g_np[0]), t(g_np[1])
+        what = f"{str(dtype)[6:]} N={len(events)} {h}x{w} T={n_bins} offsets={OFFSETS}"
+        fe, be, fs, bs, same = compare(fi, frame, vox, t(g_np[2]), False, OFFSETS)
+        ok = fe <= TOL[dtype] * fs and be <= TOL[dtype] * bs and same
+        phase("voxel-check", f"{what}: K5 fwd max|err| {fe:.3e} (scale {fs:.3g}), bwd max|err| {be:.3e} "
+                             f"(scale {bs:.3g}), tol {TOL[dtype]:g} x scale; repeat same bits: {same}: "
+                             + ("ok" if ok else "FAIL"))
+        lines, e, ok2 = check_second_order(fi, frame, vox, dvox, g1, g2, TOL[dtype], names=("K6", "K6"))
+        for line in lines:
+            phase("voxel-check", f"{what}: {line}: {'ok' if ok2 else 'FAIL'}")
+        if not (ok and ok2):
+            raise SystemExit("chip_smoke: K5/K6 disagree with their plain versions")
+        if dtype == torch.float32:
+            errs = {"voxel_fwd": fe, "voxel_bwd": be, "voxel_jvp": e["jvp"], "voxel_hvp_bwd": e["hvp_bwd"]}
+    phase("voxel-objective", objective_check(config, events, rng))
+    phase("voxel-hvp", hvp_check(config, events, rng))
+
+    frame = FrameEvents.from_numpy(events, dev, torch.float32, time_bin=n_bins)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+    names = ("fwd", "bwd", "jvp", "hvp_bwd")
+    times = time_kernels(fi, frame, t(vox_np), t(dvox_np), t(g_np[0]), t(g_np[1]), names)
+    phase("voxel-time", time_line(smi, times, names, f"N={len(events)} {h}x{w} T={n_bins} offsets={OFFSETS}"))
+    times = {f"voxel_{k}": v for k, v in times.items()}
+    bounds = {f"voxel_{k}": bound(k, frame, t(vox_np)) for k in names}
+
+    # the config as shipped (FD HVP): K5 on every scale, no K6
+    last = LAST_FRAME
+    fi.reset_launch_counts()
+    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
+    launches = fi.launch_counts()
+    run_config = slice_config(config, last_frame=last, out_dir=out_dir)
+    loader, solv = port_main.build(run_config, dev)
+    failed = ta_run_checks(
+        records, lambda st: all(c["voxel_fwd"] > 0 and c["voxel_bwd"] > 0 and c["voxel_jvp"] == 0
+                                for c in st["launches"].values()), loader, run_config, solv, "ta-frame")
+    phase("ta", f"{len(records)} windows in {wall:.2f} s, kernel launches {launches}, out {out_dir}")
+    again, _, again_wall = run_slice(port_main, config, dev, last_frame=0)
+    same = [a["metrics"] == r["metrics"] and a["stats"]["loss"] == r["stats"]["loss"]
+            for a, r in zip(again, records)]
+    phase("ta-repeat", f"frame 0 in a fresh run ({again_wall:.2f} s): metrics and per-scale losses "
+                       f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
+
+    # hvp_mode: analytic: K6 (Gauss-Newton) on the finest scale only
+    analytic = copy.deepcopy(config)
+    analytic["optimizer"]["hvp_mode"] = "analytic"
+    finest = solv.patch_scales - 1
+    fi.reset_launch_counts()
+    a_records, a_dir, a_wall = run_slice(port_main, analytic, dev, last_frame=0)
+    a_launches = fi.launch_counts()
+    a_config = slice_config(analytic, last_frame=0, out_dir=a_dir)
+    a_failed = ta_run_checks(
+        a_records, lambda st: all(c["voxel_fwd"] > 0 and (s == finest) == (c["voxel_jvp"] > 0 and c["voxel_hvp_bwd"] > 0)
+                                  for s, c in st["launches"].items()), loader, a_config, solv, "ta-analytic-frame")
+    phase("ta-analytic", f"{len(a_records)} window in {a_wall:.2f} s, kernel launches {a_launches}, out {a_dir}")
+    if failed or a_failed:
+        raise SystemExit(f"chip_smoke: time-aware frames {failed} (FD), {a_failed} (analytic): metrics or "
+                         "K5/K6 launches wrong")
+    if len(records) != last + 1 or len(a_records) != 1:
+        raise SystemExit("chip_smoke: the time-aware path did not run its windows")
+    if same != [True]:
+        raise SystemExit("chip_smoke: a second run of time-aware frame 0 did not reproduce its result")
+    return {k: launches[k] + a_launches[k] for k in launches}, errs, times, bounds
 
 
 def main() -> int:
@@ -437,27 +665,17 @@ def main() -> int:
 
     # timing at the main path's shape, float32 (the main path's dtype)
     frame = FrameEvents.from_numpy(events, dev, torch.float32)
-    ev = (frame.x, frame.y, frame.dtf, frame.wt)
-    flow = torch.as_tensor(flow_np, dtype=torch.float32, device=dev)
-    g = torch.as_tensor(g_np[1:], dtype=torch.float32, device=dev).contiguous()
-    flr = flow.clone().requires_grad_(True)
-    with torch.enable_grad():
-        graph = fi.fused_iwe_reference(flr, *ev, OFFSETS, False)
-    times = {
-        "fwd": cuda_ms(lambda: fi.fused_iwe_fwd(flow, *ev, OFFSETS, False)),
-        "fwd_plain": cuda_ms(lambda: fi.fused_iwe_reference(flow, *ev, OFFSETS, False)),
-        "bwd": cuda_ms(lambda: fi.fused_iwe_bwd(flow, *ev, g, OFFSETS, False)),
-        "bwd_plain": cuda_ms(lambda: torch.autograd.grad(graph, flr, g, retain_graph=True)),
-    }
-    phase("time", f"{smi}: float32 N={len(events)} offsets={OFFSETS}: kernel fwd {times['fwd']:.4f} ms "
-                  f"vs plain {times['fwd_plain']:.4f} ms; kernel bwd {times['bwd']:.4f} ms vs plain "
-                  f"{times['bwd_plain']:.4f} ms (CUDA events, mean of 50 after 5 warm-up)")
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+    times = time_kernels(fi, frame, t(flow_np), None, None, t(g_np[1:]), ("fwd", "bwd"))
+    phase("time", time_line(smi, times, ("fwd", "bwd"), f"N={len(events)} {h}x{w} offsets={OFFSETS}"))
+    bounds = {k: bound(k, frame, t(flow_np)) for k in ("fwd", "bwd")}
 
-    # the slice: the CLI's eval loop, 3 windows
+    # the slice: the CLI's eval loop
+    last = LAST_FRAME
     fi.reset_launch_counts()
-    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=2)
+    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
     launches = fi.launch_counts()
-    run_config = slice_config(config, last_frame=2, out_dir=out_dir)
+    run_config = slice_config(config, last_frame=last, out_dir=out_dir)
     slice_loader, solv = port_main.build(run_config, dev)
     failed = []
     for r in records:
@@ -482,24 +700,31 @@ def main() -> int:
                     f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
     if failed:
         raise SystemExit(f"chip_smoke: frames {failed}: metrics not finite or not below the zero flow")
-    if len(records) != 3 or n_lines != 3 or launches["fwd"] == 0 or launches["bwd"] == 0:
-        raise SystemExit("chip_smoke: the eval loop did not run 3 windows through both kernels")
+    if len(records) != last + 1 or n_lines != last + 1 or launches["fwd"] == 0 or launches["bwd"] == 0:
+        raise SystemExit("chip_smoke: the eval loop did not run its windows through both kernels")
     if same != [True]:
         raise SystemExit("chip_smoke: a second run of frame 0 did not reproduce its result")
 
-    dsec_launches, dsec_errs, dsec_times = dsec_path(port_main, fi, dev, smi, rng)
-    errs.update(dsec_errs)
-    times.update(dsec_times)
-    # each path's run counts from 0; a kernel's launches are both runs'
-    launches = {k: launches[k] + dsec_launches[k] for k in dsec_launches}
+    # each path's run counts from 0; a kernel's launches are all paths' runs'
+    for path in (dsec_path, ta_path):
+        path_launches, path_errs, path_times, path_bounds = path(port_main, fi, dev, smi, rng)
+        launches = {k: launches[k] + path_launches[k] for k in launches}
+        errs.update(path_errs)
+        times.update(path_times)
+        bounds.update(path_bounds)
     src = fi.KERNEL_SOURCE
     pb = "event_based_optical_flow_tpu/ops/pallas_objective_banded.py"
     kernels = [
         {"name": f"fused_iwe_{name}", "route": "cuda", "source": src, "replaces": f"{pb}:{line}",
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name],
-         "plain_ms": times[f"{name}_plain"]}
-        for name, line in (("fwd", 986), ("bwd", 1092), ("jvp", 1637), ("hvp_bwd", 1806))
+         "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # no single PyTorch call computes a fused gather + warp + vote (or its derivatives)
+         "library_ms": None}
+        for name, line in KERNEL_LINES.items()
     ]
+    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -84,6 +84,24 @@
 // per offset, then K2's ordered run sums onto the source pixel.
 // Both are bound like K1/K2 (scattered int64 atomics and gathers); K4 reads
 // g1 only with term A.
+//
+// Time-aware voxels (K5, K6), replacing
+//   ops/pallas_objective_banded.py   _vox_fwd_impl / _vox_vjp_bwd
+//                                    (fused_multi_iwe_banded_voxel, its backward)
+//                                    fused_multi_iwe_banded_voxel_jvp
+//                                    fused_multi_iwe_banded_voxel_hvp_bwd
+// Every kernel above takes an optional per-event time bin (bins, int32,
+// n_bins > 0; bins == nullptr is the dense flow).  The flow and the tangent
+// flow are then voxels [n_bins, 2, H, W] and each event reads its (u, v)
+// and (du, dv) from its bin's slice, at the same truncated source pixel,
+// zero outside the image; a bin outside [0, n_bins) is clamped into it, as
+// the TPU packer clips it.  The TPU kernels grid over (bin, chunk) with one
+// bin slice resident; here the bin is only an offset of the gather, so the
+// votes, the tangent unit and K4's term A are unchanged.  The backward's
+// ordered run sums are keyed by (bin, source pixel) over events sorted by
+// (bin, source pixel) (FrameEvents sorts them so when time-aware) and write
+// the per-bin gradient [n_bins, 2, H, W].  With one bin and every event in
+// it the voxel kernels give the dense kernels' bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -156,9 +174,25 @@ __device__ __forceinline__ int source_pixel(T x, T y, int H, int W) {
   return static_cast<int>(x) * W + static_cast<int>(y);
 }
 
+// Event i's time bin, clamped into [0, n_bins); 0 for a dense flow.
+__device__ __forceinline__ int bin_of(const int* bins, int n_bins, int i) {
+  if (bins == nullptr) return 0;
+  const int b = bins[i];
+  return b < 0 ? 0 : (b >= n_bins ? n_bins - 1 : b);
+}
+
+// The backward's run key: bin * H * W + source pixel, or -1 outside.
+template <typename T>
+__device__ __forceinline__ int run_key(const T* x, const T* y, const int* bins, int n_bins, int i,
+                                       int H, int W) {
+  const int p = source_pixel(x[i], y[i], H, W);
+  return p < 0 ? -1 : bin_of(bins, n_bins, i) * H * W + p;
+}
+
 template <typename T>
 __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
+                                     const int* __restrict__ bins, int n_bins,
                                      int n, const T* __restrict__ flow, Offsets<T> offs,
                                      int include_orig, int H, int W, T eps,
                                      unsigned long long* __restrict__ acc) {
@@ -174,8 +208,9 @@ __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restric
     }
     if (offs.n == 0) continue;
     const int p = source_pixel(xi, yi, H, W);
-    const T u = p >= 0 ? flow[p] : T(0);
-    const T v = p >= 0 ? flow[hw + p] : T(0);
+    const T* fl = flow + 2 * hw * bin_of(bins, n_bins, i);
+    const T u = p >= 0 ? fl[p] : T(0);
+    const T v = p >= 0 ? fl[hw + p] : T(0);
     const T d = dtf[i];
     for (int k = 0; k < offs.n; ++k) {
       const T dt = d - offs.v[k];
@@ -238,6 +273,7 @@ __device__ __forceinline__ void event_grad(T xi, T yi, T d, T w, T u, T v, const
 template <typename T>
 __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
+                                     const int* __restrict__ bins, int n_bins,
                                      int n, const T* __restrict__ flow, Offsets<T> offs,
                                      int include_orig, int H, int W, T eps,
                                      const T* __restrict__ g, T* __restrict__ duv) {
@@ -248,7 +284,8 @@ __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restric
     const int p = source_pixel(xi, yi, H, W);
     T du = T(0), dv = T(0);
     if (p >= 0 && w != T(0)) {
-      event_grad<T, false>(xi, yi, dtf[i], w, flow[p], flow[hw + p], offs, k0, H, W, eps, g,
+      const T* fl = flow + 2 * hw * bin_of(bins, n_bins, i);
+      event_grad<T, false>(xi, yi, dtf[i], w, fl[p], fl[hw + p], offs, k0, H, W, eps, g,
                            nullptr, T(0), T(0), &du, &dv);
     }
     duv[i] = du;
@@ -261,6 +298,7 @@ __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restric
 template <typename T, bool TermA>
 __global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                          const T* __restrict__ dtf, const T* __restrict__ wt,
+                                         const int* __restrict__ bins, int n_bins,
                                          int n, const T* __restrict__ flow,
                                          const T* __restrict__ dflow, Offsets<T> offs, int H,
                                          int W, T eps, const T* __restrict__ g1,
@@ -271,10 +309,11 @@ __global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __res
     const int p = source_pixel(xi, yi, H, W);
     T du = T(0), dv = T(0);
     if (p >= 0 && w != T(0)) {
-      const T du_g = TermA ? dflow[p] : T(0);
-      const T dv_g = TermA ? dflow[hw + p] : T(0);
-      event_grad<T, TermA>(xi, yi, dtf[i], w, flow[p], flow[hw + p], offs, 0, H, W, eps, g2, g1,
-                           du_g, dv_g, &du, &dv);
+      const int off = 2 * hw * bin_of(bins, n_bins, i);
+      const T du_g = TermA ? dflow[off + p] : T(0);
+      const T dv_g = TermA ? dflow[off + hw + p] : T(0);
+      event_grad<T, TermA>(xi, yi, dtf[i], w, flow[off + p], flow[off + hw + p], offs, 0, H, W,
+                           eps, g2, g1, du_g, dv_g, &du, &dv);
     }
     duv[i] = du;
     duv[n + i] = dv;
@@ -291,7 +330,8 @@ constexpr int kNonFinite = -100000;  // tangent_exponent's mark for a non-finite
 // atomicMax: one address takes ~N / 256 atomics, not N.
 template <typename T>
 __global__ void jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                 const T* __restrict__ dtf, const T* __restrict__ wt, int n,
+                                 const T* __restrict__ dtf, const T* __restrict__ wt,
+                                 const int* __restrict__ bins, int n_bins, int n,
                                  const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
                                  unsigned long long* __restrict__ bound) {
   __shared__ unsigned long long warp_max[kThreads / 32];
@@ -302,11 +342,12 @@ __global__ void jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ 
     if (w == T(0)) continue;
     const int p = source_pixel(x[i], y[i], H, W);
     if (p < 0) continue;  // zero tangent flow
+    const T* dfl = dflow + 2 * hw * bin_of(bins, n_bins, i);
     const double d = static_cast<double>(dtf[i]);
     double dt_max = 0.0;
     for (int k = 0; k < offs.n; ++k) dt_max = fmax(dt_max, fabs(d - static_cast<double>(offs.v[k])));
     double b = fabs(static_cast<double>(w)) * dt_max *
-               (fabs(static_cast<double>(dflow[p])) + fabs(static_cast<double>(dflow[hw + p])));
+               (fabs(static_cast<double>(dfl[p])) + fabs(static_cast<double>(dfl[hw + p])));
     if (!(b <= 1.7976931348623157e308)) b = INFINITY;
     const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(b));
     m = bits > m ? bits : m;
@@ -359,6 +400,7 @@ __device__ __forceinline__ void vote_tangent(unsigned long long* img, T xw, T yw
 template <typename T>
 __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
+                                     const int* __restrict__ bins, int n_bins,
                                      int n, const T* __restrict__ flow,
                                      const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
                                      T eps, int emit_value,
@@ -372,10 +414,11 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
     if (w == T(0)) continue;
     const T xi = x[i], yi = y[i];
     const int p = source_pixel(xi, yi, H, W);
-    const T u = p >= 0 ? flow[p] : T(0);
-    const T v = p >= 0 ? flow[hw + p] : T(0);
-    const T du = p >= 0 ? dflow[p] : T(0);
-    const T dv = p >= 0 ? dflow[hw + p] : T(0);
+    const int off = 2 * hw * bin_of(bins, n_bins, i);
+    const T u = p >= 0 ? flow[off + p] : T(0);
+    const T v = p >= 0 ? flow[off + hw + p] : T(0);
+    const T du = p >= 0 ? dflow[off + p] : T(0);
+    const T dv = p >= 0 ? dflow[off + hw + p] : T(0);
     const T d = dtf[i];
     for (int k = 0; k < offs.n; ++k) {
       const T dt = d - offs.v[k];
@@ -401,24 +444,26 @@ __global__ void from_scaled_kernel(const long long* __restrict__ acc, int n,
 }
 
 // Backward, step 2: the first event of each run of consecutive events with
-// one source pixel sums the run's du, dv in index order and adds the sums
-// to that pixel.
+// one (bin, source pixel) key sums the run's du, dv in index order and adds
+// the sums to that bin's pixel.
 template <typename T>
-__global__ void fused_iwe_bwd_sum_kernel(const T* __restrict__ x, const T* __restrict__ y, int n,
+__global__ void fused_iwe_bwd_sum_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                                         const int* __restrict__ bins, int n_bins, int n,
                                          int H, int W, const T* __restrict__ duv,
                                          T* __restrict__ dflow) {
   const int hw = H * W;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const int p = source_pixel(x[i], y[i], H, W);
-    if (p < 0) continue;  // the gradient's target pixel is outside the flow
-    if (i > 0 && source_pixel(x[i - 1], y[i - 1], H, W) == p) continue;  // not a run head
+    const int key = run_key(x, y, bins, n_bins, i, H, W);
+    if (key < 0) continue;  // the gradient's target pixel is outside the flow
+    if (i > 0 && run_key(x, y, bins, n_bins, i - 1, H, W) == key) continue;  // not a run head
     T du = T(0), dv = T(0);
-    for (int j = i; j < n && source_pixel(x[j], y[j], H, W) == p; ++j) {
+    for (int j = i; j < n && run_key(x, y, bins, n_bins, j, H, W) == key; ++j) {
       du += duv[j];
       dv += duv[n + j];
     }
-    atomicAdd(dflow + p, du);
-    atomicAdd(dflow + hw + p, dv);
+    T* target = dflow + 2 * hw * (key / hw) + key % hw;
+    atomicAdd(target, du);
+    atomicAdd(target + hw, dv);
   }
 }
 
@@ -437,16 +482,19 @@ int grid_for(int n) {
   return blocks;
 }
 
+// Every launcher: bins == nullptr with n_bins == 0 for a dense flow [2, H, W],
+// else int32 bins [n] and a voxel [n_bins, 2, H, W] (flow, tangent flow and
+// the backward's output alike).
 // acc: zeroed int64 scratch of the out's size.
 template <typename T>
-int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T* flow,
-               const double* offsets, int n_off, int include_orig, int H, int W,
-               double eps, long long* acc, T* out, void* stream) {
+int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+               int n, const T* flow, const double* offsets, int n_off, int include_orig, int H,
+               int W, double eps, long long* acc, T* out, void* stream) {
   if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     fused_iwe_fwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, n, flow, make_offsets<T>(offsets, n_off), include_orig, H, W,
+        x, y, dtf, wt, bins, n_bins, n, flow, make_offsets<T>(offsets, n_off), include_orig, H, W,
         static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
   }
   const int n_out = (n_off + (include_orig ? 1 : 0)) * H * W;
@@ -456,16 +504,17 @@ int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T
 
 // duv: scratch of 2 * n elements; dflow: zeroed.
 template <typename T>
-int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T* flow,
-               const double* offsets, int n_off, int include_orig, int H, int W,
-               double eps, const T* g, T* duv, T* dflow, void* stream) {
+int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+               int n, const T* flow, const double* offsets, int n_off, int include_orig, int H,
+               int W, double eps, const T* g, T* duv, T* dflow, void* stream) {
   if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0 && n_off > 0) {
     fused_iwe_bwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, n, flow, make_offsets<T>(offsets, n_off), include_orig, H, W,
+        x, y, dtf, wt, bins, n_bins, n, flow, make_offsets<T>(offsets, n_off), include_orig, H, W,
         static_cast<T>(eps), g, duv);
-    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, n, H, W, duv, dflow);
+    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, n, H, W, duv,
+                                                                 dflow);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -474,18 +523,19 @@ int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T
 // zeroed int64 scratch of the outputs' size; out_val may be null without
 // emit_value.
 template <typename T>
-int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, int n, const T* flow,
-               const T* dflow, const double* offsets, int n_off, int H, int W, double eps,
-               int emit_value, int scale_bits, unsigned long long* bound, long long* acc_val,
-               long long* acc_tan, T* out_val, T* out_tan, void* stream) {
+int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+               int n, const T* flow, const T* dflow, const double* offsets, int n_off, int H,
+               int W, double eps, int emit_value, int scale_bits, unsigned long long* bound,
+               long long* acc_val, long long* acc_tan, T* out_val, T* out_tan, void* stream) {
   if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets<T> offs = make_offsets<T>(offsets, n_off);
   if (n > 0) {
-    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, n, dflow, offs, H, W, bound);
+    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, n, dflow,
+                                                         offs, H, W, bound);
     fused_iwe_jvp_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, n, flow, dflow, offs, H, W, static_cast<T>(eps), emit_value, bound,
-        scale_bits, reinterpret_cast<unsigned long long*>(acc_val),
+        x, y, dtf, wt, bins, n_bins, n, flow, dflow, offs, H, W, static_cast<T>(eps), emit_value,
+        bound, scale_bits, reinterpret_cast<unsigned long long*>(acc_val),
         reinterpret_cast<unsigned long long*>(acc_tan));
   }
   const int n_out = n_off * H * W;
@@ -497,98 +547,71 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, int n, const T
 
 // duv: scratch of 2 * n elements; dflow_out: zeroed.
 template <typename T>
-int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, int n, const T* flow,
-                   const T* dflow, const double* offsets, int n_off, int H, int W, double eps,
-                   int term_a, const T* g1, const T* g2, T* duv, T* dflow_out, void* stream) {
+int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+                   int n, const T* flow, const T* dflow, const double* offsets, int n_off, int H,
+                   int W, double eps, int term_a, const T* g1, const T* g2, T* duv, T* dflow_out,
+                   void* stream) {
   if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets<T> offs = make_offsets<T>(offsets, n_off);
   if (n > 0) {
     if (term_a) {
       fused_iwe_hvp_bwd_kernel<T, true><<<grid_for(n), kThreads, 0, s>>>(
-          x, y, dtf, wt, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
+          x, y, dtf, wt, bins, n_bins, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
     } else {
       fused_iwe_hvp_bwd_kernel<T, false><<<grid_for(n), kThreads, 0, s>>>(
-          x, y, dtf, wt, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
+          x, y, dtf, wt, bins, n_bins, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
     }
-    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, n, H, W, duv, dflow_out);
+    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, n, H, W, duv,
+                                                                 dflow_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The C interface: one entry point per kernel and type, each the launcher
+// above with T = float (f32) or double (f64).
+#define EVFLOW_ENTRY_POINTS(T, SUFFIX)                                                            \
+  int evflow_fused_iwe_fwd_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,             \
+                                    const int* bins, int n_bins, int n, const T* flow,             \
+                                    const double* offsets, int n_off, int include_orig, int H,     \
+                                    int W, double eps, long long* acc, T* out, void* stream) {     \
+    return launch_fwd<T>(x, y, dtf, wt, bins, n_bins, n, flow, offsets, n_off, include_orig, H, W, \
+                         eps, acc, out, stream);                                                   \
+  }                                                                                                \
+  int evflow_fused_iwe_bwd_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,             \
+                                    const int* bins, int n_bins, int n, const T* flow,             \
+                                    const double* offsets, int n_off, int include_orig, int H,     \
+                                    int W, double eps, const T* g, T* duv, T* dflow,               \
+                                    void* stream) {                                                \
+    return launch_bwd<T>(x, y, dtf, wt, bins, n_bins, n, flow, offsets, n_off, include_orig, H, W, \
+                         eps, g, duv, dflow, stream);                                              \
+  }                                                                                                \
+  int evflow_fused_iwe_jvp_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,             \
+                                    const int* bins, int n_bins, int n, const T* flow,             \
+                                    const T* dflow, const double* offsets, int n_off, int H,       \
+                                    int W, double eps, int emit_value, int scale_bits,             \
+                                    unsigned long long* bound, long long* acc_val,                 \
+                                    long long* acc_tan, T* out_val, T* out_tan, void* stream) {    \
+    return launch_jvp<T>(x, y, dtf, wt, bins, n_bins, n, flow, dflow, offsets, n_off, H, W, eps,   \
+                         emit_value, scale_bits, bound, acc_val, acc_tan, out_val, out_tan,        \
+                         stream);                                                                  \
+  }                                                                                                \
+  int evflow_fused_iwe_hvp_bwd_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,         \
+                                        const int* bins, int n_bins, int n, const T* flow,         \
+                                        const T* dflow, const double* offsets, int n_off, int H,   \
+                                        int W, double eps, int term_a, const T* g1, const T* g2,   \
+                                        T* duv, T* dflow_out, void* stream) {                      \
+    return launch_hvp_bwd<T>(x, y, dtf, wt, bins, n_bins, n, flow, dflow, offsets, n_off, H, W,    \
+                             eps, term_a, g1, g2, duv, dflow_out, stream);                         \
+  }
+
 extern "C" {
 
 int evflow_max_offsets() { return kMaxOffsets; }
 
-int evflow_fused_iwe_fwd_f32(const float* x, const float* y, const float* dtf, const float* wt,
-                             int n, const float* flow, const double* offsets, int n_off,
-                             int include_orig, int H, int W, double eps, long long* acc,
-                             float* out, void* stream) {
-  return launch_fwd<float>(x, y, dtf, wt, n, flow, offsets, n_off, include_orig, H, W, eps,
-                           acc, out, stream);
-}
-
-int evflow_fused_iwe_fwd_f64(const double* x, const double* y, const double* dtf,
-                             const double* wt, int n, const double* flow, const double* offsets,
-                             int n_off, int include_orig, int H, int W, double eps, long long* acc,
-                             double* out, void* stream) {
-  return launch_fwd<double>(x, y, dtf, wt, n, flow, offsets, n_off, include_orig, H, W, eps,
-                            acc, out, stream);
-}
-
-int evflow_fused_iwe_bwd_f32(const float* x, const float* y, const float* dtf, const float* wt,
-                             int n, const float* flow, const double* offsets, int n_off,
-                             int include_orig, int H, int W, double eps, const float* g, float* duv,
-                             float* dflow, void* stream) {
-  return launch_bwd<float>(x, y, dtf, wt, n, flow, offsets, n_off, include_orig, H, W, eps, g, duv,
-                           dflow, stream);
-}
-
-int evflow_fused_iwe_bwd_f64(const double* x, const double* y, const double* dtf,
-                             const double* wt, int n, const double* flow, const double* offsets,
-                             int n_off, int include_orig, int H, int W, double eps,
-                             const double* g, double* duv, double* dflow, void* stream) {
-  return launch_bwd<double>(x, y, dtf, wt, n, flow, offsets, n_off, include_orig, H, W, eps, g, duv,
-                            dflow, stream);
-}
-
-int evflow_fused_iwe_jvp_f32(const float* x, const float* y, const float* dtf, const float* wt,
-                             int n, const float* flow, const float* dflow, const double* offsets,
-                             int n_off, int H, int W, double eps, int emit_value, int scale_bits,
-                             unsigned long long* bound, long long* acc_val, long long* acc_tan,
-                             float* out_val, float* out_tan, void* stream) {
-  return launch_jvp<float>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, emit_value,
-                           scale_bits, bound, acc_val, acc_tan, out_val, out_tan, stream);
-}
-
-int evflow_fused_iwe_jvp_f64(const double* x, const double* y, const double* dtf,
-                             const double* wt, int n, const double* flow, const double* dflow,
-                             const double* offsets, int n_off, int H, int W, double eps,
-                             int emit_value, int scale_bits, unsigned long long* bound,
-                             long long* acc_val, long long* acc_tan, double* out_val,
-                             double* out_tan, void* stream) {
-  return launch_jvp<double>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, emit_value,
-                            scale_bits, bound, acc_val, acc_tan, out_val, out_tan, stream);
-}
-
-int evflow_fused_iwe_hvp_bwd_f32(const float* x, const float* y, const float* dtf,
-                                 const float* wt, int n, const float* flow, const float* dflow,
-                                 const double* offsets, int n_off, int H, int W, double eps,
-                                 int term_a, const float* g1, const float* g2, float* duv,
-                                 float* dflow_out, void* stream) {
-  return launch_hvp_bwd<float>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, term_a,
-                               g1, g2, duv, dflow_out, stream);
-}
-
-int evflow_fused_iwe_hvp_bwd_f64(const double* x, const double* y, const double* dtf,
-                                 const double* wt, int n, const double* flow, const double* dflow,
-                                 const double* offsets, int n_off, int H, int W, double eps,
-                                 int term_a, const double* g1, const double* g2, double* duv,
-                                 double* dflow_out, void* stream) {
-  return launch_hvp_bwd<double>(x, y, dtf, wt, n, flow, dflow, offsets, n_off, H, W, eps, term_a,
-                                g1, g2, duv, dflow_out, stream);
-}
+EVFLOW_ENTRY_POINTS(float, f32)
+EVFLOW_ENTRY_POINTS(double, f64)
 
 }  // extern "C"

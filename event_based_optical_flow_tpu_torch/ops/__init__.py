@@ -5,7 +5,8 @@ from .blur import gaussian_blur3, gaussian_filter
 from .interp import pyramid_expand, pyramid_reduce, tile_to_dense_flow
 from .iwe import bilinear_vote, create_iwe, event_mask
 from .sobel import sobel_flow, sobel_xy
-from .warp import calculate_dt, calculate_reftime, multi_direction_dense_warp, warp_2dof, warp_dense_flow
+from .warp import (calculate_dt, calculate_reftime, multi_direction_dense_warp, warp_2dof,
+                   warp_dense_flow, warp_voxel_flow)
 
 __all__ = [
     "bilinear_vote",
@@ -23,4 +24,5 @@ __all__ = [
     "tile_to_dense_flow",
     "warp_2dof",
     "warp_dense_flow",
+    "warp_voxel_flow",
 ]

@@ -3,16 +3,22 @@ objective's rasterizer, as hand-written CUDA kernels with a plain PyTorch
 version beside each: the forward (K1) and its backward (K2), and the two
 kernels of the analytic Hessian-vector product, the tangent of the
 forward along a flow direction (K3, ``fused_iwe_jvp``) and the
-second-order backward (K4, ``fused_iwe_hvp_bwd``).
+second-order backward (K4, ``fused_iwe_hvp_bwd``).  Each also takes a
+time-aware flow voxel ``[T, 2, H, W]`` with per-event time bins
+(``bins``): K5 (forward and backward) and K6 (tangent and HVP backward).
 
-Replaces the TPU kernels of the JAX package (one contract, two TPU
+Replaces the TPU kernels of the JAX package (one contract, three TPU
 layouts):
 
 * ``ops/pallas_objective.py::fused_multi_iwe`` — ``_fwd_kernel`` and the
   custom-VJP ``_bwd_kernel`` on unpacked events;
 * ``ops/pallas_objective_banded.py::fused_multi_iwe_banded`` — the same
   contract on events packed by row band (``_fwd_kernel``/``_fwd_one_chunk``,
-  ``_bwd_kernel``/``_bwd_one_chunk``), the TPU main path.
+  ``_bwd_kernel``/``_bwd_one_chunk``), the TPU main path;
+* ``ops/pallas_objective_banded.py::fused_multi_iwe_banded_voxel`` (K5,
+  ``_vox_fwd_impl`` / ``_vox_vjp_bwd``) and ``..._voxel_jvp`` /
+  ``..._voxel_hvp_bwd`` (K6): the same on events packed by (time bin, row
+  band), the flow a voxel.
 
 Contract, for events ``x, y, dtf, wt`` ``[N]`` and a flow ``[2, H, W]``:
 image ``k`` of the ``[(orig) + K, H, W]`` result is the bilinear vote of
@@ -20,8 +26,12 @@ every event warped to ``x - (dtf - o_k) u, y - (dtf - o_k) v``, with
 ``(u, v)`` gathered at the TRUNCATED source pixel (zero outside the image)
 and corners at ``floor(c + eps)``; image 0 is the unwarped vote when
 ``include_orig``.  The backward gives ``dflow`` from one-sided corner
-derivatives; ``x, y, dtf, wt`` get no gradient.  Band/tile packing, row
-windows and bf16 splits were TPU layout and are not carried over.
+derivatives; ``x, y, dtf, wt`` get no gradient.  With ``bins`` (int32
+``[N]``) the flow is a voxel ``[T, 2, H, W]``: each event gathers from its
+bin's slice (a bin outside ``[0, T)`` is clipped into it, as the TPU packer
+clips it) and the backward gives ``dvoxel [T, 2, H, W]``.  Band/tile
+packing, row windows and bf16 splits were TPU layout and are not carried
+over.
 
 Routing: ``fused_iwe``, ``fused_iwe_jvp`` and ``fused_iwe_hvp_bwd`` run the
 plain version for a tensor on the CPU and the kernel for a CUDA tensor; a
@@ -34,14 +44,15 @@ which changes from run to run.  This pair gives the same bits on every
 run instead: the forward sums the votes in 64-bit fixed point (integer
 atomics, whose order cannot change the sum), and the backward sums each
 source pixel's events in index order, one add per pixel when the events
-are sorted by source pixel, as ``FrameEvents`` sorts them.  The plain
-version sums in another order, so the two agree to rounding.  K3 sums its
-tangent images in fixed point too, in a unit scaled per call on the
-device to the largest tangent vote, and K4 reuses K2's ordered run sums.
+are sorted by source pixel (by time bin, then source pixel, for a voxel),
+as ``FrameEvents`` sorts them.  The plain version sums in another order,
+so the two agree to rounding.  K3 sums its tangent images in fixed point
+too, in a unit scaled per call on the device to the largest tangent vote,
+and K4 reuses K2's ordered run sums.
 """
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -61,19 +72,21 @@ MAX_EVENTS = 2**26
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
-_FWD_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
-_BWD_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _PTR]
-_JVP_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT, _INT] + [_PTR] * 6
-_HVP_ARGS = [_PTR] * 4 + [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 5
+# x, y, dtf, wt, bins, n_bins, n, then each kernel's own arguments
+_EVENTS = [_PTR] * 5 + [_INT, _INT]
+_FWD_ARGS = _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
+_BWD_ARGS = _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _PTR]
+_JVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT, _INT] + [_PTR] * 6
+_HVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 5
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+KERNELS = ("fwd", "bwd", "jvp", "hvp_bwd")
 
 
 def _library():
     kl = load_kernel_library("fused_iwe")
     lib = kl.lib
     if not getattr(lib, "_evflow_bound", False):
-        for direction, args in (("fwd", _FWD_ARGS), ("bwd", _BWD_ARGS), ("jvp", _JVP_ARGS),
-                                ("hvp_bwd", _HVP_ARGS)):
+        for direction, args in zip(KERNELS, (_FWD_ARGS, _BWD_ARGS, _JVP_ARGS, _HVP_ARGS)):
             for suffix in _SUFFIX.values():
                 fn = getattr(lib, f"evflow_fused_iwe_{direction}_{suffix}")
                 fn.argtypes = args
@@ -92,92 +105,127 @@ def _check_like(name: str, t: Tensor, shape, flow: Tensor):
                          f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float]):
+def _n_bins(flow: Tensor, bins: Optional[Tensor]) -> int:
+    return 0 if bins is None else flow.shape[0]
+
+
+def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
+           bins: Optional[Tensor]):
     """Raise on anything the kernels do not take."""
     if flow.device.type != "cuda":
         raise ValueError(f"the fused_iwe kernel runs on CUDA tensors, got a {flow.device} tensor")
     if flow.dtype not in _SUFFIX:
         raise TypeError(f"fused_iwe kernel takes float32 or float64, got {flow.dtype}")
-    if flow.ndim != 3 or flow.shape[0] != 2 or not flow.is_contiguous():
-        raise ValueError(f"flow must be a contiguous [2, H, W] tensor, got {tuple(flow.shape)}")
+    layout = "[2, H, W]" if bins is None else "[T, 2, H, W]"
+    if flow.ndim != (3 if bins is None else 4) or flow.shape[-3] != 2 or not flow.is_contiguous():
+        raise ValueError(f"flow must be a contiguous {layout} tensor, got {tuple(flow.shape)}")
     n = events[0].shape[0]
     for t in events:
         if t.device != flow.device or t.dtype != flow.dtype:
             raise ValueError("x, y, dtf, wt must share the flow's device and dtype")
         if t.ndim != 1 or t.shape[0] != n or not t.is_contiguous():
             raise ValueError("x, y, dtf, wt must be contiguous [N] tensors of one length")
+    if bins is not None and (bins.device != flow.device or bins.dtype != torch.int32
+                             or tuple(bins.shape) != (n,) or not bins.is_contiguous()):
+        raise ValueError(f"bins must be a contiguous int32 [N] tensor on the flow's device, got "
+                         f"{bins.dtype} {tuple(bins.shape)} on {bins.device}")
     if len(offsets) > MAX_OFFSETS:
         raise ValueError(f"at most {MAX_OFFSETS} reference-time offsets, got {len(offsets)}")
     if n >= MAX_EVENTS:
         raise ValueError(f"fused_iwe takes fewer than {MAX_EVENTS} events (fixed-point sums), got {n}")
-    if (len(offsets) + 1) * flow.shape[1] * flow.shape[2] >= 2**31:
+    if max(len(offsets) + 1, 2 * _n_bins(flow, bins)) * flow.shape[-2] * flow.shape[-1] >= 2**31:
         raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
 
 
-def _launch(name: str, flow: Tensor, args):
+def _event_args(x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, flow: Tensor, bins: Optional[Tensor]):
+    """The C interface's leading arguments: x, y, dtf, wt, bins, n_bins, n."""
+    return (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(),
+            None if bins is None else bins.data_ptr(), _n_bins(flow, bins), x.shape[0])
+
+
+# launches per kernel since the last reset; the voxel forms count apart
+_LAUNCHES = {}
+
+
+def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], args):
+    name = f"evflow_fused_iwe_{kernel}_{_SUFFIX[flow.dtype]}"
     stream = torch.cuda.current_stream(flow.device).cuda_stream
     with torch.cuda.device(flow.device):
         rc = getattr(_library(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed: cudaGetLastError() = {rc}")
+    _LAUNCHES[kernel if bins is None else f"voxel_{kernel}"] += 1
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last reset: ``fwd``, ``bwd``,
+    ``jvp``, ``hvp_bwd`` (K1-K4) and their ``voxel_`` forms (K5, K6)."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        _LAUNCHES[k] = _LAUNCHES[f"voxel_{k}"] = 0
+
+
+reset_launch_counts()
 
 
 def fused_iwe_fwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
-                  offsets: Sequence[float], include_orig: bool, eps: float = 1e-6) -> Tensor:
-    """Launch the forward kernel: ``[(orig) + len(offsets), H, W]`` images."""
-    _check(flow, (x, y, dtf, wt), offsets)
-    h, w = flow.shape[1], flow.shape[2]
+                  offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+                  bins: Optional[Tensor] = None) -> Tensor:
+    """Launch the forward kernel (K1; K5 with ``bins``): ``[(orig) +
+    len(offsets), H, W]`` images."""
+    _check(flow, (x, y, dtf, wt), offsets, bins)
+    h, w = flow.shape[-2], flow.shape[-1]
     shape = (len(offsets) + int(include_orig), h, w)
     # fixed-point sums; freed on return while the kernels may still run,
     # which is safe: the caching allocator reuses it only in stream order
     acc = torch.zeros(shape, dtype=torch.int64, device=flow.device)
     out = torch.empty(shape, dtype=flow.dtype, device=flow.device)
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    _launch(
-        f"evflow_fused_iwe_fwd_{_SUFFIX[flow.dtype]}", flow,
-        (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(), x.shape[0],
-         flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
-         acc.data_ptr(), out.data_ptr()),
-    )
-    fused_iwe_fwd.launches += 1
+    _launch("fwd", flow, bins,
+            _event_args(x, y, dtf, wt, flow, bins)
+            + (flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
+               acc.data_ptr(), out.data_ptr()))
     return out
 
 
 def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g: Tensor,
-                  offsets: Sequence[float], include_orig: bool, eps: float = 1e-6) -> Tensor:
-    """Launch the backward kernel: ``dflow [2, H, W]`` for the image
-    cotangent ``g [(orig) + len(offsets), H, W]``."""
-    _check(flow, (x, y, dtf, wt), offsets)
-    k_total = len(offsets) + int(include_orig)
-    _check_like("g", g, (k_total,) + tuple(flow.shape[1:]), flow)
-    h, w = flow.shape[1], flow.shape[2]
+                  offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+                  bins: Optional[Tensor] = None) -> Tensor:
+    """Launch the backward kernel (K2; K5's backward with ``bins``): the
+    gradient of the flow (``[2, H, W]``, or the voxel's ``[T, 2, H, W]``)
+    for the image cotangent ``g [(orig) + len(offsets), H, W]``."""
+    _check(flow, (x, y, dtf, wt), offsets, bins)
+    h, w = flow.shape[-2], flow.shape[-1]
+    _check_like("g", g, (len(offsets) + int(include_orig), h, w), flow)
     duv = torch.empty((2, x.shape[0]), dtype=flow.dtype, device=flow.device)  # per-event du, dv
     dflow = torch.zeros_like(flow)
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    _launch(
-        f"evflow_fused_iwe_bwd_{_SUFFIX[flow.dtype]}", flow,
-        (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(), x.shape[0],
-         flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
-         g.data_ptr(), duv.data_ptr(), dflow.data_ptr()),
-    )
-    fused_iwe_bwd.launches += 1
+    _launch("bwd", flow, bins,
+            _event_args(x, y, dtf, wt, flow, bins)
+            + (flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
+               g.data_ptr(), duv.data_ptr(), dflow.data_ptr()))
     return dflow
 
 
 def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
-                  offsets: Sequence[float], emit_value: bool, eps: float = 1e-6):
-    """K3: the direction images' tangent along ``dflow`` (``[K, H, W]``,
-    ``K = len(offsets)``, no orig image: its tangent is 0), and with
+                  offsets: Sequence[float], emit_value: bool, eps: float = 1e-6,
+                  bins: Optional[Tensor] = None):
+    """K3 (K6's tangent with ``bins``, ``flow`` and ``dflow`` voxels): the
+    direction images' tangent along ``dflow`` (``[K, H, W]``, ``K =
+    len(offsets)``, no orig image: its tangent is 0), and with
     ``emit_value`` first the images themselves, ``fused_iwe_fwd``'s bits:
     ``(images, dimages)``.  The plain version for CPU tensors, the kernel
     for CUDA tensors."""
     if flow.device.type == "cpu":
-        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps)
-    _check(flow, (x, y, dtf, wt), offsets)
+        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps, bins)
+    _check(flow, (x, y, dtf, wt), offsets, bins)
     _check_like("dflow", dflow, flow.shape, flow)
     if not offsets:
         raise ValueError("fused_iwe_jvp computes direction images: give at least one offset")
-    n, (h, w) = x.shape[0], flow.shape[1:]
+    n, h, w = x.shape[0], flow.shape[-2], flow.shape[-1]
     shape = (len(offsets), h, w)
     bound = torch.zeros(1, dtype=torch.int64, device=flow.device)  # bits of the tangent bound
     acc_tan = torch.zeros(shape, dtype=torch.int64, device=flow.device)
@@ -186,96 +234,90 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
     out_val = torch.empty(shape, dtype=flow.dtype, device=flow.device) if emit_value else None
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
     scale_bits = 61 - max(0, (n - 1).bit_length())  # 61 - ceil(log2 N)
-    _launch(
-        f"evflow_fused_iwe_jvp_{_SUFFIX[flow.dtype]}", flow,
-        (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(), n, flow.data_ptr(),
-         dflow.data_ptr(), offs, len(offsets), h, w, float(eps), int(bool(emit_value)), scale_bits,
-         bound.data_ptr(), acc_val.data_ptr() if emit_value else None, acc_tan.data_ptr(),
-         out_val.data_ptr() if emit_value else None, out_tan.data_ptr()),
-    )
-    fused_iwe_jvp.launches += 1
+    _launch("jvp", flow, bins,
+            _event_args(x, y, dtf, wt, flow, bins)
+            + (flow.data_ptr(), dflow.data_ptr(), offs, len(offsets), h, w, float(eps),
+               int(bool(emit_value)), scale_bits, bound.data_ptr(),
+               acc_val.data_ptr() if emit_value else None, acc_tan.data_ptr(),
+               out_val.data_ptr() if emit_value else None, out_tan.data_ptr()))
     return (out_val, out_tan) if emit_value else out_tan
 
 
 def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor, y: Tensor,
                       dtf: Tensor, wt: Tensor, offsets: Sequence[float], term_a: bool,
-                      eps: float = 1e-6) -> Tensor:
-    """K4: the vote's flow-space HVP contribution ``[2, H, W]`` from the
-    cost cotangent ``g1`` and its directional derivative ``g2`` (``[K, H,
-    W]``): term B, the backward against ``g2`` (``fused_iwe_bwd(g2)``'s bits
-    with ``term_a`` off), plus with ``term_a`` the vote's mixed second
-    derivative against ``g1`` along ``dflow``.  The plain version for CPU
-    tensors, the kernel for CUDA tensors."""
+                      eps: float = 1e-6, bins: Optional[Tensor] = None) -> Tensor:
+    """K4 (K6's HVP backward with ``bins``, per bin ``[T, 2, H, W]``): the
+    vote's flow-space HVP contribution from the cost cotangent ``g1`` and
+    its directional derivative ``g2`` (``[K, H, W]``): term B, the backward
+    against ``g2`` (``fused_iwe_bwd(g2)``'s bits with ``term_a`` off), plus
+    with ``term_a`` the vote's mixed second derivative against ``g1`` along
+    ``dflow``.  The plain version for CPU tensors, the kernel for CUDA
+    tensors."""
     if flow.device.type == "cpu":
-        return fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, x, y, dtf, wt, offsets, term_a, eps)
-    _check(flow, (x, y, dtf, wt), offsets)
+        return fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, x, y, dtf, wt, offsets, term_a, eps,
+                                           bins)
+    _check(flow, (x, y, dtf, wt), offsets, bins)
     _check_like("dflow", dflow, flow.shape, flow)
+    n, h, w = x.shape[0], flow.shape[-2], flow.shape[-1]
     for name, g in (("g1", g1), ("g2", g2)):
-        _check_like(name, g, (len(offsets),) + tuple(flow.shape[1:]), flow)
+        _check_like(name, g, (len(offsets), h, w), flow)
     if not offsets:
         raise ValueError("fused_iwe_hvp_bwd computes direction terms: give at least one offset")
-    n, (h, w) = x.shape[0], flow.shape[1:]
     duv = torch.empty((2, n), dtype=flow.dtype, device=flow.device)  # per-event du, dv
     out = torch.zeros_like(flow)
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    _launch(
-        f"evflow_fused_iwe_hvp_bwd_{_SUFFIX[flow.dtype]}", flow,
-        (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(), n, flow.data_ptr(),
-         dflow.data_ptr(), offs, len(offsets), h, w, float(eps), int(bool(term_a)),
-         g1.data_ptr(), g2.data_ptr(), duv.data_ptr(), out.data_ptr()),
-    )
-    fused_iwe_hvp_bwd.launches += 1
+    _launch("hvp_bwd", flow, bins,
+            _event_args(x, y, dtf, wt, flow, bins)
+            + (flow.data_ptr(), dflow.data_ptr(), offs, len(offsets), h, w, float(eps),
+               int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), duv.data_ptr(), out.data_ptr()))
     return out
 
 
-_KERNELS = {"fwd": fused_iwe_fwd, "bwd": fused_iwe_bwd, "jvp": fused_iwe_jvp,
-            "hvp_bwd": fused_iwe_hvp_bwd}
-
-
-def launch_counts() -> dict:
-    """Kernel launches per kernel since the last reset."""
-    return {name: fn.launches for name, fn in _KERNELS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in _KERNELS.values():
-        fn.launches = 0
-
-
-reset_launch_counts()
-
-
 class FusedIWE(torch.autograd.Function):
-    """The kernel pair as an autograd function (CUDA tensors only);
-    differentiable w.r.t. ``flow``."""
+    """The kernel pair (K1/K2, or K5 with ``bins``) as an autograd function
+    (CUDA tensors only); differentiable w.r.t. ``flow``."""
 
     @staticmethod
-    def forward(ctx, flow, x, y, dtf, wt, offsets, include_orig, eps):
+    def forward(ctx, flow, x, y, dtf, wt, bins, offsets, include_orig, eps):
         flow = flow.contiguous()
-        ctx.save_for_backward(flow, x, y, dtf, wt)
+        ctx.save_for_backward(flow, x, y, dtf, wt, bins)
         ctx.config = (offsets, include_orig, eps)
-        return fused_iwe_fwd(flow, x, y, dtf, wt, offsets, include_orig, eps)
+        return fused_iwe_fwd(flow, x, y, dtf, wt, offsets, include_orig, eps, bins)
 
     @staticmethod
     def backward(ctx, g):
-        flow, x, y, dtf, wt = ctx.saved_tensors
+        flow, x, y, dtf, wt, bins = ctx.saved_tensors
         offsets, include_orig, eps = ctx.config
-        dflow = fused_iwe_bwd(flow, x, y, dtf, wt, g.contiguous(), offsets, include_orig, eps)
-        return dflow, None, None, None, None, None, None, None
+        dflow = fused_iwe_bwd(flow, x, y, dtf, wt, g.contiguous(), offsets, include_orig, eps, bins)
+        return dflow, None, None, None, None, None, None, None, None
 
 
-def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
-                        offsets: Sequence[float], include_orig: bool, eps: float = 1e-6) -> Tensor:
-    """The kernel's plain PyTorch version: gather, warp, accumulate the
-    corner votes with ``index_put_(accumulate=True)``; autograd gives the
-    backward."""
+def _gather_uv(flow: Tensor, x: Tensor, y: Tensor, bins: Optional[Tensor]):
+    """(u, v) of each event at its truncated source pixel (of its bin's
+    slice of a voxel, with ``bins``), zero outside the image."""
     h, w = flow.shape[-2], flow.shape[-1]
     inside = (x > -1) & (x < h) & (y > -1) & (y < w)
     zero = torch.zeros_like(x)
     lin = (torch.where(inside, x, zero).to(torch.int64) * w
            + torch.where(inside, y, zero).to(torch.int64))
-    u = torch.where(inside, flow[0].reshape(-1)[lin], zero)
-    v = torch.where(inside, flow[1].reshape(-1)[lin], zero)
+    if bins is None:
+        u, v = flow[0].reshape(-1)[lin], flow[1].reshape(-1)[lin]
+    else:
+        b = bins.to(torch.int64).clamp(0, flow.shape[0] - 1)
+        per_bin = flow.reshape(flow.shape[0], 2, h * w)
+        u, v = per_bin[b, 0, lin], per_bin[b, 1, lin]
+    return torch.where(inside, u, zero), torch.where(inside, v, zero)
+
+
+def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
+                        offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+                        bins: Optional[Tensor] = None) -> Tensor:
+    """The kernel's plain PyTorch version: gather (from the voxel's bin
+    slices with ``bins``), warp, accumulate the corner votes with
+    ``index_put_(accumulate=True)``; autograd gives the backward."""
+    h, w = flow.shape[-2], flow.shape[-1]
+    zero = torch.zeros_like(x)
+    u, v = _gather_uv(flow, x, y, bins)
     coords = [(x, y)] if include_orig else []
     for off in offsets:
         dt = dtf - off
@@ -304,34 +346,37 @@ def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Ten
 
 
 def fused_iwe(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
-              offsets: Sequence[float], include_orig: bool, eps: float = 1e-6) -> Tensor:
+              offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+              bins: Optional[Tensor] = None) -> Tensor:
     """``[(orig) + len(offsets), H, W]`` raw (unblurred) IWEs, differentiable
-    w.r.t. ``flow``: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors."""
+    w.r.t. ``flow`` (a voxel ``[T, 2, H, W]`` with ``bins``): the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if flow.device.type == "cpu":
-        return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps)
-    return FusedIWE.apply(flow, x, y, dtf, wt, tuple(float(o) for o in offsets),
+        return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps, bins)
+    return FusedIWE.apply(flow, x, y, dtf, wt, bins, tuple(float(o) for o in offsets),
                           bool(include_orig), float(eps))
 
 
 def fused_iwe_jvp_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
                             wt: Tensor, offsets: Sequence[float], emit_value: bool,
-                            eps: float = 1e-6):
-    """K3's plain version: ``torch.func.jvp`` of ``fused_iwe_reference``."""
+                            eps: float = 1e-6, bins: Optional[Tensor] = None):
+    """K3's and K6's plain version: ``torch.func.jvp`` of
+    ``fused_iwe_reference``."""
     images, dimages = torch.func.jvp(
-        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps), (flow,), (dflow,))
+        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps, bins), (flow,), (dflow,))
     return (images, dimages) if emit_value else dimages
 
 
 def fused_iwe_hvp_bwd_reference(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor,
                                 y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
-                                term_a: bool, eps: float = 1e-6) -> Tensor:
-    """K4's plain version: term B is the VJP of ``fused_iwe_reference``
-    against ``g2``; term A the double backward of ``<vjp(flow)(g1),
-    dflow>``."""
+                                term_a: bool, eps: float = 1e-6,
+                                bins: Optional[Tensor] = None) -> Tensor:
+    """K4's and K6's plain version: term B is the VJP of
+    ``fused_iwe_reference`` against ``g2``; term A the double backward of
+    ``<vjp(flow)(g1), dflow>``."""
     with torch.enable_grad():
         fl = flow.detach().requires_grad_(True)
-        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps)
+        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps, bins)
         (out,) = torch.autograd.grad(images, fl, g2, retain_graph=term_a)
         if term_a:
             (vjp1,) = torch.autograd.grad(images, fl, g1, create_graph=True)

@@ -5,6 +5,8 @@ limited to what the pyramid CMax eval path runs).
   per-patch init sweep).
 * ``warp_dense_flow`` — per-pixel flow ``x' = x - dt * u(x, y)`` gathered at
   the clipped integer event position (the FWL metric).
+* ``warp_voxel_flow`` — the same with a ``[T, 2, H, W]`` flow voxel, each
+  event reading its time bin's slice (the time-aware FWL metric).
 * ``multi_direction_dense_warp`` — one flow gather, several reference times
   (the plain version of the objective's warps).
 
@@ -128,6 +130,36 @@ def warp_dense_flow(
     """Dense-flow warp of [n, 4] events: x' = x - dt * flow[0, x, y]."""
     dt = calculate_dt(events, reference_time, normalize_t, weights=weights)
     u, v = _gather_flow_clipped(flow, events, image_size)
+    return _replace_xy_t(events, events[..., 0] - dt * u, events[..., 1] - dt * v, dt)
+
+
+def warp_voxel_flow(
+    events: Tensor,
+    flow_voxel: Tensor,
+    reference_time: Tensor,
+    image_size: Tuple[int, int],
+    normalize_t: bool = False,
+    weights: Optional[Tensor] = None,
+) -> Tensor:
+    """Time-aware warp of [n, 4] events with a [T, 2, H, W] flow voxel.
+    Bin edges are ``t_min + k/T (t_max - t_min)``, the last bin open-ended:
+    an event's bin is ``clip(floor((dt - t_min) / (t_max - t_min) T))`` of
+    its (masked) dt; its (u, v) come from that bin's slice at the CLIPPED
+    integer position, as ``warp_dense_flow`` gathers them (the fused
+    kernel instead reads zero outside the image)."""
+    dt = calculate_dt(events, reference_time, normalize_t, weights=weights)
+    n_bins = flow_voxel.shape[0]
+    h, w = image_size
+    t_min = _masked_min(dt, weights)
+    t_max = _masked_max(dt, weights)
+    span = torch.where(t_max > t_min, t_max - t_min, torch.ones_like(t_max))
+    bin_id = torch.floor((dt - t_min) / span * n_bins).to(torch.int64).clamp(0, n_bins - 1)
+    ix = events[..., 0].to(torch.int64).clamp(0, h - 1)
+    iy = events[..., 1].to(torch.int64).clamp(0, w - 1)
+    flat = flow_voxel.reshape(n_bins, 2, -1)
+    lin = ix * w + iy
+    u = flat[bin_id, 0, lin]
+    v = flat[bin_id, 1, lin]
     return _replace_xy_t(events, events[..., 0] - dt * u, events[..., 1] - dt * v, dt)
 
 

@@ -16,7 +16,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..costs import functional as F
+from ..flow import voxel
+from ..flow.metrics import calculate_flow_error
+from ..ops.iwe import create_iwe, event_mask
+from ..ops.warp import calculate_reftime, warp_dense_flow, warp_voxel_flow
 from ..state import from_jax
+from ..utils import check_key_and_bool
 
 logger = logging.getLogger(__name__)
 
@@ -62,10 +68,26 @@ class SolverBase:
         self._rng = np.random.default_rng(self.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.candidates_fn = candidates_fn
+        self.setup_time_aware()
         logger.info(
             f"Solver config: {solver_config}; optimizer: {optimizer_config}; "
             f"device {self.device}, dtype {self.dtype}"
         )
+
+    def setup_time_aware(self):
+        """``solver.time_aware``: the flow is a ``[time_bin, 2, H, W]``
+        voxel propagated from t0 by ``flow_interpolation``.  For a dense
+        flow ``time_bin``, ``flow_interpolation`` and ``t0_flow_location``
+        are None and ``scale_later`` is False."""
+        ta = self.is_time_aware = check_key_and_bool(self.slv_config, "time_aware")
+        self.time_bin = int(self.slv_config.get("time_bin", 10)) if ta else None
+        self.flow_interpolation = self.slv_config["flow_interpolation"] if ta else None
+        self.t0_flow_location = self.slv_config["t0_flow_location"] if ta else None
+        self.scale_later = ta and check_key_and_bool(self.slv_config, "scale_later")
+
+    def get_original_flow_from_time_aware_flow_voxel(self, flow_voxel: torch.Tensor) -> torch.Tensor:
+        """``[(b,) T, 2, H, W]`` -> the t0 slice ``[(b,) 2, H, W]``."""
+        return flow_voxel[..., voxel.t0_index(flow_voxel.shape[-4], self.t0_flow_location), :, :, :]
 
     def tensor(self, a) -> torch.Tensor:
         """Host array -> the solver's device and dtype."""
@@ -85,6 +107,40 @@ class SolverBase:
                                 fname: str = "flow_error_per_frame.txt"):
         with open(os.path.join(out_dir, fname), "a") as f:
             f.write(f"frame {nth_frame}::" + str(flow_error_dict) + "\n")
+
+    # --- metrics -----------------------------------------------------------
+    def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
+        """The solution as a displacement over ``timescale`` seconds:
+        ``[2, H, W]``, or the time-aware voxel ``[T, 2, H, W]``."""
+        raise NotImplementedError
+
+    def _fwl(self, events: torch.Tensor, flow: torch.Tensor, orig_iwe: torch.Tensor) -> torch.Tensor:
+        """Var(IWE_orig)/Var(IWE_warped) of a dense displacement (or a
+        voxel of them); < 1 is better."""
+        warp = warp_voxel_flow if flow.ndim == 4 else warp_dense_flow
+        warped = warp(events, flow, calculate_reftime(events, "first"), self.image_shape, normalize_t=True)
+        warped_iwe = create_iwe(warped, self.image_shape, sigma=1, blur_mode="scipy")
+        return 1.0 / F.normalized_image_variance(warped_iwe, orig_iwe, omit_boundary=False, ddof=0)
+
+    def calculate_flow_error(self, motion, gt_flow: np.ndarray, timescale: float, events: np.ndarray) -> dict:
+        """AEE/NPE/AE with the event mask, plus GT_FWL and PRED_FWL, of the
+        solution against the GT displacement ``gt_flow [H, W, 2]`` over a
+        window of ``timescale`` seconds.  A time-aware solution is scored
+        on its t0 slice (EPE) and warps through the whole voxel (PRED_FWL);
+        GT_FWL stays dense."""
+        with torch.no_grad():
+            e = self.tensor(events)
+            gt = self.tensor(np.transpose(np.asarray(gt_flow), (2, 0, 1)))
+            pred = self.predicted_flow(motion, timescale)
+            pred_t0 = self.get_original_flow_from_time_aware_flow_voxel(pred) if self.is_time_aware else pred
+            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy")
+            mask = event_mask(e, self.image_shape)[None]
+            err = calculate_flow_error(gt[None], pred_t0[None], mask)
+            err["GT_FWL"] = self._fwl(e, gt, orig_iwe)
+            err["PRED_FWL"] = self._fwl(e, pred, orig_iwe)
+            flow_error = {k: float(v) for k, v in err.items()}
+        logger.info(f"flow_error = {flow_error} for time period {timescale} sec.")
+        return flow_error
 
     def optimize(self, events: np.ndarray):
         raise NotImplementedError

@@ -1,0 +1,85 @@
+"""Single-scale tile CMax solver (port of
+``event_based_optical_flow_tpu/solver/mixed.py``): one tile grid from
+``patch.size`` / ``patch.sliding_window``, its motion solved jointly by the
+device Newton-CG (gtol 1e-7, as the JAX package's device branch).
+
+Only that branch is ported: the JAX package's host scipy methods, its
+sampling ("optuna") optimizer and its optax first-order loops raise a
+``ConfigError``, and so do the ``global-best`` / ``grid-best``
+initializations.
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from ..ops.interp import tile_to_dense_flow
+from ..utils.config_schema import ConfigError
+from .objective import FrameEvents, build_orig_iwe
+from .patch_base import PatchContrastMaximization, prepare_patch
+
+logger = logging.getLogger(__name__)
+
+
+class MixedPatchContrastMaximization(PatchContrastMaximization):
+    def __init__(self, image_shape: tuple, calibration_parameter: dict, solver_config: dict = {},
+                 optimizer_config: dict = {}, output_config: dict = {}, **kwargs):
+        super().__init__(image_shape, calibration_parameter, solver_config, optimizer_config,
+                         output_config, **kwargs)
+        size, sw = self.slv_config["patch"]["size"], self.slv_config["patch"]["sliding_window"]
+        self.patch_size = (size, size) if isinstance(size, int) else tuple(size)
+        self.sliding_window = (sw, sw) if isinstance(sw, int) else tuple(sw)
+        self.patches, self.patch_image_size = prepare_patch(image_shape, self.patch_size, self.sliding_window)
+        self.n_patch = len(self.patches)
+        self.last_frame_stats: dict = {}
+
+    def _initial_motion(self) -> torch.Tensor:
+        if self.previous_frame_best_estimation is not None:
+            return self.previous_frame_best_estimation.clone()
+        init = self.slv_config["patch"]["initialize"]
+        if init == "random":
+            return self.initialize_random()
+        if init == "zero":
+            return self.initialize_zeros()
+        raise ConfigError(f"'solver.patch.initialize: {init!r}' is not ported yet")
+
+    def optimize(self, events: np.ndarray) -> torch.Tensor:
+        """Solve one frame: the tile motion [2, h_p, w_p] on the solver's
+        device."""
+        if self.opt_config["method"] != "Newton-CG" or not self.opt_config.get("device", True):
+            raise ConfigError(f"optimizer.method {self.opt_config['method']!r} on the host is not "
+                              "ported yet (the device Newton-CG is)")
+        logger.info(f"Start optimization; DoF {self.motion_vector_size * self.n_patch}")
+        events = np.asarray(events, dtype=np.float64)
+        spec = self._current_spec()
+        frame = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
+        from ..ops import fused_iwe
+
+        before = fused_iwe.launch_counts()
+        motion0 = self._initial_motion()
+        self.syncs = 0
+        best_x, best_f, n_iter, hvp = self._run_newton(
+            spec, motion0, frame, build_orig_iwe(spec)(frame), int(self.opt_config.get("max_iter", 25)),
+            finest=True, warm=self.previous_frame_best_estimation is not None, gtol=1e-7)
+        loss = float(best_f)
+        after = fused_iwe.launch_counts()
+        self.last_frame_stats = {
+            "iters": {0: n_iter}, "loss": {0: loss}, "hvp": {0: hvp}, "events": {0: len(events)},
+            "launches": {0: {k: after[k] - before[k] for k in after}}, "syncs": self.syncs + 1,
+        }
+        logger.info(f"Done: {n_iter} iters ({hvp} HVP), loss {loss:.6f}")
+        return best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
+
+    def set_previous_frame_best_estimation(self, previous_best):
+        """Warm start from the previous frame's tile motion (a tensor, or
+        the JAX layout's numpy array)."""
+        self.previous_frame_best_estimation = self.tensor(
+            previous_best.detach().cpu() if torch.is_tensor(previous_best) else previous_best)
+
+    def motion_to_dense_flow(self, motion: torch.Tensor) -> torch.Tensor:
+        return tile_to_dense_flow(torch.as_tensor(motion).reshape(-1), self.patch_image_size, self.image_shape,
+                                  self.patch_size, self.sliding_window, self.patch_shift, self.filter_type)
+
+    def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
+        return self.motion_to_dense_flow(torch.as_tensor(motion) * timescale)

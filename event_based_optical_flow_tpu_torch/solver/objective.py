@@ -9,7 +9,11 @@ warp+vote kernel for the reference-time offsets the cost needs (0 first,
 1 last, 0.5 middle) -> 3-tap blur -> cost (hybrid: multi-focal normalized
 gradient magnitude + total variation of the raw tile motion) ->
 ``nan_to_penalty``.  The orig IWE never depends on the motion: it is
-voted and blurred once per frame and passed in.
+voted and blurred once per frame and passed in.  A time-aware objective
+propagates the dense flow into a ``[time_bin, 2, H, W]`` voxel (Burgers,
+upwind or a direct scheme, ``flow/voxel.py``) and votes each event with
+its time bin's slice (K5; the orig IWE is the same image as from a zero
+voxel).
 
 The analytic HVP (Gauss-Newton by default): with L(m) = C(F(flow(m)), m),
 F the vote and flow(m) linear in m,
@@ -18,7 +22,11 @@ F the vote and flow(m) linear in m,
 directional derivative along ``(dimages, p)``.  The kernels give
 ``dimages`` (K3) and the bracket (K4; its first term, the vote's own
 curvature, only without Gauss-Newton); the cost (blur, Sobel, hybrid, TV)
-is differentiated by ``torch.func``: ``jvp`` of its ``grad``.
+is differentiated by ``torch.func``: ``jvp`` of its ``grad``.  The
+time-aware motion -> voxel map is nonlinear: its tangent and transpose
+come from ``torch.func.jvp`` / ``vjp`` of the map (the Gauss-Newton
+linearization; the map's own curvature is never built, so only the
+Gauss-Newton form applies), and K6 takes K3/K4's place.
 
 Per-frame event inputs (``FrameEvents``) are built on the host in float64
 from the masked time min/max, as the JAX banded path packs them, and cast
@@ -35,6 +43,7 @@ from .. import costs as costs_mod
 from ..costs.functional import nan_to_penalty
 from ..ops.blur import gaussian_blur3
 from ..ops.fused_iwe import fused_iwe, fused_iwe_hvp_bwd, fused_iwe_jvp
+from ..flow.voxel import DEVICE_SCHEMES, construct_dense_flow_voxel
 from ..ops.interp import tile_to_dense_flow
 
 Tensor = torch.Tensor
@@ -53,6 +62,11 @@ class ObjectiveSpec:
     blur_sigma: float
     cost_name: str
     cost_with_weight: Optional[Tuple[Tuple[str, object], ...]]  # for hybrid
+    time_aware: bool = False
+    time_bin: Optional[int] = None  # the three set when time_aware
+    flow_interpolation: Optional[str] = None
+    t0_location: Optional[str] = None
+    scale_later: bool = False
 
 
 @dataclass
@@ -60,31 +74,47 @@ class FrameEvents:
     """One frame's events as the fused kernel takes them: ``x, y`` pixel
     coordinates, ``dtf`` time normalized to [0, 1] by the masked min/max,
     ``wt`` weights, each ``[N]``; ``t_scale`` = t_max - t_min (a 0-d
-    tensor).  The events are sorted by their source pixel (truncated
-    ``x``, ``y`` in the target dtype), which makes the fused kernel's
-    backward add each pixel's gradient once, in a fixed order."""
+    tensor); for a time-aware objective ``bins``, each event's time bin
+    (int32 ``[N]``), else None.  The events are sorted by their source
+    pixel (truncated ``x``, ``y`` in the target dtype), by time bin first
+    when there are bins, which makes the fused kernel's backward add each
+    (bin,) pixel's gradient once, in a fixed order."""
 
     x: Tensor
     y: Tensor
     dtf: Tensor
     wt: Tensor
     t_scale: Tensor
+    bins: Optional[Tensor] = None
 
     @classmethod
-    def from_numpy(cls, events: np.ndarray, device, dtype) -> "FrameEvents":
+    def from_numpy(cls, events: np.ndarray, device, dtype,
+                   time_bin: Optional[int] = None) -> "FrameEvents":
+        """``time_bin``: the voxel's bin count of a time-aware objective;
+        each event's bin is ``clip(floor(dtf * time_bin), 0, time_bin - 1)``
+        of the float64 ``dtf``, as the JAX package packs them (a float32
+        ``dtf`` would move events on bin edges to another bin)."""
         ev = np.asarray(events, dtype=np.float64)
-        xy = torch.as_tensor(ev[:, :2]).to(dtype).trunc().to(torch.int64).numpy()
-        ev = ev[np.lexsort((xy[:, 1], xy[:, 0]))]
         t = ev[:, 2]
         t_min, t_max = t.min(), t.max()
         span = (t_max - t_min) or 1.0
         dtf = (t - t_min) / span
+        xy = torch.as_tensor(ev[:, :2]).to(dtype).trunc().to(torch.int64).numpy()
+        keys = (xy[:, 1], xy[:, 0])
+        bins = None
+        if time_bin is not None:
+            bins = np.clip(np.floor(dtf * time_bin).astype(np.int64), 0, time_bin - 1)
+            keys += (bins,)
+        order = np.lexsort(keys)
+        ev, dtf = ev[order], dtf[order]
 
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
         return cls(dev(ev[:, 0]), dev(ev[:, 1]), dev(dtf), dev(np.ones(len(ev))),
-                   torch.as_tensor(t_max - t_min, dtype=dtype, device=device))
+                   torch.as_tensor(t_max - t_min, dtype=dtype, device=device),
+                   None if bins is None else torch.as_tensor(bins[order], dtype=torch.int32,
+                                                             device=device))
 
 
 def make_cost(spec: ObjectiveSpec):
@@ -93,12 +123,22 @@ def make_cost(spec: ObjectiveSpec):
     return costs_mod.functions[spec.cost_name](direction="minimize")
 
 
-def motion_to_dense_flow(spec: ObjectiveSpec, motion_flat: Tensor) -> Tensor:
-    """Tile motion [2 * h_p * w_p] -> dense flow [2, H, W]."""
-    return tile_to_dense_flow(
+def motion_to_dense_flow(spec: ObjectiveSpec, motion_flat: Tensor, t_scale=1.0) -> Tensor:
+    """Tile motion [2 * h_p * w_p] -> dense flow [2, H, W], or for a
+    time-aware spec the voxel [time_bin, 2, H, W]: the chain runs on
+    ``dense * t_scale / scale`` (``scale`` the dense flow's max with
+    ``scale_later``, else 1) and the voxel is rescaled by
+    ``scale / t_scale``, in the JAX package's order."""
+    dense = tile_to_dense_flow(
         motion_flat, spec.patch_image_size, spec.image_shape, spec.patch_size,
         spec.sliding_window, spec.patch_shift, spec.filter_type,
     )
+    if not spec.time_aware:
+        return dense
+    scale = torch.amax(dense) if spec.scale_later else 1.0
+    voxel = construct_dense_flow_voxel(dense * t_scale / scale, spec.time_bin,
+                                       spec.flow_interpolation, t0_location=spec.t0_location)
+    return voxel * scale / t_scale
 
 
 def _directions(required) -> list:
@@ -162,7 +202,14 @@ def _cost_of_images(spec: ObjectiveSpec):
 
 
 def _flow(spec: ObjectiveSpec, motion_flat: Tensor, frame: FrameEvents) -> Tensor:
-    return motion_to_dense_flow(spec, motion_flat) * frame.t_scale
+    """The kernel's flow (x ``t_scale``): dense, or the time-aware voxel."""
+    if spec.time_aware != (frame.bins is not None):
+        raise ValueError("a time-aware objective takes FrameEvents with time bins "
+                         "(FrameEvents.from_numpy(..., time_bin=spec.time_bin)), a dense one without")
+    if spec.time_aware and spec.flow_interpolation not in DEVICE_SCHEMES:
+        raise ValueError(f"the objective runs the voxel schemes {DEVICE_SCHEMES}, "
+                         f"not {spec.flow_interpolation!r}")
+    return motion_to_dense_flow(spec, motion_flat, frame.t_scale) * frame.t_scale
 
 
 def build_objective(spec: ObjectiveSpec):
@@ -171,21 +218,19 @@ def build_objective(spec: ObjectiveSpec):
 
     def objective(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
         flow = _flow(spec, motion_flat, frame)
-        imgs = fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+        imgs = fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False, bins=frame.bins)
         return cost_of(imgs, motion_flat, orig_blurred)
 
     return objective
 
 
 def objective_supports_analytic_hvp(spec: ObjectiveSpec, gauss_newton: bool = True) -> bool:
-    """Whether the analytic HVP applies to this objective: the port's
-    objective always runs the fused kernels on dense tile motion, whose
-    motion -> flow map is linear, so the assembly is exact, full Hessian
-    included; it needs at least one warped direction image (the kernels
-    compute no orig image).  Time-aware (voxel) objectives, which the JAX
-    package admits for Gauss-Newton only, are not ported."""
-    del gauss_newton  # both forms apply to every linear motion -> flow map
-    return bool(_cost_of_images(spec)[0])
+    """Whether the analytic HVP applies to this objective: it needs at
+    least one warped direction image (the kernels compute no orig image).
+    The dense tile motion -> flow map is linear, so the assembly is exact,
+    full Hessian included; the time-aware motion -> voxel map is not, so
+    a time-aware objective takes the Gauss-Newton form only."""
+    return bool(_cost_of_images(spec)[0]) and (gauss_newton or not spec.time_aware)
 
 
 def _hvp_assembly(spec: ObjectiveSpec, gauss_newton: bool):
@@ -199,17 +244,23 @@ def _hvp_assembly(spec: ObjectiveSpec, gauss_newton: bool):
         (g1, _), (g2, dgm) = torch.func.jvp(
             lambda ii, mm: grad_cost(ii, mm, orig_blurred), (images, motion_flat), (dimages, p))
         dgflow = fused_iwe_hvp_bwd(flow, dflow, g1.contiguous(), g2.contiguous(), frame.x, frame.y,
-                                   frame.dtf, frame.wt, offsets, not gauss_newton)
+                                   frame.dtf, frame.wt, offsets, not gauss_newton, bins=frame.bins)
         return flow_vjp(dgflow)[0] + dgm
 
     return offsets, assemble
 
 
 def _flow_and_tangent(spec: ObjectiveSpec, motion_flat: Tensor, p: Tensor, frame: FrameEvents):
-    """(flow, dflow, the map's transpose): the map is linear, so its
-    tangent along p is the map of p."""
-    flow, flow_vjp = torch.func.vjp(lambda m: _flow(spec, m, frame), motion_flat)
-    return flow.contiguous(), _flow(spec, p, frame).contiguous(), flow_vjp
+    """(flow, dflow, the map's transpose).  The dense map is linear, so
+    its tangent along p is the map of p; the time-aware map is not, so its
+    tangent is ``torch.func.jvp``'s."""
+    flow_fn = lambda m: _flow(spec, m, frame)  # noqa: E731
+    flow, flow_vjp = torch.func.vjp(flow_fn, motion_flat)
+    if spec.time_aware:
+        _, dflow = torch.func.jvp(flow_fn, (motion_flat,), (p,))
+    else:
+        dflow = flow_fn(p)
+    return flow.contiguous(), dflow.contiguous(), flow_vjp
 
 
 def build_objective_hvp(spec: ObjectiveSpec, gauss_newton: bool = True):
@@ -221,7 +272,7 @@ def build_objective_hvp(spec: ObjectiveSpec, gauss_newton: bool = True):
     def hvp(motion_flat: Tensor, p: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
         flow, dflow, flow_vjp = _flow_and_tangent(spec, motion_flat, p, frame)
         images, dimages = fused_iwe_jvp(flow, dflow, frame.x, frame.y, frame.dtf, frame.wt,
-                                        offsets, True)
+                                        offsets, True, bins=frame.bins)
         return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)
 
     return hvp
@@ -231,18 +282,21 @@ def build_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool = True):
     """``(prep, hvp)`` for the CG loop: ``aux = prep(motion, orig, frame)``
     votes the direction images once per CG solve (K1: they depend on the
     iterate, not on the CG direction); ``hvp(aux, motion, p, orig, frame)``
-    runs K3 for the tangent only, the cost's jvp-of-grad and K4."""
+    runs K3 for the tangent only, the cost's jvp-of-grad and K4 (K6 for
+    a time-aware objective)."""
     offsets, assemble = _hvp_assembly(spec, gauss_newton)
 
     def prep(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents) -> Tensor:
         with torch.no_grad():
             flow = _flow(spec, motion_flat, frame)
-            return fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+            return fused_iwe(flow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False,
+                             bins=frame.bins)
 
     def hvp(images: Tensor, motion_flat: Tensor, p: Tensor, orig_blurred: Optional[Tensor],
             frame: FrameEvents):
         flow, dflow, flow_vjp = _flow_and_tangent(spec, motion_flat, p, frame)
-        dimages = fused_iwe_jvp(flow, dflow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False)
+        dimages = fused_iwe_jvp(flow, dflow, frame.x, frame.y, frame.dtf, frame.wt, offsets, False,
+                                bins=frame.bins)
         return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)
 
     return prep, hvp

@@ -8,7 +8,10 @@ the banded objective, with the HVP chosen per (warmth, scale) by
 ``optimizer.hvp_mode`` (``_want_analytic``): the central (or one-sided)
 finite-difference HVP, or the analytic Gauss-Newton HVP through the JVP
 and HVP-backward kernels (full Hessian with ``analytic-full``).  The orig
-IWE is voted once per event set and passed to the solve.
+IWE is voted once per event set and passed to the solve.  A time-aware
+spec routes to the voxel kernels (K5; K6 for the analytic HVP, whose
+assembly is Gauss-Newton only there: ``analytic-full`` warns and solves
+with the FD HVP).
 """
 
 import logging
@@ -102,6 +105,11 @@ class PatchContrastMaximization(SolverBase):
                 if self.slv_config["cost"] == "hybrid"
                 else None
             ),
+            time_aware=self.is_time_aware,
+            time_bin=self.time_bin,
+            flow_interpolation=self.flow_interpolation,
+            t0_location=self.t0_flow_location,
+            scale_later=self.scale_later,
         )
 
     def _want_analytic(self, warm: bool, finest: bool) -> bool:
@@ -125,7 +133,7 @@ class PatchContrastMaximization(SolverBase):
 
     def _run_newton(self, spec: ObjectiveSpec, x0: torch.Tensor, frame: FrameEvents,
                     orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
-                    warm: bool = False):
+                    warm: bool = False, gtol: float = 1e-5):
         """One Newton-CG solve of this scale's objective from ``x0``
         (flat [2 * n_patch]); returns (best_x, best_f, n_iter, hvp), hvp
         naming the curvature model: "fd", "analytic-gn" or
@@ -136,8 +144,13 @@ class PatchContrastMaximization(SolverBase):
                            "— using fd")
             self._warned_hvp_mode = True
         gauss_newton = mode != "analytic-full"
-        analytic = (self._want_analytic(warm, finest)
-                    and objective_supports_analytic_hvp(spec, gauss_newton=gauss_newton))
+        analytic = self._want_analytic(warm, finest)
+        if analytic and not objective_supports_analytic_hvp(spec, gauss_newton=gauss_newton):
+            if not getattr(self, "_warned_analytic_hvp", False):
+                logger.warning("optimizer.hvp_mode: analytic is not supported for this objective "
+                               "(time-aware: analytic-full) — falling back to the FD HVP")
+                self._warned_analytic_hvp = True
+            analytic = False
         obj = build_objective(spec)
         hvp_kw = {"hvp_mode": "fd"}
         if analytic:
@@ -155,7 +168,7 @@ class PatchContrastMaximization(SolverBase):
             cg_maxiter=int(cg_maxiter if cg_maxiter is not None
                            else self.opt_config.get("cg_maxiter", 32)),
             xtol=1e-5,
-            gtol=1e-5,
+            gtol=gtol,
             fd_central=bool(self.opt_config.get("hvp_central", True)),
             **hvp_kw,
         )

@@ -9,6 +9,9 @@ motion or the cold init; every finer scale starts from the expanded
 coarser solution (averaged with the previous frame's when warm), refined
 per patch by the sampling sweep; each scale is then solved by Newton-CG.
 A fine-to-coarse pyramid_reduce feedback produces the per-scale result.
+With ``solver.time_aware`` every scale's objective votes through the flow
+voxel propagated from its tile motion (K5), and the metrics score the
+voxel's t0 slice.
 With ``optimizer.coarse_event_fraction`` below 1, every scale but the
 finest solves its Newton problem on a stride subsample of the events (its
 own ``FrameEvents`` and its own orig IWE); the init sweep and the finest
@@ -25,11 +28,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..costs import functional as F
-from ..flow.metrics import calculate_flow_error
-from ..ops.interp import pyramid_expand, pyramid_reduce, tile_to_dense_flow
-from ..ops.iwe import create_iwe, event_mask
-from ..ops.warp import calculate_reftime, warp_dense_flow
+from ..ops.interp import pyramid_expand, pyramid_reduce
+from . import objective
 from .objective import FrameEvents, build_orig_iwe
 from .patch_base import PatchContrastMaximization, prepare_patch
 
@@ -123,11 +123,11 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         orig_fn = build_orig_iwe(self._current_spec())
         # (FrameEvents, orig IWE) of the full frame and of the coarse scales'
         # subsample: the orig IWE depends on the events only
-        full = FrameEvents.from_numpy(events, self.device, self.dtype)
+        full = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
         newton_events = {"full": (full, orig_fn(full))}
         sub = coarse_subsample(events, float(self.opt_config.get("coarse_event_fraction", 1.0)))
         if sub is not None:
-            coarse = FrameEvents.from_numpy(sub, self.device, self.dtype)
+            coarse = FrameEvents.from_numpy(sub, self.device, self.dtype, self.time_bin)
             newton_events["coarse"] = (coarse, orig_fn(coarse))
         warm = self.previous_frame_best_estimation is not None
         self.syncs = 0
@@ -198,34 +198,12 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
 
     # --------------------------------------------------------------- metrics
     def motion_to_dense_flow(self, pyramidal_motion, t_scale: float = 1.0) -> torch.Tensor:
-        """Finest-scale tiles -> dense flow [2, H, W] (pix/s)."""
+        """Finest-scale tiles -> dense flow [2, H, W] (pix/s), or for a
+        time-aware solver the voxel [T, 2, H, W] of a window of ``t_scale``
+        seconds, divided by ``t_scale``."""
         finest = pyramidal_motion[self.current_scale] if isinstance(pyramidal_motion, dict) else pyramidal_motion
-        return tile_to_dense_flow(
-            torch.as_tensor(finest).reshape(-1), self.patch_image_size, self.image_shape,
-            self.patch_size, self.sliding_window, self.patch_shift, self.filter_type,
-        )
+        return objective.motion_to_dense_flow(self._current_spec(), torch.as_tensor(finest).reshape(-1),
+                                              t_scale)
 
-    def _fwl(self, events: torch.Tensor, flow: torch.Tensor, orig_iwe: torch.Tensor) -> torch.Tensor:
-        """Var(IWE_orig)/Var(IWE_warped) of a dense displacement; < 1 is
-        better."""
-        warped = warp_dense_flow(events, flow, calculate_reftime(events, "first"),
-                                 self.image_shape, normalize_t=True)
-        warped_iwe = create_iwe(warped, self.image_shape, sigma=1, blur_mode="scipy")
-        return 1.0 / F.normalized_image_variance(warped_iwe, orig_iwe, omit_boundary=False, ddof=0)
-
-    def calculate_flow_error(self, motion, gt_flow: np.ndarray, timescale: float, events: np.ndarray) -> dict:
-        """AEE/NPE/AE with the event mask, plus GT_FWL and PRED_FWL, of the
-        finest motion against the GT displacement ``gt_flow [H, W, 2]``
-        over a window of ``timescale`` seconds."""
-        with torch.no_grad():
-            e = self.tensor(events)
-            gt = self.tensor(np.transpose(np.asarray(gt_flow), (2, 0, 1)))
-            pred = self.motion_to_dense_flow(motion) * timescale
-            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy")
-            mask = event_mask(e, self.image_shape)[None]
-            err = calculate_flow_error(gt[None], pred[None], mask)
-            err["GT_FWL"] = self._fwl(e, gt, orig_iwe)
-            err["PRED_FWL"] = self._fwl(e, pred, orig_iwe)
-            flow_error = {k: float(v) for k, v in err.items()}
-        logger.info(f"flow_error = {flow_error} for time period {timescale} sec.")
-        return flow_error
+    def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
+        return self.motion_to_dense_flow(motion, timescale) * timescale

@@ -24,6 +24,9 @@ def from_jax(motion_by_scale: Dict[int, np.ndarray], device, dtype) -> MotionSta
     }
 
 
-def to_numpy(state: MotionState) -> Dict[int, np.ndarray]:
-    """The port's state -> the JAX layout (float64 numpy arrays)."""
+def to_numpy(state):
+    """The port's state -> the JAX layout (float64 numpy arrays): a dict per
+    scale, or one array for a single-scale solver's motion."""
+    if torch.is_tensor(state):
+        return state.detach().to("cpu", torch.float64).numpy()
     return {int(s): m.detach().to("cpu", torch.float64).numpy() for s, m in state.items()}

@@ -3,9 +3,9 @@
 
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
-dataset, solver, optimizer or cost, time-aware solving, fleet batching,
-the DNN path, flow dumps) fails fast here with the YAML path of the entry,
-instead of deep inside a solve.  Unknown keys produce warnings.
+dataset, solver, optimizer or cost, a host griddata voxel scheme, fleet
+batching, the DNN path, flow dumps) fails fast here with the YAML path of
+the entry, instead of deep inside a solve.  Unknown keys produce warnings.
 """
 
 import logging
@@ -68,7 +68,6 @@ _KNOWN_OPT_KEYS = {
 # JAX-package options that select a part of the system the port does not
 # run yet: (section, key, value the port runs, reason)
 _UNPORTED = (
-    ("solver", "time_aware", False, "time-aware solving"),
     ("solver", "outer_padding", 0, "outer padding"),
     ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solver"),
     ("optimizer", "warm_finest_only", False, "the warm finest-only fast path"),
@@ -133,6 +132,21 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     _require(iwe, "blur_sigma", _NUM, "solver.iwe")
     _choice(slv, "precision", {"32", "64", 32, 64}, "solver")
     _choice(slv, "iwe_backend", {"auto", "scatter", "matmul", "pallas", "pallas_bf16"}, "solver")
+    if slv.get("time_aware"):
+        from ..flow.voxel import DEVICE_SCHEMES, HOST_SCHEMES
+
+        for key in ("flow_interpolation", "t0_flow_location"):
+            _require(slv, key, str, "solver")
+        _choice(slv, "t0_flow_location", {"first", "middle"}, "solver")
+        tb = slv.get("time_bin", 10)
+        if not isinstance(tb, int) or tb < 1:
+            raise ConfigError(f"config key 'solver.time_bin' must be a positive int, got {tb!r}")
+        scheme = _choice(slv, "flow_interpolation", set(DEVICE_SCHEMES) | set(HOST_SCHEMES), "solver")
+        if scheme in HOST_SCHEMES:
+            raise ConfigError(
+                f"config key 'solver.flow_interpolation: {scheme!r}' selects a host scipy griddata "
+                "scheme, which the JAX package solves on its non-fused objective: not ported yet"
+            )
     for key in slv:
         if key not in _KNOWN_SOLVER_KEYS:
             warnings.append(f"unknown config key 'solver.{key}' (ignored?)")

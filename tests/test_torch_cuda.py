@@ -1,8 +1,9 @@
 """GPU tests of the PyTorch port: the hand-written CUDA kernels (the fused
-vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4)
-against their plain PyTorch versions, and the fused objective and its
-analytic HVP on the GPU against the same on the CPU.  Every test needs an
-NVIDIA GPU and skips without one (``cuda`` marker).
+vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4;
+their time-aware voxel forms, K5/K6) against their plain PyTorch versions,
+and the fused objective and its analytic HVP (dense and time-aware) on the
+GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
+without one (``cuda`` marker).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -101,7 +102,8 @@ def test_launch_counters_and_autograd(cuda_device):
     FI.reset_launch_counts()
     imgs = FI.fused_iwe(fl, *ev, OFFSETS, False)
     (imgs * t(g_np[1:])).sum().backward()
-    assert FI.launch_counts() == {"fwd": 1, "bwd": 1, "jvp": 0, "hvp_bwd": 0}
+    assert FI.launch_counts() == {"fwd": 1, "bwd": 1, "jvp": 0, "hvp_bwd": 0, "voxel_fwd": 0,
+                                  "voxel_bwd": 0, "voxel_jvp": 0, "voxel_hvp_bwd": 0}
     with pytest.raises(ValueError):
         FI.fused_iwe_fwd(fl.detach(), *ev, tuple(range(FI.MAX_OFFSETS + 1)), False)
 
@@ -168,7 +170,8 @@ def test_second_order_launch_counts_and_checks(cuda_device):
     FI.reset_launch_counts()
     FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, True)
     FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, False)
-    assert FI.launch_counts() == {"fwd": 0, "bwd": 0, "jvp": 1, "hvp_bwd": 1}
+    assert FI.launch_counts() == {"fwd": 0, "bwd": 0, "jvp": 1, "hvp_bwd": 1, "voxel_fwd": 0,
+                                  "voxel_bwd": 0, "voxel_jvp": 0, "voxel_hvp_bwd": 0}
     with pytest.raises(ValueError):
         FI.fused_iwe_jvp(fl, dfl[:, :-1].contiguous(), *ev, OFFSETS, False)
     with pytest.raises(ValueError):
@@ -239,3 +242,142 @@ def test_objective_on_gpu_matches_cpu(cuda_device):
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda_device)]
     assert l_gpu == pytest.approx(l_cpu, rel=1e-9)
     np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-7, atol=1e-9)
+
+
+T_BINS = 4
+
+
+def _voxel_inputs(dtype, device, seed=2):
+    """Events sorted by (time bin, source pixel) as ``FrameEvents`` sorts
+    them (some on bin edges, some outside the image), a voxel whose bins
+    differ, a tangent voxel and cotangents."""
+    (x, y, dtf, _), _, g_np = _inputs(seed)
+    rng = np.random.default_rng(seed + 10)
+    x, y = x.copy(), y.copy()
+    x[300:320], y[320:340] = -3.0, W + 2.0
+    t = rng.uniform(0, 0.25, len(x))
+    t[:2] = 0.0, 0.25
+    t[2:2 + T_BINS] = 0.25 * np.arange(T_BINS) / T_BINS  # bin edges
+    frame = FrameEvents.from_numpy(np.stack([x, y, t, np.ones_like(x)], 1), device, dtype, time_bin=T_BINS)
+    tt = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    ev = (frame.x, frame.y, frame.dtf, tt(rng.uniform(0.3, 1.5, len(x))))
+    voxel = rng.uniform(-12.0, 12.0, (T_BINS, 2, H, W))
+    voxel[1] *= 3.0
+    g1, g2 = (tt(rng.normal(size=(len(OFFSETS), H, W))) for _ in range(2))
+    return ev, frame.bins, tt(voxel), tt(rng.normal(0, 3.0, voxel.shape)), tt(g_np), g1, g2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_voxel_kernels_match_plain_versions(cuda_device, dtype, tol):
+    """K5 (forward, backward) and K6 (both ``emit_value``, both ``term_a``)
+    against their plain versions, to ``tol`` x the largest value; K6's
+    values are K5's bits, K6 without term A is K5's backward(g2) bits, and
+    every repeat gives the same bits."""
+    ev, bins, vox, dvox, g, g1, g2 = _voxel_inputs(dtype, cuda_device)
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        assert want.abs().max().item() > 0.1
+        return (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+    for offsets, orig in ((OFFSETS, True), ((), True), (OFFSETS, False)):
+        ref = FI.fused_iwe_reference(vox, *ev, offsets, orig, bins=bins)
+        got = FI.fused_iwe_fwd(vox, *ev, offsets, orig, bins=bins)
+        assert close(got, ref) and torch.equal(got, FI.fused_iwe_fwd(vox, *ev, offsets, orig, bins=bins))
+        if offsets:
+            gk = g[: ref.shape[0]].contiguous()
+            vr = vox.clone().requires_grad_(True)
+            (want,) = torch.autograd.grad((FI.fused_iwe_reference(vr, *ev, offsets, orig, bins=bins) * gk).sum(), vr)
+            got_d = FI.fused_iwe_bwd(vox, *ev, gk, offsets, orig, bins=bins)
+            assert got_d.shape == vox.shape and close(got_d, want)
+            assert torch.equal(got_d, FI.fused_iwe_bwd(vox, *ev, gk, offsets, orig, bins=bins))
+    ref_img, ref_tan = FI.fused_iwe_jvp_reference(vox, dvox, *ev, OFFSETS, True, bins=bins)
+    img, tan = FI.fused_iwe_jvp(vox, dvox, *ev, OFFSETS, True, bins=bins)
+    assert torch.equal(img, FI.fused_iwe_fwd(vox, *ev, OFFSETS, False, bins=bins))
+    assert close(img, ref_img) and close(tan, ref_tan)
+    assert torch.equal(FI.fused_iwe_jvp(vox, dvox, *ev, OFFSETS, False, bins=bins), tan)
+    for term_a in (False, True):
+        got = FI.fused_iwe_hvp_bwd(vox, dvox, g1, g2, *ev, OFFSETS, term_a, bins=bins)
+        assert close(got, FI.fused_iwe_hvp_bwd_reference(vox, dvox, g1, g2, *ev, OFFSETS, term_a, bins=bins))
+        assert torch.equal(got, FI.fused_iwe_hvp_bwd(vox, dvox, g1, g2, *ev, OFFSETS, term_a, bins=bins))
+        if not term_a:
+            assert torch.equal(got, FI.fused_iwe_bwd(vox, *ev, g2, OFFSETS, False, bins=bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_voxel_tangent_scales(cuda_device, dtype):
+    """K6's per-call tangent unit at tangent scales 1e-6 to 1e6 apart:
+    within 1e-4 of the plain version, the same bits on every call."""
+    ev, bins, vox, dvox, _, g1, g2 = _voxel_inputs(dtype, cuda_device)
+    for scale in (1e-6, 1.0, 1e6):
+        d = dvox * scale
+        first = (FI.fused_iwe_jvp(vox, d, *ev, OFFSETS, False, bins=bins),
+                 FI.fused_iwe_hvp_bwd(vox, d, g1, g2, *ev, OFFSETS, True, bins=bins))
+        want = FI.fused_iwe_jvp_reference(vox, d, *ev, OFFSETS, False, bins=bins)
+        torch.cuda.synchronize()
+        assert (first[0] - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        for _ in range(2):
+            assert torch.equal(FI.fused_iwe_jvp(vox, d, *ev, OFFSETS, False, bins=bins), first[0])
+            assert torch.equal(FI.fused_iwe_hvp_bwd(vox, d, g1, g2, *ev, OFFSETS, True, bins=bins), first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_single_bin_voxel_kernels_give_dense_bits(cuda_device, dtype):
+    """With one bin holding every event (in the dense source-pixel order,
+    which is the (bin, pixel) order of one bin), K5 and K6 give K1-K4's
+    bits."""
+    _, _, vox, dvox, g, g1, g2 = _voxel_inputs(dtype, cuda_device)
+    ev, _, _, _, _ = _second_order_inputs(dtype, cuda_device)
+    one = torch.zeros(ev[0].shape[0], dtype=torch.int32, device=cuda_device)
+    f, df = vox[0].contiguous(), dvox[0].contiguous()
+    FI.reset_launch_counts()
+    assert torch.equal(FI.fused_iwe_fwd(f[None], *ev, OFFSETS, True, bins=one), FI.fused_iwe_fwd(f, *ev, OFFSETS, True))
+    assert torch.equal(FI.fused_iwe_bwd(f[None], *ev, g, OFFSETS, True, bins=one)[0],
+                       FI.fused_iwe_bwd(f, *ev, g, OFFSETS, True))
+    assert torch.equal(FI.fused_iwe_jvp(f[None], df[None], *ev, OFFSETS, False, bins=one),
+                       FI.fused_iwe_jvp(f, df, *ev, OFFSETS, False))
+    for term_a in (False, True):
+        assert torch.equal(FI.fused_iwe_hvp_bwd(f[None], df[None], g1, g2, *ev, OFFSETS, term_a, bins=one)[0],
+                           FI.fused_iwe_hvp_bwd(f, df, g1, g2, *ev, OFFSETS, term_a))
+    assert FI.launch_counts() == {"fwd": 1, "bwd": 1, "jvp": 1, "hvp_bwd": 2, "voxel_fwd": 1,
+                                  "voxel_bwd": 1, "voxel_jvp": 1, "voxel_hvp_bwd": 2}
+    with pytest.raises(ValueError, match="int32"):
+        FI.fused_iwe_fwd(f[None], *ev, OFFSETS, True, bins=one.long())
+    with pytest.raises(ValueError, match=r"\[T, 2, H, W\]"):
+        FI.fused_iwe_fwd(f, *ev, OFFSETS, True, bins=one)
+
+
+@pytest.mark.cuda
+def test_time_aware_objective_and_hvp_on_gpu_match_cpu(cuda_device, deterministic):
+    """The time-aware objective (the Burgers chain, K5) with its gradient,
+    and its staged Gauss-Newton HVP (the chain's jvp/vjp, K6), in float64
+    on the GPU against the CPU; float32 twice gives the same bits."""
+    import dataclasses
+
+    rng = np.random.default_rng(8)
+    events, spec = _objective_problem(rng)
+    spec = dataclasses.replace(spec, time_aware=True, time_bin=T_BINS, flow_interpolation="burgers",
+                               t0_location="middle")
+    motion, p = rng.uniform(-20, 20, 8), rng.normal(0, 1, 8)
+    out = {}
+    for dev, dtype in (("cpu", torch.float64), (cuda_device, torch.float64),
+                       (cuda_device, torch.float32), (cuda_device, torch.float32)):
+        frame = FrameEvents.from_numpy(events, dev, dtype, time_bin=T_BINS)
+        orig = build_orig_iwe(spec)(frame)
+        m = torch.as_tensor(motion, dtype=dtype, device=dev).requires_grad_(True)
+        loss, _ = build_objective(spec)(m, orig, frame)
+        (grad,) = torch.autograd.grad(loss, m)
+        prep, hvp = build_objective_hvp_staged(spec, True)
+        pp = torch.as_tensor(p, dtype=dtype, device=dev)
+        hp = hvp(prep(m.detach(), orig, frame), m.detach(), pp, orig, frame)
+        out.setdefault((str(dev), dtype), []).append((loss.item(), grad.cpu(), hp.cpu()))
+    (l_cpu, g_cpu, h_cpu), = out[("cpu", torch.float64)]
+    (l_gpu, g_gpu, h_gpu), = out[(str(cuda_device), torch.float64)]
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-9)
+    assert (g_gpu - g_cpu).abs().max().item() <= 1e-9 * g_cpu.abs().max().item()
+    assert (h_gpu - h_cpu).abs().max().item() <= 1e-9 * h_cpu.abs().max().item()
+    a, b = out[(str(cuda_device), torch.float32)]
+    assert a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])

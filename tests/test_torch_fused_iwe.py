@@ -177,3 +177,73 @@ def test_frame_events_sorted_by_source_pixel(dtype):
     tol = 1e-12 if dtype == torch.float64 else 1e-4
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=0, atol=tol)
     np.testing.assert_allclose(out[0][1], out[1][1], rtol=0, atol=tol * np.abs(out[1][1]).max())
+
+
+T_BINS = 3
+
+
+def _voxel_inputs(seed=0):
+    """``_inputs`` with time bins: some events exactly on bin edges (dtf =
+    k / T), some outside the image on every side and just inside it at
+    (-1, 0), padded rows; a voxel whose bins differ strongly."""
+    padded, wgt, dtf, flow, g = _inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    padded = padded.copy()
+    dtf = dtf.copy()
+    dtf[100:100 + T_BINS] = np.arange(T_BINS) / T_BINS
+    padded[70:75, 0], padded[75:80, 0], padded[80:85, 0] = -0.5, -3.0, H + 0.5
+    padded[85:90, 1], padded[90:95, 1] = -2.5, W + 0.25
+    voxel = rng.uniform(-12.0, 12.0, (T_BINS, 2, H, W))
+    voxel[1] *= 3.0
+    bins = np.clip(np.floor(dtf * T_BINS), 0, T_BINS - 1).astype(np.int32)
+    return padded, wgt, dtf, bins, voxel, g
+
+
+def _jax_voxel_packed(padded, wgt, dtf):
+    return [jnp.asarray(a) for a in PB.pack_events_by_band_bin(padded, wgt, dtf, H, T_BINS)]
+
+
+@pytest.mark.parametrize("offsets,include_orig", [(OFFSETS, True), ((), True), (OFFSETS, False)])
+def test_voxel_plain_version_matches_pallas(offsets, include_orig):
+    """K5's plain version (``bins``) against ``fused_multi_iwe_banded_voxel``
+    on (bin, band)-packed events: images and the voxel gradient."""
+    padded, wgt, dtf, bins, voxel, g = _voxel_inputs()
+    packed = _jax_voxel_packed(padded, wgt, dtf)
+
+    def f(v):
+        return PB.fused_multi_iwe_banded_voxel(v, *packed, (H, W), offsets, include_orig, 1e-6, False)
+
+    vj = jnp.asarray(voxel)
+    want_img = np.asarray(f(vj))
+    gk = g[: want_img.shape[0]]
+    want_grad = np.asarray(jax.grad(lambda v: jnp.sum(f(v) * jnp.asarray(gk)))(vj))
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+    vt = t(voxel).requires_grad_(bool(offsets))
+    imgs = FI.fused_iwe(vt, t(padded[:, 0]), t(padded[:, 1]), t(dtf), t(wgt), offsets, include_orig,
+                        bins=torch.as_tensor(bins))
+    assert imgs.shape == want_img.shape == (len(offsets) + int(include_orig), H, W)
+    np.testing.assert_allclose(imgs.detach().numpy(), want_img, rtol=0,
+                               atol=ATOL * max(1.0, np.abs(want_img).max()))
+    if offsets:
+        (got_grad,) = torch.autograd.grad((imgs * t(gk)).sum(), vt)
+        assert got_grad.shape == voxel.shape
+        assert all(np.abs(want_grad[b]).max() > 1.0 for b in range(T_BINS))  # every bin is reached
+        np.testing.assert_allclose(got_grad.numpy(), want_grad, rtol=0,
+                                   atol=ATOL * max(1.0, np.abs(want_grad).max()))
+
+
+def test_voxel_with_one_bin_is_the_dense_vote():
+    """One bin holding every event: the voxel form's images and gradient
+    are the dense form's bits."""
+    padded, wgt, dtf, flow, g = _inputs()
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+    ev = (t(padded[:, 0]), t(padded[:, 1]), t(dtf), t(wgt))
+    out = []
+    for voxel, bins in ((t(flow), None), (t(flow[None]), torch.zeros(len(dtf), dtype=torch.int32))):
+        v = voxel.requires_grad_(True)
+        imgs = FI.fused_iwe(v, *ev, OFFSETS, True, bins=bins)
+        (grad,) = torch.autograd.grad((imgs * t(g)).sum(), v)
+        out.append((imgs.detach().numpy(), grad.reshape(2, H, W).numpy()))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])

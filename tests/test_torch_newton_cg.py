@@ -191,3 +191,52 @@ def test_matches_jax_on_cmax_objective():
     assert tk == int(jk) == 3
     assert tf.item() == pytest.approx(float(jf), rel=1e-9)
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-6)
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("mixed_patch_contrast_maximization", {}),
+    ("time_aware_mixed_patch_contrast_maximization",
+     {"time_aware": True, "time_bin": 3, "flow_interpolation": "burgers", "t0_flow_location": "middle"}),
+])
+def test_single_scale_solvers_match_jax(method, extra):
+    """The single-scale tile solver and its time-aware subclass: the
+    device Newton-CG solve (gtol 1e-7, the same numpy cold start) and the
+    metrics (the time-aware one scores its voxel's t0 slice) against the
+    JAX package's, ``iwe_backend: pallas`` in interpret mode."""
+    from event_based_optical_flow_tpu import solver as jsolver
+    from event_based_optical_flow_tpu.data.synthetic import SyntheticDataLoader
+    from event_based_optical_flow_tpu_torch import solver as tsolver
+    from test_torch_pyramid import H, OPTIMIZER, SOLVER, W
+
+    loader = SyntheticDataLoader({"height": H, "width": W, "duration": 1.0, "event_rate": 12000,
+                                  "n_frames": 4, "pattern": "dots", "n_dots": 60, "flow_max": 12.0})
+    loader.set_sequence("pyramid")
+    ts = loader.eval_frame_time_list()
+    events = loader.load_event(loader.time_to_index(ts[1]), loader.time_to_index(ts[2]))
+    events[:, 2] -= events[:, 2].min()
+    gt_flow, dt = loader.load_optical_flow(ts[1], ts[2]), ts[2] - ts[1]
+    slv = dict(SOLVER, method=method, **extra,
+               patch={"initialize": "random", "size": [16, 20], "sliding_window": [16, 20], "filter_type": "bilinear"})
+    opt = dict(OPTIMIZER, max_iter=3)
+    sj = jsolver.collections[method]((H, W), {}, slv, opt, {}, None)
+    st = tsolver.collections[method]((H, W), {}, slv, opt, {}, device="cpu")
+    bj, bt = sj.optimize(events), st.optimize(events)
+    assert bt.shape == (2, 2, 2) and st.last_frame_stats["iters"] == {0: 3}
+    np.testing.assert_allclose(bt.numpy(), bj, rtol=0, atol=1e-6)
+    ej, et = sj.calculate_flow_error(bj, gt_flow, dt, events), st.calculate_flow_error(bt, gt_flow, dt, events)
+    for k in ("EPE", "AE", "GT_FWL", "PRED_FWL"):
+        assert et[k] == pytest.approx(ej[k], rel=1e-6, abs=1e-9), k
+
+
+def test_single_scale_solver_refuses_unported_optimizers():
+    from event_based_optical_flow_tpu_torch import solver as tsolver
+    from event_based_optical_flow_tpu_torch.utils import ConfigError
+    from test_torch_pyramid import OPTIMIZER, SOLVER
+
+    slv = dict(SOLVER, method="mixed_patch_contrast_maximization",
+               patch={"initialize": "grid-best", "size": 8, "sliding_window": 8})
+    events = np.array([[1.0, 2.0, 0.0, 1.0], [3.0, 4.0, 0.1, 0.0]])
+    for opt, match in ((dict(OPTIMIZER, method="BFGS"), "BFGS"), (OPTIMIZER, "grid-best")):
+        st = tsolver.collections[slv["method"]]((16, 16), {}, slv, opt, {}, device="cpu")
+        with pytest.raises(ConfigError, match=match):
+            st.optimize(events)

@@ -188,3 +188,50 @@ def test_warm_start_from_jax_state(scene):
     motion0, n_cand = st._presearch_motion(2, {1: torch.zeros((2, 2, 2), dtype=torch.float64)})
     np.testing.assert_allclose(motion0.numpy(), (0.0 + warm[2].reshape(2, -1)) / 2.0)
     assert n_cand == 8
+
+
+TIME_AWARE = {"time_aware": True, "time_bin": 3, "flow_interpolation": "burgers", "t0_flow_location": "middle"}
+
+
+def test_per_scale_parity_time_aware(scene):
+    """The Burgers config's time-aware keys (3 bins here): per-scale
+    motions with JAX's draws, and the metrics (t0-slice EPE, PRED_FWL
+    through the voxel, GT_FWL dense) against the JAX eval."""
+    events, gt_flow, dt = scene
+    slv = dict(SOLVER, **TIME_AWARE)
+    sj = jsolver.collections[slv["method"]]((H, W), {}, slv, OPTIMIZER, {}, None)
+    st = tsolver.collections[slv["method"]]((H, W), {}, slv, OPTIMIZER, {}, device="cpu",
+                                            candidates_fn=JaxDraws())
+    got_j, got_t = [], []
+    _record(sj, ["_run_newton_device", "_run_fused_scale_device"], got_j, np.asarray)
+    _record(st, ["_run_newton"], got_t, lambda out: out[0].numpy().copy())
+    bj = sj.optimize(events)
+    bt = st.optimize(events)
+    assert len(got_j) == len(got_t) == 2
+    for a, b in zip(got_j, got_t):
+        np.testing.assert_allclose(b.reshape(-1), a.reshape(-1), atol=1e-6)
+    for s in bj:
+        np.testing.assert_allclose(bt[s].numpy(), bj[s], atol=1e-6)
+    voxel = st.motion_to_dense_flow(bt, dt)
+    assert voxel.shape == (3, 2, H, W)
+    np.testing.assert_allclose(voxel.numpy(), sj.motion_to_dense_flow(bj, dt), atol=1e-6)
+    ej = sj.calculate_flow_error(bj, gt_flow, dt, events)
+    et = st.calculate_flow_error(bt, gt_flow, dt, events)
+    for k in ("EPE", "AE", "GT_FWL", "PRED_FWL"):
+        assert et[k] == pytest.approx(ej[k], rel=1e-6, abs=1e-9), k
+
+
+@pytest.mark.parametrize("mode,want", [("analytic", {1: "fd", 2: "analytic-gn"}),
+                                       ("analytic-full", {1: "fd", 2: "fd"})])
+def test_time_aware_hvp_routing(scene, caplog, mode, want):
+    """On a time-aware solve ``analytic`` takes the Gauss-Newton HVP on the
+    finest scale; ``analytic-full`` warns once and solves with the FD HVP."""
+    events, _, _ = scene
+    slv = dict(SOLVER, **TIME_AWARE)
+    opt = dict(OPTIMIZER, hvp_mode=mode)
+    st = tsolver.collections[slv["method"]]((H, W), {}, slv, opt, {}, device="cpu")
+    with caplog.at_level("WARNING"):
+        st.optimize(events)
+    assert st.last_frame_stats["hvp"] == want
+    warned = [r for r in caplog.records if "falling back to the FD HVP" in r.getMessage()]
+    assert len(warned) == (mode == "analytic-full")
