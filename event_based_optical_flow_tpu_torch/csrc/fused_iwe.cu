@@ -65,13 +65,13 @@
 // voted too, by K1's own code into K1's accumulator: they are K1's bits.
 // A tangent's scale follows the CG direction, so K1's fixed 2^-36 unit
 // could overflow or lose its digits.  The tangent images are summed in 64-bit
-// fixed point with a unit chosen per call on the device: one pass takes
-// b = max over events of |wt| max_k|dtf - o_k| (|du| + |dv|) (an integer
-// atomicMax on the bits of a non-negative double: order-free), and the unit
-// is the power of two 2^-s with 2 N b 2^s < 2^62 (N events; the factor 2
-// covers the corner weights' eps slack), so no pixel's sum can overflow and
-// every vote keeps ~2^-(60 - log2 N) of b.  No host sync: the vote and
-// conversion kernels read b themselves.  A non-finite b (a NaN or inf
+// fixed point with a unit chosen per frame on the device: one pass takes
+// b = max over the frame's events of |wt| max_k|dtf - o_k| (|du| + |dv|) (an
+// integer atomicMax on the bits of a non-negative double: order-free), and
+// the unit is the power of two 2^-s with 2 N b 2^s < 2^62 (N the frame's
+// events; the factor 2 covers the corner weights' eps slack), so no pixel's
+// sum can overflow and every vote keeps ~2^-(60 - log2 N) of b.  No host
+// sync: the vote and conversion kernels read b themselves.  A non-finite b (a NaN or inf
 // tangent) gives NaN tangent images.  Integer sums again make the tangent
 // the same bits on every run.
 // HVP backward (K4), given the cost cotangent g1 and its directional
@@ -102,6 +102,31 @@
 // (bin, source pixel) (FrameEvents sorts them so when time-aware) and write
 // the per-bin gradient [n_bins, 2, H, W].  With one bin and every event in
 // it the voxel kernels give the dense kernels' bits.
+//
+// Batches of frames (K7 and K9), replacing
+//   ops/pallas_objective_banded.py   _fwd_impl_batched / _vjp_bwd_b,
+//                                    _vox_fwd_impl_batched / _vox_vjp_bwd_b,
+//                                    fused_multi_iwe_banded_jvp_batched,
+//                                    fused_multi_iwe_banded_hvp_bwd_batched,
+//                                    fused_multi_iwe_banded_voxel_jvp_batched,
+//                                    fused_multi_iwe_banded_voxel_hvp_bwd_batched
+//   ops/pallas_objective_batched.py  _fwd_impl_batched / _vjp_bwd (the same
+//                                    contract on unpacked events)
+// Every kernel above takes an optional frame table (frame_ptr, int32
+// [n_frames + 1]; nullptr is one frame of all n events): frame b's events
+// are [frame_ptr[b], frame_ptr[b + 1]), the frames concatenated in order.
+// An event finds its frame by a binary search of the table, gathers from
+// slice frame * T + bin of the flow [B, (T,) 2, H, W] (T = 1 dense) and
+// votes into block frame of the images [B, (orig) + K, H, W]; cotangents
+// and tangents are read from the same blocks.  The backward's run keys are
+// (frame * T + bin) * H * W + pixel over events sorted by (frame, bin,
+// pixel) (FleetEvents concatenates frames sorted so).  K3's bound and unit
+// are per frame: one bound per frame, and the unit from that frame's own
+// event count.  So frame b's outputs are, bit for bit, the single-frame
+// kernels' on frame b's events alone: the fixed-point sums and the ordered
+// run sums see the same terms, and a frame never reads another's unit.
+// The TPU grids over (frame, chunk); here the frame is an offset, as the
+// time bin is.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -181,34 +206,67 @@ __device__ __forceinline__ int bin_of(const int* bins, int n_bins, int i) {
   return b < 0 ? 0 : (b >= n_bins ? n_bins - 1 : b);
 }
 
-// The backward's run key: bin * H * W + source pixel, or -1 outside.
+// The frames of a call: frame b holds events [ptr[b], ptr[b + 1]); ptr ==
+// nullptr (n == 1) is one frame of every event.
+struct Frames {
+  const int* ptr;
+  int n;
+};
+
+// Event i's frame: the last b with ptr[b] <= i (ptr[0] == 0), which skips
+// empty frames.
+__device__ __forceinline__ int frame_of(Frames fr, int i) {
+  if (fr.ptr == nullptr) return 0;
+  int lo = 0, hi = fr.n;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (fr.ptr[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Frame f's event count; n for one frame.
+__device__ __forceinline__ int frame_events(Frames fr, int f, int n) {
+  return fr.ptr == nullptr ? n : fr.ptr[f + 1] - fr.ptr[f];
+}
+
+// Index of event i (of frame f) into the flow's [B * T] slices of [2, H, W].
+__device__ __forceinline__ int slab_of(int f, const int* bins, int n_bins, int i) {
+  return f * (n_bins > 0 ? n_bins : 1) + bin_of(bins, n_bins, i);
+}
+
+// The backward's run key: (frame * T + bin) * H * W + source pixel, or -1
+// outside.
 template <typename T>
-__device__ __forceinline__ int run_key(const T* x, const T* y, const int* bins, int n_bins, int i,
-                                       int H, int W) {
+__device__ __forceinline__ int run_key(const T* x, const T* y, const int* bins, int n_bins, Frames fr,
+                                       int i, int H, int W) {
   const int p = source_pixel(x[i], y[i], H, W);
-  return p < 0 ? -1 : bin_of(bins, n_bins, i) * H * W + p;
+  return p < 0 ? -1 : slab_of(frame_of(fr, i), bins, n_bins, i) * H * W + p;
 }
 
 template <typename T>
 __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
-                                     const int* __restrict__ bins, int n_bins,
+                                     const int* __restrict__ bins, int n_bins, Frames fr,
                                      int n, const T* __restrict__ flow, Offsets<T> offs,
                                      int include_orig, int H, int W, T eps,
                                      unsigned long long* __restrict__ acc) {
   const int hw = H * W;
+  const int k0 = include_orig ? 1 : 0;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const T w = wt[i];
     if (w == T(0)) continue;
+    const int f = frame_of(fr, i);
+    unsigned long long* img = acc + f * (k0 + offs.n) * hw;  // the frame's image block
     const T xi = x[i], yi = y[i];
-    int k0 = 0;
-    if (include_orig) {
-      vote(acc, xi, yi, w, eps, H, W);
-      k0 = 1;
-    }
+    if (include_orig) vote(img, xi, yi, w, eps, H, W);
     if (offs.n == 0) continue;
     const int p = source_pixel(xi, yi, H, W);
-    const T* fl = flow + 2 * hw * bin_of(bins, n_bins, i);
+    const T* fl = flow + 2 * hw * slab_of(f, bins, n_bins, i);
     const T u = p >= 0 ? fl[p] : T(0);
     const T v = p >= 0 ? fl[hw + p] : T(0);
     const T d = dtf[i];
@@ -216,7 +274,7 @@ __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restric
       const T dt = d - offs.v[k];
       const T xw = xi - dt * u;
       const T yw = yi - dt * v;
-      vote(acc + (k0 + k) * hw, xw, yw, w, eps, H, W);
+      vote(img + (k0 + k) * hw, xw, yw, w, eps, H, W);
     }
   }
 }
@@ -273,7 +331,7 @@ __device__ __forceinline__ void event_grad(T xi, T yi, T d, T w, T u, T v, const
 template <typename T>
 __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
-                                     const int* __restrict__ bins, int n_bins,
+                                     const int* __restrict__ bins, int n_bins, Frames fr,
                                      int n, const T* __restrict__ flow, Offsets<T> offs,
                                      int include_orig, int H, int W, T eps,
                                      const T* __restrict__ g, T* __restrict__ duv) {
@@ -284,9 +342,10 @@ __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restric
     const int p = source_pixel(xi, yi, H, W);
     T du = T(0), dv = T(0);
     if (p >= 0 && w != T(0)) {
-      const T* fl = flow + 2 * hw * bin_of(bins, n_bins, i);
-      event_grad<T, false>(xi, yi, dtf[i], w, fl[p], fl[hw + p], offs, k0, H, W, eps, g,
-                           nullptr, T(0), T(0), &du, &dv);
+      const int f = frame_of(fr, i);
+      const T* fl = flow + 2 * hw * slab_of(f, bins, n_bins, i);
+      event_grad<T, false>(xi, yi, dtf[i], w, fl[p], fl[hw + p], offs, k0, H, W, eps,
+                           g + f * (k0 + offs.n) * hw, nullptr, T(0), T(0), &du, &dv);
     }
     duv[i] = du;
     duv[n + i] = dv;
@@ -298,7 +357,7 @@ __global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restric
 template <typename T, bool TermA>
 __global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                          const T* __restrict__ dtf, const T* __restrict__ wt,
-                                         const int* __restrict__ bins, int n_bins,
+                                         const int* __restrict__ bins, int n_bins, Frames fr,
                                          int n, const T* __restrict__ flow,
                                          const T* __restrict__ dflow, Offsets<T> offs, int H,
                                          int W, T eps, const T* __restrict__ g1,
@@ -309,11 +368,13 @@ __global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __res
     const int p = source_pixel(xi, yi, H, W);
     T du = T(0), dv = T(0);
     if (p >= 0 && w != T(0)) {
-      const int off = 2 * hw * bin_of(bins, n_bins, i);
+      const int f = frame_of(fr, i);
+      const int off = 2 * hw * slab_of(f, bins, n_bins, i);
+      const int g_off = f * offs.n * hw;  // the frame's cotangent block
       const T du_g = TermA ? dflow[off + p] : T(0);
       const T dv_g = TermA ? dflow[off + hw + p] : T(0);
       event_grad<T, TermA>(xi, yi, dtf[i], w, flow[off + p], flow[off + hw + p], offs, 0, H, W,
-                           eps, g2, g1, du_g, dv_g, &du, &dv);
+                           eps, g2 + g_off, g1 + g_off, du_g, dv_g, &du, &dv);
     }
     duv[i] = du;
     duv[n + i] = dv;
@@ -324,47 +385,57 @@ __global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __res
 
 constexpr int kNonFinite = -100000;  // tangent_exponent's mark for a non-finite bound
 
-// Bits of the per-call bound b (see the header).  A NaN or inf bound is
-// stored as +inf, the largest non-negative double's bits but NaN's.  Each
-// block reduces its events (warp shuffles, then shared memory) to one
-// atomicMax: one address takes ~N / 256 atomics, not N.
+// Bits of each frame's bound b (see the header): bound[frame].  A NaN or
+// inf bound is stored as +inf, the largest non-negative double's bits but
+// NaN's.  A warp whose 32 events lie in one frame reduces them with
+// shuffles to one atomicMax (one address takes ~N / 32 atomics, not N); a
+// warp across a frame boundary adds each lane's own.  Every lane runs the
+// same rounds, so the shuffles see the whole warp.
 template <typename T>
 __global__ void jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                  const T* __restrict__ dtf, const T* __restrict__ wt,
-                                 const int* __restrict__ bins, int n_bins, int n,
+                                 const int* __restrict__ bins, int n_bins, Frames fr, int n,
                                  const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
                                  unsigned long long* __restrict__ bound) {
-  __shared__ unsigned long long warp_max[kThreads / 32];
   const int hw = H * W;
-  unsigned long long m = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const T w = wt[i];
-    if (w == T(0)) continue;
-    const int p = source_pixel(x[i], y[i], H, W);
-    if (p < 0) continue;  // zero tangent flow
-    const T* dfl = dflow + 2 * hw * bin_of(bins, n_bins, i);
-    const double d = static_cast<double>(dtf[i]);
-    double dt_max = 0.0;
-    for (int k = 0; k < offs.n; ++k) dt_max = fmax(dt_max, fabs(d - static_cast<double>(offs.v[k])));
-    double b = fabs(static_cast<double>(w)) * dt_max *
-               (fabs(static_cast<double>(dfl[p])) + fabs(static_cast<double>(dfl[hw + p])));
-    if (!(b <= 1.7976931348623157e308)) b = INFINITY;
-    const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(b));
-    m = bits > m ? bits : m;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, o);
-    m = other > m ? other : m;
-  }
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k < kThreads / 32; ++k) m = warp_max[k] > m ? warp_max[k] : m;
-    if (m) atomicMax(bound, m);
+  for (int base = blockIdx.x * blockDim.x; base < n; base += gridDim.x * blockDim.x) {
+    const int i = base + threadIdx.x;
+    unsigned long long m = 0;
+    int f = -1;
+    if (i < n) {
+      f = frame_of(fr, i);
+      const T w = wt[i];
+      const int p = source_pixel(x[i], y[i], H, W);
+      if (w != T(0) && p >= 0) {  // else a zero tangent vote
+        const T* dfl = dflow + 2 * hw * slab_of(f, bins, n_bins, i);
+        const double d = static_cast<double>(dtf[i]);
+        double dt_max = 0.0;
+        for (int k = 0; k < offs.n; ++k) dt_max = fmax(dt_max, fabs(d - static_cast<double>(offs.v[k])));
+        double b = fabs(static_cast<double>(w)) * dt_max *
+                   (fabs(static_cast<double>(dfl[p])) + fabs(static_cast<double>(dfl[hw + p])));
+        if (!(b <= 1.7976931348623157e308)) b = INFINITY;
+        m = static_cast<unsigned long long>(__double_as_longlong(b));
+      }
+    }
+    const int f0 = __shfl_sync(0xffffffffu, f, 0);
+    if (__all_sync(0xffffffffu, f == f0)) {
+      for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, o);
+        m = other > m ? other : m;
+      }
+      if ((threadIdx.x & 31) == 0 && m) atomicMax(bound + f0, m);
+    } else if (m) {
+      atomicMax(bound + f, m);
+    }
   }
 }
 
-// s of the unit 2^-s for the bound's bits; scale_bits = 61 - ceil(log2 N).
+// 61 - ceil(log2 N) for a frame of N events (see the header).
+__device__ __forceinline__ int scale_bits_of(int n_events) {
+  return 61 - (n_events > 1 ? 32 - __clz(n_events - 1) : 0);
+}
+
+// s of the unit 2^-s for the bound's bits and the frame's scale bits.
 __device__ __forceinline__ int tangent_exponent(unsigned long long bits, int scale_bits) {
   const double b = __longlong_as_double(static_cast<long long>(bits));
   if (!(b <= 1.7976931348623157e308)) return kNonFinite;
@@ -372,6 +443,12 @@ __device__ __forceinline__ int tangent_exponent(unsigned long long bits, int sca
   int e;
   frexp(b, &e);  // b < 2^e
   return scale_bits - e;
+}
+
+// Frame f's tangent exponent.
+__device__ __forceinline__ int frame_exponent(const unsigned long long* bound, Frames fr, int f,
+                                              int n) {
+  return tangent_exponent(bound[f], scale_bits_of(frame_events(fr, f, n)));
 }
 
 template <typename T>
@@ -396,25 +473,27 @@ __device__ __forceinline__ void vote_tangent(unsigned long long* img, T xw, T yw
 }
 
 // K3: value votes (K1's code, K1's unit) when emit_value, and tangent votes
-// in the per-call unit.
+// in the frame's unit.
 template <typename T>
 __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
-                                     const int* __restrict__ bins, int n_bins,
+                                     const int* __restrict__ bins, int n_bins, Frames fr,
                                      int n, const T* __restrict__ flow,
                                      const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
                                      T eps, int emit_value,
-                                     const unsigned long long* __restrict__ bound, int scale_bits,
+                                     const unsigned long long* __restrict__ bound,
                                      unsigned long long* __restrict__ acc_val,
                                      unsigned long long* __restrict__ acc_tan) {
   const int hw = H * W;
-  const int ex = tangent_exponent(*bound, scale_bits);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const T w = wt[i];
     if (w == T(0)) continue;
+    const int f = frame_of(fr, i);
+    const int ex = frame_exponent(bound, fr, f, n);
+    const int img = f * offs.n * hw;  // the frame's image block
     const T xi = x[i], yi = y[i];
     const int p = source_pixel(xi, yi, H, W);
-    const int off = 2 * hw * bin_of(bins, n_bins, i);
+    const int off = 2 * hw * slab_of(f, bins, n_bins, i);
     const T u = p >= 0 ? flow[off + p] : T(0);
     const T v = p >= 0 ? flow[off + hw + p] : T(0);
     const T du = p >= 0 ? dflow[off + p] : T(0);
@@ -424,40 +503,42 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
       const T dt = d - offs.v[k];
       const T xw = xi - dt * u;
       const T yw = yi - dt * v;
-      if (emit_value) vote(acc_val + k * hw, xw, yw, w, eps, H, W);
+      if (emit_value) vote(acc_val + img + k * hw, xw, yw, w, eps, H, W);
       if (p >= 0 && ex != kNonFinite) {
-        vote_tangent(acc_tan + k * hw, xw, yw, -(dt * du), -(dt * dv), w, eps, H, W, ex);
+        vote_tangent(acc_tan + img + k * hw, xw, yw, -(dt * du), -(dt * dv), w, eps, H, W, ex);
       }
     }
   }
 }
 
+// The tangent images [B, K, H, W] from their fixed-point sums, each frame
+// in its own unit (per_frame = K * H * W elements).
 template <typename T>
-__global__ void from_scaled_kernel(const long long* __restrict__ acc, int n,
-                                   const unsigned long long* __restrict__ bound, int scale_bits,
+__global__ void from_scaled_kernel(const long long* __restrict__ acc, int n_out, int per_frame,
+                                   const unsigned long long* __restrict__ bound, Frames fr, int n,
                                    T* __restrict__ out) {
-  const int ex = tangent_exponent(*bound, scale_bits);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_out; i += gridDim.x * blockDim.x) {
+    const int ex = frame_exponent(bound, fr, i / per_frame, n);
     out[i] = ex == kNonFinite ? static_cast<T>(NAN)
                               : static_cast<T>(ldexp(static_cast<double>(acc[i]), -ex));
   }
 }
 
 // Backward, step 2: the first event of each run of consecutive events with
-// one (bin, source pixel) key sums the run's du, dv in index order and adds
-// the sums to that bin's pixel.
+// one (frame, bin, source pixel) key sums the run's du, dv in index order
+// and adds the sums to that frame's bin's pixel.
 template <typename T>
 __global__ void fused_iwe_bwd_sum_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                         const int* __restrict__ bins, int n_bins, int n,
-                                         int H, int W, const T* __restrict__ duv,
+                                         const int* __restrict__ bins, int n_bins, Frames fr,
+                                         int n, int H, int W, const T* __restrict__ duv,
                                          T* __restrict__ dflow) {
   const int hw = H * W;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const int key = run_key(x, y, bins, n_bins, i, H, W);
+    const int key = run_key(x, y, bins, n_bins, fr, i, H, W);
     if (key < 0) continue;  // the gradient's target pixel is outside the flow
-    if (i > 0 && run_key(x, y, bins, n_bins, i - 1, H, W) == key) continue;  // not a run head
+    if (i > 0 && run_key(x, y, bins, n_bins, fr, i - 1, H, W) == key) continue;  // not a run head
     T du = T(0), dv = T(0);
-    for (int j = i; j < n && run_key(x, y, bins, n_bins, j, H, W) == key; ++j) {
+    for (int j = i; j < n && run_key(x, y, bins, n_bins, fr, j, H, W) == key; ++j) {
       du += duv[j];
       dv += duv[n + j];
     }
@@ -482,22 +563,30 @@ int grid_for(int n) {
   return blocks;
 }
 
-// Every launcher: bins == nullptr with n_bins == 0 for a dense flow [2, H, W],
-// else int32 bins [n] and a voxel [n_bins, 2, H, W] (flow, tangent flow and
-// the backward's output alike).
+Frames make_frames(const int* frame_ptr, int n_frames) {
+  return Frames{frame_ptr, frame_ptr == nullptr ? 1 : n_frames};
+}
+
+// Every launcher: bins == nullptr with n_bins == 0 for a dense flow, else
+// int32 bins [n] and n_bins slices per frame; frame_ptr == nullptr for one
+// frame, else int32 [n_frames + 1] (see the header).  The flow, the tangent
+// flow and the backward's output are [(B,) (T,) 2, H, W], the images and
+// their cotangents [(B,) K, H, W].
 // acc: zeroed int64 scratch of the out's size.
 template <typename T>
 int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
-               int n, const T* flow, const double* offsets, int n_off, int include_orig, int H,
-               int W, double eps, long long* acc, T* out, void* stream) {
+               const int* frame_ptr, int n_frames, int n, const T* flow, const double* offsets,
+               int n_off, int include_orig, int H, int W, double eps, long long* acc, T* out,
+               void* stream) {
   if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Frames fr = make_frames(frame_ptr, n_frames);
   if (n > 0) {
     fused_iwe_fwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, bins, n_bins, n, flow, make_offsets<T>(offsets, n_off), include_orig, H, W,
-        static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
+        x, y, dtf, wt, bins, n_bins, fr, n, flow, make_offsets<T>(offsets, n_off), include_orig,
+        H, W, static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
   }
-  const int n_out = (n_off + (include_orig ? 1 : 0)) * H * W;
+  const int n_out = fr.n * (n_off + (include_orig ? 1 : 0)) * H * W;
   if (n_out > 0) from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc, n_out, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -505,65 +594,73 @@ int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
 // duv: scratch of 2 * n elements; dflow: zeroed.
 template <typename T>
 int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
-               int n, const T* flow, const double* offsets, int n_off, int include_orig, int H,
-               int W, double eps, const T* g, T* duv, T* dflow, void* stream) {
+               const int* frame_ptr, int n_frames, int n, const T* flow, const double* offsets,
+               int n_off, int include_orig, int H, int W, double eps, const T* g, T* duv,
+               T* dflow, void* stream) {
   if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Frames fr = make_frames(frame_ptr, n_frames);
   if (n > 0 && n_off > 0) {
     fused_iwe_bwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, bins, n_bins, n, flow, make_offsets<T>(offsets, n_off), include_orig, H, W,
-        static_cast<T>(eps), g, duv);
-    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, n, H, W, duv,
-                                                                 dflow);
+        x, y, dtf, wt, bins, n_bins, fr, n, flow, make_offsets<T>(offsets, n_off), include_orig,
+        H, W, static_cast<T>(eps), g, duv);
+    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, fr, n, H, W,
+                                                                 duv, dflow);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// bound: zeroed 1-element scratch; acc_val (emit_value only) and acc_tan:
-// zeroed int64 scratch of the outputs' size; out_val may be null without
-// emit_value.
+// bound: zeroed scratch of one element per frame; acc_val (emit_value
+// only) and acc_tan: zeroed int64 scratch of the outputs' size; out_val
+// may be null without emit_value.
 template <typename T>
 int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
-               int n, const T* flow, const T* dflow, const double* offsets, int n_off, int H,
-               int W, double eps, int emit_value, int scale_bits, unsigned long long* bound,
-               long long* acc_val, long long* acc_tan, T* out_val, T* out_tan, void* stream) {
+               const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
+               const double* offsets, int n_off, int H, int W, double eps, int emit_value,
+               unsigned long long* bound, long long* acc_val, long long* acc_tan, T* out_val,
+               T* out_tan, void* stream) {
   if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets<T> offs = make_offsets<T>(offsets, n_off);
+  const Frames fr = make_frames(frame_ptr, n_frames);
   if (n > 0) {
-    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, n, dflow,
+    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, dflow,
                                                          offs, H, W, bound);
     fused_iwe_jvp_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, bins, n_bins, n, flow, dflow, offs, H, W, static_cast<T>(eps), emit_value,
-        bound, scale_bits, reinterpret_cast<unsigned long long*>(acc_val),
+        x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps),
+        emit_value, bound, reinterpret_cast<unsigned long long*>(acc_val),
         reinterpret_cast<unsigned long long*>(acc_tan));
   }
-  const int n_out = n_off * H * W;
+  const int per_frame = n_off * H * W;
+  const int n_out = fr.n * per_frame;
   if (emit_value) from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_val, n_out, out_val);
-  from_scaled_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_tan, n_out, bound, scale_bits,
-                                                             out_tan);
+  from_scaled_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_tan, n_out, per_frame, bound, fr,
+                                                             n, out_tan);
   return static_cast<int>(cudaGetLastError());
 }
 
 // duv: scratch of 2 * n elements; dflow_out: zeroed.
 template <typename T>
 int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
-                   int n, const T* flow, const T* dflow, const double* offsets, int n_off, int H,
-                   int W, double eps, int term_a, const T* g1, const T* g2, T* duv, T* dflow_out,
-                   void* stream) {
+                   const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
+                   const double* offsets, int n_off, int H, int W, double eps, int term_a,
+                   const T* g1, const T* g2, T* duv, T* dflow_out, void* stream) {
   if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets<T> offs = make_offsets<T>(offsets, n_off);
+  const Frames fr = make_frames(frame_ptr, n_frames);
   if (n > 0) {
     if (term_a) {
       fused_iwe_hvp_bwd_kernel<T, true><<<grid_for(n), kThreads, 0, s>>>(
-          x, y, dtf, wt, bins, n_bins, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
+          x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2,
+          duv);
     } else {
       fused_iwe_hvp_bwd_kernel<T, false><<<grid_for(n), kThreads, 0, s>>>(
-          x, y, dtf, wt, bins, n_bins, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2, duv);
+          x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2,
+          duv);
     }
-    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, n, H, W, duv,
-                                                                 dflow_out);
+    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, fr, n, H, W,
+                                                                 duv, dflow_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -572,39 +669,36 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
 
 // The C interface: one entry point per kernel and type, each the launcher
 // above with T = float (f32) or double (f64).
-#define EVFLOW_ENTRY_POINTS(T, SUFFIX)                                                            \
-  int evflow_fused_iwe_fwd_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,             \
-                                    const int* bins, int n_bins, int n, const T* flow,             \
-                                    const double* offsets, int n_off, int include_orig, int H,     \
-                                    int W, double eps, long long* acc, T* out, void* stream) {     \
-    return launch_fwd<T>(x, y, dtf, wt, bins, n_bins, n, flow, offsets, n_off, include_orig, H, W, \
-                         eps, acc, out, stream);                                                   \
+#define EVFLOW_EVENTS(T)                                                                            \
+  const T *x, const T *y, const T *dtf, const T *wt, const int *bins, int n_bins,                  \
+      const int *frame_ptr, int n_frames, int n
+#define EVFLOW_EVENT_ARGS x, y, dtf, wt, bins, n_bins, frame_ptr, n_frames, n
+#define EVFLOW_ENTRY_POINTS(T, SUFFIX)                                                             \
+  int evflow_fused_iwe_fwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const double* offsets,        \
+                                    int n_off, int include_orig, int H, int W, double eps,         \
+                                    long long* acc, T* out, void* stream) {                        \
+    return launch_fwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, eps, acc,    \
+                         out, stream);                                                             \
   }                                                                                                \
-  int evflow_fused_iwe_bwd_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,             \
-                                    const int* bins, int n_bins, int n, const T* flow,             \
-                                    const double* offsets, int n_off, int include_orig, int H,     \
-                                    int W, double eps, const T* g, T* duv, T* dflow,               \
-                                    void* stream) {                                                \
-    return launch_bwd<T>(x, y, dtf, wt, bins, n_bins, n, flow, offsets, n_off, include_orig, H, W, \
-                         eps, g, duv, dflow, stream);                                              \
+  int evflow_fused_iwe_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const double* offsets,        \
+                                    int n_off, int include_orig, int H, int W, double eps,         \
+                                    const T* g, T* duv, T* dflow, void* stream) {                  \
+    return launch_bwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, eps, g, duv, \
+                         dflow, stream);                                                           \
   }                                                                                                \
-  int evflow_fused_iwe_jvp_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,             \
-                                    const int* bins, int n_bins, int n, const T* flow,             \
-                                    const T* dflow, const double* offsets, int n_off, int H,       \
-                                    int W, double eps, int emit_value, int scale_bits,             \
-                                    unsigned long long* bound, long long* acc_val,                 \
+  int evflow_fused_iwe_jvp_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,               \
+                                    const double* offsets, int n_off, int H, int W, double eps,    \
+                                    int emit_value, unsigned long long* bound, long long* acc_val, \
                                     long long* acc_tan, T* out_val, T* out_tan, void* stream) {    \
-    return launch_jvp<T>(x, y, dtf, wt, bins, n_bins, n, flow, dflow, offsets, n_off, H, W, eps,   \
-                         emit_value, scale_bits, bound, acc_val, acc_tan, out_val, out_tan,        \
-                         stream);                                                                  \
+    return launch_jvp<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, eps, emit_value,    \
+                         bound, acc_val, acc_tan, out_val, out_tan, stream);                       \
   }                                                                                                \
-  int evflow_fused_iwe_hvp_bwd_##SUFFIX(const T* x, const T* y, const T* dtf, const T* wt,         \
-                                        const int* bins, int n_bins, int n, const T* flow,         \
-                                        const T* dflow, const double* offsets, int n_off, int H,   \
-                                        int W, double eps, int term_a, const T* g1, const T* g2,   \
-                                        T* duv, T* dflow_out, void* stream) {                      \
-    return launch_hvp_bwd<T>(x, y, dtf, wt, bins, n_bins, n, flow, dflow, offsets, n_off, H, W,    \
-                             eps, term_a, g1, g2, duv, dflow_out, stream);                         \
+  int evflow_fused_iwe_hvp_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,           \
+                                        const double* offsets, int n_off, int H, int W,            \
+                                        double eps, int term_a, const T* g1, const T* g2, T* duv,  \
+                                        T* dflow_out, void* stream) {                              \
+    return launch_hvp_bwd<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, eps, term_a,    \
+                             g1, g2, duv, dflow_out, stream);                                      \
   }
 
 extern "C" {

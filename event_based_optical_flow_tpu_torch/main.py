@@ -9,7 +9,11 @@ Reads the same YAML.  Single-frame mode optimizes the event slice
 gray-frame windows with GT flow (AEE/NPE/AE + FWL per frame) and writes
 the same ``flow_error_per_frame_with_mask.txt``, ``eval_metrics.jsonl``
 and ``eval_state.npz`` as the JAX CLI, so either CLI resumes the other's
-run.  Visualization (PNGs) is not ported yet.
+run.  With ``data.fleet_batch > 1`` and a solver that solves batches
+(``solver.method: fleet_pyramidal_patch_contrast_maximization``), ``--eval``
+runs the fleet evaluation instead: ``fleet_batch`` independent frames per
+lockstep solve (``data.warm_start: false``).  Visualization (PNGs) is not
+ported yet.
 """
 
 import argparse
@@ -25,7 +29,7 @@ import yaml
 
 from . import data, solver
 from .state import to_numpy
-from .utils import check_key_and_bool, crop_event, set_numerics, fix_random_seed, validate_config
+from .utils import ConfigError, check_key_and_bool, crop_event, set_numerics, fix_random_seed, validate_config
 from .utils import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
@@ -92,6 +96,17 @@ def _optimization_batch(loader, data_config, ind1: int, ind2: int) -> np.ndarray
     return batch
 
 
+def _gather_frame(loader, data_config, t1: float, t2: float):
+    """One eval window: (optimization batch, the window's own events for
+    the metrics, GT flow, window seconds)."""
+    ind1 = loader.time_to_index(t1)
+    ind2 = loader.time_to_index(t2)
+    batch_for_gt_slice = loader.load_event(ind1, ind2)
+    batch_for_gt_slice[..., 2] -= np.min(batch_for_gt_slice[..., 2])
+    return (_optimization_batch(loader, data_config, ind1, ind2), batch_for_gt_slice,
+            loader.load_optical_flow(t1, t2), t2 - t1)
+
+
 def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, solv, out_dir: str):
     """Sequential evaluation: per gray-frame window, a fixed-count event
     batch for the solve and the exact window's events for the metrics,
@@ -114,16 +129,8 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
             if i1 < data_config["ind1"] or i1 > data_config["ind2"]:
                 continue
         t0 = time.perf_counter()
-        t1 = eval_frame_time_stamp_list[i1]
-        t2 = eval_frame_time_stamp_list[i1 + eval_dt]
-        ind1 = loader.time_to_index(t1)
-        ind2 = loader.time_to_index(t2)
-        batch_for_gt_slice = loader.load_event(ind1, ind2)
-        gt_flow = loader.load_optical_flow(t1, t2)
-        flow_time = t2 - t1
-        batch_for_gt_slice[..., 2] -= np.min(batch_for_gt_slice[..., 2])
-        batch_for_optimization = _optimization_batch(loader, data_config, ind1, ind2)
-
+        batch_for_optimization, batch_for_gt_slice, gt_flow, flow_time = _gather_frame(
+            loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
         best_motion = solv.optimize(batch_for_optimization)
         flow_error = solv.calculate_flow_error(
             best_motion, gt_flow, timescale=flow_time, events=batch_for_gt_slice
@@ -140,6 +147,42 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
     return records
 
 
+def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv, out_dir: str,
+                           fleet_batch: int):
+    """Fleet evaluation: from the checkpoint's frame on, every eval window in
+    chunks of ``fleet_batch`` frames (the last chunk may be smaller), each
+    chunk solved by one ``solv.optimize_batch``; per-frame metrics, text and
+    ``eval_metrics.jsonl`` lines as the sequential loop writes them, the
+    checkpoint once per chunk.  Frames are independent (no warm start);
+    ``data.ind1``/``ind2`` are not read.  Returns the per-frame records
+    (frame, metrics, the chunk's seconds / B, the chunk's solver stats)."""
+    eval_dt = data_config["eval_dt"]
+    start_frame, _ = ckpt.load_eval_state(out_dir)
+    frames = list(range(start_frame, len(eval_frame_time_stamp_list) - eval_dt))
+    logger.info(f"Fleet evaluation: {len(frames)} frames, batch {fleet_batch}, from frame {start_frame}")
+    records = []
+    for chunk_start in range(0, len(frames), fleet_batch):
+        chunk = frames[chunk_start : chunk_start + fleet_batch]
+        t0 = time.perf_counter()
+        gathered = [_gather_frame(loader, data_config, eval_frame_time_stamp_list[i],
+                                  eval_frame_time_stamp_list[i + eval_dt]) for i in chunk]
+        motions = solv.optimize_batch([g[0] for g in gathered])
+        errors = []
+        for i1, (_, gt_slice, gt_flow, flow_time), best in zip(chunk, gathered, motions):
+            flow_error = solv.calculate_flow_error(best, gt_flow, timescale=flow_time, events=gt_slice)
+            solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
+            ckpt.append_frame_metrics(out_dir, i1, flow_error)
+            errors.append(flow_error)
+        ckpt.save_eval_state(out_dir, chunk[-1] + 1, None)
+        seconds = (time.perf_counter() - t0) / len(chunk)
+        stats = dict(solv.last_batch_stats)
+        logger.info(f"Frames {chunk[0]}..{chunk[-1]}: {seconds:.3f} s per frame, {stats['syncs']} host syncs "
+                    "for the batch")
+        records.extend({"frame": i1, "metrics": e, "seconds": seconds, "stats": stats}
+                       for i1, e in zip(chunk, errors))
+    return records
+
+
 def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     """What the CLI runs, after logging is set up: validate, build, solve.
     Returns the per-frame records (eval) or the single-frame result."""
@@ -152,7 +195,16 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     os.makedirs(out_dir, exist_ok=True)
     loader, solv = build(config, device, candidates_fn)
     if eval_mode:
-        records = evaluate_dataset_with_gt(loader.eval_frame_time_list(), data_config, loader, solv, out_dir)
+        fleet_batch = int(data_config.get("fleet_batch", 1))
+        if fleet_batch > 1 and hasattr(solv, "optimize_batch"):
+            if data_config.get("warm_start", True) is not False:
+                raise ConfigError("data.fleet_batch > 1 solves independent frames: it needs "
+                                  "data.warm_start: false")
+            records = evaluate_dataset_fleet(loader.eval_frame_time_list(), data_config, loader, solv, out_dir,
+                                             fleet_batch)
+        else:
+            records = evaluate_dataset_with_gt(loader.eval_frame_time_list(), data_config, loader, solv,
+                                               out_dir)
         summary = ckpt.summarize_metrics(out_dir)
         if summary:
             logger.info(f"Evaluation summary (mean over frames): {summary}")

@@ -18,7 +18,14 @@ layouts):
 * ``ops/pallas_objective_banded.py::fused_multi_iwe_banded_voxel`` (K5,
   ``_vox_fwd_impl`` / ``_vox_vjp_bwd``) and ``..._voxel_jvp`` /
   ``..._voxel_hvp_bwd`` (K6): the same on events packed by (time bin, row
-  band), the flow a voxel.
+  band), the flow a voxel;
+* the fleet's batched forms (K7: ``_fwd_impl_batched`` / ``_vjp_bwd_b``,
+  ``_vox_fwd_impl_batched`` / ``_vox_vjp_bwd_b``, ``..._jvp_batched``,
+  ``..._hvp_bwd_batched``, ``..._voxel_jvp_batched``,
+  ``..._voxel_hvp_bwd_batched``) and
+  ``ops/pallas_objective_batched.py::fused_multi_iwe_batched`` (K9, the
+  batched forward and backward on unpacked events): each of the above with
+  a leading frame axis.
 
 Contract, for events ``x, y, dtf, wt`` ``[N]`` and a flow ``[2, H, W]``:
 image ``k`` of the ``[(orig) + K, H, W]`` result is the bilinear vote of
@@ -29,9 +36,13 @@ and corners at ``floor(c + eps)``; image 0 is the unwarped vote when
 derivatives; ``x, y, dtf, wt`` get no gradient.  With ``bins`` (int32
 ``[N]``) the flow is a voxel ``[T, 2, H, W]``: each event gathers from its
 bin's slice (a bin outside ``[0, T)`` is clipped into it, as the TPU packer
-clips it) and the backward gives ``dvoxel [T, 2, H, W]``.  Band/tile
-packing, row windows and bf16 splits were TPU layout and are not carried
-over.
+clips it) and the backward gives ``dvoxel [T, 2, H, W]``.  With
+``frames`` (a ``Frames`` table) the events of B frames lie concatenated in
+frame order, the flow (voxel) and every image, tangent and cotangent gain a
+leading frame axis ``[B, ...]``, and frame b's results are, bit for bit,
+the single-frame kernels' on frame b's events alone (``csrc/fused_iwe.cu``).
+Band/tile packing, row windows, padding to a common chunk count and bf16
+splits were TPU layout and are not carried over.
 
 Routing: ``fused_iwe``, ``fused_iwe_jvp`` and ``fused_iwe_hvp_bwd`` run the
 plain version for a tensor on the CPU and the kernel for a CUDA tensor; a
@@ -47,13 +58,14 @@ source pixel's events in index order, one add per pixel when the events
 are sorted by source pixel (by time bin, then source pixel, for a voxel),
 as ``FrameEvents`` sorts them.  The plain version sums in another order,
 so the two agree to rounding.  K3 sums its tangent images in fixed point
-too, in a unit scaled per call on the device to the largest tangent vote,
-and K4 reuses K2's ordered run sums.
+too, in a unit scaled per frame on the device to the frame's largest
+tangent vote, and K4 reuses K2's ordered run sums.
 """
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .cuda_build import load_kernel_library
@@ -64,22 +76,45 @@ KERNEL_SOURCE = "event_based_optical_flow_tpu_torch/csrc/fused_iwe.cu"
 MAX_OFFSETS = 8  # kMaxOffsets in csrc/fused_iwe.cu
 # The forward's fixed-point sums (2^-36 units in an int64) hold 2^27 weight
 # units per pixel: with |wt| <= 2, fewer than 2^26 events never overflow.
-# K3's tangent unit 2^-s is chosen per call so that 2 N b 2^s < 2^62 (b the
+# K3's tangent unit 2^-s is chosen per frame so that 2 N b 2^s < 2^62 (b the
 # largest event's tangent bound): no overflow at any N, and below 2^26 events
-# every tangent vote keeps at least 2^-35 of b.
+# every tangent vote keeps at least 2^-35 of b.  Both bounds hold per frame.
 MAX_EVENTS = 2**26
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
-# x, y, dtf, wt, bins, n_bins, n, then each kernel's own arguments
-_EVENTS = [_PTR] * 5 + [_INT, _INT]
+# x, y, dtf, wt, bins, n_bins, frame_ptr, n_frames, n, then each kernel's own
+_EVENTS = [_PTR] * 5 + [_INT, _PTR, _INT, _INT]
 _FWD_ARGS = _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
 _BWD_ARGS = _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _PTR]
-_JVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT, _INT] + [_PTR] * 6
+_JVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 6
 _HVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 5
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 KERNELS = ("fwd", "bwd", "jvp", "hvp_bwd")
+# the launch counts' forms of each kernel: single frame or batched, dense or voxel
+FORMS = ("", "voxel_", "batched_", "batched_voxel_")
+
+
+class Frames(NamedTuple):
+    """The frames of a batch whose events lie concatenated in frame order:
+    frame b holds events ``[ptr[b], ptr[b + 1])``.  ``ptr`` is int32 ``[B +
+    1]`` on the events' device, ``sizes`` the host's copy of the per-frame
+    event counts (the wrappers check them without reading the device)."""
+
+    ptr: torch.Tensor
+    sizes: Tuple[int, ...]
+
+    @classmethod
+    def of_sizes(cls, sizes: Sequence[int], device) -> "Frames":
+        ptr = np.concatenate([[0], np.cumsum(np.asarray(sizes, dtype=np.int64))])
+        return cls(torch.as_tensor(ptr.astype(np.int32), device=device), tuple(int(s) for s in sizes))
+
+    def index(self) -> torch.Tensor:
+        """Each event's frame (int64 ``[N]``): the plain versions' layout."""
+        dev = self.ptr.device
+        return torch.repeat_interleave(torch.arange(len(self.sizes), device=dev),
+                                       torch.as_tensor(self.sizes, device=dev), output_size=sum(self.sizes))
 
 
 def _library():
@@ -106,18 +141,28 @@ def _check_like(name: str, t: Tensor, shape, flow: Tensor):
 
 
 def _n_bins(flow: Tensor, bins: Optional[Tensor]) -> int:
-    return 0 if bins is None else flow.shape[0]
+    return 0 if bins is None else flow.shape[-4]
+
+
+def _n_frames(frames: Optional[Frames]) -> int:
+    return 1 if frames is None else len(frames.sizes)
+
+
+def _lead(frames: Optional[Frames]) -> tuple:
+    """The images' leading frame axis: ``(B,)`` with ``frames``, else ``()``."""
+    return () if frames is None else (len(frames.sizes),)
 
 
 def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
-           bins: Optional[Tensor]):
+           bins: Optional[Tensor], frames: Optional[Frames]):
     """Raise on anything the kernels do not take."""
     if flow.device.type != "cuda":
         raise ValueError(f"the fused_iwe kernel runs on CUDA tensors, got a {flow.device} tensor")
     if flow.dtype not in _SUFFIX:
         raise TypeError(f"fused_iwe kernel takes float32 or float64, got {flow.dtype}")
-    layout = "[2, H, W]" if bins is None else "[T, 2, H, W]"
-    if flow.ndim != (3 if bins is None else 4) or flow.shape[-3] != 2 or not flow.is_contiguous():
+    layout = "[" + ("B, " if frames is not None else "") + ("T, " if bins is not None else "") + "2, H, W]"
+    if (flow.ndim != 3 + (bins is not None) + (frames is not None) or flow.shape[-3] != 2
+            or not flow.is_contiguous()):
         raise ValueError(f"flow must be a contiguous {layout} tensor, got {tuple(flow.shape)}")
     n = events[0].shape[0]
     for t in events:
@@ -131,41 +176,65 @@ def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
                          f"{bins.dtype} {tuple(bins.shape)} on {bins.device}")
     if len(offsets) > MAX_OFFSETS:
         raise ValueError(f"at most {MAX_OFFSETS} reference-time offsets, got {len(offsets)}")
-    if n >= MAX_EVENTS:
-        raise ValueError(f"fused_iwe takes fewer than {MAX_EVENTS} events (fixed-point sums), got {n}")
-    if max(len(offsets) + 1, 2 * _n_bins(flow, bins)) * flow.shape[-2] * flow.shape[-1] >= 2**31:
+    sizes = (n,)
+    if frames is not None:
+        ptr, sizes = frames
+        if (ptr.device != flow.device or ptr.dtype != torch.int32 or tuple(ptr.shape) != (len(sizes) + 1,)
+                or not ptr.is_contiguous()):
+            raise ValueError(f"frames.ptr must be a contiguous int32 [B + 1] tensor on the flow's device, got "
+                             f"{ptr.dtype} {tuple(ptr.shape)} on {ptr.device}")
+        if len(sizes) != flow.shape[0] or sum(sizes) != n or min(sizes) < 0:
+            raise ValueError(f"frames.sizes {sizes} must count the {n} events of the flow's "
+                             f"{flow.shape[0]} frames")
+    if max(sizes) >= MAX_EVENTS:
+        raise ValueError(f"fused_iwe takes fewer than {MAX_EVENTS} events per frame (fixed-point sums), "
+                         f"got {max(sizes)}")
+    if n >= 2**30:
+        raise ValueError(f"fused_iwe indexes events with 32-bit ints: fewer than 2^30, got {n}")
+    slices = max(len(offsets) + 1, 2 * max(1, _n_bins(flow, bins)))
+    if _n_frames(frames) * slices * flow.shape[-2] * flow.shape[-1] >= 2**31:
         raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
 
 
-def _event_args(x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, flow: Tensor, bins: Optional[Tensor]):
-    """The C interface's leading arguments: x, y, dtf, wt, bins, n_bins, n."""
+def _event_args(x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, flow: Tensor, bins: Optional[Tensor],
+                frames: Optional[Frames]):
+    """The C interface's leading arguments: x, y, dtf, wt, bins, n_bins,
+    frame_ptr, n_frames, n."""
     return (x.data_ptr(), y.data_ptr(), dtf.data_ptr(), wt.data_ptr(),
-            None if bins is None else bins.data_ptr(), _n_bins(flow, bins), x.shape[0])
+            None if bins is None else bins.data_ptr(), _n_bins(flow, bins),
+            None if frames is None else frames.ptr.data_ptr(), _n_frames(frames), x.shape[0])
 
 
-# launches per kernel since the last reset; the voxel forms count apart
+# launches per kernel and form since the last reset
 _LAUNCHES = {}
 
 
-def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], args):
+def form(bins: Optional[Tensor], frames: Optional[Frames]) -> str:
+    """The launch counts' prefix of a call's form (``FORMS``)."""
+    return ("batched_" if frames is not None else "") + ("voxel_" if bins is not None else "")
+
+
+def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], frames: Optional[Frames], args):
     name = f"evflow_fused_iwe_{kernel}_{_SUFFIX[flow.dtype]}"
     stream = torch.cuda.current_stream(flow.device).cuda_stream
     with torch.cuda.device(flow.device):
         rc = getattr(_library(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed: cudaGetLastError() = {rc}")
-    _LAUNCHES[kernel if bins is None else f"voxel_{kernel}"] += 1
+    _LAUNCHES[form(bins, frames) + kernel] += 1
 
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset: ``fwd``, ``bwd``,
-    ``jvp``, ``hvp_bwd`` (K1-K4) and their ``voxel_`` forms (K5, K6)."""
+    ``jvp``, ``hvp_bwd`` (K1-K4), their ``voxel_`` forms (K5, K6) and the
+    ``batched_`` and ``batched_voxel_`` forms of all four (K7, K9)."""
     return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        _LAUNCHES[k] = _LAUNCHES[f"voxel_{k}"] = 0
+    for prefix in FORMS:
+        for k in KERNELS:
+            _LAUNCHES[prefix + k] = 0
 
 
 reset_launch_counts()
@@ -173,19 +242,19 @@ reset_launch_counts()
 
 def fused_iwe_fwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                   offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None) -> Tensor:
-    """Launch the forward kernel (K1; K5 with ``bins``): ``[(orig) +
-    len(offsets), H, W]`` images."""
-    _check(flow, (x, y, dtf, wt), offsets, bins)
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+    """Launch the forward kernel (K1; K5 with ``bins``; the batched forms
+    with ``frames``): ``[(B,) (orig) + len(offsets), H, W]`` images."""
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
     h, w = flow.shape[-2], flow.shape[-1]
-    shape = (len(offsets) + int(include_orig), h, w)
+    shape = _lead(frames) + (len(offsets) + int(include_orig), h, w)
     # fixed-point sums; freed on return while the kernels may still run,
     # which is safe: the caching allocator reuses it only in stream order
     acc = torch.zeros(shape, dtype=torch.int64, device=flow.device)
     out = torch.empty(shape, dtype=flow.dtype, device=flow.device)
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    _launch("fwd", flow, bins,
-            _event_args(x, y, dtf, wt, flow, bins)
+    _launch("fwd", flow, bins, frames,
+            _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
                acc.data_ptr(), out.data_ptr()))
     return out
@@ -193,18 +262,18 @@ def fused_iwe_fwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
 
 def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g: Tensor,
                   offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None) -> Tensor:
-    """Launch the backward kernel (K2; K5's backward with ``bins``): the
-    gradient of the flow (``[2, H, W]``, or the voxel's ``[T, 2, H, W]``)
-    for the image cotangent ``g [(orig) + len(offsets), H, W]``."""
-    _check(flow, (x, y, dtf, wt), offsets, bins)
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+    """Launch the backward kernel (K2; K5's backward with ``bins``; the
+    batched forms with ``frames``): the gradient of the flow (or voxel), its
+    shape, for the image cotangent ``g [(B,) (orig) + len(offsets), H, W]``."""
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
     h, w = flow.shape[-2], flow.shape[-1]
-    _check_like("g", g, (len(offsets) + int(include_orig), h, w), flow)
+    _check_like("g", g, _lead(frames) + (len(offsets) + int(include_orig), h, w), flow)
     duv = torch.empty((2, x.shape[0]), dtype=flow.dtype, device=flow.device)  # per-event du, dv
     dflow = torch.zeros_like(flow)
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    _launch("bwd", flow, bins,
-            _event_args(x, y, dtf, wt, flow, bins)
+    _launch("bwd", flow, bins, frames,
+            _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
                g.data_ptr(), duv.data_ptr(), dflow.data_ptr()))
     return dflow
@@ -212,32 +281,32 @@ def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g
 
 def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                   offsets: Sequence[float], emit_value: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None):
-    """K3 (K6's tangent with ``bins``, ``flow`` and ``dflow`` voxels): the
-    direction images' tangent along ``dflow`` (``[K, H, W]``, ``K =
-    len(offsets)``, no orig image: its tangent is 0), and with
-    ``emit_value`` first the images themselves, ``fused_iwe_fwd``'s bits:
-    ``(images, dimages)``.  The plain version for CPU tensors, the kernel
-    for CUDA tensors."""
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None):
+    """K3 (K6's tangent with ``bins``, ``flow`` and ``dflow`` voxels; the
+    batched forms with ``frames``): the direction images' tangent along
+    ``dflow`` (``[(B,) K, H, W]``, ``K = len(offsets)``, no orig image: its
+    tangent is 0), and with ``emit_value`` first the images themselves,
+    ``fused_iwe_fwd``'s bits: ``(images, dimages)``.  The plain version for
+    CPU tensors, the kernel for CUDA tensors."""
     if flow.device.type == "cpu":
-        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps, bins)
-    _check(flow, (x, y, dtf, wt), offsets, bins)
+        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps, bins, frames)
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
     _check_like("dflow", dflow, flow.shape, flow)
     if not offsets:
         raise ValueError("fused_iwe_jvp computes direction images: give at least one offset")
-    n, h, w = x.shape[0], flow.shape[-2], flow.shape[-1]
-    shape = (len(offsets), h, w)
-    bound = torch.zeros(1, dtype=torch.int64, device=flow.device)  # bits of the tangent bound
+    h, w = flow.shape[-2], flow.shape[-1]
+    shape = _lead(frames) + (len(offsets), h, w)
+    # bits of each frame's tangent bound
+    bound = torch.zeros(_n_frames(frames), dtype=torch.int64, device=flow.device)
     acc_tan = torch.zeros(shape, dtype=torch.int64, device=flow.device)
     acc_val = torch.zeros(shape, dtype=torch.int64, device=flow.device) if emit_value else None
     out_tan = torch.empty(shape, dtype=flow.dtype, device=flow.device)
     out_val = torch.empty(shape, dtype=flow.dtype, device=flow.device) if emit_value else None
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    scale_bits = 61 - max(0, (n - 1).bit_length())  # 61 - ceil(log2 N)
-    _launch("jvp", flow, bins,
-            _event_args(x, y, dtf, wt, flow, bins)
+    _launch("jvp", flow, bins, frames,
+            _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), dflow.data_ptr(), offs, len(offsets), h, w, float(eps),
-               int(bool(emit_value)), scale_bits, bound.data_ptr(),
+               int(bool(emit_value)), bound.data_ptr(),
                acc_val.data_ptr() if emit_value else None, acc_tan.data_ptr(),
                out_val.data_ptr() if emit_value else None, out_tan.data_ptr()))
     return (out_val, out_tan) if emit_value else out_tan
@@ -245,83 +314,100 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
 
 def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor, y: Tensor,
                       dtf: Tensor, wt: Tensor, offsets: Sequence[float], term_a: bool,
-                      eps: float = 1e-6, bins: Optional[Tensor] = None) -> Tensor:
-    """K4 (K6's HVP backward with ``bins``, per bin ``[T, 2, H, W]``): the
-    vote's flow-space HVP contribution from the cost cotangent ``g1`` and
-    its directional derivative ``g2`` (``[K, H, W]``): term B, the backward
-    against ``g2`` (``fused_iwe_bwd(g2)``'s bits with ``term_a`` off), plus
-    with ``term_a`` the vote's mixed second derivative against ``g1`` along
-    ``dflow``.  The plain version for CPU tensors, the kernel for CUDA
-    tensors."""
+                      eps: float = 1e-6, bins: Optional[Tensor] = None,
+                      frames: Optional[Frames] = None) -> Tensor:
+    """K4 (K6's HVP backward with ``bins``, per bin ``[T, 2, H, W]``; the
+    batched forms with ``frames``): the vote's flow-space HVP contribution
+    from the cost cotangent ``g1`` and its directional derivative ``g2``
+    (``[(B,) K, H, W]``): term B, the backward against ``g2``
+    (``fused_iwe_bwd(g2)``'s bits with ``term_a`` off), plus with ``term_a``
+    the vote's mixed second derivative against ``g1`` along ``dflow``.  The
+    plain version for CPU tensors, the kernel for CUDA tensors."""
     if flow.device.type == "cpu":
         return fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, x, y, dtf, wt, offsets, term_a, eps,
-                                           bins)
-    _check(flow, (x, y, dtf, wt), offsets, bins)
+                                           bins, frames)
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
     _check_like("dflow", dflow, flow.shape, flow)
-    n, h, w = x.shape[0], flow.shape[-2], flow.shape[-1]
+    h, w = flow.shape[-2], flow.shape[-1]
     for name, g in (("g1", g1), ("g2", g2)):
-        _check_like(name, g, (len(offsets), h, w), flow)
+        _check_like(name, g, _lead(frames) + (len(offsets), h, w), flow)
     if not offsets:
         raise ValueError("fused_iwe_hvp_bwd computes direction terms: give at least one offset")
-    duv = torch.empty((2, n), dtype=flow.dtype, device=flow.device)  # per-event du, dv
+    duv = torch.empty((2, x.shape[0]), dtype=flow.dtype, device=flow.device)  # per-event du, dv
     out = torch.zeros_like(flow)
     offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
-    _launch("hvp_bwd", flow, bins,
-            _event_args(x, y, dtf, wt, flow, bins)
+    _launch("hvp_bwd", flow, bins, frames,
+            _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), dflow.data_ptr(), offs, len(offsets), h, w, float(eps),
                int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), duv.data_ptr(), out.data_ptr()))
     return out
 
 
 class FusedIWE(torch.autograd.Function):
-    """The kernel pair (K1/K2, or K5 with ``bins``) as an autograd function
-    (CUDA tensors only); differentiable w.r.t. ``flow``."""
+    """The kernel pair (K1/K2, K5 with ``bins``, the batched forms with
+    ``frames``) as an autograd function (CUDA tensors only); differentiable
+    w.r.t. ``flow``."""
 
     @staticmethod
-    def forward(ctx, flow, x, y, dtf, wt, bins, offsets, include_orig, eps):
+    def forward(ctx, flow, x, y, dtf, wt, bins, frames, offsets, include_orig, eps):
         flow = flow.contiguous()
         ctx.save_for_backward(flow, x, y, dtf, wt, bins)
-        ctx.config = (offsets, include_orig, eps)
-        return fused_iwe_fwd(flow, x, y, dtf, wt, offsets, include_orig, eps, bins)
+        ctx.config = (frames, offsets, include_orig, eps)
+        return fused_iwe_fwd(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
 
     @staticmethod
     def backward(ctx, g):
         flow, x, y, dtf, wt, bins = ctx.saved_tensors
-        offsets, include_orig, eps = ctx.config
-        dflow = fused_iwe_bwd(flow, x, y, dtf, wt, g.contiguous(), offsets, include_orig, eps, bins)
-        return dflow, None, None, None, None, None, None, None, None
+        frames, offsets, include_orig, eps = ctx.config
+        dflow = fused_iwe_bwd(flow, x, y, dtf, wt, g.contiguous(), offsets, include_orig, eps, bins,
+                              frames)
+        return (dflow,) + (None,) * 9
 
 
-def _gather_uv(flow: Tensor, x: Tensor, y: Tensor, bins: Optional[Tensor]):
-    """(u, v) of each event at its truncated source pixel (of its bin's
-    slice of a voxel, with ``bins``), zero outside the image."""
+def _slices(flow: Tensor, x: Tensor, bins: Optional[Tensor], frames: Optional[Frames]):
+    """(the flow as ``[S, 2, H * W]`` slices, each event's slice ``frame * T
+    + bin``, or None for one dense slice)."""
+    n_bins = 1 if bins is None else flow.shape[-4]
+    slab = None if bins is None else bins.to(torch.int64).clamp(0, n_bins - 1)
+    if frames is not None:
+        first = frames.index() * n_bins
+        slab = first if slab is None else first + slab
+    return flow.reshape(-1, 2, flow.shape[-2] * flow.shape[-1]), slab
+
+
+def _gather_uv(flow: Tensor, x: Tensor, y: Tensor, bins: Optional[Tensor],
+               frames: Optional[Frames]):
+    """(u, v) of each event at its truncated source pixel (of its frame's
+    and bin's slice), zero outside the image."""
     h, w = flow.shape[-2], flow.shape[-1]
     inside = (x > -1) & (x < h) & (y > -1) & (y < w)
     zero = torch.zeros_like(x)
     lin = (torch.where(inside, x, zero).to(torch.int64) * w
            + torch.where(inside, y, zero).to(torch.int64))
-    if bins is None:
-        u, v = flow[0].reshape(-1)[lin], flow[1].reshape(-1)[lin]
+    per_slab, slab = _slices(flow, x, bins, frames)
+    if slab is None:
+        u, v = per_slab[0, 0, lin], per_slab[0, 1, lin]
     else:
-        b = bins.to(torch.int64).clamp(0, flow.shape[0] - 1)
-        per_bin = flow.reshape(flow.shape[0], 2, h * w)
-        u, v = per_bin[b, 0, lin], per_bin[b, 1, lin]
+        u, v = per_slab[slab, 0, lin], per_slab[slab, 1, lin]
     return torch.where(inside, u, zero), torch.where(inside, v, zero)
 
 
 def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                         offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                        bins: Optional[Tensor] = None) -> Tensor:
+                        bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
     """The kernel's plain PyTorch version: gather (from the voxel's bin
-    slices with ``bins``), warp, accumulate the corner votes with
+    slices with ``bins``, the frame's slices with ``frames``), warp,
+    accumulate the corner votes into the frame's image block with one
     ``index_put_(accumulate=True)``; autograd gives the backward."""
     h, w = flow.shape[-2], flow.shape[-1]
     zero = torch.zeros_like(x)
-    u, v = _gather_uv(flow, x, y, bins)
+    u, v = _gather_uv(flow, x, y, bins, frames)
     coords = [(x, y)] if include_orig else []
     for off in offsets:
         dt = dtf - off
         coords.append((x - dt * u, y - dt * v))
+    n_img = len(coords)
+    block = 0 if frames is None else frames.index() * (n_img * h * w)  # each event's image block
     inds, vals = [], []
     for k, (xw, yw) in enumerate(coords):
         flx = torch.floor(xw + eps)
@@ -337,46 +423,50 @@ def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Ten
             row = flx + dr
             col = fly + dc
             ok = (row >= 0) & (row < h) & (col >= 0) & (col < w)
-            idx = torch.where(ok, k * h * w + row * w + col, zero)
-            inds.append(idx.to(torch.int64))
+            idx = block + k * h * w + torch.where(ok, row * w + col, zero).to(torch.int64)
+            inds.append(torch.where(ok, idx, 0))
             vals.append(torch.where(ok, wgt, zero))
-    images = torch.zeros(len(coords) * h * w, dtype=flow.dtype, device=flow.device)
+    images = torch.zeros(_n_frames(frames) * n_img * h * w, dtype=flow.dtype, device=flow.device)
     images = images.index_put((torch.cat(inds),), torch.cat(vals), accumulate=True)
-    return images.reshape(len(coords), h, w)
+    return images.reshape(_lead(frames) + (n_img, h, w))
 
 
 def fused_iwe(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
               offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-              bins: Optional[Tensor] = None) -> Tensor:
-    """``[(orig) + len(offsets), H, W]`` raw (unblurred) IWEs, differentiable
-    w.r.t. ``flow`` (a voxel ``[T, 2, H, W]`` with ``bins``): the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+              bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+    """``[(B,) (orig) + len(offsets), H, W]`` raw (unblurred) IWEs,
+    differentiable w.r.t. ``flow`` (a voxel ``[(B,) T, 2, H, W]`` with
+    ``bins``, a batch ``[B, ...]`` with ``frames``): the plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors."""
     if flow.device.type == "cpu":
-        return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps, bins)
-    return FusedIWE.apply(flow, x, y, dtf, wt, bins, tuple(float(o) for o in offsets),
+        return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
+    return FusedIWE.apply(flow, x, y, dtf, wt, bins, frames, tuple(float(o) for o in offsets),
                           bool(include_orig), float(eps))
 
 
 def fused_iwe_jvp_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
                             wt: Tensor, offsets: Sequence[float], emit_value: bool,
-                            eps: float = 1e-6, bins: Optional[Tensor] = None):
-    """K3's and K6's plain version: ``torch.func.jvp`` of
-    ``fused_iwe_reference``."""
+                            eps: float = 1e-6, bins: Optional[Tensor] = None,
+                            frames: Optional[Frames] = None):
+    """K3's and K6's plain version (and their batched forms'):
+    ``torch.func.jvp`` of ``fused_iwe_reference``."""
     images, dimages = torch.func.jvp(
-        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps, bins), (flow,), (dflow,))
+        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps, bins, frames), (flow,),
+        (dflow,))
     return (images, dimages) if emit_value else dimages
 
 
 def fused_iwe_hvp_bwd_reference(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor,
                                 y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
                                 term_a: bool, eps: float = 1e-6,
-                                bins: Optional[Tensor] = None) -> Tensor:
-    """K4's and K6's plain version: term B is the VJP of
-    ``fused_iwe_reference`` against ``g2``; term A the double backward of
-    ``<vjp(flow)(g1), dflow>``."""
+                                bins: Optional[Tensor] = None,
+                                frames: Optional[Frames] = None) -> Tensor:
+    """K4's and K6's plain version (and their batched forms'): term B is
+    the VJP of ``fused_iwe_reference`` against ``g2``; term A the double
+    backward of ``<vjp(flow)(g1), dflow>``."""
     with torch.enable_grad():
         fl = flow.detach().requires_grad_(True)
-        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps, bins)
+        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps, bins, frames)
         (out,) = torch.autograd.grad(images, fl, g2, retain_graph=term_a)
         if term_a:
             (vjp1,) = torch.autograd.grad(images, fl, g1, create_graph=True)

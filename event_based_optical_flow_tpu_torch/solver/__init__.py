@@ -1,16 +1,20 @@
 """Solver layer of the port and its registry (same registry names as the
-JAX package): the pyramidal tile solver and the single-scale tile solvers
-(plain and time-aware), each with the device Newton-CG."""
+JAX package): the pyramidal tile solver, its fleet form (batches of
+independent frames in one lockstep Newton-CG per scale) and the
+single-scale tile solvers (plain and time-aware), each with the device
+Newton-CG."""
 
 from .base import SolverBase
+from .fleet import BatchedNewtonCG, FleetPyramidalSolver
 from .newton_cg import NewtonCG, build_newton_cg
-from .objective import FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe
+from .objective import FleetEvents, FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe
 from .mixed import MixedPatchContrastMaximization
 from .patch_base import PatchContrastMaximization, prepare_patch
 from .pyramid import PyramidalPatchContrastMaximization
 from .time_aware import TimeAwarePatchContrastMaximization
 
 collections = {
+    "fleet_pyramidal_patch_contrast_maximization": FleetPyramidalSolver,
     "mixed_patch_contrast_maximization": MixedPatchContrastMaximization,
     "pyramidal_patch_contrast_maximization": PyramidalPatchContrastMaximization,
     "time_aware_mixed_patch_contrast_maximization": TimeAwarePatchContrastMaximization,
@@ -24,10 +28,13 @@ __all__ = [
     "PatchContrastMaximization",
     "MixedPatchContrastMaximization",
     "PyramidalPatchContrastMaximization",
+    "FleetPyramidalSolver",
     "TimeAwarePatchContrastMaximization",
     "NewtonCG",
     "build_newton_cg",
+    "BatchedNewtonCG",
     "FrameEvents",
+    "FleetEvents",
     "ObjectiveSpec",
     "build_objective",
     "build_orig_iwe",

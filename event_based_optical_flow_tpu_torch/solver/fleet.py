@@ -1,0 +1,422 @@
+"""Fleet solving: B independent frames through one lockstep solve per
+pyramid scale (port of ``event_based_optical_flow_tpu/solver/fleet.py``:
+``build_orig_iwe_banded_batched``, ``build_batched_objective_banded``,
+``build_batched_objective_banded_hvp`` (staged), ``build_newton_cg_batched``
+and ``FleetPyramidalSolver.optimize_batch``'s per-scale loop).
+
+Without warm-start chaining the eval frames are independent, so B of them
+are initialized, solved and scored together: per pyramid scale, the init
+sweep per frame, then ONE batched Newton-CG whose iterations run in
+lockstep (a frame that is done is frozen).  One lockstep evaluation runs
+the batched kernels once for all B frames (the frame index of
+``ops/fused_iwe.py``) and the rest of the objective with the frame as a
+batch axis (``torch.func.vmap`` of the single-frame functions), so it
+launches about as many kernels as one single-frame evaluation, and every
+loop condition is one host read for the whole batch.
+
+The JAX package's whole-fleet device chain (``_optimize_batch_chain``) fuses
+the same per-scale loop into one TPU dispatch; the port runs the loop.  Its
+mesh (``parallel:``), batched L-BFGS (``device_solver: lbfgs``) and the
+chain's batch warm start (``warm_start: batch``) are not ported: the config
+validation refuses them.
+"""
+
+import logging
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..ops import fused_iwe as fi
+from ..ops.blur import gaussian_blur3
+from .newton_cg import _FD_EPS_SCALE
+from .objective import FleetEvents, ObjectiveSpec, check_events, cost_of_images, flow_of
+from .pyramid import COARSE_SUBSAMPLE_MIN_EVENTS, PyramidalPatchContrastMaximization, coarse_subsample
+
+logger = logging.getLogger(__name__)
+
+Tensor = torch.Tensor
+
+
+def _batched_flow(spec: ObjectiveSpec, motion: Tensor, fleet: FleetEvents) -> Tensor:
+    """Motion ``[B, M]`` -> the kernels' flows ``[B, 2, H, W]`` (voxels
+    ``[B, T, 2, H, W]`` when time-aware), each frame x its ``t_scale``."""
+    check_events(spec, fleet)
+    return torch.func.vmap(lambda m, ts: flow_of(spec, m, ts))(motion, fleet.t_scales)
+
+
+def _over_frames(fn, orig: Optional[Tensor], n_args: int):
+    """``vmap`` of ``fn(*args, orig)`` over the frame axis (``orig`` None:
+    an objective without an orig IWE)."""
+    return torch.func.vmap(fn, in_dims=(0,) * n_args + (None if orig is None else 0,))
+
+
+def build_orig_iwe_batched(spec: ObjectiveSpec):
+    """fn(fleet) -> the frames' motion-independent blurred orig IWEs ``[B,
+    H, W]`` (the batched kernel's orig-only call), once per event set."""
+
+    def orig_fn(fleet: FleetEvents) -> Tensor:
+        with torch.no_grad():
+            h, w = spec.image_shape
+            zeros = fleet.x.new_zeros((len(fleet), 2, h, w))
+            imgs = fi.fused_iwe(zeros, fleet.x, fleet.y, fleet.dtf, fleet.wt, (), True, frames=fleet.frames)
+            if spec.blur_sigma > 0:
+                imgs = gaussian_blur3(imgs, spec.blur_sigma)
+            return imgs[:, 0]
+
+    return orig_fn
+
+
+def build_batched_objective(spec: ObjectiveSpec):
+    """fn(motion [B, M], orig [B, H, W], fleet) -> losses [B]: the batched
+    kernel for every frame's direction images, then each frame's blur and
+    cost."""
+    offsets, cost_of = cost_of_images(spec)
+
+    def loss_of(imgs, motion_flat, orig_blurred):
+        return cost_of(imgs, motion_flat, orig_blurred)[0]
+
+    def objective(motion: Tensor, orig: Optional[Tensor], fleet: FleetEvents) -> Tensor:
+        flows = _batched_flow(spec, motion, fleet).contiguous()
+        imgs = fi.fused_iwe(flows, fleet.x, fleet.y, fleet.dtf, fleet.wt, offsets, False, bins=fleet.bins,
+                            frames=fleet.frames)
+        return _over_frames(loss_of, orig, 2)(imgs, motion, orig)
+
+    return objective
+
+
+def build_batched_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool = True):
+    """``(prep, hvp)`` of the lockstep CG loop, the batched form of
+    ``objective.build_objective_hvp_staged``: ``prep(motion, orig, fleet)``
+    votes every frame's direction images once per CG solve; ``hvp(images,
+    motion, p, orig, fleet) -> [B, M]`` runs the batched tangent kernel,
+    each frame's cost jvp-of-grad, the batched HVP backward and the
+    transpose of the motion -> flow map."""
+    offsets, cost_of = cost_of_images(spec)
+    grad_cost = torch.func.grad(lambda ii, mm, oo: cost_of(ii, mm, oo)[0], argnums=(0, 1))
+
+    def cost_jvp(images, motion_flat, p, dimages, orig_blurred):
+        (g1, _), (g2, dgm) = torch.func.jvp(
+            lambda ii, mm: grad_cost(ii, mm, orig_blurred), (images, motion_flat), (dimages, p))
+        return g1, g2, dgm
+
+    def prep(motion: Tensor, orig: Optional[Tensor], fleet: FleetEvents) -> Tensor:
+        with torch.no_grad():
+            flows = _batched_flow(spec, motion, fleet).contiguous()
+            return fi.fused_iwe(flows, fleet.x, fleet.y, fleet.dtf, fleet.wt, offsets, False, bins=fleet.bins,
+                                frames=fleet.frames)
+
+    def hvp(images: Tensor, motion: Tensor, p: Tensor, orig: Optional[Tensor], fleet: FleetEvents) -> Tensor:
+        flow_fn = lambda m: _batched_flow(spec, m, fleet)  # noqa: E731
+        flows, flow_vjp = torch.func.vjp(flow_fn, motion)
+        # the dense map is linear: its tangent along p is the map of p
+        dflows = torch.func.jvp(flow_fn, (motion,), (p,))[1] if spec.time_aware else flow_fn(p)
+        flows, dflows = flows.contiguous(), dflows.contiguous()
+        ev = (fleet.x, fleet.y, fleet.dtf, fleet.wt)
+        dimages = fi.fused_iwe_jvp(flows, dflows, *ev, offsets, False, bins=fleet.bins, frames=fleet.frames)
+        g1, g2, dgm = _over_frames(cost_jvp, orig, 4)(images, motion, p, dimages, orig)
+        dgflow = fi.fused_iwe_hvp_bwd(flows, dflows, g1.contiguous(), g2.contiguous(), *ev, offsets,
+                                      not gauss_newton, bins=fleet.bins, frames=fleet.frames)
+        return flow_vjp(dgflow)[0] + dgm
+
+    return prep, hvp
+
+
+def _rnorm(v: Tensor) -> Tensor:
+    return torch.linalg.vector_norm(v, dim=-1)
+
+
+def _rdot(a: Tensor, b: Tensor) -> Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+class BatchedNewtonCG:
+    """Lockstep per-frame truncated Newton (``build_newton_cg_batched`` of
+    the JAX package, step for step): ``solve(x0 [B, M], *args) -> (best_x
+    [B, M], best_f [B], iterations)`` for ``value_fn(x, *args) -> [B]``.
+
+    Per frame: the forcing sequence, CG state, negative-curvature fallback
+    and ``done`` mask (frozen frames keep their state); the line search
+    freezes each frame at its first accepted level; the FD HVP steps each
+    frame by ``0.1 (1 + 1e-3 |x_b|) / (|d_b| + 1e-12)``.  The escape probe
+    runs while ANY frame has not improved on its start, and every frame
+    keeps its best over all probes, so a frame's result depends on which
+    frames share its batch (the JAX package's semantics, kept).  Every loop
+    condition is one host read for the whole batch (``syncs``)."""
+
+    def __init__(self, value_fn: Callable, maxiter: int = 25, cg_maxiter: int = 32, xtol: float = 1e-5,
+                 gtol: float = 1e-5, ls_maxiter: int = 16, armijo_c1: float = 1e-4, hvp_mode: str = "fd",
+                 fd_central: bool = True, hvp_fn: Optional[Callable] = None,
+                 hvp_prep_fn: Optional[Callable] = None, max_step: Optional[float] = None,
+                 fd_polish: int = 0):
+        if hvp_mode not in ("fd", "analytic"):
+            raise ValueError(f"hvp_mode must be 'fd' or 'analytic', got {hvp_mode!r}")
+        if (hvp_mode == "analytic") != (hvp_fn is not None) or (hvp_prep_fn is not None and hvp_fn is None):
+            raise ValueError("hvp_fn (and hvp_prep_fn) go with hvp_mode='analytic' only")
+        self.value_fn = value_fn
+        self.maxiter = maxiter
+        self.cg_maxiter = cg_maxiter
+        self.xtol = xtol
+        self.gtol = gtol
+        self.ls_maxiter = ls_maxiter
+        self.armijo_c1 = armijo_c1
+        self.fd_central = fd_central
+        self.hvp_fn = hvp_fn
+        self.hvp_prep_fn = hvp_prep_fn
+        self.max_step = max_step
+        self.fd_polish = fd_polish
+        self.syncs = 0
+
+    def _any(self, mask: Tensor) -> bool:
+        self.syncs += 1
+        return bool(mask.any())
+
+    def _value(self, x, args) -> Tensor:
+        with torch.no_grad():
+            return self.value_fn(x, *args)
+
+    def _value_grad(self, x, args):
+        """Per-frame losses and the gradient of their sum (the per-frame
+        gradients: frames are independent) from one evaluation."""
+        xr = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = self.value_fn(xr, *args)
+            (g,) = torch.autograd.grad(f.sum(), xr)
+        return f.detach(), g
+
+    def _hvp(self, x, d, g0, args, aux, analytic, force_central):
+        if analytic:
+            if self.hvp_prep_fn is not None:
+                return self.hvp_fn(aux, x, d, *args)
+            return self.hvp_fn(x, d, *args)
+        d_norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-12
+        eps = _FD_EPS_SCALE * (1.0 + 1e-3 * torch.linalg.vector_norm(x, dim=-1, keepdim=True)) / d_norm
+        g_plus = self._value_grad(x + eps * d, args)[1]
+        if self.fd_central or force_central:
+            g_minus = self._value_grad(x - eps * d, args)[1]
+            return (g_plus - g_minus) / (2.0 * eps)
+        return (g_plus - g0) / eps
+
+    def _cg_solve(self, x, g, args, analytic, force_central):
+        g_norm = _rnorm(g)
+        eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
+        # the staged analytic HVP's per-frame value images, once per CG solve
+        aux = self.hvp_prep_fn(x, *args) if analytic and self.hvp_prep_fn is not None else None
+        r, d, p = g, -g, torch.zeros_like(g)
+        done = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+        i = 0
+        while i < self.cg_maxiter:
+            active = ~done & (_rnorm(r) > eta)
+            if not self._any(active):
+                break
+            hd = self._hvp(x, d, g, args, aux, analytic, force_central)
+            curv = _rdot(d, hd)
+            rs = _rdot(r, r)
+            neg = curv <= 1e-16 * _rdot(d, d)
+            # scipy semantics: on non-positive curvature at i == 0 take the
+            # 1-D Newton step (rs / curv) d, later keep the accumulated p
+            p_fb = (rs / torch.where(curv == 0, torch.ones_like(curv), curv))[:, None] * d if i == 0 else p
+            alpha = rs / torch.where(neg, torch.ones_like(curv), curv)
+            p_new = p + alpha[:, None] * d
+            r_new = r + alpha[:, None] * hd
+            beta = _rdot(r_new, r_new) / torch.where(rs == 0, torch.ones_like(rs), rs)
+            d_new = -r_new + beta[:, None] * d
+            p_out = torch.where(neg[:, None], p_fb, p_new)
+            upd = active[:, None]  # frozen frames keep their state
+            r, d, p = torch.where(upd, r_new, r), torch.where(upd, d_new, d), torch.where(upd, p_out, p)
+            done = done | (neg & active)
+            i += 1
+        # CG produced nothing (eta met at once): steepest descent
+        return torch.where((_rdot(p, p) > 0)[:, None], p, -g)
+
+    def _line_search(self, x, f0, g, p, args):
+        """Per-frame two-sided backtracking in lockstep: each level tries x
+        +- a p; a frame freezes at its first level that meets the Armijo
+        test."""
+        c1 = self.armijo_c1
+        gtp_abs = _rdot(g, p).abs()
+        alpha = torch.ones_like(f0)
+        f_cur = torch.full_like(f0, float("inf"))
+        accepted = torch.zeros_like(f0, dtype=torch.bool)
+        i = 0
+        while True:
+            a = torch.ones_like(alpha) if i == 0 else alpha.abs() * 0.5
+            f_plus = self._value(x + a[:, None] * p, args)
+            f_minus = self._value(x - a[:, None] * p, args)
+            take_minus = f_minus < f_plus
+            f_cand = torch.where(take_minus, f_minus, f_plus)
+            a_signed = torch.where(take_minus, -a, a)
+            alpha = torch.where(accepted, alpha, a_signed)
+            f_cur = torch.where(accepted, f_cur, f_cand)
+            accepted = accepted | (f_cur < f0 - c1 * alpha.abs() * gtp_abs)
+            i += 1
+            if i >= self.ls_maxiter or not self._any(~accepted):
+                break
+        zero = torch.zeros_like(alpha)
+        return torch.where(accepted, alpha, zero), torch.where(accepted, f_cur, f0)
+
+    def _escape_probe(self, x, f0, p, args):
+        """Outward two-sided exponential probe along p-hat per frame, while
+        any frame has not improved; a signed step (p-hat units) or 0."""
+        p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
+        mag = 1.0
+        best_a = torch.zeros_like(f0)
+        best_f = f0
+        i = 0
+        while True:
+            f_plus = self._value(x + mag * p_hat, args)
+            f_minus = self._value(x - mag * p_hat, args)
+            take_minus = f_minus < f_plus
+            f_cand = torch.where(take_minus, f_minus, f_plus)
+            a_cand = torch.where(take_minus, torch.full_like(f0, -mag), torch.full_like(f0, mag))
+            better = f_cand < best_f
+            best_a = torch.where(better, a_cand, best_a)
+            best_f = torch.where(better, f_cand, best_f)
+            mag *= 2.0
+            i += 1
+            if i >= 9 or not self._any(best_f >= f0):
+                break
+        return torch.where(best_f < f0, best_a, torch.zeros_like(best_a)), p_hat
+
+    def _iterate(self, x, f, g, maxiter, args, analytic, cap, escape, force_central):
+        """Lockstep Newton iterations with one curvature model (``make_body``
+        of the JAX package); returns (best_x, best_f, iterations)."""
+        bx, bf = x, f
+        done = torch.zeros_like(f, dtype=torch.bool)
+        k = 0
+        while k < maxiter and (k == 0 or self._any(~done)):
+            p = self._cg_solve(x, g, args, analytic, force_central)
+            if cap is not None:
+                # per component, not a per-frame inf-norm rescale
+                p = p.clamp(-cap, cap)
+            alpha, f_ls = self._line_search(x, f, g, p, args)
+            # plateau escape per frame: backtracking failed OR the first
+            # iteration found only a negligible decrease; masked by ~done
+            trigger = alpha == 0.0
+            if k == 0:
+                trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
+            trigger = ~done & trigger
+            if escape and self._any(trigger):
+                a_esc, p_hat = self._escape_probe(x, f, p, args)
+            else:
+                a_esc, p_hat = torch.zeros_like(alpha), p
+            use_esc = trigger & (a_esc != 0.0)
+            alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
+            step = torch.where(use_esc[:, None], a_esc[:, None] * p_hat, alpha[:, None] * p)
+            x = torch.where(done[:, None], x, x + step)
+            f, g = self._value_grad(x, args)
+            improved = f < bf
+            bx = torch.where(improved[:, None], x, bx)
+            bf = torch.where(improved, f, bf)
+            small_step = step.abs().sum(dim=-1) <= self.xtol
+            small_grad = g.abs().amax(dim=-1) <= self.gtol
+            done = done | small_step | small_grad | (alpha == 0.0)
+            k += 1
+        return bx, bf, k
+
+    def __call__(self, x0: Tensor, *args):
+        x = x0.detach()
+        f, g = self._value_grad(x, args)
+        analytic = self.hvp_fn is not None
+        bx, bf, k = self._iterate(x, f, g, self.maxiter, args, analytic, self.max_step, True, False)
+        if self.fd_polish > 0 and analytic:
+            # lockstep central-FD refinement from the best iterates: no step
+            # clip, no escape probe
+            fb, gb = self._value_grad(bx, args)
+            bx, bf, k2 = self._iterate(bx, fb, gb, self.fd_polish, args, False, None, False, True)
+            k += k2
+        return bx, bf, k
+
+
+class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
+    """Pyramidal CMax over a fleet of frames: per scale, the init sweep of
+    each frame and one lockstep batched Newton solve.  For independent
+    frames (no warm-start chaining); ``optimize`` (one frame) is the
+    sequential pyramid's."""
+
+    def _coarse_events_list(self, events_list: List[np.ndarray]):
+        """Per-frame stride subsamples for the coarse scales, or None when
+        ``optimizer.coarse_event_fraction`` is off or no scale is coarse.  A
+        frame whose subsample would fall below the floor keeps its full
+        events (per frame, as the sequential path degrades)."""
+        frac = float(self.opt_config.get("coarse_event_fraction", 1.0))
+        if frac >= 1.0 or self.patch_scales - self.coarsest_scale < 2:
+            return None
+        subs = [coarse_subsample(e, frac) for e in events_list]
+        if all(s is None for s in subs):
+            return None
+        n_floor = sum(s is None for s in subs)
+        if n_floor:
+            logger.info(f"coarse_event_fraction: {n_floor}/{len(subs)} frames below the "
+                        f"{COARSE_SUBSAMPLE_MIN_EVENTS}-event subsample floor solve their coarse scales "
+                        "on all events")
+        return [e if s is None else s for s, e in zip(subs, events_list)]
+
+    def _frame_start(self, s: int, events_np: np.ndarray, coarser: Dict[int, Tensor], b: int) -> Tensor:
+        """Frame ``b``'s start at scale ``s`` ([2, n_patch]): the cold init at
+        the coarsest scale, else its expanded coarser solution refined by
+        the init sweep on its own events (``_init_scale_single``)."""
+        presearch = self._presearch_motion(s, {s - 1: coarser[s - 1][b]} if s > self.coarsest_scale else {})
+        if presearch is None:
+            return self._init_scale(s)
+        motion0, n_cand = presearch
+        return self.initialize_guess_from_patch_search(events_np, motion0, n_cand)
+
+    def _run_fleet_newton(self, spec: ObjectiveSpec, x0: Tensor, fleet: FleetEvents, orig: Tensor,
+                          maxiter: int, cg_maxiter=None, finest: bool = True):
+        """One lockstep Newton-CG solve of this scale's batched objective
+        from ``x0`` [B, M]; returns (best_x, best_f [B], iterations, hvp)."""
+        analytic, gauss_newton = self._curvature(spec, False, finest)
+        obj = build_batched_objective(spec)
+        hvp_kw = {}
+        if analytic:
+            prep, hvp = build_batched_objective_hvp_staged(spec, gauss_newton)
+            hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
+        solve = BatchedNewtonCG(obj, **self._newton_options(analytic, finest, maxiter, cg_maxiter), **hvp_kw)
+        best_x, best_f, n_iter = solve(x0.to(self.dtype), orig, fleet)
+        self.syncs += solve.syncs
+        return best_x, best_f, n_iter, self._hvp_name(analytic, gauss_newton)
+
+    def optimize_batch(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
+        """Solve B frames together: one per-scale motion dict per frame
+        (on the solver's device).  ``last_batch_stats`` holds the batch's
+        lockstep iterations, per-frame losses, HVP model, per-frame event
+        counts and kernel launches per scale, and its host syncs."""
+        events_list = [np.asarray(e, dtype=np.float64) for e in events_list]
+        bsz = len(events_list)
+        if self.previous_frame_best_estimation is not None:
+            logger.warning("fleet batch warm start is not ported (the JAX package's fleet chain runs it); "
+                           "solving this batch from the cold init")
+            self.previous_frame_best_estimation = None
+        self.overload_patch_configuration(self.coarsest_scale)
+        orig_fn = build_orig_iwe_batched(self._current_spec())
+        full = FleetEvents.from_numpy(events_list, self.device, self.dtype, self.time_bin)
+        newton_events = {"full": (full, orig_fn(full))}
+        subs = self._coarse_events_list(events_list)
+        if subs is not None:
+            coarse = FleetEvents.from_numpy(subs, self.device, self.dtype, self.time_bin)
+            newton_events["coarse"] = (coarse, orig_fn(coarse))
+        self.syncs = 0
+        stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}}
+        best: Dict[int, Tensor] = {}
+        for s in range(self.coarsest_scale, self.patch_scales):
+            self.overload_patch_configuration(s)
+            spec = self._current_spec()
+            finest = s == self.patch_scales - 1
+            fleet, orig = newton_events["full" if finest or subs is None else "coarse"]
+            before = fi.launch_counts()
+            x0 = torch.stack([self._frame_start(s, events_list[b], best, b).reshape(-1) for b in range(bsz)])
+            scale_mi, scale_cg = self._scale_budget(s)
+            bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest)
+            best[s] = bx.reshape((bsz, self.motion_vector_size) + tuple(self.patch_image_size))
+            losses = bf.tolist()
+            self.syncs += 1
+            after = fi.launch_counts()
+            stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, losses, hvp
+            stats["events"][s] = list(fleet.frames.sizes)
+            stats["launches"][s] = {k: after[k] - before[k] for k in after}
+            logger.info(f"Fleet scale {s} done ({bsz} frames): {n_iter} lockstep iters ({hvp} HVP), "
+                        f"losses {[round(v, 6) for v in losses]}")
+        stats["syncs"] = self.syncs
+        self.last_batch_stats = stats
+        return [self.update_coarse_from_fine({s: best[s][b] for s in best}) for b in range(bsz)]

@@ -42,7 +42,7 @@ import torch
 from .. import costs as costs_mod
 from ..costs.functional import nan_to_penalty
 from ..ops.blur import gaussian_blur3
-from ..ops.fused_iwe import fused_iwe, fused_iwe_hvp_bwd, fused_iwe_jvp
+from ..ops.fused_iwe import Frames, fused_iwe, fused_iwe_hvp_bwd, fused_iwe_jvp
 from ..flow.voxel import DEVICE_SCHEMES, construct_dense_flow_voxel
 from ..ops.interp import tile_to_dense_flow
 
@@ -117,6 +117,46 @@ class FrameEvents:
                                                              device=device))
 
 
+@dataclass
+class FleetEvents:
+    """B frames' events as the batched kernels take them: each frame built
+    exactly as ``FrameEvents.from_numpy`` builds it (its own float64 ``dtf``
+    from its own time min/max, its own bins and sort), concatenated in frame
+    order, so the events are sorted by (frame, bin, source pixel);
+    ``t_scales`` ``[B]``; ``frames`` the kernels' frame table.  The JAX
+    package pads every frame to a common multiple of 4096 events; padded
+    events are inert (they change no sum), so none are added here."""
+
+    x: Tensor
+    y: Tensor
+    dtf: Tensor
+    wt: Tensor
+    t_scales: Tensor
+    frames: Frames
+    bins: Optional[Tensor] = None
+
+    @classmethod
+    def from_numpy(cls, events_list, device, dtype, time_bin: Optional[int] = None) -> "FleetEvents":
+        parts = [FrameEvents.from_numpy(e, device, dtype, time_bin) for e in events_list]
+
+        def cat(name):
+            return torch.cat([getattr(p, name) for p in parts])
+
+        return cls(cat("x"), cat("y"), cat("dtf"), cat("wt"), torch.stack([p.t_scale for p in parts]),
+                   Frames.of_sizes([p.x.shape[0] for p in parts], device),
+                   None if time_bin is None else cat("bins"))
+
+    def __len__(self) -> int:
+        return len(self.frames.sizes)
+
+    def frame(self, b: int) -> FrameEvents:
+        """Frame ``b``'s events alone (views)."""
+        lo = sum(self.frames.sizes[:b])
+        part = slice(lo, lo + self.frames.sizes[b])
+        return FrameEvents(self.x[part], self.y[part], self.dtf[part], self.wt[part], self.t_scales[b],
+                           None if self.bins is None else self.bins[part])
+
+
 def make_cost(spec: ObjectiveSpec):
     if spec.cost_name == "hybrid":
         return costs_mod.HybridCost(direction="minimize", cost_with_weight=dict(spec.cost_with_weight))
@@ -170,7 +210,7 @@ def build_orig_iwe(spec: ObjectiveSpec):
     return orig_fn
 
 
-def _cost_of_images(spec: ObjectiveSpec):
+def cost_of_images(spec: ObjectiveSpec):
     """(offsets, fn(raw direction images, motion_flat, orig_blurred) ->
     (loss, components)): the objective after the vote."""
     cost = make_cost(spec)
@@ -201,20 +241,31 @@ def _cost_of_images(spec: ObjectiveSpec):
     return tuple(o for _, o in directions), cost_of
 
 
-def _flow(spec: ObjectiveSpec, motion_flat: Tensor, frame: FrameEvents) -> Tensor:
-    """The kernel's flow (x ``t_scale``): dense, or the time-aware voxel."""
-    if spec.time_aware != (frame.bins is not None):
-        raise ValueError("a time-aware objective takes FrameEvents with time bins "
+def check_events(spec: ObjectiveSpec, events) -> None:
+    """Raise unless ``events`` (``FrameEvents`` or ``FleetEvents``) carry
+    time bins exactly when the objective is time-aware, with a voxel
+    scheme the objective runs."""
+    if spec.time_aware != (events.bins is not None):
+        raise ValueError("a time-aware objective takes events with time bins "
                          "(FrameEvents.from_numpy(..., time_bin=spec.time_bin)), a dense one without")
     if spec.time_aware and spec.flow_interpolation not in DEVICE_SCHEMES:
         raise ValueError(f"the objective runs the voxel schemes {DEVICE_SCHEMES}, "
                          f"not {spec.flow_interpolation!r}")
-    return motion_to_dense_flow(spec, motion_flat, frame.t_scale) * frame.t_scale
+
+
+def flow_of(spec: ObjectiveSpec, motion_flat: Tensor, t_scale) -> Tensor:
+    """The kernel's flow (x ``t_scale``): dense, or the time-aware voxel."""
+    return motion_to_dense_flow(spec, motion_flat, t_scale) * t_scale
+
+
+def _flow(spec: ObjectiveSpec, motion_flat: Tensor, frame: FrameEvents) -> Tensor:
+    check_events(spec, frame)
+    return flow_of(spec, motion_flat, frame.t_scale)
 
 
 def build_objective(spec: ObjectiveSpec):
     """fn(motion_flat, orig_blurred, frame) -> (loss, components)."""
-    offsets, cost_of = _cost_of_images(spec)
+    offsets, cost_of = cost_of_images(spec)
 
     def objective(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
         flow = _flow(spec, motion_flat, frame)
@@ -230,14 +281,14 @@ def objective_supports_analytic_hvp(spec: ObjectiveSpec, gauss_newton: bool = Tr
     The dense tile motion -> flow map is linear, so the assembly is exact,
     full Hessian included; the time-aware motion -> voxel map is not, so
     a time-aware objective takes the Gauss-Newton form only."""
-    return bool(_cost_of_images(spec)[0]) and (gauss_newton or not spec.time_aware)
+    return bool(cost_of_images(spec)[0]) and (gauss_newton or not spec.time_aware)
 
 
 def _hvp_assembly(spec: ObjectiveSpec, gauss_newton: bool):
     """(offsets, fn(images, dimages, motion, p, orig, frame) -> H p) around
     the two kernels: g1 and (g2, dC_mm) from the cost's jvp-of-grad, K4,
     and the transpose of the motion -> flow map."""
-    offsets, cost_of = _cost_of_images(spec)
+    offsets, cost_of = cost_of_images(spec)
     grad_cost = torch.func.grad(lambda ii, mm, oo: cost_of(ii, mm, oo)[0], argnums=(0, 1))
 
     def assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame):

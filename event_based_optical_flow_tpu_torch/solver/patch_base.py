@@ -131,13 +131,11 @@ class PatchContrastMaximization(SolverBase):
             return bool(warm and finest)
         return False
 
-    def _run_newton(self, spec: ObjectiveSpec, x0: torch.Tensor, frame: FrameEvents,
-                    orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
-                    warm: bool = False, gtol: float = 1e-5):
-        """One Newton-CG solve of this scale's objective from ``x0``
-        (flat [2 * n_patch]); returns (best_x, best_f, n_iter, hvp), hvp
-        naming the curvature model: "fd", "analytic-gn" or
-        "analytic-full"."""
+    def _curvature(self, spec: ObjectiveSpec, warm: bool, finest: bool):
+        """(analytic, gauss_newton): whether this (warmth, scale) solve takes
+        the analytic HVP (``_want_analytic``, and the objective supports
+        it) and in which form; warns once on an unknown ``hvp_mode`` and on
+        an analytic mode the objective does not support."""
         mode = str(self.opt_config.get("hvp_mode", "fd")).lower()
         if mode not in HVP_MODES and not getattr(self, "_warned_hvp_mode", False):
             logger.warning(f"optimizer.hvp_mode: {mode!r} is not recognized ({' | '.join(HVP_MODES)}) "
@@ -151,31 +149,48 @@ class PatchContrastMaximization(SolverBase):
                                "(time-aware: analytic-full) — falling back to the FD HVP")
                 self._warned_analytic_hvp = True
             analytic = False
+        return analytic, gauss_newton
+
+    def _newton_options(self, analytic: bool, finest: bool, maxiter: int, cg_maxiter=None,
+                        gtol: float = 1e-5) -> dict:
+        """The Newton-CG budget and curvature options of one solve (the
+        sequential and the fleet Newton take the same)."""
+        kw = {
+            "maxiter": maxiter,
+            "cg_maxiter": int(cg_maxiter if cg_maxiter is not None else self.opt_config.get("cg_maxiter", 32)),
+            "xtol": 1e-5,
+            "gtol": gtol,
+            "fd_central": bool(self.opt_config.get("hvp_central", True)),
+        }
+        if analytic:
+            # the analytic curvature needs the per-component step clip (px/s);
+            # central-FD refinement iterations: finest scale only
+            kw["max_step"] = float(self.opt_config.get("hvp_max_step", 10.0))
+            kw["fd_polish"] = int(self.opt_config.get("fd_polish", 0)) if finest else 0
+        return kw
+
+    @staticmethod
+    def _hvp_name(analytic: bool, gauss_newton: bool) -> str:
+        return ("analytic-gn" if gauss_newton else "analytic-full") if analytic else "fd"
+
+    def _run_newton(self, spec: ObjectiveSpec, x0: torch.Tensor, frame: FrameEvents,
+                    orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
+                    warm: bool = False, gtol: float = 1e-5):
+        """One Newton-CG solve of this scale's objective from ``x0``
+        (flat [2 * n_patch]); returns (best_x, best_f, n_iter, hvp), hvp
+        naming the curvature model: "fd", "analytic-gn" or
+        "analytic-full"."""
+        analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_objective(spec)
         hvp_kw = {"hvp_mode": "fd"}
         if analytic:
             prep, hvp = build_objective_hvp_staged(spec, gauss_newton=gauss_newton)
-            hvp_kw = {
-                "hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep,
-                # the analytic curvature needs the per-component step clip (px/s)
-                "max_step": float(self.opt_config.get("hvp_max_step", 10.0)),
-                # central-FD refinement iterations: finest scale only
-                "fd_polish": int(self.opt_config.get("fd_polish", 0)) if finest else 0,
-            }
-        solve = build_newton_cg(
-            lambda x, *a: obj(x, *a)[0],
-            maxiter=maxiter,
-            cg_maxiter=int(cg_maxiter if cg_maxiter is not None
-                           else self.opt_config.get("cg_maxiter", 32)),
-            xtol=1e-5,
-            gtol=gtol,
-            fd_central=bool(self.opt_config.get("hvp_central", True)),
-            **hvp_kw,
-        )
+            hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
+        solve = build_newton_cg(lambda x, *a: obj(x, *a)[0],
+                                **self._newton_options(analytic, finest, maxiter, cg_maxiter, gtol), **hvp_kw)
         best_x, best_f, n_iter = solve(x0.reshape(-1).to(self.dtype), orig, frame)
         self.syncs += solve.syncs
-        hvp_name = ("analytic-gn" if gauss_newton else "analytic-full") if analytic else "fd"
-        return best_x, best_f, n_iter, hvp_name
+        return best_x, best_f, n_iter, self._hvp_name(analytic, gauss_newton)
 
     # --- per-patch init sweep -----------------------------------------------
     def _patch_capacity(self, n_events: int) -> int:

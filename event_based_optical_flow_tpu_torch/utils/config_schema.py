@@ -3,9 +3,10 @@
 
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
-dataset, solver, optimizer or cost, a host griddata voxel scheme, fleet
-batching, the DNN path, flow dumps) fails fast here with the YAML path of
-the entry, instead of deep inside a solve.  Unknown keys produce warnings.
+dataset, solver, optimizer or cost, a host griddata voxel scheme, the fleet
+chain's batch warm start, the L-BFGS solvers, device meshes, the DNN path,
+flow dumps) fails fast here with the YAML path of the entry, instead of
+deep inside a solve.  Unknown keys produce warnings.
 """
 
 import logging
@@ -69,9 +70,8 @@ _KNOWN_OPT_KEYS = {
 # run yet: (section, key, value the port runs, reason)
 _UNPORTED = (
     ("solver", "outer_padding", 0, "outer padding"),
-    ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solver"),
+    ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solvers (sequential and fleet)"),
     ("optimizer", "warm_finest_only", False, "the warm finest-only fast path"),
-    ("data", "fleet_batch", 1, "fleet (batched-frame) evaluation"),
     ("data", "remove_car", False, "MVSEC car cropping"),
 )
 
@@ -90,8 +90,9 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         _require(config, section, dict, "<root>")
     if config.get("is_dnn"):
         raise ConfigError("'is_dnn: true' (the EV-FlowNet path) is not ported yet")
-    if config.get("parallel"):
-        raise ConfigError("'parallel' (multi-device meshes) is not ported yet")
+    if config.get("parallel") or config["solver"].get("parallel"):
+        raise ConfigError("'parallel' (multi-device meshes, the fleet's frame sharding among them) "
+                          "is not ported yet")
 
     data = config["data"]
     _require(data, "dataset", str, "data")
@@ -100,6 +101,9 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     _require(data, "height", int, "data")
     _require(data, "width", int, "data")
     _require(data, "n_events_per_batch", int, "data")
+    if data.get("warm_start") == "batch":
+        raise ConfigError("config key 'data.warm_start: batch' selects the fleet chain's batch warm start "
+                          "(each batch from the previous batch's last solution), which is not ported yet")
     for key in data:
         if key not in _KNOWN_DATA_KEYS:
             warnings.append(f"unknown config key 'data.{key}' (ignored?)")

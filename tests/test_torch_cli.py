@@ -209,7 +209,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert [r["frame"] for r in metrics] == [0] and np.isfinite(metrics[0]["EPE"])
 
 
-PORTED_CONFIGS = {"synthetic_mvsec_geometry.yaml", "synthetic_quickstart.yaml"}
+PORTED_CONFIGS = {"synthetic_fleet.yaml", "synthetic_mvsec_geometry.yaml", "synthetic_quickstart.yaml"}
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (REPO / "configs").glob("*.yaml")))

@@ -1,8 +1,9 @@
 """GPU tests of the PyTorch port: the hand-written CUDA kernels (the fused
 vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4;
-their time-aware voxel forms, K5/K6) against their plain PyTorch versions,
-and the fused objective and its analytic HVP (dense and time-aware) on the
-GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
+their time-aware voxel forms, K5/K6; the batched forms of all of them, K7)
+against their plain PyTorch versions, each batched frame against the
+single-frame kernel on that frame alone, and the fused objective and its
+analytic HVP (dense and time-aware) on the GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
 without one (``cuda`` marker).
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -17,6 +18,7 @@ import torch
 
 from event_based_optical_flow_tpu_torch.ops import fused_iwe as FI
 from event_based_optical_flow_tpu_torch.solver.objective import (
+    FleetEvents,
     FrameEvents,
     ObjectiveSpec,
     build_objective,
@@ -27,6 +29,11 @@ from event_based_optical_flow_tpu_torch.utils import set_numerics
 
 H, W = 40, 52
 OFFSETS = (0.0, 1.0, 0.5)
+
+
+def _counts(**launched) -> dict:
+    """``launch_counts()`` with every kernel form at 0 but ``launched``."""
+    return {prefix + k: launched.get(prefix + k, 0) for prefix in FI.FORMS for k in FI.KERNELS}
 
 
 @pytest.fixture
@@ -102,8 +109,7 @@ def test_launch_counters_and_autograd(cuda_device):
     FI.reset_launch_counts()
     imgs = FI.fused_iwe(fl, *ev, OFFSETS, False)
     (imgs * t(g_np[1:])).sum().backward()
-    assert FI.launch_counts() == {"fwd": 1, "bwd": 1, "jvp": 0, "hvp_bwd": 0, "voxel_fwd": 0,
-                                  "voxel_bwd": 0, "voxel_jvp": 0, "voxel_hvp_bwd": 0}
+    assert FI.launch_counts() == _counts(fwd=1, bwd=1)
     with pytest.raises(ValueError):
         FI.fused_iwe_fwd(fl.detach(), *ev, tuple(range(FI.MAX_OFFSETS + 1)), False)
 
@@ -170,8 +176,7 @@ def test_second_order_launch_counts_and_checks(cuda_device):
     FI.reset_launch_counts()
     FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, True)
     FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, False)
-    assert FI.launch_counts() == {"fwd": 0, "bwd": 0, "jvp": 1, "hvp_bwd": 1, "voxel_fwd": 0,
-                                  "voxel_bwd": 0, "voxel_jvp": 0, "voxel_hvp_bwd": 0}
+    assert FI.launch_counts() == _counts(jvp=1, hvp_bwd=1)
     with pytest.raises(ValueError):
         FI.fused_iwe_jvp(fl, dfl[:, :-1].contiguous(), *ev, OFFSETS, False)
     with pytest.raises(ValueError):
@@ -342,8 +347,8 @@ def test_single_bin_voxel_kernels_give_dense_bits(cuda_device, dtype):
     for term_a in (False, True):
         assert torch.equal(FI.fused_iwe_hvp_bwd(f[None], df[None], g1, g2, *ev, OFFSETS, term_a, bins=one)[0],
                            FI.fused_iwe_hvp_bwd(f, df, g1, g2, *ev, OFFSETS, term_a))
-    assert FI.launch_counts() == {"fwd": 1, "bwd": 1, "jvp": 1, "hvp_bwd": 2, "voxel_fwd": 1,
-                                  "voxel_bwd": 1, "voxel_jvp": 1, "voxel_hvp_bwd": 2}
+    assert FI.launch_counts() == _counts(fwd=1, bwd=1, jvp=1, hvp_bwd=2, voxel_fwd=1, voxel_bwd=1, voxel_jvp=1,
+                                         voxel_hvp_bwd=2)
     with pytest.raises(ValueError, match="int32"):
         FI.fused_iwe_fwd(f[None], *ev, OFFSETS, True, bins=one.long())
     with pytest.raises(ValueError, match=r"\[T, 2, H, W\]"):
@@ -381,3 +386,101 @@ def test_time_aware_objective_and_hvp_on_gpu_match_cpu(cuda_device, deterministi
     assert (h_gpu - h_cpu).abs().max().item() <= 1e-9 * h_cpu.abs().max().item()
     a, b = out[(str(cuda_device), torch.float32)]
     assert a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def _fleet_inputs(dtype, device, time_bin=None, seed=5):
+    """Three frames of different sizes (FleetEvents: sorted by (frame, bin,
+    pixel)), some events outside the image, flows (voxels) that differ per
+    frame, tangents and cotangents."""
+    rng = np.random.default_rng(seed)
+    events = []
+    for n in (3000, 1200, 4500):
+        x, y = rng.uniform(-0.9, H - 1e-6, n), rng.uniform(-0.9, W - 1e-6, n)
+        x[:100], y[:100] = np.round(x[:100]), np.round(y[:100])
+        x[100:110], y[110:120] = -3.0, W + 2.0
+        events.append(np.stack([x, y, np.sort(rng.uniform(0, 0.25, n)), np.ones(n)], 1))
+    fleet = FleetEvents.from_numpy(events, device, dtype, time_bin)
+    lead = (3,) + (() if time_bin is None else (time_bin,))
+    tt = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    flow = rng.uniform(-12.0, 12.0, lead + (2, H, W))
+    flow[1] *= 2.0
+    return (fleet, tt(flow), tt(rng.normal(0, 3.0, flow.shape)), tt(rng.normal(size=(3, 1 + len(OFFSETS), H, W))),
+            tt(rng.normal(size=(3, len(OFFSETS), H, W))), tt(rng.normal(size=(3, len(OFFSETS), H, W))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_bin", [None, T_BINS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_batched_kernels_match_plain_versions_and_each_frame_alone(cuda_device, time_bin, dtype, tol):
+    """The batched kernels (K7: forward, backward, tangent, HVP backward;
+    dense and voxel) against their batched plain versions to ``tol`` x the
+    largest value; each frame's output is, bit for bit, the single-frame
+    kernel's on that frame's events alone (the tangent's unit is per
+    frame); a repeat gives the same bits; only the ``batched_`` counts
+    move."""
+    fleet, fl, dfl, g, g1, g2 = _fleet_inputs(dtype, cuda_device, time_bin)
+    ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": fleet.bins, "frames": fleet.frames}
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        assert want.abs().max().item() > 0.1
+        return (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+    FI.reset_launch_counts()
+    img = FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **kw)
+    grad = FI.fused_iwe_bwd(fl, *ev, g, OFFSETS, True, **kw)
+    val, tan = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, True, **kw)
+    hvp = FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, True, **kw)
+    form = FI.form(fleet.bins, fleet.frames)
+    assert FI.launch_counts() == _counts(**{form + k: 1 for k in FI.KERNELS})
+    assert close(img, FI.fused_iwe_reference(fl, *ev, OFFSETS, True, **kw))
+    flr = fl.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad((FI.fused_iwe_reference(flr, *ev, OFFSETS, True, **kw) * g).sum(), flr)
+    assert grad.shape == fl.shape and close(grad, want)
+    ref_val, ref_tan = FI.fused_iwe_jvp_reference(fl, dfl, *ev, OFFSETS, True, **kw)
+    assert close(val, ref_val) and close(tan, ref_tan)
+    assert close(hvp, FI.fused_iwe_hvp_bwd_reference(fl, dfl, g1, g2, *ev, OFFSETS, True, **kw))
+    assert torch.equal(val, FI.fused_iwe_fwd(fl, *ev, OFFSETS, False, **kw))
+    for b in range(3):
+        one = fleet.frame(b)
+        e1, k1 = (one.x, one.y, one.dtf, one.wt), {"bins": one.bins}
+        assert torch.equal(img[b], FI.fused_iwe_fwd(fl[b], *e1, OFFSETS, True, **k1))
+        assert torch.equal(grad[b], FI.fused_iwe_bwd(fl[b], *e1, g[b], OFFSETS, True, **k1))
+        assert torch.equal(tan[b], FI.fused_iwe_jvp(fl[b], dfl[b], *e1, OFFSETS, False, **k1))
+        assert torch.equal(hvp[b], FI.fused_iwe_hvp_bwd(fl[b], dfl[b], g1[b], g2[b], *e1, OFFSETS, True, **k1))
+    assert torch.equal(img, FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **kw))
+    assert torch.equal(grad, FI.fused_iwe_bwd(fl, *ev, g, OFFSETS, True, **kw))
+    assert torch.equal(tan, FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, False, **kw))
+    assert torch.equal(hvp, FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, True, **kw))
+
+
+@pytest.mark.cuda
+def test_batched_tangent_unit_is_per_frame(cuda_device):
+    """One frame's tangent 1e6 times another's: each frame keeps the bits
+    it has alone (a per-call unit would round the small frame's votes to
+    the large one's unit)."""
+    fleet, fl, dfl, _, _, _ = _fleet_inputs(torch.float32, cuda_device)
+    ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"frames": fleet.frames}
+    scaled = dfl * torch.tensor([1e-3, 1.0, 1e3], device=cuda_device)[:, None, None, None]
+    tan = FI.fused_iwe_jvp(fl, scaled, *ev, OFFSETS, False, **kw)
+    for b in range(3):
+        one = fleet.frame(b)
+        assert torch.equal(tan[b], FI.fused_iwe_jvp(fl[b], scaled[b].contiguous(), one.x, one.y, one.dtf, one.wt,
+                                                    OFFSETS, False))
+
+
+@pytest.mark.cuda
+def test_batched_wrappers_check_the_frame_table(cuda_device):
+    fleet, fl, _, _, _, _ = _fleet_inputs(torch.float64, cuda_device)
+    ev = (fleet.x, fleet.y, fleet.dtf, fleet.wt)
+    ptr, sizes = fleet.frames
+    bad = (
+        (FI.Frames(ptr.long(), sizes), "int32"),
+        (FI.Frames(ptr, sizes[:2] + (sizes[2] - 1,)), "count"),
+        (FI.Frames(ptr[:3].contiguous(), sizes), r"\[B \+ 1\]"),
+    )
+    for frames, match in bad:
+        with pytest.raises(ValueError, match=match):
+            FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, frames=frames)
+    with pytest.raises(ValueError, match=r"\[B, 2, H, W\]"):
+        FI.fused_iwe_fwd(fl[0], *ev, OFFSETS, True, frames=fleet.frames)

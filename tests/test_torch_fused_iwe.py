@@ -247,3 +247,169 @@ def test_voxel_with_one_bin_is_the_dense_vote():
         out.append((imgs.detach().numpy(), grad.reshape(2, H, W).numpy()))
     np.testing.assert_array_equal(out[0][0], out[1][0])
     np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+# --- batches of frames: K7 (rows 7-10, 13-14, 17-18) and K9 (rows 19-20) ----
+
+from event_based_optical_flow_tpu.ops.pallas_objective_batched import fused_multi_iwe_batched  # noqa: E402
+from event_based_optical_flow_tpu.solver.fleet import pack_fleet_banded  # noqa: E402
+from event_based_optical_flow_tpu_torch.solver.objective import FleetEvents  # noqa: E402
+
+FLEET_SIZES = (600, 450, 700)  # events per frame
+
+
+def _fleet_inputs(time_bin=None, seed=3):
+    """Three frames' events (some sources on pixels, on the last row and
+    column, outside the image), as ``FleetEvents`` for the port and as the
+    raw arrays for ``pack_fleet_banded``; flows (voxels with ``time_bin``)
+    large enough to push warped corners off every edge; tangents and
+    cotangents."""
+    rng = np.random.default_rng(seed)
+    events = []
+    for n in FLEET_SIZES:
+        x, y = rng.uniform(-0.9, H - 1e-6, n), rng.uniform(-0.9, W - 1e-6, n)
+        x[:30], y[:30] = np.round(x[:30]), np.round(y[:30])
+        x[30:40], y[30:40] = H - 1, W - 1
+        x[40:45], y[45:50] = -3.0, W + 0.5
+        events.append(np.stack([x, y, np.sort(rng.uniform(0, 0.05, n)), rng.integers(0, 2, n)], 1))
+    lead = (len(FLEET_SIZES),) + (() if time_bin is None else (time_bin,))
+    flow = rng.uniform(-12.0, 12.0, lead + (2, H, W))
+    flow[..., : H // 2, :] *= 3.0
+    dflow = rng.normal(0, 3.0, flow.shape)
+    g = rng.normal(size=(3, len(FLEET_SIZES), 1 + len(OFFSETS), H, W))
+    fleet = FleetEvents.from_numpy(events, "cpu", torch.float64, time_bin)
+    return events, fleet, flow, dflow, g
+
+
+def _fleet_packed(events, time_bin):
+    return [jnp.asarray(a) for a in pack_fleet_banded(events, H, time_bin=time_bin or 0)[:5]]
+
+
+def _fleet_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL * max(1.0, np.abs(want).max()))
+
+
+def _fleet_args(fleet):
+    return (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": fleet.bins, "frames": fleet.frames}
+
+
+@pytest.mark.parametrize("time_bin", [None, T_BINS])
+@pytest.mark.parametrize("offsets,include_orig", [(OFFSETS, True), ((), True), (OFFSETS, False)])
+def test_batched_plain_version_matches_pallas(time_bin, offsets, include_orig):
+    """The batched forward and backward (rows 9-10; rows 7-8 with time
+    bins) against ``fused_multi_iwe_banded_batched`` /
+    ``..._voxel_batched`` on a ``pack_fleet_banded`` fleet, to 1e-9."""
+    events, fleet, flow, _, g = _fleet_inputs(time_bin)
+    packed = _fleet_packed(events, time_bin)
+    jfn = PB.fused_multi_iwe_banded_voxel_batched if time_bin else PB.fused_multi_iwe_banded_batched
+
+    def f(fl):
+        return jfn(fl, *packed, (H, W), offsets, include_orig, 1e-6, False)
+
+    want_img = np.asarray(f(jnp.asarray(flow)))
+    gk = g[0][:, : want_img.shape[1]]
+    ev, kw = _fleet_args(fleet)
+    ft = torch.as_tensor(flow).requires_grad_(bool(offsets))
+    imgs = FI.fused_iwe(ft, *ev, offsets, include_orig, **kw)
+    assert imgs.shape == (len(FLEET_SIZES), len(offsets) + int(include_orig), H, W)
+    _fleet_close(imgs.detach(), want_img)
+    if offsets:
+        want_grad = np.asarray(jax.grad(lambda q: jnp.sum(f(q) * jnp.asarray(gk)))(jnp.asarray(flow)))
+        (got_grad,) = torch.autograd.grad((imgs * torch.as_tensor(gk)).sum(), ft)
+        assert np.abs(want_grad).max() > 1.0
+        _fleet_close(got_grad, want_grad)
+
+
+@pytest.mark.parametrize("time_bin", [None, T_BINS])
+@pytest.mark.parametrize("emit_value", [True, False])
+def test_batched_jvp_plain_version_matches_pallas(time_bin, emit_value):
+    """The batched tangent (row 13; row 17 with time bins) against
+    ``fused_multi_iwe_banded_jvp_batched`` / ``..._voxel_jvp_batched``."""
+    events, fleet, flow, dflow, _ = _fleet_inputs(time_bin)
+    packed = _fleet_packed(events, time_bin)
+    jfn = PB.fused_multi_iwe_banded_voxel_jvp_batched if time_bin else PB.fused_multi_iwe_banded_jvp_batched
+    want = jfn(jnp.asarray(flow), jnp.asarray(dflow), *packed, (H, W), OFFSETS, eps=1e-6, use_bf16=False,
+               emit_value=emit_value)
+    ev, kw = _fleet_args(fleet)
+    got = FI.fused_iwe_jvp(torch.as_tensor(flow), torch.as_tensor(dflow), *ev, OFFSETS, emit_value, **kw)
+    if emit_value:
+        _fleet_close(got[0], want[0])
+        got, want = got[1], want[1]
+    assert np.abs(np.asarray(want)).max() > 0.1
+    _fleet_close(got, want)
+
+
+@pytest.mark.parametrize("time_bin", [None, T_BINS])
+@pytest.mark.parametrize("term_a", [False, True])
+def test_batched_hvp_bwd_plain_version_matches_pallas(time_bin, term_a):
+    """The batched HVP backward (row 14; row 18 with time bins) against
+    ``fused_multi_iwe_banded_hvp_bwd_batched`` / ``..._voxel_hvp_bwd_batched``."""
+    events, fleet, flow, dflow, g = _fleet_inputs(time_bin)
+    packed = _fleet_packed(events, time_bin)
+    g1, g2 = g[1][:, : len(OFFSETS)], g[2][:, : len(OFFSETS)]
+    jfn = (PB.fused_multi_iwe_banded_voxel_hvp_bwd_batched if time_bin
+           else PB.fused_multi_iwe_banded_hvp_bwd_batched)
+    want = jfn(jnp.asarray(flow), jnp.asarray(dflow), jnp.asarray(g1), jnp.asarray(g2), *packed, (H, W), OFFSETS,
+               eps=1e-6, use_bf16=False, term_a=term_a)
+    ev, kw = _fleet_args(fleet)
+    t = torch.as_tensor
+    got = FI.fused_iwe_hvp_bwd(t(flow), t(dflow), t(np.ascontiguousarray(g1)), t(np.ascontiguousarray(g2)), *ev,
+                               OFFSETS, term_a, **kw)
+    assert got.shape == flow.shape and np.abs(np.asarray(want)).max() > 1.0
+    _fleet_close(got, want)
+
+
+def test_k9_unpacked_batched_matches_batched_plain_version():
+    """K9 (``fused_multi_iwe_batched`` on unpacked, padded events ``[B, N,
+    4]``, rows 19-20): images and flow gradient against the batched dense
+    plain version, which is its port."""
+    events, fleet, flow, _, g = _fleet_inputs()
+    n_max = max(len(e) for e in events)
+    padded, weights = zip(*(pad_events(e, target_n=n_max + 64) for e in events))
+    gk = jnp.asarray(g[0])
+
+    def f(fl):
+        return fused_multi_iwe_batched(jnp.asarray(np.stack(padded)), fl, (H, W), offsets=OFFSETS,
+                                       weights=jnp.asarray(np.stack(weights)), include_orig=True, use_bf16=False)
+
+    want_img = np.asarray(f(jnp.asarray(flow)))
+    want_grad = np.asarray(jax.grad(lambda q: jnp.sum(f(q) * gk))(jnp.asarray(flow)))
+    ev, kw = _fleet_args(fleet)
+    ft = torch.as_tensor(flow).requires_grad_(True)
+    imgs = FI.fused_iwe(ft, *ev, OFFSETS, True, **kw)
+    (got_grad,) = torch.autograd.grad((imgs * torch.as_tensor(g[0])).sum(), ft)
+    _fleet_close(imgs.detach(), want_img)
+    _fleet_close(got_grad, want_grad)
+
+
+@pytest.mark.parametrize("time_bin", [None, T_BINS])
+def test_batched_plain_version_is_each_frame_alone(time_bin):
+    """Each frame of every batched plain version (forward, backward, tangent,
+    HVP backward) is, bit for bit, the single-frame plain version on that
+    frame's events alone; the CPU wrappers count no launch."""
+    _, fleet, flow, dflow, g = _fleet_inputs(time_bin)
+    ev, kw = _fleet_args(fleet)
+    t = torch.as_tensor
+    before = FI.launch_counts()
+    ft = t(flow).requires_grad_(True)
+    imgs = FI.fused_iwe(ft, *ev, OFFSETS, True, **kw)
+    (grad,) = torch.autograd.grad((imgs * t(g[0])).sum(), ft)
+    g1, g2 = (t(np.ascontiguousarray(a[:, 1:])) for a in (g[1], g[2]))
+    tan = FI.fused_iwe_jvp(t(flow), t(dflow), *ev, OFFSETS, False, **kw)
+    hvp = FI.fused_iwe_hvp_bwd(t(flow), t(dflow), g1, g2, *ev, OFFSETS, True, **kw)
+    assert FI.launch_counts() == before
+    for b in range(len(FLEET_SIZES)):
+        one = fleet.frame(b)
+        e1, k1 = (one.x, one.y, one.dtf, one.wt), {"bins": one.bins}
+        fb = t(flow[b]).requires_grad_(True)
+        img_b = FI.fused_iwe(fb, *e1, OFFSETS, True, **k1)
+        (grad_b,) = torch.autograd.grad((img_b * t(g[0][b])).sum(), fb)
+        np.testing.assert_array_equal(imgs[b].detach().numpy(), img_b.detach().numpy())
+        np.testing.assert_array_equal(grad[b].numpy(), grad_b.numpy())
+        np.testing.assert_array_equal(
+            tan[b].numpy(), FI.fused_iwe_jvp(t(flow[b]), t(dflow[b]), *e1, OFFSETS, False, **k1).numpy())
+        np.testing.assert_array_equal(
+            hvp[b].numpy(),
+            FI.fused_iwe_hvp_bwd(t(flow[b]), t(dflow[b]), g1[b], g2[b], *e1, OFFSETS, True, **k1).numpy())

@@ -2,7 +2,7 @@
 """Where one eval frame of the PyTorch port spends its time on the GPU.
 
     python3 tools/profile_torch_frame.py [--config configs/synthetic_mvsec_geometry.yaml]
-        [--pattern dots] [--max_iter 2] [--dsec | --time-aware]
+        [--pattern dots] [--max_iter 2] [--hvp_mode MODE] [--dsec | --time-aware] [--fleet]
 
 ``--dsec`` profiles the analytic HVP path instead: the solver and optimizer
 blocks of configs/dsec_zurich_city.yaml on the synthetic loader at DSEC
@@ -12,7 +12,13 @@ configs/mvsec_indoor_burgers.yaml's solver and optimizer blocks on the
 synthetic MVSEC-geometry loader), then the same frame with
 ``time_aware: false``, and prints the difference per fused forward: the
 voxel chain's (and its backward's) share of the kernels and of the device
-time.
+time.  ``--fleet`` profiles one lockstep batch of ``chip_smoke.FLEET_BATCH``
+frames (the config's blocks, or the time-aware ones with ``--time-aware``,
+solved by the fleet solver, frames 0..3 as one batch) and then frame 0 of
+the same windows through the sequential pyramid, and prints what the
+batch amortizes: seconds, host syncs, kernels and device time per frame
+and per objective evaluation.  ``--hvp_mode`` sets ``optimizer.hvp_mode``
+(``analytic``: the tangent and HVP-backward kernels on the finest scale).
 
 Solves frame 0 once as a warm-up (kernel build, allocator), once timed
 alone, and once under ``torch.profiler`` (CPU + CUDA activities), all
@@ -38,46 +44,81 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from event_based_optical_flow_tpu_torch import main as port_main  # noqa: E402
 
 
-def profile_frame(config: dict, label: str, top: int) -> dict:
-    """Profile frame 0 of ``config``; print and return its numbers."""
-    loader, solv = port_main.build(config, torch.device("cuda"))
-    ts = loader.eval_frame_time_list()
-    i1, i2 = loader.time_to_index(ts[0]), loader.time_to_index(ts[1])
-    events = port_main._optimization_batch(loader, config["data"], i1, i2)
-    solv.optimize(events)
+def profile_solve(solve, stats_of, label: str, what: str, top: int, n_frames: int = 1) -> dict:
+    """Run ``solve`` once as a warm-up (kernel build, allocator), once timed
+    alone and once under the profiler; print and return its numbers, per
+    frame of the ``n_frames`` it solves."""
+    solve()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solv.optimize(events)
+    solve()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        solv.optimize(events)
+        solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
     # kernels only: a CPU op's device time repeats the kernels it launched
     kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
-    stats = solv.last_frame_stats
-    max_iter = config["optimizer"]["max_iter"]
-    print(f"[profile] {label}, {torch.cuda.get_device_name(0)}: frame 0, max_iter {max_iter}: "
-          f"wall {plain_wall:.3f} s, {wall:.3f} s profiled, device busy {device_us / 1e6:.3f} s, "
-          f"idle share {1 - device_us / 1e6 / plain_wall:.3f} of the unprofiled wall, "
-          f"host syncs {stats['syncs']}, Newton iters {stats['iters']}, HVP {stats['hvp']}", flush=True)
+    stats = stats_of()
+    idle = 1 - device_us / 1e6 / plain_wall
+    print(f"[profile] {label}, {torch.cuda.get_device_name(0)}: {what}: wall {plain_wall:.3f} s "
+          f"({plain_wall / n_frames:.3f} s per frame), {wall:.3f} s profiled, device busy {device_us / 1e6:.3f} s, "
+          f"idle share {idle:.3f} of the unprofiled wall, host syncs {stats['syncs']} "
+          f"({stats['syncs'] / n_frames:.1f} per frame), Newton iters {stats['iters']}, HVP {stats['hvp']}",
+          flush=True)
+    # one fused forward per objective evaluation (all frames of a batch in one)
     fwd = sum(e.count for e in kernels if "fused_iwe_fwd" in e.key)
     n_kernels = sum(e.count for e in kernels)
-    print(f"[profile] {label}: {n_kernels} kernels launched, {fwd} fused forwards, "
-          f"{n_kernels / max(1, fwd):.1f} kernels and {device_us / max(1, fwd):.1f} us of device time "
-          "per fused forward", flush=True)
+    print(f"[profile] {label}: {n_kernels} kernels launched ({n_kernels / n_frames:.0f} per frame), {fwd} fused "
+          f"forwards, {n_kernels / max(1, fwd):.1f} kernels and {device_us / max(1, fwd):.1f} us of device time "
+          "per fused forward (one objective evaluation)", flush=True)
     for e in kernels:
         # the kernels of csrc/fused_iwe.cu, conversion and bound passes included
         if any(k in e.key for k in ("fused_iwe", "from_fixed", "from_scaled", "jvp_bound")):
             print(f"[profile] {label}: {e.key}: {e.count} launches, {e.self_device_time_total / e.count:.2f} us "
                   f"each, {e.self_device_time_total / 1e3:.3f} ms in all", flush=True)
     print(averages.table(sort_by="self_device_time_total", row_limit=top, max_name_column_width=60))
-    return {"kernels_per_fwd": n_kernels / max(1, fwd), "device_us_per_fwd": device_us / max(1, fwd)}
+    return {"kernels_per_fwd": n_kernels / max(1, fwd), "device_us_per_fwd": device_us / max(1, fwd),
+            "s_per_frame": plain_wall / n_frames, "syncs_per_frame": stats["syncs"] / n_frames, "idle": idle}
+
+
+def profile_frame(config: dict, label: str, top: int) -> dict:
+    """Profile frame 0 of ``config`` through the sequential solver."""
+    loader, solv = port_main.build(config, torch.device("cuda"))
+    ts = loader.eval_frame_time_list()
+    i1, i2 = loader.time_to_index(ts[0]), loader.time_to_index(ts[1])
+    events = port_main._optimization_batch(loader, config["data"], i1, i2)
+    return profile_solve(lambda: solv.optimize(events), lambda: solv.last_frame_stats, label,
+                         f"frame 0, max_iter {config['optimizer']['max_iter']}", top)
+
+
+def profile_fleet(config: dict, top: int) -> None:
+    """Profile frames 0..3 as one lockstep batch, then frame 0 of the same
+    windows through the sequential pyramid; print the batch's amortization."""
+    from chip_smoke import FLEET_BATCH, fleet_config, fleet_windows
+
+    fleet = fleet_config(config, FLEET_BATCH)
+    fleet["optimizer"]["hvp_mode"] = config["optimizer"].get("hvp_mode", "fd")  # one HVP mode, both sides
+    windows = fleet_windows(fleet, FLEET_BATCH)
+    _, solv = port_main.build(fleet, torch.device("cuda"))
+    what = f"frames 0..{FLEET_BATCH - 1} as one batch, max_iter {config['optimizer']['max_iter']}"
+    got = profile_solve(lambda: solv.optimize_batch(windows), lambda: solv.last_batch_stats, "fleet", what, top,
+                        FLEET_BATCH)
+    sequential = copy.deepcopy(config)
+    sequential["solver"]["seed"] = fleet["solver"]["seed"]  # frame 0's cold start is the batch's
+    _, seq = port_main.build(sequential, torch.device("cuda"))
+    alone = profile_solve(lambda: seq.optimize(windows[0]), lambda: seq.last_frame_stats, "sequential",
+                          f"frame 0 of the same windows, max_iter {config['optimizer']['max_iter']}", top)
+    print(f"[profile] fleet of {FLEET_BATCH} vs sequential frame 0: {got['s_per_frame']:.3f} vs "
+          f"{alone['s_per_frame']:.3f} s per frame, {got['syncs_per_frame']:.1f} vs {alone['syncs_per_frame']:.1f} "
+          f"host syncs per frame, {got['kernels_per_fwd']:.1f} vs {alone['kernels_per_fwd']:.1f} kernels and "
+          f"{got['device_us_per_fwd']:.1f} vs {alone['device_us_per_fwd']:.1f} us of device time per objective "
+          f"evaluation, idle share {got['idle']:.3f} vs {alone['idle']:.3f}", flush=True)
 
 
 def main() -> int:
@@ -86,10 +127,13 @@ def main() -> int:
     ap.add_argument("--pattern", default="dots")
     ap.add_argument("--max_iter", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--hvp_mode", default=None, help="optimizer.hvp_mode (default: the config's)")
     path = ap.add_mutually_exclusive_group()
     path.add_argument("--dsec", action="store_true", help="the DSEC config's solver on DSEC geometry")
     path.add_argument("--time-aware", action="store_true",
                       help="the Burgers config's time-aware solver on MVSEC geometry, then its dense twin")
+    ap.add_argument("--fleet", action="store_true",
+                    help="one lockstep batch of frames 0..3, then frame 0 alone through the sequential solver")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: needs a CUDA device")
@@ -102,7 +146,12 @@ def main() -> int:
             config = yaml.safe_load(f)
     config["data"]["pattern"] = args.pattern
     config["optimizer"]["max_iter"] = args.max_iter
+    if args.hvp_mode:
+        config["optimizer"]["hvp_mode"] = args.hvp_mode
     port_main.set_numerics()
+    if args.fleet:
+        profile_fleet(config, args.top)
+        return 0
     label = "time-aware" if args.time_aware else ("dsec" if args.dsec else "dense")
     got = profile_frame(config, label, args.top)
     if args.time_aware:
