@@ -7,7 +7,8 @@ Phases (each prints one informative line; any failure exits nonzero):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    a GPU is required (there is no CPU route);
-2. build: the CUDA kernels from ``event_based_optical_flow_tpu_torch/csrc``;
+2. build: the CUDA kernels from ``event_based_optical_flow_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together;
 3. kernel vs plain version at the main path's shape (the first 30 000-event
    window of configs/synthetic_mvsec_geometry.yaml, 260x346, a random smooth
    flow of a few px), forward images and the flow gradient, in float64 and
@@ -16,8 +17,14 @@ Phases (each prints one informative line; any failure exits nonzero):
    (float64 and float32) against the plain version on the CPU (float64),
    and the float32 value and gradient again, bit for bit;
 5. timing: kernel and plain version, forward and backward, CUDA events;
+   then K8, the standalone vote: ``[vote-check]`` holds it to its plain
+   version at the main path's two shapes, the finest scale's init-sweep
+   call on the first window (the real ``[P, K, C, 4]`` batch, recorded from
+   a sweep) and a full-frame metric vote, in float64 and float32 (a second
+   float32 call must give the same bits); ``[vote-time]`` times it, the
+   plain version and one deterministic ``index_add`` of its corner terms;
 6. the slice: the port's eval loop (the function its CLI runs) on
-   configs/synthetic_mvsec_geometry.yaml, frames 0..1 (``MVSEC_LAST_FRAME``),
+   configs/synthetic_mvsec_geometry.yaml, frame 0 (``MVSEC_LAST_FRAME``),
    fresh output dir; asserts kernel launches, finite EPE clearly below the
    zero-flow EPE, finite PRED_FWL, one metric line per frame; then frame 0
    once more in a fresh
@@ -47,12 +54,12 @@ Phases (each prints one informative line; any failure exits nonzero):
    the first window's shape, ``[voxel-objective]`` / ``[voxel-hvp]`` the
    finest scale's objective with its gradient through the Burgers chain
    and its staged Gauss-Newton HVP on the card to the CPU, ``[voxel-time]``
-   times K5/K6, then ``[ta-frame]`` frame 0 through the CLI's eval loop (EPE,
-   PRED_FWL through the voxel, K5 launched on every scale), ``[ta-repeat]``
-   frame 0 again, bit for bit, and ``[ta-analytic-frame]`` frame 0 with
-   ``optimizer.hvp_mode: analytic``, its coarse scales cut to
-   ``TA_COARSE_MAX_ITER`` Newton iterations (K6 launched on the finest
-   scale only);
+   times K5/K6, then, with the coarse scales cut to ``TA_COARSE_MAX_ITER``
+   Newton iterations, ``[ta-frame]`` frame 0 through the CLI's eval loop
+   (EPE, PRED_FWL through the voxel, K5 launched on every scale),
+   ``[ta-analytic-frame]`` frame 0 with ``optimizer.hvp_mode: analytic``
+   (K6 launched on the finest scale only), and ``[ta-repeat]`` the FD
+   frame 0 again, bit for bit;
 9. the fleet path: ``solver.method: fleet_pyramidal_patch_contrast_maximization``
    with ``data.fleet_batch`` frames per lockstep Newton-CG, ``warm_start:
    false``, ``hvp_mode: analytic`` (``fleet_config``).  ``[fleet-check]``
@@ -68,24 +75,41 @@ Phases (each prints one informative line; any failure exits nonzero):
    blocks, coarse scales cut to ``TA_COARSE_MAX_ITER`` Newton
    iterations (batched K5 on every scale, K6 on the finest only).  The
    fleet's cold starts draw from ``FLEET_SOLVER_SEED``.  The fleet
-   reads no ``ind1``/``ind2``: it is handed the first B + 1 eval timestamps.
+   reads no ``ind1``/``ind2``: it is handed the first B + 1 eval timestamps;
+10. serving: the HTTP server (``serve.FlowServer``) on ``127.0.0.1``, an
+   ephemeral port, on the card, with the serving defaults, the cold start
+   drawn from ``SERVE_SOLVER_SEED``, and ``SERVE_EVENT_COUNT``-event windows.  ``[serve-push]`` posts eval
+   windows 0, 1 and 2 of the MVSEC slice's data block (one cold push, two
+   warm ones): seconds, EPE through ``estimator.metrics`` against the
+   loader's GT (the flow rescaled from the solved window's span to the eval
+   window's) beside the zero-flow EPE, the HVP per scale (analytic on every
+   scale of a warm push), host syncs, K8 and K1-K4 launches;
+   ``[serve-repeat]`` a fresh server's push of window 0, bit for bit;
+   ``[serve-resume]`` a server started with the state file written after
+   push 1 reports 2 windows.
 
-The paths' frames: MVSEC 0..1 (its frame 1 is the only on-card check of the
-sequential warm start), DSEC and time-aware FD frame 0, then each path's
-frame 0 again.  Each path's run starts with every kernel launch count at 0
-and reads them at its end; the checks and timings launch outside those
-runs.  The last two lines of standard output are one JSON object describing
-the kernels (each with its launches on the paths, error, times and bound),
-then ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
+again, the time-aware analytic frame 0, the serving path's windows 0..2
+(its warm pushes are the on-card check of the sequential warm start) and
+window 0 again.  Each path's run (each serving push) starts with every
+kernel launch count at 0 and reads them at its end; the checks and
+timings launch outside those runs.  The last two lines of standard
+output are one JSON object describing the kernels (each with its
+launches on the paths, error, times and bound), then ``{"ok": true,
+"device": {...}}``.  The script imports nothing of JAX.
 """
 
 import copy
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -120,9 +144,10 @@ TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 EPE_FRACTION = 0.5
 # the last eval frame each sequential path solves (frames 0..N), cut to keep
 # the whole script well inside its 1200 s limit: a time-aware frame takes ~2
-# min on an H100 (host-bound).  The MVSEC path keeps frame 1, the only
-# on-card check of the sequential warm start.
-MVSEC_LAST_FRAME = 1
+# min on an H100 (host-bound).  The MVSEC path's frame 1 was cut when the
+# serving path came in: its warm pushes run the same sequential pyramid from
+# the previous window's motion and are the on-card check of the warm start.
+MVSEC_LAST_FRAME = 0
 DSEC_LAST_FRAME = 0
 TA_LAST_FRAME = 0
 # frames per lockstep batch of the fleet path: dense, time-aware
@@ -137,11 +162,12 @@ FLEET_METHOD = "fleet_pyramidal_patch_contrast_maximization"
 # rule on an H100, and the sequential solver given the same draw lands in
 # the same basin (PERF.md, Findings).  Seed 14 passed every fleet frame.
 FLEET_SOLVER_SEED = 14
-# The Newton budget on the coarse scales of the time-aware runs that are
-# there to reach the finest scale's analytic kernels, the sequential
-# analytic frame and the fleet pair (the finest keeps the config's 25; the
-# FD run keeps the config's budget on every scale): at the full budget
-# they took ~130 s and ~180 s of the script's 1200 s limit on an H100.
+# The Newton budget on the coarse scales of every time-aware run: the
+# sequential FD frame and its bitwise repeat, the analytic frame and the
+# fleet pair (the finest scale keeps the config's 25).  At the full budget
+# the FD frame took 113-178 s on an H100, by the host's speed, and the
+# analytic frame and the fleet pair ~130 s and ~180 s: with the FD repeat
+# at the full budget the whole script took 1024 s of its 1200 s limit.
 TA_COARSE_MAX_ITER = 8
 # One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores, for each kernel's least time on the card.
@@ -152,6 +178,22 @@ H100_FP32_FLOPS = 67e12
 # weights or their derivatives, fixed-point scaling); the gathers and
 # atomics are counted as bytes, not operations
 OPS_PER_EVENT_OFFSET = {"fwd": 30, "bwd": 40, "jvp": 45, "hvp_bwd": 40}
+# K8 (csrc/vote.cu): per voting event two eps adds, two floors, two
+# fractions, two complements, four two-factor corner weights and four
+# fixed-point scalings
+OPS_PER_VOTE = 20
+# the serving path's windows: every pushed window is solved at exactly this
+# many events (the MVSEC protocol's window)
+SERVE_EVENT_COUNT = 30000
+# The serving path's solver seed, which draws the cold push's start (the
+# serving default `initialize: random`).  Seed 0's draw lands the cold push
+# of window 0 (its ~40 000 events uniformly subsampled to 30 000) in a bad
+# coarsest basin on an H100, with either HVP mode and with the window's
+# time shifted to 0, while the same draw solves the CLI's window (its last
+# 30 000 events); seeds 4 and 5 failed too, seeds 1, 2, 3, 6, 7, 8 passed,
+# and seeds 1 and 2 passed the warm pushes of windows 1 and 2 as well
+# (tools/screen_serve_seeds.py; PERF.md, Findings).
+SERVE_SOLVER_SEED = 1
 KERNEL_LINES = {"fwd": 986, "bwd": 1092, "jvp": 1637, "hvp_bwd": 1806,
                 "voxel_fwd": 1223, "voxel_bwd": 1272, "voxel_jvp": 1941, "voxel_hvp_bwd": 1986,
                 "batched_fwd": 1398, "batched_bwd": 1448, "batched_jvp": 1850, "batched_hvp_bwd": 1893,
@@ -514,6 +556,7 @@ def time_line(smi, times, names, what) -> str:
 def dsec_path(port_main, fi, dev, smi, rng):
     """Phase 7; returns (launches of the path's run, K3/K4 max abs errors,
     K3/K4 times, their bounds)."""
+    from event_based_optical_flow_tpu_torch import ops
     from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents
 
     config = dsec_config()
@@ -542,9 +585,9 @@ def dsec_path(port_main, fi, dev, smi, rng):
     bounds = {k: bound(k, frame, t(flow_np)) for k in ("jvp", "hvp_bwd")}
 
     last = DSEC_LAST_FRAME
-    fi.reset_launch_counts()
+    ops.reset_launch_counts()
     records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
-    launches = fi.launch_counts()
+    launches = ops.launch_counts()
     run_config = slice_config(config, last_frame=last, out_dir=out_dir)
     loader, solv = port_main.build(run_config, dev)
     finest = solv.patch_scales - 1
@@ -611,6 +654,7 @@ def ta_run_checks(records, stats_rule, loader, run_config, solv, name) -> list:
 def ta_path(port_main, fi, dev, smi, rng):
     """Phase 8; returns (launches of the path's two runs, K5/K6 max abs
     errors, K5/K6 times, their bounds)."""
+    from event_based_optical_flow_tpu_torch import ops
     from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents
 
     config = ta_config()
@@ -648,35 +692,37 @@ def ta_path(port_main, fi, dev, smi, rng):
     times = {f"voxel_{k}": v for k, v in times.items()}
     bounds = {f"voxel_{k}": bound(k, frame, t(vox_np)) for k in names}
 
-    # the config as shipped (FD HVP): K5 on every scale, no K6
+    # the config's FD HVP, coarse scales cut to TA_COARSE_MAX_ITER: K5 on every scale, no K6
+    fd = copy.deepcopy(config)
+    fd["optimizer"]["coarse_max_iter"] = TA_COARSE_MAX_ITER
     last = TA_LAST_FRAME
-    fi.reset_launch_counts()
-    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
-    launches = fi.launch_counts()
-    run_config = slice_config(config, last_frame=last, out_dir=out_dir)
+    ops.reset_launch_counts()
+    records, out_dir, wall = run_slice(port_main, fd, dev, last_frame=last)
+    launches = ops.launch_counts()
+    run_config = slice_config(fd, last_frame=last, out_dir=out_dir)
     loader, solv = port_main.build(run_config, dev)
     failed = ta_run_checks(
         records, lambda st: all(c["voxel_fwd"] > 0 and c["voxel_bwd"] > 0 and c["voxel_jvp"] == 0
                                 for c in st["launches"].values()), loader, run_config, solv, "ta-frame")
     phase("ta", f"{len(records)} windows in {wall:.2f} s, kernel launches {launches}, out {out_dir}")
-    again, _, again_wall = run_slice(port_main, config, dev, last_frame=0)
-    same = [a["metrics"] == r["metrics"] and a["stats"]["loss"] == r["stats"]["loss"]
-            for a, r in zip(again, records)]
-    phase("ta-repeat", f"frame 0 in a fresh run ({again_wall:.2f} s): metrics and per-scale losses "
-                       f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
 
     # hvp_mode: analytic: K6 (Gauss-Newton) on the finest scale only
-    analytic = copy.deepcopy(config)
-    analytic["optimizer"].update(hvp_mode="analytic", coarse_max_iter=TA_COARSE_MAX_ITER)
+    analytic = copy.deepcopy(fd)
+    analytic["optimizer"]["hvp_mode"] = "analytic"
     finest = solv.patch_scales - 1
-    fi.reset_launch_counts()
+    ops.reset_launch_counts()
     a_records, a_dir, a_wall = run_slice(port_main, analytic, dev, last_frame=0)
-    a_launches = fi.launch_counts()
+    a_launches = ops.launch_counts()
     a_config = slice_config(analytic, last_frame=0, out_dir=a_dir)
     a_failed = ta_run_checks(
         a_records, lambda st: all(c["voxel_fwd"] > 0 and (s == finest) == (c["voxel_jvp"] > 0 and c["voxel_hvp_bwd"] > 0)
                                   for s, c in st["launches"].items()), loader, a_config, solv, "ta-analytic-frame")
     phase("ta-analytic", f"{len(a_records)} window in {a_wall:.2f} s, kernel launches {a_launches}, out {a_dir}")
+    again, _, again_wall = run_slice(port_main, fd, dev, last_frame=0)
+    same = [a["metrics"] == r["metrics"] and a["stats"]["loss"] == r["stats"]["loss"]
+            for a, r in zip(again, records)]
+    phase("ta-repeat", f"frame 0 in a fresh run ({again_wall:.2f} s): metrics and per-scale losses "
+                       f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
     if failed or a_failed:
         raise SystemExit(f"chip_smoke: time-aware frames {failed} (FD), {a_failed} (analytic): metrics or "
                          "K5/K6 launches wrong")
@@ -808,6 +854,7 @@ def fleet_run_checks(records, launch_rule, loader, run_config, solv, name, seque
 def fleet_path(port_main, fi, dev, smi, rng, sequential_epe: float):
     """Phase 9; returns (launches of the path's two runs, the batched
     kernels' max abs errors, times, bounds)."""
+    from event_based_optical_flow_tpu_torch import ops
     from event_based_optical_flow_tpu_torch.solver.objective import FleetEvents
 
     with open(CONFIG) as f:
@@ -852,9 +899,9 @@ def fleet_path(port_main, fi, dev, smi, rng, sequential_epe: float):
 
     # frames 0..3 as one batch of 4: batched K1/K2 on every scale, K3/K4 on the finest
     dense = fleet_config(config, FLEET_BATCH)
-    fi.reset_launch_counts()
+    ops.reset_launch_counts()
     records, run_config, loader, solv, wall = run_fleet(port_main, dense, dev, FLEET_BATCH)
-    launches = fi.launch_counts()
+    launches = ops.launch_counts()
     finest = solv.patch_scales - 1
     failed = fleet_run_checks(
         records, lambda st: all(c["batched_fwd"] > 0 and c["batched_bwd"] > 0
@@ -873,9 +920,9 @@ def fleet_path(port_main, fi, dev, smi, rng, sequential_epe: float):
     # frames 0..1 as one batch of 2, time-aware: batched K5 on every scale, K6 on the finest
     ta = fleet_config(ta_config(), FLEET_TA_BATCH)
     ta["optimizer"]["coarse_max_iter"] = TA_COARSE_MAX_ITER
-    fi.reset_launch_counts()
+    ops.reset_launch_counts()
     ta_records, ta_run_config, ta_loader, ta_solv, ta_wall = run_fleet(port_main, ta, dev, FLEET_TA_BATCH)
-    ta_launches = fi.launch_counts()
+    ta_launches = ops.launch_counts()
     ta_failed = fleet_run_checks(
         ta_records, lambda st: all(c["batched_voxel_fwd"] > 0 and c["batched_voxel_bwd"] > 0
                                    and (s == finest) == (c["batched_voxel_jvp"] > 0 and c["batched_voxel_hvp_bwd"] > 0)
@@ -894,20 +941,241 @@ def fleet_path(port_main, fi, dev, smi, rng, sequential_epe: float):
     return {k: launches[k] + ta_launches[k] for k in launches}, errs, times, bounds
 
 
+def sweep_call(port_main, config: dict, events: np.ndarray, dev):
+    """The finest scale's init-sweep scoring call on ``events``, as K8 gets
+    it in a solve of ``config``: (the ``[P, K, C, 4]`` warped patch events,
+    their ``[P, 1, C]`` weights), recorded from a real sweep from random
+    tile motions of a few px/s."""
+    from event_based_optical_flow_tpu_torch.ops import vote
+
+    _, solv = port_main.build(config, dev)
+    s = solv.patch_scales - 1
+    solv.overload_patch_configuration(s)
+    motion0 = solv.tensor(np.random.default_rng(1).uniform(-20.0, 20.0, (2, solv.n_patch)))
+    n_cand = max(4, int(config["optimizer"]["n_iter"] / max(1, s - solv.coarsest_scale)))
+    calls, kernel = [], vote.bilinear_vote_kernel
+
+    def record(ev, image_size, weight=1.0, eps=1e-6):
+        calls.append((ev, weight))
+        return kernel(ev, image_size, weight, eps)
+
+    vote.bilinear_vote_kernel = record
+    try:
+        solv.initialize_guess_from_patch_search(events, motion0, n_cand)
+    finally:
+        vote.bilinear_vote_kernel = kernel
+    torch.cuda.synchronize()
+    return max(calls, key=lambda c: c[0].numel()), tuple(solv.patch_size)
+
+
+def vote_bound(events: torch.Tensor, weight, image_size):
+    """(least milliseconds one H100 needs, "bytes" or "operations") for one
+    K8 call, counted from this call's data: of the event array only the
+    32-byte sectors that the voting (nonzero-weight) rows' x and y fall in
+    (a zero-weight row's position is never read; x and y share their sector
+    with the unread t and p), a tensor weight read once at its own shape,
+    the images written once, over the HBM rate; ``OPS_PER_VOTE`` operations
+    per voting event and one per output pixel (the fixed-point conversion)
+    over the float32 rate."""
+    h, w = image_size
+    rows = events.shape[:-1]
+    n_img = rows.numel() // rows[-1]
+    item = events.element_size()
+    if torch.is_tensor(weight):
+        voting = torch.broadcast_to(weight != 0, rows).reshape(-1).nonzero().squeeze(1).cpu()
+        weight_bytes = weight.numel() * item
+    else:
+        voting = torch.arange(rows.numel() if weight != 0 else 0)
+        weight_bytes = 0
+    moved = sector_bytes(voting * events.shape[-1], item) + weight_bytes + n_img * h * w * item
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    t_ops = (OPS_PER_VOTE * len(voting) + n_img * h * w) / H100_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def vote_path(port_main, dev, smi, config: dict, events: np.ndarray) -> dict:
+    """Phases ``[vote-check]`` and ``[vote-time]`` at the two shapes of the
+    main path: the finest scale's sweep call and a full-frame metric vote
+    of the first window.  Returns the sweep shape's float32 error, times
+    and bound (the ``kernels`` line's)."""
+    from event_based_optical_flow_tpu_torch.ops import vote
+
+    (sweep_ev, sweep_wt), patch = sweep_call(port_main, config, events, dev)
+    h, w = config["data"]["height"], config["data"]["width"]
+    shapes = {"sweep": (sweep_ev, sweep_wt, patch),
+              "frame": (torch.as_tensor(events, device=dev), 1.0, (h, w))}
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for name, (ev, wt, size) in shapes.items():
+            ev = ev.to(dtype)
+            wt = wt.to(dtype) if torch.is_tensor(wt) else wt
+            want = vote.bilinear_vote_plain(ev, size, wt)
+            got = vote.bilinear_vote_kernel(ev, size, wt)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            same = torch.equal(got, vote.bilinear_vote_kernel(ev, size, wt))
+            ok = err <= TOL[dtype] * scale and same
+            phase("vote-check", f"{str(dtype)[6:]} {name}: events {list(ev.shape)} -> images {list(got.shape)}, "
+                                f"weight {list(wt.shape) if torch.is_tensor(wt) else wt}: max|err| {err:.3e} "
+                                f"(scale {scale:.3g}), tol {TOL[dtype]:g} x scale; repeat same bits: {same}: "
+                                + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise SystemExit("chip_smoke: K8 disagrees with its plain version or is not reproducible")
+            if dtype == torch.float32:
+                out[name] = {"err": err}
+    for name, (ev, wt, size) in shapes.items():
+        ev = ev.to(torch.float32)
+        wt = wt.to(torch.float32) if torch.is_tensor(wt) else wt
+        inds, vals, batch = vote.corner_terms(ev, size, wt)
+        image = torch.zeros(int(np.prod(batch)) * size[0] * size[1], dtype=torch.float32, device=dev)
+        times = {"ms": cuda_ms(lambda: vote.bilinear_vote_kernel(ev, size, wt)),
+                 "plain_ms": cuda_ms(lambda: vote.bilinear_vote_plain(ev, size, wt)),
+                 # one PyTorch call that computes the vote's scatter from its corner terms
+                 "library_ms": cuda_ms(lambda: image.index_add(0, inds, vals))}
+        b_ms, b_by = vote_bound(ev, wt, size)
+        out[name].update(times, bound_ms=b_ms, bound_by=b_by)
+        phase("vote-time", f"{smi}: float32 {name} {list(ev.shape)}: kernel {times['ms']:.4f} ms vs plain "
+                           f"{times['plain_ms']:.4f} ms, library (index_add of the 4n corner terms, deterministic) "
+                           f"{times['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}) (CUDA events, mean of 50 "
+                           "after 5 warm-up)")
+    return out["sweep"]
+
+
+def http_post(url: str, body: bytes) -> bytes:
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        return resp.read()
+
+
+def push_window(base: str, events: np.ndarray):
+    """``POST /flow`` one window: (flow [2, H, W] float32, span seconds)."""
+    buf = io.BytesIO()
+    np.savez(buf, events=events)
+    out = np.load(io.BytesIO(http_post(f"{base}/flow", buf.getvalue())))
+    return out["flow"], float(out["span"])
+
+
+def healthz(base: str) -> dict:
+    with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def serve_windows(config: dict, n: int):
+    """Eval windows 0..n-1 of ``config``'s data block (the `dots` scene):
+    (events as the loader holds them, GT displacement [H, W, 2], seconds)."""
+    from event_based_optical_flow_tpu_torch.data import collections
+
+    data = dict(config["data"], pattern="dots")
+    loader = collections[data["dataset"]](config=data)
+    loader.set_sequence(data["sequence"])
+    ts = loader.eval_frame_time_list()
+    out = []
+    for i in range(n):
+        t1, t2 = ts[i], ts[i + data["eval_dt"]]
+        out.append((loader.load_event(loader.time_to_index(t1), loader.time_to_index(t2)),
+                    loader.load_optical_flow(t1, t2), t2 - t1))
+    return out
+
+
+def serve_path(dev, smi) -> dict:
+    """Phases ``[serve-push]``, ``[serve-repeat]``, ``[serve-resume]``: the
+    HTTP server on the card with the serving defaults (solver seed
+    ``SERVE_SOLVER_SEED``) and ``SERVE_EVENT_COUNT``-event windows, fed
+    windows 0..2 of the MVSEC slice's data block (cold, warm, warm);
+    returns the launches of the pushes."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.serve import FlowServer
+
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    h, w = config["data"]["height"], config["data"]["width"]
+    windows = serve_windows(config, 3)
+    state_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_serve_")
+    state = os.path.join(state_dir, "state.npz")
+    kw = {"solver_config": {"seed": SERVE_SOLVER_SEED}, "fixed_event_count": SERVE_EVENT_COUNT, "device": dev}
+    server = FlowServer((h, w), port=0, state_path=state, **kw).start()
+    base = f"http://127.0.0.1:{server.port}"
+    total, failed, flows = {}, [], []
+    try:
+        for i, (events, gt, seconds) in enumerate(windows):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            flow, span = push_window(base, events)
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            flows.append(flow)
+            if i == 1:
+                resume_state = os.path.join(state_dir, "after_push_1.npz")
+                shutil.copy(state, resume_state)
+            est = server.estimator
+            stats = est._solver.last_frame_stats
+            # the flow is the displacement over the solved window's span; the
+            # GT over the eval window's seconds
+            pred = flow.astype(np.float64) / span * seconds
+            m = est.metrics(pred, gt, events)
+            zero = est.metrics(np.zeros_like(pred), gt, events)["EPE"]
+            finest = max(stats["hvp"])
+            hvp_ok = all(v == "analytic-gn" for s, v in stats["hvp"].items() if i > 0 or s == finest)
+            used = {k: v for k, v in launches.items() if v}
+            ok = (np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and hvp_ok and np.isfinite(flow).all()
+                  and all(launches[k] > 0 for k in ("vote", "fwd", "bwd", "jvp", "hvp_bwd")))
+            phase("serve-push", f"window {i} ({'cold' if i == 0 else 'warm'}, {len(events)} events pushed, "
+                                f"{SERVE_EVENT_COUNT} solved): {wall:.3f} s, EPE {m['EPE']:.4f} (zero flow "
+                                f"{zero:.4f}), 3PE {m['3PE']:.4f}, AE {m['AE']:.4f}, HVP {stats['hvp']}, host syncs "
+                                f"{stats['syncs']}, Newton iters {stats['iters']}, kernel launches {used}, loss "
+                                f"{({s: round(v, 6) for s, v in stats['loss'].items()})}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(i)
+    finally:
+        server.shutdown()
+    again = FlowServer((h, w), port=0, **kw).start()
+    try:
+        t0 = time.perf_counter()
+        flow0, _ = push_window(f"http://127.0.0.1:{again.port}", windows[0][0])
+        same = np.array_equal(flow0, flows[0])
+        phase("serve-repeat", f"window 0 to a fresh server ({time.perf_counter() - t0:.3f} s): flow bit for bit "
+                              f"the same: {'ok' if same else 'FAIL'}")
+    finally:
+        again.shutdown()
+    resumed = FlowServer((h, w), port=0, state_path=resume_state, **kw).start()
+    try:
+        health = healthz(f"http://127.0.0.1:{resumed.port}")
+        warm = resumed.estimator._solver.previous_frame_best_estimation
+        resume_ok = health == {"status": "ok", "n_windows": 2} and warm is not None
+        phase("serve-resume", f"a server started with the state file written after push 1: /healthz {health}, "
+                              f"warm scales {sorted(warm) if warm else None}: {'ok' if resume_ok else 'FAIL'}")
+    finally:
+        resumed.shutdown()
+    if failed:
+        raise SystemExit(f"chip_smoke: serving windows {failed}: EPE, HVP modes or kernel launches wrong")
+    if not same:
+        raise SystemExit("chip_smoke: a fresh server's push of window 0 did not reproduce its flow")
+    if not resume_ok:
+        raise SystemExit("chip_smoke: a server did not resume the serving state file")
+    return total
+
+
 def main() -> int:
     smi = environment()
     dev = torch.device("cuda")
 
     from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
     from event_based_optical_flow_tpu_torch.ops import cuda_build
     from event_based_optical_flow_tpu_torch.ops import fused_iwe as fi
+    from event_based_optical_flow_tpu_torch.ops import vote
     from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents
     from event_based_optical_flow_tpu_torch.utils import set_numerics
 
     set_numerics()
-    kl = cuda_build.load_kernel_library("fused_iwe")
-    ptxas = " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l or "spill" in l)
-    phase("build", f"{kl.path.name}: {kl.build_seconds:.2f} s (nvcc sm_90a); {ptxas or 'cached'}")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor() as pool:
+        built = list(pool.map(cuda_build.load_kernel_library, ("fused_iwe", "vote")))
+    for kl in built:
+        ptxas = " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l or "spill" in l)
+        phase("build", f"{kl.path.name}: {kl.build_seconds:.2f} s (nvcc sm_90a); {ptxas or 'cached'}")
 
     with open(CONFIG) as f:
         config = yaml.safe_load(f)
@@ -941,12 +1209,13 @@ def main() -> int:
     times = time_kernels(fi, frame, t(flow_np), None, None, t(g_np[1:]), ("fwd", "bwd"))
     phase("time", time_line(smi, times, ("fwd", "bwd"), f"N={len(events)} {h}x{w} offsets={OFFSETS}"))
     bounds = {k: bound(k, frame, t(flow_np)) for k in ("fwd", "bwd")}
+    k8 = vote_path(port_main, dev, smi, config, events)
 
     # the slice: the CLI's eval loop
     last = MVSEC_LAST_FRAME
-    fi.reset_launch_counts()
+    ops.reset_launch_counts()
     records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
-    launches = fi.launch_counts()
+    launches = ops.launch_counts()
     run_config = slice_config(config, last_frame=last, out_dir=out_dir)
     slice_loader, solv = port_main.build(run_config, dev)
     failed = []
@@ -972,8 +1241,9 @@ def main() -> int:
                     f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
     if failed:
         raise SystemExit(f"chip_smoke: frames {failed}: metrics not finite or not below the zero flow")
-    if len(records) != last + 1 or n_lines != last + 1 or launches["fwd"] == 0 or launches["bwd"] == 0:
-        raise SystemExit("chip_smoke: the eval loop did not run its windows through both kernels")
+    if (len(records) != last + 1 or n_lines != last + 1
+            or 0 in (launches["fwd"], launches["bwd"], launches["vote"])):
+        raise SystemExit("chip_smoke: the eval loop did not run its windows through K1, K2 and K8")
     if same != [True]:
         raise SystemExit("chip_smoke: a second run of frame 0 did not reproduce its result")
 
@@ -985,6 +1255,8 @@ def main() -> int:
         errs.update(path_errs)
         times.update(path_times)
         bounds.update(path_bounds)
+    serve_launches = serve_path(dev, smi)
+    launches = {k: launches[k] + serve_launches[k] for k in launches}
     src = fi.KERNEL_SOURCE
     pb = "event_based_optical_flow_tpu/ops/pallas_objective_banded.py"
     kernels = [
@@ -995,6 +1267,10 @@ def main() -> int:
          "library_ms": None, **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})}
         for name, line in KERNEL_LINES.items()
     ]
+    kernels.append({"name": "vote", "route": "cuda", "source": vote.KERNEL_SOURCE,
+                    "replaces": "event_based_optical_flow_tpu/ops/pallas_iwe.py:101", "launches": launches["vote"],
+                    "max_abs_err": k8["err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+                    "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": k8["library_ms"]})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")

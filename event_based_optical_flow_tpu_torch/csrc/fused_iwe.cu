@@ -25,7 +25,7 @@
 //   orig     with include_orig, image 0 is the unwarped vote.
 // The votes are computed in T and accumulated as 64-bit fixed point in
 // units of 2^-kFixBits with integer atomicAdd, then converted to T by a
-// second kernel.  Integer addition is associative, so the images are the
+// second kernel (the helpers in fixed_point.cuh, shared with vote.cu, K8).  Integer addition is associative, so the images are the
 // same bits whatever order the atomics land in: the forward is
 // reproducible from run to run.  A float32 vote of magnitude >= 2^-13 is
 // converted exactly; the sum overflows only past 2^(63-kFixBits) weight
@@ -128,69 +128,17 @@
 // The TPU grids over (frame, chunk); here the frame is an offset, as the
 // time bin is.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "fixed_point.cuh"
 
 namespace {
 
 constexpr int kMaxOffsets = 8;
-constexpr int kThreads = 256;
-constexpr int kFixBits = 36;
-constexpr double kFixScale = 68719476736.0;           // 2^36
-constexpr double kFixUnit = 1.0 / 68719476736.0;      // 2^-36
-static_assert(kFixScale == static_cast<double>(1ull << kFixBits), "kFixScale is 2^kFixBits");
 
 template <typename T>
 struct Offsets {
   T v[kMaxOffsets];
   int n;
 };
-
-template <typename T>
-__device__ __forceinline__ T floor_t(T v);
-template <>
-__device__ __forceinline__ float floor_t<float>(float v) { return floorf(v); }
-template <>
-__device__ __forceinline__ double floor_t<double>(double v) { return floor(v); }
-
-// Corner decomposition of one warped position.  Returns false when no
-// corner can land in the image (or the position is NaN).
-template <typename T>
-__device__ __forceinline__ bool corners(T xw, T yw, T eps, int H, int W,
-                                        int* r0, int* c0, T* fx, T* fy) {
-  T flx = floor_t<T>(xw + eps);
-  T fly = floor_t<T>(yw + eps);
-  if (!(flx >= T(-1) && flx <= T(H - 1) && fly >= T(-1) && fly <= T(W - 1))) {
-    return false;
-  }
-  *r0 = static_cast<int>(flx);
-  *c0 = static_cast<int>(fly);
-  *fx = xw - flx;
-  *fy = yw - fly;
-  return true;
-}
-
-// Adds one vote, rounded to the fixed-point unit (two's complement, so
-// negative weights wrap correctly in the unsigned atomic).
-template <typename T>
-__device__ __forceinline__ void add_fixed(unsigned long long* acc, T value) {
-  const long long q = __double2ll_rn(static_cast<double>(value) * kFixScale);
-  atomicAdd(acc, static_cast<unsigned long long>(q));
-}
-
-template <typename T>
-__device__ __forceinline__ void vote(unsigned long long* img, T xw, T yw, T wt, T eps, int H,
-                                     int W) {
-  int r0, c0;
-  T fx, fy;
-  if (!corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy)) return;
-  const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H;
-  const bool in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
-  if (in_r0 && in_c0) add_fixed(img + r0 * W + c0, (T(1) - fx) * (T(1) - fy) * wt);
-  if (in_r1 && in_c0) add_fixed(img + (r0 + 1) * W + c0, fx * (T(1) - fy) * wt);
-  if (in_r0 && in_c1) add_fixed(img + r0 * W + c0 + 1, (T(1) - fx) * fy * wt);
-  if (in_r1 && in_c1) add_fixed(img + (r0 + 1) * W + c0 + 1, fx * fy * wt);
-}
 
 // Flow index of an event's source pixel by truncation, or -1 outside.
 template <typename T>
@@ -276,13 +224,6 @@ __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restric
       const T yw = yi - dt * v;
       vote(img + (k0 + k) * hw, xw, yw, w, eps, H, W);
     }
-  }
-}
-
-template <typename T>
-__global__ void from_fixed_kernel(const long long* __restrict__ acc, int n, T* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    out[i] = static_cast<T>(static_cast<double>(acc[i]) * kFixUnit);
   }
 }
 
@@ -554,13 +495,6 @@ Offsets<T> make_offsets(const double* offsets, int n_off) {
   o.n = n_off;
   for (int k = 0; k < kMaxOffsets; ++k) o.v[k] = k < n_off ? static_cast<T>(offsets[k]) : T(0);
   return o;
-}
-
-int grid_for(int n) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 65535) blocks = 65535;
-  return blocks;
 }
 
 Frames make_frames(const int* frame_ptr, int n_frames) {

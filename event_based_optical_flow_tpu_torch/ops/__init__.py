@@ -1,5 +1,8 @@
 """Op layer of the port: warp, IWE rasterization, blur, sobel, tile
-interpolation, and the fused warp+vote kernel (submodule ``fused_iwe``)."""
+interpolation, the fused warp+vote kernels (submodule ``fused_iwe``, K1-K7)
+and the standalone vote kernel (submodule ``vote``, K8)."""
+
+from . import fused_iwe, vote
 
 from .blur import gaussian_blur3, gaussian_filter
 from .interp import pyramid_expand, pyramid_reduce, tile_to_dense_flow
@@ -25,4 +28,17 @@ __all__ = [
     "warp_2dof",
     "warp_dense_flow",
     "warp_voxel_flow",
+    "launch_counts",
+    "reset_launch_counts",
 ]
+
+
+def launch_counts() -> dict:
+    """Launches of every hand-written kernel since the last reset: the
+    ``fused_iwe`` forms (``fused_iwe.launch_counts``) and ``vote`` (K8)."""
+    return {**fused_iwe.launch_counts(), **vote.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    fused_iwe.reset_launch_counts()
+    vote.reset_launch_counts()

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into ``build/kernels/`` at the root of the
 checkout, at first use, and ``ctypes`` loads it.  The library's file name
-carries a hash of the source and the flags, so an edited source is never
-served from a stale build.  Nothing here runs at import time: the CPU
-tests import every module on machines without ``nvcc`` or a GPU.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is never served from a stale build.  Nothing
+here runs at import time: the CPU tests import every module on machines
+without ``nvcc`` or a GPU.
 """
 
 import ctypes
@@ -61,11 +62,12 @@ def _nvcc() -> str:
 
 def load_kernel_library(name: str) -> KernelLibrary:
     """Compile ``csrc/<name>.cu`` if needed and load it (cached per
-    process)."""
+    process: every launch asks for its library)."""
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    content = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     build_seconds, build_log = 0.0, ""
     if not out.exists():

@@ -1,0 +1,232 @@
+"""The standalone bilinear vote of weighted events into images (K8): a
+hand-written CUDA kernel (``csrc/vote.cu``) with its plain PyTorch version
+beside it.
+
+Replaces the TPU kernel of the JAX package
+``ops/pallas_iwe.py::bilinear_vote_pallas`` (``_iwe_forward``, whose
+``pl.pallas_call`` votes per-chunk corner-weight blocks on the matrix unit,
+vmapped over a batch of event sets) and its custom-VJP backward
+``_fused_bwd`` (plain XLA there, a plain PyTorch gather here).
+
+Contract: events ``[..., n, 4]`` (``x`` the row, ``y`` the column) and a
+weight that is a scalar or broadcastable to ``[..., n]`` give images
+``[..., H, W]``: each event votes ``w (1 - fx)(1 - fy)``, ``w fx (1 - fy)``,
+``w (1 - fx) fy``, ``w fx fy`` into the corners ``floor(c + eps)`` and
+``+1`` (``fx = x - floor(x + eps)``), corners outside the image are dropped,
+zero-weight (padded) events are inert, a NaN position votes nothing (the
+events of an empty sweep patch, whose reference time is 0/0).  Every image of a batched call is
+voted in one launch (the init sweep votes P patches x K candidates at once).
+
+Routing: ``bilinear_vote`` runs the plain version for a tensor on the CPU and
+the kernel for a CUDA tensor; a CUDA tensor never falls back, an input the
+kernel does not take raises.  The kernel sums in 64-bit fixed point with
+integer atomics (``csrc/fixed_point.cuh``), so its images are the same bits
+on every run; the plain version's ``index_add`` sums in another order, so
+the two agree to rounding.  On a CUDA tensor the gradient (w.r.t. the event
+positions and the weight) is ``BilinearVote``'s analytic four-corner
+backward; on the CPU autograd differentiates the plain scatter, which gives
+the same one-sided corner derivatives.
+"""
+
+import ctypes
+import math
+from typing import Tuple, Union
+
+import torch
+
+from .cuda_build import load_kernel_library
+
+Tensor = torch.Tensor
+
+KERNEL_SOURCE = "event_based_optical_flow_tpu_torch/csrc/vote.cu"
+# A pixel's fixed-point sum (2^-36 units in an int64) holds 2^27 weight
+# units, and one event adds at most |w| to a pixel: with |w| <= 2, fewer than
+# 2^26 events per image never overflow.  The largest batched call of the
+# port is the init sweep's scoring call, P x K images of at most C events
+# each (C, the patch capacity, at most the next power of two above the
+# window's events: 2^15 for a 30 000-event window), weights 0 or 1; the
+# metric votes are single full-frame images of the window's events.
+MAX_EVENTS = 2**26
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_DBL = ctypes.c_double
+# events, weight, weight_scalar, n_img, n, H, W, eps, acc, out, stream
+_VOTE_ARGS = [_PTR, _PTR, _DBL, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# launches of the kernel since the last reset
+_LAUNCHES = {"vote": 0}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset: ``vote`` (K8)."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES["vote"] = 0
+
+
+def _library():
+    lib = load_kernel_library("vote").lib
+    if not getattr(lib, "_evflow_bound", False):
+        for suffix in _SUFFIX.values():
+            fn = getattr(lib, f"evflow_vote_{suffix}")
+            fn.argtypes = _VOTE_ARGS
+            fn.restype = ctypes.c_int
+        lib._evflow_bound = True
+    return lib
+
+
+def corner_terms(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
+                 eps: float = 1e-6):
+    """The plain version's scatter operands: (flat image indices ``[4 n_img
+    n]`` into ``n_img`` images of ``H * W``, the corner votes, the batch
+    shape).  An outside corner (any corner of a NaN position) points at its
+    image's pixel 0 with vote 0."""
+    h, w = image_size
+    x = events[..., 0]
+    y = events[..., 1]
+    fl_x = torch.floor(x + eps)
+    fl_y = torch.floor(y + eps)
+    fx = x - fl_x
+    fy = y - fl_y
+    wgt = torch.as_tensor(weight, dtype=x.dtype, device=x.device)
+    batch = x.shape[:-1]
+    base = (torch.arange(math.prod(batch), device=x.device) * (h * w)).reshape(batch + (1,))
+    vals, inds = [], []
+    for dr, dc, wr, wc in (
+        (0, 0, 1 - fx, 1 - fy),
+        (1, 0, fx, 1 - fy),
+        (0, 1, 1 - fx, fy),
+        (1, 1, fx, fy),
+    ):
+        row = fl_x + dr
+        col = fl_y + dc
+        inside = (row >= 0) & (row < h) & (col >= 0) & (col < w)
+        zero = torch.zeros_like(row)
+        lin = torch.where(inside, row * w + col, zero).to(torch.int64)
+        inds.append((lin + base).reshape(-1))
+        # where, not a product with the mask: a NaN position (an empty sweep
+        # patch's events) votes nothing, as in the kernel
+        vals.append(torch.where(inside, wr * wc * wgt, zero).reshape(-1))
+    return torch.cat(inds), torch.cat(vals), batch
+
+
+def bilinear_vote_plain(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
+                        eps: float = 1e-6) -> Tensor:
+    """K8's plain PyTorch version: the corner votes of every image of the
+    call in one flattened ``index_add``; differentiable by autograd."""
+    h, w = image_size
+    inds, vals, batch = corner_terms(events, image_size, weight, eps)
+    image = torch.zeros(math.prod(batch) * h * w, dtype=events.dtype, device=events.device)
+    return image.index_add(0, inds, vals).reshape(batch + (h, w))
+
+
+def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
+                         eps: float = 1e-6) -> Tensor:
+    """Launch K8 on CUDA tensors: ``[..., n, 4]`` events -> ``[..., H, W]``
+    images, one launch for the whole batch (no gradient: see
+    ``BilinearVote``)."""
+    if events.device.type != "cuda":
+        raise ValueError(f"the vote kernel runs on CUDA tensors, got a {events.device} tensor")
+    if events.dtype not in _SUFFIX:
+        raise TypeError(f"the vote kernel takes float32 or float64 events, got {events.dtype}")
+    if events.ndim < 2 or events.shape[-1] != 4:
+        raise ValueError(f"events must be [..., n, 4], got {tuple(events.shape)}")
+    h, w = (int(s) for s in image_size)
+    if h < 1 or w < 1:
+        raise ValueError(f"image_size must be positive, got {image_size}")
+    batch, n = tuple(events.shape[:-2]), int(events.shape[-2])
+    n_img = math.prod(batch)
+    if n >= MAX_EVENTS:
+        raise ValueError(f"the vote kernel takes fewer than {MAX_EVENTS} events per image (fixed-point sums), "
+                         f"got {n}")
+    if n_img * n >= 2**31 or n_img * h * w >= 2**31:
+        raise ValueError("the vote kernel indexes with 32-bit ints: too many events or pixels in one call")
+    events = events.contiguous()
+    w_ptr, w_scalar = None, 0.0
+    if torch.is_tensor(weight):
+        if weight.device != events.device or weight.dtype != events.dtype:
+            raise ValueError(f"the weight must share the events' device and dtype ({events.device}, "
+                             f"{events.dtype}), got {weight.device} {weight.dtype}")
+        weight = torch.broadcast_to(weight, batch + (n,)).contiguous()
+        w_ptr = weight.data_ptr()
+    else:
+        w_scalar = float(weight)
+    acc = torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)  # fixed-point sums
+    out = torch.empty(batch + (h, w), dtype=events.dtype, device=events.device)
+    name = f"evflow_vote_{_SUFFIX[events.dtype]}"
+    stream = torch.cuda.current_stream(events.device).cuda_stream
+    with torch.cuda.device(events.device):
+        rc = getattr(_library(), name)(events.data_ptr(), w_ptr, w_scalar, n_img, n, h, w, float(eps),
+                                       acc.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: cudaGetLastError() = {rc}")
+    _LAUNCHES["vote"] += 1
+    return out
+
+
+def _vote_backward(events: Tensor, weight: Union[float, Tensor], g: Tensor, eps: float):
+    """The analytic four-corner backward (``pallas_iwe.py::_fused_bwd``):
+    each event gathers the cotangent at its four corners (0 outside the
+    image); (d events ``[..., n, 4]``: dx, dy and zeros for t and p,
+    d weight ``[..., n]``)."""
+    h, w = g.shape[-2], g.shape[-1]
+    x, y = events[..., 0], events[..., 1]
+    fx = torch.floor(x + eps)
+    fy = torch.floor(y + eps)
+    ax = x - fx
+    ay = y - fy
+    r0 = fx.to(torch.int64)
+    c0 = fy.to(torch.int64)
+    flat = g.reshape(g.shape[:-2] + (h * w,))
+    zero = torch.zeros_like(x)
+
+    def corner(r, c):
+        ok = (r >= 0) & (r < h) & (c >= 0) & (c < w)
+        return torch.where(ok, torch.gather(flat, -1, torch.where(ok, r * w + c, 0)), zero)
+
+    g00, g10, g01, g11 = corner(r0, c0), corner(r0 + 1, c0), corner(r0, c0 + 1), corner(r0 + 1, c0 + 1)
+    wt = weight if torch.is_tensor(weight) else torch.full_like(x, float(weight))
+    dwt = (1 - ax) * (1 - ay) * g00 + ax * (1 - ay) * g10 + (1 - ax) * ay * g01 + ax * ay * g11
+    dx = wt * ((1 - ay) * (g10 - g00) + ay * (g11 - g01))
+    dy = wt * ((1 - ax) * (g01 - g00) + ax * (g11 - g10))
+    return torch.stack([dx, dy, zero, zero], dim=-1), dwt
+
+
+class BilinearVote(torch.autograd.Function):
+    """``bilinear_vote`` as an autograd function: K8 forward on a CUDA
+    tensor (the plain version on the CPU), the analytic four-corner
+    backward; differentiable w.r.t. the events' positions and a tensor
+    weight."""
+
+    @staticmethod
+    def forward(ctx, events, weight, image_size, eps):
+        ctx.save_for_backward(events, weight if torch.is_tensor(weight) else None)
+        ctx.config = (weight if not torch.is_tensor(weight) else None, eps)
+        if events.device.type == "cpu":
+            return bilinear_vote_plain(events, image_size, weight, eps)
+        return bilinear_vote_kernel(events, image_size, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        events, weight_t = ctx.saved_tensors
+        scalar, eps = ctx.config
+        weight = scalar if weight_t is None else torch.broadcast_to(weight_t, events.shape[:-1])
+        d_events, d_weight = _vote_backward(events, weight, g, eps)
+        if weight_t is None or not ctx.needs_input_grad[1]:
+            return d_events, None, None, None
+        return d_events, d_weight.sum_to_size(weight_t.shape), None, None
+
+
+def bilinear_vote(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
+                  eps: float = 1e-6) -> Tensor:
+    """Bilinear voting of ``[..., n, 4]`` events into ``[..., H, W]``:
+    the plain version for a CPU tensor, K8 for a CUDA tensor.  ``weight``
+    is a scalar or a tensor broadcastable to ``[..., n]``; zero weights make
+    padded events inert."""
+    if events.device.type == "cpu":
+        return bilinear_vote_plain(events, image_size, weight, eps)
+    return BilinearVote.apply(events, weight, tuple(int(s) for s in image_size), float(eps))

@@ -1,12 +1,14 @@
 """Solver base: config plumbing, device/dtype policy, warm start (port of
 ``event_based_optical_flow_tpu/solver/base.py``).
 
-Every solver object holds an explicit ``device`` and ``dtype``:
-``solver.precision`` ("32"/"64") picks the dtype when set, otherwise
-float64 on the CPU (parity with the JAX package) and float32 on CUDA.
-Randomness is explicit too: a seeded numpy ``Generator`` for the cold
-init (the JAX package's ``initialize_random`` draws, reproduced exactly)
-and a ``torch.Generator`` on the solver's device for the init sweep.
+Every solver object holds an explicit ``device`` (``cuda`` unless the
+caller asks for the CPU) and ``dtype``: ``solver.precision`` ("32"/"64")
+picks the dtype when set, otherwise float64 on the CPU (parity with the JAX
+package) and float32 on CUDA.  Randomness is explicit too: a seeded numpy
+``Generator`` for the cold init (the JAX package's ``initialize_random``
+draws, reproduced exactly) and a ``torch.Generator`` on the solver's device
+for the init sweep; ``rng_state`` / ``set_rng_state`` snapshot and restore
+both.
 """
 
 import logging
@@ -52,7 +54,7 @@ class SolverBase:
         solver_config: dict = {},
         optimizer_config: dict = {},
         output_config: dict = {},
-        device="cpu",
+        device="cuda",
         dtype: Optional[torch.dtype] = None,
         candidates_fn: Optional[Callable] = None,
     ):
@@ -93,15 +95,35 @@ class SolverBase:
         """Host array -> the solver's device and dtype."""
         return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device).to(self.dtype)
 
-    # --- warm start --------------------------------------------------------
-    def set_previous_frame_best_estimation(self, previous_best):
-        """Warm start from a per-scale motion dict (port tensors, or the
-        JAX layout's numpy arrays)."""
-        self.previous_frame_best_estimation = {
+    # --- warm start and randomness ------------------------------------------
+    def _motion_dict(self, motion: dict) -> dict:
+        return {
             int(k): (v.detach().to(self.device, self.dtype).clone() if torch.is_tensor(v)
                      else from_jax({k: v}, self.device, self.dtype)[int(k)])
-            for k, v in previous_best.items()
+            for k, v in motion.items()
         }
+
+    def set_previous_frame_best_estimation(self, previous_best):
+        """Warm start from a per-scale motion dict (port tensors, or the
+        JAX layout's numpy arrays, as a loaded state file holds them), or
+        from a list of such dicts, one per frame of a fleet batch (None: a
+        frame without warm state)."""
+        if isinstance(previous_best, (list, tuple)):
+            self.previous_frame_best_estimation = [
+                None if d is None else self._motion_dict(d) for d in previous_best
+            ]
+        else:
+            self.previous_frame_best_estimation = self._motion_dict(previous_best)
+
+    def rng_state(self):
+        """A snapshot of the solver's randomness: the init sweep's
+        ``torch.Generator`` and the cold init's numpy generator."""
+        return self.generator.get_state(), self._rng.bit_generator.state
+
+    def set_rng_state(self, snapshot) -> None:
+        torch_state, numpy_state = snapshot
+        self.generator.set_state(torch_state)
+        self._rng.bit_generator.state = numpy_state
 
     def save_flow_error_as_text(self, out_dir: str, nth_frame: int, flow_error_dict: dict,
                                 fname: str = "flow_error_per_frame.txt"):

@@ -7,18 +7,25 @@ and ``FleetPyramidalSolver.optimize_batch``'s per-scale loop).
 Without warm-start chaining the eval frames are independent, so B of them
 are initialized, solved and scored together: per pyramid scale, the init
 sweep per frame, then ONE batched Newton-CG whose iterations run in
-lockstep (a frame that is done is frozen).  One lockstep evaluation runs
-the batched kernels once for all B frames (the frame index of
-``ops/fused_iwe.py``) and the rest of the objective with the frame as a
-batch axis (``torch.func.vmap`` of the single-frame functions), so it
-launches about as many kernels as one single-frame evaluation, and every
-loop condition is one host read for the whole batch.
+lockstep (a frame that is done is frozen).  A list of per-frame warm
+motions (the multi-stream serving case, ``streaming.MultiStreamFlowEstimator``:
+one independent stream per frame) warm-starts each frame from its own
+motion, as the JAX fleet chain's ``per_frame`` warm mode does: frame b's
+coarsest start is its warm motion, and on each finer scale its pre-sweep
+motion is the expanded coarser solution averaged with its warm one.
+
+One lockstep evaluation runs the batched kernels once for all B frames
+(the frame index of ``ops/fused_iwe.py``) and the rest of the objective
+with the frame as a batch axis (``torch.func.vmap`` of the single-frame
+functions), so it launches about as many kernels as one single-frame
+evaluation, and every loop condition is one host read for the whole batch.
 
 The JAX package's whole-fleet device chain (``_optimize_batch_chain``) fuses
 the same per-scale loop into one TPU dispatch; the port runs the loop.  Its
 mesh (``parallel:``), batched L-BFGS (``device_solver: lbfgs``) and the
-chain's batch warm start (``warm_start: batch``) are not ported: the config
-validation refuses them.
+chain's shared batch warm start (``warm_start: batch``, one motion dict for
+every frame) are not ported: the config validation refuses them, and
+``optimize_batch`` refuses a shared warm dict.
 """
 
 import logging
@@ -331,8 +338,8 @@ class BatchedNewtonCG:
 class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
     """Pyramidal CMax over a fleet of frames: per scale, the init sweep of
     each frame and one lockstep batched Newton solve.  For independent
-    frames (no warm-start chaining); ``optimize`` (one frame) is the
-    sequential pyramid's."""
+    frames, cold or each from its own warm motion (``_frame_warms``);
+    ``optimize`` (one frame) is the sequential pyramid's."""
 
     def _coarse_events_list(self, events_list: List[np.ndarray]):
         """Per-frame stride subsamples for the coarse scales, or None when
@@ -352,21 +359,26 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
                         "on all events")
         return [e if s is None else s for s, e in zip(subs, events_list)]
 
-    def _frame_start(self, s: int, events_np: np.ndarray, coarser: Dict[int, Tensor], b: int) -> Tensor:
-        """Frame ``b``'s start at scale ``s`` ([2, n_patch]): the cold init at
-        the coarsest scale, else its expanded coarser solution refined by
-        the init sweep on its own events (``_init_scale_single``)."""
-        presearch = self._presearch_motion(s, {s - 1: coarser[s - 1][b]} if s > self.coarsest_scale else {})
+    def _frame_start(self, s: int, events_np: np.ndarray, coarser: Dict[int, Tensor], b: int,
+                     warm: Optional[Dict[int, Tensor]]) -> Tensor:
+        """Frame ``b``'s start at scale ``s`` ([2, n_patch]): at the coarsest
+        scale its ``warm`` motion or the cold init, else its expanded coarser
+        solution (averaged with its warm motion) refined by the init sweep
+        on its own events (``_init_scale_single``, the chain's per-frame warm
+        mode)."""
+        coarser_b = {s - 1: coarser[s - 1][b]} if s > self.coarsest_scale else {}
+        presearch = self._presearch_motion(s, coarser_b, warm)
         if presearch is None:
-            return self._init_scale(s)
+            return self._init_scale(s, warm)
         motion0, n_cand = presearch
         return self.initialize_guess_from_patch_search(events_np, motion0, n_cand)
 
     def _run_fleet_newton(self, spec: ObjectiveSpec, x0: Tensor, fleet: FleetEvents, orig: Tensor,
-                          maxiter: int, cg_maxiter=None, finest: bool = True):
+                          maxiter: int, cg_maxiter=None, finest: bool = True, warm: bool = False):
         """One lockstep Newton-CG solve of this scale's batched objective
-        from ``x0`` [B, M]; returns (best_x, best_f [B], iterations, hvp)."""
-        analytic, gauss_newton = self._curvature(spec, False, finest)
+        from ``x0`` [B, M] (``warm``: the batch starts from per-frame warm
+        motions); returns (best_x, best_f [B], iterations, hvp)."""
+        analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_batched_objective(spec)
         hvp_kw = {}
         if analytic:
@@ -377,17 +389,35 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         self.syncs += solve.syncs
         return best_x, best_f, n_iter, self._hvp_name(analytic, gauss_newton)
 
+    def _frame_warms(self, bsz: int) -> List[Optional[Dict[int, Tensor]]]:
+        """Each frame's warm motion: the per-frame list when it holds a full
+        per-scale dict for every frame (the chain's ``per_frame`` mode), else
+        None for every frame (a cold batch, as the chain solves it)."""
+        warm = self.previous_frame_best_estimation
+        if isinstance(warm, dict):
+            raise ValueError("a shared warm motion for every frame of a batch (the fleet chain's "
+                             "warm_start: batch) is not ported yet; give one per-scale dict per frame")
+        scales = range(self.coarsest_scale, self.patch_scales)
+        if (isinstance(warm, (list, tuple)) and len(warm) == bsz
+                and all(isinstance(d, dict) and all(s in d for s in scales) for d in warm)):
+            return list(warm)
+        if warm is not None:
+            logger.info("the warm list does not hold every frame's motion: the batch starts cold")
+        return [None] * bsz
+
     def optimize_batch(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
         """Solve B frames together: one per-scale motion dict per frame
-        (on the solver's device).  ``last_batch_stats`` holds the batch's
-        lockstep iterations, per-frame losses, HVP model, per-frame event
-        counts and kernel launches per scale, and its host syncs."""
+        (on the solver's device), each frame warm-started from its own entry
+        of a per-frame warm list (``_frame_warms``).  ``last_batch_stats``
+        holds the batch's lockstep iterations, per-frame losses, HVP model,
+        per-frame event counts and kernel launches per scale, and its host
+        syncs."""
+        from .. import ops
+
         events_list = [np.asarray(e, dtype=np.float64) for e in events_list]
         bsz = len(events_list)
-        if self.previous_frame_best_estimation is not None:
-            logger.warning("fleet batch warm start is not ported (the JAX package's fleet chain runs it); "
-                           "solving this batch from the cold init")
-            self.previous_frame_best_estimation = None
+        warms = self._frame_warms(bsz)
+        warm = warms[0] is not None
         self.overload_patch_configuration(self.coarsest_scale)
         orig_fn = build_orig_iwe_batched(self._current_spec())
         full = FleetEvents.from_numpy(events_list, self.device, self.dtype, self.time_bin)
@@ -404,14 +434,15 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
             spec = self._current_spec()
             finest = s == self.patch_scales - 1
             fleet, orig = newton_events["full" if finest or subs is None else "coarse"]
-            before = fi.launch_counts()
-            x0 = torch.stack([self._frame_start(s, events_list[b], best, b).reshape(-1) for b in range(bsz)])
+            before = ops.launch_counts()
+            x0 = torch.stack([self._frame_start(s, events_list[b], best, b, warms[b]).reshape(-1)
+                              for b in range(bsz)])
             scale_mi, scale_cg = self._scale_budget(s)
-            bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest)
+            bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest, warm)
             best[s] = bx.reshape((bsz, self.motion_vector_size) + tuple(self.patch_image_size))
             losses = bf.tolist()
             self.syncs += 1
-            after = fi.launch_counts()
+            after = ops.launch_counts()
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, losses, hvp
             stats["events"][s] = list(fleet.frames.sizes)
             stats["launches"][s] = {k: after[k] - before[k] for k in after}

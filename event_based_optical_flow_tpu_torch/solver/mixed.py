@@ -54,16 +54,16 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         events = np.asarray(events, dtype=np.float64)
         spec = self._current_spec()
         frame = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
-        from ..ops import fused_iwe
+        from .. import ops
 
-        before = fused_iwe.launch_counts()
+        before = ops.launch_counts()
         motion0 = self._initial_motion()
         self.syncs = 0
         best_x, best_f, n_iter, hvp = self._run_newton(
             spec, motion0, frame, build_orig_iwe(spec)(frame), int(self.opt_config.get("max_iter", 25)),
             finest=True, warm=self.previous_frame_best_estimation is not None, gtol=1e-7)
         loss = float(best_f)
-        after = fused_iwe.launch_counts()
+        after = ops.launch_counts()
         self.last_frame_stats = {
             "iters": {0: n_iter}, "loss": {0: loss}, "hvp": {0: hvp}, "events": {0: len(events)},
             "launches": {0: {k: after[k] - before[k] for k in after}}, "syncs": self.syncs + 1,

@@ -23,7 +23,7 @@ the port runs the loop itself.
 """
 
 import logging
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -115,7 +115,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
     def optimize(self, events: np.ndarray) -> Dict[int, torch.Tensor]:
         """Solve one frame: {scale: motion [2, h_s, w_s]} on the solver's
         device (the finest scale is the output flow's tile motion)."""
-        from ..ops import fused_iwe
+        from .. import ops
 
         logger.info(f"Start optimization. DoF {self.motion_vector_size * self.total_n_patch}")
         events = np.asarray(events, dtype=np.float64)
@@ -129,7 +129,8 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         if sub is not None:
             coarse = FrameEvents.from_numpy(sub, self.device, self.dtype, self.time_bin)
             newton_events["coarse"] = (coarse, orig_fn(coarse))
-        warm = self.previous_frame_best_estimation is not None
+        warm_motion = self.previous_frame_best_estimation
+        warm = warm_motion is not None
         self.syncs = 0
         stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}}
         best_motion_per_scale: Dict[int, torch.Tensor] = {}
@@ -138,10 +139,10 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             spec = self._current_spec()
             finest = s == self.patch_scales - 1
             frame, orig = newton_events["full" if finest or sub is None else "coarse"]
-            before = fused_iwe.launch_counts()
-            presearch = self._presearch_motion(s, best_motion_per_scale)
+            before = ops.launch_counts()
+            presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
             if presearch is None:
-                x0 = self._init_scale(s)
+                x0 = self._init_scale(s, warm_motion)
             else:
                 motion0, n_cand = presearch
                 x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
@@ -151,7 +152,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             best_motion_per_scale[s] = best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
             loss = float(best_f)
             self.syncs += 1
-            after = fused_iwe.launch_counts()
+            after = ops.launch_counts()
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, loss, hvp
             stats["events"][s] = frame.x.shape[0]
             stats["launches"][s] = {k: after[k] - before[k] for k in after}
@@ -161,23 +162,22 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         self.last_frame_stats = stats
         return self.update_coarse_from_fine(best_motion_per_scale)
 
-    def _presearch_motion(self, s: int, coarser: Dict[int, torch.Tensor]):
+    def _presearch_motion(self, s: int, coarser: Dict[int, torch.Tensor], warm: Optional[Dict[int, torch.Tensor]]):
         """For scales that refine a coarser result by the per-patch sweep:
-        (pre-sweep motion0 [2, n_patch], n_cand); None for the coarsest."""
+        (pre-sweep motion0 [2, n_patch], n_cand), the expanded coarser motion
+        averaged with the ``warm`` one when warm; None for the coarsest."""
         if s <= self.coarsest_scale:
             return None
         expect = self.scaled_patch_image_size[s]
         motion0 = pyramid_expand(coarser[s - 1]).reshape((2,) + tuple(expect))
-        warm = self.previous_frame_best_estimation
         if warm is not None:
             motion0 = (motion0 + warm[s]) / 2.0
         n_cand = max(4, int(self.opt_config["n_iter"] / max(1, s - self.coarsest_scale)))
         return motion0.reshape(2, -1), n_cand
 
-    def _init_scale(self, s: int) -> torch.Tensor:
-        """Coarsest-scale start: the warm motion, else the configured cold
-        init."""
-        warm = self.previous_frame_best_estimation
+    def _init_scale(self, s: int, warm: Optional[Dict[int, torch.Tensor]]) -> torch.Tensor:
+        """Coarsest-scale start: the ``warm`` motion, else the configured
+        cold init."""
         if warm is not None:
             return warm[s].clone()
         init = self.slv_config["patch"]["initialize"]

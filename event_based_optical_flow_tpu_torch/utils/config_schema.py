@@ -76,6 +76,23 @@ _UNPORTED = (
 )
 
 
+def check_ported(sections: Dict[str, dict]) -> None:
+    """Raise ``ConfigError`` for an entry of ``_UNPORTED`` that selects
+    what the port does not run (``sections``: some of ``data``, ``solver``,
+    ``optimizer``; the CLI's validation and the serving surface's config
+    merge both call it)."""
+    if sections.get("solver", {}).get("parallel"):
+        raise ConfigError("'solver.parallel' (multi-device meshes, the fleet's frame sharding among them) "
+                          "is not ported yet")
+    for section, key, runs, what in _UNPORTED:
+        val = sections.get(section, {}).get(key, runs)
+        if (str(val).lower() if isinstance(runs, str) else val) != runs:
+            raise ConfigError(
+                f"config key '{section}.{key}: {val!r}' selects {what}, "
+                "which is not ported yet"
+            )
+
+
 def validate_config(config: Dict[str, Any]) -> List[str]:
     """Validate the full YAML dict; raises ConfigError on hard errors and
     returns a list of warning strings (also logged) for soft issues."""
@@ -90,7 +107,7 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         _require(config, section, dict, "<root>")
     if config.get("is_dnn"):
         raise ConfigError("'is_dnn: true' (the EV-FlowNet path) is not ported yet")
-    if config.get("parallel") or config["solver"].get("parallel"):
+    if config.get("parallel"):
         raise ConfigError("'parallel' (multi-device meshes, the fleet's frame sharding among them) "
                           "is not ported yet")
 
@@ -185,14 +202,7 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         if key not in _KNOWN_OPT_KEYS:
             warnings.append(f"unknown config key 'optimizer.{key}' (ignored?)")
 
-    sections = {"data": data, "solver": slv, "optimizer": opt}
-    for section, key, runs, what in _UNPORTED:
-        val = sections[section].get(key, runs)
-        if (str(val).lower() if isinstance(runs, str) else val) != runs:
-            raise ConfigError(
-                f"config key '{section}.{key}: {val!r}' selects {what}, "
-                "which is not ported yet"
-            )
+    check_ported({"data": data, "solver": slv, "optimizer": opt})
 
     for w in warnings:
         logger.warning(w)

@@ -1,7 +1,7 @@
 """GPU tests of the PyTorch port: the hand-written CUDA kernels (the fused
 vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4;
-their time-aware voxel forms, K5/K6; the batched forms of all of them, K7)
-against their plain PyTorch versions, each batched frame against the
+their time-aware voxel forms, K5/K6; the batched forms of all of them, K7;
+the standalone vote, K8) against their plain PyTorch versions, each batched frame against the
 single-frame kernel on that frame alone, and the fused objective and its
 analytic HVP (dense and time-aware) on the GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
 without one (``cuda`` marker).
@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from event_based_optical_flow_tpu_torch.ops import fused_iwe as FI
+from event_based_optical_flow_tpu_torch.ops import iwe as IWE
+from event_based_optical_flow_tpu_torch.ops import vote as VOTE
 from event_based_optical_flow_tpu_torch.solver.objective import (
     FleetEvents,
     FrameEvents,
@@ -484,3 +486,86 @@ def test_batched_wrappers_check_the_frame_table(cuda_device):
             FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, frames=frames)
     with pytest.raises(ValueError, match=r"\[B, 2, H, W\]"):
         FI.fused_iwe_fwd(fl[0], *ev, OFFSETS, True, frames=fleet.frames)
+
+
+# --- K8, the standalone vote ------------------------------------------------
+
+
+def _vote_inputs(seed=5):
+    """Events over the image and past its borders (padded rows at (-10,
+    -10)), as one set [n, 4] and as the init sweep's [P, K, C, 4] batch,
+    with per-event weights [n] and per-patch weights [P, 1, C] (zero on the
+    padded rows)."""
+    rng = np.random.default_rng(seed)
+
+    def events(n):
+        x = rng.uniform(-0.9, H, n)
+        y = rng.uniform(-0.9, W, n)
+        x[:100], y[:100] = np.round(x[:100]), np.round(y[:100])
+        x[-50:], y[-50:] = -10.0, -10.0
+        return np.stack([x, y, rng.uniform(0, 0.1, n), rng.integers(0, 2, n)], 1)
+
+    def weights(shape):
+        w = rng.uniform(0.3, 1.5, shape)
+        w[..., -50:] = 0.0
+        return w
+
+    P, K, C = 6, 5, 512
+    return (events(5000), weights((5000,)),
+            np.stack([np.stack([events(C) for _ in range(K)]) for _ in range(P)]), weights((P, 1, C)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_vote_kernel_matches_plain_version(cuda_device, dtype, tol):
+    """K8 against ``bilinear_vote_plain`` on the same CUDA tensors, one set
+    and the sweep batch, scalar and tensor weights: the same corner
+    decisions, sums in 2^-36 fixed point against the plain version's order
+    (float32 adds its own rounding); a second call gives the same bits; one
+    launch per call."""
+    ev1, w1, evb, wb = _vote_inputs()
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=cuda_device)
+    VOTE.reset_launch_counts()
+    n_calls = 0
+    for ev, wt in ((t(ev1), t(w1)), (t(ev1), 0.75), (t(evb), t(wb)), (t(evb), 1.0)):
+        want = VOTE.bilinear_vote_plain(ev, (H, W), wt)
+        got = VOTE.bilinear_vote_kernel(ev, (H, W), wt)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == ev.shape[:-2] + (H, W)
+        assert want.abs().max().item() > 1.0
+        assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+        assert torch.equal(got, VOTE.bilinear_vote_kernel(ev, (H, W), wt))
+        n_calls += 2
+    assert VOTE.launch_counts() == {"vote": n_calls}
+
+
+@pytest.mark.cuda
+def test_vote_routing_gradient_and_checks(cuda_device):
+    """On CUDA tensors ``bilinear_vote`` (and ``create_iwe`` and
+    ``event_mask`` through it) launches K8; its analytic backward on the
+    card equals the CPU's; the wrapper refuses what the kernel does not
+    take."""
+    ev1, w1, _, _ = _vote_inputs()
+    g = np.random.default_rng(6).normal(size=(H, W))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        ev = torch.as_tensor(ev1, device=dev).requires_grad_(True)
+        wt = torch.as_tensor(w1, device=dev).requires_grad_(True)
+        VOTE.reset_launch_counts()
+        out = VOTE.bilinear_vote(ev, (H, W), wt)
+        grads[str(dev)] = [a.cpu() for a in torch.autograd.grad((out * torch.as_tensor(g, device=dev)).sum(),
+                                                                (ev, wt))]
+        assert VOTE.launch_counts() == {"vote": 0 if dev == "cpu" else 1}
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        assert (a - b).abs().max().item() <= 1e-10 * max(1.0, a.abs().max().item())
+    ev = torch.as_tensor(ev1, device=cuda_device)
+    VOTE.reset_launch_counts()
+    IWE.create_iwe(ev, (H, W), sigma=1, blur_mode="scipy")
+    IWE.event_mask(ev, (H, W))
+    assert VOTE.launch_counts() == {"vote": 2}
+    with pytest.raises(TypeError):
+        VOTE.bilinear_vote_kernel(ev.to(torch.float16), (H, W))
+    with pytest.raises(ValueError):
+        VOTE.bilinear_vote_kernel(ev, (H, W), torch.ones(len(ev1), dtype=torch.float32, device=cuda_device))
+    with pytest.raises(ValueError):
+        VOTE.bilinear_vote_kernel(ev[:, :3].contiguous(), (H, W))

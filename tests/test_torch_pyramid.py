@@ -184,8 +184,9 @@ def test_warm_start_from_jax_state(scene):
     warm = {1: np.full((2, 2, 2), 3.0), 2: np.full((2, 4, 4), -2.0)}
     st.set_previous_frame_best_estimation(warm)
     assert all(torch.is_tensor(v) and v.dtype == torch.float64 for v in st.previous_frame_best_estimation.values())
-    np.testing.assert_array_equal(st._init_scale(1).numpy(), warm[1])
-    motion0, n_cand = st._presearch_motion(2, {1: torch.zeros((2, 2, 2), dtype=torch.float64)})
+    warm_t = st.previous_frame_best_estimation
+    np.testing.assert_array_equal(st._init_scale(1, warm_t).numpy(), warm[1])
+    motion0, n_cand = st._presearch_motion(2, {1: torch.zeros((2, 2, 2), dtype=torch.float64)}, warm_t)
     np.testing.assert_allclose(motion0.numpy(), (0.0 + warm[2].reshape(2, -1)) / 2.0)
     assert n_cand == 8
 

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_frame.py [--config configs/synthetic_mvsec_geometry.yaml]
         [--pattern dots] [--max_iter 2] [--hvp_mode MODE] [--dsec | --time-aware] [--fleet]
+    python3 tools/profile_torch_frame.py --multistream 2
 
 ``--dsec`` profiles the analytic HVP path instead: the solver and optimizer
 blocks of configs/dsec_zurich_city.yaml on the synthetic loader at DSEC
@@ -19,6 +20,11 @@ the same windows through the sequential pyramid, and prints what the
 batch amortizes: seconds, host syncs, kernels and device time per frame
 and per objective evaluation.  ``--hvp_mode`` sets ``optimizer.hvp_mode``
 (``analytic``: the tangent and HVP-backward kernels on the finest scale).
+``--multistream K`` times the serving surface instead (no profiler, the
+serving defaults and full Newton budget): a dense ``MultiStreamFlowEstimator``
+of K streams (windows of the config's data block, 30 000 events each),
+a cold and a warm push, in ``fleet`` and in ``sequential`` mode, in turns
+(fleet, sequential, sequential, fleet), each push ending in a synchronize.
 
 Solves frame 0 once as a warm-up (kernel build, allocator), once timed
 alone, and once under ``torch.profiler`` (CPU + CUDA activities), all
@@ -36,12 +42,17 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from event_based_optical_flow_tpu_torch import main as port_main  # noqa: E402
+
+# the device kernels of PyTorch's sort-based deterministic index_put /
+# index_add (accumulate=True)
+SCATTER_KERNELS = ("indexing_backward", "RadixSort", "index_put", "index_add", "scatter")
 
 
 def profile_solve(solve, stats_of, label: str, what: str, top: int, n_frames: int = 1) -> dict:
@@ -78,10 +89,17 @@ def profile_solve(solve, stats_of, label: str, what: str, top: int, n_frames: in
           f"forwards, {n_kernels / max(1, fwd):.1f} kernels and {device_us / max(1, fwd):.1f} us of device time "
           "per fused forward (one objective evaluation)", flush=True)
     for e in kernels:
-        # the kernels of csrc/fused_iwe.cu, conversion and bound passes included
-        if any(k in e.key for k in ("fused_iwe", "from_fixed", "from_scaled", "jvp_bound")):
+        # the kernels of csrc/fused_iwe.cu and csrc/vote.cu, conversion and bound passes included
+        if any(k in e.key for k in ("fused_iwe", "bilinear_vote", "from_fixed", "from_scaled", "jvp_bound")):
             print(f"[profile] {label}: {e.key}: {e.count} launches, {e.self_device_time_total / e.count:.2f} us "
                   f"each, {e.self_device_time_total / 1e3:.3f} ms in all", flush=True)
+    # PyTorch's deterministic scatter adds (index_add / index_put with
+    # accumulate: a radix sort of the indices, then ordered sums)
+    scatter = [e for e in kernels if any(k in e.key for k in SCATTER_KERNELS)]
+    scatter_us = sum(e.self_device_time_total for e in scatter)
+    print(f"[profile] {label}: deterministic scatter adds ({', '.join(SCATTER_KERNELS)}): "
+          f"{sum(e.count for e in scatter)} kernels, {scatter_us / 1e3:.3f} ms, "
+          f"{scatter_us / max(1.0, device_us):.3f} of the device time", flush=True)
     print(averages.table(sort_by="self_device_time_total", row_limit=top, max_name_column_width=60))
     return {"kernels_per_fwd": n_kernels / max(1, fwd), "device_us_per_fwd": device_us / max(1, fwd),
             "s_per_frame": plain_wall / n_frames, "syncs_per_frame": stats["syncs"] / n_frames, "idle": idle}
@@ -121,6 +139,38 @@ def profile_fleet(config: dict, top: int) -> None:
           f"evaluation, idle share {got['idle']:.3f} vs {alone['idle']:.3f}", flush=True)
 
 
+def time_multistream(config: dict, n_streams: int) -> None:
+    """A cold and a warm push of ``n_streams`` dense streams through
+    ``MultiStreamFlowEstimator`` in fleet and in sequential mode, in turns;
+    seconds per push, host syncs and kernel launches."""
+    from chip_smoke import SERVE_EVENT_COUNT, serve_windows
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.streaming import MultiStreamFlowEstimator
+
+    h, w = config["data"]["height"], config["data"]["width"]
+    windows = serve_windows(config, 2 * n_streams)
+    pushes = [[windows[2 * k + step][0] for k in range(n_streams)] for step in range(2)]  # stream k: 2k, 2k+1
+    for batching in ("fleet", "sequential", "sequential", "fleet"):
+        est = MultiStreamFlowEstimator((h, w), n_streams, fixed_event_count=SERVE_EVENT_COUNT, batching=batching)
+        for step, name in enumerate(("cold", "warm")):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flows = est.push(pushes[step])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            solver = est._solver
+            if batching == "fleet":
+                stats = solver.last_batch_stats
+                syncs, hvp = stats["syncs"], stats["hvp"]
+            else:
+                syncs, hvp = "last stream's " + str(solver.last_frame_stats["syncs"]), solver.last_frame_stats["hvp"]
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            print(f"[multistream] {torch.cuda.get_device_name(0)}: K={n_streams} {batching} {name} push: {wall:.3f} s "
+                  f"({wall / n_streams:.3f} s per stream), flows {list(flows.shape)} finite "
+                  f"{bool(np.isfinite(flows).all())}, host syncs {syncs}, HVP {hvp}, launches {launches}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="configs/synthetic_mvsec_geometry.yaml")
@@ -134,9 +184,15 @@ def main() -> int:
                       help="the Burgers config's time-aware solver on MVSEC geometry, then its dense twin")
     ap.add_argument("--fleet", action="store_true",
                     help="one lockstep batch of frames 0..3, then frame 0 alone through the sequential solver")
+    ap.add_argument("--multistream", type=int, default=0, metavar="K",
+                    help="time a cold and a warm push of K dense streams, fleet vs sequential (no profiler)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: needs a CUDA device")
+    if args.multistream:
+        with open(args.config) as f:
+            time_multistream(yaml.safe_load(f), args.multistream)
+        return 0
     if args.dsec or args.time_aware:
         from chip_smoke import dsec_config, ta_config
 
