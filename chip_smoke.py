@@ -12,7 +12,11 @@ Phases (each prints one informative line; any failure exits nonzero):
 3. kernel vs plain version at the main path's shape (the first 30 000-event
    window of configs/synthetic_mvsec_geometry.yaml, 260x346, a random smooth
    flow of a few px), forward images and the flow gradient, in float64 and
-   float32; a second float32 call must give the same bits;
+   float32; a second float32 call must give the same bits, and both must
+   equal the exact models of their bits (``fused_iwe_fixed_reference``,
+   ``fused_iwe_bwd_ordered_reference`` on the CPU copies of the inputs:
+   max|err| 0; so do K4 in ``[check]`` and ``[voxel-check]`` and the
+   batched forward, backward and HVP backward in ``[fleet-check]``);
 4. objective: the finest scale's whole objective and gradient on the card
    (float64 and float32) against the plain version on the CPU (float64),
    and the float32 value and gradient again, bit for bit;
@@ -96,7 +100,8 @@ kernel launch count at 0 and reads them at its end; the checks and
 timings launch outside those runs.  The last two lines of standard
 output are one JSON object describing the kernels (each with its
 launches on the paths, error, times and bound), then ``{"ok": true,
-"device": {...}}``.  The script imports nothing of JAX.
+"device": {...}}``; a ``[wall]`` line before them gives the whole run's
+seconds.  The script imports nothing of JAX.
 """
 
 import copy
@@ -243,27 +248,45 @@ def smooth_flow(h: int, w: int, rng) -> np.ndarray:
     return _resize_bilinear(coarse, (h, w)).numpy()
 
 
+def cpu_copies(frame):
+    """(x, y, dtf, wt) and the bins of ``frame`` on the CPU: the exact
+    models run there (the card's own elementwise kernels may contract a
+    multiply and an add)."""
+    return tuple(getattr(frame, k).cpu() for k in ("x", "y", "dtf", "wt")), \
+        None if frame.bins is None else frame.bins.cpu()
+
+
+def exact_err(got, want) -> float:
+    """max|kernel - exact model|: the model on the CPU, so 0 means the same bits."""
+    return (got.cpu() - want).abs().max().item() if want.numel() else 0.0
+
+
 def compare(fi, frame, flow, g, include_orig, offsets):
     """(forward err, backward err or None, forward scale, backward scale,
-    whether a second kernel call gave the same bits)."""
+    whether a second kernel call gave the same bits, max|err| of the
+    forward and backward against their exact models)."""
     ev = (frame.x, frame.y, frame.dtf, frame.wt)
     kw = {"bins": frame.bins}  # a voxel's time bins, or None for a dense flow
+    cev, cbins = cpu_copies(frame)
     ref = fi.fused_iwe_reference(flow, *ev, offsets, include_orig, **kw)
     got = fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, **kw)
     torch.cuda.synchronize()
     fwd_err = (got - ref).abs().max().item()
     fwd_scale = max(1.0, ref.abs().max().item())
     same = torch.equal(got, fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, **kw))
+    exact = exact_err(got, fi.fused_iwe_fixed_reference(flow.cpu(), *cev, offsets, include_orig, bins=cbins))
     if not offsets:
-        return fwd_err, None, fwd_scale, None, same
+        return fwd_err, None, fwd_scale, None, same, exact
     gk = g[: ref.shape[0]].contiguous()
     flr = flow.clone().requires_grad_(True)
     (want,) = torch.autograd.grad((fi.fused_iwe_reference(flr, *ev, offsets, include_orig, **kw) * gk).sum(), flr)
     got_d = fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig, **kw)
     same = same and torch.equal(got_d, fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig, **kw))
     torch.cuda.synchronize()
-    return (fwd_err, (got_d - want).abs().max().item(), fwd_scale, max(1.0, want.abs().max().item()),
-            same)
+    exact = max(exact, exact_err(got_d, fi.fused_iwe_bwd_ordered_reference(flow.cpu(), *cev, gk.cpu(), offsets,
+                                                                          include_orig, bins=cbins)))
+    return (fwd_err, (got_d - want).abs().max().item(), fwd_scale, max(1.0, want.abs().max().item()), same,
+            exact)
 
 
 def cuda_ms(fn, n_warm: int = 5, n_iter: int = 50) -> float:
@@ -403,16 +426,21 @@ def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
              f"emit_value=False and a repeat same bits: {repeat}"]
     ok = okv and okt and value_bits and repeat
     errs = {"jvp": et}
+    cev, cbins = cpu_copies(frame)
     for term_a in (False, True):
         got = fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw)
         e, sc, good = err(got, fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
         same = torch.equal(got, fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
+        exact = exact_err(got, fi.fused_iwe_bwd_ordered_reference(
+            flow.cpu(), *cev, g2.cpu(), OFFSETS, False, bins=cbins,
+            **({"g1": g1.cpu(), "dflow": dflow.cpu()} if term_a else {})))
+        good = good and exact == 0
         extra = ""
         if not term_a:
             k2 = torch.equal(got, fi.fused_iwe_bwd(flow, *ev, g2, OFFSETS, False, **kw))
             extra, same, errs["hvp_bwd"] = f"; == fused_iwe_bwd(g2) bits: {k2}", same and k2, e
         lines.append(f"{names[1]} hvp_bwd term_a={term_a}: max|err| {e:.3e} (scale {sc:.3g}), tol {tol:g} x "
-                     f"scale; repeat same bits{extra}: {same}")
+                     f"scale; exact model: max|err| {exact:g}; repeat same bits{extra}: {same}")
         ok = ok and good and same
     return lines, errs, ok
 
@@ -669,11 +697,11 @@ def ta_path(port_main, fi, dev, smi, rng):
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
         vox, dvox, g1, g2 = t(vox_np), t(dvox_np), t(g_np[0]), t(g_np[1])
         what = f"{str(dtype)[6:]} N={len(events)} {h}x{w} T={n_bins} offsets={OFFSETS}"
-        fe, be, fs, bs, same = compare(fi, frame, vox, t(g_np[2]), False, OFFSETS)
-        ok = fe <= TOL[dtype] * fs and be <= TOL[dtype] * bs and same
+        fe, be, fs, bs, same, exact = compare(fi, frame, vox, t(g_np[2]), False, OFFSETS)
+        ok = fe <= TOL[dtype] * fs and be <= TOL[dtype] * bs and same and exact == 0
         phase("voxel-check", f"{what}: K5 fwd max|err| {fe:.3e} (scale {fs:.3g}), bwd max|err| {be:.3e} "
-                             f"(scale {bs:.3g}), tol {TOL[dtype]:g} x scale; repeat same bits: {same}: "
-                             + ("ok" if ok else "FAIL"))
+                             f"(scale {bs:.3g}), tol {TOL[dtype]:g} x scale; exact model: max|err| {exact:g}; "
+                             f"repeat same bits: {same}: " + ("ok" if ok else "FAIL"))
         lines, e, ok2 = check_second_order(fi, frame, vox, dvox, g1, g2, TOL[dtype], names=("K6", "K6"))
         for line in lines:
             phase("voxel-check", f"{what}: {line}: {'ok' if ok2 else 'FAIL'}")
@@ -801,18 +829,29 @@ def fleet_kernel_check(fi, fleet, flows, dflows, g, g1, g2, tol):
                                                         bins=fleet.frame(b).bins),
                     fi.fused_iwe_hvp_bwd_reference(flows, dflows, g1, g2, *ev, OFFSETS, True, **kw)),
     }
+    cev = tuple(a.cpu() for a in ev)
+    ckw = {"bins": None if fleet.bins is None else fleet.bins.cpu(),
+           "frames": fi.Frames(fleet.frames.ptr.cpu(), fleet.frames.sizes)}
+    cpu = lambda a: a.cpu()
+    models = {  # the exact models of the forward's and the backward's bits
+        "fwd": lambda: fi.fused_iwe_fixed_reference(cpu(flows), *cev, OFFSETS, False, **ckw),
+        "bwd": lambda: fi.fused_iwe_bwd_ordered_reference(cpu(flows), *cev, cpu(g), OFFSETS, False, **ckw),
+        "hvp_bwd": lambda: fi.fused_iwe_bwd_ordered_reference(cpu(flows), *cev, cpu(g2), OFFSETS, False, **ckw,
+                                                              g1=cpu(g1), dflow=cpu(dflows)),
+    }
     lines, errs, all_ok = [], {}, True
     for name, (batched, single, want) in calls.items():
         got = batched()
         torch.cuda.synchronize()
         scale = max(1.0, want.abs().max().item())
         err = (got - want).abs().max().item()
+        exact = exact_err(got, models[name]()) if name in models else None
         frames_same = []
         for b in range(len(fleet)):
             one = fleet.frame(b)
             frames_same.append(torch.equal(got[b], single((one.x, one.y, one.dtf, one.wt), b)))
         repeat = torch.equal(got, batched())
-        ok = err <= tol * scale and all(frames_same) and repeat
+        ok = err <= tol * scale and all(frames_same) and repeat and exact in (None, 0)
         if name == "jvp":  # the value half is the batched forward's bits
             val, tan = fi.fused_iwe_jvp(flows, dflows, *ev, OFFSETS, True, **kw)
             v_err = (val - ref_val).abs().max().item()
@@ -821,8 +860,9 @@ def fleet_kernel_check(fi, fleet, flows, dflows, g, g1, g2, tol):
         errs[fi.form(fleet.bins, fleet.frames) + name] = err
         all_ok = all_ok and ok
         lines.append(f"{fi.form(fleet.bins, fleet.frames)}{name}: max|err| {err:.3e} (scale {scale:.3g}), tol "
-                     f"{tol:g} x scale; each frame == the single-frame kernel alone: {frames_same}; repeat same "
-                     f"bits: {repeat}: {'ok' if ok else 'FAIL'}")
+                     f"{tol:g} x scale{'' if exact is None else f'; exact model: max|err| {exact:g}'}; each frame "
+                     f"== the single-frame kernel alone: {frames_same}; repeat same bits: {repeat}: "
+                     f"{'ok' if ok else 'FAIL'}")
     return lines, errs, all_ok
 
 
@@ -1158,6 +1198,7 @@ def serve_path(dev, smi) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = environment()
     dev = torch.device("cuda")
 
@@ -1190,13 +1231,13 @@ def main() -> int:
         flow = torch.as_tensor(flow_np, dtype=dtype, device=dev)
         g = torch.as_tensor(g_np, dtype=dtype, device=dev)
         for include_orig, offsets in ((False, OFFSETS), (True, ())):
-            fe, be, fs, bs, same = compare(fi, frame, flow, g, include_orig, offsets)
-            ok = fe <= TOL[dtype] * fs and (be is None or be <= TOL[dtype] * bs) and same
+            fe, be, fs, bs, same, exact = compare(fi, frame, flow, g, include_orig, offsets)
+            ok = fe <= TOL[dtype] * fs and (be is None or be <= TOL[dtype] * bs) and same and exact == 0
             phase("check", f"{str(dtype)[6:]} offsets={offsets} orig={include_orig} N={len(events)} "
                            f"{h}x{w}: fwd max|err| {fe:.3e} (scale {fs:.3g})"
                            + ("" if be is None else f", bwd max|err| {be:.3e} (scale {bs:.3g})")
-                           + f", tol {TOL[dtype]:g} x scale; repeat same bits: {same}: "
-                           + ('ok' if ok else 'FAIL'))
+                           + f", tol {TOL[dtype]:g} x scale; exact model: max|err| {exact:g}; repeat same bits: "
+                           + f"{same}: " + ('ok' if ok else 'FAIL'))
             if not ok:
                 raise SystemExit("chip_smoke: kernel disagrees with its plain version")
             if dtype == torch.float32 and offsets:
@@ -1274,6 +1315,7 @@ def main() -> int:
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")
+    phase("wall", f"the whole script, builds included: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -25,30 +25,37 @@
 //   orig     with include_orig, image 0 is the unwarped vote.
 // The votes are computed in T and accumulated as 64-bit fixed point in
 // units of 2^-kFixBits with integer atomicAdd, then converted to T by a
-// second kernel (the helpers in fixed_point.cuh, shared with vote.cu, K8).  Integer addition is associative, so the images are the
-// same bits whatever order the atomics land in: the forward is
-// reproducible from run to run.  A float32 vote of magnitude >= 2^-13 is
-// converted exactly; the sum overflows only past 2^(63-kFixBits) weight
-// units in one pixel (the wrapper bounds the event count).
+// second kernel (the helpers in fixed_point.cuh, shared with vote.cu, K8).
+// Integer addition is associative, so the images are the same bits
+// whatever order the atomics land in: the forward is reproducible from run
+// to run.  A float32 vote of magnitude >= 2^-13 is converted exactly; the
+// sum overflows only past 2^(63-kFixBits) weight units in one pixel (the
+// wrapper bounds the event count).  One thread per event in grid-stride
+// loops; nothing is staged in shared memory.  Designs that sum the votes in
+// shared memory (tiles of output rows fed by a binning pass, a cluster's
+// distributed shared memory) gave the same bits but ran slower on an H100
+// (PERF.md), so the global atomics stay.
+//
 // Backward, given the image cotangent g [K, H, W]:
 //   d/dxw = wt * sum over the 4 corners of g * (one-sided corner
 //   derivative: -1 at fl, +1 at fl+1) * (the other axis' corner weight),
 //   likewise d/dyw; du += -(dtf-o) d/dxw, dv += -(dtf-o) d/dyw over the
 //   offsets (the orig image has no flow dependence); du, dv go to
 //   dflow[:, (int)x, (int)y].  x, y, dtf and wt get no gradient.
-// One kernel writes each event's du, dv; a second one, in the first event
-// of each run of consecutive events with one source pixel, sums the run in
-// index order and adds it to that pixel with one atomicAdd.  With the
-// events sorted by source pixel (FrameEvents sorts them) every pixel gets
-// exactly one add, onto zero, so dflow is reproducible from run to run
-// too; unsorted events give the same sum up to the order of a few adds.
+// One kernel (fused_iwe_grad_kernel) after a memset of dflow: each block
+// computes the du, dv of a chunk of events (and a few past it) into shared
+// memory, and the first event of each run of consecutive events with one
+// source pixel sums the run in index order from 0 and adds it to that
+// pixel with one atomicAdd.  With the events sorted by source pixel
+// (FrameEvents sorts them) every pixel gets exactly one add, onto zero, so
+// dflow is reproducible from run to run too; unsorted events give the same
+// sum up to the order of a few adds.  No per-event term goes to device
+// memory.
 //
-// What bounds it on the H100: scattered 8-byte integer atomic adds and
-// gathers — per event per offset 4 atomics forward, 4 gathers of g
-// backward — not FLOPs (a few dozen per event).  Nothing is staged in
-// shared memory yet; one thread per event in grid-stride loops (and one
-// per run head for the backward's sums).
-//
+// What bounds them on the H100: the forward's scattered 8-byte integer
+// atomic adds (4 per event per offset) and the backward's gathers of g (4
+// per event per offset) — not FLOPs (a few dozen per event).
+
 // Build with -fmad=false: the warped coordinates then round exactly like
 // PyTorch's separate elementwise ops in the plain version, so both make the
 // same floor decisions and differ only by summation order (and, in
@@ -81,9 +88,10 @@
 //   term A   s = wt (g1[fl,cl] - g1[fl,cl+1] - g1[fl+1,cl] + g1[fl+1,cl+1])
 //            (the vote's mixed second derivative against g1),
 //            du += dt^2 s dv_g,  dv += dt^2 s du_g,
-// per offset, then K2's ordered run sums onto the source pixel.
-// Both are bound like K1/K2 (scattered int64 atomics and gathers); K4 reads
-// g1 only with term A.
+// per offset, in K2's one-pass kernel (a template over term A) with its
+// ordered run sums onto the source pixel.  K3 keeps global int64 atomics
+// for its votes (bound by them and its gathers); K4 is bound like K2,
+// reading g1 only with term A.
 //
 // Time-aware voxels (K5, K6), replacing
 //   ops/pallas_objective_banded.py   _vox_fwd_impl / _vox_vjp_bwd
@@ -196,6 +204,8 @@ __device__ __forceinline__ int run_key(const T* x, const T* y, const int* bins, 
   return p < 0 ? -1 : slab_of(frame_of(fr, i), bins, n_bins, i) * H * W + p;
 }
 
+// --- K1 (K5, K7, K9): the forward ------------------------------------------
+
 template <typename T>
 __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
@@ -266,59 +276,118 @@ __device__ __forceinline__ void event_grad(T xi, T yi, T d, T w, T u, T v, const
   }
 }
 
-// Backward, step 1: one thread per event writes its du, dv (summed over
-// the offsets) to duv [2, n]; padded events and events whose source pixel
-// is outside the flow write 0.
+// --- K2 (K4, K5, K7, K9): the backward in one pass -------------------------
+
+constexpr int kGradChunk = 128;    // the events whose runs a block sums
+constexpr int kGradOverlap = 32;   // events past its chunk a block computes with it
+constexpr int kGradThreads = kGradChunk + kGradOverlap;
+
 template <typename T>
-__global__ void fused_iwe_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                     const T* __restrict__ dtf, const T* __restrict__ wt,
-                                     const int* __restrict__ bins, int n_bins, Frames fr,
-                                     int n, const T* __restrict__ flow, Offsets<T> offs,
-                                     int include_orig, int H, int W, T eps,
-                                     const T* __restrict__ g, T* __restrict__ duv) {
-  const int hw = H * W;
-  const int k0 = include_orig ? 1 : 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const T xi = x[i], yi = y[i], w = wt[i];
-    const int p = source_pixel(xi, yi, H, W);
-    T du = T(0), dv = T(0);
-    if (p >= 0 && w != T(0)) {
-      const int f = frame_of(fr, i);
-      const T* fl = flow + 2 * hw * slab_of(f, bins, n_bins, i);
-      event_grad<T, false>(xi, yi, dtf[i], w, fl[p], fl[hw + p], offs, k0, H, W, eps,
-                           g + f * (k0 + offs.n) * hw, nullptr, T(0), T(0), &du, &dv);
-    }
-    duv[i] = du;
-    duv[n + i] = dv;
+struct GradArgs {
+  const T *x, *y, *dtf, *wt;
+  const int* bins;
+  int n_bins;
+  Frames fr;
+  int n;
+  const T* flow;
+  const T* dflow;  // the tangent flow, read with TermA only
+  Offsets<T> offs;
+  int k0, H, W;  // k0: 1 when the cotangent's image 0 is the orig image
+  T eps;
+  const T* g;   // the cotangent [(B,) k0 + K, H, W]
+  const T* g1;  // K4's first cotangent [(B,) K, H, W], read with TermA only
+};
+
+// Event i's run key ((frame * T + bin) * H * W + source pixel, or -1
+// outside the flow) and its du, dv (0 for a padded event).
+template <typename T, bool TermA>
+__device__ __forceinline__ int event_terms(const GradArgs<T>& a, int i, T* du, T* dv) {
+  const int hw = a.H * a.W;
+  const T xi = a.x[i], yi = a.y[i], w = a.wt[i];
+  const int p = source_pixel(xi, yi, a.H, a.W);
+  *du = T(0);
+  *dv = T(0);
+  if (p < 0) return -1;
+  const int f = frame_of(a.fr, i);
+  const int slab = slab_of(f, a.bins, a.n_bins, i);
+  if (w != T(0)) {
+    const int off = 2 * hw * slab;
+    const int g_off = f * (a.k0 + a.offs.n) * hw;  // the frame's cotangent block
+    const T du_g = TermA ? a.dflow[off + p] : T(0);
+    const T dv_g = TermA ? a.dflow[off + hw + p] : T(0);
+    event_grad<T, TermA>(xi, yi, a.dtf[i], w, a.flow[off + p], a.flow[off + hw + p], a.offs, a.k0, a.H,
+                         a.W, a.eps, a.g + g_off, TermA ? a.g1 + g_off : nullptr, du_g, dv_g, du, dv);
   }
+  return slab * hw + p;
 }
 
-// K4, step 1: as fused_iwe_bwd_kernel against g2 (no orig image), plus term
-// A against g1 when TermA.  Step 2 is fused_iwe_bwd_sum_kernel.
+// One block per chunk of kGradChunk consecutive events.  Each thread
+// computes one event's key and du, dv once, into shared memory: the chunk's
+// and the next kGradOverlap events' (a window).  The first event of each
+// run of one key in the chunk (a run that began in the previous chunk
+// belongs to that chunk's block) sums the run's terms in index order from
+// 0, and adds the sums to its pixel of the zeroed dflow.  A run longer than
+// the window goes on through further windows, each computed by the whole
+// block.  With the events sorted by key every pixel gets one add, onto
+// zero: dflow is the same bits on every run, and no per-event term goes to
+// device memory.
 template <typename T, bool TermA>
-__global__ void fused_iwe_hvp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                         const T* __restrict__ dtf, const T* __restrict__ wt,
-                                         const int* __restrict__ bins, int n_bins, Frames fr,
-                                         int n, const T* __restrict__ flow,
-                                         const T* __restrict__ dflow, Offsets<T> offs, int H,
-                                         int W, T eps, const T* __restrict__ g1,
-                                         const T* __restrict__ g2, T* __restrict__ duv) {
-  const int hw = H * W;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const T xi = x[i], yi = y[i], w = wt[i];
-    const int p = source_pixel(xi, yi, H, W);
+__global__ void __launch_bounds__(kGradThreads)
+    fused_iwe_grad_kernel(GradArgs<T> a, T* __restrict__ dflow) {
+  __shared__ int keys[kGradThreads];
+  __shared__ T dus[kGradThreads], dvs[kGradThreads];
+  __shared__ int more;
+  const int t = threadIdx.x;
+  const int first = blockIdx.x * kGradChunk;
+  int base = first;  // the window's first event
+  auto load_window = [&] {
+    const int i = base + t;
     T du = T(0), dv = T(0);
-    if (p >= 0 && w != T(0)) {
-      const int f = frame_of(fr, i);
-      const int off = 2 * hw * slab_of(f, bins, n_bins, i);
-      const int g_off = f * offs.n * hw;  // the frame's cotangent block
-      const T du_g = TermA ? dflow[off + p] : T(0);
-      const T dv_g = TermA ? dflow[off + hw + p] : T(0);
-      event_grad<T, TermA>(xi, yi, dtf[i], w, flow[off + p], flow[off + hw + p], offs, 0, H, W,
-                           eps, g2 + g_off, g1 + g_off, du_g, dv_g, &du, &dv);
+    keys[t] = i < a.n ? event_terms<T, TermA>(a, i, &du, &dv) : -1;
+    dus[t] = du;
+    dvs[t] = dv;
+  };
+  load_window();
+  __syncthreads();
+  int end = min(a.n, base + kGradThreads);  // the window's end
+  const int hw = a.H * a.W;
+  T su = T(0), sv = T(0);
+  const int key = keys[t];
+  bool open = false;  // this thread's run goes on past the window
+  auto add = [&] {
+    T* target = dflow + 2 * hw * (key / hw) + key % hw;
+    atomicAdd(target, su);
+    atomicAdd(target + hw, sv);
+  };
+  auto sum_from = [&](int j) {  // sums the run from window slot j; true if it reaches the window's end
+    for (; base + j < end && keys[j] == key; ++j) {
+      su += dus[j];
+      sv += dvs[j];
     }
-    duv[i] = du;
-    duv[n + i] = dv;
+    return base + j == end && end < a.n;
+  };
+  if (t < kGradChunk && key >= 0) {
+    const int i = first + t;
+    const int prev = t > 0 ? keys[t - 1] : (i > 0 ? run_key(a.x, a.y, a.bins, a.n_bins, a.fr, i - 1, a.H, a.W) : -1);
+    if (prev != key) {  // a run head
+      open = sum_from(t);
+      if (!open) add();
+    }
+  }
+  for (;;) {  // at most one run, the one holding the window's last event, goes on
+    if (t == 0) more = 0;
+    __syncthreads();
+    if (open) more = 1;
+    __syncthreads();
+    if (!more) break;
+    base = end;
+    load_window();
+    __syncthreads();
+    end = min(a.n, base + kGradThreads);
+    if (open) {
+      open = sum_from(0);
+      if (!open) add();
+    }
   }
 }
 
@@ -465,30 +534,6 @@ __global__ void from_scaled_kernel(const long long* __restrict__ acc, int n_out,
   }
 }
 
-// Backward, step 2: the first event of each run of consecutive events with
-// one (frame, bin, source pixel) key sums the run's du, dv in index order
-// and adds the sums to that frame's bin's pixel.
-template <typename T>
-__global__ void fused_iwe_bwd_sum_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                         const int* __restrict__ bins, int n_bins, Frames fr,
-                                         int n, int H, int W, const T* __restrict__ duv,
-                                         T* __restrict__ dflow) {
-  const int hw = H * W;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const int key = run_key(x, y, bins, n_bins, fr, i, H, W);
-    if (key < 0) continue;  // the gradient's target pixel is outside the flow
-    if (i > 0 && run_key(x, y, bins, n_bins, fr, i - 1, H, W) == key) continue;  // not a run head
-    T du = T(0), dv = T(0);
-    for (int j = i; j < n && run_key(x, y, bins, n_bins, fr, j, H, W) == key; ++j) {
-      du += duv[j];
-      dv += duv[n + j];
-    }
-    T* target = dflow + 2 * hw * (key / hw) + key % hw;
-    atomicAdd(target, du);
-    atomicAdd(target + hw, dv);
-  }
-}
-
 template <typename T>
 Offsets<T> make_offsets(const double* offsets, int n_off) {
   Offsets<T> o;
@@ -525,23 +570,33 @@ int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
   return static_cast<int>(cudaGetLastError());
 }
 
-// duv: scratch of 2 * n elements; dflow: zeroed.
+// dflow: the gradient's n_out elements, zeroed here, then the one pass.
+template <typename T, bool TermA>
+int launch_grad(const GradArgs<T>& a, long long n_out, T* dflow, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(dflow, 0, static_cast<size_t>(n_out) * sizeof(T), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (a.n > 0 && a.offs.n > 0) {
+    fused_iwe_grad_kernel<T, TermA><<<(a.n + kGradChunk - 1) / kGradChunk, kGradThreads, 0, s>>>(a, dflow);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The flow's (and its gradient's) element count.
+long long flow_elements(const Frames& fr, int n_bins, int H, int W) {
+  return static_cast<long long>(fr.n) * (n_bins > 0 ? n_bins : 1) * 2 * H * W;
+}
+
 template <typename T>
 int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                const int* frame_ptr, int n_frames, int n, const T* flow, const double* offsets,
-               int n_off, int include_orig, int H, int W, double eps, const T* g, T* duv,
-               T* dflow, void* stream) {
+               int n_off, int include_orig, int H, int W, double eps, const T* g, T* dflow,
+               void* stream) {
   if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Frames fr = make_frames(frame_ptr, n_frames);
-  if (n > 0 && n_off > 0) {
-    fused_iwe_bwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, bins, n_bins, fr, n, flow, make_offsets<T>(offsets, n_off), include_orig,
-        H, W, static_cast<T>(eps), g, duv);
-    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, fr, n, H, W,
-                                                                 duv, dflow);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const GradArgs<T> a{x, y, dtf, wt, bins, n_bins, fr, n, flow, nullptr, make_offsets<T>(offsets, n_off),
+                      include_orig ? 1 : 0, H, W, static_cast<T>(eps), g, nullptr};
+  return launch_grad<T, false>(a, flow_elements(fr, n_bins, H, W), dflow, stream);
 }
 
 // bound: zeroed scratch of one element per frame; acc_val (emit_value
@@ -573,30 +628,19 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
   return static_cast<int>(cudaGetLastError());
 }
 
-// duv: scratch of 2 * n elements; dflow_out: zeroed.
+// dflow_out: the HVP term's elements, zeroed here.
 template <typename T>
 int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                    const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
                    const double* offsets, int n_off, int H, int W, double eps, int term_a,
-                   const T* g1, const T* g2, T* duv, T* dflow_out, void* stream) {
+                   const T* g1, const T* g2, T* dflow_out, void* stream) {
   if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Offsets<T> offs = make_offsets<T>(offsets, n_off);
   const Frames fr = make_frames(frame_ptr, n_frames);
-  if (n > 0) {
-    if (term_a) {
-      fused_iwe_hvp_bwd_kernel<T, true><<<grid_for(n), kThreads, 0, s>>>(
-          x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2,
-          duv);
-    } else {
-      fused_iwe_hvp_bwd_kernel<T, false><<<grid_for(n), kThreads, 0, s>>>(
-          x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps), g1, g2,
-          duv);
-    }
-    fused_iwe_bwd_sum_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, bins, n_bins, fr, n, H, W,
-                                                                 duv, dflow_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const GradArgs<T> a{x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, make_offsets<T>(offsets, n_off),
+                      0, H, W, static_cast<T>(eps), g2, g1};
+  const long long n_out = flow_elements(fr, n_bins, H, W);
+  return term_a ? launch_grad<T, true>(a, n_out, dflow_out, stream)
+                : launch_grad<T, false>(a, n_out, dflow_out, stream);
 }
 
 }  // namespace
@@ -616,8 +660,8 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
   }                                                                                                \
   int evflow_fused_iwe_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const double* offsets,        \
                                     int n_off, int include_orig, int H, int W, double eps,         \
-                                    const T* g, T* duv, T* dflow, void* stream) {                  \
-    return launch_bwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, eps, g, duv, \
+                                    const T* g, T* dflow, void* stream) {                          \
+    return launch_bwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, eps, g,      \
                          dflow, stream);                                                           \
   }                                                                                                \
   int evflow_fused_iwe_jvp_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,               \
@@ -629,10 +673,10 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
   }                                                                                                \
   int evflow_fused_iwe_hvp_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,           \
                                         const double* offsets, int n_off, int H, int W,            \
-                                        double eps, int term_a, const T* g1, const T* g2, T* duv,  \
+                                        double eps, int term_a, const T* g1, const T* g2,          \
                                         T* dflow_out, void* stream) {                              \
     return launch_hvp_bwd<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, eps, term_a,    \
-                             g1, g2, duv, dflow_out, stream);                                      \
+                             g1, g2, dflow_out, stream);                                           \
   }
 
 extern "C" {

@@ -48,21 +48,22 @@ Routing: ``fused_iwe``, ``fused_iwe_jvp`` and ``fused_iwe_hvp_bwd`` run the
 plain version for a tensor on the CPU and the kernel for a CUDA tensor; a
 CUDA tensor never falls back — an unsupported input raises.
 
-On the H100 the kernel is bound by scattered atomic adds (votes) and
-gathers (cotangent reads), not FLOPs: see ``csrc/fused_iwe.cu``.  Float
-atomics would make every sum depend on the order in which the adds land,
-which changes from run to run.  This pair gives the same bits on every
-run instead: the forward sums the votes in 64-bit fixed point (integer
-atomics, whose order cannot change the sum), and the backward sums each
-source pixel's events in index order, one add per pixel when the events
-are sorted by source pixel (by time bin, then source pixel, for a voxel),
-as ``FrameEvents`` sorts them.  The plain version sums in another order,
-so the two agree to rounding.  K3 sums its tangent images in fixed point
-too, in a unit scaled per frame on the device to the frame's largest
-tangent vote, and K4 reuses K2's ordered run sums.
+Float atomics would make every sum depend on the order in which the adds
+land, which changes from run to run.  This pair gives the same bits on
+every run instead: the forward sums the votes in 64-bit fixed point
+(integers, whose order cannot change the sum) with integer atomics, and
+the backward sums each source pixel's events in index order in one pass,
+one add per pixel when the events are sorted by source pixel (by time bin,
+then source pixel, for a voxel), as ``FrameEvents`` sorts them.  The plain
+version sums in another order, so the two agree to rounding;
+``fused_iwe_fixed_reference`` and ``fused_iwe_bwd_ordered_reference`` are
+exact models of the kernels' bits, for tests and checks.  K3 sums its
+tangent images in fixed point too, in a unit scaled per frame on the device
+to the frame's largest tangent vote, and K4 takes K2's one-pass kernel.
 """
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,16 +81,19 @@ MAX_OFFSETS = 8  # kMaxOffsets in csrc/fused_iwe.cu
 # largest event's tangent bound): no overflow at any N, and below 2^26 events
 # every tangent vote keeps at least 2^-35 of b.  Both bounds hold per frame.
 MAX_EVENTS = 2**26
+FIX_BITS = 36  # kFixBits in csrc/fixed_point.cuh
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
 # x, y, dtf, wt, bins, n_bins, frame_ptr, n_frames, n, then each kernel's own
 _EVENTS = [_PTR] * 5 + [_INT, _PTR, _INT, _INT]
-_FWD_ARGS = _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
-_BWD_ARGS = _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR, _PTR]
-_JVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 6
-_HVP_ARGS = _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 5
+_ARGS = {
+    "fwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
+    "bwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
+    "jvp": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 6,
+    "hvp_bwd": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
+}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 KERNELS = ("fwd", "bwd", "jvp", "hvp_bwd")
 # the launch counts' forms of each kernel: single frame or batched, dense or voxel
@@ -117,20 +121,23 @@ class Frames(NamedTuple):
                                        torch.as_tensor(self.sizes, device=dev), output_size=sum(self.sizes))
 
 
-def _library():
-    kl = load_kernel_library("fused_iwe")
-    lib = kl.lib
-    if not getattr(lib, "_evflow_bound", False):
-        for direction, args in zip(KERNELS, (_FWD_ARGS, _BWD_ARGS, _JVP_ARGS, _HVP_ARGS)):
-            for suffix in _SUFFIX.values():
-                fn = getattr(lib, f"evflow_fused_iwe_{direction}_{suffix}")
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-        lib.evflow_max_offsets.restype = ctypes.c_int
-        if lib.evflow_max_offsets() != MAX_OFFSETS:
-            raise RuntimeError("csrc/fused_iwe.cu and ops/fused_iwe.py disagree on kMaxOffsets")
-        lib._evflow_bound = True
-    return lib
+@functools.lru_cache(maxsize=None)
+def _kernel(kernel: str, dtype: torch.dtype):
+    """The C entry point of one kernel and type, bound once."""
+    lib = load_kernel_library("fused_iwe").lib
+    lib.evflow_max_offsets.restype = ctypes.c_int
+    if lib.evflow_max_offsets() != MAX_OFFSETS:
+        raise RuntimeError("csrc/fused_iwe.cu and ops/fused_iwe.py disagree on kMaxOffsets")
+    fn = getattr(lib, f"evflow_fused_iwe_{kernel}_{_SUFFIX[dtype]}")
+    fn.argtypes = _ARGS[kernel]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_array(offsets: Tuple[float, ...]):
+    """The offsets as the C interface's double array, one per distinct tuple."""
+    return (ctypes.c_double * MAX_OFFSETS)(*offsets)
 
 
 def _check_like(name: str, t: Tensor, shape, flow: Tensor):
@@ -153,17 +160,37 @@ def _lead(frames: Optional[Frames]) -> tuple:
     return () if frames is None else (len(frames.sizes),)
 
 
+@functools.lru_cache(maxsize=1024)
+def _check_shapes(flow_shape: tuple, n: int, n_off: int, voxel: bool, sizes: Optional[tuple]):
+    """The checks that depend on shapes alone, once per distinct call shape."""
+    batched = sizes is not None
+    if len(flow_shape) != 3 + voxel + batched or flow_shape[-3] != 2:
+        layout = "[" + ("B, " if batched else "") + ("T, " if voxel else "") + "2, H, W]"
+        raise ValueError(f"flow must be a contiguous {layout} tensor, got {flow_shape}")
+    if n_off > MAX_OFFSETS:
+        raise ValueError(f"at most {MAX_OFFSETS} reference-time offsets, got {n_off}")
+    if batched and (len(sizes) != flow_shape[0] or sum(sizes) != n or min(sizes) < 0):
+        raise ValueError(f"frames.sizes {sizes} must count the {n} events of the flow's {flow_shape[0]} frames")
+    if max(sizes or (n,)) >= MAX_EVENTS:
+        raise ValueError(f"fused_iwe takes fewer than {MAX_EVENTS} events per frame (fixed-point sums), "
+                         f"got {max(sizes or (n,))}")
+    if n >= 2**30:
+        raise ValueError(f"fused_iwe indexes events with 32-bit ints: fewer than 2^30, got {n}")
+    slices = max(n_off + 1, 2 * (flow_shape[-4] if voxel else 1))
+    if (len(sizes) if batched else 1) * slices * flow_shape[-2] * flow_shape[-1] >= 2**31:
+        raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
+
+
 def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
            bins: Optional[Tensor], frames: Optional[Frames]):
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take: each tensor's device,
+    type and layout on every call, the shapes' limits once per shape."""
     if flow.device.type != "cuda":
         raise ValueError(f"the fused_iwe kernel runs on CUDA tensors, got a {flow.device} tensor")
     if flow.dtype not in _SUFFIX:
         raise TypeError(f"fused_iwe kernel takes float32 or float64, got {flow.dtype}")
-    layout = "[" + ("B, " if frames is not None else "") + ("T, " if bins is not None else "") + "2, H, W]"
-    if (flow.ndim != 3 + (bins is not None) + (frames is not None) or flow.shape[-3] != 2
-            or not flow.is_contiguous()):
-        raise ValueError(f"flow must be a contiguous {layout} tensor, got {tuple(flow.shape)}")
+    if not flow.is_contiguous():
+        raise ValueError(f"flow must be contiguous, got strides {flow.stride()}")
     n = events[0].shape[0]
     for t in events:
         if t.device != flow.device or t.dtype != flow.dtype:
@@ -174,26 +201,14 @@ def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
                              or tuple(bins.shape) != (n,) or not bins.is_contiguous()):
         raise ValueError(f"bins must be a contiguous int32 [N] tensor on the flow's device, got "
                          f"{bins.dtype} {tuple(bins.shape)} on {bins.device}")
-    if len(offsets) > MAX_OFFSETS:
-        raise ValueError(f"at most {MAX_OFFSETS} reference-time offsets, got {len(offsets)}")
-    sizes = (n,)
+    sizes = None
     if frames is not None:
         ptr, sizes = frames
         if (ptr.device != flow.device or ptr.dtype != torch.int32 or tuple(ptr.shape) != (len(sizes) + 1,)
                 or not ptr.is_contiguous()):
             raise ValueError(f"frames.ptr must be a contiguous int32 [B + 1] tensor on the flow's device, got "
                              f"{ptr.dtype} {tuple(ptr.shape)} on {ptr.device}")
-        if len(sizes) != flow.shape[0] or sum(sizes) != n or min(sizes) < 0:
-            raise ValueError(f"frames.sizes {sizes} must count the {n} events of the flow's "
-                             f"{flow.shape[0]} frames")
-    if max(sizes) >= MAX_EVENTS:
-        raise ValueError(f"fused_iwe takes fewer than {MAX_EVENTS} events per frame (fixed-point sums), "
-                         f"got {max(sizes)}")
-    if n >= 2**30:
-        raise ValueError(f"fused_iwe indexes events with 32-bit ints: fewer than 2^30, got {n}")
-    slices = max(len(offsets) + 1, 2 * max(1, _n_bins(flow, bins)))
-    if _n_frames(frames) * slices * flow.shape[-2] * flow.shape[-1] >= 2**31:
-        raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
+    _check_shapes(tuple(flow.shape), n, len(offsets), bins is not None, sizes)
 
 
 def _event_args(x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, flow: Tensor, bins: Optional[Tensor],
@@ -215,12 +230,15 @@ def form(bins: Optional[Tensor], frames: Optional[Frames]) -> str:
 
 
 def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], frames: Optional[Frames], args):
-    name = f"evflow_fused_iwe_{kernel}_{_SUFFIX[flow.dtype]}"
-    stream = torch.cuda.current_stream(flow.device).cuda_stream
-    with torch.cuda.device(flow.device):
-        rc = getattr(_library(), name)(*args, stream)
+    fn = _kernel(kernel, flow.dtype)
+    device = flow.device
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} failed: cudaGetLastError() = {rc}")
+        raise RuntimeError(f"evflow_fused_iwe_{kernel}_{_SUFFIX[flow.dtype]} failed: cudaGetLastError() = {rc}")
     _LAUNCHES[form(bins, frames) + kernel] += 1
 
 
@@ -252,11 +270,10 @@ def fused_iwe_fwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
     # which is safe: the caching allocator reuses it only in stream order
     acc = torch.zeros(shape, dtype=torch.int64, device=flow.device)
     out = torch.empty(shape, dtype=flow.dtype, device=flow.device)
-    offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
     _launch("fwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
-               acc.data_ptr(), out.data_ptr()))
+            + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w,
+               float(eps), acc.data_ptr(), out.data_ptr()))
     return out
 
 
@@ -269,13 +286,11 @@ def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g
     _check(flow, (x, y, dtf, wt), offsets, bins, frames)
     h, w = flow.shape[-2], flow.shape[-1]
     _check_like("g", g, _lead(frames) + (len(offsets) + int(include_orig), h, w), flow)
-    duv = torch.empty((2, x.shape[0]), dtype=flow.dtype, device=flow.device)  # per-event du, dv
-    dflow = torch.zeros_like(flow)
-    offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
+    dflow = torch.empty_like(flow)  # zeroed by the launcher
     _launch("bwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), offs, len(offsets), int(include_orig), h, w, float(eps),
-               g.data_ptr(), duv.data_ptr(), dflow.data_ptr()))
+            + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w,
+               float(eps), g.data_ptr(), dflow.data_ptr()))
     return dflow
 
 
@@ -302,10 +317,9 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
     acc_val = torch.zeros(shape, dtype=torch.int64, device=flow.device) if emit_value else None
     out_tan = torch.empty(shape, dtype=flow.dtype, device=flow.device)
     out_val = torch.empty(shape, dtype=flow.dtype, device=flow.device) if emit_value else None
-    offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
     _launch("jvp", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), dflow.data_ptr(), offs, len(offsets), h, w, float(eps),
+            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w, float(eps),
                int(bool(emit_value)), bound.data_ptr(),
                acc_val.data_ptr() if emit_value else None, acc_tan.data_ptr(),
                out_val.data_ptr() if emit_value else None, out_tan.data_ptr()))
@@ -333,13 +347,11 @@ def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Te
         _check_like(name, g, _lead(frames) + (len(offsets), h, w), flow)
     if not offsets:
         raise ValueError("fused_iwe_hvp_bwd computes direction terms: give at least one offset")
-    duv = torch.empty((2, x.shape[0]), dtype=flow.dtype, device=flow.device)  # per-event du, dv
-    out = torch.zeros_like(flow)
-    offs = (ctypes.c_double * MAX_OFFSETS)(*offsets)
+    out = torch.empty_like(flow)  # zeroed by the launcher
     _launch("hvp_bwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), dflow.data_ptr(), offs, len(offsets), h, w, float(eps),
-               int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), duv.data_ptr(), out.data_ptr()))
+            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w,
+               float(eps), int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), out.data_ptr()))
     return out
 
 
@@ -392,13 +404,11 @@ def _gather_uv(flow: Tensor, x: Tensor, y: Tensor, bins: Optional[Tensor],
     return torch.where(inside, u, zero), torch.where(inside, v, zero)
 
 
-def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
-                        offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                        bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
-    """The kernel's plain PyTorch version: gather (from the voxel's bin
-    slices with ``bins``, the frame's slices with ``frames``), warp,
-    accumulate the corner votes into the frame's image block with one
-    ``index_put_(accumulate=True)``; autograd gives the backward."""
+def _corner_votes(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                  include_orig: bool, eps: float, bins: Optional[Tensor], frames: Optional[Frames]):
+    """(flat output index, value) of every corner vote, 0 at index 0 for a
+    corner outside the image, and the images' shape: each value is the
+    kernel's expression, an elementwise op per operation."""
     h, w = flow.shape[-2], flow.shape[-1]
     zero = torch.zeros_like(x)
     u, v = _gather_uv(flow, x, y, bins, frames)
@@ -426,9 +436,110 @@ def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Ten
             idx = block + k * h * w + torch.where(ok, row * w + col, zero).to(torch.int64)
             inds.append(torch.where(ok, idx, 0))
             vals.append(torch.where(ok, wgt, zero))
-    images = torch.zeros(_n_frames(frames) * n_img * h * w, dtype=flow.dtype, device=flow.device)
-    images = images.index_put((torch.cat(inds),), torch.cat(vals), accumulate=True)
-    return images.reshape(_lead(frames) + (n_img, h, w))
+    return torch.cat(inds), torch.cat(vals), _lead(frames) + (n_img, h, w)
+
+
+def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
+                        offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+                        bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+    """The kernel's plain PyTorch version: gather (from the voxel's bin
+    slices with ``bins``, the frame's slices with ``frames``), warp,
+    accumulate the corner votes into the frame's image block with one
+    ``index_put_(accumulate=True)``; autograd gives the backward."""
+    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
+    images = torch.zeros(int(np.prod(shape)), dtype=flow.dtype, device=flow.device)
+    return images.index_put((inds,), vals, accumulate=True).reshape(shape)
+
+
+def fused_iwe_fixed_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
+                              offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+                              bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+    """An exact model of the forward kernel's bits, for tests and checks
+    (nothing on the main path calls it): each vote's value in the flow's
+    type by the kernel's expressions, rounded half to even to an int64 of
+    2^-36 units, the votes summed with an integer ``index_add_`` (any order
+    gives the same integers), the sums converted to the flow's type.  Run it
+    on CPU tensors: the card's own elementwise kernels may contract a
+    multiply and an add, which the kernels are built not to do."""
+    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
+    fixed = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
+    sums = torch.zeros(int(np.prod(shape)), dtype=torch.int64, device=flow.device).index_add_(0, inds, fixed)
+    return (sums.double() * 2.0 ** -FIX_BITS).to(flow.dtype).reshape(shape)
+
+
+def fused_iwe_bwd_ordered_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g: Tensor,
+                                    offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
+                                    bins: Optional[Tensor] = None, frames: Optional[Frames] = None,
+                                    g1: Optional[Tensor] = None, dflow: Optional[Tensor] = None) -> Tensor:
+    """An exact model of the backward kernel's bits for events sorted by
+    (frame, bin, source pixel), for tests and checks (nothing on the main
+    path calls it): each event's du, dv summed over the offsets in
+    ``event_grad``'s operation order (with ``g1`` and ``dflow``, K4's term
+    A against ``g1`` along the tangent flow ``dflow`` too, no orig image),
+    each run of one (frame, bin, source pixel) summed in index order from 0
+    (vectorised over the position within a run), each run's sum added onto
+    zeros.  Run it on CPU tensors (see ``fused_iwe_fixed_reference``)."""
+    h, w = flow.shape[-2], flow.shape[-1]
+    hw = h * w
+    term_a = g1 is not None
+    inside = (x > -1) & (x < h) & (y > -1) & (y < w)
+    zero = torch.zeros_like(x)
+    p = (torch.where(inside, x, zero).to(torch.int64) * w + torch.where(inside, y, zero).to(torch.int64))
+    per_slab, slab = _slices(flow, x, bins, frames)
+    slab = torch.zeros_like(p) if slab is None else slab
+    u, v = _gather_uv(flow, x, y, bins, frames)
+    if term_a:
+        du_g, dv_g = _gather_uv(dflow, x, y, bins, frames)
+    n_img = len(offsets) + int(include_orig)
+    first = 0 if frames is None else frames.index() * (n_img * hw)  # each event's cotangent block
+    g_flat, g1_flat = g.reshape(-1), None if g1 is None else g1.reshape(-1)
+
+    def at(flat, k, r, c):  # flat[image k of the event's block][r, c], 0 outside
+        ok = (r >= 0) & (r < h) & (c >= 0) & (c < w)
+        idx = first + k * hw + torch.where(ok, r * w + c, zero).to(torch.int64)
+        return torch.where(ok, flat[torch.where(ok, idx, 0)], zero)
+
+    du, dv = zero.clone(), zero.clone()
+    k0 = int(include_orig)
+    for k, off in enumerate(offsets):
+        dt = dtf - off
+        xw = x - dt * u
+        yw = y - dt * v
+        flx = torch.floor(xw + eps)
+        fly = torch.floor(yw + eps)
+        ok = (flx >= -1) & (flx <= h - 1) & (fly >= -1) & (fly <= w - 1)
+        fx = xw - flx
+        fy = yw - fly
+        g00, g10 = at(g_flat, k0 + k, flx, fly), at(g_flat, k0 + k, flx + 1, fly)
+        g01, g11 = at(g_flat, k0 + k, flx, fly + 1), at(g_flat, k0 + k, flx + 1, fly + 1)
+        dxw = wt * (((1 - fy) * g10 + fy * g11) - ((1 - fy) * g00 + fy * g01))
+        dyw = wt * ((1 - fx) * (g01 - g00) + fx * (g11 - g10))
+        du = torch.where(ok, du + (-dt) * dxw, du)
+        dv = torch.where(ok, dv + (-dt) * dyw, dv)
+        if term_a:
+            s = wt * ((at(g1_flat, k, flx, fly) - at(g1_flat, k, flx, fly + 1))
+                      - (at(g1_flat, k, flx + 1, fly) - at(g1_flat, k, flx + 1, fly + 1)))
+            du = torch.where(ok, du + dt * dt * s * dv_g, du)
+            dv = torch.where(ok, dv + dt * dt * s * du_g, dv)
+    active = inside & (wt != 0)
+    du, dv = torch.where(active, du, zero), torch.where(active, dv, zero)
+    key = torch.where(inside, slab * hw + p, -1)
+    prev = torch.cat([key.new_full((1,), -1), key[:-1]])
+    head = (key >= 0) & (key != prev)
+    run = torch.cumsum(head.long(), 0) - 1  # each event's run, in index order
+    member = key >= 0
+    start = torch.nonzero(head).squeeze(1)
+    pos = torch.arange(len(key), device=key.device) - start[run.clamp(min=0)] if len(start) else torch.zeros_like(key)
+    su = zero.new_zeros(len(start))
+    sv = zero.new_zeros(len(start))
+    for q in range(int(pos[member].max()) + 1 if member.any() else 0):
+        sel = member & (pos == q)
+        su[run[sel]] = su[run[sel]] + du[sel]
+        sv[run[sel]] = sv[run[sel]] + dv[sel]
+    target = 2 * hw * slab[start] + p[start]
+    out = torch.zeros(flow.numel(), dtype=flow.dtype, device=flow.device)
+    out.index_add_(0, torch.cat([target, target + hw]), torch.cat([su, sv]))
+    return out.reshape(flow.shape)
 
 
 def fused_iwe(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,

@@ -1,8 +1,9 @@
 """GPU tests of the PyTorch port: the hand-written CUDA kernels (the fused
 vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4;
 their time-aware voxel forms, K5/K6; the batched forms of all of them, K7;
-the standalone vote, K8) against their plain PyTorch versions, each batched frame against the
-single-frame kernel on that frame alone, and the fused objective and its
+the standalone vote, K8) against their plain PyTorch versions, the
+forward and backward against the exact models of their bits (error 0),
+each batched frame against the single-frame kernel on that frame alone, and the fused objective and its
 analytic HVP (dense and time-aware) on the GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
 without one (``cuda`` marker).
 
@@ -486,6 +487,107 @@ def test_batched_wrappers_check_the_frame_table(cuda_device):
             FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, frames=frames)
     with pytest.raises(ValueError, match=r"\[B, 2, H, W\]"):
         FI.fused_iwe_fwd(fl[0], *ev, OFFSETS, True, frames=fleet.frames)
+
+
+# --- the forward and backward against the exact models of their bits ------
+
+
+def _on_cpu(*tensors):
+    return tuple(None if t is None else t.cpu() for t in tensors)
+
+
+def _form_inputs(form, dtype, device):
+    """(events, kwargs, flow, cotangent of orig + K images, tangent flow,
+    g1, g2) of one form, the events sorted as the kernels take them."""
+    if form.startswith("batched"):
+        fleet, fl, dfl, g, g1, g2 = _fleet_inputs(dtype, device, T_BINS if form == "batched_voxel" else None)
+        return (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": fleet.bins, "frames": fleet.frames}, fl, g, dfl, g1, g2
+    if form == "voxel":
+        ev, bins, vox, dvox, g, g1, g2 = _voxel_inputs(dtype, device)
+        return ev, {"bins": bins}, vox, g, dvox, g1, g2
+    ev, fl, dfl, g1, g2 = _second_order_inputs(dtype, device)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(1 + len(OFFSETS), H, W)), dtype=dtype, device=device)
+    return ev, {"bins": None}, fl, g, dfl, g1, g2
+
+
+def _model_kw(kw):
+    return {"bins": None if kw["bins"] is None else kw["bins"].cpu(),
+            "frames": None if kw.get("frames") is None else FI.Frames(kw["frames"].ptr.cpu(), kw["frames"].sizes)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "voxel", "batched", "batched_voxel"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_equal_the_exact_models(cuda_device, form, dtype):
+    """The forward, the one-pass backward and the HVP
+    backward (both ways of term A) give, bit for bit, the exact models on
+    the CPU copies of their inputs: max|err| 0 at every form."""
+    ev, kw, fl, g, dfl, g1, g2 = _form_inputs(form, dtype, cuda_device)
+    cev, ckw, (cfl, cg, cdfl, cg1, cg2) = _on_cpu(*ev), _model_kw(kw), _on_cpu(fl, g, dfl, g1, g2)
+    k = (slice(None),) if form.startswith("batched") else ()
+    for offsets, orig in ((OFFSETS, True), ((), True), (OFFSETS, False)):
+        got = FI.fused_iwe_fwd(fl, *ev, offsets, orig, **kw).cpu()
+        assert torch.equal(got, FI.fused_iwe_fixed_reference(cfl, *cev, offsets, orig, **ckw))
+        if offsets:
+            gk = g[k + (slice(int(not orig), None),)].contiguous()
+            got = FI.fused_iwe_bwd(fl, *ev, gk, offsets, orig, **kw).cpu()
+            assert torch.equal(got, FI.fused_iwe_bwd_ordered_reference(cfl, *cev, gk.cpu(), offsets, orig, **ckw))
+    for term_a in (False, True):
+        got = FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, term_a, **kw).cpu()
+        want = FI.fused_iwe_bwd_ordered_reference(cfl, *cev, cg2, OFFSETS, False, **ckw,
+                                                  **({"g1": cg1, "dflow": cdfl} if term_a else {}))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_forward_any_event_order_displacement_and_hotspot(cuda_device, dtype):
+    """Shuffled events, a displacement larger than the image, and a hotspot
+    (every event on a few pixels) all give the exact model's bits."""
+    ev, kw, fl, _, _, _, _ = _form_inputs("voxel", dtype, cuda_device)
+    perm = torch.as_tensor(np.random.default_rng(9).permutation(len(ev[0])), device=cuda_device)
+    for flow in (fl, fl * 10.0):
+        want = FI.fused_iwe_fixed_reference(flow.cpu(), *_on_cpu(*ev), OFFSETS, True, **_model_kw(kw))
+        assert torch.equal(FI.fused_iwe_fwd(flow, *ev, OFFSETS, True, **kw).cpu(), want)
+        shuffled = tuple(a[perm].contiguous() for a in ev)
+        got = FI.fused_iwe_fwd(flow, *shuffled, OFFSETS, True, bins=kw["bins"][perm].contiguous()).cpu()
+        assert torch.equal(got, want)
+    rng = np.random.default_rng(12)
+    n = 6000
+    events = np.stack([rng.uniform(10, 11.5, n), rng.uniform(12, 13.5, n), rng.uniform(0, 0.1, n), np.ones(n)], 1)
+    frame = FrameEvents.from_numpy(events, cuda_device, dtype)
+    hot = (frame.x, frame.y, frame.dtf, frame.wt)
+    flow = torch.as_tensor(rng.uniform(-0.3, 0.3, (2, H, W)), dtype=dtype, device=cuda_device)
+    got = FI.fused_iwe_fwd(flow, *hot, OFFSETS, True).cpu()
+    assert torch.equal(got, FI.fused_iwe_fixed_reference(flow.cpu(), *_on_cpu(*hot), OFFSETS, True))
+    assert got.max() > 100.0
+
+
+@pytest.mark.cuda
+def test_forward_and_backward_in_a_cuda_graph(cuda_device):
+    """The batched forward and backward captured in one CUDA graph (their
+    scratch from the graph's pool) and replayed twice give the exact
+    models' bits every time."""
+    fleet, fl, _, g, _, _ = _fleet_inputs(torch.float32, cuda_device)
+    ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": None, "frames": fleet.frames}
+    ckw = _model_kw(kw)
+    want_b = FI.fused_iwe_fixed_reference(fl.cpu(), *_on_cpu(*ev), OFFSETS, True, **ckw)
+    want_g = FI.fused_iwe_bwd_ordered_reference(fl.cpu(), *_on_cpu(*ev), g.cpu(), OFFSETS, True, **ckw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on the capture stream
+        FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        images = FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **kw)
+        grad = FI.fused_iwe_bwd(fl, *ev, g, OFFSETS, True, **kw)
+    for _ in range(2):
+        images.zero_()
+        grad.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(images.cpu(), want_b) and torch.equal(grad.cpu(), want_g)
 
 
 # --- K8, the standalone vote ------------------------------------------------

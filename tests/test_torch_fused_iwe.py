@@ -413,3 +413,99 @@ def test_batched_plain_version_is_each_frame_alone(time_bin):
         np.testing.assert_array_equal(
             hvp[b].numpy(),
             FI.fused_iwe_hvp_bwd(t(flow[b]), t(dflow[b]), g1[b], g2[b], *e1, OFFSETS, True, **k1).numpy())
+
+
+# --- the exact models of the kernels' bits ------------------------------------
+
+FIX_HALF_UNIT = 2.0 ** -(FI.FIX_BITS + 1)  # the forward's largest rounding of one vote
+
+
+def _sorted_form(form):
+    """(events, kwargs, flow, cotangents [3, (B,) 1 + K, H, W], tangent flow)
+    of one form, the events sorted by (frame, bin, source pixel) as the
+    kernels take them, with weights that differ and padded events."""
+    if form.startswith("batched"):
+        _, fleet, flow, dflow, g = _fleet_inputs(T_BINS if form == "batched_voxel" else None)
+        ev, kw = _fleet_args(fleet)
+        return ev, kw, torch.as_tensor(flow), torch.as_tensor(g), torch.as_tensor(dflow)
+    if form == "voxel":
+        padded, wgt, dtf, bins, flow, g = _voxel_inputs()
+    else:
+        (padded, wgt, dtf, flow, g), bins = _inputs(), None
+    x, y = padded[:, 0], padded[:, 1]
+    keys = (np.trunc(y), np.trunc(x)) + (() if bins is None else (bins,))
+    order = np.lexsort(keys)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a[order]))
+    kw = {"bins": None if bins is None else t(bins)}
+    rng = np.random.default_rng(7)
+    gs = torch.as_tensor(np.stack([g, rng.normal(size=g.shape), rng.normal(size=g.shape)]))
+    return (t(x), t(y), t(dtf), t(wgt)), kw, torch.as_tensor(flow), gs, torch.as_tensor(rng.normal(0, 3.0, flow.shape))
+
+
+def _votes_per_pixel(flow, ev, offsets, include_orig, kw):
+    inds, vals, shape = FI._corner_votes(flow, *ev, offsets, include_orig, 1e-6, kw["bins"], kw.get("frames"))
+    return torch.zeros(int(np.prod(shape)), dtype=torch.float64).index_add_(
+        0, inds, (vals != 0).double()).reshape(shape)
+
+
+FORMS = ["dense", "voxel", "batched", "batched_voxel"]
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("offsets,include_orig", [(OFFSETS, True), ((), True), (OFFSETS, False)])
+def test_exact_models_match_plain_versions(form, offsets, include_orig):
+    """float64: the forward model is the plain version up to its fixed-point
+    rounding, at most 2^-37 per vote in each pixel (the unit 2^-36 is above
+    1e-12 of these images, so no tolerance of the scale alone could hold);
+    the ordered backward model is the plain version's autograd gradient to
+    1e-12 x its scale (the same terms, summed in another order)."""
+    ev, kw, flow, g, _ = _sorted_form(form)
+    lead = flow.shape[:1] if form.startswith("batched") else ()
+    g = g[0][(slice(None),) * len(lead) + (slice(int(not include_orig), None),)].contiguous()
+    plain = FI.fused_iwe_reference(flow, *ev, offsets, include_orig, **kw)
+    model = FI.fused_iwe_fixed_reference(flow, *ev, offsets, include_orig, **kw)
+    votes = _votes_per_pixel(flow, ev, offsets, include_orig, kw)
+    assert model.shape == plain.shape and votes.max() > 1
+    assert ((model - plain).abs() <= votes * FIX_HALF_UNIT + 1e-12 * plain.abs().max()).all()
+    if offsets:
+        fl = flow.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad((FI.fused_iwe_reference(fl, *ev, offsets, include_orig, **kw) * g).sum(), fl)
+        got = FI.fused_iwe_bwd_ordered_reference(flow, *ev, g, offsets, include_orig, **kw)
+        assert got.shape == want.shape and want.abs().max() > 1.0
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("term_a", [False, True])
+def test_exact_hvp_model_matches_plain_version(form, term_a):
+    """float64: the ordered backward model with K4's term A (and without
+    it, K4 as the backward of g2) is the HVP backward's plain version to
+    1e-12 x its scale."""
+    ev, kw, flow, g, dflow = _sorted_form(form)
+    g1, g2 = (a[..., 1:, :, :].contiguous() for a in (g[1], g[2]))
+    want = FI.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw)
+    got = FI.fused_iwe_bwd_ordered_reference(flow, *ev, g2, OFFSETS, False, **kw,
+                                             **({"g1": g1, "dflow": dflow} if term_a else {}))
+    assert want.abs().max() > 1.0
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", FORMS)
+def test_forward_model_bits_do_not_depend_on_event_order(form, dtype):
+    """Integer sums: shuffling the events (and their bins; a batch keeps
+    each frame's events in its frame) leaves the forward model's bits as
+    they are."""
+    ev, kw, flow, _, _ = _sorted_form(form)
+    rng = np.random.default_rng(11)
+    frames = kw.get("frames")
+    sizes = frames.sizes if frames is not None else (len(ev[0]),)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    order = torch.as_tensor(np.concatenate([a + rng.permutation(b - a) for a, b in zip(starts[:-1], starts[1:])]))
+    shuffled = {k: (None if v is None or k == "frames" else v[order]) for k, v in kw.items()}
+    shuffled["frames"] = frames
+    t = lambda a: a.to(dtype)
+    want = FI.fused_iwe_fixed_reference(t(flow), *(t(a) for a in ev), OFFSETS, True, **kw)
+    got = FI.fused_iwe_fixed_reference(t(flow), *(t(a[order]) for a in ev), OFFSETS, True, **shuffled)
+    assert not torch.equal(order, torch.arange(len(order)))
+    assert torch.equal(got, want)

@@ -2,7 +2,7 @@
 """Whether a serving seed's cold draw lands in the same coarsest basin in
 the JAX package as in the PyTorch port.
 
-    JAX_PLATFORMS=cpu python3 tools/serve_seed_basin.py [--seeds 0 1]
+    JAX_PLATFORMS=cpu python3 tools/serve_seed_basin.py [--seeds 0 1] [--jax-precision 32|64]
 
 For each seed, window 0 of ``chip_smoke.py``'s serving path (eval window 0
 of configs/synthetic_mvsec_geometry.yaml's data block, ``pattern: dots``,
@@ -11,7 +11,8 @@ fresh ``StreamingFlowEstimator`` of each package on the CPU, with the
 serving defaults and that solver seed: the JAX package's per-scale loop
 (``optimizer.chain: false``) through its Pallas kernels in interpret mode
 (``iwe_backend: pallas``, the banded objective its TPU path runs) in
-float32, and the port through its plain versions in float32 (the card's
+float32 (or, with ``--jax-precision 64``, in float64 with JAX's x64 mode
+on), and the port through its plain versions in float32 (the card's
 type) and float64.  Both packages draw the coarsest start from
 ``numpy.random.default_rng(seed)``, so all three start from the same draw.
 Each push stops after the coarsest scale's Newton-CG, which has no init
@@ -40,8 +41,8 @@ class Coarsest(Exception):
     """Raised after the coarsest scale's solve, carrying its result."""
 
 
-def jax_coarsest(shape, events, seed):
-    est = JS.StreamingFlowEstimator(shape, solver_config={"seed": seed, "iwe_backend": "pallas"},
+def jax_coarsest(shape, events, seed, precision):
+    est = JS.StreamingFlowEstimator(shape, solver_config={"seed": seed, "iwe_backend": "pallas", "precision": precision},
                                     optimizer_config={"chain": False}, fixed_event_count=cs.SERVE_EVENT_COUNT)
     solver, seen = est._solver, []
     history_cb, run = solver._history_cb, solver._run_newton_device
@@ -80,14 +81,20 @@ def _push(est, events):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
+    ap.add_argument("--jax-precision", choices=("32", "64"), default="32",
+                    help="the JAX arm's solver precision; 64 turns on JAX's x64 mode for the whole process")
     args = ap.parse_args()
+    if args.jax_precision == "64":
+        import jax
+
+        jax.config.update("jax_enable_x64", True)
     with open(cs.CONFIG) as f:
         config = yaml.safe_load(f)
     shape = (config["data"]["height"], config["data"]["width"])
     events = cs.serve_windows(config, 1)[0][0]
     for seed in args.seeds:
-        xj, fj, sj = jax_coarsest(shape, events, seed)
-        print(f"[basin] seed {seed}, JAX float32 (Pallas, interpret): {xj.shape[1]} coarsest patches, loss "
+        xj, fj, sj = jax_coarsest(shape, events, seed, args.jax_precision)
+        print(f"[basin] seed {seed}, JAX float{args.jax_precision} (Pallas, interpret): {xj.shape[1]} coarsest patches, loss "
               f"{fj:.6f}, mean motion {np.round(xj.mean(1), 3).tolist()} px/s ({sj:.1f} s)", flush=True)
         for precision in ("32", "64"):
             xt, ft, st = port_coarsest(shape, events, seed, precision)
