@@ -15,8 +15,10 @@ Phases (each prints one informative line; any failure exits nonzero):
    float32; a second float32 call must give the same bits, and both must
    equal the exact models of their bits (``fused_iwe_fixed_reference``,
    ``fused_iwe_bwd_ordered_reference`` on the CPU copies of the inputs:
-   max|err| 0; so do K4 in ``[check]`` and ``[voxel-check]`` and the
-   batched forward, backward and HVP backward in ``[fleet-check]``);
+   max|err| 0; so do K3's tangent (``fused_iwe_jvp_fixed_reference``) and
+   K4 in ``[check]`` and ``[voxel-check]``, the batched forward, backward,
+   tangent and HVP backward in ``[fleet-check]``, and K8 on both of its
+   paths in ``[vote-check]`` (``bilinear_vote_fixed_reference``));
 4. objective: the finest scale's whole objective and gradient on the card
    (float64 and float32) against the plain version on the CPU (float64),
    and the float32 value and gradient again, bit for bit;
@@ -421,12 +423,14 @@ def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
     repeat = torch.equal(tan_only, tan) and torch.equal(tan_only, fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False,
                                                                                   **kw))
     (ev_, sv, okv), (et, st, okt) = err(img, ref_img), err(tan, ref_tan)
-    lines = [f"{names[0]} jvp: value max|err| {ev_:.3e} (scale {sv:.3g}), tangent max|err| {et:.3e} "
-             f"(scale {st:.3g}), tol {tol:g} x scale; value == fused_iwe_fwd bits: {value_bits}; "
-             f"emit_value=False and a repeat same bits: {repeat}"]
-    ok = okv and okt and value_bits and repeat
-    errs = {"jvp": et}
     cev, cbins = cpu_copies(frame)
+    exact = exact_err(tan_only, fi.fused_iwe_jvp_fixed_reference(flow.cpu(), dflow.cpu(), *cev, OFFSETS, False,
+                                                                 bins=cbins))
+    lines = [f"{names[0]} jvp: value max|err| {ev_:.3e} (scale {sv:.3g}), tangent max|err| {et:.3e} "
+             f"(scale {st:.3g}), tol {tol:g} x scale; tangent exact model: max|err| {exact:g}; value == "
+             f"fused_iwe_fwd bits: {value_bits}; emit_value=False and a repeat same bits: {repeat}"]
+    ok = okv and okt and value_bits and repeat and exact == 0
+    errs = {"jvp": et}
     for term_a in (False, True):
         got = fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw)
         e, sc, good = err(got, fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
@@ -833,8 +837,9 @@ def fleet_kernel_check(fi, fleet, flows, dflows, g, g1, g2, tol):
     ckw = {"bins": None if fleet.bins is None else fleet.bins.cpu(),
            "frames": fi.Frames(fleet.frames.ptr.cpu(), fleet.frames.sizes)}
     cpu = lambda a: a.cpu()
-    models = {  # the exact models of the forward's and the backward's bits
+    models = {  # the exact models of the forward's, the backward's and the tangent's bits
         "fwd": lambda: fi.fused_iwe_fixed_reference(cpu(flows), *cev, OFFSETS, False, **ckw),
+        "jvp": lambda: fi.fused_iwe_jvp_fixed_reference(cpu(flows), cpu(dflows), *cev, OFFSETS, False, **ckw),
         "bwd": lambda: fi.fused_iwe_bwd_ordered_reference(cpu(flows), *cev, cpu(g), OFFSETS, False, **ckw),
         "hvp_bwd": lambda: fi.fused_iwe_bwd_ordered_reference(cpu(flows), *cev, cpu(g2), OFFSETS, False, **ckw,
                                                               g1=cpu(g1), dflow=cpu(dflows)),
@@ -981,15 +986,15 @@ def fleet_path(port_main, fi, dev, smi, rng, sequential_epe: float):
     return {k: launches[k] + ta_launches[k] for k in launches}, errs, times, bounds
 
 
-def sweep_call(port_main, config: dict, events: np.ndarray, dev):
-    """The finest scale's init-sweep scoring call on ``events``, as K8 gets
-    it in a solve of ``config``: (the ``[P, K, C, 4]`` warped patch events,
-    their ``[P, 1, C]`` weights), recorded from a real sweep from random
-    tile motions of a few px/s."""
+def sweep_call(port_main, config: dict, events: np.ndarray, dev, scale=None):
+    """The init-sweep scoring call of ``scale`` (the finest by default) on
+    ``events``, as K8 gets it in a solve of ``config``: (the ``[P, K, C,
+    4]`` warped patch events, their ``[P, 1, C]`` weights), recorded from a
+    real sweep from random tile motions of a few px/s."""
     from event_based_optical_flow_tpu_torch.ops import vote
 
     _, solv = port_main.build(config, dev)
-    s = solv.patch_scales - 1
+    s = solv.patch_scales - 1 if scale is None else scale
     solv.overload_patch_configuration(s)
     motion0 = solv.tensor(np.random.default_rng(1).uniform(-20.0, 20.0, (2, solv.n_patch)))
     n_cand = max(4, int(config["optimizer"]["n_iter"] / max(1, s - solv.coarsest_scale)))
@@ -1055,13 +1060,17 @@ def vote_path(port_main, dev, smi, config: dict, events: np.ndarray) -> dict:
             err = (got - want).abs().max().item()
             scale = max(1.0, want.abs().max().item())
             same = torch.equal(got, vote.bilinear_vote_kernel(ev, size, wt))
-            ok = err <= TOL[dtype] * scale and same
-            phase("vote-check", f"{str(dtype)[6:]} {name}: events {list(ev.shape)} -> images {list(got.shape)}, "
-                                f"weight {list(wt.shape) if torch.is_tensor(wt) else wt}: max|err| {err:.3e} "
-                                f"(scale {scale:.3g}), tol {TOL[dtype]:g} x scale; repeat same bits: {same}: "
-                                + ("ok" if ok else "FAIL"))
+            exact = exact_err(got, vote.bilinear_vote_fixed_reference(ev.cpu(), size, wt.cpu() if torch.is_tensor(wt)
+                                                                      else wt))
+            ok = err <= TOL[dtype] * scale and same and exact == 0
+            path = "shared memory" if size[0] * size[1] <= vote.shared_pixels() else "global sums"
+            phase("vote-check", f"{str(dtype)[6:]} {name}: events {list(ev.shape)} -> images {list(got.shape)} "
+                                f"({path}), weight {list(wt.shape) if torch.is_tensor(wt) else wt}: max|err| "
+                                f"{err:.3e} (scale {scale:.3g}), tol {TOL[dtype]:g} x scale; exact model: max|err| "
+                                f"{exact:g}; repeat same bits: {same}: " + ("ok" if ok else "FAIL"))
             if not ok:
-                raise SystemExit("chip_smoke: K8 disagrees with its plain version or is not reproducible")
+                raise SystemExit("chip_smoke: K8 disagrees with its plain version or its exact model, or is not "
+                                 "reproducible")
             if dtype == torch.float32:
                 out[name] = {"err": err}
     for name, (ev, wt, size) in shapes.items():
@@ -1315,7 +1324,9 @@ def main() -> int:
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")
-    phase("wall", f"the whole script, builds included: {time.perf_counter() - t_start:.1f} s")
+    wall = time.perf_counter() - t_start
+    phase("wall", f"the whole script, builds included: {wall:.1f} s (budget 1000 s, limit 1200 s: "
+                  f"{'under' if wall < 1000 else 'OVER'} the budget)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

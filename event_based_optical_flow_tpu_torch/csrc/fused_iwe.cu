@@ -80,7 +80,15 @@
 // sum can overflow and every vote keeps ~2^-(60 - log2 N) of b.  No host
 // sync: the vote and conversion kernels read b themselves.  A non-finite b (a NaN or inf
 // tangent) gives NaN tangent images.  Integer sums again make the tangent
-// the same bits on every run.
+// the same bits on every run.  Four device operations a call: one memset of
+// one scratch (the sums and the per-frame bounds); the bound pass; the
+// vote, which takes the frame's exponent once per event from the bound's
+// bits by integer operations, scales each vote by one multiply with 2^s
+// (ldexp only where 2^s is no normal double: a tiny b) and, in a large
+// launch where sorted events land close together, sums a warp's votes to
+// one pixel in registers before one RED; the conversion, two outputs a
+// thread with 16-byte loads.  The vote is bound by its scattered 8-byte RED
+// atomics, as K1 is.
 // HVP backward (K4), given the cost cotangent g1 and its directional
 // derivative g2 [K, H, W]: per event
 //   term B   K2's du, dv against g2 (the same code: with term A off this is
@@ -90,7 +98,8 @@
 //            du += dt^2 s dv_g,  dv += dt^2 s du_g,
 // per offset, in K2's one-pass kernel (a template over term A) with its
 // ordered run sums onto the source pixel.  K3 keeps global int64 atomics
-// for its votes (bound by them and its gathers); K4 is bound like K2,
+// for its votes (bound by them and its gathers: a frame's tangent images
+// do not fit a block's shared memory, as K1's do not); K4 is bound like K2,
 // reading g1 only with term A.
 //
 // Time-aware voxels (K5, K6), replacing
@@ -395,19 +404,24 @@ __global__ void __launch_bounds__(kGradThreads)
 
 constexpr int kNonFinite = -100000;  // tangent_exponent's mark for a non-finite bound
 
-// Bits of each frame's bound b (see the header): bound[frame].  A NaN or
-// inf bound is stored as +inf, the largest non-negative double's bits but
-// NaN's.  A warp whose 32 events lie in one frame reduces them with
-// shuffles to one atomicMax (one address takes ~N / 32 atomics, not N); a
-// warp across a frame boundary adds each lane's own.  Every lane runs the
-// same rounds, so the shuffles see the whole warp.
+// Bits of each frame's bound b (see the header): bound[frame], zeroed
+// before.  A NaN or inf bound is stored as +inf, the largest non-negative
+// double's bits but NaN's.  A warp whose 32 events lie in one frame reduces
+// them with shuffles, and the block's warps of one frame combine theirs in
+// shared memory, to one atomicMax per block and frame (one address takes
+// ~N / 256 atomics, not N); a warp across a frame boundary adds each lane's
+// own.  Every lane runs the same rounds, so the shuffles see the whole warp
+// and every thread reaches the block's barriers.
 template <typename T>
-__global__ void jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                                 const T* __restrict__ dtf, const T* __restrict__ wt,
-                                 const int* __restrict__ bins, int n_bins, Frames fr, int n,
-                                 const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
-                                 unsigned long long* __restrict__ bound) {
+__global__ void __launch_bounds__(kThreads)
+    jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ dtf,
+                     const T* __restrict__ wt, const int* __restrict__ bins, int n_bins, Frames fr, int n,
+                     const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
+                     unsigned long long* __restrict__ bound) {
+  __shared__ unsigned long long warp_max[kThreads / 32];
+  __shared__ int warp_frame[kThreads / 32];  // -1: nothing left to add
   const int hw = H * W;
+  const int warp = threadIdx.x / 32;
   for (int base = blockIdx.x * blockDim.x; base < n; base += gridDim.x * blockDim.x) {
     const int i = base + threadIdx.x;
     unsigned long long m = 0;
@@ -428,15 +442,35 @@ __global__ void jvp_bound_kernel(const T* __restrict__ x, const T* __restrict__ 
       }
     }
     const int f0 = __shfl_sync(0xffffffffu, f, 0);
-    if (__all_sync(0xffffffffu, f == f0)) {
+    const bool one_frame = __all_sync(0xffffffffu, f == f0);
+    if (one_frame) {
       for (int o = 16; o > 0; o >>= 1) {
         const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, o);
         m = other > m ? other : m;
       }
-      if ((threadIdx.x & 31) == 0 && m) atomicMax(bound + f0, m);
     } else if (m) {
       atomicMax(bound + f, m);
     }
+    if ((threadIdx.x & 31) == 0) {
+      warp_max[warp] = m;
+      warp_frame[warp] = one_frame && m ? f0 : -1;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the block's warps in order: one atomicMax per run of one frame
+      int run_f = -1;
+      unsigned long long run_m = 0;
+      for (int k = 0; k < kThreads / 32; ++k) {
+        if (warp_frame[k] < 0) continue;
+        if (warp_frame[k] != run_f) {
+          if (run_m) atomicMax(bound + run_f, run_m);
+          run_f = warp_frame[k];
+          run_m = 0;
+        }
+        run_m = warp_max[k] > run_m ? warp_max[k] : run_m;
+      }
+      if (run_m) atomicMax(bound + run_f, run_m);
+    }
+    __syncthreads();
   }
 }
 
@@ -445,14 +479,22 @@ __device__ __forceinline__ int scale_bits_of(int n_events) {
   return 61 - (n_events > 1 ? 32 - __clz(n_events - 1) : 0);
 }
 
-// s of the unit 2^-s for the bound's bits and the frame's scale bits.
+// frexp's exponent e of a positive finite double from its bits (2^(e-1) <=
+// b < 2^e), by integer operations: the biased exponent of a normal b, the
+// mantissa's length of a subnormal one.
+__device__ __forceinline__ int exponent_of(unsigned long long bits) {
+  const int biased = static_cast<int>(bits >> 52);
+  return biased != 0 ? biased - 1022 : (64 - __clzll(static_cast<long long>(bits))) - 1074;
+}
+
+// s of the unit 2^-s for the bound's bits and the frame's scale bits:
+// s = scale_bits - e with frexp's e of b, 0 for b == 0, kNonFinite for a
+// non-finite b.  The bound's N < 2^30 events keep s >= 61 - 30 - 1024, so
+// 2^s and 2^-s overflow only upward (a tiny b): s > 1023.
 __device__ __forceinline__ int tangent_exponent(unsigned long long bits, int scale_bits) {
-  const double b = __longlong_as_double(static_cast<long long>(bits));
-  if (!(b <= 1.7976931348623157e308)) return kNonFinite;
-  if (b == 0.0) return 0;  // every tangent vote is 0
-  int e;
-  frexp(b, &e);  // b < 2^e
-  return scale_bits - e;
+  if (bits > 0x7fefffffffffffffull) return kNonFinite;  // +inf: a NaN or inf bound
+  if (bits == 0) return 0;                              // every tangent vote is 0
+  return scale_bits - exponent_of(bits);
 }
 
 // Frame f's tangent exponent.
@@ -461,29 +503,61 @@ __device__ __forceinline__ int frame_exponent(const unsigned long long* bound, F
   return tangent_exponent(bound[f], scale_bits_of(frame_events(fr, f, n)));
 }
 
-template <typename T>
-__device__ __forceinline__ void add_scaled(unsigned long long* acc, T value, int ex) {
-  const long long q = __double2ll_rn(ldexp(static_cast<double>(value), ex));
-  atomicAdd(acc, static_cast<unsigned long long>(q));
+// 2^e as a double, for e in [-1022, 1023] (a normal double).
+__device__ __forceinline__ double pow2(int e) {
+  return __longlong_as_double(static_cast<long long>(e + 1023) << 52);
 }
 
-// Tangent votes of one warped position moving by (dxw, dyw).
-template <typename T>
-__device__ __forceinline__ void vote_tangent(unsigned long long* img, T xw, T yw, T dxw, T dyw,
-                                             T wt, T eps, int H, int W, int ex) {
-  int r0, c0;
-  T fx, fy;
-  if (!corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy)) return;
-  const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H;
-  const bool in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
-  if (in_r0 && in_c0) add_scaled(img + r0 * W + c0, ((-dxw) * (T(1) - fy) + (T(1) - fx) * (-dyw)) * wt, ex);
-  if (in_r1 && in_c0) add_scaled(img + (r0 + 1) * W + c0, (dxw * (T(1) - fy) + fx * (-dyw)) * wt, ex);
-  if (in_r0 && in_c1) add_scaled(img + r0 * W + c0 + 1, ((-dxw) * fy + (T(1) - fx) * dyw) * wt, ex);
-  if (in_r1 && in_c1) add_scaled(img + (r0 + 1) * W + c0 + 1, (dxw * fy + fx * dyw) * wt, ex);
+// A frame's unit: the exponent s and, where 2^s is a normal double, 2^s.
+struct TangentUnit {
+  int ex;
+  double scale;
+  __device__ __forceinline__ explicit TangentUnit(int e)
+      : ex(e), scale(e >= -1022 && e <= 1023 ? pow2(e) : 0.0) {}
+  // v 2^ex rounded half to even to an int64: one multiply by 2^ex where that
+  // is a normal double (the product is the exact v 2^ex rounded once, as
+  // ldexp rounds it), ldexp beyond it (a tiny bound).
+  __device__ __forceinline__ long long units(double v) const {
+    return __double2ll_rn(scale != 0.0 ? v * scale : ldexp(v, ex));
+  }
+};
+
+// A warp aggregates its tangent votes of one offset in a launch of at least
+// kAggregateEvents events (enough blocks that the REDs' throughput, not
+// their latency, bounds the vote: measured on an H100, 60 000 events gain,
+// 30 000 lose) when at least kAggregateShare lanes' corner cells touch their
+// lower neighbour's (sorted events land close together where they are
+// dense); otherwise each lane adds its own votes.
+constexpr int kAggregateEvents = 48 * 1024;
+constexpr int kAggregateShare = 8;
+
+// The lanes of a warp whose votes go to one sum (key) add them up
+// (integers: any order gives the same sum) and the lowest of them adds the
+// total with one RED.  Every lane of the warp calls it; a lane with nothing
+// to add passes add = false and a key of its own.
+__device__ __forceinline__ void red_aggregated(unsigned long long* acc, unsigned key, long long q, bool add) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int first = __ffs(peers) - 1;
+  int rel = __popc(peers & ((1u << lane) - 1u));  // this lane's rank among its peers
+  peers &= 0xfffffffeu << lane;                   // the peers above it
+  while (__any_sync(0xffffffffu, peers)) {        // a tree sum over each set of peers
+    const int next = __ffs(peers);
+    const long long t = __shfl_sync(0xffffffffu, q, next - 1);
+    if (next) q += t;
+    peers &= ~__ballot_sync(0xffffffffu, rel & 1);
+    rel >>= 1;
+  }
+  if (add && lane == first) atomicAdd(acc + key, static_cast<unsigned long long>(q));
 }
 
-// K3: value votes (K1's code, K1's unit) when emit_value, and tangent votes
-// in the frame's unit.
+// K3: tangent votes in the frame's unit, taken once per event, and with
+// emit_value the value votes (K1's code, K1's unit).  Every lane of a warp
+// runs the same rounds (one event each), so a warp can aggregate its
+// tangent votes: in a large launch, per offset it counts the lanes whose
+// corner cell lies within one row and column of the lane below's, and at
+// kAggregateShare or more sums each set of equal destinations in registers
+// first (one RED per distinct pixel instead of one per vote).
 template <typename T>
 __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
@@ -495,42 +569,116 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
                                      unsigned long long* __restrict__ acc_val,
                                      unsigned long long* __restrict__ acc_tan) {
   const int hw = H * W;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const T w = wt[i];
-    if (w == T(0)) continue;
-    const int f = frame_of(fr, i);
-    const int ex = frame_exponent(bound, fr, f, n);
-    const int img = f * offs.n * hw;  // the frame's image block
-    const T xi = x[i], yi = y[i];
-    const int p = source_pixel(xi, yi, H, W);
-    const int off = 2 * hw * slab_of(f, bins, n_bins, i);
-    const T u = p >= 0 ? flow[off + p] : T(0);
-    const T v = p >= 0 ? flow[off + hw + p] : T(0);
-    const T du = p >= 0 ? dflow[off + p] : T(0);
-    const T dv = p >= 0 ? dflow[off + hw + p] : T(0);
-    const T d = dtf[i];
+  const int lane = threadIdx.x & 31;
+  const unsigned own_key = 0xffffffe0u + lane;  // no output's index (n_out < 2^31)
+  const int share = n >= kAggregateEvents ? kAggregateShare : 33;  // 33: never
+  for (int base = blockIdx.x * blockDim.x; base < n; base += gridDim.x * blockDim.x) {
+    const int i = base + threadIdx.x;
+    T w = T(0), xi = T(0), yi = T(0), u = T(0), v = T(0), du = T(0), dv = T(0), d = T(0);
+    int p = -1, f = 0;
+    if (i < n) {
+      w = wt[i];
+      if (w != T(0)) {
+        f = frame_of(fr, i);
+        xi = x[i];
+        yi = y[i];
+        p = source_pixel(xi, yi, H, W);
+        d = dtf[i];
+        if (p >= 0) {
+          const int off = 2 * hw * slab_of(f, bins, n_bins, i);
+          u = flow[off + p];
+          v = flow[off + hw + p];
+          du = dflow[off + p];
+          dv = dflow[off + hw + p];
+        }
+      }
+    }
+    const TangentUnit unit(p >= 0 ? frame_exponent(bound, fr, f, n) : kNonFinite);
+    const bool tangent = unit.ex != kNonFinite;  // a voting event with a finite bound
+    const int img = f * offs.n * hw;             // the frame's image block
     for (int k = 0; k < offs.n; ++k) {
       const T dt = d - offs.v[k];
       const T xw = xi - dt * u;
       const T yw = yi - dt * v;
-      if (emit_value) vote(acc_val + img + k * hw, xw, yw, w, eps, H, W);
-      if (p >= 0 && ex != kNonFinite) {
-        vote_tangent(acc_tan + img + k * hw, xw, yw, -(dt * du), -(dt * dv), w, eps, H, W, ex);
+      if (emit_value && w != T(0)) vote(acc_val + img + k * hw, xw, yw, w, eps, H, W);
+      int r0 = 0, c0 = 0;
+      T fx = T(0), fy = T(0);
+      const bool any = tangent && corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy);
+      const T dxw = -(dt * du), dyw = -(dt * dv);
+      const int cell = any ? img + k * hw + r0 * W + c0 : -1 - 2 * W - lane * 3;  // apart from every lane's
+      const int below = __shfl_up_sync(0xffffffffu, cell, 1);
+      const int gap = cell - below;
+      const bool near = lane > 0 && any && (abs(gap) <= 1 || abs(gap - W) <= 1 || abs(gap + W) <= 1);
+      const bool aggregate = __popc(__ballot_sync(0xffffffffu, near)) >= share;
+      const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H, in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
+      const bool ok[4] = {any && in_r0 && in_c0, any && in_r1 && in_c0, any && in_r0 && in_c1,
+                          any && in_r1 && in_c1};
+      const int at[4] = {0, W, 1, W + 1};  // the corners' offsets from the cell
+      const T val[4] = {((-dxw) * (T(1) - fy) + (T(1) - fx) * (-dyw)) * w,
+                        (dxw * (T(1) - fy) + fx * (-dyw)) * w, ((-dxw) * fy + (T(1) - fx) * dyw) * w,
+                        (dxw * fy + fx * dyw) * w};
+      for (int c = 0; c < 4; ++c) {
+        const long long q = ok[c] ? unit.units(static_cast<double>(val[c])) : 0;
+        if (aggregate) {
+          red_aggregated(acc_tan, ok[c] ? static_cast<unsigned>(cell + at[c]) : own_key, q, ok[c]);
+        } else if (ok[c]) {
+          atomicAdd(acc_tan + cell + at[c], static_cast<unsigned long long>(q));
+        }
       }
     }
   }
 }
 
-// The tangent images [B, K, H, W] from their fixed-point sums, each frame
-// in its own unit (per_frame = K * H * W elements).
 template <typename T>
-__global__ void from_scaled_kernel(const long long* __restrict__ acc, int n_out, int per_frame,
+struct Pair;  // two outputs, one store
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// One tangent output from its sum: sum 2^-ex in T, NaN for a non-finite
+// bound (one multiply where 2^-ex is a normal double, ldexp beyond).
+template <typename T>
+__device__ __forceinline__ T from_units(long long sum, int ex) {
+  if (ex == kNonFinite) return static_cast<T>(NAN);
+  const double v = static_cast<double>(sum);
+  return static_cast<T>(ex <= 1022 ? v * pow2(-ex) : ldexp(v, -ex));
+}
+
+// The tangent images [B, K, H, W] from their fixed-point sums, each frame
+// in its own unit (per_frame = K * H * W elements), two elements a thread
+// with 16-byte loads; with acc_val the value images too, K1's conversion.
+template <typename T>
+__global__ void from_scaled_kernel(const long long* __restrict__ acc_tan,
+                                   const long long* __restrict__ acc_val, int n_out, int per_frame,
                                    const unsigned long long* __restrict__ bound, Frames fr, int n,
-                                   T* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_out; i += gridDim.x * blockDim.x) {
-    const int ex = frame_exponent(bound, fr, i / per_frame, n);
-    out[i] = ex == kNonFinite ? static_cast<T>(NAN)
-                              : static_cast<T>(ldexp(static_cast<double>(acc[i]), -ex));
+                                   T* __restrict__ out_tan, T* __restrict__ out_val) {
+  using P = typename Pair<T>::type;
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; 2 * j < n_out; j += gridDim.x * blockDim.x) {
+    const int i = 2 * j;
+    const int f = i / per_frame;
+    const int ex = frame_exponent(bound, fr, f, n);
+    if (i + 1 < n_out) {
+      const int ex1 = i + 1 < (f + 1) * per_frame ? ex : frame_exponent(bound, fr, f + 1, n);
+      const longlong2 a = reinterpret_cast<const longlong2*>(acc_tan)[j];
+      P o;
+      o.x = from_units<T>(a.x, ex);
+      o.y = from_units<T>(a.y, ex1);
+      reinterpret_cast<P*>(out_tan)[j] = o;
+      if (acc_val != nullptr) {
+        const longlong2 b = reinterpret_cast<const longlong2*>(acc_val)[j];
+        o.x = static_cast<T>(static_cast<double>(b.x) * kFixUnit);
+        o.y = static_cast<T>(static_cast<double>(b.y) * kFixUnit);
+        reinterpret_cast<P*>(out_val)[j] = o;
+      }
+    } else {
+      out_tan[i] = from_units<T>(acc_tan[i], ex);
+      if (acc_val != nullptr) out_val[i] = static_cast<T>(static_cast<double>(acc_val[i]) * kFixUnit);
+    }
   }
 }
 
@@ -599,32 +747,43 @@ int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
   return launch_grad<T, false>(a, flow_elements(fr, n_bins, H, W), dflow, stream);
 }
 
-// bound: zeroed scratch of one element per frame; acc_val (emit_value
-// only) and acc_tan: zeroed int64 scratch of the outputs' size; out_val
-// may be null without emit_value.
+// scratch: int64, not zeroed, laid out as the tangent's fixed-point sums
+// [n_acc], with emit_value the value's [n_acc], then the bits of each
+// frame's bound [n_frames], n_acc the outputs' size rounded up to even;
+// zeroed here by one memset.  out_val may be null without emit_value.  The
+// scratch and the outputs 16-byte aligned.  Four device operations: the
+// memset, the bound pass, the vote and the conversion.
 template <typename T>
 int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
                const double* offsets, int n_off, int H, int W, double eps, int emit_value,
-               unsigned long long* bound, long long* acc_val, long long* acc_tan, T* out_val,
-               T* out_tan, void* stream) {
+               long long* scratch, T* out_val, T* out_tan, void* stream) {
   if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {static_cast<const void*>(scratch), static_cast<const void*>(out_tan),
+                        static_cast<const void*>(emit_value ? out_val : nullptr)}) {
+    if (reinterpret_cast<unsigned long long>(p) & 15) return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets<T> offs = make_offsets<T>(offsets, n_off);
   const Frames fr = make_frames(frame_ptr, n_frames);
-  if (n > 0) {
-    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, dflow,
-                                                         offs, H, W, bound);
-    fused_iwe_jvp_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps),
-        emit_value, bound, reinterpret_cast<unsigned long long*>(acc_val),
-        reinterpret_cast<unsigned long long*>(acc_tan));
-  }
   const int per_frame = n_off * H * W;
   const int n_out = fr.n * per_frame;
-  if (emit_value) from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_val, n_out, out_val);
-  from_scaled_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc_tan, n_out, per_frame, bound, fr,
-                                                             n, out_tan);
+  const long long n_acc = n_out + (n_out & 1);
+  long long* acc_tan = scratch;
+  long long* acc_val = emit_value ? scratch + n_acc : nullptr;
+  unsigned long long* bound = reinterpret_cast<unsigned long long*>(scratch + (emit_value ? 2 : 1) * n_acc);
+  const size_t bytes = static_cast<size_t>((emit_value ? 2 : 1) * n_acc + fr.n) * sizeof(*scratch);
+  const cudaError_t e = cudaMemsetAsync(scratch, 0, bytes, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0) {
+    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, dflow, offs, H, W,
+                                                         bound);
+    fused_iwe_jvp_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
+        x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps), emit_value, bound,
+        reinterpret_cast<unsigned long long*>(acc_val), reinterpret_cast<unsigned long long*>(acc_tan));
+  }
+  from_scaled_kernel<T><<<grid_for((n_out + 1) / 2), kThreads, 0, s>>>(
+      acc_tan, acc_val, n_out, per_frame, bound, fr, n, out_tan, emit_value ? out_val : nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -666,10 +825,10 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
   }                                                                                                \
   int evflow_fused_iwe_jvp_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,               \
                                     const double* offsets, int n_off, int H, int W, double eps,    \
-                                    int emit_value, unsigned long long* bound, long long* acc_val, \
-                                    long long* acc_tan, T* out_val, T* out_tan, void* stream) {    \
+                                    int emit_value, long long* scratch, T* out_val, T* out_tan,    \
+                                    void* stream) {                                                \
     return launch_jvp<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, eps, emit_value,    \
-                         bound, acc_val, acc_tan, out_val, out_tan, stream);                       \
+                         scratch, out_val, out_tan, stream);                                       \
   }                                                                                                \
   int evflow_fused_iwe_hvp_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,           \
                                         const double* offsets, int n_off, int H, int W,            \

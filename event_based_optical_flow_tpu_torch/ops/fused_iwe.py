@@ -59,11 +59,13 @@ version sums in another order, so the two agree to rounding;
 ``fused_iwe_fixed_reference`` and ``fused_iwe_bwd_ordered_reference`` are
 exact models of the kernels' bits, for tests and checks.  K3 sums its
 tangent images in fixed point too, in a unit scaled per frame on the device
-to the frame's largest tangent vote, and K4 takes K2's one-pass kernel.
+to the frame's largest tangent vote (``fused_iwe_jvp_fixed_reference``
+models its bits), and K4 takes K2's one-pass kernel.
 """
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,7 +93,7 @@ _EVENTS = [_PTR] * 5 + [_INT, _PTR, _INT, _INT]
 _ARGS = {
     "fwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
     "bwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
-    "jvp": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 6,
+    "jvp": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
     "hvp_bwd": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -311,18 +313,19 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
         raise ValueError("fused_iwe_jvp computes direction images: give at least one offset")
     h, w = flow.shape[-2], flow.shape[-1]
     shape = _lead(frames) + (len(offsets), h, w)
+    n_out = int(np.prod(shape))
+    # one int64 scratch, zeroed by the launcher: the tangent's fixed-point
+    # sums, the value's (emit_value), each n_out rounded up to even, then the
     # bits of each frame's tangent bound
-    bound = torch.zeros(_n_frames(frames), dtype=torch.int64, device=flow.device)
-    acc_tan = torch.zeros(shape, dtype=torch.int64, device=flow.device)
-    acc_val = torch.zeros(shape, dtype=torch.int64, device=flow.device) if emit_value else None
+    scratch = torch.empty((1 + int(bool(emit_value))) * (n_out + n_out % 2) + _n_frames(frames),
+                          dtype=torch.int64, device=flow.device)
     out_tan = torch.empty(shape, dtype=flow.dtype, device=flow.device)
     out_val = torch.empty(shape, dtype=flow.dtype, device=flow.device) if emit_value else None
     _launch("jvp", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w, float(eps),
-               int(bool(emit_value)), bound.data_ptr(),
-               acc_val.data_ptr() if emit_value else None, acc_tan.data_ptr(),
-               out_val.data_ptr() if emit_value else None, out_tan.data_ptr()))
+               int(bool(emit_value)), scratch.data_ptr(), out_val.data_ptr() if emit_value else None,
+               out_tan.data_ptr()))
     return (out_val, out_tan) if emit_value else out_tan
 
 
@@ -405,34 +408,44 @@ def _gather_uv(flow: Tensor, x: Tensor, y: Tensor, bins: Optional[Tensor],
 
 
 def _corner_votes(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
-                  include_orig: bool, eps: float, bins: Optional[Tensor], frames: Optional[Frames]):
+                  include_orig: bool, eps: float, bins: Optional[Tensor], frames: Optional[Frames],
+                  dflow: Optional[Tensor] = None):
     """(flat output index, value) of every corner vote, 0 at index 0 for a
     corner outside the image, and the images' shape: each value is the
-    kernel's expression, an elementwise op per operation."""
+    kernel's expression, an elementwise op per operation.  With ``dflow``
+    the tangent votes along it instead (K3's ``vote_tangent``; no orig
+    image), 0 for an event that casts none (zero weight, source pixel
+    outside the image)."""
     h, w = flow.shape[-2], flow.shape[-1]
     zero = torch.zeros_like(x)
     u, v = _gather_uv(flow, x, y, bins, frames)
-    coords = [(x, y)] if include_orig else []
+    coords = [(x, y, None)] if include_orig else []
     for off in offsets:
         dt = dtf - off
-        coords.append((x - dt * u, y - dt * v))
+        coords.append((x - dt * u, y - dt * v, dt))
+    if dflow is not None:
+        du, dv = _gather_uv(dflow, x, y, bins, frames)
+        casts = (wt != 0) & (x > -1) & (x < h) & (y > -1) & (y < w)
     n_img = len(coords)
     block = 0 if frames is None else frames.index() * (n_img * h * w)  # each event's image block
     inds, vals = [], []
-    for k, (xw, yw) in enumerate(coords):
+    for k, (xw, yw, dt) in enumerate(coords):
         flx = torch.floor(xw + eps)
         fly = torch.floor(yw + eps)
         fx = xw - flx
         fy = yw - fly
-        for dr, dc, wgt in (
-            (0, 0, (1 - fx) * (1 - fy) * wt),
-            (1, 0, fx * (1 - fy) * wt),
-            (0, 1, (1 - fx) * fy * wt),
-            (1, 1, fx * fy * wt),
-        ):
+        if dflow is None:
+            weights = ((1 - fx) * (1 - fy) * wt, fx * (1 - fy) * wt, (1 - fx) * fy * wt, fx * fy * wt)
+        else:
+            dxw, dyw = -(dt * du), -(dt * dv)
+            weights = (((-dxw) * (1 - fy) + (1 - fx) * (-dyw)) * wt, (dxw * (1 - fy) + fx * (-dyw)) * wt,
+                       ((-dxw) * fy + (1 - fx) * dyw) * wt, (dxw * fy + fx * dyw) * wt)
+        for (dr, dc), wgt in zip(((0, 0), (1, 0), (0, 1), (1, 1)), weights):
             row = flx + dr
             col = fly + dc
             ok = (row >= 0) & (row < h) & (col >= 0) & (col < w)
+            if dflow is not None:
+                ok = ok & casts
             idx = block + k * h * w + torch.where(ok, row * w + col, zero).to(torch.int64)
             inds.append(torch.where(ok, idx, 0))
             vals.append(torch.where(ok, wgt, zero))
@@ -565,6 +578,64 @@ def fused_iwe_jvp_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, d
         lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps, bins, frames), (flow,),
         (dflow,))
     return (images, dimages) if emit_value else dimages
+
+
+def _tangent_exponents(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                       bins: Optional[Tensor], frames: Optional[Frames]) -> list:
+    """Each frame's tangent exponent s (the unit 2^-s), None for a
+    non-finite bound, as ``jvp_bound_kernel`` and ``tangent_exponent``
+    compute it: b = max over the frame's casting events of |wt| max_k|dtf
+    - o_k| (|du| + |dv|) in double (the offsets in the flow's type), s =
+    61 - ceil(log2 N) - e with frexp's e of b (N the frame's events), 0 for
+    b == 0."""
+    h, w = dflow.shape[-2], dflow.shape[-1]
+    du, dv = _gather_uv(dflow, x, y, bins, frames)
+    d = dtf.double()
+    dt_max = torch.zeros_like(d)
+    for off in offsets:
+        dt_max = torch.fmax(dt_max, (d - float(torch.tensor(off, dtype=dflow.dtype))).abs())
+    b = wt.double().abs() * dt_max * (du.double().abs() + dv.double().abs())
+    b = torch.where(b <= torch.finfo(torch.float64).max, b, torch.inf)  # NaN and inf: +inf
+    casts = (wt != 0) & (x > -1) & (x < h) & (y > -1) & (y < w)
+    b = torch.where(casts, b, 0.0)
+    sizes = (len(x),) if frames is None else frames.sizes
+    exps, start = [], 0
+    for size in sizes:
+        bf = float(b[start:start + size].max()) if size else 0.0
+        start += size
+        scale_bits = 61 - ((size - 1).bit_length() if size > 1 else 0)
+        exps.append(None if not math.isfinite(bf) else 0 if bf == 0.0 else scale_bits - math.frexp(bf)[1])
+    return exps
+
+
+def fused_iwe_jvp_fixed_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
+                                  wt: Tensor, offsets: Sequence[float], emit_value: bool,
+                                  eps: float = 1e-6, bins: Optional[Tensor] = None,
+                                  frames: Optional[Frames] = None):
+    """An exact model of K3's bits (all forms), for tests and checks
+    (nothing on the main path calls it): each frame's bound and exponent s
+    in double as the kernel computes them (``_tangent_exponents``), each
+    tangent corner vote in the flow's type by the kernel's expressions,
+    ``ldexp(vote, s)`` rounded half to even to an int64, the votes summed
+    with an integer ``index_add_``, the sums converted with ``ldexp(sum,
+    -s)`` to the flow's type, a frame of a non-finite bound NaN; with
+    ``emit_value`` the value images first, ``fused_iwe_fixed_reference``'s.
+    Run it on CPU tensors (see ``fused_iwe_fixed_reference``)."""
+    exps = _tangent_exponents(dflow, x, y, dtf, wt, offsets, bins, frames)
+    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, False, eps, bins, frames, dflow)
+    per_frame = int(np.prod(shape[-3:]))
+    ex = np.array([0 if e is None else e for e in exps], dtype=np.int32)
+    nonfinite = np.array([e is None for e in exps])
+    frame = inds.numpy() // per_frame
+    votes = np.where(nonfinite[frame], 0.0, vals.double().numpy())  # such a frame is NaN whatever its votes
+    fixed = np.rint(np.ldexp(votes, ex[frame])).astype(np.int64)
+    sums = torch.zeros(int(np.prod(shape)), dtype=torch.int64).index_add_(0, inds, torch.from_numpy(fixed))
+    out = np.ldexp(sums.double().numpy(), -np.repeat(ex, per_frame))
+    out[np.repeat(nonfinite, per_frame)] = np.nan
+    dimages = torch.from_numpy(out).to(flow.dtype).reshape(shape)
+    if not emit_value:
+        return dimages
+    return fused_iwe_fixed_reference(flow, x, y, dtf, wt, offsets, False, eps, bins, frames), dimages
 
 
 def fused_iwe_hvp_bwd_reference(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor,

@@ -19,16 +19,21 @@ voted in one launch (the init sweep votes P patches x K candidates at once).
 
 Routing: ``bilinear_vote`` runs the plain version for a tensor on the CPU and
 the kernel for a CUDA tensor; a CUDA tensor never falls back, an input the
-kernel does not take raises.  The kernel sums in 64-bit fixed point with
-integer atomics (``csrc/fixed_point.cuh``), so its images are the same bits
-on every run; the plain version's ``index_add`` sums in another order, so
-the two agree to rounding.  On a CUDA tensor the gradient (w.r.t. the event
+kernel does not take raises.  The kernel sums in 64-bit fixed point
+(``csrc/fixed_point.cuh``): in one block's shared memory for an image of at
+most ``shared_pixels()`` pixels (the init sweep's patches; one launch), with
+global integer atomics and a conversion pass for a larger one (a full-frame
+metric image).  Its images are the same bits on every run and on either
+path, and ``bilinear_vote_fixed_reference`` is an exact model of them; the
+plain version's ``index_add`` sums in another order, so the two agree to
+rounding.  On a CUDA tensor the gradient (w.r.t. the event
 positions and the weight) is ``BilinearVote``'s analytic four-corner
 backward; on the CPU autograd differentiates the plain scatter, which gives
 the same one-sided corner derivatives.
 """
 
 import ctypes
+import functools
 import math
 from typing import Tuple, Union
 
@@ -47,12 +52,13 @@ KERNEL_SOURCE = "event_based_optical_flow_tpu_torch/csrc/vote.cu"
 # window's events: 2^15 for a 30 000-event window), weights 0 or 1; the
 # metric votes are single full-frame images of the window's events.
 MAX_EVENTS = 2**26
+FIX_BITS = 36  # kFixBits in csrc/fixed_point.cuh
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
-# events, weight, weight_scalar, n_img, n, H, W, eps, acc, out, stream
-_VOTE_ARGS = [_PTR, _PTR, _DBL, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
+# events, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out, stream
+_VOTE_ARGS = [_PTR, _PTR, _INT, _DBL, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # launches of the kernel since the last reset
@@ -68,15 +74,39 @@ def reset_launch_counts() -> None:
     _LAUNCHES["vote"] = 0
 
 
-def _library():
+@functools.lru_cache(maxsize=None)
+def _kernel(dtype: torch.dtype):
+    """The C entry point of one type, bound once."""
+    fn = getattr(load_kernel_library("vote").lib, f"evflow_vote_{_SUFFIX[dtype]}")
+    fn.argtypes = _VOTE_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def shared_pixels() -> int:
+    """The largest image (``H * W``) that the kernel sums in shared memory
+    (``kSharedPixels`` in ``csrc/vote.cu``); a larger one takes the global
+    path and its int64 scratch."""
     lib = load_kernel_library("vote").lib
-    if not getattr(lib, "_evflow_bound", False):
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, f"evflow_vote_{suffix}")
-            fn.argtypes = _VOTE_ARGS
-            fn.restype = ctypes.c_int
-        lib._evflow_bound = True
-    return lib
+    lib.evflow_vote_shared_pixels.restype = ctypes.c_int
+    return lib.evflow_vote_shared_pixels()
+
+
+def _weight_rows(weight: Tensor, batch: tuple, n: int):
+    """(the weight as contiguous rows of ``n``, the images per row): a
+    weight whose leading axes are the batch's first ones and whose other
+    batch axes are 1 (the sweep's per-patch ``[P, 1, C]`` for ``[P, K]``
+    images) is read as it is, image ``i`` reading row ``i // rep``; any
+    other broadcast is copied out to one row per image."""
+    shape = (1,) * (len(batch) + 1 - weight.ndim) + tuple(weight.shape)
+    if len(shape) == len(batch) + 1 and shape[-1] == n and weight.is_contiguous():
+        s = 0
+        while s < len(batch) and shape[s] == batch[s]:
+            s += 1
+        if all(d == 1 for d in shape[s:-1]):
+            return weight, math.prod(batch[s:])
+    return torch.broadcast_to(weight, batch + (n,)).contiguous(), 1
 
 
 def corner_terms(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
@@ -124,6 +154,21 @@ def bilinear_vote_plain(events: Tensor, image_size: Tuple[int, int], weight: Uni
     return image.index_add(0, inds, vals).reshape(batch + (h, w))
 
 
+def bilinear_vote_fixed_reference(events: Tensor, image_size: Tuple[int, int],
+                                  weight: Union[float, Tensor] = 1.0, eps: float = 1e-6) -> Tensor:
+    """An exact model of K8's bits, for tests and checks (nothing on the
+    main path calls it): each corner vote in the events' type by the
+    kernel's expressions (``corner_terms``), rounded half to even to an
+    int64 of 2^-36 units, summed with an integer ``index_add_`` (any order
+    gives the same integers), converted back.  Run it on CPU tensors (see
+    ``fused_iwe.fused_iwe_fixed_reference``)."""
+    h, w = image_size
+    inds, vals, batch = corner_terms(events, image_size, weight, eps)
+    fixed = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
+    sums = torch.zeros(math.prod(batch) * h * w, dtype=torch.int64, device=events.device).index_add_(0, inds, fixed)
+    return (sums.double() * 2.0 ** -FIX_BITS).to(events.dtype).reshape(batch + (h, w))
+
+
 def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
                          eps: float = 1e-6) -> Tensor:
     """Launch K8 on CUDA tensors: ``[..., n, 4]`` events -> ``[..., H, W]``
@@ -146,24 +191,27 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
     if n_img * n >= 2**31 or n_img * h * w >= 2**31:
         raise ValueError("the vote kernel indexes with 32-bit ints: too many events or pixels in one call")
     events = events.contiguous()
-    w_ptr, w_scalar = None, 0.0
+    shared = h * w <= shared_pixels()
+    w_ptr, w_rep, w_scalar = None, 1, 0.0
     if torch.is_tensor(weight):
         if weight.device != events.device or weight.dtype != events.dtype:
             raise ValueError(f"the weight must share the events' device and dtype ({events.device}, "
                              f"{events.dtype}), got {weight.device} {weight.dtype}")
-        weight = torch.broadcast_to(weight, batch + (n,)).contiguous()
+        # the global path reads one row per image
+        weight, w_rep = _weight_rows(weight, batch, n) if shared else \
+            (torch.broadcast_to(weight, batch + (n,)).contiguous(), 1)
         w_ptr = weight.data_ptr()
     else:
         w_scalar = float(weight)
-    acc = torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)  # fixed-point sums
     out = torch.empty(batch + (h, w), dtype=events.dtype, device=events.device)
-    name = f"evflow_vote_{_SUFFIX[events.dtype]}"
-    stream = torch.cuda.current_stream(events.device).cuda_stream
     with torch.cuda.device(events.device):
-        rc = getattr(_library(), name)(events.data_ptr(), w_ptr, w_scalar, n_img, n, h, w, float(eps),
-                                       acc.data_ptr(), out.data_ptr(), stream)
+        # the global path's fixed-point sums; none for an image summed in shared memory
+        acc = None if shared else torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)
+        rc = _kernel(events.dtype)(events.data_ptr(), w_ptr, w_rep, w_scalar, n_img, n, h, w, float(eps),
+                                   None if acc is None else acc.data_ptr(), out.data_ptr(),
+                                   torch.cuda.current_stream(events.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} failed: cudaGetLastError() = {rc}")
+        raise RuntimeError(f"evflow_vote_{_SUFFIX[events.dtype]} failed: cudaGetLastError() = {rc}")
     _LAUNCHES["vote"] += 1
     return out
 

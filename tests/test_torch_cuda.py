@@ -1,8 +1,8 @@
 """GPU tests of the PyTorch port: the hand-written CUDA kernels (the fused
 vote and its backward, K1/K2; the tangent and the HVP backward, K3/K4;
 their time-aware voxel forms, K5/K6; the batched forms of all of them, K7;
-the standalone vote, K8) against their plain PyTorch versions, the
-forward and backward against the exact models of their bits (error 0),
+the standalone vote, K8) against their plain PyTorch versions, every
+kernel against the exact model of its bits (error 0),
 each batched frame against the single-frame kernel on that frame alone, and the fused objective and its
 analytic HVP (dense and time-aware) on the GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
 without one (``cuda`` marker).
@@ -519,9 +519,10 @@ def _model_kw(kw):
 @pytest.mark.parametrize("form", ["dense", "voxel", "batched", "batched_voxel"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernels_equal_the_exact_models(cuda_device, form, dtype):
-    """The forward, the one-pass backward and the HVP
-    backward (both ways of term A) give, bit for bit, the exact models on
-    the CPU copies of their inputs: max|err| 0 at every form."""
+    """The forward, the one-pass backward, the HVP backward (both ways of
+    term A) and the tangent (both ways of emit_value) give, bit for bit,
+    the exact models on the CPU copies of their inputs: max|err| 0 at
+    every form."""
     ev, kw, fl, g, dfl, g1, g2 = _form_inputs(form, dtype, cuda_device)
     cev, ckw, (cfl, cg, cdfl, cg1, cg2) = _on_cpu(*ev), _model_kw(kw), _on_cpu(fl, g, dfl, g1, g2)
     k = (slice(None),) if form.startswith("batched") else ()
@@ -537,6 +538,50 @@ def test_kernels_equal_the_exact_models(cuda_device, form, dtype):
         want = FI.fused_iwe_bwd_ordered_reference(cfl, *cev, cg2, OFFSETS, False, **ckw,
                                                   **({"g1": cg1, "dflow": cdfl} if term_a else {}))
         assert torch.equal(got, want)
+    for emit_value in (False, True):
+        got = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, emit_value, **kw)
+        want = FI.fused_iwe_jvp_fixed_reference(cfl, cdfl, *cev, OFFSETS, emit_value, **ckw)
+        for a, b in zip(got, want) if emit_value else ((got, want),):
+            assert torch.equal(a.cpu(), b)
+
+
+def _same(a, b) -> bool:
+    """The same bits, NaN included."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero", "tiny", "nan"])
+@pytest.mark.parametrize("form", ["dense", "voxel", "batched", "batched_voxel"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tangent_units_equal_the_exact_model(cuda_device, form, case, dtype):
+    """K3's unit at its edges, bit for bit against the model: a zero
+    tangent (unit 1, zeros), a tiny one (in float64 a unit past 2^-1023,
+    where the kernel takes ldexp instead of a multiply), a NaN at a
+    tangent-voting event's source pixel in the first frame (that frame NaN,
+    the others as before)."""
+    ev, kw, fl, _, dfl, _, _ = _form_inputs(form, dtype, cuda_device)
+    if case == "zero":
+        dfl = torch.zeros_like(dfl)
+    elif case == "tiny":
+        dfl = dfl * (1e-300 if dtype == torch.float64 else 1e-40)
+    else:
+        x, y, _, wt = (a.cpu() for a in ev)
+        i = int(torch.nonzero((wt != 0) & (x > -1) & (x < H) & (y > -1) & (y < W))[0])
+        frame = (0,) if form.startswith("batched") else ()
+        time_bin = () if kw["bins"] is None else (int(kw["bins"][i].clamp(0, T_BINS - 1)),)
+        dfl = dfl.clone()
+        dfl[frame + time_bin + (0, int(x[i]), int(y[i]))] = float("nan")
+    cev, ckw = _on_cpu(*ev), _model_kw(kw)
+    exps = FI._tangent_exponents(dfl.cpu(), *cev, OFFSETS, ckw["bins"], ckw["frames"])
+    assert (exps[0] is None) if case == "nan" else (exps[0] == 0 if case == "zero" else exps[0] is not None)
+    if case == "tiny" and dtype == torch.float64:
+        assert min(exps) > 1023
+    for emit_value in (False, True):
+        got = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, emit_value, **kw)
+        want = FI.fused_iwe_jvp_fixed_reference(fl.cpu(), dfl.cpu(), *cev, OFFSETS, emit_value, **ckw)
+        for a, b in zip(got, want) if emit_value else ((got, want),):
+            assert _same(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -564,30 +609,112 @@ def test_forward_any_event_order_displacement_and_hotspot(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("time_bin", [None, T_BINS])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tangent_large_launch_equals_the_exact_model(cuda_device, dtype, time_bin):
+    """A tangent launch above the vote's aggregation threshold (60 000
+    dense events: a warp sums its votes to one pixel in registers before
+    one RED), as one frame, shuffled, and as a batch of two frames, gives
+    the exact model's bits."""
+    rng = np.random.default_rng(21)
+    n = 60000
+    events = np.stack([rng.uniform(-0.9, H, n), rng.uniform(-0.9, W, n), rng.uniform(0, 0.1, n), np.ones(n)], 1)
+    lead = () if time_bin is None else (time_bin,)
+    tt = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=cuda_device)
+    flow, dflow = rng.uniform(-3.0, 3.0, (2,) + lead + (2, H, W)), rng.normal(0, 3.0, (2,) + lead + (2, H, W))
+    frame = FrameEvents.from_numpy(events, cuda_device, dtype, time_bin)
+    perm = torch.as_tensor(rng.permutation(n), device=cuda_device)
+    fleet = FleetEvents.from_numpy([events[: n // 2], events[n // 2:]], cuda_device, dtype, time_bin)
+    cases = [((frame.x, frame.y, frame.dtf, frame.wt), {"bins": frame.bins}, tt(flow[0]), tt(dflow[0])),
+             (tuple(a[perm].contiguous() for a in (frame.x, frame.y, frame.dtf, frame.wt)),
+              {"bins": None if frame.bins is None else frame.bins[perm].contiguous()}, tt(flow[0]), tt(dflow[0])),
+             ((fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": fleet.bins, "frames": fleet.frames}, tt(flow),
+              tt(dflow))]
+    for ev, kw, fl, dfl in cases:
+        assert len(ev[0]) >= 48 * 1024  # the vote's kAggregateEvents
+        got = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, False, **kw)
+        want = FI.fused_iwe_jvp_fixed_reference(fl.cpu(), dfl.cpu(), *_on_cpu(*ev), OFFSETS, False, **_model_kw(kw))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_forward_and_backward_in_a_cuda_graph(cuda_device):
-    """The batched forward and backward captured in one CUDA graph (their
-    scratch from the graph's pool) and replayed twice give the exact
-    models' bits every time."""
-    fleet, fl, _, g, _, _ = _fleet_inputs(torch.float32, cuda_device)
+    """The batched forward, backward and tangent (K3, tangent only) and
+    K8 on its paths (the sweep's batches in shared memory, small and
+    opted-in, a frame larger than ``shared_pixels()`` through global sums)
+    captured in one
+    CUDA graph (their scratch from the graph's pool) and replayed twice
+    give the exact models' bits every time."""
+    fleet, fl, dfl, g, _, _ = _fleet_inputs(torch.float32, cuda_device)
     ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": None, "frames": fleet.frames}
     ckw = _model_kw(kw)
     want_b = FI.fused_iwe_fixed_reference(fl.cpu(), *_on_cpu(*ev), OFFSETS, True, **ckw)
     want_g = FI.fused_iwe_bwd_ordered_reference(fl.cpu(), *_on_cpu(*ev), g.cpu(), OFFSETS, True, **ckw)
+    want_t = FI.fused_iwe_jvp_fixed_reference(fl.cpu(), dfl.cpu(), *_on_cpu(*ev), OFFSETS, False, **ckw)
+    votes = [(a.to(cuda_device, torch.float32), b if isinstance(b, float) else b.to(cuda_device, torch.float32), size)
+             for a, b, size in _vote_model_cases()[:5:2] + _vote_model_cases()[1:2]]
+    want_v = [VOTE.bilinear_vote_fixed_reference(a.cpu(), size, b if isinstance(b, float) else b.cpu())
+              for a, b, size in votes]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up on the capture stream
         FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **kw)
+        FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, False, **kw)
+        for a, b, size in votes:
+            VOTE.bilinear_vote_kernel(a, size, b)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         images = FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **kw)
         grad = FI.fused_iwe_bwd(fl, *ev, g, OFFSETS, True, **kw)
+        tangent = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, False, **kw)
+        voted = [VOTE.bilinear_vote_kernel(a, size, b) for a, b, size in votes]
     for _ in range(2):
-        images.zero_()
-        grad.zero_()
+        for out in [images, grad, tangent] + voted:
+            out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(images.cpu(), want_b) and torch.equal(grad.cpu(), want_g)
+        assert torch.equal(tangent.cpu(), want_t)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(voted, want_v))
+
+
+@pytest.mark.cuda
+def test_two_host_threads_on_one_stream_give_the_same_bits(cuda_device):
+    """Two host threads enqueueing the tangent (K3) and K8 (both paths) on
+    one stream, interleaved, get the exact models' bits on every call: each
+    call's scratch is its own."""
+    import threading
+
+    fleet, fl, dfl, _, _, _ = _fleet_inputs(torch.float32, cuda_device)
+    ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": None, "frames": fleet.frames}
+    want_t = FI.fused_iwe_jvp_fixed_reference(fl.cpu(), dfl.cpu(), *_on_cpu(*ev), OFFSETS, False, **_model_kw(kw))
+    votes = [(a.to(cuda_device, torch.float32), b if isinstance(b, float) else b.to(cuda_device, torch.float32), size)
+             for a, b, size in _vote_model_cases()[:2]]
+    want_v = [VOTE.bilinear_vote_fixed_reference(a.cpu(), size, b if isinstance(b, float) else b.cpu())
+              for a, b, size in votes]
+    stream = torch.cuda.current_stream(cuda_device)
+    results, errors = [[], []], []
+
+    def work(k):
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    results[k].append((FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, False, **kw),
+                                       [VOTE.bilinear_vote_kernel(a, size, b) for a, b, size in votes]))
+        except Exception as e:  # noqa: BLE001 - reraised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors and all(len(r) == 20 for r in results)
+    for tangent, voted in results[0] + results[1]:
+        assert torch.equal(tangent.cpu(), want_t)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(voted, want_v))
 
 
 # --- K8, the standalone vote ------------------------------------------------
@@ -639,6 +766,62 @@ def test_vote_kernel_matches_plain_version(cuda_device, dtype, tol):
         assert torch.equal(got, VOTE.bilinear_vote_kernel(ev, (H, W), wt))
         n_calls += 2
     assert VOTE.launch_counts() == {"vote": n_calls}
+
+
+def _vote_model_cases():
+    """(events, weight, image size) in float64 on the CPU: the sweep's
+    batch at the finest scale's patch (16x21, per-patch weights [P, 1, C])
+    and a frame above the shared-memory path's size (180x200, per-event
+    weights); then the sweep at scale 2's patches (64x84, and DSEC's
+    112x160, the shared-memory path with its opted-in size) with a scalar
+    weight, with one weight row for every image ([C]) and with full
+    weights [P, K, C]; the frame with a scalar weight.  NaN positions and
+    zero-weight rows vote nothing."""
+    rng = np.random.default_rng(13)
+
+    def events(shape, size):
+        x = rng.uniform(-0.9, size[0], shape)
+        y = rng.uniform(-0.9, size[1], shape)
+        x[..., :40], y[..., :40] = np.round(x[..., :40]), np.round(y[..., :40])
+        x[..., 40:45] = np.nan
+        x[..., -30:], y[..., -30:] = -10.0, -10.0
+        return torch.as_tensor(np.stack([x, y, rng.uniform(0, 0.1, shape), np.ones(shape)], -1))
+
+    def weights(shape):
+        w = rng.uniform(0.3, 1.5, shape)
+        w[..., -30:] = 0.0
+        return torch.as_tensor(w)
+
+    P, K, C, n = 6, 5, 512, 20000
+    return [(events((P, K, C), (16, 21)), weights((P, 1, C)), (16, 21)),
+            (events((n,), (180, 200)), weights((n,)), (180, 200)),
+            (events((P, K, C), (64, 84)), 1.0, (64, 84)),
+            (events((P, K, C), (64, 84)), weights((C,)), (64, 84)),
+            (events((P, K, 4 * C), (112, 160)), weights((P, 1, 4 * C)), (112, 160)),
+            (events((2, K, C), (112, 160)), 0.5, (112, 160)),
+            (events((P, K, C), (16, 21)), weights((P, K, C)), (16, 21)),
+            (events((n,), (180, 200)), 0.75, (180, 200))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_vote_kernel_equals_the_exact_model(cuda_device, dtype, tol):
+    """K8 on all of its paths (shared memory for the sweep's patches, in
+    small blocks up to 48 KB of sums and in opted-in ones above it; global
+    sums for an image above ``shared_pixels()``) equals its exact model on
+    the CPU copies (max|err| 0) and its plain version to today's
+    tolerance; one launch per call."""
+    assert 112 * 160 <= VOTE.shared_pixels() < 180 * 200
+    for ev, wt, size in _vote_model_cases():
+        ev = ev.to(cuda_device, dtype)
+        wt = wt if isinstance(wt, float) else wt.to(cuda_device, dtype)
+        VOTE.reset_launch_counts()
+        got = VOTE.bilinear_vote_kernel(ev, size, wt)
+        assert VOTE.launch_counts() == {"vote": 1}
+        want = VOTE.bilinear_vote_fixed_reference(ev.cpu(), size, wt if isinstance(wt, float) else wt.cpu())
+        assert torch.equal(got.cpu(), want)
+        plain = VOTE.bilinear_vote_plain(ev, size, wt)
+        assert (got - plain).abs().max().item() <= tol * max(1.0, plain.abs().max().item())
 
 
 @pytest.mark.cuda

@@ -497,15 +497,102 @@ def test_forward_model_bits_do_not_depend_on_event_order(form, dtype):
     each frame's events in its frame) leaves the forward model's bits as
     they are."""
     ev, kw, flow, _, _ = _sorted_form(form)
-    rng = np.random.default_rng(11)
+    order, shuffled = _shuffle_within_frames(ev, kw)
+    t = lambda a: a.to(dtype)
+    want = FI.fused_iwe_fixed_reference(t(flow), *(t(a) for a in ev), OFFSETS, True, **kw)
+    got = FI.fused_iwe_fixed_reference(t(flow), *(t(a[order]) for a in ev), OFFSETS, True, **shuffled)
+    assert not torch.equal(order, torch.arange(len(order)))
+    assert torch.equal(got, want)
+
+
+def _shuffle_within_frames(ev, kw, seed=11):
+    """(a permutation of the events that keeps each frame's events in its
+    frame, the kwargs with the bins permuted alike)."""
+    rng = np.random.default_rng(seed)
     frames = kw.get("frames")
     sizes = frames.sizes if frames is not None else (len(ev[0]),)
     starts = np.concatenate([[0], np.cumsum(sizes)])
     order = torch.as_tensor(np.concatenate([a + rng.permutation(b - a) for a, b in zip(starts[:-1], starts[1:])]))
     shuffled = {k: (None if v is None or k == "frames" else v[order]) for k, v in kw.items()}
     shuffled["frames"] = frames
-    t = lambda a: a.to(dtype)
-    want = FI.fused_iwe_fixed_reference(t(flow), *(t(a) for a in ev), OFFSETS, True, **kw)
-    got = FI.fused_iwe_fixed_reference(t(flow), *(t(a[order]) for a in ev), OFFSETS, True, **shuffled)
-    assert not torch.equal(order, torch.arange(len(order)))
-    assert torch.equal(got, want)
+    return order, shuffled
+
+
+# --- the exact model of K3's bits ---------------------------------------------
+
+TANGENT_CASES = ["plain", "zero", "tiny", "nan"]
+
+
+def _tangent_case(form, case, dtype):
+    """(events, kwargs, flow, tangent flow) of one form in ``dtype``, the
+    tangent flow by ``case``: "plain" N(0, 3); "zero"; "tiny", scaled so
+    far down that in float64 the unit 2^-s has s > 1023 (2^s is no normal
+    double: the kernels' ldexp range); "nan", one NaN at a tangent-voting
+    event's source pixel in the first frame."""
+    ev, kw, flow, _, dflow = _sorted_form(form)
+    ev, flow, dflow = tuple(a.to(dtype) for a in ev), flow.to(dtype), dflow.to(dtype)
+    if case == "zero":
+        dflow = torch.zeros_like(dflow)
+    elif case == "tiny":
+        dflow = dflow * (1e-300 if dtype == torch.float64 else 1e-40)
+    elif case == "nan":
+        x, y, _, wt = ev
+        i = int(torch.nonzero((wt != 0) & (x > -1) & (x < H) & (y > -1) & (y < W))[0])
+        frame = (0,) if form.startswith("batched") else ()
+        time_bin = () if kw["bins"] is None else (int(kw["bins"][i].clamp(0, T_BINS - 1)),)
+        dflow = dflow.clone()
+        dflow[frame + time_bin + (0, int(x[i]), int(y[i]))] = float("nan")
+    return ev, kw, flow, dflow
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", TANGENT_CASES)
+@pytest.mark.parametrize("form", FORMS)
+def test_exact_jvp_model_matches_plain_version(form, case, dtype):
+    """K3's model at every form against the plain version
+    (``torch.func.jvp`` of the plain forward) on the same tensors, frame by
+    frame: within half the frame's unit 2^-s per tangent vote in each pixel
+    (the model's rounding) plus the plain version's own summation rounding
+    (1e-12 x its largest value in float64; 1e-5 in float32, whose sums of
+    ~10 votes round each add).  A zero tangent gives s = 0 and zeros; the
+    tiny one, in float64, s > 1023; a NaN tangent a NaN frame while the
+    other frames keep their units.  The value half is
+    ``fused_iwe_fixed_reference``'s bits, the tangent the same with and
+    without it."""
+    ev, kw, flow, dflow = _tangent_case(form, case, dtype)
+    exps = FI._tangent_exponents(dflow, *ev, OFFSETS, kw["bins"], kw.get("frames"))
+    values, model = FI.fused_iwe_jvp_fixed_reference(flow, dflow, *ev, OFFSETS, True, **kw)
+    assert torch.equal(values, FI.fused_iwe_fixed_reference(flow, *ev, OFFSETS, False, **kw))
+    assert torch.equal(model.isnan(), FI.fused_iwe_jvp_fixed_reference(flow, dflow, *ev, OFFSETS, False, **kw).isnan())
+    plain = FI.fused_iwe_jvp_reference(flow, dflow, *ev, OFFSETS, False, **kw)
+    inds, vals, shape = FI._corner_votes(flow, *ev, OFFSETS, False, 1e-6, kw["bins"], kw.get("frames"), dflow)
+    votes = torch.zeros(int(np.prod(shape)), dtype=torch.float64).index_add_(0, inds, (vals != 0).double())
+    per_frame = [a.reshape(-1, *shape[-3:]) for a in (model, plain, votes.reshape(shape))]
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert case == "zero" or votes.max() > 1
+    for b, s in enumerate(exps):
+        got, want, n_votes = (a[b] for a in per_frame)
+        if case == "nan" and b == 0:
+            assert s is None and got.isnan().all()
+            continue
+        assert s is not None and not got.isnan().any()
+        if case == "zero":
+            assert s == 0 and not got.any()
+            continue
+        assert s > 1023 if (case == "tiny" and dtype == torch.float64) else s < 1023
+        assert want.abs().max() > 0
+        tol = n_votes * 2.0 ** -(s + 1) + rtol * want.abs().max().double()
+        assert ((got.double() - want.double()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", FORMS)
+def test_jvp_model_bits_do_not_depend_on_event_order(form, dtype):
+    """Integer sums and a bound that is a maximum: shuffling the events
+    within their frames leaves K3's model's bits (values and tangent) as
+    they are."""
+    ev, kw, flow, dflow = _tangent_case(form, "plain", dtype)
+    order, shuffled = _shuffle_within_frames(ev, kw)
+    want = FI.fused_iwe_jvp_fixed_reference(flow, dflow, *ev, OFFSETS, True, **kw)
+    got = FI.fused_iwe_jvp_fixed_reference(flow, dflow, *(a[order] for a in ev), OFFSETS, True, **shuffled)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -86,6 +86,25 @@ def test_jvp_plain_version_matches_pallas(emit_value):
     _close(tan_t.numpy(), tan_j)
 
 
+@pytest.mark.parametrize("form", ["dense", "voxel"])
+def test_jvp_exact_model_matches_pallas(form):
+    """The exact model of K3's (K6's) bits against the Pallas tangent
+    kernel: to 1e-9 x the largest value (the model's fixed-point unit is
+    ~2^-47 of it here, far below)."""
+    if form == "dense":
+        packed, events, flow, dflow, _, _, t = _second_order_inputs()
+        want = PB.fused_multi_iwe_banded_jvp(jnp.asarray(flow), jnp.asarray(dflow), *packed, (H, W), OFFSETS,
+                                             eps=1e-6, use_bf16=False, emit_value=False)
+        bins = None
+    else:
+        packed, events, bins, flow, dflow, _, _, t = _voxel_second_order_inputs()
+        want = PB.fused_multi_iwe_banded_voxel_jvp(jnp.asarray(flow), jnp.asarray(dflow), *packed, (H, W),
+                                                   OFFSETS, eps=1e-6, use_bf16=False, emit_value=False)
+    (s,) = FI._tangent_exponents(t(dflow), *events, OFFSETS, bins, None)
+    assert 30 < s < 60
+    _close(FI.fused_iwe_jvp_fixed_reference(t(flow), t(dflow), *events, OFFSETS, False, bins=bins).numpy(), want)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors K3/K4's wrappers run the plain versions: no launch
     is counted."""

@@ -170,3 +170,58 @@ def test_cpu_tensors_run_the_plain_version():
     assert TV.launch_counts() == before == {"vote": before["vote"]}
     with pytest.raises(ValueError, match="CUDA tensors"):
         TV.bilinear_vote_kernel(ev, (H, W), wt)
+
+
+# --- the exact model of K8's bits ---------------------------------------------
+
+
+def _model_case(name, rng):
+    """(events, weight) of one call shape: "one" set of 600 events with
+    per-event weights or a scalar, the "sweep" batch [P, K, C, 4] with
+    per-patch weights [P, 1, C] or a scalar; a few NaN positions (an empty
+    sweep patch's events) vote nothing."""
+    if name.startswith("one"):
+        ev = _events(rng, 600)
+        wt = 0.7 if name.endswith("scalar") else _weights(rng, (600,))
+    else:
+        P, K, C = 3, 4, 256
+        ev = np.stack([np.stack([_events(rng, C) for _ in range(K)]) for _ in range(P)])
+        wt = 1.0 if name.endswith("scalar") else _weights(rng, (P, 1, C))
+    ev[..., 90:93, :2] = np.nan
+    return ev, wt
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["one-scalar", "one-per-event", "sweep-scalar", "sweep-per-patch"])
+def test_exact_vote_model_matches_plain_version(name, dtype):
+    """K8's model against the plain version on the same tensors: within
+    2^-37 (half the fixed-point unit) per vote in each pixel, plus the
+    plain version's own summation rounding (1e-12 x the largest pixel in
+    float64, 1e-5 in float32)."""
+    ev, wt = _model_case(name, np.random.default_rng(8))
+    ev = torch.as_tensor(ev, dtype=dtype)
+    wt = wt if isinstance(wt, float) else torch.as_tensor(wt, dtype=dtype)
+    model = TV.bilinear_vote_fixed_reference(ev, (H, W), wt)
+    plain = TV.bilinear_vote_plain(ev, (H, W), wt)
+    inds, vals, batch = TV.corner_terms(ev, (H, W), wt)
+    votes = torch.zeros(plain.numel(), dtype=torch.float64).index_add_(0, inds, (vals != 0).double())
+    assert model.shape == plain.shape == batch + (H, W) and votes.max() > 1
+    assert not model.isnan().any()
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    tol = votes.reshape(plain.shape) * 2.0 ** -(TV.FIX_BITS + 1) + rtol * plain.abs().max().double()
+    assert ((model.double() - plain.double()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["one-per-event", "sweep-per-patch"])
+def test_vote_model_bits_do_not_depend_on_event_order(name, dtype):
+    """Integer sums: shuffling each image's events (and their weights)
+    leaves the model's bits as they are."""
+    rng = np.random.default_rng(9)
+    ev, wt = _model_case(name, rng)
+    order = rng.permutation(ev.shape[-2])
+    shuffled_wt = wt[..., order]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+    want = TV.bilinear_vote_fixed_reference(t(ev), (H, W), t(wt))
+    got = TV.bilinear_vote_fixed_reference(t(ev[..., order, :]), (H, W), t(shuffled_wt))
+    assert torch.equal(got, want)

@@ -89,7 +89,8 @@ def profile_solve(solve, stats_of, label: str, what: str, top: int, n_frames: in
           f"forwards, {n_kernels / max(1, fwd):.1f} kernels and {device_us / max(1, fwd):.1f} us of device time "
           "per fused forward (one objective evaluation)", flush=True)
     for e in kernels:
-        # the kernels of csrc/fused_iwe.cu and csrc/vote.cu, conversion and bound passes included
+        # the kernels of csrc/fused_iwe.cu and csrc/vote.cu (bilinear_vote_kernel and, for the sweep's
+        # patches, bilinear_vote_shared_kernel), conversion and bound passes included
         if any(k in e.key for k in ("fused_iwe", "bilinear_vote", "from_fixed", "from_scaled", "jvp_bound")):
             print(f"[profile] {label}: {e.key}: {e.count} launches, {e.self_device_time_total / e.count:.2f} us "
                   f"each, {e.self_device_time_total / 1e3:.3f} ms in all", flush=True)

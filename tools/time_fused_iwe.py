@@ -1,42 +1,51 @@
 #!/usr/bin/env python3
-"""Time the fused forward and backward kernels of the PyTorch port against
-a parent commit's, in turns, on one GPU.
+"""Time the PyTorch port's hand-written kernels against a parent commit's,
+in turns, on one GPU.
 
     mkdir -p build/parent
-    git show <parent>:event_based_optical_flow_tpu_torch/csrc/fused_iwe.cu > build/parent/fused_iwe.cu
-    git show <parent>:event_based_optical_flow_tpu_torch/csrc/fixed_point.cuh > build/parent/fixed_point.cuh
-    python3 tools/time_fused_iwe.py [--parent build/parent] [--iters 200] [--rows 3 4 9 10]
+    for f in fused_iwe.cu fixed_point.cuh vote.cu; do
+        git show <parent>:event_based_optical_flow_tpu_torch/csrc/$f > build/parent/$f; done
+    python3 tools/time_fused_iwe.py [--parent build/parent] [--iters 200] [--rows 11 13 15 17 21 211]
 
-The parent's source is read from an untracked copy (``build/`` is
+The parent's sources are read from an untracked copy (``build/`` is
 ignored, and a copy of the repository without git history can still run
-it); its C interface is the one before the backward ran in one pass: the
-backward writes per-event terms to a scratch and sums them in a second
-kernel (the forward's interface is the port's).  The parent's wrapper is
-mimicked as it was (``torch.zeros`` scratch, a ctypes offsets array per
-call).  A parent
-directory that does not exist times the port's kernels alone.
+it); their C interface is the one of the tangent's and the standalone
+vote's redesign's parent (``PARENT_ARGS``, ``PARENT_VOTE_ARGS``): the
+forward's and the backwards' as the port's, the tangent's with three zeroed
+scratch pointers, the vote's without a weight-row stride (``weight_rep``).  The parent's wrappers are
+mimicked as they were: a ``torch.zeros`` scratch for the forward's sums,
+the tangent's bound and sums and the vote's sums, the vote's weight
+broadcast to one row per image.  A parent directory that does not exist
+times the port's kernels alone.
 
 Rows are those of ``PERF.md`` section 6, at the paths' shapes from
 ``chip_smoke.py``'s data, float32: 3/4 K1/K2 on the MVSEC slice's first
 window (30 000 events, 260x346), 5/6 K5 (10 time bins), 7/8 the batched
 voxel pair (the time-aware fleet's batch of 2), 9/10 the batched dense
-pair (the fleet's batch of 4), and the HVP backward without term A (K4,
-which shares the backward): 12 on the DSEC path's first window (300 000
-events, 480x640), 14 batched, 16 voxel, 18 batched voxel.  Offsets (0, 1,
-0.5), no orig image.  Rows 31 and 41 are K1 and K2 on the DSEC path's
-first window (rows 3 and 4 of ``PERF.md`` at the DSEC shape); rows 32
-and 42 K1 and K2 at row 3's shape with the flow scaled by 10 (vote rows up
-to ~40 rows from their events', as in the solve's coarse scales).  Each
-row runs the variants in turns (parent, port, port, parent).  For each
-turn: the wrapper's milliseconds per call (CUDA events around
-``--iters`` calls after 10 warm-up calls: the host's enqueue included),
-the device microseconds per call and device operations per call
-(``torch.profiler``: every kernel and memset over 50 calls), the kernels
-by name, and the microseconds per call of 20 calls captured in one CUDA
-graph and replayed (the device's time with its launch gaps, without the
-host's enqueue).  Every variant's output must equal the port's bit for
-bit.  Also prints the card's name and power limit, and writes all numbers
-to ``--out`` as JSON.  Needs a GPU.
+pair (the fleet's batch of 4), the tangent only (K3, as the CG loop calls
+it) 11 on the DSEC path's first window (300 000 events, 480x640), 111 on
+the MVSEC slice's (serving's shape), 13 batched, 15 voxel, 17 batched
+voxel, and the HVP backward without term A
+(K4, which shares the backward): 12 at DSEC, 14 batched, 16 voxel, 18
+batched voxel.  Offsets (0, 1, 0.5), no orig image.  Row 21 is K8 on the
+finest scale's init-sweep call (the real ``[P, K, C, 4]`` batch with its
+``[P, 1, C]`` weights, recorded from a sweep on the MVSEC slice's first
+window), row 211 K8 on a full-frame metric vote of that window (260x346,
+weight 1), row 212 K8 on the DSEC path's scale-2 sweep call (112x160
+patches) on its first window.  Rows 31 and 41 are K1 and K2 on the DSEC path's first window
+(rows 3 and 4 of ``PERF.md`` at the DSEC shape); rows 32 and 42 K1 and K2
+at row 3's shape with the flow scaled by 10 (vote rows up to ~40 rows from
+their events', as in the solve's coarse scales).  Each row runs the
+variants in turns (parent, port, port, parent).  For each
+turn: the wrapper's milliseconds per call (CUDA events around ``--iters``
+calls after 10 warm-up calls: the host's enqueue included), the device
+microseconds per call and device operations per call (``torch.profiler``:
+every kernel and memset over 50 calls), the kernels by name, and the
+microseconds per call of 20 calls captured in one CUDA graph and replayed
+(the device's time with its launch gaps, without the host's enqueue).
+Every variant's output must equal the port's bit for bit.  Also prints the
+card's name and power limit, and writes all numbers to ``--out`` as JSON.
+Needs a GPU.
 """
 
 import argparse
@@ -56,22 +65,27 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from event_based_optical_flow_tpu_torch import main as port_main  # noqa: E402
 from event_based_optical_flow_tpu_torch.ops import cuda_build  # noqa: E402
 from event_based_optical_flow_tpu_torch.ops import fused_iwe as FI  # noqa: E402
+from event_based_optical_flow_tpu_torch.ops import vote as VOTE  # noqa: E402
 from event_based_optical_flow_tpu_torch.solver.objective import FleetEvents, FrameEvents  # noqa: E402
 
 OFFSETS = cs.OFFSETS
 ROWS = {3: ("fwd", "dense"), 4: ("bwd", "dense"), 5: ("fwd", "voxel"), 6: ("bwd", "voxel"),
         7: ("fwd", "batched_voxel"), 8: ("bwd", "batched_voxel"), 9: ("fwd", "batched"), 10: ("bwd", "batched"),
+        11: ("jvp", "dsec"), 111: ("jvp", "dense"), 13: ("jvp", "batched"), 15: ("jvp", "voxel"), 17: ("jvp", "batched_voxel"),
         12: ("hvp_bwd", "dsec"), 14: ("hvp_bwd", "batched"), 16: ("hvp_bwd", "voxel"),
-        18: ("hvp_bwd", "batched_voxel"), 31: ("fwd", "dsec"), 41: ("bwd", "dsec"), 32: ("fwd", "dense_far"),
-        42: ("bwd", "dense_far")}
-# the parent's C interface: x, y, dtf, wt, bins, n_bins, frame_ptr, n_frames, n, then each kernel's own
+        18: ("hvp_bwd", "batched_voxel"), 21: ("vote", "sweep"), 211: ("vote", "frame"), 212: ("vote", "dsec_sweep"),
+        31: ("fwd", "dsec"),
+        41: ("bwd", "dsec"), 32: ("fwd", "dense_far"), 42: ("bwd", "dense_far")}
+# the parent's interfaces where they differ from the port's: the tangent's
+# bound, value sums and tangent sums as three zeroed scratch pointers; the
+# vote's without weight_rep (events, weight, weight_scalar, n_img, n, H, W,
+# eps, acc, out, stream)
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_EV = [_P] * 5 + [_I, _P, _I, _I]
-PARENT_ARGS = {"fwd": _EV + [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P],
-               "bwd": _EV + [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P],
-               "hvp_bwd": _EV + [_P, _P, _P, _I, _I, _I, _D, _I] + [_P] * 5}
+PARENT_ARGS = {"jvp": [_P] * 5 + [_I, _P, _I, _I] + [_P, _P, _P, _I, _I, _I, _D, _I] + [_P] * 6}
+PARENT_VOTE_ARGS = [_P, _P, _D, _I, _I, _I, _I, _D, _P, _P, _P]
 
 
 def nvcc_build(src: Path, name: str) -> ctypes.CDLL:
@@ -81,6 +95,8 @@ def nvcc_build(src: Path, name: str) -> ctypes.CDLL:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    print(f"[build] {name}: " + " | ".join(l.strip() for l in (proc.stdout + proc.stderr).splitlines()
+                                          if "registers" in l), flush=True)
     return ctypes.CDLL(str(out))
 
 
@@ -116,21 +132,52 @@ def inputs(dev):
     ev = FrameEvents.from_numpy(dsec_events, dev, torch.float32)
     out["dsec"] = ((ev.x, ev.y, ev.dtf, ev.wt), {"bins": None, "frames": None}, t(cs.smooth_flow(dh, dw, rng)),
                    t(rng.normal(size=(3, dh, dw))), t(cs.smooth_flow(dh, dw, rng)), t(rng.normal(size=(3, dh, dw))))
+    for name, cfg, evs, scale in (("sweep", config, events, None), ("dsec_sweep", dsec, dsec_events, 2)):
+        (sweep_ev, sweep_wt), patch = cs.sweep_call(port_main, cfg, evs, dev, scale)
+        out[name] = (sweep_ev.float().contiguous(), sweep_wt.float().contiguous(), patch)
+    out["frame"] = (t(events), 1.0, (h, w))
     return out
 
 
-def port_call(kind, ev, kw, flow, g, dflow, g1):
+def port_call(kind, args):
+    if kind == "vote":
+        ev, wt, size = args
+        return lambda: VOTE.bilinear_vote_kernel(ev, size, wt)
+    ev, kw, flow, g, dflow, g1 = args
     if kind == "fwd":
         return lambda: FI.fused_iwe_fwd(flow, *ev, OFFSETS, False, **kw)
     if kind == "bwd":
         return lambda: FI.fused_iwe_bwd(flow, *ev, g, OFFSETS, False, **kw)
+    if kind == "jvp":
+        return lambda: FI.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False, **kw)
     return lambda: FI.fused_iwe_hvp_bwd(flow, dflow, g1, g, *ev, OFFSETS, False, **kw)
 
 
-def parent_call(lib, kind, ev, kw, flow, g, dflow, g1):
-    """The parent's wrapper as it was: its scratch allocated per call."""
-    fn = getattr(lib, f"evflow_fused_iwe_{kind}_f32")
-    fn.argtypes, fn.restype = PARENT_ARGS[kind], ctypes.c_int
+def parent_call(libs, kind, args):
+    """The parent's wrapper as it was: its scratch allocated and zeroed per
+    call."""
+    fused, vote = libs
+    if kind == "vote":
+        ev, wt, (h, w) = args
+        fn = vote.evflow_vote_f32
+        fn.argtypes, fn.restype = PARENT_VOTE_ARGS, ctypes.c_int
+        batch, n = tuple(ev.shape[:-2]), ev.shape[-2]
+
+        def vote_call():
+            stream = torch.cuda.current_stream().cuda_stream
+            wb = torch.broadcast_to(wt, batch + (n,)).contiguous() if torch.is_tensor(wt) else None
+            acc = torch.zeros(batch + (h, w), dtype=torch.int64, device=ev.device)
+            out = torch.empty(batch + (h, w), dtype=ev.dtype, device=ev.device)
+            rc = fn(ev.data_ptr(), None if wb is None else wb.data_ptr(), 0.0 if wb is not None else float(wt),
+                    int(np.prod(batch)), n, h, w, 1e-6, acc.data_ptr(), out.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"parent vote failed: {rc}")
+            return out
+
+        return vote_call
+    ev, kw, flow, g, dflow, g1 = args
+    fn = getattr(fused, f"evflow_fused_iwe_{kind}_f32")
+    fn.argtypes, fn.restype = PARENT_ARGS.get(kind, FI._ARGS[kind]), ctypes.c_int
     h, w = flow.shape[-2:]
     frames = kw["frames"]
     lead = () if frames is None else (len(frames.sizes),)
@@ -144,15 +191,18 @@ def parent_call(lib, kind, ev, kw, flow, g, dflow, g1):
             out = torch.empty(lead + (3, h, w), dtype=flow.dtype, device=flow.device)
             rc = fn(*head, flow.data_ptr(), offs, 3, 0, h, w, 1e-6, acc.data_ptr(), out.data_ptr(), stream)
         elif kind == "bwd":
-            duv = torch.empty((2, ev[0].shape[0]), dtype=flow.dtype, device=flow.device)
-            out = torch.zeros_like(flow)
-            rc = fn(*head, flow.data_ptr(), offs, 3, 0, h, w, 1e-6, g.data_ptr(), duv.data_ptr(), out.data_ptr(),
-                    stream)
+            out = torch.empty_like(flow)
+            rc = fn(*head, flow.data_ptr(), offs, 3, 0, h, w, 1e-6, g.data_ptr(), out.data_ptr(), stream)
+        elif kind == "jvp":
+            bound = torch.zeros(FI._n_frames(frames), dtype=torch.int64, device=flow.device)
+            acc = torch.zeros(lead + (3, h, w), dtype=torch.int64, device=flow.device)
+            out = torch.empty(lead + (3, h, w), dtype=flow.dtype, device=flow.device)
+            rc = fn(*head, flow.data_ptr(), dflow.data_ptr(), offs, 3, h, w, 1e-6, 0, bound.data_ptr(), None,
+                    acc.data_ptr(), None, out.data_ptr(), stream)
         else:
-            duv = torch.empty((2, ev[0].shape[0]), dtype=flow.dtype, device=flow.device)
-            out = torch.zeros_like(flow)
+            out = torch.empty_like(flow)
             rc = fn(*head, flow.data_ptr(), dflow.data_ptr(), offs, 3, h, w, 1e-6, 0, g1.data_ptr(), g.data_ptr(),
-                    duv.data_ptr(), out.data_ptr(), stream)
+                    out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"parent {kind} failed: {rc}")
         return out
@@ -214,22 +264,25 @@ def main() -> int:
     from event_based_optical_flow_tpu_torch.utils import set_numerics
 
     set_numerics()
-    kl = cuda_build.load_kernel_library("fused_iwe")
-    print("[build] " + " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l), flush=True)
+    for name in ("fused_iwe", "vote"):
+        kl = cuda_build.load_kernel_library(name)
+        print(f"[build] {name}: " + " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l),
+              flush=True)
     libs = {}
-    parent = Path(args.parent) / "fused_iwe.cu"
-    if parent.exists():
-        libs["parent"] = nvcc_build(parent, "libfused_iwe_parent")
+    parent = Path(args.parent)
+    if (parent / "fused_iwe.cu").exists() and (parent / "vote.cu").exists():
+        libs["parent"] = (nvcc_build(parent / "fused_iwe.cu", "libfused_iwe_parent"),
+                          nvcc_build(parent / "vote.cu", "libvote_parent"))
     else:
-        print(f"[build] no parent source at {parent}: the port's kernels alone", flush=True)
+        print(f"[build] no parent sources at {parent}: the port's kernels alone", flush=True)
     data = inputs(dev)
     results = {"card": smi, "rows": {}}
     for row in args.rows:
         kind, form = ROWS[row]
-        ev, kw, flow, g, dflow, g1 = data[form]
-        variants = {"port": port_call(kind, ev, kw, flow, g, dflow, g1)}
+        inputs_ = data[form]
+        variants = {"port": port_call(kind, inputs_)}
         if "parent" in libs:
-            variants["parent"] = parent_call(libs["parent"], kind, ev, kw, flow, g, dflow, g1)
+            variants["parent"] = parent_call(libs["parent"], kind, inputs_)
         want = variants["port"]()
         same = {name: torch.equal(call(), want) for name, call in variants.items()}
         order = [v for v in ("parent", "port") if v in variants]
