@@ -17,18 +17,20 @@ Phases (each prints one informative line; any failure exits nonzero):
    ``fused_iwe_bwd_ordered_reference`` on the CPU copies of the inputs:
    max|err| 0; so do K3's tangent (``fused_iwe_jvp_fixed_reference``) and
    K4 in ``[check]`` and ``[voxel-check]``, the batched forward, backward,
-   tangent and HVP backward in ``[fleet-check]``, and K8 on both of its
-   paths in ``[vote-check]`` (``bilinear_vote_fixed_reference``));
+   tangent and HVP backward in ``[fleet-check]``, and K8 at each of its
+   launch configurations in ``[vote-check]`` (``bilinear_vote_fixed_reference``));
 4. objective: the finest scale's whole objective and gradient on the card
    (float64 and float32) against the plain version on the CPU (float64),
    and the float32 value and gradient again, bit for bit;
 5. timing: kernel and plain version, forward and backward, CUDA events;
    then K8, the standalone vote: ``[vote-check]`` holds it to its plain
-   version at the main path's two shapes, the finest scale's init-sweep
+   version at the main path's three shapes, the finest scale's init-sweep
    call on the first window (the real ``[P, K, C, 4]`` batch, recorded from
-   a sweep) and a full-frame metric vote, in float64 and float32 (a second
-   float32 call must give the same bits); ``[vote-time]`` times it, the
-   plain version and one deterministic ``index_add`` of its corner terms;
+   a sweep), the DSEC path's scale-2 sweep call (112x160 patches, the
+   opted-in shared memory) and a full-frame metric vote, in float64 and
+   float32 (a second float32 call must give the same bits); ``[vote-time]``
+   times it, the plain version and one deterministic ``index_add`` of its
+   corner terms;
 6. the slice: the port's eval loop (the function its CLI runs) on
    configs/synthetic_mvsec_geometry.yaml, frame 0 (``MVSEC_LAST_FRAME``),
    fresh output dir; asserts kernel launches, finite EPE clearly below the
@@ -1039,15 +1041,21 @@ def vote_bound(events: torch.Tensor, weight, image_size):
 
 
 def vote_path(port_main, dev, smi, config: dict, events: np.ndarray) -> dict:
-    """Phases ``[vote-check]`` and ``[vote-time]`` at the two shapes of the
-    main path: the finest scale's sweep call and a full-frame metric vote
-    of the first window.  Returns the sweep shape's float32 error, times
-    and bound (the ``kernels`` line's)."""
+    """Phases ``[vote-check]`` and ``[vote-time]`` at each of the main
+    path's launch configurations: the finest scale's sweep call (256-thread
+    blocks), the DSEC path's scale-2 sweep call on its first window
+    (112x160 patches: 1024-thread blocks with opted-in shared memory) and a
+    full-frame metric vote of the first window (the global path).  Returns
+    the finest sweep's float32 error, times and bound (the ``kernels``
+    line's)."""
     from event_based_optical_flow_tpu_torch.ops import vote
 
     (sweep_ev, sweep_wt), patch = sweep_call(port_main, config, events, dev)
+    dsec = dsec_config()
+    (dsec_ev, dsec_wt), dsec_patch = sweep_call(port_main, dsec, first_window(dsec)[1], dev, scale=2)
     h, w = config["data"]["height"], config["data"]["width"]
     shapes = {"sweep": (sweep_ev, sweep_wt, patch),
+              "dsec_sweep": (dsec_ev, dsec_wt, dsec_patch),
               "frame": (torch.as_tensor(events, device=dev), 1.0, (h, w))}
     out = {}
     for dtype in (torch.float64, torch.float32):

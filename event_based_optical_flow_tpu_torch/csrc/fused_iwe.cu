@@ -522,14 +522,11 @@ struct TangentUnit {
   }
 };
 
-// A warp aggregates its tangent votes of one offset in a launch of at least
-// kAggregateEvents events (enough blocks that the REDs' throughput, not
-// their latency, bounds the vote: measured on an H100, 60 000 events gain,
-// 30 000 lose) when at least kAggregateShare lanes' corner cells touch their
-// lower neighbour's (sorted events land close together where they are
-// dense); otherwise each lane adds its own votes.
+// A launch of at least kAggregateEvents events aggregates each warp's
+// tangent votes (enough blocks that the REDs' throughput, not their latency,
+// bounds the vote: measured on an H100, 60 000 events gain, 30 000 lose);
+// a smaller one adds each lane's votes on its own.
 constexpr int kAggregateEvents = 48 * 1024;
-constexpr int kAggregateShare = 8;
 
 // The lanes of a warp whose votes go to one sum (key) add them up
 // (integers: any order gives the same sum) and the lowest of them adds the
@@ -552,13 +549,11 @@ __device__ __forceinline__ void red_aggregated(unsigned long long* acc, unsigned
 }
 
 // K3: tangent votes in the frame's unit, taken once per event, and with
-// emit_value the value votes (K1's code, K1's unit).  Every lane of a warp
-// runs the same rounds (one event each), so a warp can aggregate its
-// tangent votes: in a large launch, per offset it counts the lanes whose
-// corner cell lies within one row and column of the lane below's, and at
-// kAggregateShare or more sums each set of equal destinations in registers
-// first (one RED per distinct pixel instead of one per vote).
-template <typename T>
+// emit_value the value votes (K1's code, K1's unit).  With Aggregate every
+// lane of a warp runs the same rounds (one event each) and each set of equal
+// destinations is summed in registers first: one RED per distinct pixel
+// instead of one per vote.
+template <typename T, bool Aggregate>
 __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
                                      const int* __restrict__ bins, int n_bins, Frames fr,
@@ -569,9 +564,7 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
                                      unsigned long long* __restrict__ acc_val,
                                      unsigned long long* __restrict__ acc_tan) {
   const int hw = H * W;
-  const int lane = threadIdx.x & 31;
-  const unsigned own_key = 0xffffffe0u + lane;  // no output's index (n_out < 2^31)
-  const int share = n >= kAggregateEvents ? kAggregateShare : 33;  // 33: never
+  const unsigned own_key = 0xffffffe0u + (threadIdx.x & 31);  // no output's index (n_out < 2^31)
   for (int base = blockIdx.x * blockDim.x; base < n; base += gridDim.x * blockDim.x) {
     const int i = base + threadIdx.x;
     T w = T(0), xi = T(0), yi = T(0), u = T(0), v = T(0), du = T(0), dv = T(0), d = T(0);
@@ -605,11 +598,7 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
       T fx = T(0), fy = T(0);
       const bool any = tangent && corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy);
       const T dxw = -(dt * du), dyw = -(dt * dv);
-      const int cell = any ? img + k * hw + r0 * W + c0 : -1 - 2 * W - lane * 3;  // apart from every lane's
-      const int below = __shfl_up_sync(0xffffffffu, cell, 1);
-      const int gap = cell - below;
-      const bool near = lane > 0 && any && (abs(gap) <= 1 || abs(gap - W) <= 1 || abs(gap + W) <= 1);
-      const bool aggregate = __popc(__ballot_sync(0xffffffffu, near)) >= share;
+      const int cell = img + k * hw + r0 * W + c0;
       const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H, in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
       const bool ok[4] = {any && in_r0 && in_c0, any && in_r1 && in_c0, any && in_r0 && in_c1,
                           any && in_r1 && in_c1};
@@ -619,7 +608,7 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
                         (dxw * fy + fx * dyw) * w};
       for (int c = 0; c < 4; ++c) {
         const long long q = ok[c] ? unit.units(static_cast<double>(val[c])) : 0;
-        if (aggregate) {
+        if (Aggregate) {
           red_aggregated(acc_tan, ok[c] ? static_cast<unsigned>(cell + at[c]) : own_key, q, ok[c]);
         } else if (ok[c]) {
           atomicAdd(acc_tan + cell + at[c], static_cast<unsigned long long>(q));
@@ -778,9 +767,11 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
   if (n > 0) {
     jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, dflow, offs, H, W,
                                                          bound);
-    fused_iwe_jvp_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
-        x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, static_cast<T>(eps), emit_value, bound,
-        reinterpret_cast<unsigned long long*>(acc_val), reinterpret_cast<unsigned long long*>(acc_tan));
+    auto* jvp = n >= kAggregateEvents ? fused_iwe_jvp_kernel<T, true> : fused_iwe_jvp_kernel<T, false>;
+    jvp<<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W,
+                                         static_cast<T>(eps), emit_value, bound,
+                                         reinterpret_cast<unsigned long long*>(acc_val),
+                                         reinterpret_cast<unsigned long long*>(acc_tan));
   }
   from_scaled_kernel<T><<<grid_for((n_out + 1) / 2), kThreads, 0, s>>>(
       acc_tan, acc_val, n_out, per_frame, bound, fr, n, out_tan, emit_value ? out_val : nullptr);

@@ -61,14 +61,15 @@ constexpr int kSharedPixels = 232448 / 8;
 constexpr int kLargeThreads = 1024;
 
 // The global path: one thread per (image, event); weight == nullptr votes
-// every event with weight_scalar, else weight[i] (one row per image).
+// every event with weight_scalar, else image i reads weight row
+// i / weight_rep.
 template <typename T>
-__global__ void bilinear_vote_kernel(const T* __restrict__ events, const T* __restrict__ weight,
+__global__ void bilinear_vote_kernel(const T* __restrict__ events, const T* __restrict__ weight, int weight_rep,
                                      T weight_scalar, int n_total, int n, int H, int W, T eps,
                                      unsigned long long* __restrict__ acc) {
   const int hw = H * W;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_total; i += gridDim.x * blockDim.x) {
-    const T w = weight == nullptr ? weight_scalar : weight[i];
+    const T w = weight == nullptr ? weight_scalar : weight[weight_rep == 1 ? i : (i / n / weight_rep) * n + i % n];
     if (w == T(0)) continue;
     vote(acc + static_cast<long long>(i / n) * hw, events[4 * static_cast<long long>(i)],
          events[4 * static_cast<long long>(i) + 1], w, eps, H, W);
@@ -131,10 +132,10 @@ __global__ void __launch_bounds__(Threads)
 }
 
 // weight == nullptr votes every event with weight_scalar, else image i
-// reads weight row i / weight_rep (weight_rep 1 on the global path).  acc:
-// zeroed int64 scratch of n_img * H * W for an image of more than
-// kSharedPixels pixels, unused (may be null) otherwise.  A refused opt-in
-// or launch is returned, never worked around.
+// reads weight row i / weight_rep.  acc: zeroed int64 scratch of
+// n_img * H * W for an image of more than kSharedPixels pixels, unused (may
+// be null) otherwise.  A refused opt-in or launch is returned, never worked
+// around.
 template <typename T>
 int launch_vote(const T* events, const T* weight, int weight_rep, double weight_scalar, int n_img, int n,
                 int H, int W, double eps, long long* acc, T* out, void* stream) {
@@ -166,11 +167,11 @@ int launch_vote(const T* events, const T* weight, int weight_rep, double weight_
         events, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
     return static_cast<int>(cudaGetLastError());
   }
-  if (acc == nullptr || (weight != nullptr && weight_rep != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int n_total = n_img * n;
   if (n_total > 0) {
     bilinear_vote_kernel<T><<<grid_for(n_total), kThreads, 0, s>>>(
-        events, weight, static_cast<T>(weight_scalar), n_total, n, H, W, static_cast<T>(eps),
+        events, weight, weight_rep, static_cast<T>(weight_scalar), n_total, n, H, W, static_cast<T>(eps),
         reinterpret_cast<unsigned long long*>(acc));
   }
   const int n_out = n_img * hw;

@@ -197,9 +197,7 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
         if weight.device != events.device or weight.dtype != events.dtype:
             raise ValueError(f"the weight must share the events' device and dtype ({events.device}, "
                              f"{events.dtype}), got {weight.device} {weight.dtype}")
-        # the global path reads one row per image
-        weight, w_rep = _weight_rows(weight, batch, n) if shared else \
-            (torch.broadcast_to(weight, batch + (n,)).contiguous(), 1)
+        weight, w_rep = _weight_rows(weight, batch, n)
         w_ptr = weight.data_ptr()
     else:
         w_scalar = float(weight)

@@ -775,8 +775,9 @@ def _vote_model_cases():
     weights); then the sweep at scale 2's patches (64x84, and DSEC's
     112x160, the shared-memory path with its opted-in size) with a scalar
     weight, with one weight row for every image ([C]) and with full
-    weights [P, K, C]; the frame with a scalar weight.  NaN positions and
-    zero-weight rows vote nothing."""
+    weights [P, K, C]; the frame with a scalar weight, and a batch of such
+    frames with per-patch weights [2, 1, n] (each weight row read by 3
+    images).  NaN positions and zero-weight rows vote nothing."""
     rng = np.random.default_rng(13)
 
     def events(shape, size):
@@ -800,7 +801,8 @@ def _vote_model_cases():
             (events((P, K, 4 * C), (112, 160)), weights((P, 1, 4 * C)), (112, 160)),
             (events((2, K, C), (112, 160)), 0.5, (112, 160)),
             (events((P, K, C), (16, 21)), weights((P, K, C)), (16, 21)),
-            (events((n,), (180, 200)), 0.75, (180, 200))]
+            (events((n,), (180, 200)), 0.75, (180, 200)),
+            (events((2, 3, 4000), (180, 200)), weights((2, 1, 4000)), (180, 200))]
 
 
 @pytest.mark.cuda

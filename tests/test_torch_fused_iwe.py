@@ -452,13 +452,19 @@ FORMS = ["dense", "voxel", "batched", "batched_voxel"]
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("offsets,include_orig", [(OFFSETS, True), ((), True), (OFFSETS, False)])
-def test_exact_models_match_plain_versions(form, offsets, include_orig):
+@pytest.mark.parametrize("model,offsets,include_orig,dtype", [
+    ("fwd", OFFSETS, True, torch.float64), ("fwd", (), True, torch.float64), ("fwd", OFFSETS, False, torch.float64),
+    ("jvp", OFFSETS, False, torch.float64), ("jvp", OFFSETS, False, torch.float32)])
+def test_exact_models_match_plain_versions(form, model, offsets, include_orig, dtype):
     """float64: the forward model is the plain version up to its fixed-point
     rounding, at most 2^-37 per vote in each pixel (the unit 2^-36 is above
     1e-12 of these images, so no tolerance of the scale alone could hold);
     the ordered backward model is the plain version's autograd gradient to
-    1e-12 x its scale (the same terms, summed in another order)."""
+    1e-12 x its scale (the same terms, summed in another order).  K3's
+    model (jvp), in float64 and float32, as ``_check_jvp_model`` says."""
+    if model == "jvp":
+        _check_jvp_model(form, "plain", dtype)
+        return
     ev, kw, flow, g, _ = _sorted_form(form)
     lead = flow.shape[:1] if form.startswith("batched") else ()
     g = g[0][(slice(None),) * len(lead) + (slice(int(not include_orig), None),)].contiguous()
@@ -490,19 +496,23 @@ def test_exact_hvp_model_matches_plain_version(form, term_a):
     assert (got - want).abs().max() <= 1e-12 * want.abs().max()
 
 
+@pytest.mark.parametrize("model", ["fwd", "jvp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("form", FORMS)
-def test_forward_model_bits_do_not_depend_on_event_order(form, dtype):
-    """Integer sums: shuffling the events (and their bins; a batch keeps
-    each frame's events in its frame) leaves the forward model's bits as
-    they are."""
-    ev, kw, flow, _, _ = _sorted_form(form)
+def test_forward_model_bits_do_not_depend_on_event_order(form, dtype, model):
+    """Integer sums (and for K3's tangent a bound that is a maximum):
+    shuffling the events (and their bins; a batch keeps each frame's events
+    in its frame) leaves the forward model's bits, and K3's model's (values
+    and tangent), as they are."""
+    ev, kw, flow, dflow = _tangent_case(form, "plain", dtype)
     order, shuffled = _shuffle_within_frames(ev, kw)
-    t = lambda a: a.to(dtype)
-    want = FI.fused_iwe_fixed_reference(t(flow), *(t(a) for a in ev), OFFSETS, True, **kw)
-    got = FI.fused_iwe_fixed_reference(t(flow), *(t(a[order]) for a in ev), OFFSETS, True, **shuffled)
+    if model == "fwd":
+        run = lambda e, k: (FI.fused_iwe_fixed_reference(flow, *e, OFFSETS, True, **k),)
+    else:
+        run = lambda e, k: FI.fused_iwe_jvp_fixed_reference(flow, dflow, *e, OFFSETS, True, **k)
+    want, got = run(ev, kw), run(tuple(a[order] for a in ev), shuffled)
     assert not torch.equal(order, torch.arange(len(order)))
-    assert torch.equal(got, want)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _shuffle_within_frames(ev, kw, seed=11):
@@ -519,8 +529,6 @@ def _shuffle_within_frames(ev, kw, seed=11):
 
 
 # --- the exact model of K3's bits ---------------------------------------------
-
-TANGENT_CASES = ["plain", "zero", "tiny", "nan"]
 
 
 def _tangent_case(form, case, dtype):
@@ -545,11 +553,8 @@ def _tangent_case(form, case, dtype):
     return ev, kw, flow, dflow
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("case", TANGENT_CASES)
-@pytest.mark.parametrize("form", FORMS)
-def test_exact_jvp_model_matches_plain_version(form, case, dtype):
-    """K3's model at every form against the plain version
+def _check_jvp_model(form, case, dtype):
+    """K3's model at one form against the plain version
     (``torch.func.jvp`` of the plain forward) on the same tensors, frame by
     frame: within half the frame's unit 2^-s per tangent vote in each pixel
     (the model's rounding) plus the plain version's own summation rounding
@@ -586,13 +591,9 @@ def test_exact_jvp_model_matches_plain_version(form, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["zero", "tiny", "nan"])
 @pytest.mark.parametrize("form", FORMS)
-def test_jvp_model_bits_do_not_depend_on_event_order(form, dtype):
-    """Integer sums and a bound that is a maximum: shuffling the events
-    within their frames leaves K3's model's bits (values and tangent) as
-    they are."""
-    ev, kw, flow, dflow = _tangent_case(form, "plain", dtype)
-    order, shuffled = _shuffle_within_frames(ev, kw)
-    want = FI.fused_iwe_jvp_fixed_reference(flow, dflow, *ev, OFFSETS, True, **kw)
-    got = FI.fused_iwe_jvp_fixed_reference(flow, dflow, *(a[order] for a in ev), OFFSETS, True, **shuffled)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+def test_exact_jvp_model_matches_plain_version(form, case, dtype):
+    """K3's model at a tangent's edges (``_check_jvp_model``; the plain
+    tangent is a case of ``test_exact_models_match_plain_versions``)."""
+    _check_jvp_model(form, case, dtype)
