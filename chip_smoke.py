@@ -33,11 +33,15 @@ Phases (each prints one informative line; any failure exits nonzero):
    corner terms;
 6. the slice: the port's eval loop (the function its CLI runs) on
    configs/synthetic_mvsec_geometry.yaml, frame 0 (``MVSEC_LAST_FRAME``),
-   fresh output dir; asserts kernel launches, finite EPE clearly below the
-   zero-flow EPE, finite PRED_FWL, one metric line per frame; then frame 0
-   once more in a fresh
-   run, which must reproduce its metrics bit for bit (the solve on the
-   card is deterministic, so this run's verdict is every run's).  The
+   fresh output dir, chained (``optimizer.chain``'s default: every Newton
+   evaluation replayed from a CUDA graph, ``solver/graphs.py``); asserts
+   kernel launches, finite EPE clearly below the zero-flow EPE, finite
+   PRED_FWL, one metric line per frame; then frame 0 once more in a fresh
+   run with the loop (``chain: false``, eager evaluations), which must
+   reproduce the chained run's metrics, per-scale losses, host syncs and
+   launches bit for bit (the solve on the card is deterministic, so this
+   run's verdict is every run's); ``[chain]`` prints both runs' seconds,
+   syncs and peak device memory beside the card's name and power limit.  The
    slice sets the synthetic
    scene's ``data.pattern`` to ``dots``: the config's default lattice scene
    aliases translations by its period (CMax itself, in the original
@@ -53,7 +57,8 @@ Phases (each prints one informative line; any failure exits nonzero):
    ``[hvp]`` the finest scale's whole staged HVP on the card to the plain
    version on the CPU, ``[time]`` times K3/K4, then frame 0 through the
    CLI's eval loop (EPE, PRED_FWL, K3/K4 launched on the finest scale only,
-   coarse scales on the subsample) and frame 0 again, bit for bit;
+   coarse scales on the subsample) and frame 0 again with the loop, bit
+   for bit (``[dsec-repeat]``, ``[chain]``);
 8. the time-aware path: the solver and optimizer blocks of
    configs/mvsec_indoor_burgers.yaml (Burgers flow voxel, 10 time bins, t0
    in the middle, FD HVP) on the MVSEC slice's synthetic data block
@@ -67,7 +72,7 @@ Phases (each prints one informative line; any failure exits nonzero):
    (EPE, PRED_FWL through the voxel, K5 launched on every scale),
    ``[ta-analytic-frame]`` frame 0 with ``optimizer.hvp_mode: analytic``
    (K6 launched on the finest scale only), and ``[ta-repeat]`` the FD
-   frame 0 again, bit for bit;
+   frame 0 again with the loop, bit for bit (``[chain]``);
 9. the fleet path: ``solver.method: fleet_pyramidal_patch_contrast_maximization``
    with ``data.fleet_batch`` frames per lockstep Newton-CG, ``warm_start:
    false``, ``hvp_mode: analytic`` (``fleet_config``).  ``[fleet-check]``
@@ -92,16 +97,19 @@ Phases (each prints one informative line; any failure exits nonzero):
    loader's GT (the flow rescaled from the solved window's span to the eval
    window's) beside the zero-flow EPE, the HVP per scale (analytic on every
    scale of a warm push), host syncs, K8 and K1-K4 launches;
-   ``[serve-repeat]`` a fresh server's push of window 0, bit for bit;
+   ``[serve-repeat]`` a fresh server's push of window 0 with the loop,
+   bit for bit (``[chain]``);
    ``[serve-resume]`` a server started with the state file written after
    push 1 reports 2 windows.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the serving path's windows 0..2
 (its warm pushes are the on-card check of the sequential warm start) and
-window 0 again.  Each path's run (each serving push) starts with every
-kernel launch count at 0 and reads them at its end; the checks and
-timings launch outside those runs.  The last two lines of standard
+window 0 again.  The sequential paths and serving run chained, their
+repeats with the loop; the fleet keeps its loop.  Each path's run (each
+serving push) starts with every kernel launch count at 0 and reads them
+at its end (a replayed graph adds the launches its capture counted); the
+checks and timings launch outside those runs.  The last two lines of standard
 output are one JSON object describing the kernels (each with its
 launches on the paths, error, times and bound), then ``{"ok": true,
 "device": {...}}``; a ``[wall]`` line before them gives the whole run's
@@ -395,13 +403,41 @@ def slice_config(config: dict, last_frame: int, out_dir: str) -> dict:
 
 
 def run_slice(port_main, config: dict, dev, last_frame: int):
-    """(records, output dir, wall seconds) of the CLI's eval loop over
-    frames 0..last_frame, in a fresh output dir."""
+    """(records, output dir, wall seconds, peak device GiB) of the CLI's
+    eval loop over frames 0..last_frame, in a fresh output dir."""
     out_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     records = port_main.run(slice_config(config, last_frame, out_dir), eval_mode=True, device=dev)
     torch.cuda.synchronize()
-    return records, out_dir, time.perf_counter() - t0
+    return records, out_dir, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def loop_config(config: dict) -> dict:
+    """``config`` with ``optimizer.chain: false``: the per-scale loop, every
+    Newton evaluation run eagerly."""
+    loop = copy.deepcopy(config)
+    loop["optimizer"]["chain"] = False
+    return loop
+
+
+def loop_repeat(port_main, config: dict, dev, records, peak: float, smi: str, name: str, what: str) -> bool:
+    """Frame 0 of ``config`` again in a fresh run with the loop (``chain:
+    false``): the chained run's metrics, per-scale losses, host syncs and
+    kernel launches per scale, bit for bit (``[name]``); then the path's
+    ``[chain]`` line: chained and loop seconds of the frame (the chained
+    one pays its captures: each run builds a fresh solver), syncs and the
+    runs' peak device memory.  Returns whether the bits agree."""
+    again, _, _, loop_peak = run_slice(port_main, loop_config(config), dev, last_frame=0)
+    a, r = again[0], records[0]
+    same = (r["stats"]["chain"] and not a["stats"]["chain"] and a["metrics"] == r["metrics"]
+            and all(a["stats"][k] == r["stats"][k] for k in ("loss", "syncs", "launches")))
+    phase(name, f"frame 0 in a fresh run with the loop (chain: false, {a['seconds']:.3f} s): metrics, per-scale "
+                f"losses, host syncs and launches bit for bit the chained run's: {'ok' if same else 'FAIL'}")
+    phase("chain", f"{what} frame 0 on {smi}: chained {r['seconds']:.3f} s, loop {a['seconds']:.3f} s "
+                   f"({a['seconds'] / r['seconds']:.2f}x), host syncs {r['stats']['syncs']} / "
+                   f"{a['stats']['syncs']}, peak device memory {peak:.3f} / {loop_peak:.3f} GiB")
+    return same
 
 
 def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
@@ -620,7 +656,7 @@ def dsec_path(port_main, fi, dev, smi, rng):
 
     last = DSEC_LAST_FRAME
     ops.reset_launch_counts()
-    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
+    records, out_dir, wall, peak = run_slice(port_main, config, dev, last_frame=last)
     launches = ops.launch_counts()
     run_config = slice_config(config, last_frame=last, out_dir=out_dir)
     loader, solv = port_main.build(run_config, dev)
@@ -643,17 +679,13 @@ def dsec_path(port_main, fi, dev, smi, rng):
         if not ok:
             failed.append(r["frame"])
     phase("dsec", f"{len(records)} windows in {wall:.2f} s, kernel launches {launches}, out {out_dir}")
-    again, _, again_wall = run_slice(port_main, config, dev, last_frame=0)
-    same = [a["metrics"] == r["metrics"] and a["stats"]["loss"] == r["stats"]["loss"]
-            for a, r in zip(again, records)]
-    phase("dsec-repeat", f"frame 0 in a fresh run ({again_wall:.2f} s): metrics and per-scale losses "
-                         f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
+    same = loop_repeat(port_main, config, dev, records, peak, smi, "dsec-repeat", "DSEC")
     if failed:
         raise SystemExit(f"chip_smoke: DSEC frames {failed}: metrics, K3/K4 launches or subsample wrong")
     if len(records) != last + 1 or 0 in (launches[k] for k in fi.KERNELS):
         raise SystemExit("chip_smoke: the DSEC path did not run its windows through all four kernels")
-    if same != [True]:
-        raise SystemExit("chip_smoke: a second run of DSEC frame 0 did not reproduce its result")
+    if not same:
+        raise SystemExit("chip_smoke: the loop's run of DSEC frame 0 did not reproduce the chained result")
     return launches, errs, times, bounds
 
 
@@ -731,7 +763,7 @@ def ta_path(port_main, fi, dev, smi, rng):
     fd["optimizer"]["coarse_max_iter"] = TA_COARSE_MAX_ITER
     last = TA_LAST_FRAME
     ops.reset_launch_counts()
-    records, out_dir, wall = run_slice(port_main, fd, dev, last_frame=last)
+    records, out_dir, wall, peak = run_slice(port_main, fd, dev, last_frame=last)
     launches = ops.launch_counts()
     run_config = slice_config(fd, last_frame=last, out_dir=out_dir)
     loader, solv = port_main.build(run_config, dev)
@@ -745,25 +777,21 @@ def ta_path(port_main, fi, dev, smi, rng):
     analytic["optimizer"]["hvp_mode"] = "analytic"
     finest = solv.patch_scales - 1
     ops.reset_launch_counts()
-    a_records, a_dir, a_wall = run_slice(port_main, analytic, dev, last_frame=0)
+    a_records, a_dir, a_wall, _ = run_slice(port_main, analytic, dev, last_frame=0)
     a_launches = ops.launch_counts()
     a_config = slice_config(analytic, last_frame=0, out_dir=a_dir)
     a_failed = ta_run_checks(
         a_records, lambda st: all(c["voxel_fwd"] > 0 and (s == finest) == (c["voxel_jvp"] > 0 and c["voxel_hvp_bwd"] > 0)
                                   for s, c in st["launches"].items()), loader, a_config, solv, "ta-analytic-frame")
     phase("ta-analytic", f"{len(a_records)} window in {a_wall:.2f} s, kernel launches {a_launches}, out {a_dir}")
-    again, _, again_wall = run_slice(port_main, fd, dev, last_frame=0)
-    same = [a["metrics"] == r["metrics"] and a["stats"]["loss"] == r["stats"]["loss"]
-            for a, r in zip(again, records)]
-    phase("ta-repeat", f"frame 0 in a fresh run ({again_wall:.2f} s): metrics and per-scale losses "
-                       f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
+    same = loop_repeat(port_main, fd, dev, records, peak, smi, "ta-repeat", "time-aware FD")
     if failed or a_failed:
         raise SystemExit(f"chip_smoke: time-aware frames {failed} (FD), {a_failed} (analytic): metrics or "
                          "K5/K6 launches wrong")
     if len(records) != last + 1 or len(a_records) != 1:
         raise SystemExit("chip_smoke: the time-aware path did not run its windows")
-    if same != [True]:
-        raise SystemExit("chip_smoke: a second run of time-aware frame 0 did not reproduce its result")
+    if not same:
+        raise SystemExit("chip_smoke: the loop's run of time-aware frame 0 did not reproduce the chained result")
     return {k: launches[k] + a_launches[k] for k in launches}, errs, times, bounds
 
 
@@ -1154,6 +1182,7 @@ def serve_path(dev, smi) -> dict:
     server = FlowServer((h, w), port=0, state_path=state, **kw).start()
     base = f"http://127.0.0.1:{server.port}"
     total, failed, flows = {}, [], []
+    torch.cuda.reset_peak_memory_stats()
     try:
         for i, (events, gt, seconds) in enumerate(windows):
             ops.reset_launch_counts()
@@ -1168,6 +1197,8 @@ def serve_path(dev, smi) -> dict:
                 shutil.copy(state, resume_state)
             est = server.estimator
             stats = est._solver.last_frame_stats
+            if i == 0:
+                cold = (wall, dict(stats))
             # the flow is the displacement over the solved window's span; the
             # GT over the eval window's seconds
             pred = flow.astype(np.float64) / span * seconds
@@ -1187,13 +1218,22 @@ def serve_path(dev, smi) -> dict:
                 failed.append(i)
     finally:
         server.shutdown()
-    again = FlowServer((h, w), port=0, **kw).start()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    again = FlowServer((h, w), port=0, optimizer_config={"chain": False}, **kw).start()
     try:
         t0 = time.perf_counter()
         flow0, _ = push_window(f"http://127.0.0.1:{again.port}", windows[0][0])
-        same = np.array_equal(flow0, flows[0])
-        phase("serve-repeat", f"window 0 to a fresh server ({time.perf_counter() - t0:.3f} s): flow bit for bit "
-                              f"the same: {'ok' if same else 'FAIL'}")
+        loop_wall = time.perf_counter() - t0
+        loop = again.estimator._solver.last_frame_stats
+        same = (np.array_equal(flow0, flows[0]) and cold[1]["chain"] and not loop["chain"]
+                and all(loop[k] == cold[1][k] for k in ("loss", "syncs", "launches")))
+        phase("serve-repeat", f"window 0 to a fresh server with the loop (chain: false, {loop_wall:.3f} s): flow, "
+                              f"per-scale losses, host syncs and launches bit for bit the chained push's: "
+                              f"{'ok' if same else 'FAIL'}")
+        phase("chain", f"serving cold push (window 0) on {smi}: chained {cold[0]:.3f} s, loop {loop_wall:.3f} s "
+                       f"({loop_wall / cold[0]:.2f}x), host syncs {cold[1]['syncs']} / {loop['syncs']}, peak device "
+                       f"memory {peak:.3f} (the three chained pushes) / {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     finally:
         again.shutdown()
     resumed = FlowServer((h, w), port=0, state_path=resume_state, **kw).start()
@@ -1208,7 +1248,7 @@ def serve_path(dev, smi) -> dict:
     if failed:
         raise SystemExit(f"chip_smoke: serving windows {failed}: EPE, HVP modes or kernel launches wrong")
     if not same:
-        raise SystemExit("chip_smoke: a fresh server's push of window 0 did not reproduce its flow")
+        raise SystemExit("chip_smoke: the loop's push of window 0 did not reproduce the chained push")
     if not resume_ok:
         raise SystemExit("chip_smoke: a server did not resume the serving state file")
     return total
@@ -1272,7 +1312,7 @@ def main() -> int:
     # the slice: the CLI's eval loop
     last = MVSEC_LAST_FRAME
     ops.reset_launch_counts()
-    records, out_dir, wall = run_slice(port_main, config, dev, last_frame=last)
+    records, out_dir, wall, peak = run_slice(port_main, config, dev, last_frame=last)
     launches = ops.launch_counts()
     run_config = slice_config(config, last_frame=last, out_dir=out_dir)
     slice_loader, solv = port_main.build(run_config, dev)
@@ -1292,18 +1332,14 @@ def main() -> int:
         n_lines = len(f.read().strip().splitlines())
     phase("slice", f"{len(records)} windows in {wall:.2f} s, eval_metrics.jsonl lines {n_lines}, "
                    f"kernel launches {launches}, out {out_dir}")
-    again, _, again_wall = run_slice(port_main, config, dev, last_frame=0)
-    same = [a["metrics"] == r["metrics"] and a["stats"]["loss"] == r["stats"]["loss"]
-            for a, r in zip(again, records)]
-    phase("repeat", f"frame 0 in a fresh run ({again_wall:.2f} s): metrics and per-scale losses "
-                    f"bit for bit the same: {'ok' if same == [True] else 'FAIL'}")
+    same = loop_repeat(port_main, config, dev, records, peak, smi, "repeat", "MVSEC")
     if failed:
         raise SystemExit(f"chip_smoke: frames {failed}: metrics not finite or not below the zero flow")
     if (len(records) != last + 1 or n_lines != last + 1
             or 0 in (launches["fwd"], launches["bwd"], launches["vote"])):
         raise SystemExit("chip_smoke: the eval loop did not run its windows through K1, K2 and K8")
-    if same != [True]:
-        raise SystemExit("chip_smoke: a second run of frame 0 did not reproduce its result")
+    if not same:
+        raise SystemExit("chip_smoke: the loop's run of frame 0 did not reproduce the chained result")
 
     # each path's run counts from 0; a kernel's launches are all paths' runs'
     paths = (dsec_path, ta_path, lambda *a: fleet_path(*a, sequential_epe=records[0]["metrics"]["EPE"]))

@@ -131,10 +131,8 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
         t0 = time.perf_counter()
         batch_for_optimization, batch_for_gt_slice, gt_flow, flow_time = _gather_frame(
             loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
-        best_motion = solv.optimize(batch_for_optimization)
-        flow_error = solv.calculate_flow_error(
-            best_motion, gt_flow, timescale=flow_time, events=batch_for_gt_slice
-        )
+        best_motion, flow_error = solv.optimize_with_metrics(batch_for_optimization, gt_flow, flow_time,
+                                                             batch_for_gt_slice)
         if warm_start:
             solv.set_previous_frame_best_estimation(best_motion)
         solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")

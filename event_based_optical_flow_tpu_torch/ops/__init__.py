@@ -28,6 +28,7 @@ __all__ = [
     "warp_2dof",
     "warp_dense_flow",
     "warp_voxel_flow",
+    "add_launch_counts",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -42,3 +43,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     fused_iwe.reset_launch_counts()
     vote.reset_launch_counts()
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (keyed as ``launch_counts`` keys them) to the
+    counters: the launches of a replayed CUDA graph, whose kernels no
+    wrapper launched (``solver/graphs.py``)."""
+    fused_iwe.add_launch_counts(counts)
+    vote.add_launch_counts(counts)

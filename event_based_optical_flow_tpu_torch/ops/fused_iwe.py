@@ -251,6 +251,13 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add the entries of ``counts`` that name these kernels' forms."""
+    for k, v in counts.items():
+        if k in _LAUNCHES:
+            _LAUNCHES[k] += v
+
+
 def reset_launch_counts() -> None:
     for prefix in FORMS:
         for k in KERNELS:

@@ -16,6 +16,7 @@ The resizes are written as four static-index gathers and a lerp (index
 and weight tables from numpy): no ``F.interpolate`` and no convolution.
 """
 
+import functools
 import math
 from typing import Tuple
 
@@ -27,20 +28,38 @@ from .blur import _pad_index
 Tensor = torch.Tensor
 
 
-def _resize_bilinear(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
-    """Half-pixel bilinear resize with edge clamping, last two axes."""
-    in_h, in_w = img.shape[-2], img.shape[-1]
-    oh, ow = out_hw
+@functools.lru_cache(maxsize=256)
+def _bilinear_tables(in_h: int, in_w: int, oh: int, ow: int, device: torch.device, dtype: torch.dtype):
+    """(y0, y1, x0, x1, wy, wx) of a half-pixel resize, on the device, once
+    per geometry: a table built per call would copy from the host in every
+    evaluation, which a CUDA graph cannot capture."""
     ys = (np.arange(oh) + 0.5) * in_h / oh - 0.5
     xs = (np.arange(ow) + 0.5) * in_w / ow - 0.5
     y0 = np.clip(np.floor(ys).astype(int), 0, in_h - 1)
     x0 = np.clip(np.floor(xs).astype(int), 0, in_w - 1)
     y1 = np.clip(y0 + 1, 0, in_h - 1)
     x1 = np.clip(x0 + 1, 0, in_w - 1)
-    dev = img.device
-    wy = torch.as_tensor(np.clip(ys - y0, 0.0, 1.0), dtype=img.dtype, device=dev)
-    wx = torch.as_tensor(np.clip(xs - x0, 0.0, 1.0), dtype=img.dtype, device=dev)
-    y0, y1, x0, x1 = (torch.as_tensor(a, device=dev) for a in (y0, y1, x0, x1))
+    wy = torch.as_tensor(np.clip(ys - y0, 0.0, 1.0), dtype=dtype, device=device)
+    wx = torch.as_tensor(np.clip(xs - x0, 0.0, 1.0), dtype=dtype, device=device)
+    return tuple(torch.as_tensor(a, device=device) for a in (y0, y1, x0, x1)) + (wy, wx)
+
+
+@functools.lru_cache(maxsize=256)
+def _index_table(kind: str, n: int, m: int, device: torch.device) -> Tensor:
+    """A static gather index on the device, once per geometry: ``clamp``,
+    the n indices of an axis replicate-padded by m on both sides;
+    ``nearest``, the m sources of a nearest resize of n."""
+    if kind == "clamp":
+        values = np.clip(np.arange(-m, n + m), 0, n - 1)
+    else:
+        values = np.arange(m) * n // m
+    return torch.as_tensor(values, device=device)
+
+
+def _resize_bilinear(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
+    """Half-pixel bilinear resize with edge clamping, last two axes."""
+    y0, y1, x0, x1, wy, wx = _bilinear_tables(img.shape[-2], img.shape[-1], out_hw[0], out_hw[1],
+                                              img.device, img.dtype)
     rows0 = img.index_select(-2, y0)
     rows1 = img.index_select(-2, y1)
     a = rows0.index_select(-1, x0)
@@ -54,9 +73,8 @@ def _resize_bilinear(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
 
 def _resize_nearest(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """torch nearest semantics: src = floor(dst * in / out)."""
-    in_h, in_w = img.shape[-2], img.shape[-1]
-    ih = torch.as_tensor(np.arange(out_hw[0]) * in_h // out_hw[0], device=img.device)
-    iw = torch.as_tensor(np.arange(out_hw[1]) * in_w // out_hw[1], device=img.device)
+    ih = _index_table("nearest", img.shape[-2], out_hw[0], img.device)
+    iw = _index_table("nearest", img.shape[-1], out_hw[1], img.device)
     return img.index_select(-2, ih).index_select(-1, iw)
 
 
@@ -77,8 +95,7 @@ def tile_to_dense_flow(
     # that deterministic mode orders (replicate pad's own backward is not)
     for axis, pad in ((-2, pad_h), (-1, pad_w)):
         n = arr.shape[axis]
-        idx = torch.as_tensor(np.clip(np.arange(-pad, n + pad), 0, n - 1), device=arr.device)
-        arr = arr.index_select(axis, idx)
+        arr = arr.index_select(axis, _index_table("clamp", n, pad, arr.device))
     out_hw = (arr.shape[1] * sliding_window[0], arr.shape[2] * sliding_window[1])
     if filter_type == "bilinear":
         dense = _resize_bilinear(arr, out_hw)

@@ -70,6 +70,11 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts["vote"]``, if there is one."""
+    _LAUNCHES["vote"] += counts.get("vote", 0)
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES["vote"] = 0
 

@@ -61,12 +61,15 @@ class FlowServer:
             self.estimator.load_state(state_path)
             logger.info(f"resumed serving state from {state_path}")
         if warmup:
-            # pay the kernels' build and the first solves at server start,
-            # not on the first client push; a resumed warm chain survives
-            # (warmup restores the pre-warmup state)
+            # pay the kernels' build, the first solves and the chain's
+            # captures at server start, not on the first client push; a
+            # resumed warm chain survives (warmup restores the pre-warmup
+            # state)
             logger.info("warming up the solve ...")
             dt = self.estimator.warmup()
             logger.info(f"warmup done in {dt:.1f}s (cold + warm windows)")
+        # one solve at a time: the chain's CUDA graph captures and replays
+        # share the solver's static buffers
         self._lock = threading.Lock()
         outer = self
 

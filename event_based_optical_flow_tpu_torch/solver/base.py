@@ -166,3 +166,16 @@ class SolverBase:
 
     def optimize(self, events: np.ndarray):
         raise NotImplementedError
+
+    def optimize_with_metrics(self, events: np.ndarray, gt_flow: np.ndarray, timescale: float,
+                              metric_events: np.ndarray):
+        """The eval loop's solve and AEE/FWL metrics in one call (the JAX
+        pyramid's ``optimize_with_metrics``): (solution, flow-error dict),
+        the values of ``optimize`` then ``calculate_flow_error``.  JAX's
+        fusable conditions (the chain, no outer padding, no host griddata
+        voxel scheme, no trace) decide whether it appends the metrics to the
+        chain's dispatch; the port captures no metrics (one evaluation per
+        frame), so every solver solves (the pyramid chained when
+        ``_chain_ready``) and then scores."""
+        best = self.optimize(events)
+        return best, self.calculate_flow_error(best, gt_flow, timescale=timescale, events=metric_events)

@@ -414,6 +414,10 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         syncs."""
         from .. import ops
 
+        if self._chain_ready() and not getattr(self, "_logged_chain", False):
+            logger.info("optimizer.chain: the fleet chain (the JAX package's _optimize_batch_chain) is not "
+                        "ported yet; the batch solves with the per-scale loop")
+            self._logged_chain = True
         events_list = [np.asarray(e, dtype=np.float64) for e in events_list]
         bsz = len(events_list)
         warms = self._frame_warms(bsz)

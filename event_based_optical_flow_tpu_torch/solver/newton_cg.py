@@ -23,7 +23,10 @@ plateau-escape probe; best-iterate tracking.  Hessian-vector products:
 The JAX package runs each loop as a ``lax.while_loop`` inside one device
 program.  Here the loops are Python loops over device tensors: every loop
 condition reads one boolean back to the host, a device synchronization.
-``NewtonCG.syncs`` counts them (CUDA graphs can remove them later).
+``NewtonCG.syncs`` counts them.  The evaluations between the reads (value,
+value and gradient, the HVPs) come from an evaluations object: run as
+called (``EagerEvaluations``), or replayed from CUDA graphs
+(``solver/graphs.py``); the arithmetic between them is the same either way.
 """
 
 from typing import Callable, Optional
@@ -42,6 +45,53 @@ def _norm(v: Tensor) -> Tensor:
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b)
+
+
+def fd_hvp(value_grad: Callable, x: Tensor, p: Tensor, g0: Tensor, central: bool) -> Tensor:
+    """The finite-difference HVP along ``p``: the difference of the
+    gradients at ``x +- eps p`` (central), or at ``x + eps p`` against the
+    iterate's ``g0``; ``eps`` from ``|x|`` and ``|p|`` on the device."""
+    p_norm = _norm(p) + 1e-12
+    eps = _FD_EPS_SCALE * (1.0 + 1e-3 * _norm(x)) / p_norm
+    g_plus = value_grad(x + eps * p)[1]
+    if not central:
+        return (g_plus - g0) / eps
+    g_minus = value_grad(x - eps * p)[1]
+    return (g_plus - g_minus) / (2.0 * eps)
+
+
+class EagerEvaluations:
+    """The evaluations of one Newton problem, ``value_fn(x, *args)`` (with
+    the analytic HVP's ``hvp_fn`` and, staged, ``hvp_prep_fn``), run as
+    they are called."""
+
+    def __init__(self, value_fn: Callable, args: tuple, hvp_fn: Optional[Callable] = None,
+                 hvp_prep_fn: Optional[Callable] = None):
+        self.value_fn, self.args = value_fn, args
+        self.hvp_fn, self.hvp_prep_fn = hvp_fn, hvp_prep_fn
+        self.staged = hvp_prep_fn is not None
+
+    def value(self, x: Tensor) -> Tensor:
+        with torch.no_grad():
+            return self.value_fn(x, *self.args)
+
+    def value_grad(self, x: Tensor):
+        xr = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = self.value_fn(xr, *self.args)
+            (g,) = torch.autograd.grad(f, xr)
+        return f.detach(), g
+
+    def fd_hvp(self, x: Tensor, p: Tensor, g0: Tensor, central: bool) -> Tensor:
+        return fd_hvp(self.value_grad, x, p, g0, central)
+
+    def prep(self, x: Tensor) -> Tensor:
+        return self.hvp_prep_fn(x, *self.args)
+
+    def hvp(self, aux, x: Tensor, p: Tensor) -> Tensor:
+        if self.staged:
+            return self.hvp_fn(aux, x, p, *self.args)
+        return self.hvp_fn(x, p, *self.args)
 
 
 class NewtonCG:
@@ -85,33 +135,13 @@ class NewtonCG:
         return bool(t)
 
     # --- evaluations ----------------------------------------------------
-    def _value(self, x, args) -> Tensor:
-        with torch.no_grad():
-            return self.value_fn(x, *args)
-
-    def _value_grad(self, x, args):
-        xr = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            f = self.value_fn(xr, *args)
-            (g,) = torch.autograd.grad(f, xr)
-        return f.detach(), g
-
-    def _hvp(self, x, p, args, g0, aux, mode):
+    def _hvp(self, x, p, ev, g0, aux, mode):
         if mode == "analytic":
-            if self.hvp_prep_fn is not None:
-                return self.hvp_fn(aux, x, p, *args)
-            return self.hvp_fn(x, p, *args)
-        p_norm = _norm(p) + 1e-12
-        eps = _FD_EPS_SCALE * (1.0 + 1e-3 * _norm(x)) / p_norm
-        g_plus = self._value_grad(x + eps * p, args)[1]
-        if not (self.fd_central or mode == "fd-central"):
-            # one-sided difference against the iterate's gradient
-            return (g_plus - g0) / eps
-        g_minus = self._value_grad(x - eps * p, args)[1]
-        return (g_plus - g_minus) / (2.0 * eps)
+            return ev.hvp(aux, x, p)
+        return ev.fd_hvp(x, p, g0, self.fd_central or mode == "fd-central")
 
     # --- inner CG ---------------------------------------------------------
-    def _cg_solve(self, x, g, args, mode):
+    def _cg_solve(self, x, g, ev, mode):
         """Truncated CG on H p = -g (scipy forcing sequence and
         negative-curvature handling)."""
         g_norm = _norm(g)
@@ -121,9 +151,9 @@ class NewtonCG:
         i = 0
         go = i < self.cg_maxiter and self._flag(_norm(r) > eta)
         while go:
-            if aux is None and mode == "analytic" and self.hvp_prep_fn is not None:
-                aux = self.hvp_prep_fn(x, *args)
-            hd = self._hvp(x, d, args, g, aux, mode)
+            if aux is None and mode == "analytic" and ev.staged:
+                aux = ev.prep(x)
+            hd = self._hvp(x, d, ev, g, aux, mode)
             curv = _dot(d, hd)
             rs = _dot(r, r)
             neg_curv = curv <= 1e-16 * _dot(d, d)
@@ -147,7 +177,7 @@ class NewtonCG:
         return torch.where(_dot(p, p) > 0, p, -g)
 
     # --- line searches --------------------------------------------------
-    def _line_search(self, x, f0, g, p, args):
+    def _line_search(self, x, f0, g, p, ev):
         """Two-sided backtracking: at each level try x +- alpha p and accept
         the first strict improvement (largest such alpha)."""
         c1 = self.armijo_c1
@@ -159,8 +189,8 @@ class NewtonCG:
             alpha = alpha.abs()
             if i > 0:
                 alpha = alpha * 0.5
-            f_plus = self._value(x + alpha * p, args)
-            f_minus = self._value(x - alpha * p, args)
+            f_plus = ev.value(x + alpha * p)
+            f_minus = ev.value(x - alpha * p)
             take_minus = f_minus < f_plus
             f_best = torch.where(take_minus, f_minus, f_plus)
             alpha = torch.where(take_minus, -alpha, alpha)
@@ -170,7 +200,7 @@ class NewtonCG:
         ok = f_best < f0 - c1 * alpha.abs() * gtp_abs
         return torch.where(ok, alpha, torch.zeros_like(alpha)), torch.where(ok, f_best, f0)
 
-    def _escape_probe(self, x, f0, p, args):
+    def _escape_probe(self, x, f0, p, ev):
         """Outward two-sided exponential search along p-hat after a failed
         backtracking search; returns a signed step (p-hat units) or 0."""
         p_hat = p / (_norm(p) + 1e-12)
@@ -178,8 +208,8 @@ class NewtonCG:
         best_a = torch.zeros_like(f0)
         best_f = f0
         for i in range(9):
-            f_plus = self._value(x + mag * p_hat, args)
-            f_minus = self._value(x - mag * p_hat, args)
+            f_plus = ev.value(x + mag * p_hat)
+            f_minus = ev.value(x - mag * p_hat)
             take_minus = f_minus < f_plus
             f_cand = torch.where(take_minus, f_minus, f_plus)
             a_cand = torch.where(take_minus, -torch.full_like(f0, mag), torch.full_like(f0, mag))
@@ -193,7 +223,7 @@ class NewtonCG:
         return torch.where(ok, best_a, torch.zeros_like(best_a)), p_hat
 
     # --- outer loops ------------------------------------------------------
-    def _iterate(self, x, f, g, best_x, best_f, maxiter, args, mode, cap, escape):
+    def _iterate(self, x, f, g, best_x, best_f, maxiter, ev, mode, cap, escape):
         """Newton iterations with one curvature model (``make_body`` of the
         JAX package): ``cap`` clips the Newton direction per component,
         ``escape`` arms the plateau-escape probe.  Returns (best_x, best_f,
@@ -201,26 +231,26 @@ class NewtonCG:
         k = 0
         done = False
         while not done and k < maxiter:
-            p = self._cg_solve(x, g, args, mode)
+            p = self._cg_solve(x, g, ev, mode)
             if cap is not None:
                 # per component, not an inf-norm rescale: one tile's large
                 # update must not shrink every other tile's step
                 p = p.clamp(-cap, cap)
-            alpha, f_new = self._line_search(x, f, g, p, args)
+            alpha, f_new = self._line_search(x, f, g, p, ev)
             # plateau escape: outward probe when backtracking failed OR the
             # first iteration found only a negligible decrease
             trigger = alpha == 0.0
             if k == 0:
                 trigger = trigger | (f - f_new <= 1e-6 * (1.0 + f.abs()))
             if escape and self._flag(trigger):
-                a_esc, p_hat = self._escape_probe(x, f, p, args)
+                a_esc, p_hat = self._escape_probe(x, f, p, ev)
                 use_esc = a_esc != 0.0
                 alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
                 step = torch.where(use_esc, a_esc * p_hat, alpha * p)
             else:
                 step = alpha * p
             x_new = x + step
-            f_new2, g_new = self._value_grad(x_new, args)
+            f_new2, g_new = ev.value_grad(x_new)
             improved = f_new2 < best_f
             best_x = torch.where(improved, x_new, best_x)
             best_f = torch.where(improved, f_new2, best_f)
@@ -232,17 +262,21 @@ class NewtonCG:
         return best_x, best_f, k
 
     def __call__(self, x0: Tensor, *args):
+        return self.solve(EagerEvaluations(self.value_fn, args, self.hvp_fn, self.hvp_prep_fn), x0)
+
+    def solve(self, ev, x0: Tensor):
+        """``(x_best, f_best, n_iters)`` from ``x0``, the evaluations taken
+        from ``ev`` (``EagerEvaluations`` or ``graphs.StagedEvaluations``)."""
         x = x0.detach()
-        f, g = self._value_grad(x, args)
-        best_x, best_f, k = self._iterate(x, f, g, x, f, self.maxiter, args, self.hvp_mode,
-                                          self.max_step, True)
+        f, g = ev.value_grad(x)
+        best_x, best_f, k = self._iterate(x, f, g, x, f, self.maxiter, ev, self.hvp_mode, self.max_step, True)
         if self.fd_polish > 0 and self.hvp_mode == "analytic":
             # central-FD refinement from the analytic solve's best iterate:
             # the Gauss-Newton a.e. curvature can read ~0 at warm
             # near-stationary points; no step clip, no escape probe
-            fb, gb = self._value_grad(best_x, args)
-            best_x, best_f, k2 = self._iterate(best_x, fb, gb, best_x, fb, self.fd_polish, args,
-                                               "fd-central", None, False)
+            fb, gb = ev.value_grad(best_x)
+            best_x, best_f, k2 = self._iterate(best_x, fb, gb, best_x, fb, self.fd_polish, ev, "fd-central",
+                                               None, False)
             k += k2
         return best_x, best_f, k
 

@@ -116,6 +116,19 @@ class FrameEvents:
                    None if bins is None else torch.as_tensor(bins[order], dtype=torch.int32,
                                                              device=device))
 
+    def copy_(self, other: "FrameEvents") -> "FrameEvents":
+        """Copy ``other``'s events into this instance's tensors, in place
+        (a captured CUDA graph reads them): the same event count, dtype,
+        device, and time bins or none."""
+        if (other.x.shape != self.x.shape or other.x.dtype != self.x.dtype or other.x.device != self.x.device
+                or (other.bins is None) != (self.bins is None)):
+            raise ValueError(f"copy_ takes a frame of {self.x.shape[0]} {self.x.dtype} events on {self.x.device} "
+                             f"{'with' if self.bins is not None else 'without'} time bins, got "
+                             f"{other.x.shape[0]} {other.x.dtype} on {other.x.device}")
+        for name in ("x", "y", "dtf", "wt", "t_scale") + (() if self.bins is None else ("bins",)):
+            getattr(self, name).copy_(getattr(other, name))
+        return self
+
 
 @dataclass
 class FleetEvents:

@@ -175,11 +175,14 @@ class PatchContrastMaximization(SolverBase):
 
     def _run_newton(self, spec: ObjectiveSpec, x0: torch.Tensor, frame: FrameEvents,
                     orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
-                    warm: bool = False, gtol: float = 1e-5):
+                    warm: bool = False, gtol: float = 1e-5, stage=None):
         """One Newton-CG solve of this scale's objective from ``x0``
         (flat [2 * n_patch]); returns (best_x, best_f, n_iter, hvp), hvp
         naming the curvature model: "fd", "analytic-gn" or
-        "analytic-full"."""
+        "analytic-full".  With ``stage`` (a ``graphs.Stage`` whose buffers
+        are ``frame`` and ``orig``) the evaluations are the stage's,
+        replayed from CUDA graphs on the card (the chain); without, they
+        run eagerly (the loop)."""
         analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_objective(spec)
         hvp_kw = {"hvp_mode": "fd"}
@@ -188,9 +191,15 @@ class PatchContrastMaximization(SolverBase):
             hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
         solve = build_newton_cg(lambda x, *a: obj(x, *a)[0],
                                 **self._newton_options(analytic, finest, maxiter, cg_maxiter, gtol), **hvp_kw)
-        best_x, best_f, n_iter = solve(x0.reshape(-1).to(self.dtype), orig, frame)
+        x0 = x0.reshape(-1).to(self.dtype)
+        name = self._hvp_name(analytic, gauss_newton)
+        if stage is None:
+            best_x, best_f, n_iter = solve(x0, orig, frame)
+        else:
+            ev = stage.evaluations((spec, name), solve.value_fn, solve.hvp_fn, solve.hvp_prep_fn)
+            best_x, best_f, n_iter = solve.solve(ev, x0)
         self.syncs += solve.syncs
-        return best_x, best_f, n_iter, self._hvp_name(analytic, gauss_newton)
+        return best_x, best_f, n_iter, name
 
     # --- per-patch init sweep -----------------------------------------------
     def _patch_capacity(self, n_events: int) -> int:

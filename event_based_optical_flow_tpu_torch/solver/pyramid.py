@@ -17,9 +17,12 @@ finest solves its Newton problem on a stride subsample of the events (its
 own ``FrameEvents`` and its own orig IWE); the init sweep and the finest
 scale see every event.
 
-The JAX package's whole-frame device chains (``_optimize_chain``,
-``optimize_with_metrics``) fuse this same loop into one TPU dispatch;
-the port runs the loop itself.
+With ``optimizer.chain`` (on by default, as in the JAX package) the frame
+runs chained (``_optimize_chain``, the port's counterpart of the JAX
+package's one-dispatch ``_optimize_chain``): the same loop, every Newton
+evaluation replayed from the solver's CUDA graphs (``solver/graphs.py``),
+with the loop's bits; ``optimizer.chain: false`` runs the loop with eager
+evaluations.
 """
 
 import logging
@@ -30,6 +33,7 @@ import torch
 
 from ..ops.interp import pyramid_expand, pyramid_reduce
 from . import objective
+from .graphs import ChainGraphs
 from .objective import FrameEvents, build_orig_iwe
 from .patch_base import PatchContrastMaximization, prepare_patch
 
@@ -71,6 +75,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             (self.image_shape[1] - self.cropped_width) // 2,
         )
         self.last_frame_stats: dict = {}
+        self._graphs: Optional[ChainGraphs] = None  # the chain's captured evaluations
 
     def prepare_pyramidal_patch(self, image_size, coarsest_scale: int, finest_scale: int):
         """Per-scale tile geometry."""
@@ -114,7 +119,33 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
     # ----------------------------------------------------------------- main
     def optimize(self, events: np.ndarray) -> Dict[int, torch.Tensor]:
         """Solve one frame: {scale: motion [2, h_s, w_s]} on the solver's
-        device (the finest scale is the output flow's tile motion)."""
+        device (the finest scale is the output flow's tile motion);
+        chained when ``_chain_ready``."""
+        if self._chain_ready():
+            return self._optimize_chain(events)
+        return self._optimize_scales(events, chain=False)
+
+    def _chain_ready(self) -> bool:
+        """Whether the frame runs chained (the JAX package's gate,
+        ``pyramid.py::_chain_ready``): the device Newton-CG,
+        ``optimizer.chain`` (default on), at least two scales."""
+        return (self.opt_config.get("method") == "Newton-CG" and bool(self.opt_config.get("device", True))
+                and bool(self.opt_config.get("chain", True)) and self.patch_scales - self.coarsest_scale >= 2)
+
+    def _optimize_chain(self, events: np.ndarray) -> Dict[int, torch.Tensor]:
+        """The per-scale loop with every Newton evaluation replayed from
+        the solver's CUDA graphs: the frame's event sets are staged into
+        their captured buffers, and the init sweeps stay eager (one call
+        per scale, with their draws).  The JAX chain's contract is the
+        loop's result ("same kernels, same key order"); here it is the
+        loop's bits."""
+        if self._graphs is None:
+            self._graphs = ChainGraphs(self.device)
+        return self._optimize_scales(events, chain=True)
+
+    def _optimize_scales(self, events: np.ndarray, chain: bool) -> Dict[int, torch.Tensor]:
+        """The coarse-to-fine loop; ``chain``: the evaluations from the
+        staged CUDA graphs (``_optimize_chain``)."""
         from .. import ops
 
         logger.info(f"Start optimization. DoF {self.motion_vector_size * self.total_n_patch}")
@@ -129,16 +160,21 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         if sub is not None:
             coarse = FrameEvents.from_numpy(sub, self.device, self.dtype, self.time_bin)
             newton_events["coarse"] = (coarse, orig_fn(coarse))
+        stages = {}
+        if chain:
+            stages = {name: self._graphs.stage(name, *fo) for name, fo in newton_events.items()}
+            newton_events = {name: (st.frame, st.orig) for name, st in stages.items()}
         warm_motion = self.previous_frame_best_estimation
         warm = warm_motion is not None
         self.syncs = 0
-        stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}}
+        stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}, "chain": chain}
         best_motion_per_scale: Dict[int, torch.Tensor] = {}
         for s in range(self.coarsest_scale, self.patch_scales):
             self.overload_patch_configuration(s)
             spec = self._current_spec()
             finest = s == self.patch_scales - 1
-            frame, orig = newton_events["full" if finest or sub is None else "coarse"]
+            events_key = "full" if finest or sub is None else "coarse"
+            frame, orig = newton_events[events_key]
             before = ops.launch_counts()
             presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
             if presearch is None:
@@ -148,7 +184,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
                 x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
             scale_mi, scale_cg = self._scale_budget(s)
             best_x, best_f, n_iter, hvp = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg,
-                                                           finest=finest, warm=warm)
+                                                           finest=finest, warm=warm, stage=stages.get(events_key))
             best_motion_per_scale[s] = best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
             loss = float(best_f)
             self.syncs += 1
@@ -156,8 +192,11 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, loss, hvp
             stats["events"][s] = frame.x.shape[0]
             stats["launches"][s] = {k: after[k] - before[k] for k in after}
-            logger.info(f"Scale {s} done: {n_iter} iters ({hvp} HVP, {frame.x.shape[0]} events), "
-                        f"loss {loss:.6f}")
+            if chain:
+                logger.info(f"Scale {s} done (chained): {n_iter} iters, loss {loss:.6f}")
+            else:
+                logger.info(f"Scale {s} done: {n_iter} iters ({hvp} HVP, {frame.x.shape[0]} events), "
+                            f"loss {loss:.6f}")
         stats["syncs"] = self.syncs
         self.last_frame_stats = stats
         return self.update_coarse_from_fine(best_motion_per_scale)

@@ -20,7 +20,9 @@ Event-count discipline (``fixed_event_count=N``): windows larger than N are
 uniformly subsampled to exactly N (temporal order kept), and windows smaller
 than N borrow the most recent events from the previous window's tail (the
 sliding fixed-count window of event pipelines; assumes consecutive
-non-overlapping pushes), so every solved window has the protocol's size.
+non-overlapping pushes), so every solved window has the protocol's size, and the pyramid's chained
+solve (``optimizer.chain``, on by default) replays the CUDA graphs its
+first window of that size captured.
 
 State files are npz in the JAX package's layout (``warm_{s}`` /
 ``warm_{k}_{s}`` float64 motions per scale, ``tail`` / ``tail_{k}``,
@@ -262,7 +264,9 @@ class StreamingFlowEstimator:
     def warmup(self, n_windows: int = 2, n_events: Optional[int] = None,
                seed: int = 0) -> float:
         """Push synthetic moving-dot windows through the full solve path
-        before real traffic (the kernels' build, the allocator's pools),
+        before real traffic (the kernels' build, the allocator's pools, and
+        the pyramid chain's CUDA graphs for ``count``-event windows, which
+        later pushes of that size replay),
         then restore the pre-warmup serving state: the warm chain, the
         borrow tail, the counters and the solver's randomness, so warmup
         never leaks into real results (a resumed chain survives it).  Two

@@ -198,6 +198,11 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
                 raise ConfigError(
                     f"'optimizer.{budget_key}' must be a positive int, got {val!r}"
                 )
+    # optimizer.chain (default on): the sequential pyramid runs chained, its
+    # Newton evaluations replayed from CUDA graphs (solver/graphs.py); the
+    # fleet keeps its per-scale loop (solver/fleet.py logs it)
+    if not isinstance(opt.get("chain", True), bool):
+        warnings.append(f"'optimizer.chain' is read as a bool, got {opt['chain']!r}")
     for key in opt:
         if key not in _KNOWN_OPT_KEYS:
             warnings.append(f"unknown config key 'optimizer.{key}' (ignored?)")

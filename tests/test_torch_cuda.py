@@ -856,3 +856,172 @@ def test_vote_routing_gradient_and_checks(cuda_device):
         VOTE.bilinear_vote_kernel(ev, (H, W), torch.ones(len(ev1), dtype=torch.float32, device=cuda_device))
     with pytest.raises(ValueError):
         VOTE.bilinear_vote_kernel(ev[:, :3].contiguous(), (H, W))
+
+
+# --- the chain: Newton evaluations replayed from CUDA graphs -----------------
+def _chain_problem(dtype, device, scheme=None, seed=11, n=4000):
+    """A small objective (``_objective_problem``'s spec, time-aware with
+    ``T_BINS`` bins and the voxel ``scheme``) on the card: (spec, frame,
+    orig, motion, direction)."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    events, spec = _objective_problem(rng)
+    time_bin = None if scheme is None else T_BINS
+    if scheme is not None:
+        spec = dataclasses.replace(spec, time_aware=True, time_bin=T_BINS, flow_interpolation=scheme,
+                                   t0_location="middle")
+    events = events[:n]
+    frame = FrameEvents.from_numpy(events, device, dtype, time_bin=time_bin)
+    orig = build_orig_iwe(spec)(frame)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return spec, frame, orig, t(rng.uniform(-20, 20, 8)), t(rng.normal(0, 1, 8))
+
+
+def _evaluations(spec, stage_or_args):
+    """The objective's evaluations, staged on a ``graphs.Stage`` or eager
+    on ``(orig, frame)``."""
+    from event_based_optical_flow_tpu_torch.solver.graphs import Stage
+    from event_based_optical_flow_tpu_torch.solver.newton_cg import EagerEvaluations
+
+    obj = build_objective(spec)
+    value = lambda x, *a: obj(x, *a)[0]  # noqa: E731
+    prep, hvp = build_objective_hvp_staged(spec, True)
+    if isinstance(stage_or_args, Stage):
+        return stage_or_args.evaluations((spec, "test"), value, hvp, prep)
+    return EagerEvaluations(value, stage_or_args, hvp, prep)
+
+
+def _all_kinds(ev, m, p, g0):
+    """Every kind of evaluation at (m, p), in one order."""
+    f, g = ev.value_grad(m)
+    aux = ev.prep(m)
+    return [ev.value(m), f, g, ev.fd_hvp(m, p, None, True), ev.fd_hvp(m, p, g0, False), aux,
+            ev.hvp(aux, m, p)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", [None, "burgers", "upwind", "bilinear", "max"])
+def test_replayed_evaluations_equal_eager(cuda_device, deterministic, scheme):
+    """Value, value and gradient, the central and one-sided FD HVP and the
+    analytic prep and HVP, captured at their first call and replayed at
+    every later one (at other inputs), give the eager evaluations' bits,
+    dense and time-aware with every device voxel scheme (the direct
+    schemes' ``index_put`` and ``scatter_reduce`` inside the capture); the
+    first call is the warm-up and returns the eager result too."""
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    spec, frame, orig, m, p = _chain_problem(torch.float32, cuda_device, scheme)
+    eager = _evaluations(spec, (orig, frame))
+    stage = ChainGraphs(cuda_device).stage("full", frame, orig)
+    staged = _evaluations(spec, stage)
+    g0 = eager.value_grad(m)[1]
+    for k in range(3):
+        mk, pk = m + 0.5 * k, p * (1 + k)
+        want = _all_kinds(eager, mk, pk, g0)
+        got = _all_kinds(staged, mk, pk, g0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+        assert all(c.graph is not None for c in (staged._value, staged._value_grad, staged._fd_central,
+                                                 staged._fd_one_sided, staged._prep, staged._hvp))
+
+
+@pytest.mark.cuda
+def test_replays_count_the_captured_launches(cuda_device, deterministic):
+    """A replay adds its graph's kernel launches to the counters, the
+    capture adds none: each evaluation counts what its eager twin counts."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    spec, frame, orig, m, p = _chain_problem(torch.float32, cuda_device)
+    eager = _evaluations(spec, (orig, frame))
+    staged = _evaluations(spec, ChainGraphs(cuda_device).stage("full", frame, orig))
+    g0 = eager.value_grad(m)[1]
+    counts = []
+    for ev in (eager, staged, staged, staged):
+        ops.reset_launch_counts()
+        _all_kinds(ev, m, p, g0)
+        counts.append(ops.launch_counts())
+    assert counts[0]["fwd"] > 0 and counts[0]["bwd"] > 0 and counts[0]["jvp"] > 0 and counts[0]["hvp_bwd"] > 0
+    assert counts[1] == counts[2] == counts[3] == counts[0]
+
+
+@pytest.mark.cuda
+def test_same_count_frame_replays_another_count_recaptures(cuda_device, deterministic):
+    """A second frame with the first's event count is copied into the
+    stage and replays its graphs (the eager bits on the new events); a
+    frame with another count gets a new stage and new graphs."""
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    graphs = ChainGraphs(cuda_device)
+    spec, frame0, orig0, m, _ = _chain_problem(torch.float32, cuda_device, seed=11)
+    stage = graphs.stage("full", frame0, orig0)
+    staged = _evaluations(spec, stage)
+    staged.value_grad(m)
+    graph = staged._value_grad.graph
+    for seed, n in ((12, 4000), (13, 3000)):
+        _, frame, orig, _, _ = _chain_problem(torch.float32, cuda_device, seed=seed, n=n)
+        want = _evaluations(spec, (orig, frame)).value_grad(m)
+        again = graphs.stage("full", frame, orig)
+        got = _evaluations(spec, again).value_grad(m)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if n == 4000:
+            assert again is stage and again.frame.x is frame0.x and staged._value_grad.graph is graph
+        else:
+            assert again is not stage and again.key[0] == 3000
+
+
+@pytest.mark.cuda
+def test_chained_pyramid_frame_equals_the_loop(cuda_device, deterministic):
+    """A small pyramid frame (the dense FD and analytic DSEC blocks)
+    chained gives the loop's per-scale losses, iterations, HVP models, host
+    syncs and launches (nonzero) bit for bit, and the same pyramid."""
+    from event_based_optical_flow_tpu_torch import solver as tsolver
+    from event_based_optical_flow_tpu_torch.data.synthetic import SyntheticDataLoader
+
+    h, w = 32, 40
+    loader = SyntheticDataLoader({"height": h, "width": w, "duration": 1.0, "event_rate": 12000, "n_frames": 4,
+                                  "pattern": "dots", "n_dots": 60, "flow_max": 12.0})
+    loader.set_sequence("pyramid")
+    ts = loader.eval_frame_time_list()
+    events = loader.load_event(loader.time_to_index(ts[1]), loader.time_to_index(ts[2]))
+    slv = {"method": "pyramidal_patch_contrast_maximization", "time_aware": False,
+           "patch": {"initialize": "random", "scale": 3, "crop_height": 32, "crop_width": 40,
+                     "filter_type": "bilinear"},
+           "motion_model": "2d-translation", "warp_direction": "first", "parameters": ["trans_x", "trans_y"],
+           "cost": "hybrid", "outer_padding": 0,
+           "cost_with_weight": {"multi_focal_normalized_gradient_magnitude": 1.0, "total_variation": 0.01},
+           "iwe": {"method": "bilinear_vote", "blur_sigma": 1}}
+    base = {"n_iter": 8, "method": "Newton-CG", "max_iter": 4, "cg_maxiter": 6,
+            "parameters": {"trans_x": {"min": -20, "max": 20}, "trans_y": {"min": -20, "max": 20}}}
+    for extra in ({}, {"hvp_mode": "analytic", "fd_polish": 2, "coarse_event_fraction": 0.25}):
+        out = []
+        for chain in (True, False):
+            st = tsolver.collections[slv["method"]]((h, w), {}, slv, dict(base, chain=chain, **extra), {},
+                                                    device=cuda_device)
+            best = st.optimize(events)
+            out.append((best, st.last_frame_stats))
+        (bc, sc), (bl, sl) = out
+        assert sc["chain"] and not sl["chain"]
+        for key in ("iters", "loss", "hvp", "events", "launches", "syncs"):
+            assert sc[key] == sl[key], key
+        assert all(c["fwd"] > 0 and c["bwd"] > 0 for c in sc["launches"].values())
+        assert all(torch.equal(bc[s], bl[s]) for s in bc)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_reads_the_host_raises(cuda_device, deterministic):
+    """An evaluation with a host read inside cannot be captured: the first
+    call raises instead of running eagerly, and the card stays usable."""
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+    from event_based_optical_flow_tpu_torch.solver.newton_cg import EagerEvaluations
+
+    spec, frame, orig, m, _ = _chain_problem(torch.float32, cuda_device)
+    stage = ChainGraphs(cuda_device).stage("full", frame, orig)
+    obj = build_objective(spec)
+    reads = stage.evaluations((spec, "reads"), lambda x, *a: obj(x, *a)[0] * float(x.abs().sum() > 0))
+    assert EagerEvaluations(lambda x, *a: obj(x, *a)[0] * float(x.abs().sum() > 0), (orig, frame)).value(m) > 0
+    with pytest.raises(RuntimeError):
+        reads.value(m)
+    assert torch.zeros(3, device=cuda_device).add(1).sum().item() == 3.0

@@ -3,7 +3,13 @@
 
     python3 tools/profile_torch_frame.py [--config configs/synthetic_mvsec_geometry.yaml]
         [--pattern dots] [--max_iter 2] [--hvp_mode MODE] [--dsec | --time-aware] [--fleet]
+        [--chain both|on|off]
     python3 tools/profile_torch_frame.py --multistream 2
+
+``--chain`` (default ``both``) profiles the sequential frame chained
+(``optimizer.chain: true``: the Newton evaluations replayed from CUDA
+graphs, captured in the warm-up solve) and then with the loop (``chain:
+false``), or one of the two.
 
 ``--dsec`` profiles the analytic HVP path instead: the solver and optimizer
 blocks of configs/dsec_zurich_city.yaml on the synthetic loader at DSEC
@@ -185,6 +191,8 @@ def main() -> int:
                       help="the Burgers config's time-aware solver on MVSEC geometry, then its dense twin")
     ap.add_argument("--fleet", action="store_true",
                     help="one lockstep batch of frames 0..3, then frame 0 alone through the sequential solver")
+    ap.add_argument("--chain", choices=("both", "on", "off"), default="both",
+                    help="the sequential frame chained, with the loop, or both in turn")
     ap.add_argument("--multistream", type=int, default=0, metavar="K",
                     help="time a cold and a warm push of K dense streams, fleet vs sequential (no profiler)")
     args = ap.parse_args()
@@ -206,20 +214,24 @@ def main() -> int:
     if args.hvp_mode:
         config["optimizer"]["hvp_mode"] = args.hvp_mode
     port_main.set_numerics()
-    if args.fleet:
+    if args.fleet:  # the fleet solves with its loop; the sequential frame beside it chained unless "off"
+        config["optimizer"]["chain"] = args.chain != "off"
         profile_fleet(config, args.top)
         return 0
-    label = "time-aware" if args.time_aware else ("dsec" if args.dsec else "dense")
-    got = profile_frame(config, label, args.top)
-    if args.time_aware:
-        twin = copy.deepcopy(config)
-        twin["solver"]["time_aware"] = False
-        dense = profile_frame(twin, "dense twin", args.top)
-        k, d = got["kernels_per_fwd"], got["device_us_per_fwd"]
-        print(f"[profile] the voxel chain and its backward, per fused forward (time-aware minus its dense "
-              f"twin): {k - dense['kernels_per_fwd']:.1f} of {k:.1f} kernels "
-              f"({(k - dense['kernels_per_fwd']) / k:.3f}), {d - dense['device_us_per_fwd']:.1f} of {d:.1f} us "
-              f"of device time ({(d - dense['device_us_per_fwd']) / d:.3f})", flush=True)
+    for chain in {"both": (True, False), "on": (True,), "off": (False,)}[args.chain]:
+        config["optimizer"]["chain"] = chain
+        mode = "chained" if chain else "loop"
+        label = "time-aware" if args.time_aware else ("dsec" if args.dsec else "dense")
+        got = profile_frame(config, f"{label}, {mode}", args.top)
+        if args.time_aware:
+            twin = copy.deepcopy(config)
+            twin["solver"]["time_aware"] = False
+            dense = profile_frame(twin, f"dense twin, {mode}", args.top)
+            k, d = got["kernels_per_fwd"], got["device_us_per_fwd"]
+            print(f"[profile] {mode}: the voxel chain and its backward, per fused forward (time-aware minus its "
+                  f"dense twin): {k - dense['kernels_per_fwd']:.1f} of {k:.1f} kernels "
+                  f"({(k - dense['kernels_per_fwd']) / k:.3f}), {d - dense['device_us_per_fwd']:.1f} of {d:.1f} us "
+                  f"of device time ({(d - dense['device_us_per_fwd']) / d:.3f})", flush=True)
     return 0
 
 
