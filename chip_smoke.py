@@ -74,21 +74,32 @@ Phases (each prints one informative line; any failure exits nonzero):
    (K6 launched on the finest scale only), and ``[ta-repeat]`` the FD
    frame 0 again with the loop, bit for bit (``[chain]``);
 9. the fleet path: ``solver.method: fleet_pyramidal_patch_contrast_maximization``
-   with ``data.fleet_batch`` frames per lockstep Newton-CG, ``warm_start:
-   false``, ``hvp_mode: analytic`` (``fleet_config``).  ``[fleet-check]``
-   holds the batched kernels (K7: the dense and voxel forward, backward,
-   tangent and HVP backward with a frame index) to their batched plain
-   versions on the optimization windows of frames 0..3, and each frame's
-   output to the single-frame kernel's on that frame alone, bit for bit;
-   ``[fleet-time]`` times them; ``[fleet-frame]`` solves frames 0..3 as one
-   batch of 4 on the MVSEC slice's blocks through the CLI's fleet eval loop
-   (batched K1/K2 on every scale, K3/K4 on the finest only; EPE per frame),
-   ``[fleet-repeat]`` the same batch again, bit for bit, and
-   ``[fleet-ta-frame]`` frames 0..1 as one batch of 2 on the time-aware
-   blocks, coarse scales cut to ``TA_COARSE_MAX_ITER`` Newton
-   iterations (batched K5 on every scale, K6 on the finest only).  The
-   fleet's cold starts draw from ``FLEET_SOLVER_SEED``.  The fleet
-   reads no ``ind1``/``ind2``: it is handed the first B + 1 eval timestamps;
+   with ``data.fleet_batch`` frames per lockstep Newton-CG, ``hvp_mode:
+   analytic`` (``fleet_config``), chained (the fleet chain: one init sweep
+   per finer scale for the whole batch, every lockstep evaluation replayed
+   from a CUDA graph).  ``[fleet-check]`` holds the batched kernels (K7:
+   the dense and voxel forward, backward, tangent and HVP backward with a
+   frame index) to their batched plain versions on the optimization
+   windows of frames 0..3, and each frame's output to the single-frame
+   kernel's on that frame alone, bit for bit; ``[fleet-time]`` times them;
+   ``[fleet-graph-check]`` one scale's lockstep solve (FD below the finest
+   scale, analytic on it) from a batch's staged graphs against the same
+   solve with eager evaluations, bit for bit; ``[fleet-frame]`` solves
+   frames 0..3 as one chained batch of 4 on the MVSEC slice's blocks
+   through the CLI's fleet eval loop (batched K1/K2 on every scale, K3/K4
+   on the finest only, K8 in one sweep call per finer scale; EPE per
+   frame; ``warm_start: batch``, whose first batch is cold),
+   ``[fleet-repeat]`` the same batch from a fresh solver, bit for bit,
+   ``[fleet-loop]`` the batch with the loop (``chain: false``: a sweep per
+   frame, so other draws; EPE per frame; ``[chain]`` prints both runs'
+   seconds per frame, syncs and peak memory), ``[fleet-warm]`` frames
+   4..7 through the same loop resuming the checkpoint of ``[fleet-frame]``
+   (every frame warm from frame 3's solution), and ``[fleet-ta-frame]``
+   frames 0..1 as one chained batch of 2 on the time-aware blocks, coarse
+   scales cut to ``TA_COARSE_MAX_ITER`` Newton iterations (batched K5 on
+   every scale, K6 on the finest only).  The fleet's cold starts draw from
+   ``FLEET_SOLVER_SEED``.  The fleet reads no ``ind1``/``ind2``: it is
+   handed the first eval timestamps it solves;
 10. serving: the HTTP server (``serve.FlowServer``) on ``127.0.0.1``, an
    ephemeral port, on the card, with the serving defaults, the cold start
    drawn from ``SERVE_SOLVER_SEED``, and ``SERVE_EVENT_COUNT``-event windows.  ``[serve-push]`` posts eval
@@ -100,13 +111,19 @@ Phases (each prints one informative line; any failure exits nonzero):
    ``[serve-repeat]`` a fresh server's push of window 0 with the loop,
    bit for bit (``[chain]``);
    ``[serve-resume]`` a server started with the state file written after
-   push 1 reports 2 windows.
+   push 1 reports 2 windows; ``[serve-wfo]`` a server with
+   ``optimizer_config={"warm_finest_only": True, "warm_full_every": 3}``
+   takes windows 0..3: the cold push (the default server's bits), two
+   finest-only warm pushes (no init sweep: no K8 launch) and the re-anchor
+   (every scale).
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
-again, the time-aware analytic frame 0, the serving path's windows 0..2
-(its warm pushes are the on-card check of the sequential warm start) and
-window 0 again.  The sequential paths and serving run chained, their
-repeats with the loop; the fleet keeps its loop.  Each path's run (each
+again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
+times: chained, again, the loop) and 4..7 (warm), the time-aware fleet's
+0..1, the serving path's windows 0..2 (its warm pushes are the on-card
+check of the sequential warm start), window 0 again, and windows 0..3 of
+the warm finest-only server.  Every path runs chained, the sequential
+repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
 serving push) starts with every kernel launch count at 0 and reads them
 at its end (a replayed graph adds the launches its capture counted); the
 checks and timings launch outside those runs.  The last two lines of standard
@@ -167,6 +184,9 @@ EPE_FRACTION = 0.5
 MVSEC_LAST_FRAME = 0
 DSEC_LAST_FRAME = 0
 TA_LAST_FRAME = 0
+# K8 launches per init-sweep call (solver/sampling.py): the patches' orig
+# images and the two rounds of candidates
+VOTES_PER_SWEEP = 3
 # frames per lockstep batch of the fleet path: dense, time-aware
 FLEET_BATCH = 4
 FLEET_TA_BATCH = 2
@@ -795,35 +815,38 @@ def ta_path(port_main, fi, dev, smi, rng):
     return {k: launches[k] + a_launches[k] for k in launches}, errs, times, bounds
 
 
-def fleet_config(config: dict, batch: int) -> dict:
+def fleet_config(config: dict, batch: int, warm_start=False) -> dict:
     """``config``'s blocks solved as a fleet: the fleet solver, ``batch``
-    frames per lockstep solve, independent frames, the analytic HVP on the
-    finest scale, the cold starts of ``FLEET_SOLVER_SEED``."""
+    frames per lockstep solve, independent frames (or ``warm_start:
+    batch``), the analytic HVP on the finest scale, the cold starts of
+    ``FLEET_SOLVER_SEED``; chained unless the config says otherwise."""
     config = copy.deepcopy(config)
     config["solver"].update(method=FLEET_METHOD, seed=FLEET_SOLVER_SEED)
-    config["data"].update(fleet_batch=batch, warm_start=False)
+    config["data"].update(fleet_batch=batch, warm_start=warm_start)
     config["optimizer"]["hvp_mode"] = "analytic"
     return config
 
 
-def run_fleet(port_main, config: dict, dev, n_frames: int):
-    """(records, run config, loader, solver, wall seconds) of the CLI's
-    fleet eval loop over frames 0..n_frames-1 in a fresh output dir: the
-    steps of ``main.run``, with the loop handed the first n_frames + eval_dt
-    eval timestamps."""
+def run_fleet(port_main, config: dict, dev, n_frames: int, out_dir=None):
+    """(records, run config, loader, solver, wall seconds, peak device GiB)
+    of the CLI's fleet eval loop over frames 0..n_frames-1 (from the frame
+    the checkpoint of ``out_dir`` names, when given; else in a fresh output
+    dir): the steps of ``main.run``, with the loop handed the first
+    n_frames + eval_dt eval timestamps."""
     from event_based_optical_flow_tpu_torch.utils import set_numerics, validate_config
 
-    out_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_fleet_")
+    out_dir = out_dir or tempfile.mkdtemp(prefix="evflow_chip_smoke_fleet_")
     run_config = slice_config(config, n_frames - 1, out_dir)
     validate_config(run_config)
     set_numerics()
     loader, solv = port_main.build(run_config, dev)
     data = run_config["data"]
     ts = loader.eval_frame_time_list()[: n_frames + data["eval_dt"]]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     records = port_main.evaluate_dataset_fleet(ts, data, loader, solv, out_dir, data["fleet_batch"])
     torch.cuda.synchronize()
-    return records, run_config, loader, solv, time.perf_counter() - t0
+    return records, run_config, loader, solv, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
 def fleet_windows(config: dict, n_frames: int):
@@ -901,10 +924,11 @@ def fleet_kernel_check(fi, fleet, flows, dflows, g, g1, g2, tol):
     return lines, errs, all_ok
 
 
-def fleet_run_checks(records, launch_rule, loader, run_config, solv, name, sequential=None) -> list:
+def fleet_run_checks(records, launch_rule, loader, run_config, solv, name, sequential=None, warm=False) -> list:
     """Print one line per frame of a fleet run; the frames that fail the
     EPE rule, PRED_FWL or ``launch_rule`` (the batch's launches per scale)."""
     failed = []
+    finest = solv.patch_scales - 1
     for r in records:
         m, st = r["metrics"], r["stats"]
         zero = zero_flow_epe(loader, run_config["data"], r["frame"], solv)
@@ -915,7 +939,8 @@ def fleet_run_checks(records, launch_rule, loader, run_config, solv, name, seque
         if sequential is not None and r["frame"] == 0:
             beside = (f", sequential slice's frame 0 EPE {sequential:.4f} (FD HVP, solver seed 0: another cold "
                       "draw; printed, not checked)")
-        phase(name, f"{r['frame']}: {r['seconds']:.3f} s per frame (batch of {len(st['loss'][1])}), EPE "
+        phase(name, f"{r['frame']}: {r['seconds']:.3f} s per frame (batch of {len(st['loss'][finest])}, "
+                    f"{'chained' if st['chain'] else 'loop'}{', warm' if warm else ''}), EPE "
                     f"{m['EPE']:.4f} (zero flow {zero:.4f}){beside}, 3PE {m['3PE']:.4f}, AE {m['AE']:.4f}, "
                     f"GT_FWL {m['GT_FWL']:.4f}, PRED_FWL {m['PRED_FWL']:.4f}, batch host syncs {st['syncs']}, "
                     f"lockstep Newton iters {st['iters']}, HVP {st['hvp']}, launches per scale {launches}, "
@@ -972,48 +997,128 @@ def fleet_path(port_main, fi, dev, smi, rng, sequential_epe: float):
         times.update({form + k: v for k, v in got.items()})
         bounds.update({form + k: fleet_bound(k, fleet, flows.cpu()) for k in names})
 
-    # frames 0..3 as one batch of 4: batched K1/K2 on every scale, K3/K4 on the finest
-    dense = fleet_config(config, FLEET_BATCH)
-    ops.reset_launch_counts()
-    records, run_config, loader, solv, wall = run_fleet(port_main, dense, dev, FLEET_BATCH)
-    launches = ops.launch_counts()
-    finest = solv.patch_scales - 1
-    failed = fleet_run_checks(
-        records, lambda st: all(c["batched_fwd"] > 0 and c["batched_bwd"] > 0
-                                and (s == finest) == (c["batched_jvp"] > 0 and c["batched_hvp_bwd"] > 0)
-                                for s, c in st["launches"].items()),
-        loader, run_config, solv, "fleet-frame", sequential_epe)
-    phase("fleet", f"{len(records)} windows in one batch in {wall:.2f} s ({wall / max(1, len(records)):.3f} s per "
-                   f"frame), batch host syncs {records[0]['stats']['syncs'] if records else None}, kernel launches "
-                   f"{ {k: v for k, v in launches.items() if v} }")
-    again, _, _, _, again_wall = run_fleet(port_main, dense, dev, FLEET_BATCH)
-    same = (len(again) == len(records) and all(a["metrics"] == r["metrics"] for a, r in zip(again, records))
-            and again[0]["stats"]["loss"] == records[0]["stats"]["loss"])
-    phase("fleet-repeat", f"the batch in a fresh run ({again_wall:.2f} s): metrics and per-scale losses bit for "
-                          f"bit the same: {'ok' if same else 'FAIL'}")
+    graph_lines, graph_ok = fleet_graph_check(port_main, dev, windows)
+    for line in graph_lines:
+        phase("fleet-graph-check", line)
+    if not graph_ok:
+        raise SystemExit("chip_smoke: the fleet's lockstep solve from replayed graphs differs from the eager one")
 
-    # frames 0..1 as one batch of 2, time-aware: batched K5 on every scale, K6 on the finest
+    # frames 0..3 as one batch of 4, chained: batched K1/K2 on every scale,
+    # K3/K4 on the finest, K8 once per finer scale for the whole batch;
+    # warm_start: batch (the first batch is cold) leaves the warm motion in
+    # the checkpoint for [fleet-warm]
+    dense = fleet_config(config, FLEET_BATCH, warm_start="batch")
+    finest_rule = lambda prefix: lambda st: all(  # noqa: E731
+        c[prefix + "fwd"] > 0 and c[prefix + "bwd"] > 0
+        and (s == max(st["launches"])) == (c[prefix + "jvp"] > 0 and c[prefix + "hvp_bwd"] > 0)
+        for s, c in st["launches"].items())
+    sweeps = lambda st: sum(c["vote"] for c in st["launches"].values())  # noqa: E731
+    runs, launches = {}, {}
+    for name, run_cfg, out in (("fleet-frame", dense, None), ("fleet-loop", loop_config(dense), None)):
+        ops.reset_launch_counts()
+        records, run_config, loader, solv, wall, peak = run_fleet(port_main, run_cfg, dev, FLEET_BATCH)
+        got = ops.launch_counts()
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        st = records[0]["stats"] if records else {}
+        # the chain sweeps each finer scale once for the batch, the loop once per frame
+        per_batch = (VOTES_PER_SWEEP * (solv.patch_scales - 1 - solv.coarsest_scale)
+                     * (1 if st.get("chain") else FLEET_BATCH))
+        rule = lambda st, per_batch=per_batch: finest_rule("batched_")(st) and sweeps(st) == per_batch  # noqa: E731
+        failed = fleet_run_checks(records, rule, loader, run_config, solv, name,
+                                  sequential_epe if name == "fleet-frame" else None)
+        runs[name] = (records, wall, peak, failed, run_config["output"]["output_dir"])
+        phase("fleet", f"{name}: {len(records)} windows in one batch ({'chained' if st.get('chain') else 'loop'}) "
+                       f"in {wall:.2f} s ({wall / max(1, len(records)):.3f} s per frame), batch host syncs "
+                       f"{st.get('syncs')}, peak device memory {peak:.3f} GiB, K8 launches in the sweeps "
+                       f"{sweeps(st) if st else 0}"
+                       f", kernel launches { {k: v for k, v in got.items() if v} } on {smi}")
+    (records, wall, peak, failed, out_dir), (loop_records, loop_wall, loop_peak, loop_failed, _) = (
+        runs["fleet-frame"], runs["fleet-loop"])
+    again, _, _, _, again_wall, _ = run_fleet(port_main, dense, dev, FLEET_BATCH)
+    same = (len(again) == len(records) and all(a["metrics"] == r["metrics"] for a, r in zip(again, records))
+            and all(again[0]["stats"][k] == records[0]["stats"][k] for k in ("loss", "syncs", "launches")))
+    phase("fleet-repeat", f"the chained batch from a fresh solver ({again_wall:.2f} s): metrics, per-scale losses, "
+                          f"host syncs and launches bit for bit the same: {'ok' if same else 'FAIL'}")
+    if records and loop_records:
+        cs, ls = records[0]["stats"], loop_records[0]["stats"]
+        phase("chain", f"fleet of {FLEET_BATCH} frames 0..{FLEET_BATCH - 1} on {smi}: chained "
+                       f"{wall / FLEET_BATCH:.3f} s per frame, loop {loop_wall / FLEET_BATCH:.3f} s per frame "
+                       f"({loop_wall / wall:.2f}x; the two draw differently), batch host syncs {cs['syncs']} / "
+                       f"{ls['syncs']}, peak device memory {peak:.3f} / {loop_peak:.3f} GiB")
+
+    # frames 4..7, warm from batch 0..3's last solution (the checkpoint's)
+    ops.reset_launch_counts()
+    warm_records, warm_config, warm_loader, warm_solv, warm_wall, warm_peak = run_fleet(
+        port_main, dense, dev, 2 * FLEET_BATCH, out_dir=out_dir)
+    got = ops.launch_counts()
+    launches = {k: launches[k] + got[k] for k in launches}
+    warm_ok = [r["frame"] for r in warm_records] == list(range(FLEET_BATCH, 2 * FLEET_BATCH))
+    warm_failed = fleet_run_checks(warm_records, finest_rule("batched_"), warm_loader, warm_config, warm_solv,
+                                   "fleet-warm", warm=True)
+    if warm_records:
+        ws = warm_records[0]["stats"]
+        phase("fleet", f"fleet-warm: frames {FLEET_BATCH}..{2 * FLEET_BATCH - 1} from the checkpoint's warm motion "
+                       f"in {warm_wall:.2f} s ({warm_wall / FLEET_BATCH:.3f} s per frame), lockstep iters "
+                       f"{ws['iters']} (cold batch {records[0]['stats']['iters'] if records else None}), batch host "
+                       f"syncs {ws['syncs']}, peak device memory {warm_peak:.3f} GiB on {smi}")
+
+    # frames 0..1 as one batch of 2, time-aware, chained: batched K5 on every scale, K6 on the finest
     ta = fleet_config(ta_config(), FLEET_TA_BATCH)
     ta["optimizer"]["coarse_max_iter"] = TA_COARSE_MAX_ITER
     ops.reset_launch_counts()
-    ta_records, ta_run_config, ta_loader, ta_solv, ta_wall = run_fleet(port_main, ta, dev, FLEET_TA_BATCH)
+    ta_records, ta_run_config, ta_loader, ta_solv, ta_wall, ta_peak = run_fleet(port_main, ta, dev, FLEET_TA_BATCH)
     ta_launches = ops.launch_counts()
-    ta_failed = fleet_run_checks(
-        ta_records, lambda st: all(c["batched_voxel_fwd"] > 0 and c["batched_voxel_bwd"] > 0
-                                   and (s == finest) == (c["batched_voxel_jvp"] > 0 and c["batched_voxel_hvp_bwd"] > 0)
-                                   for s, c in st["launches"].items()),
-        ta_loader, ta_run_config, ta_solv, "fleet-ta-frame")
-    phase("fleet-ta", f"{len(ta_records)} windows in one batch in {ta_wall:.2f} s "
-                      f"({ta_wall / max(1, len(ta_records)):.3f} s per frame), kernel launches "
-                      f"{ {k: v for k, v in ta_launches.items() if v} }")
-    if failed or ta_failed:
-        raise SystemExit(f"chip_smoke: fleet frames {failed} (dense), {ta_failed} (time-aware): metrics or "
-                         "batched kernel launches wrong")
-    if len(records) != FLEET_BATCH or len(ta_records) != FLEET_TA_BATCH:
+    launches = {k: launches[k] + ta_launches[k] for k in launches}
+    ta_failed = fleet_run_checks(ta_records, finest_rule("batched_voxel_"), ta_loader, ta_run_config, ta_solv,
+                                 "fleet-ta-frame")
+    phase("fleet-ta", f"{len(ta_records)} windows in one batch (chained) in {ta_wall:.2f} s "
+                      f"({ta_wall / max(1, len(ta_records)):.3f} s per frame), batch host syncs "
+                      f"{ta_records[0]['stats']['syncs'] if ta_records else None}, peak device memory {ta_peak:.3f} "
+                      f"GiB, kernel launches { {k: v for k, v in ta_launches.items() if v} } on {smi}")
+    if failed or loop_failed or warm_failed or ta_failed:
+        raise SystemExit(f"chip_smoke: fleet frames {failed} (chained), {loop_failed} (loop), {warm_failed} (warm), "
+                         f"{ta_failed} (time-aware): metrics or batched kernel launches wrong")
+    if (len(records) != FLEET_BATCH or len(loop_records) != FLEET_BATCH or not warm_ok
+            or len(ta_records) != FLEET_TA_BATCH or not all(r["stats"]["chain"] for r in records + ta_records)):
         raise SystemExit("chip_smoke: the fleet path did not run its windows")
     if not same:
         raise SystemExit("chip_smoke: a second run of the fleet batch did not reproduce its result")
-    return {k: launches[k] + ta_launches[k] for k in launches}, errs, times, bounds
+    return launches, errs, times, bounds
+
+
+def fleet_graph_check(port_main, dev, windows):
+    """``[fleet-graph-check]``: one scale's lockstep Newton-CG of the dense
+    fleet config (3 iterations) on frames 0..3 from random tile motions,
+    once with eager evaluations and once through a fresh ``ChainGraphs``
+    stage (captured, then replayed): iterates, losses, iterations and host
+    syncs bit for bit, on the scale below the finest (central FD HVP) and
+    the finest (the analytic HVP's prep and HVP).  Returns (lines, ok)."""
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    _, solv = port_main.build(fleet_config(config, len(windows)), dev)
+    fleet, orig, _ = solv._newton_events(windows, chain=False, coarse=False)["full"]
+    stage = ChainGraphs(dev).stage("fleet-full", fleet, orig)
+    lines, all_ok = [], True
+    for s in (solv.patch_scales - 2, solv.patch_scales - 1):
+        solv.overload_patch_configuration(s)
+        spec = solv._current_spec()
+        x0 = solv.tensor(np.random.default_rng(s).uniform(-20.0, 20.0, (len(windows), 2 * solv.n_patch)))
+        out = []
+        for staged in (None, stage):
+            solv.syncs = 0
+            t0 = time.perf_counter()
+            bx, bf, k, hvp = solv._run_fleet_newton(spec, x0, stage.frame, stage.orig, 3, None, True, False, staged)
+            torch.cuda.synchronize()
+            out.append((bx, bf, k, solv.syncs, time.perf_counter() - t0))
+        (xe, fe, ke, se, te), (xs, fs, ks, ss, ts) = out
+        ok = torch.equal(xe, xs) and torch.equal(fe, fs) and (ke, se) == (ks, ss)
+        all_ok = all_ok and ok
+        lines.append(f"scale {s}, B={len(windows)} N={list(fleet.frames.sizes)}, {hvp} HVP, 3 lockstep iterations: "
+                     f"eager {te:.3f} s, staged (captures included) {ts:.3f} s; iterates, losses, iterations ({ks}) "
+                     f"and host syncs ({ss}) bit for bit: {'ok' if ok else 'FAIL'}")
+    return lines, all_ok
 
 
 def sweep_call(port_main, config: dict, events: np.ndarray, dev, scale=None):
@@ -1175,7 +1280,7 @@ def serve_path(dev, smi) -> dict:
     with open(CONFIG) as f:
         config = yaml.safe_load(f)
     h, w = config["data"]["height"], config["data"]["width"]
-    windows = serve_windows(config, 3)
+    windows = serve_windows(config, 4)
     state_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_serve_")
     state = os.path.join(state_dir, "state.npz")
     kw = {"solver_config": {"seed": SERVE_SOLVER_SEED}, "fixed_event_count": SERVE_EVENT_COUNT, "device": dev}
@@ -1184,7 +1289,7 @@ def serve_path(dev, smi) -> dict:
     total, failed, flows = {}, [], []
     torch.cuda.reset_peak_memory_stats()
     try:
-        for i, (events, gt, seconds) in enumerate(windows):
+        for i, (events, gt, seconds) in enumerate(windows[:3]):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             flow, span = push_window(base, events)
@@ -1245,13 +1350,65 @@ def serve_path(dev, smi) -> dict:
                               f"warm scales {sorted(warm) if warm else None}: {'ok' if resume_ok else 'FAIL'}")
     finally:
         resumed.shutdown()
+    wfo_launches, wfo_failed = serve_wfo(dev, smi, (h, w), windows, flows[0], kw)
+    total = {k: total[k] + wfo_launches[k] for k in total}
     if failed:
         raise SystemExit(f"chip_smoke: serving windows {failed}: EPE, HVP modes or kernel launches wrong")
     if not same:
         raise SystemExit("chip_smoke: the loop's push of window 0 did not reproduce the chained push")
     if not resume_ok:
         raise SystemExit("chip_smoke: a server did not resume the serving state file")
+    if wfo_failed:
+        raise SystemExit(f"chip_smoke: warm finest-only serving windows {wfo_failed}: EPE, path or launches wrong")
     return total
+
+
+def serve_wfo(dev, smi, image_shape, windows, cold_flow, kw):
+    """``[serve-wfo]``: a server with ``warm_finest_only`` and
+    ``warm_full_every: 3`` takes windows 0..3: the cold push (the default
+    server's cold push, bit for bit), two finest-only warm pushes (one
+    finest-scale solve, no init sweep: no K8 launch), then the re-anchor
+    (the full pyramid, K8 in its sweeps).  Each push: seconds, EPE against
+    the zero flow, host syncs, launches.  Returns (launches, failed
+    windows)."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.serve import FlowServer
+
+    server = FlowServer(image_shape, port=0,
+                        optimizer_config={"warm_finest_only": True, "warm_full_every": 3}, **kw).start()
+    base = f"http://127.0.0.1:{server.port}"
+    total, failed = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i, (events, gt, seconds) in enumerate(windows):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            flow, span = push_window(base, events)
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            est = server.estimator
+            solv, stats = est._solver, est._solver.last_frame_stats
+            pred = flow.astype(np.float64) / span * seconds
+            m = est.metrics(pred, gt, events)
+            zero = est.metrics(np.zeros_like(pred), gt, events)["EPE"]
+            finest_only = i in (1, 2)
+            path_ok = (solv._wfo_last == finest_only and bool(stats.get("warm_finest")) == finest_only
+                       and (launches["vote"] == 0) == finest_only and launches["fwd"] > 0
+                       and (i > 0 or np.array_equal(flow, cold_flow)))
+            ok = np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and np.isfinite(flow).all() and path_ok
+            what = "cold" if i == 0 else ("warm, finest only" if finest_only else "warm, the re-anchor: every scale")
+            phase("serve-wfo", f"window {i} ({what}, streak {solv._warm_streak}): {wall:.3f} s, EPE {m['EPE']:.4f} "
+                               f"(zero flow {zero:.4f}), HVP {stats['hvp']}, host syncs {stats['syncs']}, Newton "
+                               f"iters {stats['iters']}, kernel launches { {k: v for k, v in launches.items() if v} }"
+                               f"{'; the default server cold push, bit for bit' if i == 0 else ''} on {smi}: "
+                               f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(i)
+    finally:
+        server.shutdown()
+    phase("serve-wfo", f"peak device memory of the four pushes {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return total, failed
 
 
 def main() -> int:

@@ -11,9 +11,10 @@ the same ``flow_error_per_frame_with_mask.txt``, ``eval_metrics.jsonl``
 and ``eval_state.npz`` as the JAX CLI, so either CLI resumes the other's
 run.  With ``data.fleet_batch > 1`` and a solver that solves batches
 (``solver.method: fleet_pyramidal_patch_contrast_maximization``), ``--eval``
-runs the fleet evaluation instead: ``fleet_batch`` independent frames per
-lockstep solve (``data.warm_start: false``).  Visualization (PNGs) is not
-ported yet.
+runs the fleet evaluation instead: ``fleet_batch`` frames per lockstep
+solve, independent (``data.warm_start: false``) or each batch warm-started
+from the previous batch's last solution (``data.warm_start: batch``).
+Visualization (PNGs) is not ported yet.
 """
 
 import argparse
@@ -151,13 +152,20 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
     chunks of ``fleet_batch`` frames (the last chunk may be smaller), each
     chunk solved by one ``solv.optimize_batch``; per-frame metrics, text and
     ``eval_metrics.jsonl`` lines as the sequential loop writes them, the
-    checkpoint once per chunk.  Frames are independent (no warm start);
-    ``data.ind1``/``ind2`` are not read.  Returns the per-frame records
-    (frame, metrics, the chunk's seconds / B, the chunk's solver stats)."""
+    checkpoint once per chunk.  With ``data.warm_start: batch`` every frame
+    of a chunk warm-starts from the previous chunk's last solution (the
+    checkpoint keeps it, so a resumed run continues the chain); else the
+    frames are independent.  ``data.ind1``/``ind2`` are not read.  Returns
+    the per-frame records (frame, metrics, the chunk's seconds / B, the
+    chunk's solver stats)."""
     eval_dt = data_config["eval_dt"]
-    start_frame, _ = ckpt.load_eval_state(out_dir)
+    batch_warm = data_config.get("warm_start") == "batch"
+    start_frame, warm_motion = ckpt.load_eval_state(out_dir)
+    if batch_warm and warm_motion is not None:
+        solv.set_previous_frame_best_estimation(warm_motion)
     frames = list(range(start_frame, len(eval_frame_time_stamp_list) - eval_dt))
-    logger.info(f"Fleet evaluation: {len(frames)} frames, batch {fleet_batch}, from frame {start_frame}")
+    logger.info(f"Fleet evaluation: {len(frames)} frames, batch {fleet_batch}, from frame {start_frame}"
+                + (", batch warm start" if batch_warm else ""))
     records = []
     for chunk_start in range(0, len(frames), fleet_batch):
         chunk = frames[chunk_start : chunk_start + fleet_batch]
@@ -165,13 +173,16 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
         gathered = [_gather_frame(loader, data_config, eval_frame_time_stamp_list[i],
                                   eval_frame_time_stamp_list[i + eval_dt]) for i in chunk]
         motions = solv.optimize_batch([g[0] for g in gathered])
+        if batch_warm:
+            # the next chunk's frames start from this chunk's last solution
+            solv.set_previous_frame_best_estimation(motions[-1])
         errors = []
         for i1, (_, gt_slice, gt_flow, flow_time), best in zip(chunk, gathered, motions):
             flow_error = solv.calculate_flow_error(best, gt_flow, timescale=flow_time, events=gt_slice)
             solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
             ckpt.append_frame_metrics(out_dir, i1, flow_error)
             errors.append(flow_error)
-        ckpt.save_eval_state(out_dir, chunk[-1] + 1, None)
+        ckpt.save_eval_state(out_dir, chunk[-1] + 1, to_numpy(motions[-1]) if batch_warm else None)
         seconds = (time.perf_counter() - t0) / len(chunk)
         stats = dict(solv.last_batch_stats)
         logger.info(f"Frames {chunk[0]}..{chunk[-1]}: {seconds:.3f} s per frame, {stats['syncs']} host syncs "
@@ -195,9 +206,10 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     if eval_mode:
         fleet_batch = int(data_config.get("fleet_batch", 1))
         if fleet_batch > 1 and hasattr(solv, "optimize_batch"):
-            if data_config.get("warm_start", True) is not False:
-                raise ConfigError("data.fleet_batch > 1 solves independent frames: it needs "
-                                  "data.warm_start: false")
+            if data_config.get("warm_start", True) not in (False, "batch"):
+                raise ConfigError("data.fleet_batch > 1 needs data.warm_start: false (independent frames) "
+                                  "or data.warm_start: batch (each batch from the previous batch's last "
+                                  "solution)")
             records = evaluate_dataset_fleet(loader.eval_frame_time_list(), data_config, loader, solv, out_dir,
                                              fleet_batch)
         else:

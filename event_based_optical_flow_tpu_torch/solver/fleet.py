@@ -2,17 +2,9 @@
 pyramid scale (port of ``event_based_optical_flow_tpu/solver/fleet.py``:
 ``build_orig_iwe_banded_batched``, ``build_batched_objective_banded``,
 ``build_batched_objective_banded_hvp`` (staged), ``build_newton_cg_batched``
-and ``FleetPyramidalSolver.optimize_batch``'s per-scale loop).
-
-Without warm-start chaining the eval frames are independent, so B of them
-are initialized, solved and scored together: per pyramid scale, the init
-sweep per frame, then ONE batched Newton-CG whose iterations run in
-lockstep (a frame that is done is frozen).  A list of per-frame warm
-motions (the multi-stream serving case, ``streaming.MultiStreamFlowEstimator``:
-one independent stream per frame) warm-starts each frame from its own
-motion, as the JAX fleet chain's ``per_frame`` warm mode does: frame b's
-coarsest start is its warm motion, and on each finer scale its pre-sweep
-motion is the expanded coarser solution averaged with its warm one.
+and ``FleetPyramidalSolver.optimize_batch``: its whole-fleet chain
+``_optimize_batch_chain``, its warm finest-only fast path
+``_optimize_batch_warm_finest`` and its per-scale loop).
 
 One lockstep evaluation runs the batched kernels once for all B frames
 (the frame index of ``ops/fused_iwe.py``) and the rest of the objective
@@ -20,12 +12,26 @@ with the frame as a batch axis (``torch.func.vmap`` of the single-frame
 functions), so it launches about as many kernels as one single-frame
 evaluation, and every loop condition is one host read for the whole batch.
 
-The JAX package's whole-fleet device chain (``_optimize_batch_chain``) fuses
-the same per-scale loop into one TPU dispatch; the port runs the loop.  Its
-mesh (``parallel:``), batched L-BFGS (``device_solver: lbfgs``) and the
-chain's shared batch warm start (``warm_start: batch``, one motion dict for
-every frame) are not ported: the config validation refuses them, and
-``optimize_batch`` refuses a shared warm dict.
+With ``optimizer.chain`` (on by default, as in the JAX package) a batch
+runs the JAX package's fleet chain: the cold starts of all B frames drawn
+first, in frame order; per finer scale ONE init sweep over the B x P patch
+batch (one draw per scale; every frame's patches gathered at the capacity
+of the batch's largest frame), from the expanded coarser solutions; then
+the scale's lockstep Newton, every evaluation replayed from the solver's
+CUDA graphs (``solver/graphs.py``, a stage per event set of the batch).
+A warm motion warm-starts the chain: one per-scale dict for every frame
+(``shared``: ``data.warm_start: batch``, consecutive batches of one
+sequence) or a list with one per frame (``per_frame``: the multi-stream
+serving case), the coarsest start from it and every finer pre-sweep motion
+averaged with it; with ``optimizer.warm_finest_only`` a warm batch solves
+the finest scale only (``_optimize_batch_warm_finest``).
+
+``optimizer.chain: false`` runs the JAX package's per-scale loop: each
+frame's init sweep on its own (its own draw and capacity), cold starts
+only (a warm motion is dropped with the JAX package's warning).  The two
+draw differently, so their results differ, as in the JAX package.  Its
+mesh (``parallel:``) and batched L-BFGS (``device_solver: lbfgs``) are not
+ported: the config validation refuses them.
 """
 
 import logging
@@ -36,7 +42,8 @@ import torch
 
 from ..ops import fused_iwe as fi
 from ..ops.blur import gaussian_blur3
-from .newton_cg import _FD_EPS_SCALE
+from .graphs import ChainGraphs
+from .newton_cg import BatchedEvaluations
 from .objective import FleetEvents, ObjectiveSpec, check_events, cost_of_images, flow_of
 from .pyramid import COARSE_SUBSAMPLE_MIN_EVENTS, PyramidalPatchContrastMaximization, coarse_subsample
 
@@ -139,8 +146,11 @@ def _rdot(a: Tensor, b: Tensor) -> Tensor:
 
 class BatchedNewtonCG:
     """Lockstep per-frame truncated Newton (``build_newton_cg_batched`` of
-    the JAX package, step for step): ``solve(x0 [B, M], *args) -> (best_x
-    [B, M], best_f [B], iterations)`` for ``value_fn(x, *args) -> [B]``.
+    the JAX package, step for step): ``solve(ev, x0 [B, M]) -> (best_x
+    [B, M], best_f [B], iterations)``, the evaluations taken from ``ev``
+    (``newton_cg.BatchedEvaluations`` of ``value_fn(x, *args) -> [B]``, or
+    ``graphs.StagedEvaluations`` on a batch's stage); ``__call__(x0,
+    *args)`` runs them eagerly.
 
     Per frame: the forcing sequence, CG state, negative-curvature fallback
     and ``done`` mask (frozen frames keep their state); the line search
@@ -178,37 +188,16 @@ class BatchedNewtonCG:
         self.syncs += 1
         return bool(mask.any())
 
-    def _value(self, x, args) -> Tensor:
-        with torch.no_grad():
-            return self.value_fn(x, *args)
-
-    def _value_grad(self, x, args):
-        """Per-frame losses and the gradient of their sum (the per-frame
-        gradients: frames are independent) from one evaluation."""
-        xr = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            f = self.value_fn(xr, *args)
-            (g,) = torch.autograd.grad(f.sum(), xr)
-        return f.detach(), g
-
-    def _hvp(self, x, d, g0, args, aux, analytic, force_central):
+    def _hvp(self, x, d, g0, ev, aux, analytic, force_central):
         if analytic:
-            if self.hvp_prep_fn is not None:
-                return self.hvp_fn(aux, x, d, *args)
-            return self.hvp_fn(x, d, *args)
-        d_norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-12
-        eps = _FD_EPS_SCALE * (1.0 + 1e-3 * torch.linalg.vector_norm(x, dim=-1, keepdim=True)) / d_norm
-        g_plus = self._value_grad(x + eps * d, args)[1]
-        if self.fd_central or force_central:
-            g_minus = self._value_grad(x - eps * d, args)[1]
-            return (g_plus - g_minus) / (2.0 * eps)
-        return (g_plus - g0) / eps
+            return ev.hvp(aux, x, d)
+        return ev.fd_hvp(x, d, g0, self.fd_central or force_central)
 
-    def _cg_solve(self, x, g, args, analytic, force_central):
+    def _cg_solve(self, x, g, ev, analytic, force_central):
         g_norm = _rnorm(g)
         eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
         # the staged analytic HVP's per-frame value images, once per CG solve
-        aux = self.hvp_prep_fn(x, *args) if analytic and self.hvp_prep_fn is not None else None
+        aux = ev.prep(x) if analytic and ev.staged else None
         r, d, p = g, -g, torch.zeros_like(g)
         done = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
         i = 0
@@ -216,7 +205,7 @@ class BatchedNewtonCG:
             active = ~done & (_rnorm(r) > eta)
             if not self._any(active):
                 break
-            hd = self._hvp(x, d, g, args, aux, analytic, force_central)
+            hd = self._hvp(x, d, g, ev, aux, analytic, force_central)
             curv = _rdot(d, hd)
             rs = _rdot(r, r)
             neg = curv <= 1e-16 * _rdot(d, d)
@@ -236,7 +225,7 @@ class BatchedNewtonCG:
         # CG produced nothing (eta met at once): steepest descent
         return torch.where((_rdot(p, p) > 0)[:, None], p, -g)
 
-    def _line_search(self, x, f0, g, p, args):
+    def _line_search(self, x, f0, g, p, ev):
         """Per-frame two-sided backtracking in lockstep: each level tries x
         +- a p; a frame freezes at its first level that meets the Armijo
         test."""
@@ -248,8 +237,8 @@ class BatchedNewtonCG:
         i = 0
         while True:
             a = torch.ones_like(alpha) if i == 0 else alpha.abs() * 0.5
-            f_plus = self._value(x + a[:, None] * p, args)
-            f_minus = self._value(x - a[:, None] * p, args)
+            f_plus = ev.value(x + a[:, None] * p)
+            f_minus = ev.value(x - a[:, None] * p)
             take_minus = f_minus < f_plus
             f_cand = torch.where(take_minus, f_minus, f_plus)
             a_signed = torch.where(take_minus, -a, a)
@@ -262,7 +251,7 @@ class BatchedNewtonCG:
         zero = torch.zeros_like(alpha)
         return torch.where(accepted, alpha, zero), torch.where(accepted, f_cur, f0)
 
-    def _escape_probe(self, x, f0, p, args):
+    def _escape_probe(self, x, f0, p, ev):
         """Outward two-sided exponential probe along p-hat per frame, while
         any frame has not improved; a signed step (p-hat units) or 0."""
         p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
@@ -271,8 +260,8 @@ class BatchedNewtonCG:
         best_f = f0
         i = 0
         while True:
-            f_plus = self._value(x + mag * p_hat, args)
-            f_minus = self._value(x - mag * p_hat, args)
+            f_plus = ev.value(x + mag * p_hat)
+            f_minus = ev.value(x - mag * p_hat)
             take_minus = f_minus < f_plus
             f_cand = torch.where(take_minus, f_minus, f_plus)
             a_cand = torch.where(take_minus, torch.full_like(f0, -mag), torch.full_like(f0, mag))
@@ -285,18 +274,18 @@ class BatchedNewtonCG:
                 break
         return torch.where(best_f < f0, best_a, torch.zeros_like(best_a)), p_hat
 
-    def _iterate(self, x, f, g, maxiter, args, analytic, cap, escape, force_central):
+    def _iterate(self, x, f, g, maxiter, ev, analytic, cap, escape, force_central):
         """Lockstep Newton iterations with one curvature model (``make_body``
         of the JAX package); returns (best_x, best_f, iterations)."""
         bx, bf = x, f
         done = torch.zeros_like(f, dtype=torch.bool)
         k = 0
         while k < maxiter and (k == 0 or self._any(~done)):
-            p = self._cg_solve(x, g, args, analytic, force_central)
+            p = self._cg_solve(x, g, ev, analytic, force_central)
             if cap is not None:
                 # per component, not a per-frame inf-norm rescale
                 p = p.clamp(-cap, cap)
-            alpha, f_ls = self._line_search(x, f, g, p, args)
+            alpha, f_ls = self._line_search(x, f, g, p, ev)
             # plateau escape per frame: backtracking failed OR the first
             # iteration found only a negligible decrease; masked by ~done
             trigger = alpha == 0.0
@@ -304,14 +293,14 @@ class BatchedNewtonCG:
                 trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
             trigger = ~done & trigger
             if escape and self._any(trigger):
-                a_esc, p_hat = self._escape_probe(x, f, p, args)
+                a_esc, p_hat = self._escape_probe(x, f, p, ev)
             else:
                 a_esc, p_hat = torch.zeros_like(alpha), p
             use_esc = trigger & (a_esc != 0.0)
             alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
             step = torch.where(use_esc[:, None], a_esc[:, None] * p_hat, alpha[:, None] * p)
             x = torch.where(done[:, None], x, x + step)
-            f, g = self._value_grad(x, args)
+            f, g = ev.value_grad(x)
             improved = f < bf
             bx = torch.where(improved[:, None], x, bx)
             bf = torch.where(improved, f, bf)
@@ -322,24 +311,28 @@ class BatchedNewtonCG:
         return bx, bf, k
 
     def __call__(self, x0: Tensor, *args):
+        return self.solve(BatchedEvaluations(self.value_fn, args, self.hvp_fn, self.hvp_prep_fn), x0)
+
+    def solve(self, ev, x0: Tensor):
+        """``(best_x, best_f, iterations)`` from ``x0`` [B, M]."""
         x = x0.detach()
-        f, g = self._value_grad(x, args)
+        f, g = ev.value_grad(x)
         analytic = self.hvp_fn is not None
-        bx, bf, k = self._iterate(x, f, g, self.maxiter, args, analytic, self.max_step, True, False)
+        bx, bf, k = self._iterate(x, f, g, self.maxiter, ev, analytic, self.max_step, True, False)
         if self.fd_polish > 0 and analytic:
             # lockstep central-FD refinement from the best iterates: no step
             # clip, no escape probe
-            fb, gb = self._value_grad(bx, args)
-            bx, bf, k2 = self._iterate(bx, fb, gb, self.fd_polish, args, False, None, False, True)
+            fb, gb = ev.value_grad(bx)
+            bx, bf, k2 = self._iterate(bx, fb, gb, self.fd_polish, ev, False, None, False, True)
             k += k2
         return bx, bf, k
 
 
 class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
-    """Pyramidal CMax over a fleet of frames: per scale, the init sweep of
-    each frame and one lockstep batched Newton solve.  For independent
-    frames, cold or each from its own warm motion (``_frame_warms``);
-    ``optimize`` (one frame) is the sequential pyramid's."""
+    """Pyramidal CMax over a fleet of frames (``optimize_batch``): chained
+    (the JAX package's fleet chain, optionally warm) or, with
+    ``optimizer.chain: false``, the per-scale loop; ``optimize`` (one frame)
+    is the sequential pyramid's."""
 
     def _coarse_events_list(self, events_list: List[np.ndarray]):
         """Per-frame stride subsamples for the coarse scales, or None when
@@ -359,25 +352,35 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
                         "on all events")
         return [e if s is None else s for s, e in zip(subs, events_list)]
 
-    def _frame_start(self, s: int, events_np: np.ndarray, coarser: Dict[int, Tensor], b: int,
-                     warm: Optional[Dict[int, Tensor]]) -> Tensor:
-        """Frame ``b``'s start at scale ``s`` ([2, n_patch]): at the coarsest
-        scale its ``warm`` motion or the cold init, else its expanded coarser
-        solution (averaged with its warm motion) refined by the init sweep
-        on its own events (``_init_scale_single``, the chain's per-frame warm
-        mode)."""
-        coarser_b = {s - 1: coarser[s - 1][b]} if s > self.coarsest_scale else {}
-        presearch = self._presearch_motion(s, coarser_b, warm)
-        if presearch is None:
-            return self._init_scale(s, warm)
-        motion0, n_cand = presearch
-        return self.initialize_guess_from_patch_search(events_np, motion0, n_cand)
+    def _newton_events(self, events_list: List[np.ndarray], chain: bool, coarse: bool = True) -> dict:
+        """{"full": (fleet, orig IWEs, stage), "coarse": ...}: the batch's
+        event sets (the coarse scales' subsample when ``coarse`` and
+        configured) with their orig IWEs; chained, staged into the solver's
+        CUDA graph buffers (stage None for the loop)."""
+        self.overload_patch_configuration(self.coarsest_scale)
+        orig_fn = build_orig_iwe_batched(self._current_spec())
+        sets = {"full": events_list}
+        subs = self._coarse_events_list(events_list) if coarse else None
+        if subs is not None:
+            sets["coarse"] = subs
+        out = {}
+        for name, evs in sets.items():
+            fleet = FleetEvents.from_numpy(evs, self.device, self.dtype, self.time_bin)
+            orig = orig_fn(fleet)
+            if chain:
+                st = self._graphs.stage(f"fleet-{name}", fleet, orig)
+                out[name] = (st.frame, st.orig, st)
+            else:
+                out[name] = (fleet, orig, None)
+        return out
 
     def _run_fleet_newton(self, spec: ObjectiveSpec, x0: Tensor, fleet: FleetEvents, orig: Tensor,
-                          maxiter: int, cg_maxiter=None, finest: bool = True, warm: bool = False):
+                          maxiter: int, cg_maxiter=None, finest: bool = True, warm: bool = False, stage=None):
         """One lockstep Newton-CG solve of this scale's batched objective
-        from ``x0`` [B, M] (``warm``: the batch starts from per-frame warm
-        motions); returns (best_x, best_f [B], iterations, hvp)."""
+        from ``x0`` [B, M] (``warm``: the batch starts from warm motions);
+        with ``stage`` (a batch's ``graphs.Stage`` whose buffers are
+        ``fleet`` and ``orig``) the evaluations are replayed from CUDA
+        graphs on the card.  Returns (best_x, best_f [B], iterations, hvp)."""
         analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_batched_objective(spec)
         hvp_kw = {}
@@ -385,64 +388,39 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
             prep, hvp = build_batched_objective_hvp_staged(spec, gauss_newton)
             hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
         solve = BatchedNewtonCG(obj, **self._newton_options(analytic, finest, maxiter, cg_maxiter), **hvp_kw)
-        best_x, best_f, n_iter = solve(x0.to(self.dtype), orig, fleet)
+        name = self._hvp_name(analytic, gauss_newton)
+        x0 = x0.to(self.dtype)
+        if stage is None:
+            best_x, best_f, n_iter = solve(x0, orig, fleet)
+        else:
+            ev = stage.evaluations((spec, name), solve.value_fn, solve.hvp_fn, solve.hvp_prep_fn)
+            best_x, best_f, n_iter = solve.solve(ev, x0)
         self.syncs += solve.syncs
-        return best_x, best_f, n_iter, self._hvp_name(analytic, gauss_newton)
+        return best_x, best_f, n_iter, name
 
-    def _frame_warms(self, bsz: int) -> List[Optional[Dict[int, Tensor]]]:
-        """Each frame's warm motion: the per-frame list when it holds a full
-        per-scale dict for every frame (the chain's ``per_frame`` mode), else
-        None for every frame (a cold batch, as the chain solves it)."""
-        warm = self.previous_frame_best_estimation
-        if isinstance(warm, dict):
-            raise ValueError("a shared warm motion for every frame of a batch (the fleet chain's "
-                             "warm_start: batch) is not ported yet; give one per-scale dict per frame")
-        scales = range(self.coarsest_scale, self.patch_scales)
-        if (isinstance(warm, (list, tuple)) and len(warm) == bsz
-                and all(isinstance(d, dict) and all(s in d for s in scales) for d in warm)):
-            return list(warm)
-        if warm is not None:
-            logger.info("the warm list does not hold every frame's motion: the batch starts cold")
-        return [None] * bsz
-
-    def optimize_batch(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
-        """Solve B frames together: one per-scale motion dict per frame
-        (on the solver's device), each frame warm-started from its own entry
-        of a per-frame warm list (``_frame_warms``).  ``last_batch_stats``
-        holds the batch's lockstep iterations, per-frame losses, HVP model,
-        per-frame event counts and kernel launches per scale, and its host
-        syncs."""
+    def _run_scales(self, scales, start: Callable, newton_events: dict, warm: bool, chain: bool) -> Dict[int, Tensor]:
+        """Per scale: ``x0 = start(s, best)`` ([B, M]: the init sweeps), then
+        the lockstep Newton on the scale's event set (the coarse subsample
+        below the finest scale when configured); {scale: best [B, 2, h, w]}.
+        ``last_batch_stats``: the lockstep iterations, per-frame losses, HVP
+        model, per-frame event counts and kernel launches per scale, the
+        host syncs and whether the batch ran chained."""
         from .. import ops
 
-        if self._chain_ready() and not getattr(self, "_logged_chain", False):
-            logger.info("optimizer.chain: the fleet chain (the JAX package's _optimize_batch_chain) is not "
-                        "ported yet; the batch solves with the per-scale loop")
-            self._logged_chain = True
-        events_list = [np.asarray(e, dtype=np.float64) for e in events_list]
-        bsz = len(events_list)
-        warms = self._frame_warms(bsz)
-        warm = warms[0] is not None
-        self.overload_patch_configuration(self.coarsest_scale)
-        orig_fn = build_orig_iwe_batched(self._current_spec())
-        full = FleetEvents.from_numpy(events_list, self.device, self.dtype, self.time_bin)
-        newton_events = {"full": (full, orig_fn(full))}
-        subs = self._coarse_events_list(events_list)
-        if subs is not None:
-            coarse = FleetEvents.from_numpy(subs, self.device, self.dtype, self.time_bin)
-            newton_events["coarse"] = (coarse, orig_fn(coarse))
+        bsz = len(newton_events["full"][0])
         self.syncs = 0
-        stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}}
+        stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}, "chain": chain}
         best: Dict[int, Tensor] = {}
-        for s in range(self.coarsest_scale, self.patch_scales):
+        for s in scales:
             self.overload_patch_configuration(s)
             spec = self._current_spec()
             finest = s == self.patch_scales - 1
-            fleet, orig = newton_events["full" if finest or subs is None else "coarse"]
+            fleet, orig, stage = newton_events["full" if finest or "coarse" not in newton_events else "coarse"]
             before = ops.launch_counts()
-            x0 = torch.stack([self._frame_start(s, events_list[b], best, b, warms[b]).reshape(-1)
-                              for b in range(bsz)])
+            x0 = start(s, best)
             scale_mi, scale_cg = self._scale_budget(s)
-            bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest, warm)
+            bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest, warm,
+                                                         stage)
             best[s] = bx.reshape((bsz, self.motion_vector_size) + tuple(self.patch_image_size))
             losses = bf.tolist()
             self.syncs += 1
@@ -450,8 +428,96 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, losses, hvp
             stats["events"][s] = list(fleet.frames.sizes)
             stats["launches"][s] = {k: after[k] - before[k] for k in after}
-            logger.info(f"Fleet scale {s} done ({bsz} frames): {n_iter} lockstep iters ({hvp} HVP), "
-                        f"losses {[round(v, 6) for v in losses]}")
+            if not chain:
+                logger.info(f"Fleet scale {s} done ({bsz} frames): {n_iter} lockstep iters ({hvp} HVP), "
+                            f"losses {[round(v, 6) for v in losses]}")
         stats["syncs"] = self.syncs
         self.last_batch_stats = stats
+        return best
+
+    def optimize_batch(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
+        """Solve B frames together: one per-scale motion dict per frame (on
+        the solver's device).  Chained when ``_chain_ready`` (warm from
+        ``previous_frame_best_estimation``: a per-scale dict for every
+        frame, or a list of them, one per frame); else the per-scale loop,
+        cold."""
+        events_list = [np.asarray(e, dtype=np.float64) for e in events_list]
+        if self._chain_ready():
+            return self._optimize_batch_chain(events_list)
+        if self.previous_frame_best_estimation is not None:
+            logger.warning("fleet batch warm start is only supported on the chain path (optimizer.chain with "
+                           "device Newton-CG); falling back to cold initialization for this batch")
+            self.previous_frame_best_estimation = None
+        newton_events = self._newton_events(events_list, chain=False)
+        warms = [None] * len(events_list)
+        best = self._run_scales(range(self.coarsest_scale, self.patch_scales),
+                                lambda s, best: self._scale_start(events_list, s, best, warms, False),
+                                newton_events, False, False)
+        return [self.update_coarse_from_fine({s: best[s][b] for s in best}) for b in range(len(events_list))]
+
+    def _scale_start(self, events_list: List[np.ndarray], s: int, best: Dict[int, Tensor], warms: list,
+                     batched_sweep: bool) -> Tensor:
+        """The batch's start at scale ``s`` ([B, M]), frame ``b`` warm from
+        ``warms[b]`` (or cold: None): at the coarsest scale the warm motion
+        or the cold init (drawn frame by frame); else the expanded coarser
+        solution (averaged with the warm one) refined by the init sweep:
+        one call over the batch's patches (``batched_sweep``, the chain) or
+        one per frame at its own capacity (the loop)."""
+        bsz = len(events_list)
+        pre = [self._presearch_motion(s, {s - 1: best[s - 1][b]} if s > self.coarsest_scale else {}, warms[b])
+               for b in range(bsz)]
+        if pre[0] is None:
+            return torch.stack([self._init_scale(s, warms[b]).reshape(-1) for b in range(bsz)])
+        if batched_sweep:
+            motion0 = torch.stack([m for m, _ in pre])
+            return self.initialize_guess_from_patch_search_batched(
+                events_list, motion0, pre[0][1], max(len(e) for e in events_list)).reshape(bsz, -1)
+        return torch.stack([self.initialize_guess_from_patch_search(e, *p).reshape(-1)
+                            for e, p in zip(events_list, pre)])
+
+    def _optimize_batch_chain(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
+        """The JAX package's fleet chain (``_optimize_batch_chain``): the
+        cold starts of all frames first, one batched init sweep per finer
+        scale (``initialize_guess_from_patch_search_batched``), each scale's
+        lockstep Newton from the batch's staged evaluations.  Warm modes
+        (the JAX package's predicates): ``per_frame`` (a list with one
+        full per-scale dict per frame), ``shared`` (one full per-scale dict,
+        broadcast over the batch), else cold."""
+        if self._graphs is None:
+            self._graphs = ChainGraphs(self.device)
+        bsz = len(events_list)
+        scales = list(range(self.coarsest_scale, self.patch_scales))
+        warm = self.previous_frame_best_estimation
+        per_frame = (isinstance(warm, (list, tuple)) and len(warm) > 0
+                     and all(isinstance(w, dict) and all(s in w for s in scales) for w in warm))
+        if isinstance(warm, (list, tuple)) and len(warm) != bsz:
+            raise ValueError(f"a per-frame warm list of {len(warm)} frames for a batch of {bsz}")
+        use_warm = per_frame or (isinstance(warm, dict) and all(s in warm for s in scales))
+        # the fast-path gate takes the shared warmth predicate, so a stream's
+        # streak cadence is the sequential surface's
+        if self._warm_finest_active(self._warm_has_finest(warm, scales[-1])):
+            return self._optimize_batch_warm_finest(events_list, warm)
+        newton_events = self._newton_events(events_list, chain=True)
+        warms = list(warm) if per_frame else [warm if use_warm else None] * bsz
+        best = self._run_scales(scales, lambda s, best: self._scale_start(events_list, s, best, warms, True),
+                                newton_events, use_warm, True)
+        losses = self.last_batch_stats["loss"][scales[-1]]
+        logger.info(f"fleet chain done ({bsz} frames, {len(scales)} scales); losses {losses}")
         return [self.update_coarse_from_fine({s: best[s][b] for s in best}) for b in range(bsz)]
+
+    def _optimize_batch_warm_finest(self, events_list: List[np.ndarray], warm) -> List[Dict[int, Tensor]]:
+        """The fleet's warm finest-only fast path (the JAX package's
+        ``_optimize_batch_warm_finest``): every frame solves the finest
+        scale only, from its own warm motion (a per-frame list) or the
+        shared one, on the full events, as one lockstep solve from the
+        batch's staged evaluations; the coarse entries are the finest's
+        ``pyramid_reduce`` (``update_coarse_from_fine``)."""
+        bsz = len(events_list)
+        s_fin = self.patch_scales - 1
+        newton_events = self._newton_events(events_list, chain=True, coarse=False)
+        warms = list(warm) if isinstance(warm, (list, tuple)) else [warm] * bsz
+        best = self._run_scales([s_fin], lambda s, best: torch.stack([w[s].reshape(-1) for w in warms]),
+                                newton_events, True, True)
+        self.last_batch_stats["warm_finest"] = True
+        logger.info(f"fleet warm finest-only done ({bsz} frames); losses {self.last_batch_stats['loss'][s_fin]}")
+        return [self.update_coarse_from_fine({s_fin: best[s_fin][b]}) for b in range(bsz)]

@@ -16,21 +16,30 @@ evaluations of one Newton problem (one scale's objective on one event set):
   with ``eps`` computed on the device from ``|x|`` and ``|p|``;
 * the analytic HVP's ``prep(x)`` (once per CG solve) and ``hvp(aux, x, p)``.
 
+The fleet's lockstep Newton (``fleet.BatchedNewtonCG``, the port's
+counterpart of the JAX package's ``_optimize_batch_chain``) takes the same
+evaluations of a batch: a stage of a ``FleetEvents`` serves the batched
+closures (``newton_cg.BatchedEvaluations``: per-frame losses, the gradient
+of their sum, each frame's FD step).
+
 Staging.  An evaluation reads static buffers: its own inputs (x, p, the
 iterate's gradient, the prep's images), copied in before each call, and its
-event set's ``Stage``: the ``FrameEvents`` and the orig IWE, copied in once
-per frame (``ChainGraphs.stage``).  A stage is keyed by its event set
-("full", "coarse"), its exact event count, whether it has time bins, and
-its dtype; the evaluations within it by the objective's spec and curvature
-model and by kind.  A frame with another event count stages and captures
-anew.  Events are not padded to share graphs: a padded event changes no
-sum, but it could move K3's per-frame tangent bound and with it the
-tangent's bits.
+event set's ``Stage``: the ``FrameEvents`` (or ``FleetEvents``) and the orig
+IWE, copied in once per frame or batch (``ChainGraphs.stage``).  A stage is
+keyed by its event set ("full", "coarse"; the fleet's "fleet-full",
+"fleet-coarse"), its exact event count (a batch: its frame count and each
+frame's event count), whether it has time bins, and its dtype; the
+evaluations within it by the objective's spec and curvature model and by
+kind.  A frame or batch with other event counts stages and captures anew.
+Events are not padded to share graphs: a padded event changes no sum, but
+it could move K3's per-frame tangent bound and with it the tangent's bits.
 
 Capture.  The first call of an evaluation runs it on a side stream (the
 warm-up PyTorch's capture needs, and this call's result), then captures it
 there into a graph on the solver's one memory pool; every later call
-replays the graph.  Results are cloned off the graph's static outputs, so
+replays the graph.  Python's garbage collector is off during a capture: a
+dead solver's graph that a collection destroyed there would reset itself
+inside the capture and invalidate it.  Results are cloned off the graph's static outputs, so
 none is overwritten by a later replay of a graph that shares the pool.  A
 capture that fails raises: a host read inside an evaluation is a fault,
 not a reason to run eagerly.  The kernels' launch counts
@@ -44,13 +53,14 @@ The arithmetic is the loop's, op for op, so the chain gives the loop's
 bits on either device.
 """
 
-from typing import Callable, Dict, Optional, Tuple
+import gc
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from .. import ops
-from .newton_cg import EagerEvaluations
-from .objective import FrameEvents
+from .newton_cg import BatchedEvaluations, EagerEvaluations
+from .objective import FleetEvents, FrameEvents
 
 Tensor = torch.Tensor
 
@@ -66,12 +76,16 @@ class ChainGraphs:
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
         self.stages: Dict[str, Stage] = {}
 
-    def stage(self, name: str, frame: FrameEvents, orig: Tensor) -> "Stage":
-        """The stage of event set ``name`` holding this frame's events and
-        orig IWE: the cached one, with ``frame`` and ``orig`` copied in,
-        when its key matches; else a new one that takes ``frame`` and
-        ``orig`` as its buffers (its graphs are captured anew)."""
-        key = (frame.x.shape[0], frame.bins is not None, frame.x.dtype)
+    def stage(self, name: str, frame: Union[FrameEvents, FleetEvents], orig: Tensor) -> "Stage":
+        """The stage of event set ``name`` holding this frame's (or
+        batch's) events and orig IWE: the cached one, with ``frame`` and
+        ``orig`` copied in, when its key matches; else a new one that takes
+        ``frame`` and ``orig`` as its buffers (its graphs are captured
+        anew)."""
+        if isinstance(frame, FleetEvents):
+            key = (len(frame), frame.frames.sizes, frame.bins is not None, frame.x.dtype)
+        else:
+            key = (frame.x.shape[0], frame.bins is not None, frame.x.dtype)
         stage = self.stages.get(name)
         if stage is None or stage.key != key:
             stage = self.stages[name] = Stage(self, key, frame, orig)
@@ -82,11 +96,13 @@ class ChainGraphs:
 
 
 class Stage:
-    """One event set's static buffers (``frame``, ``orig``) and the
-    evaluations of every objective solved on them."""
+    """One event set's static buffers (``frame``: a ``FrameEvents``, or a
+    batch's ``FleetEvents``; ``orig``) and the evaluations of every
+    objective solved on them."""
 
-    def __init__(self, graphs: ChainGraphs, key: tuple, frame: FrameEvents, orig: Tensor):
+    def __init__(self, graphs: ChainGraphs, key: tuple, frame, orig: Tensor):
         self.graphs, self.key, self.frame, self.orig = graphs, key, frame, orig
+        self.batched = isinstance(frame, FleetEvents)
         self._evaluations: Dict[tuple, StagedEvaluations] = {}
 
     def evaluations(self, key: tuple, value_fn: Callable, hvp_fn: Optional[Callable] = None,
@@ -131,8 +147,14 @@ class _Captured:
             result = self.body(*self.inputs)  # this call's evaluation, and the warm-up
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=g.pool, stream=g.stream):
-            outputs = self.body(*self.inputs)
+        collecting = gc.isenabled()
+        gc.disable()  # no other graph may be destroyed (and reset) inside this capture
+        try:
+            with torch.cuda.graph(graph, pool=g.pool, stream=g.stream):
+                outputs = self.body(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         ops.add_launch_counts({k: -v for k, v in self.launches.items()})  # a capture launches nothing
@@ -143,11 +165,13 @@ class _Captured:
 
 class StagedEvaluations:
     """``EagerEvaluations``' interface over a stage's buffers, each kind
-    of evaluation a ``_Captured`` (the analytic HVP in its staged form)."""
+    of evaluation a ``_Captured`` (the analytic HVP in its staged form);
+    on a batch's stage, ``BatchedEvaluations``' closures."""
 
     def __init__(self, stage: Stage, value_fn: Callable, hvp_fn: Optional[Callable],
                  hvp_prep_fn: Optional[Callable]):
-        eager = EagerEvaluations(value_fn, (stage.orig, stage.frame), hvp_fn, hvp_prep_fn)
+        eager_cls = BatchedEvaluations if stage.batched else EagerEvaluations
+        eager = eager_cls(value_fn, (stage.orig, stage.frame), hvp_fn, hvp_prep_fn)
         self.staged = eager.staged
         g = stage.graphs
         self._value = _Captured(g, lambda x: (eager.value(x),))

@@ -94,6 +94,36 @@ class EagerEvaluations:
         return self.hvp_fn(x, p, *self.args)
 
 
+def batched_fd_hvp(value_grad: Callable, x: Tensor, p: Tensor, g0: Tensor, central: bool) -> Tensor:
+    """``fd_hvp`` of B frames at once (``x``, ``p`` ``[B, M]``): each frame
+    steps by its own ``eps = 0.1 (1 + 1e-3 |x_b|) / (|p_b| + 1e-12)``,
+    computed on the device."""
+    p_norm = torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12
+    eps = _FD_EPS_SCALE * (1.0 + 1e-3 * torch.linalg.vector_norm(x, dim=-1, keepdim=True)) / p_norm
+    g_plus = value_grad(x + eps * p)[1]
+    if not central:
+        return (g_plus - g0) / eps
+    g_minus = value_grad(x - eps * p)[1]
+    return (g_plus - g_minus) / (2.0 * eps)
+
+
+class BatchedEvaluations(EagerEvaluations):
+    """``EagerEvaluations`` of a lockstep batch: ``value_fn(x [B, M],
+    *args) -> [B]`` per-frame losses; ``value_grad`` returns them with the
+    gradient of their sum (the per-frame gradients: frames are
+    independent), ``fd_hvp`` steps each frame by its own ``eps``."""
+
+    def value_grad(self, x: Tensor):
+        xr = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = self.value_fn(xr, *self.args)
+            (g,) = torch.autograd.grad(f.sum(), xr)
+        return f.detach(), g
+
+    def fd_hvp(self, x: Tensor, p: Tensor, g0: Tensor, central: bool) -> Tensor:
+        return batched_fd_hvp(self.value_grad, x, p, g0, central)
+
+
 class NewtonCG:
     """``solve(x0, *args) -> (x_best, f_best, n_iters)`` for a scalar
     ``value_fn(x, *args)`` differentiable by autograd."""

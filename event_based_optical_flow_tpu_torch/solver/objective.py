@@ -162,6 +162,21 @@ class FleetEvents:
     def __len__(self) -> int:
         return len(self.frames.sizes)
 
+    def copy_(self, other: "FleetEvents") -> "FleetEvents":
+        """Copy ``other``'s events, ``t_scales`` and frame table into this
+        instance's tensors, in place (a captured CUDA graph reads them):
+        the same per-frame event counts, dtype, device, and time bins or
+        none."""
+        if (other.frames.sizes != self.frames.sizes or other.x.dtype != self.x.dtype
+                or other.x.device != self.x.device or (other.bins is None) != (self.bins is None)):
+            raise ValueError(f"copy_ takes a fleet of frames of {list(self.frames.sizes)} {self.x.dtype} events on "
+                             f"{self.x.device} {'with' if self.bins is not None else 'without'} time bins, got "
+                             f"{list(other.frames.sizes)} {other.x.dtype} on {other.x.device}")
+        for name in ("x", "y", "dtf", "wt", "t_scales") + (() if self.bins is None else ("bins",)):
+            getattr(self, name).copy_(getattr(other, name))
+        self.frames.ptr.copy_(other.frames.ptr)
+        return self
+
     def frame(self, b: int) -> FrameEvents:
         """Frame ``b``'s events alone (views)."""
         lo = sum(self.frames.sizes[:b])

@@ -206,19 +206,37 @@ class PatchContrastMaximization(SolverBase):
         guess = 2 * n_events // max(1, self.n_patch)
         return int(min(max(512, _next_pow2(guess)), _next_pow2(n_events)))
 
+    def _patch_search(self, patch_events: np.ndarray, weights: np.ndarray, counts: np.ndarray,
+                      motion0: torch.Tensor, n_candidates: int) -> torch.Tensor:
+        """One call of the sampling sweep over a patch batch ``[P, C, 4]``
+        from ``motion0`` [P, 2] (one draw for the whole batch); [P, 2]."""
+        search = build_patch_search(
+            tuple(self.patch_size), int(n_candidates),
+            blur_sigma=self.iwe_config["blur_sigma"], candidates_fn=self.candidates_fn,
+        )
+        return search(self.tensor(patch_events), self.tensor(weights), torch.as_tensor(counts, device=self.device),
+                      motion0.to(self.dtype).contiguous(), self.generator)
+
     def initialize_guess_from_patch_search(self, events_np: np.ndarray, motion0: torch.Tensor,
                                            n_candidates: int) -> torch.Tensor:
         """Per-patch refinement of motion0 [2, n_patch] by the batched
         sampling sweep; returns [2, n_patch]."""
         capacity = self._patch_capacity(len(events_np))
         patch_events, weights, counts = gather_patch_events(events_np, self.patches, capacity)
-        search = build_patch_search(
-            tuple(self.patch_size), int(n_candidates),
-            blur_sigma=self.iwe_config["blur_sigma"], candidates_fn=self.candidates_fn,
-        )
-        motion1 = search(
-            self.tensor(patch_events), self.tensor(weights),
-            torch.as_tensor(counts, device=self.device),
-            motion0.reshape(2, -1).T.contiguous(), self.generator,
-        )
-        return motion1.T
+        return self._patch_search(patch_events, weights, counts, motion0.reshape(2, -1).T, n_candidates).T
+
+    def initialize_guess_from_patch_search_batched(self, events_list, motion0: torch.Tensor, n_candidates: int,
+                                                   max_events: int) -> torch.Tensor:
+        """The fleet chain's init sweep (the JAX package's
+        ``_optimize_batch_chain``): every frame's patches gathered at the
+        capacity of ``max_events`` (the batch's largest frame), stacked
+        frame-major into one ``[B * P, C, 4]`` batch and refined by ONE
+        sweep call, so one draw serves the batch; motion0 [B, 2, n_patch]
+        -> [B, 2, n_patch]."""
+        capacity = self._patch_capacity(max_events)
+        gathered = [gather_patch_events(e, self.patches, capacity) for e in events_list]
+        patch_events, weights, counts = (np.concatenate([g[i] for g in gathered]) for i in range(3))
+        bsz = motion0.shape[0]
+        rows = motion0.transpose(1, 2).reshape(-1, 2)  # [B * P, 2], frame-major
+        motion1 = self._patch_search(patch_events, weights, counts, rows, n_candidates)
+        return motion1.reshape(bsz, -1, 2).transpose(1, 2)

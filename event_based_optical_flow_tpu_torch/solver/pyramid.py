@@ -23,6 +23,15 @@ package's one-dispatch ``_optimize_chain``): the same loop, every Newton
 evaluation replayed from the solver's CUDA graphs (``solver/graphs.py``),
 with the loop's bits; ``optimizer.chain: false`` runs the loop with eager
 evaluations.
+
+``optimizer.warm_finest_only`` (the chain only, as in the JAX package): a
+warm frame skips the coarse scales and their init sweeps and runs one
+finest-scale Newton solve from the warm finest motion
+(``_optimize_warm_finest``); the coarse entries of its result are the
+finest's ``pyramid_reduce``.  ``optimizer.warm_full_every: K`` runs the
+full pyramid on every K-th consecutive warm frame (the warm streak,
+``_warm_finest_active``) to re-anchor the basin.  A deviation from the
+original method, which runs every scale; off by default.
 """
 
 import logging
@@ -76,6 +85,10 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         )
         self.last_frame_stats: dict = {}
         self._graphs: Optional[ChainGraphs] = None  # the chain's captured evaluations
+        # the warm finest-only cadence: consecutive warm frames, and whether
+        # the last frame or batch took the fast path
+        self._warm_streak = 0
+        self._wfo_last = False
 
     def prepare_pyramidal_patch(self, image_size, coarsest_scale: int, finest_scale: int):
         """Per-scale tile geometry."""
@@ -121,8 +134,13 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         """Solve one frame: {scale: motion [2, h_s, w_s]} on the solver's
         device (the finest scale is the output flow's tile motion);
         chained when ``_chain_ready``."""
+        logger.info(f"Start optimization. DoF {self.motion_vector_size * self.total_n_patch}")
         if self._chain_ready():
             return self._optimize_chain(events)
+        if self.opt_config.get("warm_finest_only") and not getattr(self, "_warned_wfo", False):
+            logger.warning("optimizer.warm_finest_only requires the device chain path (optimizer.chain with device "
+                           "Newton-CG, >=2 scales); the per-scale loop runs the full pyramid")
+            self._warned_wfo = True
         return self._optimize_scales(events, chain=False)
 
     def _chain_ready(self) -> bool:
@@ -141,14 +159,76 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         loop's bits."""
         if self._graphs is None:
             self._graphs = ChainGraphs(self.device)
+        warm = self.previous_frame_best_estimation
+        # a dict only: a per-frame warm list here is a fleet's state
+        if self._warm_finest_active(isinstance(warm, dict) and self._warm_has_finest(warm, self.patch_scales - 1)):
+            return self._optimize_warm_finest(events)
         return self._optimize_scales(events, chain=True)
+
+    @staticmethod
+    def _warm_has_finest(warm, s_fin: int) -> bool:
+        """The warmth predicate of the ``warm_finest_only`` gate, shared by
+        the sequential chain and the fleet chain so a stream's streak
+        cadence is the same on both: a per-scale dict holding ``s_fin``, or
+        a non-empty list of such dicts."""
+        if isinstance(warm, (list, tuple)):
+            return len(warm) > 0 and all(isinstance(w, dict) and s_fin in w for w in warm)
+        return isinstance(warm, dict) and s_fin in warm
+
+    def _warm_finest_active(self, use_warm: bool) -> bool:
+        """Whether this frame or batch takes the warm finest-only fast path,
+        decided once per solve: a cold solve resets the warm streak;
+        ``warm_full_every: K`` (K > 0) sends every K-th consecutive warm
+        solve through the full pyramid (K = 1 disables the fast path).
+        Recorded in ``_wfo_last``."""
+        self._wfo_last = False
+        if not use_warm:
+            self._warm_streak = 0
+            return False
+        if not bool(self.opt_config.get("warm_finest_only", False)):
+            return False
+        self._warm_streak += 1
+        every = int(self.opt_config.get("warm_full_every", 0))
+        self._wfo_last = not (every > 0 and self._warm_streak % every == 0)
+        return self._wfo_last
+
+    def _optimize_warm_finest(self, events: np.ndarray) -> Dict[int, torch.Tensor]:
+        """The warm finest-only fast path (the JAX package's
+        ``_optimize_warm_finest``): one finest-scale Newton solve on every
+        event from the warm finest motion, its evaluations from the staged
+        CUDA graphs; no coarse scale, no init sweep.  ``last_frame_stats``
+        holds the finest scale only."""
+        from .. import ops
+
+        events = np.asarray(events, dtype=np.float64)
+        s_fin = self.patch_scales - 1
+        self.overload_patch_configuration(s_fin)
+        spec = self._current_spec()
+        full = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
+        stage = self._graphs.stage("full", full, build_orig_iwe(spec)(full))
+        self.syncs = 0
+        before = ops.launch_counts()
+        scale_mi, scale_cg = self._scale_budget(s_fin)
+        best_x, best_f, n_iter, hvp = self._run_newton(spec, self.previous_frame_best_estimation[s_fin],
+                                                       stage.frame, stage.orig, scale_mi, scale_cg, finest=True,
+                                                       warm=True, stage=stage)
+        loss = float(best_f)
+        self.syncs += 1
+        after = ops.launch_counts()
+        self.last_frame_stats = {
+            "iters": {s_fin: n_iter}, "loss": {s_fin: loss}, "hvp": {s_fin: hvp}, "events": {s_fin: len(events)},
+            "launches": {s_fin: {k: after[k] - before[k] for k in after}}, "chain": True, "warm_finest": True,
+            "syncs": self.syncs,
+        }
+        logger.info(f"Warm finest-only solve: {n_iter} iters, loss {loss:.6f}")
+        return self.update_coarse_from_fine({s_fin: best_x.reshape((self.motion_vector_size,)
+                                                                    + tuple(self.patch_image_size))})
 
     def _optimize_scales(self, events: np.ndarray, chain: bool) -> Dict[int, torch.Tensor]:
         """The coarse-to-fine loop; ``chain``: the evaluations from the
         staged CUDA graphs (``_optimize_chain``)."""
         from .. import ops
 
-        logger.info(f"Start optimization. DoF {self.motion_vector_size * self.total_n_patch}")
         events = np.asarray(events, dtype=np.float64)
         self.overload_patch_configuration(self.coarsest_scale)
         orig_fn = build_orig_iwe(self._current_spec())
@@ -227,11 +307,11 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         raise NotImplementedError(f"Initialization {init!r} is not ported yet")
 
     def update_coarse_from_fine(self, motion_per_scale: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
-        """Fine-to-coarse feedback via pyramid_reduce."""
+        """Fine-to-coarse feedback via pyramid_reduce: every scale's entry
+        from the finest one (the warm finest-only path gives only that)."""
         finest = max(motion_per_scale.keys())
-        coarsest = min(motion_per_scale.keys())
         refined = {finest: motion_per_scale[finest]}
-        for i in range(finest, coarsest, -1):
+        for i in range(finest, self.coarsest_scale, -1):
             refined[i - 1] = pyramid_reduce(refined[i])
         return refined
 

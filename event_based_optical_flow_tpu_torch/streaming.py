@@ -113,6 +113,16 @@ def _warmup_window(image_shape, n_events, seed, t0=0.0, span=0.05):
     return np.stack([x, y, t0 + t, p], axis=1)
 
 
+def _warm_streak(solver) -> Tuple[int, bool]:
+    """The solver's ``warm_finest_only`` cadence (its warm streak and
+    whether the last solve took the fast path)."""
+    return solver._warm_streak, solver._wfo_last
+
+
+def _set_warm_streak(solver, streak: Tuple[int, bool]) -> None:
+    solver._warm_streak, solver._wfo_last = streak
+
+
 def _deep_merge(base: dict, override: dict) -> dict:
     """Recursive dict merge (override wins; nested dicts merge instead of
     replace) — partial user configs keep the defaults' remaining keys.
@@ -268,15 +278,17 @@ class StreamingFlowEstimator:
         the pyramid chain's CUDA graphs for ``count``-event windows, which
         later pushes of that size replay),
         then restore the pre-warmup serving state: the warm chain, the
-        borrow tail, the counters and the solver's randomness, so warmup
-        never leaks into real results (a resumed chain survives it).  Two
-        windows cover the cold and the warm solve.  Returns the elapsed
-        wall seconds."""
+        borrow tail, the counters, the solver's randomness and its
+        ``warm_finest_only`` streak, so warmup never leaks into real
+        results or shifts which real windows re-anchor (a resumed chain
+        survives it).  Two windows cover the cold and the warm solve.
+        Returns the elapsed wall seconds."""
         t_start = time.time()
         count = int(n_events or self.fixed_event_count or 30000)
         warm_prev = self._solver.previous_frame_best_estimation
         tail_prev, span_prev, n_prev = self._tail, self.last_span, self.n_windows
         rng_snap = self._solver.rng_state()
+        streak_snap = _warm_streak(self._solver)
         try:
             for i in range(int(n_windows)):
                 self.push(_warmup_window(self.image_shape, count, seed + i, t0=0.05 * i))
@@ -284,6 +296,7 @@ class StreamingFlowEstimator:
             self._solver.previous_frame_best_estimation = warm_prev
             self._tail, self.last_span, self.n_windows = tail_prev, span_prev, n_prev
             self._solver.set_rng_state(rng_snap)
+            _set_warm_streak(self._solver, streak_snap)
         return time.time() - t_start
 
     def save_state(self, path) -> None:
@@ -352,10 +365,13 @@ class MultiStreamFlowEstimator:
     Same config surface as :class:`StreamingFlowEstimator`; all streams
     share one sensor geometry and solver configuration.  Warm state is a
     per-stream list on the solver in BOTH modes (save_state / load_state
-    round-trip across modes).  The per-stream warm-streak counters of the
-    JAX package's ``warm_finest_only`` cadence are kept and persisted
-    (``streaks``) for the state layout; the port refuses that option, so
-    every solve restarts a stream's streak.
+    round-trip across modes).  With ``optimizer.warm_finest_only``, the
+    sequential mode keeps one warm streak per stream (swapped into the
+    solver around the stream's solve, persisted as ``streaks``); with
+    ``warm_full_every: K`` > 1 the streams' initial streaks are staggered
+    by stream index (``k % K``), so their full-pyramid re-anchors fall on
+    different pushes.  Fleet mode is one lockstep solve: one streak, on
+    the solver.
     """
 
     def __init__(
@@ -397,7 +413,14 @@ class MultiStreamFlowEstimator:
             else "fleet_pyramidal_patch_contrast_maximization"
         )
         self._solver = solver_mod.collections[solver_name]((H, W), {}, slv, opt, {}, device=device)
-        self._streaks0 = [(0, False)] * self.n_streams
+        # per-stream warm_finest_only streaks (sequential mode), staggered
+        # so the streams re-anchor on different pushes: an all-stream
+        # re-anchor is one push that pays every stream's full pyramid
+        wfe = int(opt.get("warm_full_every", 0) or 0)
+        if batching == "sequential" and wfe > 1 and opt.get("warm_finest_only"):
+            self._streaks0 = [(k % wfe, False) for k in range(self.n_streams)]
+        else:
+            self._streaks0 = [(0, False)] * self.n_streams
         self._streaks = list(self._streaks0)
         self.n_batches = 0
 
@@ -436,10 +459,12 @@ class MultiStreamFlowEstimator:
 
     def _solve_sequential(self, prepped):
         """One sequential solve per stream (``batching: "sequential"``):
-        each stream's warm state swaps in around its solve; afterwards the
-        solver holds the SAME per-stream warm list as fleet mode.  A failure
-        midway leaves the warm list and the streak counters as they were
-        before the push (all streams or none advance)."""
+        each stream's warm state and warm streak swap in around its solve;
+        afterwards the solver holds the SAME per-stream warm list as fleet
+        mode.  A stream whose solve went cold restarts its streak at its
+        initial offset.  A failure midway leaves the warm list and the
+        streak counters as they were before the push (all streams or none
+        advance)."""
         warm = self._solver.previous_frame_best_estimation
         warm_list = list(warm) if isinstance(warm, (list, tuple)) else [None] * self.n_streams
         streaks = list(self._streaks)
@@ -447,10 +472,10 @@ class MultiStreamFlowEstimator:
         try:
             for k, ev in enumerate(prepped):
                 self._solver.previous_frame_best_estimation = warm_list[k]
+                _set_warm_streak(self._solver, streaks[k])
                 results.append(self._solver.optimize(ev))
-                # a full pyramid solve (the only one the port runs) restarts
-                # the stream's streak at its offset, as in the JAX package
-                streaks[k] = (self._streaks0[k][0], False)
+                streak, wfo = _warm_streak(self._solver)
+                streaks[k] = (self._streaks0[k][0] if streak == 0 else streak, wfo)
         finally:
             if len(results) == len(prepped):
                 self._streaks = streaks
@@ -463,14 +488,15 @@ class MultiStreamFlowEstimator:
                seed: int = 0) -> float:
         """Push synthetic windows on every stream before real traffic; see
         :meth:`StreamingFlowEstimator.warmup` (same contract: per-stream
-        warm state, tails, streaks, the batch counter and the solver's
-        randomness are restored afterwards)."""
+        warm state, tails, streaks, the batch counter, the solver's
+        randomness and its streak are restored afterwards)."""
         t_start = time.time()
         count = int(n_events or self.fixed_event_count or 30000)
         warm_prev = self._solver.previous_frame_best_estimation
         tails_prev, n_prev = list(self._tails), self.n_batches
         streaks_prev = list(self._streaks)
         rng_snap = self._solver.rng_state()
+        streak_snap = _warm_streak(self._solver)
         try:
             for i in range(int(n_windows)):
                 self.push([
@@ -483,6 +509,7 @@ class MultiStreamFlowEstimator:
             self._tails, self.n_batches = tails_prev, n_prev
             self._streaks = streaks_prev
             self._solver.set_rng_state(rng_snap)
+            _set_warm_streak(self._solver, streak_snap)
         return time.time() - t_start
 
     def reset(self, stream: Optional[int] = None) -> None:

@@ -71,7 +71,6 @@ _KNOWN_OPT_KEYS = {
 _UNPORTED = (
     ("solver", "outer_padding", 0, "outer padding"),
     ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solvers (sequential and fleet)"),
-    ("optimizer", "warm_finest_only", False, "the warm finest-only fast path"),
     ("data", "remove_car", False, "MVSEC car cropping"),
 )
 
@@ -118,9 +117,6 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     _require(data, "height", int, "data")
     _require(data, "width", int, "data")
     _require(data, "n_events_per_batch", int, "data")
-    if data.get("warm_start") == "batch":
-        raise ConfigError("config key 'data.warm_start: batch' selects the fleet chain's batch warm start "
-                          "(each batch from the previous batch's last solution), which is not ported yet")
     for key in data:
         if key not in _KNOWN_DATA_KEYS:
             warnings.append(f"unknown config key 'data.{key}' (ignored?)")
@@ -198,9 +194,14 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
                 raise ConfigError(
                     f"'optimizer.{budget_key}' must be a positive int, got {val!r}"
                 )
-    # optimizer.chain (default on): the sequential pyramid runs chained, its
-    # Newton evaluations replayed from CUDA graphs (solver/graphs.py); the
-    # fleet keeps its per-scale loop (solver/fleet.py logs it)
+    if "warm_finest_only" in opt and not isinstance(opt["warm_finest_only"], bool):
+        raise ConfigError(f"'optimizer.warm_finest_only' must be a bool, got {opt['warm_finest_only']!r}")
+    if "warm_full_every" in opt:
+        val = opt["warm_full_every"]
+        if not isinstance(val, int) or val < 0:
+            raise ConfigError(f"'optimizer.warm_full_every' must be an int >= 0, got {val!r}")
+    # optimizer.chain (default on): the pyramid and the fleet run chained,
+    # their Newton evaluations replayed from CUDA graphs (solver/graphs.py)
     if not isinstance(opt.get("chain", True), bool):
         warnings.append(f"'optimizer.chain' is read as a bool, got {opt['chain']!r}")
     for key in opt:

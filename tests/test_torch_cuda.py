@@ -1025,3 +1025,172 @@ def test_a_capture_that_reads_the_host_raises(cuda_device, deterministic):
     with pytest.raises(RuntimeError):
         reads.value(m)
     assert torch.zeros(3, device=cuda_device).add(1).sum().item() == 3.0
+
+
+# --- the fleet chain: a batch's evaluations replayed from CUDA graphs ---------
+def _fleet_chain_problem(dtype, device, scheme=None, seeds=(21, 22), sizes=(4000, 3500)):
+    """A batch of frames of ``_objective_problem``'s events (one seed and
+    count each; time-aware with ``T_BINS`` bins and ``scheme``) on the card:
+    (spec, fleet, orig IWEs, motions [B, 8], directions)."""
+    import dataclasses
+
+    from event_based_optical_flow_tpu_torch.solver.fleet import build_orig_iwe_batched
+
+    events, spec = [], None
+    for seed, n in zip(seeds, sizes):
+        ev, spec = _objective_problem(np.random.default_rng(seed))
+        events.append(ev[:n])
+    time_bin = None if scheme is None else T_BINS
+    if scheme is not None:
+        spec = dataclasses.replace(spec, time_aware=True, time_bin=T_BINS, flow_interpolation=scheme,
+                                   t0_location="middle")
+    fleet = FleetEvents.from_numpy(events, device, dtype, time_bin=time_bin)
+    rng = np.random.default_rng(sum(seeds))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    b = len(events)
+    return spec, fleet, build_orig_iwe_batched(spec)(fleet), t(rng.uniform(-20, 20, (b, 8))), t(rng.normal(0, 1, (b, 8)))
+
+
+def _batched_evaluations(spec, stage_or_args):
+    """The batched objective's evaluations, staged on a batch's
+    ``graphs.Stage`` or eager on ``(orig, fleet)``."""
+    from event_based_optical_flow_tpu_torch.solver.fleet import (
+        build_batched_objective,
+        build_batched_objective_hvp_staged,
+    )
+    from event_based_optical_flow_tpu_torch.solver.graphs import Stage
+    from event_based_optical_flow_tpu_torch.solver.newton_cg import BatchedEvaluations
+
+    value = build_batched_objective(spec)
+    prep, hvp = build_batched_objective_hvp_staged(spec, True)
+    if isinstance(stage_or_args, Stage):
+        return stage_or_args.evaluations((spec, "test"), value, hvp, prep)
+    return BatchedEvaluations(value, stage_or_args, hvp, prep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", [None, "burgers"])
+def test_replayed_batched_evaluations_equal_eager(cuda_device, deterministic, scheme):
+    """A batch's value, value and gradient, central and one-sided FD HVP
+    (each frame's eps on the device) and analytic prep and HVP (the
+    batched K1/K3/K4, or K5/K6 time-aware), captured at their first call
+    and replayed at every later one, give the eager evaluations' bits and
+    count the eager launches."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    spec, fleet, orig, m, p = _fleet_chain_problem(torch.float32, cuda_device, scheme)
+    eager = _batched_evaluations(spec, (orig, fleet))
+    stage = ChainGraphs(cuda_device).stage("fleet-full", fleet, orig)
+    assert stage.batched and stage.key[:2] == (2, (4000, 3500))
+    staged = _batched_evaluations(spec, stage)
+    g0 = eager.value_grad(m)[1]
+    for k in range(3):
+        mk, pk = m + 0.5 * k, p * (1 + k)
+        ops.reset_launch_counts()
+        want = _all_kinds(eager, mk, pk, g0)
+        torch.cuda.synchronize()
+        eager_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        got = _all_kinds(staged, mk, pk, g0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+        assert ops.launch_counts() == eager_counts and eager_counts[FI.form(fleet.bins, fleet.frames) + "jvp"] > 0
+    assert all(c.graph is not None for c in (staged._value, staged._value_grad, staged._fd_central,
+                                             staged._fd_one_sided, staged._prep, staged._hvp))
+
+
+@pytest.mark.cuda
+def test_batch_of_same_counts_replays_other_counts_restage(cuda_device, deterministic):
+    """A batch with the first's per-frame event counts is copied into its
+    stage (the frame table too) and replays its graphs with the eager bits
+    on the new events; a batch with another per-frame count gets a new
+    stage and new graphs."""
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    graphs = ChainGraphs(cuda_device)
+    spec, fleet0, orig0, m, _ = _fleet_chain_problem(torch.float32, cuda_device)
+    stage = graphs.stage("fleet-full", fleet0, orig0)
+    staged = _batched_evaluations(spec, stage)
+    staged.value_grad(m)
+    graph = staged._value_grad.graph
+    for seeds, sizes in (((23, 24), (4000, 3500)), ((23, 24), (4000, 3000))):
+        _, fleet, orig, _, _ = _fleet_chain_problem(torch.float32, cuda_device, seeds=seeds, sizes=sizes)
+        want = _batched_evaluations(spec, (orig, fleet)).value_grad(m)
+        again = graphs.stage("fleet-full", fleet, orig)
+        got = _batched_evaluations(spec, again).value_grad(m)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if sizes == (4000, 3500):
+            assert again is stage and again.frame.x is fleet0.x and staged._value_grad.graph is graph
+        else:
+            assert again is not stage and again.key[1] == (4000, 3000)
+    with pytest.raises(ValueError, match="copy_ takes a fleet"):
+        stage.frame.copy_(again.frame)
+
+
+@pytest.mark.cuda
+def test_lockstep_newton_replayed_equals_eager(cuda_device, deterministic):
+    """One scale's lockstep Newton-CG (FD and analytic with its FD polish)
+    through a batch's staged evaluations gives the eager solve's iterates,
+    losses, iterations and host syncs bit for bit."""
+    from event_based_optical_flow_tpu_torch.solver.fleet import (
+        BatchedNewtonCG,
+        build_batched_objective,
+        build_batched_objective_hvp_staged,
+    )
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    spec, fleet, orig, m, _ = _fleet_chain_problem(torch.float32, cuda_device)
+    stage = ChainGraphs(cuda_device).stage("fleet-full", fleet, orig)
+    prep, hvp = build_batched_objective_hvp_staged(spec, True)
+    for name, kw in (("fd", {}), ("analytic-gn", {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep,
+                                                   "max_step": 10.0, "fd_polish": 2})):
+        runs = []
+        for use_stage in (False, True):
+            solve = BatchedNewtonCG(build_batched_objective(spec), maxiter=3, cg_maxiter=6, **kw)
+            if use_stage:
+                ev = stage.evaluations((spec, name), solve.value_fn, solve.hvp_fn, solve.hvp_prep_fn)
+                out = solve.solve(ev, m)
+            else:
+                out = solve(m, orig, fleet)
+            torch.cuda.synchronize()
+            runs.append(out + (solve.syncs,))
+        (xe, fe, ke, se), (xs, fs, ks, ss) = runs
+        assert torch.equal(xe, xs) and torch.equal(fe, fs) and (ke, se) == (ks, ss), name
+
+
+@pytest.mark.cuda
+def test_a_batched_capture_that_reads_the_host_raises(cuda_device, deterministic):
+    """A batch's evaluation with a host read inside raises at its first
+    call instead of running eagerly; the card stays usable."""
+    from event_based_optical_flow_tpu_torch.solver.fleet import build_batched_objective
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    spec, fleet, orig, m, _ = _fleet_chain_problem(torch.float32, cuda_device)
+    stage = ChainGraphs(cuda_device).stage("fleet-full", fleet, orig)
+    obj = build_batched_objective(spec)
+    reads = stage.evaluations((spec, "reads"), lambda x, *a: obj(x, *a) * float(x.abs().sum() > 0))
+    with pytest.raises(RuntimeError):
+        reads.value(m)
+    assert torch.zeros(3, device=cuda_device).add(1).sum().item() == 3.0
+
+
+@pytest.mark.cuda
+def test_no_garbage_collection_inside_a_capture(cuda_device, deterministic):
+    """The collector is off while an evaluation is captured (a dead
+    solver's graph destroyed there would reset inside the capture and
+    invalidate it) and on again afterwards; the warm-up runs with it on."""
+    import gc
+
+    from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+
+    spec, frame, orig, m, _ = _chain_problem(torch.float32, cuda_device)
+    obj = build_objective(spec)
+    seen = []
+    staged = ChainGraphs(cuda_device).stage("full", frame, orig).evaluations(
+        (spec, "gc"), lambda x, *a: seen.append(gc.isenabled()) or obj(x, *a)[0])
+    assert gc.isenabled()
+    staged.value(m)
+    staged.value(m + 1.0)
+    assert seen == [True, False] and gc.isenabled()

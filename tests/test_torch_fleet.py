@@ -18,7 +18,12 @@ Pallas kernels in interpret mode (``iwe_backend: pallas``).
   dense analytic with the coarse-scale subsample, time-aware Gauss-Newton.
 * The CLI's fleet eval against ``main.evaluate_dataset_fleet`` on a tiny
   config (5 frames in chunks of 2): metrics to 1e-6, a rerun adds no line;
-  what the port leaves out of the fleet is refused up front.
+  what the port leaves out of the fleet is refused up front, and
+  ``warm_start: batch`` is accepted.
+
+The fleet chain (``optimizer.chain``, the default) draws differently from
+this loop: it is held against the JAX package's chain in
+``tests/test_torch_fleet_chain.py``.
 """
 
 import copy
@@ -348,14 +353,14 @@ def test_fleet_eval_matches_jax_cli_and_rerun_adds_nothing(tmp_path):
 
 
 def test_unported_fleet_options_are_refused(tmp_path):
-    """The fleet chain's ``warm_start: batch``, the batched L-BFGS and the
-    frame-sharding mesh are refused by the config validation, and a fleet
-    eval with warm-start chaining by the CLI (the JAX CLI asserts the
-    same)."""
+    """The batched L-BFGS and the frame-sharding mesh are refused by the
+    config validation, and a fleet eval with per-frame warm-start chaining
+    by the CLI (the JAX CLI asserts the same); the fleet chain's
+    ``warm_start: batch`` is accepted."""
     config = _cli_config(tmp_path / "out")
     assert validate_config(copy.deepcopy(config)) == []
-    for section, update in (("data", {"warm_start": "batch"}), ("optimizer", {"device_solver": "lbfgs"}),
-                            ("solver", {"parallel": {"data": 2}})):
+    assert validate_config({**config, "data": {**config["data"], "warm_start": "batch"}}) == []
+    for section, update in (("optimizer", {"device_solver": "lbfgs"}), ("solver", {"parallel": {"data": 2}})):
         with pytest.raises(ConfigError, match="not ported yet"):
             validate_config({**config, section: {**config[section], **update}})
     with pytest.raises(ConfigError, match="not ported yet"):

@@ -14,8 +14,9 @@ fed to the port (``candidates_fn``), so both solve the same problems.
   state file, and the next push equals the other package's to 1e-6.
 * Warmup leaves the next push equal to a never-warmed estimator's.
 * ``MultiStreamFlowEstimator``: sequential mode against JAX's sequential
-  mode; fleet mode, per-stream warm starts, against the JAX fleet chain's
-  ``per_frame`` warm mode (its draws reproduced by ``ChainDraws``).
+  mode; fleet mode, per-stream warm starts, the port's fleet chain against
+  the JAX fleet chain's ``per_frame`` warm mode (its draws reproduced by
+  ``ChainDraws``, one call per scale).
 * The two faults of the JAX package's multi-stream state handling are not
   carried over: a state file with fewer streams pads the streak counters,
   and a push that fails midway rolls back the streaks with the warm list.
@@ -25,7 +26,6 @@ fed to the port (``candidates_fn``), so both solve the same problems.
 
 import inspect
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +36,7 @@ from event_based_optical_flow_tpu_torch import serve as TSERVE
 from event_based_optical_flow_tpu_torch import streaming as TS
 from event_based_optical_flow_tpu_torch.solver import SolverBase
 from event_based_optical_flow_tpu_torch.utils import ConfigError
+from test_torch_fleet_chain import ChainDraws
 from test_torch_pyramid import JaxDraws
 
 H, W = 32, 48
@@ -172,35 +173,6 @@ STREAMS = [[_window(0.0, 2000, seed=30), _window(0.0, 2000, seed=40)],
            [_window(0.4, 2000, seed=31), _window(0.4, 2000, seed=41)]]
 
 
-class ChainDraws:
-    """The JAX fleet chain's init-sweep draws, reproduced for the port's
-    per-frame sweeps: the chain takes one key per finer scale
-    (``_next_key``) and splits it over frames x patches, frame-major
-    (``sampling.build_patch_search`` on the ``[B * P]`` patch batch); the
-    port sweeps frame by frame, B calls per scale."""
-
-    def __init__(self, n_frames, seed=0):
-        self.key = jax.random.PRNGKey(seed)
-        self.n_frames = n_frames
-        self.calls = 0
-
-    def __call__(self, n_patch, k1, k2):
-        b = self.calls % self.n_frames
-        if b == 0:
-            self.key, sub = jax.random.split(self.key)
-
-            def one(k):
-                a, c = jax.random.split(k)
-                return (jax.random.uniform(a, (k1, 2), dtype=jnp.float64),
-                        jax.random.normal(c, (k2, 2), dtype=jnp.float64))
-
-            u, n = jax.vmap(one)(jax.random.split(sub, self.n_frames * n_patch))
-            self.draws = (np.asarray(u).reshape(self.n_frames, n_patch, k1, 2),
-                          np.asarray(n).reshape(self.n_frames, n_patch, k2, 2))
-        self.calls += 1
-        return self.draws[0][b], self.draws[1][b]
-
-
 def _multi(module, batching, draws=None, optimizer=OPTIMIZER, **kw):
     kw = {"device": "cpu", **kw} if module is TS else kw
     est = module.MultiStreamFlowEstimator((H, W), 2, solver_config=SOLVER, optimizer_config=optimizer,
@@ -213,9 +185,9 @@ def _multi(module, batching, draws=None, optimizer=OPTIMIZER, **kw):
 @pytest.mark.parametrize("batching", ["sequential", "fleet"])
 def test_multistream_matches_jax(batching):
     """Two streams, a cold and a warm push.  Sequential: one solve per
-    stream, as JAX's sequential mode.  Fleet: one lockstep solve per scale
-    with per-stream warm starts, as the JAX fleet chain (``optimizer.chain``
-    on: the chain is the JAX package's per-frame warm path)."""
+    stream, as JAX's sequential mode.  Fleet: both packages' fleet chains
+    (``optimizer.chain`` on: the JAX package's per-frame warm path), one
+    init sweep per scale over both streams' patches."""
     opt = OPTIMIZER if batching == "sequential" else dict(OPTIMIZER, chain=True)
     jx = _multi(JS, batching, optimizer=opt)
     port = _multi(TS, batching, JaxDraws() if batching == "sequential" else ChainDraws(2), optimizer=opt)
@@ -227,7 +199,9 @@ def test_multistream_matches_jax(batching):
         warm = port._solver.previous_frame_best_estimation
         assert isinstance(warm, list) and len(warm) == 2 and sorted(warm[0]) == [1, 2]
     if batching == "fleet":
-        assert port._solver.last_batch_stats["hvp"] == {1: "analytic-gn", 2: "analytic-gn"}
+        stats = port._solver.last_batch_stats
+        assert stats["hvp"] == {1: "analytic-gn", 2: "analytic-gn"} and stats["chain"]
+        assert len(port._solver.candidates_fn.calls) == 2  # one sweep call per push
     assert port.n_batches == jx.n_batches == 2
 
 
@@ -259,9 +233,11 @@ def test_load_state_pads_streaks_of_fewer_streams(tmp_path):
 def test_failed_sequential_push_rolls_back_streaks_and_warm(monkeypatch):
     """A push whose second stream fails leaves every stream's warm motion
     and streak counter as before the push (the JAX package rolls back the
-    warm list only, so stream 0's streak would run ahead of its chain)."""
-    est = _multi(TS, "sequential")
+    warm list only, so stream 0's streak would run ahead of its chain); the
+    next push advances both streaks (``warm_finest_only``, chained)."""
+    est = _multi(TS, "sequential", optimizer=dict(OPTIMIZER, chain=True, warm_finest_only=True))
     est.push(STREAMS[0])
+    assert est._streaks == [(0, False), (0, False)]
     est._streaks = [(1, False), (1, False)]
     warm = est._solver.previous_frame_best_estimation
     calls = []
@@ -280,7 +256,7 @@ def test_failed_sequential_push_rolls_back_streaks_and_warm(monkeypatch):
     assert est._solver.previous_frame_best_estimation is warm
     monkeypatch.setattr(est._solver, "optimize", solve)
     est.push(STREAMS[1])
-    assert est._streaks == [(0, False), (0, False)]
+    assert est._streaks == [(2, True), (2, True)]
 
 
 def test_time_aware_push_returns_the_voxel():
@@ -308,17 +284,15 @@ def test_defaults_are_not_shared():
 
 def test_unported_options_raise():
     with pytest.raises(ConfigError, match="not ported yet"):
-        TS.StreamingFlowEstimator((H, W), solver_config=SOLVER, optimizer_config={"warm_finest_only": True},
+        TS.StreamingFlowEstimator((H, W), solver_config=SOLVER, optimizer_config={"device_solver": "lbfgs"},
                                   device="cpu")
     with pytest.raises(ConfigError, match="not ported yet"):
         TS.MultiStreamFlowEstimator((H, W), 2, solver_config=SOLVER, optimizer_config=OPTIMIZER,
                                     parallel_config={"data": 2}, device="cpu")
     with pytest.raises(ConfigError, match="not ported yet"):
         TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, parallel={"data": 2}), device="cpu")
-    fleet = _multi(TS, "fleet")
-    fleet._solver.set_previous_frame_best_estimation({1: np.zeros((2, 2, 2)), 2: np.zeros((2, 4, 4))})
-    with pytest.raises(ValueError, match="not ported yet"):
-        fleet.push(STREAMS[0])
+    with pytest.raises(ConfigError, match="not ported yet"):
+        TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, outer_padding=2), device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -6,10 +6,11 @@
         [--chain both|on|off]
     python3 tools/profile_torch_frame.py --multistream 2
 
-``--chain`` (default ``both``) profiles the sequential frame chained
+``--chain`` (default ``both``) profiles the sequential frame (with
+``--fleet`` the batch and the frame beside it) chained
 (``optimizer.chain: true``: the Newton evaluations replayed from CUDA
 graphs, captured in the warm-up solve) and then with the loop (``chain:
-false``), or one of the two.
+false``; the fleet's loop draws differently), or one of the two.
 
 ``--dsec`` profiles the analytic HVP path instead: the solver and optimizer
 blocks of configs/dsec_zurich_city.yaml on the synthetic loader at DSEC
@@ -192,7 +193,7 @@ def main() -> int:
     ap.add_argument("--fleet", action="store_true",
                     help="one lockstep batch of frames 0..3, then frame 0 alone through the sequential solver")
     ap.add_argument("--chain", choices=("both", "on", "off"), default="both",
-                    help="the sequential frame chained, with the loop, or both in turn")
+                    help="the sequential frame (and the fleet) chained, with the loop, or both in turn")
     ap.add_argument("--multistream", type=int, default=0, metavar="K",
                     help="time a cold and a warm push of K dense streams, fleet vs sequential (no profiler)")
     args = ap.parse_args()
@@ -214,13 +215,13 @@ def main() -> int:
     if args.hvp_mode:
         config["optimizer"]["hvp_mode"] = args.hvp_mode
     port_main.set_numerics()
-    if args.fleet:  # the fleet solves with its loop; the sequential frame beside it chained unless "off"
-        config["optimizer"]["chain"] = args.chain != "off"
-        profile_fleet(config, args.top)
-        return 0
     for chain in {"both": (True, False), "on": (True,), "off": (False,)}[args.chain]:
         config["optimizer"]["chain"] = chain
         mode = "chained" if chain else "loop"
+        if args.fleet:
+            print(f"[profile] fleet and sequential frame, {mode}", flush=True)
+            profile_fleet(config, args.top)
+            continue
         label = "time-aware" if args.time_aware else ("dsec" if args.dsec else "dense")
         got = profile_frame(config, f"{label}, {mode}", args.top)
         if args.time_aware:
