@@ -115,14 +115,29 @@ Phases (each prints one informative line; any failure exits nonzero):
    ``optimizer_config={"warm_finest_only": True, "warm_full_every": 3}``
    takes windows 0..3: the cold push (the default server's bits), two
    finest-only warm pushes (no init sweep: no K8 launch) and the re-anchor
-   (every scale).
+   (every scale);
+11. the reference protocol: ``[mvsec-cli]`` runs ``MVSEC_CONFIG`` as shipped
+   (260x346, 30 000-event windows, 5 scales, random init, FD HVP, eval_dt
+   4) through the CLI's ``main.run`` on an ``indoor_flying1`` recording in
+   MVSEC's layout written from the synthetic dots scene
+   (``mvsec_fixture``), frames 0 and 1 (the second warm-started): per frame
+   seconds, EPE against the zero flow's, PRED_FWL, host syncs, the solve's
+   K1/K2/K8 launches; the output files' lines and checkpoint;
+12. live-camera ingestion: ``[evt2-fwl]`` runs ``EVT2_CONFIG`` as shipped
+   (480x640, 300 000-event windows, zero init, 5 scales) with the hot-pixel
+   and refractory filters and ``output.save_flow: npz`` through the CLI's
+   GT-free loop on a Prophesee RAW EVT2 file (``evt2_fixture``: dots
+   translating, hot pixels), ``EVT2_WINDOWS`` windows: PRED_FWL must be
+   finite and below 1, and each dumped flow's EPE against the synthesized
+   displacement below half the zero flow's.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
 times: chained, again, the loop) and 4..7 (warm), the time-aware fleet's
 0..1, the serving path's windows 0..2 (its warm pushes are the on-card
-check of the sequential warm start), window 0 again, and windows 0..3 of
-the warm finest-only server.  Every path runs chained, the sequential
+check of the sequential warm start), window 0 again, windows 0..3 of
+the warm finest-only server, the MVSEC recording's frames 0..1 and the EVT2
+recording's windows 0..1.  Every path runs chained, the sequential
 repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
 serving push) starts with every kernel launch count at 0 and reads them
 at its end (a replayed graph adds the launches its capture counted); the
@@ -231,6 +246,36 @@ SERVE_EVENT_COUNT = 30000
 # and seeds 1 and 2 passed the warm pushes of windows 1 and 2 as well
 # (tools/screen_serve_seeds.py; PERF.md, Findings).
 SERVE_SOLVER_SEED = 1
+# The reference protocol's config ([mvsec-cli]) and the raw-camera config
+# ([evt2-fwl]), run as shipped apart from the data location, the output dir
+# and the frames
+MVSEC_CONFIG = "configs/mvsec_indoor_no_timeaware.yaml"
+EVT2_CONFIG = "configs/evt2_raw.yaml"
+# h5py is not installed on the H100 machines this script has run on
+# (`import h5py` raises ModuleNotFoundError), so [mvsec-cli] hands the MVSEC
+# loader the datasets of its `_data.hdf5` file through `mvsec_arrays_reader`
+# in place of `data.mvsec.h5py_loader`; the CPU tests hold that reader to
+# h5py's read of the written file.  Set True where h5py is installed: the
+# phase then writes and reads the file itself.
+MVSEC_H5PY = False
+# the MVSEC fixture: GT frames (indoor_flying1 keeps frames 60.. of them),
+# the gray-frame rate, the dots scene's event rate and largest flow (px/s).
+# At 30 px/s (at most 3.75 px over an eval_dt 4 window) the integer event
+# coordinates make zero flow sharper than the GT flow (GT_FWL 1.02 in a CPU
+# rehearsal at half the geometry) and the solve lands off; at 60 px/s
+# (zero-flow EPE ~4 px, as the MVSEC-geometry slice's ~3.4) it did not.
+MVSEC_FIXTURE = {"n_gt": 68, "frame_hz": 32.0, "event_rate": 300_000.0, "flow_max": 60.0}
+MVSEC_FIRST_VALID_GT = 60
+# seconds since the epoch of the fixture's first event: MVSEC stamps are
+# Unix times, so the loader's float64 timestamps are held at that magnitude
+MVSEC_EPOCH = 1.5e9
+# the EVT2 fixture: a Gen3 VGA recording of dots translating at (row, col)
+# px/s, with hot pixels firing every HOT_PERIOD_US, and the filters'
+# settings that remove them (hot_pixel_sigma) and thin bursts (refractory_us)
+EVT2_FIXTURE = {"n_dots": 4000, "events": 660_000, "seconds": 0.3, "velocity": (-40.0, 60.0),
+                "n_hot": 8, "hot_period_us": 50}
+EVT2_FILTERS = {"hot_pixel_sigma": 5.0, "refractory_us": 50}
+EVT2_WINDOWS = 2
 KERNEL_LINES = {"fwd": 986, "bwd": 1092, "jvp": 1637, "hvp_bwd": 1806,
                 "voxel_fwd": 1223, "voxel_bwd": 1272, "voxel_jvp": 1941, "voxel_hvp_bwd": 1986,
                 "batched_fwd": 1398, "batched_bwd": 1448, "batched_jvp": 1850, "batched_hvp_bwd": 1893,
@@ -402,7 +447,7 @@ def dsec_config() -> dict:
 
 def ta_config() -> dict:
     """The time-aware path: configs/synthetic_mvsec_geometry.yaml's data
-    block (the MVSEC loader and files are not in the repository) with the
+    block (no MVSEC recording is in the repository) with the
     solver and optimizer blocks of configs/mvsec_indoor_burgers.yaml as
     they are (Burgers voxel, 10 bins, t0 in the middle)."""
     with open(CONFIG) as f:
@@ -1411,6 +1456,251 @@ def serve_wfo(dev, smi, image_shape, windows, cold_flow, kw):
     return total, failed
 
 
+def mvsec_fixture(root: str, height: int, width: int, seed: int = 7, **kw) -> dict:
+    """An ``indoor_flying1`` recording in MVSEC's layout, from the synthetic
+    ``dots`` scene (``MVSEC_FIXTURE``, overridden by ``kw``): writes the GT
+    (``<root>/indoor_flying1_gt_flow_dist.npz``: ``timestamps`` and each GT
+    interval's displacement ``x_flow_dist`` (width) / ``y_flow_dist``
+    (height)) and identity rectify maps (``<root>/indoor_flying_left_{x,y}
+    _map.txt``), and returns the datasets of ``indoor_flying1_data.hdf5``:
+    ``davis/left/events`` [n, 4] float64 (x=width, y=height, t in Unix
+    seconds, p in {-1, 1}), ``davis/left/image_raw_ts`` (the gray frames,
+    one per GT frame) and ``davis/right/events``.  The first
+    ``MVSEC_FIRST_VALID_GT`` GT frames precede the events (the loader drops
+    them), two gray intervals of events lead the first kept one and follow
+    the last."""
+    from event_based_optical_flow_tpu_torch.data.synthetic import SyntheticDataLoader
+
+    fx = {**MVSEC_FIXTURE, **kw}
+    n_gt, dt = fx["n_gt"], 1.0 / fx["frame_hz"]
+    first = 2 * dt  # the first kept GT frame, after the first event
+    duration = first + (n_gt - MVSEC_FIRST_VALID_GT + 1) * dt
+    scene = SyntheticDataLoader({"height": height, "width": width, "duration": duration, "seed": seed,
+                                 "event_rate": fx["event_rate"], "flow_max": fx["flow_max"], "pattern": "dots"})
+    scene.set_sequence("indoor_flying1")
+    ev = scene.load_event(0, len(scene))
+    gt_ts = MVSEC_EPOCH + first + (np.arange(n_gt) - MVSEC_FIRST_VALID_GT) * dt
+    step = scene.load_optical_flow(0.0, dt)  # the quadrants' displacement over one GT interval
+    np.savez(os.path.join(root, "indoor_flying1_gt_flow_dist.npz"), timestamps=gt_ts,
+             x_flow_dist=np.repeat(step[None, ..., 1], n_gt, 0), y_flow_dist=np.repeat(step[None, ..., 0], n_gt, 0))
+    rows, cols = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    np.savetxt(os.path.join(root, "indoor_flying_left_x_map.txt"), cols, fmt="%d")
+    np.savetxt(os.path.join(root, "indoor_flying_left_y_map.txt"), rows, fmt="%d")
+    left = np.stack([ev[:, 1], ev[:, 0], MVSEC_EPOCH + ev[:, 2], 2.0 * ev[:, 3] - 1.0], axis=1)
+    return {"davis/left/events": left, "davis/left/image_raw_ts": gt_ts.copy(), "davis/right/events": left[:16]}
+
+
+def write_mvsec_h5(path: str, datasets: dict) -> None:
+    """Write ``mvsec_fixture``'s datasets as an HDF5 file (needs h5py)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for name, values in datasets.items():
+            f.create_dataset(name, data=values)
+
+
+def mvsec_arrays_reader(datasets: dict):
+    """A stand-in for ``data.mvsec.h5py_loader`` on ``mvsec_fixture``'s
+    datasets instead of the file: the same arrays, with HDF5's conversion
+    to int16 (values saturate at the type's range; the timestamp column
+    does, and the loader reads the timestamps from the float64 column)."""
+    def to_int16(a):
+        return np.clip(a, -32768, 32767).astype(np.int16)
+
+    def read(path: str):
+        left, right = datasets["davis/left/events"], datasets["davis/right/events"]
+        return ({"left": left[:, 2].copy(), "right": right[:, 2].copy()},
+                {"event": to_int16(left), "gray_ts": np.asarray(datasets["davis/left/image_raw_ts"], np.float64)},
+                {"event": to_int16(right)})
+
+    return read
+
+
+def evt2_words(x_col, y_row, t_us, pol) -> np.ndarray:
+    """Prophesee EVT2.0 words of time-sorted CD events: an EVT_TIME_HIGH
+    word (type 0x8, t >> 6) wherever the upper bits change, then each event's
+    CD word (type = polarity, t's 6 low bits, 11-bit column, 11-bit row)."""
+    t_us = np.asarray(t_us, np.int64)
+    high = t_us >> 6
+    new_high = np.concatenate([[True], high[1:] != high[:-1]])
+    cd = ((np.asarray(pol, np.int64) << 28) | ((t_us & 0x3F) << 22) | (np.asarray(x_col, np.int64) << 11)
+          | np.asarray(y_row, np.int64))
+    words = np.stack([(0x8 << 28) | high, cd], axis=1).reshape(-1)
+    keep = np.stack([new_high, np.ones_like(new_high)], axis=1).reshape(-1)
+    return words[keep].astype(np.uint32)
+
+
+def evt2_fixture(path: str, height: int, width: int, seed: int = 0, **kw):
+    """A Prophesee RAW EVT2 file at ``path`` (``%`` header, then the words)
+    of a Gen3 camera watching random dots translate at ``velocity`` (row,
+    col) px/s for ``seconds``, with ``n_hot`` hot pixels firing every
+    ``hot_period_us`` (``EVT2_FIXTURE``, overridden by ``kw``).  Returns the
+    velocity (the GT: a window's displacement is velocity x its seconds)."""
+    fx = {**EVT2_FIXTURE, **kw}
+    rng = np.random.default_rng(seed)
+    v = np.asarray(fx["velocity"])
+    n, seconds = fx["events"], fx["seconds"]
+    t = np.sort(rng.uniform(0.0, seconds, n))
+    dots = rng.uniform([-seconds * min(v[0], 0), -seconds * min(v[1], 0)],
+                       [height - seconds * max(v[0], 0), width - seconds * max(v[1], 0)], (fx["n_dots"], 2))
+    pos = dots[rng.integers(0, fx["n_dots"], n)] + v * t[:, None] + rng.normal(0.0, 0.2, (n, 2))
+    rows, cols = np.round(pos[:, 0]), np.round(pos[:, 1])
+    inside = (rows >= 0) & (rows < height) & (cols >= 0) & (cols < width)
+    hot_t = np.arange(0, int(seconds * 1e6), fx["hot_period_us"])
+    hot = rng.integers(0, [height, width], (fx["n_hot"], 2))
+    t_us = np.concatenate([np.floor(t[inside] * 1e6), np.tile(hot_t, fx["n_hot"])])
+    y_row = np.concatenate([rows[inside], np.repeat(hot[:, 0], len(hot_t))])
+    x_col = np.concatenate([cols[inside], np.repeat(hot[:, 1], len(hot_t))])
+    pol = np.concatenate([rng.integers(0, 2, inside.sum()), np.ones(fx["n_hot"] * len(hot_t), np.int64)])
+    order = np.argsort(t_us, kind="stable")
+    header = f"% format EVT2;height={height};width={width}\n% end\n".encode()
+    with open(path, "wb") as f:
+        f.write(header + evt2_words(x_col[order], y_row[order], t_us[order], pol[order]).astype("<u4").tobytes())
+    return tuple(v)
+
+
+def mvsec_cli_path(dev, smi) -> dict:
+    """``[mvsec-cli]``: ``MVSEC_CONFIG`` as shipped (260x346, 30 000-event
+    windows, 5 scales, random init, FD HVP, hybrid cost, eval_dt 4) through
+    ``main.run`` on an ``indoor_flying1`` fixture (``mvsec_fixture``), frames
+    0 and 1 (``data.ind1``/``ind2``, the second warm-started).  Per frame:
+    seconds, EPE against the zero flow's, PRED_FWL, host syncs, the solve's
+    K1/K2/K8 launches.  Returns the run's launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.data import mvsec
+
+    with open(MVSEC_CONFIG) as f:
+        config = yaml.safe_load(f)
+    root = tempfile.mkdtemp(prefix="evflow_chip_smoke_mvsec_")
+    d = config["data"]
+    datasets = mvsec_fixture(root, d["height"], d["width"])
+    n_frames = 2
+    d.update(root=root, gt=root, ind1=0, ind2=n_frames - 1)
+    out_dir = config["output"]["output_dir"] = os.path.join(root, "out")
+    reader = mvsec.h5py_loader
+    if MVSEC_H5PY:
+        write_mvsec_h5(os.path.join(root, "indoor_flying1_data.hdf5"), datasets)
+        how = "h5py reads the written indoor_flying1_data.hdf5"
+    else:
+        mvsec.h5py_loader = mvsec_arrays_reader(datasets)
+        how = "the file's datasets handed to the loader in place of h5py_loader (MVSEC_H5PY False: no h5py on this machine)"
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        records = port_main.run(config, eval_mode=True, device=dev)
+        torch.cuda.synchronize()
+        wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        launches = ops.launch_counts()
+        loader, solv = port_main.build(config, dev)
+    finally:
+        mvsec.h5py_loader = reader
+    failed = []
+    for r in records:
+        m, st = r["metrics"], r["stats"]
+        zero = zero_flow_epe(loader, d, r["frame"], solv)
+        solve = solve_launches(st)
+        ok = np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and np.isfinite(m["PRED_FWL"])
+        phase("mvsec-cli", f"frame {r['frame']} ({'warm' if r['frame'] else 'cold'}): {r['seconds']:.3f} s, EPE "
+                           f"{m['EPE']:.4f} (zero flow {zero:.4f}), 3PE {m['3PE']:.4f}, AE {m['AE']:.4f}, GT_FWL "
+                           f"{m['GT_FWL']:.4f}, PRED_FWL {m['PRED_FWL']:.4f}, host syncs {st['syncs']}, Newton "
+                           f"iters {st['iters']}, the solve's launches K1 {solve['fwd']} K2 {solve['bwd']} K8 "
+                           f"{solve['vote']}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(r["frame"])
+    lines = {name: count_lines(os.path.join(out_dir, name))
+             for name in ("flow_error_per_frame_with_mask.txt", "eval_metrics.jsonl")}
+    with np.load(os.path.join(out_dir, "eval_state.npz")) as state:
+        next_frame = int(state["__next_frame"])
+    files_ok = all(n == n_frames for n in lines.values()) and next_frame == n_frames
+    phase("mvsec-cli", f"{MVSEC_CONFIG} on {smi}: {len(records)} frames ({len(loader)} events, "
+                       f"{len(loader.eval_frame_time_list())} gray frames kept of {MVSEC_FIXTURE['n_gt']}) in "
+                       f"{wall:.2f} s, peak device memory {peak:.3f} GiB, kernel launches "
+                       f"{ {k: v for k, v in launches.items() if v} }; output lines {lines}, eval_state next frame "
+                       f"{next_frame}: {'ok' if files_ok else 'FAIL'}; reader: {how}")
+    if failed or len(records) != n_frames:
+        raise SystemExit(f"chip_smoke: MVSEC frames {failed}: metrics not finite or not below the zero flow")
+    if 0 in (launches["fwd"], launches["bwd"], launches["vote"]) or not files_ok:
+        raise SystemExit("chip_smoke: the MVSEC eval did not run K1, K2 and K8 or wrote the wrong outputs")
+    return launches
+
+
+def count_lines(path: str) -> int:
+    with open(path) as f:
+        return len(f.read().strip().splitlines())
+
+
+def solve_launches(stats: dict) -> dict:
+    """K1, K2 and K8 launches of one solve, summed over its scales."""
+    return {k: sum(c[k] for c in stats["launches"].values()) for k in ("fwd", "bwd", "vote")}
+
+
+def evt2_fwl_path(dev, smi) -> dict:
+    """``[evt2-fwl]``: ``EVT2_CONFIG`` as shipped (480x640, 300 000-event
+    windows, zero init, 5 scales) with ``EVT2_FILTERS`` and ``output.save_flow:
+    npz`` through ``main.run``'s GT-free loop on a RAW EVT2 fixture
+    (``evt2_fixture``), ``EVT2_WINDOWS`` windows.  Per window: seconds,
+    PRED_FWL, host syncs, the solve's launches, and the dumped flow's EPE
+    against the synthesized displacement beside the zero flow's.  Returns the
+    run's launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.flow.metrics import calculate_flow_error
+    from event_based_optical_flow_tpu_torch.ops.iwe import event_mask
+
+    with open(EVT2_CONFIG) as f:
+        config = yaml.safe_load(f)
+    root = tempfile.mkdtemp(prefix="evflow_chip_smoke_evt2_")
+    d = config["data"]
+    velocity = evt2_fixture(os.path.join(root, d["sequence"] + ".raw"), d["height"], d["width"])
+    d.update(root=root, eval_n_frames=EVT2_WINDOWS + d["eval_dt"], **EVT2_FILTERS)
+    out_dir = config["output"]["output_dir"] = os.path.join(root, "out")
+    config["output"]["save_flow"] = "npz"
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = port_main.run(config, eval_mode=True, device=dev)
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    launches = ops.launch_counts()
+    loader, solv = port_main.build(config, dev)
+    ts = loader.eval_frame_time_list()
+    failed = []
+    for r in records:
+        i, st = r["frame"], r["stats"]
+        t1, t2 = ts[i], ts[i + d["eval_dt"]]
+        events = solv.tensor(loader.load_event(loader.time_to_index(t1), loader.time_to_index(t2)))
+        gt = solv.tensor(np.ones((2,) + solv.image_shape) * np.asarray(velocity)[:, None, None] * (t2 - t1))
+        with np.load(os.path.join(out_dir, "flow_submission", f"{i:06d}.npz")) as dump:
+            flow = solv.tensor(dump["flow"])
+        mask = event_mask(events, solv.image_shape)[None]
+        epe = float(calculate_flow_error(gt[None], flow[None], mask)["EPE"])
+        zero = float(calculate_flow_error(gt[None], torch.zeros_like(gt)[None], mask)["EPE"])
+        fwl = r["metrics"]["PRED_FWL"]
+        solve = solve_launches(st)
+        ok = np.isfinite(fwl) and fwl < 1.0 and epe < EPE_FRACTION * zero
+        phase("evt2-fwl", f"window {i} ({'warm' if i else 'cold'}, {t2 - t1:.4f} s, {len(events)} events): "
+                          f"{r['seconds']:.3f} s, PRED_FWL {fwl:.4f}, the npz dump's EPE {epe:.4f} against the "
+                          f"synthesized displacement (zero flow {zero:.4f}), host syncs {st['syncs']}, Newton iters "
+                          f"{st['iters']}, the solve's launches K1 {solve['fwd']} K2 {solve['bwd']} K8 "
+                          f"{solve['vote']}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(i)
+    n_dumps = len(os.listdir(os.path.join(out_dir, "flow_submission")))
+    lines = count_lines(os.path.join(out_dir, "eval_metrics.jsonl"))
+    files_ok = n_dumps == lines == EVT2_WINDOWS
+    phase("evt2-fwl", f"{EVT2_CONFIG} on {smi}: {len(records)} windows ({len(loader)} events after the filters "
+                      f"{EVT2_FILTERS}) in {wall:.2f} s, peak device memory {peak:.3f} GiB, kernel launches "
+                      f"{ {k: v for k, v in launches.items() if v} }; flow dumps {n_dumps}, metric lines {lines}: "
+                      f"{'ok' if files_ok else 'FAIL'}")
+    if failed or len(records) != EVT2_WINDOWS or not files_ok:
+        raise SystemExit(f"chip_smoke: EVT2 windows {failed}: PRED_FWL or the dumped flow wrong, or outputs missing")
+    if 0 in (launches["fwd"], launches["bwd"], launches["vote"]):
+        raise SystemExit("chip_smoke: the EVT2 FWL eval did not run K1, K2 and K8")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
@@ -1506,8 +1796,9 @@ def main() -> int:
         errs.update(path_errs)
         times.update(path_times)
         bounds.update(path_bounds)
-    serve_launches = serve_path(dev, smi)
-    launches = {k: launches[k] + serve_launches[k] for k in launches}
+    for path in (serve_path, mvsec_cli_path, evt2_fwl_path):
+        path_launches = path(dev, smi)
+        launches = {k: launches[k] + path_launches[k] for k in launches}
     src = fi.KERNEL_SOURCE
     pb = "event_based_optical_flow_tpu/ops/pallas_objective_banded.py"
     kernels = [

@@ -61,3 +61,38 @@ class DataLoaderBase:
 
     def time_to_index(self, time: float) -> int:
         raise NotImplementedError
+
+
+class EventArrayLoader(DataLoaderBase):
+    """A loader that holds a whole recording in memory as ``self.events``
+    ([n, 4], time-sorted) and has no dense GT flow (ECD, EVT2, EVT3): the
+    FWL-only eval protocol over a fixed-rate clock, and an optional
+    ECD-style calibration file (``dataset_files["calib"]``)."""
+
+    def __len__(self):
+        return len(self.events)
+
+    def load_event(self, start_index: int, end_index: int, cam: str = "left") -> np.ndarray:
+        return np.copy(self.events[start_index:end_index])
+
+    def index_to_time(self, index: int) -> float:
+        return float(self.left_ts[min(index, len(self.left_ts) - 1)])
+
+    def time_to_index(self, time: float) -> int:
+        """searchsorted - 1, clamped at 0: the eval clock starts exactly at
+        the first event's timestamp."""
+        return max(int(np.searchsorted(self.left_ts, time)) - 1, 0)
+
+    def eval_frame_time_list(self):
+        """``data.eval_n_frames`` (default 200) evenly spaced times over the
+        recording (no GT frames to anchor on)."""
+        n = int(self.config.get("eval_n_frames", 200))
+        return np.linspace(self.left_ts[0], self.left_ts[-1], n)
+
+    def load_calib(self) -> dict:
+        path = self.dataset_files.get("calib", "")
+        if not path or not os.path.exists(path):
+            return {}
+        from .calib import load_ecd_calib_file
+
+        return load_ecd_calib_file(path)

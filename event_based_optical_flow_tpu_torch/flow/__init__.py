@@ -1,6 +1,8 @@
-"""Flow layer of the port: accuracy metrics and GT advection."""
+"""Flow layer of the port: accuracy metrics, GT advection, flow-map files."""
 
 from .gt import estimate_corresponding_gt_flow
+from .io import read_png16, save_flow_frame, write_flow_dsec_png
 from .metrics import calculate_flow_error
 
-__all__ = ["calculate_flow_error", "estimate_corresponding_gt_flow"]
+__all__ = ["calculate_flow_error", "estimate_corresponding_gt_flow", "read_png16", "save_flow_frame",
+           "write_flow_dsec_png"]

@@ -4,17 +4,23 @@ JAX driver):
     python -m event_based_optical_flow_tpu_torch.main --config_file configs/<cfg>.yaml \
         [--eval] [--device cuda|cpu] [--log LEVEL]
 
-Reads the same YAML.  Single-frame mode optimizes the event slice
-[data.ind1, data.ind2); ``--eval`` runs the sequential evaluation over the
-gray-frame windows with GT flow (AEE/NPE/AE + FWL per frame) and writes
-the same ``flow_error_per_frame_with_mask.txt``, ``eval_metrics.jsonl``
-and ``eval_state.npz`` as the JAX CLI, so either CLI resumes the other's
-run.  With ``data.fleet_batch > 1`` and a solver that solves batches
-(``solver.method: fleet_pyramidal_patch_contrast_maximization``), ``--eval``
-runs the fleet evaluation instead: ``fleet_batch`` frames per lockstep
+Reads the same YAML and the same datasets (``data.dataset``: MVSEC, DSEC,
+ECD, EVT2, EVT3 or synthetic).  Single-frame mode optimizes the event
+slice [data.ind1, data.ind2); ``--eval`` runs the sequential evaluation
+over the gray-frame windows with GT flow (AEE/NPE/AE + FWL per frame) and
+writes the same ``flow_error_per_frame_with_mask.txt``,
+``eval_metrics.jsonl`` and ``eval_state.npz`` as the JAX CLI, so either
+CLI resumes the other's run.  A dataset without GT flow (ECD, the raw
+camera streams) runs the GT-free protocol instead: PRED_FWL per window of
+the loader's clock, the same files.  With ``data.fleet_batch > 1`` and a
+solver that solves batches (``solver.method:
+fleet_pyramidal_patch_contrast_maximization``), ``--eval`` on a dataset
+with GT runs the fleet evaluation: ``fleet_batch`` frames per lockstep
 solve, independent (``data.warm_start: false``) or each batch warm-started
 from the previous batch's last solution (``data.warm_start: batch``).
-Visualization (PNGs) is not ported yet.
+``output.save_flow`` (``dsec_png`` or ``npz``) dumps every frame's
+displacement into ``<output_dir>/flow_submission/``.  Visualization (PNGs)
+is not ported yet.
 """
 
 import argparse
@@ -30,6 +36,7 @@ import yaml
 
 from . import data, solver
 from .state import to_numpy
+from .flow.io import save_flow_frame
 from .utils import ConfigError, check_key_and_bool, crop_event, set_numerics, fix_random_seed, validate_config
 from .utils import checkpoint as ckpt
 
@@ -99,21 +106,33 @@ def _optimization_batch(loader, data_config, ind1: int, ind2: int) -> np.ndarray
 
 def _gather_frame(loader, data_config, t1: float, t2: float):
     """One eval window: (optimization batch, the window's own events for
-    the metrics, GT flow, window seconds)."""
+    the metrics, GT flow or None when the loader has none, window
+    seconds).  The window's events are ``load_event(time_to_index(t1),
+    time_to_index(t2))`` as they come, also where the first index is -1."""
     ind1 = loader.time_to_index(t1)
     ind2 = loader.time_to_index(t2)
     batch_for_gt_slice = loader.load_event(ind1, ind2)
+    gt_flow = loader.load_optical_flow(t1, t2) if loader.gt_flow_available else None
     batch_for_gt_slice[..., 2] -= np.min(batch_for_gt_slice[..., 2])
-    return (_optimization_batch(loader, data_config, ind1, ind2), batch_for_gt_slice,
-            loader.load_optical_flow(t1, t2), t2 - t1)
+    return _optimization_batch(loader, data_config, ind1, ind2), batch_for_gt_slice, gt_flow, t2 - t1
 
 
-def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, solv, out_dir: str):
+def _maybe_save_flow(save_flow, out_dir: str, solv, frame_index: int, best_motion, flow_time: float) -> None:
+    """``output.save_flow`` (``dsec_png`` or ``npz``, None: off): the frame's
+    displacement over its window, written next to the metrics."""
+    if save_flow:
+        save_flow_frame(out_dir, frame_index, solv.dense_displacement(best_motion, flow_time), save_flow)
+
+
+def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, solv, out_dir: str,
+                             save_flow=None):
     """Sequential evaluation: per gray-frame window, a fixed-count event
     batch for the solve and the exact window's events for the metrics,
-    warm start chaining (``data.warm_start``), per-frame checkpoint.
-    ``data.ind1``/``ind2`` select the frame range.  Returns the per-frame
-    records (frame, metrics, seconds, solver stats) of this run."""
+    warm start chaining (``data.warm_start``), per-frame checkpoint, the
+    flow dump of ``save_flow`` (``output.save_flow``).  ``data.ind1``/``ind2``
+    select the frame range (frames, as in the JAX CLI: the MVSEC configs'
+    event indices select none).  Returns the per-frame records (frame,
+    metrics, seconds, solver stats) of this run."""
     eval_dt = data_config["eval_dt"]
     warm_start = data_config.get("warm_start", True)
     start_frame, warm_motion = ckpt.load_eval_state(out_dir)
@@ -138,16 +157,52 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
             solv.set_previous_frame_best_estimation(best_motion)
         solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
         ckpt.append_frame_metrics(out_dir, i1, flow_error)
+        _maybe_save_flow(save_flow, out_dir, solv, i1, best_motion, flow_time)
         ckpt.save_eval_state(out_dir, i1 + 1, to_numpy(best_motion) if warm_start else None)
-        seconds = time.perf_counter() - t0
-        stats = dict(solv.last_frame_stats)
-        logger.info(f"Frame {i1}: {seconds:.3f} s, {stats.get('syncs')} host syncs")
-        records.append({"frame": i1, "metrics": flow_error, "seconds": seconds, "stats": stats})
+        records.append(_record(i1, flow_error, time.perf_counter() - t0, solv.last_frame_stats))
+    return records
+
+
+def _record(frame: int, metrics: dict, seconds: float, stats: dict) -> dict:
+    logger.info(f"Frame {frame}: {seconds:.3f} s, {stats.get('syncs')} host syncs")
+    return {"frame": frame, "metrics": metrics, "seconds": seconds, "stats": dict(stats)}
+
+
+def evaluate_dataset_fwl_only(eval_frame_time_stamp_list, data_config, loader, solv, out_dir: str,
+                              save_flow=None):
+    """GT-free evaluation (ECD, the raw camera streams): per window of the
+    loader's clock, the sequential loop's solve, warm start, checkpoint,
+    flow dump and text/JSONL lines, with PRED_FWL (Var(IWE_orig) /
+    Var(IWE_warped) of the predicted flow on the window's events; < 1 is
+    better) as the metrics.  Every window is solved: ``data.ind1``/``ind2``
+    are not read.  Returns the per-frame records of this run."""
+    eval_dt = data_config["eval_dt"]
+    warm_start = data_config.get("warm_start", True)
+    start_frame, warm_motion = ckpt.load_eval_state(out_dir)
+    if warm_motion is not None and warm_start:
+        solv.set_previous_frame_best_estimation(warm_motion)
+    logger.info(f"FWL-only evaluation (no GT flow), dt={eval_dt}, warm_start={warm_start}, "
+                f"from frame {start_frame}")
+    records = []
+    for i1 in range(start_frame, len(eval_frame_time_stamp_list) - eval_dt):
+        logger.info(f"Frame {i1} of {len(eval_frame_time_stamp_list)}")
+        t0 = time.perf_counter()
+        batch_for_optimization, batch_for_metrics, _, flow_time = _gather_frame(
+            loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
+        best_motion = solv.optimize(batch_for_optimization)
+        fwl = solv.calculate_fwl_pred(best_motion, batch_for_metrics, flow_time)
+        if warm_start:
+            solv.set_previous_frame_best_estimation(best_motion)
+        solv.save_flow_error_as_text(out_dir, i1, fwl, "flow_error_per_frame_with_mask.txt")
+        ckpt.append_frame_metrics(out_dir, i1, fwl)
+        _maybe_save_flow(save_flow, out_dir, solv, i1, best_motion, flow_time)
+        ckpt.save_eval_state(out_dir, i1 + 1, to_numpy(best_motion) if warm_start else None)
+        records.append(_record(i1, fwl, time.perf_counter() - t0, solv.last_frame_stats))
     return records
 
 
 def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv, out_dir: str,
-                           fleet_batch: int):
+                           fleet_batch: int, save_flow=None):
     """Fleet evaluation: from the checkpoint's frame on, every eval window in
     chunks of ``fleet_batch`` frames (the last chunk may be smaller), each
     chunk solved by one ``solv.optimize_batch``; per-frame metrics, text and
@@ -155,7 +210,8 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
     checkpoint once per chunk.  With ``data.warm_start: batch`` every frame
     of a chunk warm-starts from the previous chunk's last solution (the
     checkpoint keeps it, so a resumed run continues the chain); else the
-    frames are independent.  ``data.ind1``/``ind2`` are not read.  Returns
+    frames are independent.  ``save_flow`` dumps each frame's flow.
+    ``data.ind1``/``ind2`` are not read.  Returns
     the per-frame records (frame, metrics, the chunk's seconds / B, the
     chunk's solver stats)."""
     eval_dt = data_config["eval_dt"]
@@ -181,6 +237,7 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
             flow_error = solv.calculate_flow_error(best, gt_flow, timescale=flow_time, events=gt_slice)
             solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
             ckpt.append_frame_metrics(out_dir, i1, flow_error)
+            _maybe_save_flow(save_flow, out_dir, solv, i1, best, flow_time)
             errors.append(flow_error)
         ckpt.save_eval_state(out_dir, chunk[-1] + 1, to_numpy(motions[-1]) if batch_warm else None)
         seconds = (time.perf_counter() - t0) / len(chunk)
@@ -204,17 +261,19 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     os.makedirs(out_dir, exist_ok=True)
     loader, solv = build(config, device, candidates_fn)
     if eval_mode:
+        eval_ts = loader.eval_frame_time_list()
         fleet_batch = int(data_config.get("fleet_batch", 1))
-        if fleet_batch > 1 and hasattr(solv, "optimize_batch"):
+        save_flow = config["output"].get("save_flow")
+        if not loader.gt_flow_available:
+            records = evaluate_dataset_fwl_only(eval_ts, data_config, loader, solv, out_dir, save_flow)
+        elif fleet_batch > 1 and hasattr(solv, "optimize_batch"):
             if data_config.get("warm_start", True) not in (False, "batch"):
                 raise ConfigError("data.fleet_batch > 1 needs data.warm_start: false (independent frames) "
                                   "or data.warm_start: batch (each batch from the previous batch's last "
                                   "solution)")
-            records = evaluate_dataset_fleet(loader.eval_frame_time_list(), data_config, loader, solv, out_dir,
-                                             fleet_batch)
+            records = evaluate_dataset_fleet(eval_ts, data_config, loader, solv, out_dir, fleet_batch, save_flow)
         else:
-            records = evaluate_dataset_with_gt(loader.eval_frame_time_list(), data_config, loader, solv,
-                                               out_dir)
+            records = evaluate_dataset_with_gt(eval_ts, data_config, loader, solv, out_dir, save_flow)
         summary = ckpt.summarize_metrics(out_dir)
         if summary:
             logger.info(f"Evaluation summary (mean over frames): {summary}")

@@ -164,6 +164,25 @@ class SolverBase:
         logger.info(f"flow_error = {flow_error} for time period {timescale} sec.")
         return flow_error
 
+    def calculate_fwl_pred(self, motion, events: np.ndarray, timescale: float = 1.0) -> dict:
+        """{"PRED_FWL": ...} of the solution over a window of ``timescale``
+        seconds, the GT-free eval's metric (a time-aware solution warps
+        through its whole voxel)."""
+        with torch.no_grad():
+            e = self.tensor(events)
+            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy")
+            return {"PRED_FWL": float(self._fwl(e, self.predicted_flow(motion, timescale), orig_iwe))}
+
+    def dense_displacement(self, motion, timescale: float) -> np.ndarray:
+        """The solution as a ``[2, H, W]`` displacement over ``timescale``
+        seconds on the host, the slice the metrics score (t0 of a
+        time-aware voxel): what ``output.save_flow`` writes."""
+        with torch.no_grad():
+            flow = self.predicted_flow(motion, timescale)
+            if self.is_time_aware:
+                flow = self.get_original_flow_from_time_aware_flow_voxel(flow)
+            return flow.double().cpu().numpy()
+
     def optimize(self, events: np.ndarray):
         raise NotImplementedError
 

@@ -1,14 +1,19 @@
-"""Misc utilities of the port: config schema, checkpoint, helpers."""
+"""Misc utilities of the port: config schema, checkpoint, event arrays, helpers."""
 
 from .config_schema import ConfigError, check_ported, validate_config
-from .misc import check_key_and_bool, crop_event, set_numerics, fix_random_seed
+from .events import crop_event, crop_event_mask, generate_events, set_event_origin_to_zero, undistort_events
+from .misc import check_key_and_bool, set_numerics, fix_random_seed
 
 __all__ = [
     "ConfigError",
     "check_ported",
     "validate_config",
-    "check_key_and_bool",
+    "generate_events",
     "crop_event",
+    "crop_event_mask",
+    "set_event_origin_to_zero",
+    "undistort_events",
+    "check_key_and_bool",
     "set_numerics",
     "fix_random_seed",
 ]

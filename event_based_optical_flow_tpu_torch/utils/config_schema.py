@@ -3,10 +3,11 @@
 
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
-dataset, solver, optimizer or cost, a host griddata voxel scheme, the fleet
-chain's batch warm start, the L-BFGS solvers, device meshes, the DNN path,
-flow dumps) fails fast here with the YAML path of the entry, instead of
-deep inside a solve.  Unknown keys produce warnings.
+solver, optimizer or cost, a host griddata voxel scheme, outer padding,
+the L-BFGS solvers, device meshes, the DNN path) fails fast here with the
+YAML path of the entry, instead of deep inside a solve.  Unknown keys, and
+the raw-camera filters on a dataset that ignores them, produce the JAX
+package's warnings.
 """
 
 import logging
@@ -71,7 +72,6 @@ _KNOWN_OPT_KEYS = {
 _UNPORTED = (
     ("solver", "outer_padding", 0, "outer padding"),
     ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solvers (sequential and fleet)"),
-    ("data", "remove_car", False, "MVSEC car cropping"),
 )
 
 
@@ -114,6 +114,11 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     _require(data, "dataset", str, "data")
     _choice(data, "dataset", set(data_collections), "data")
     _require(data, "sequence", (str, int), "data")
+    if (data.get("hot_pixel_sigma") or data.get("refractory_us")) and data.get("dataset") not in ("EVT2", "EVT3"):
+        warnings.append(
+            "data.hot_pixel_sigma/refractory_us are only applied by the "
+            "raw-camera loaders (EVT2/EVT3); this dataset ignores them"
+        )
     _require(data, "height", int, "data")
     _require(data, "width", int, "data")
     _require(data, "n_events_per_batch", int, "data")
@@ -124,8 +129,8 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     out = config["output"]
     _require(out, "output_dir", str, "output")
     _require(out, "show_interactive_result", bool, "output")
-    if out.get("save_flow"):
-        raise ConfigError("'output.save_flow' (per-frame flow dumps) is not ported yet")
+    if "save_flow" in out:
+        _choice(out, "save_flow", {"dsec_png", "npz"}, "output")
 
     slv = config["solver"]
     _require(slv, "method", str, "solver")

@@ -1,5 +1,4 @@
-"""Misc helpers (port of ``event_based_optical_flow_tpu/utils/misc.py`` and
-the host-side ``crop_event`` of ``utils/events.py``)."""
+"""Misc helpers (port of ``event_based_optical_flow_tpu/utils/misc.py``)."""
 
 import random
 
@@ -24,17 +23,6 @@ def check_file_utils(path: str) -> bool:
     import os
 
     return os.path.exists(path)
-
-
-def crop_event(events: np.ndarray, x0, x1, y0, y1) -> np.ndarray:
-    """Boolean-filter host events to [x0,x1) x [y0,y1)."""
-    mask = (
-        (x0 <= events[..., 0])
-        & (events[..., 0] < x1)
-        & (y0 <= events[..., 1])
-        & (events[..., 1] < y1)
-    )
-    return events[mask]
 
 
 def set_numerics() -> None:

@@ -11,6 +11,10 @@ port's independence from JAX.
   Newton iterations); a rerun adds no lines.
 * A run begun by the JAX CLI (its ``eval_state.npz``) resumes in the
   port exactly as it resumes in the JAX CLI.
+* ``--eval`` on an MVSEC-layout fixture (``chip_smoke.mvsec_fixture``,
+  the reference protocol's data block) and the GT-free loop on an ECD text
+  fixture: the JAX CLI's per-frame metrics, text lines, checkpoint and
+  ``output.save_flow`` dumps; a rerun adds nothing.
 * The whole port imports, and its CLI runs, with ``jax`` blocked.
 * Config validation: the shipped configs the port runs validate with the
   JAX package's warnings; every other one is refused up front.
@@ -28,6 +32,7 @@ import pytest
 import torch
 import yaml
 
+import chip_smoke
 import main as jax_cli
 from event_based_optical_flow_tpu import data as jdata
 from event_based_optical_flow_tpu import solver as jsolver
@@ -79,6 +84,8 @@ def _config(out_dir) -> dict:
 
 
 def _jax_eval(config):
+    """The JAX CLI's eval on ``config``: the GT-free loop when the loader
+    has no GT, else the sequential loop."""
     out_dir = config["output"]["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
     d = config["data"]
@@ -90,7 +97,10 @@ def _jax_eval(config):
         solver_config=config["solver"], optimizer_config=config["optimizer"],
         output_config=config["output"], visualize_module=viz,
     )
-    jax_cli.evaluate_dataset_with_gt(loader.eval_frame_time_list(), d, loader, solv)
+    if loader.gt_flow_available:
+        jax_cli.evaluate_dataset_with_gt(loader.eval_frame_time_list(), d, loader, solv)
+    else:
+        jax_cli.evaluate_dataset_fwl_only(loader.eval_frame_time_list(), d, loader, solv)
 
 
 def _metrics(out_dir):
@@ -175,9 +185,10 @@ def test_port_resumes_a_jax_run(tmp_path):
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
-    """Every module of the port imports with ``jax`` blocked, none pulls in
-    the JAX package, and the CLI's --eval runs on the CPU."""
-    sources = [p for p in PORT_DIR.rglob("*.py")]
+    """Every module of the port and ``chip_smoke.py`` import with ``jax``
+    blocked (the data and IO modules among them), none pulls in the JAX
+    package, and the CLI's --eval runs on the CPU."""
+    sources = [p for p in PORT_DIR.rglob("*.py")] + [REPO / "chip_smoke.py"]
     assert sources
     for path in sources:
         text = path.read_text()
@@ -194,22 +205,28 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "sys.modules['jax'] = None\n"
         "import event_based_optical_flow_tpu_torch as port\n"
         "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
-        "for n in names: importlib.import_module(n)\n"
+        "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "assert not any(m == 'event_based_optical_flow_tpu' or m.startswith('event_based_optical_flow_tpu.')\n"
         "               for m in sys.modules), 'the JAX package was imported'\n"
-        "print('modules', len(names))\n"
+        "print('modules', len(names), ' '.join(names))\n"
         "from event_based_optical_flow_tpu_torch.main import main\n"
         f"main(['--config_file', {str(cfg_path)!r}, '--eval', '--device', 'cpu'])\n"
     )
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
                           timeout=240, env=dict(os.environ, OMP_NUM_THREADS="2"))
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
-    assert int(proc.stdout.split("modules", 1)[1].split()[0]) >= 25
+    count, *names = proc.stdout.split("modules", 1)[1].splitlines()[0].split()
+    assert int(count) >= 45
+    new = {"data.calib", "data.dsec", "data.ecd", "data.evt2", "data.evt3", "data.mvsec", "flow.io",
+           "ops.filters", "utils.events"}
+    assert {f"event_based_optical_flow_tpu_torch.{m}" for m in new} <= set(names)
     metrics = _metrics(tmp_path / "out")
     assert [r["frame"] for r in metrics] == [0] and np.isfinite(metrics[0]["EPE"])
 
 
-PORTED_CONFIGS = {"synthetic_fleet.yaml", "synthetic_mvsec_geometry.yaml", "synthetic_quickstart.yaml"}
+PORTED_CONFIGS = {"synthetic_fleet.yaml", "synthetic_mvsec_geometry.yaml", "synthetic_quickstart.yaml",
+                  "mvsec_indoor_no_timeaware.yaml", "mvsec_indoor_burgers.yaml", "dsec_zurich_city.yaml",
+                  "ecd_slider_depth.yaml", "evt2_raw.yaml"}
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (REPO / "configs").glob("*.yaml")))
@@ -239,9 +256,9 @@ def test_config_validation(name):
 def test_dsec_solver_and_optimizer_blocks_validate(tmp_path):
     """configs/dsec_zurich_city.yaml's solver and optimizer blocks (the
     analytic HVP, the coarse-scale event subsample, the FD polish) validate
-    in the port with the JAX package's warnings, under a synthetic data
-    block (the DSEC loader is not ported); a coarse_event_fraction outside
-    (0, 1] is refused by both."""
+    in the port with the JAX package's warnings, also under a synthetic
+    data block (as chip_smoke.py runs them); a coarse_event_fraction
+    outside (0, 1] is refused by both."""
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
     from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
 
@@ -261,8 +278,8 @@ def test_dsec_solver_and_optimizer_blocks_validate(tmp_path):
 def test_burgers_solver_and_optimizer_blocks_validate(tmp_path):
     """configs/mvsec_indoor_burgers.yaml's solver and optimizer blocks (the
     time-aware Burgers voxel) validate in the port with the JAX package's
-    warnings under a synthetic data block (the MVSEC loader is not
-    ported); the five device schemes pass, the host griddata schemes are
+    warnings, also under a synthetic data block (as chip_smoke.py runs
+    them); the five device schemes pass, the host griddata schemes are
     refused as not ported."""
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
     from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
@@ -303,3 +320,147 @@ def test_time_aware_eval_runs_on_the_cpu(tmp_path, method):
                                        else ["__next_frame", "array"])
     config["data"]["ind2"] = 2  # one more frame, warm-started from the saved state
     assert [r["frame"] for r in port_cli.run(config, eval_mode=True, device=torch.device("cpu"))] == [2]
+
+
+def _mvsec_config(root, out_dir) -> dict:
+    """configs/mvsec_indoor_no_timeaware.yaml's data block on the
+    36x44 fixture of ``chip_smoke.mvsec_fixture`` (eval_dt 4 as shipped,
+    frames 0..1 through ind1/ind2, 2000-event windows), with the tiny
+    solver of ``_config`` and ``output.save_flow: npz``."""
+    config = _config(out_dir)
+    shipped = yaml.safe_load((REPO / "configs" / "mvsec_indoor_no_timeaware.yaml").read_text())["data"]
+    config["data"] = {**shipped, "root": str(root), "gt": str(root), "height": 36, "width": 44,
+                      "n_events_per_batch": 2000, "ind1": 0, "ind2": 1, "visualize_every": 0}
+    config["output"]["save_flow"] = "npz"
+    return config
+
+
+@pytest.fixture(scope="module")
+def mvsec_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("mvsec")
+    datasets = chip_smoke.mvsec_fixture(str(root), 36, 44, event_rate=20000.0, flow_max=15.0)
+    chip_smoke.write_mvsec_h5(str(root / "indoor_flying1_data.hdf5"), datasets)
+    return root
+
+
+def _dumps(out_dir):
+    sub = pathlib.Path(out_dir) / "flow_submission"
+    return {p.name: p for p in sorted(sub.iterdir())}
+
+
+def test_mvsec_eval_matches_jax_cli_and_rerun_adds_nothing(tmp_path, mvsec_root):
+    """The reference protocol's data block on an indoor_flying1 fixture in
+    MVSEC's layout: frames 0 and 1 (warm-started) give the JAX CLI's
+    per-frame metrics to 1e-6 with its draws injected, the same text lines,
+    checkpoint layout and npz flow dumps (to 1e-6); a rerun adds nothing."""
+    jcfg, tcfg = _mvsec_config(mvsec_root, tmp_path / "jax"), _mvsec_config(mvsec_root, tmp_path / "port")
+    _jax_eval(jcfg)
+    records = port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu"), candidates_fn=JaxDraws())
+    assert [r["frame"] for r in records] == [0, 1]
+    want, got = _metrics(tmp_path / "jax"), _metrics(tmp_path / "port")
+    _assert_same_metrics(got, want)
+    assert all(np.isfinite(r["EPE"]) and np.isfinite(r["PRED_FWL"]) for r in got)
+    port_lines = _text_lines(tmp_path / "port")
+    assert [l.split("::")[0] for l in port_lines] == [l.split("::")[0] for l in _text_lines(tmp_path / "jax")]
+    with np.load(tmp_path / "jax" / "eval_state.npz") as j, np.load(tmp_path / "port" / "eval_state.npz") as t:
+        assert sorted(j.files) == sorted(t.files) and int(t["__next_frame"]) == int(j["__next_frame"]) == 2
+    jd, td = _dumps(tmp_path / "jax"), _dumps(tmp_path / "port")
+    assert list(td) == list(jd) == ["000000.npz", "000001.npz"]
+    for name in jd:
+        with np.load(jd[name]) as j, np.load(td[name]) as t:
+            assert t["flow"].shape == j["flow"].shape == (2, 36, 44) and t["flow"].dtype == np.float32
+            np.testing.assert_allclose(t["flow"], j["flow"], rtol=0, atol=TOL)
+    assert port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu")) == []
+    assert _text_lines(tmp_path / "port") == port_lines and len(_metrics(tmp_path / "port")) == 2
+
+
+def _ecd_config(root, out_dir) -> dict:
+    """configs/ecd_slider_depth.yaml's data block on a 36x44 ECD text
+    fixture (3 clock times: two windows), the tiny solver of ``_config``,
+    ``output.save_flow: dsec_png``."""
+    config = _config(out_dir)
+    shipped = yaml.safe_load((REPO / "configs" / "ecd_slider_depth.yaml").read_text())["data"]
+    config["data"] = {**shipped, "root": str(root), "height": 36, "width": 44, "n_events_per_batch": 2000,
+                      "eval_n_frames": 3, "visualize_every": 0}
+    config["output"]["save_flow"] = "dsec_png"
+    return config
+
+
+def test_fwl_only_eval_matches_jax_on_ecd_and_resumes(tmp_path):
+    """The GT-free protocol on an ECD text fixture (the synthetic dots
+    scene written as ``t x y p`` lines): both windows give the JAX CLI's
+    PRED_FWL to 1e-6 with its draws injected, the same text lines,
+    checkpoint and DSEC-PNG dumps (to one 1/128 px quantum); a rerun adds
+    no lines."""
+    scene = tdata.collections["synthetic"](config={"height": 36, "width": 44, "duration": 0.5, "event_rate": 9000,
+                                                   "pattern": "dots", "n_dots": 80})
+    scene.set_sequence("slider_depth")
+    ev = scene.load_event(0, len(scene))
+    (tmp_path / "data" / "slider_depth").mkdir(parents=True)
+    np.savetxt(tmp_path / "data" / "slider_depth" / "events.txt", np.stack([ev[:, 2], ev[:, 1], ev[:, 0], ev[:, 3]], 1),
+               fmt="%.9f %d %d %d")
+    jcfg, tcfg = (_ecd_config(tmp_path / "data", tmp_path / name) for name in ("jax", "port"))
+    _jax_eval(jcfg)
+    records = port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu"), candidates_fn=JaxDraws())
+    assert [r["frame"] for r in records] == [0, 1]
+    want, got = _metrics(tmp_path / "jax"), _metrics(tmp_path / "port")
+    assert [sorted(r) for r in got] == [sorted(r) for r in want] == [["PRED_FWL", "frame"]] * 2
+    for g, w in zip(got, want):
+        assert g["frame"] == w["frame"] and g["PRED_FWL"] == pytest.approx(w["PRED_FWL"], rel=0, abs=TOL)
+        assert np.isfinite(g["PRED_FWL"])
+    port_lines = _text_lines(tmp_path / "port")
+    assert [l.split("::")[0] for l in port_lines] == [l.split("::")[0] for l in _text_lines(tmp_path / "jax")]
+    with np.load(tmp_path / "jax" / "eval_state.npz") as j, np.load(tmp_path / "port" / "eval_state.npz") as t:
+        assert sorted(j.files) == sorted(t.files) and int(t["__next_frame"]) == int(j["__next_frame"]) == 2
+    from event_based_optical_flow_tpu_torch.flow.io import read_png16
+
+    jd, td = _dumps(tmp_path / "jax"), _dumps(tmp_path / "port")
+    assert list(td) == list(jd) == ["000000.png", "000001.png"]
+    for name in jd:
+        np.testing.assert_allclose(read_png16(td[name]), read_png16(jd[name]), rtol=0, atol=1)
+    assert port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu")) == []
+    assert _text_lines(tmp_path / "port") == port_lines and len(_metrics(tmp_path / "port")) == 2
+
+
+def test_time_aware_eval_runs_on_the_mvsec_fixture(tmp_path, mvsec_root):
+    """configs/mvsec_indoor_burgers.yaml's time-aware keys (3 bins here) on
+    the MVSEC fixture: finite metrics for frames 0 and 1, and each frame's
+    dump is the t0 slice the metrics score."""
+    config = _mvsec_config(mvsec_root, tmp_path / "out")
+    burgers = yaml.safe_load((REPO / "configs" / "mvsec_indoor_burgers.yaml").read_text())["solver"]
+    config["solver"].update({k: burgers[k] for k in ("time_aware", "flow_interpolation", "t0_flow_location")},
+                            time_bin=3)
+    records = port_cli.run(config, eval_mode=True, device=torch.device("cpu"))
+    assert [r["frame"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["metrics"][k]) for r in records for k in METRICS)
+    dumps = _dumps(tmp_path / "out")
+    assert list(dumps) == ["000000.npz", "000001.npz"]
+    with np.load(dumps["000001.npz"]) as d:
+        assert d["flow"].shape == (2, 36, 44) and np.isfinite(d["flow"]).all()
+
+
+def test_data_and_output_keys_validate_as_jax():
+    """The keys this slice lifts validate as in the JAX package: the
+    raw-camera filters (warned about on a dataset that ignores them),
+    ``output.save_flow`` (``dsec_png``/``npz``; another value refused by
+    both), ``data.remove_car``."""
+    from event_based_optical_flow_tpu.utils import validate_config as jax_validate
+    from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
+
+    filters = {"hot_pixel_sigma": 5.0, "refractory_us": 50}
+    for name, data_update, out_update in (
+            ("evt2_raw.yaml", filters, {"save_flow": "npz"}),
+            ("mvsec_indoor_no_timeaware.yaml", filters, {"save_flow": "dsec_png"}),
+            ("mvsec_indoor_no_timeaware.yaml", {"remove_car": True, "refractory_us": 20}, {}),
+            ("ecd_slider_depth.yaml", {"hot_pixel_sigma": 3.0}, {"save_flow": None})):
+        config = yaml.safe_load((REPO / "configs" / name).read_text())
+        config["data"].update(data_update)
+        config["output"].update(out_update)
+        want = jax_validate(config)
+        assert validate_config(config) == want
+        assert ("raw-camera" in " ".join(want)) == (config["data"]["dataset"] != "EVT2")
+    config["output"]["save_flow"] = "exr"
+    with pytest.raises(ConfigError, match="save_flow"):
+        validate_config(config)
+    with pytest.raises(Exception, match="save_flow"):
+        jax_validate(config)
