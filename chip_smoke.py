@@ -129,15 +129,31 @@ Phases (each prints one informative line; any failure exits nonzero):
    GT-free loop on a Prophesee RAW EVT2 file (``evt2_fixture``: dots
    translating, hot pixels), ``EVT2_WINDOWS`` windows: PRED_FWL must be
    finite and below 1, and each dumped flow's EPE against the synthesized
-   displacement below half the zero flow's.
+   displacement below half the zero flow's;
+13. the global motion-model solver (``solver.method:
+   global_contrast_maximization``): ``[global-check]`` holds each model's
+   objective (2d-translation, 4-param-similarity, 3-rotation) at 260x346 on
+   the card to the CPU (value, gradient, the analytic HVP along a random
+   direction) and K1-K4 on the model's field to their plain versions and
+   exact models; ``[global-sim]`` runs ``GLOBAL_SIM_CONFIG`` as shipped
+   (120x152, zero init, the 33-candidate sweep, FD HVP) through the CLI's
+   eval loop, frames 0..2 chained (0 cold, 1 and 2 warm), then frame 0 with
+   the loop, bit for bit (``[global-sim-repeat]``, ``[chain]``);
+   ``[global-rot3d]`` ``GLOBAL_ROT3D_CONFIG`` as shipped, frames 0..2;
+   ``[global-rot3d-346]`` its data block at 260x346 (``global_346_data``)
+   with ``hvp_mode: analytic`` (K3, K4), frames 0..1.  Per frame: seconds,
+   EPE against the zero flow's, PRED_FWL, host syncs, the solve's K1-K4
+   launches and the recovered parameters beside the scene's rates in the
+   solver's sign convention.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
 times: chained, again, the loop) and 4..7 (warm), the time-aware fleet's
 0..1, the serving path's windows 0..2 (its warm pushes are the on-card
 check of the sequential warm start), window 0 again, windows 0..3 of
-the warm finest-only server, the MVSEC recording's frames 0..1 and the EVT2
-recording's windows 0..1.  Every path runs chained, the sequential
+the warm finest-only server, the MVSEC recording's frames 0..1, the EVT2
+recording's windows 0..1, and the global configs' frames 0..2 (the
+similarity's frame 0 again with the loop) and the 346 cell's 0..1.  Every path runs chained, the sequential
 repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
 serving push) starts with every kernel launch count at 0 and reads them
 at its end (a replayed graph adds the launches its capture counted); the
@@ -276,6 +292,37 @@ EVT2_FIXTURE = {"n_dots": 4000, "events": 660_000, "seconds": 0.3, "velocity": (
                 "n_hot": 8, "hot_period_us": 50}
 EVT2_FILTERS = {"hot_pixel_sigma": 5.0, "refractory_us": 50}
 EVT2_WINDOWS = 2
+# The global motion-model solver's shipped configs ([global-sim],
+# [global-rot3d]) and their scenes' rates: the similarity scene rotates at
+# `omega` rad/s about the image center (the solver's `rot` is its negation),
+# the rotation scene's camera at `omega3` (the solver's rot_x..rot_z are
+# its negation)
+GLOBAL_SIM_CONFIG = "configs/synthetic_rotation_global.yaml"
+GLOBAL_ROT3D_CONFIG = "configs/synthetic_rotation3d_global.yaml"
+GLOBAL_LAST_FRAME = 2
+# [global-rot3d-346]: the rotation config at the DAVIS346's 260x346 (MVSEC's
+# camera); the dots and the event rate scale by the pixel ratio, so the dot
+# density and the events per pixel and second stay the shipped ones; the
+# focal falls back to the loader's (H + W) / 2, which keeps the shipped field
+# of view (136 px at 120x152); the analytic HVP engages K3 and K4
+GLOBAL_346_LAST_FRAME = 1
+# [global-check]'s parameter box in the solver's scaled (px/s-equivalent)
+# units: over the cell's ~0.034 s solve windows, fields of up to ~10-25 px,
+# which send the rotation field's corner events off the image
+GLOBAL_CHECK_SPAN = 400.0
+
+
+def global_346_data(data: dict) -> dict:
+    """``data`` (the rotation config's block) at 260x346: ``height``,
+    ``width``, ``n_dots`` and ``event_rate`` scaled by the pixel ratio,
+    ``focal`` dropped."""
+    ratio = (260 * 346) / (data["height"] * data["width"])
+    out = {k: v for k, v in data.items() if k != "focal"}
+    out.update(height=260, width=346, n_dots=int(round(data["n_dots"] * ratio)),
+               event_rate=float(data["event_rate"] * ratio))
+    return out
+
+
 KERNEL_LINES = {"fwd": 986, "bwd": 1092, "jvp": 1637, "hvp_bwd": 1806,
                 "voxel_fwd": 1223, "voxel_bwd": 1272, "voxel_jvp": 1941, "voxel_hvp_bwd": 1986,
                 "batched_fwd": 1398, "batched_bwd": 1448, "batched_jvp": 1850, "batched_hvp_bwd": 1893,
@@ -379,7 +426,7 @@ def cuda_ms(fn, n_warm: int = 5, n_iter: int = 50) -> float:
     return start.elapsed_time(end) / n_iter
 
 
-def objective_check(config: dict, events: np.ndarray, rng) -> str:
+def objective_check(config: dict, events: np.ndarray, rng, solv=None, span: float = 15.0) -> str:
     """The finest scale's whole objective (kernel, blur, hybrid cost; for a
     time-aware config the Burgers chain too) and its autograd gradient on
     the card against the plain version on the CPU at float64, on the first
@@ -387,14 +434,16 @@ def objective_check(config: dict, events: np.ndarray, rng) -> str:
     float64 on both sides: the sums' order is all that differs (1e-9);
     float32 on the card: its rounding (1e-4 of the value), and for the
     gradient also corner decisions that flip where a warped coordinate
-    rounds across a pixel edge (1e-2 of the largest component)."""
+    rounds across a pixel edge (1e-2 of the largest component).  ``solv``:
+    the config's solver on the CPU, when the caller has built it; ``span``:
+    the motion's box (px/s, or a global model's scaled units)."""
     from event_based_optical_flow_tpu_torch import main as port_main
     from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents, build_objective, build_orig_iwe
 
-    _, solv = port_main.build(config, "cpu")
-    solv.overload_patch_configuration(solv.patch_scales - 1)
-    spec = solv._current_spec()
-    motion = rng.uniform(-15.0, 15.0, 2 * solv.n_patch)
+    if solv is None:
+        _, solv = port_main.build(config, "cpu")
+    spec, where = finest_spec(solv)
+    motion = rng.uniform(-span, span, solv.motion_vector_size * solv.n_patch)
     out = {}
     for dev, dtype, rep in (("cpu", torch.float64, 0), ("cuda", torch.float64, 0),
                             ("cuda", torch.float32, 0), ("cuda", torch.float32, 1)):
@@ -419,8 +468,17 @@ def objective_check(config: dict, events: np.ndarray, rng) -> str:
             raise SystemExit("chip_smoke: the objective on the card disagrees with the CPU")
     if not same:
         raise SystemExit("chip_smoke: the float32 objective on the card changed between two calls")
-    return (f"scale {solv.current_scale}, {solv.n_patch} tiles, loss {l_ref:.6f} (cpu float64); "
+    return (f"{where}, loss {l_ref:.6f} (cpu float64); "
             + "; ".join(lines) + "; float32 repeat same bits: ok")
+
+
+def finest_spec(solv):
+    """(the objective's spec, a label) of a tile solver's finest scale, or
+    of a global solver's model."""
+    if hasattr(solv, "overload_patch_configuration"):
+        solv.overload_patch_configuration(solv.patch_scales - 1)
+        return solv._current_spec(), f"scale {solv.current_scale}, {solv.n_patch} tiles"
+    return solv._current_spec(), f"{solv.motion_model}, parameters {solv.motion_model_keys} (scaled units)"
 
 
 def zero_flow_epe(loader, data_config, frame_index: int, solv) -> float:
@@ -552,22 +610,25 @@ def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
     return lines, errs, ok
 
 
-def hvp_check(config: dict, events: np.ndarray, rng) -> str:
+def hvp_check(config: dict, events: np.ndarray, rng, solv=None, span: float = 15.0) -> str:
     """The finest scale's staged analytic HVP (K1 values, K3 tangent, the
     cost's jvp-of-grad, K4, the tile map's transpose; for a time-aware
     config K5, K6 and the Burgers chain's jvp and vjp) on the card against
     the plain version on the CPU at float64: 1e-9 of max|Hp|
     (the sums' order); float32 on the card: 1e-2 of the largest component
     (the gradient's rule: corner decisions that flip under float32
-    rounding); a float32 repeat gives the same bits."""
+    rounding); a float32 repeat gives the same bits.  ``solv``: the
+    config's solver on the CPU, when the caller has built it; ``span``: the
+    motion's box (px/s, or a global model's scaled units)."""
     from event_based_optical_flow_tpu_torch import main as port_main
     from event_based_optical_flow_tpu_torch.solver.objective import (FrameEvents, build_objective_hvp_staged,
                                                                      build_orig_iwe)
 
-    _, solv = port_main.build(config, "cpu")
-    solv.overload_patch_configuration(solv.patch_scales - 1)
-    spec = solv._current_spec()
-    motion, p = rng.uniform(-15.0, 15.0, 2 * solv.n_patch), rng.normal(0.0, 1.0, 2 * solv.n_patch)
+    if solv is None:
+        _, solv = port_main.build(config, "cpu")
+    spec, where = finest_spec(solv)
+    size = solv.motion_vector_size * solv.n_patch
+    motion, p = rng.uniform(-span, span, size), rng.normal(0.0, 1.0, size)
     prep, hvp = build_objective_hvp_staged(spec)
     out = {}
     for dev, dtype, rep in (("cpu", torch.float64, 0), ("cuda", torch.float64, 0),
@@ -587,7 +648,7 @@ def hvp_check(config: dict, events: np.ndarray, rng) -> str:
             raise SystemExit("chip_smoke: the analytic HVP on the card disagrees with the CPU")
     if not np.array_equal(out[("cuda", torch.float32, 0)], out[("cuda", torch.float32, 1)]):
         raise SystemExit("chip_smoke: the float32 analytic HVP on the card changed between two calls")
-    return (f"scale {solv.current_scale}, {solv.n_patch} tiles, N={len(events)}, max|Hp| {scale:.4g} "
+    return (f"{where}, N={len(events)}, max|Hp| {scale:.4g} "
             "(cpu float64); " + "; ".join(lines) + "; float32 repeat same bits: ok")
 
 
@@ -1701,6 +1762,134 @@ def evt2_fwl_path(dev, smi) -> dict:
     return launches
 
 
+def global_check(port_main, fi, dev, smi, rng) -> None:
+    """``[global-check]``: each global model (2d-translation,
+    4-param-similarity, 3-rotation) at 260x346 on the first window of the
+    rotation config's 346 cell: the objective's value and gradient
+    (``objective_check``) and its analytic HVP along a random direction
+    (``hvp_check``) on the card against the CPU, and K1-K4 on the model's
+    field (x ``t_scale``, the tangent the field of a random direction) against
+    their plain versions and exact models (``compare``,
+    ``check_second_order``), float64 and float32."""
+    from event_based_optical_flow_tpu_torch.solver import objective
+
+    with open(GLOBAL_ROT3D_CONFIG) as f:
+        config = yaml.safe_load(f)
+    config["data"] = global_346_data(config["data"])
+    loader, events = first_window(config)
+    h, w = config["data"]["height"], config["data"]["width"]
+    for model in ("2d-translation", "4-param-similarity", "3-rotation"):
+        cfg = copy.deepcopy(config)
+        cfg["solver"]["motion_model"] = model
+        solv = port_main.solver.collections[cfg["solver"]["method"]](
+            (h, w), calibration_parameter=loader.load_calib(), solver_config=cfg["solver"],
+            optimizer_config=cfg["optimizer"], output_config=cfg["output"], device="cpu")
+        phase("global-check", f"{model} objective: " + objective_check(cfg, events, rng, solv, GLOBAL_CHECK_SPAN))
+        phase("global-check", f"{model} analytic HVP: " + hvp_check(cfg, events, rng, solv, GLOBAL_CHECK_SPAN))
+        spec = solv._current_spec()
+        motion = rng.uniform(-GLOBAL_CHECK_SPAN, GLOBAL_CHECK_SPAN, solv.motion_vector_size)
+        p = rng.normal(0.0, 1.0, solv.motion_vector_size)
+        g_np = rng.normal(size=(3, len(OFFSETS), h, w))
+        for dtype in (torch.float64, torch.float32):
+            frame = objective.FrameEvents.from_numpy(events, dev, dtype)
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+            flow = objective.flow_of(spec, t(motion), frame.t_scale).contiguous()
+            dflow = objective.flow_of(spec, t(p), frame.t_scale).contiguous()
+            fe, be, fs, bs, same, exact = compare(fi, frame, flow, t(g_np[0]), False, OFFSETS)
+            lines, _, ok2 = check_second_order(fi, frame, flow, dflow, t(g_np[1]), t(g_np[2]), TOL[dtype])
+            ok = fe <= TOL[dtype] * fs and be <= TOL[dtype] * bs and same and exact == 0 and ok2
+            phase("global-check", f"{model} {str(dtype)[6:]} N={len(events)} {h}x{w}, max|flow| "
+                                  f"{flow.abs().max().item():.3g} px, max|dflow| {dflow.abs().max().item():.3g} px: "
+                                  f"K1 fwd max|err| {fe:.3e} (scale {fs:.3g}), K2 bwd max|err| {be:.3e} (scale "
+                                  f"{bs:.3g}), tol {TOL[dtype]:g} x scale; exact model: max|err| {exact:g}; repeat "
+                                  f"same bits: {same}; " + "; ".join(lines) + f": {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: K1-K4 on the {model} field disagree with their plain versions")
+
+
+def global_run(port_main, dev, smi, name: str, config: dict, last_frame: int, truth, cell: str):
+    """Frames 0..last_frame of a global config through the CLI's eval loop
+    (chained, a fresh output dir): per frame seconds, EPE against the zero
+    flow's, PRED_FWL, host syncs, Newton iterations, the HVP, the solve's
+    K1-K4 launches and the recovered parameters beside ``truth`` (the
+    scene's, in the solver's sign convention).  Returns (records, the run's
+    launches, peak device GiB)."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    records, out_dir, wall, peak = run_slice(port_main, config, dev, last_frame)
+    launches = ops.launch_counts()
+    run_config = slice_config(config, last_frame, out_dir)
+    loader, solv = port_main.build(run_config, dev)
+    failed = []
+    for r in records:
+        m, st = r["metrics"], r["stats"]
+        zero = zero_flow_epe(loader, run_config["data"], r["frame"], solv)
+        ok = np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and np.isfinite(m["PRED_FWL"])
+        solve = st["launches"][0]
+        got = ", ".join(f"{k} {v:.4f}" for k, v in st["params"].items())
+        want = ", ".join(f"{k} {v:.4f}" for k, v in truth.items())
+        phase(name, f"frame {r['frame']} ({'warm' if r['frame'] else 'cold'}): {r['seconds']:.3f} s, EPE "
+                    f"{m['EPE']:.4f} (zero flow {zero:.4f}), AE {m['AE']:.4f}, GT_FWL {m['GT_FWL']:.4f}, PRED_FWL "
+                    f"{m['PRED_FWL']:.4f}, host syncs {st['syncs']}, Newton iters {st['iters'][0]} ({st['hvp'][0]} "
+                    f"HVP), loss {st['loss'][0]:.6f}, the solve's launches K1 {solve['fwd']} K2 {solve['bwd']} K3 "
+                    f"{solve['jvp']} K4 {solve['hvp_bwd']}; recovered ({got}) against ({want}): "
+                    f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(r["frame"])
+    phase(name, f"{cell} on {smi}: {len(records)} frames in {wall:.2f} s, peak device memory {peak:.3f} GiB, "
+                f"kernel launches {({k: v for k, v in launches.items() if v})}")
+    if failed or len(records) != last_frame + 1:
+        raise SystemExit(f"chip_smoke: {name} frames {failed}: metrics not finite or not below the zero flow")
+    if 0 in (launches["fwd"], launches["bwd"], launches["vote"]):
+        raise SystemExit(f"chip_smoke: {name} did not run K1, K2 and K8")
+    return records, launches, peak
+
+
+def global_path(dev, smi) -> dict:
+    """The global motion-model solver: ``[global-check]``, then
+    ``[global-sim]`` (``GLOBAL_SIM_CONFIG`` as shipped, frames 0..2 chained,
+    then frame 0 with the loop, bit for bit), ``[global-rot3d]``
+    (``GLOBAL_ROT3D_CONFIG`` as shipped, frames 0..2) and
+    ``[global-rot3d-346]`` (its data block at 260x346, ``hvp_mode:
+    analytic``, frames 0..1: K3 and K4).  Returns the three runs' launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch.ops import fused_iwe as fi
+
+    global_check(port_main, fi, dev, smi, np.random.default_rng(11))
+    with open(GLOBAL_SIM_CONFIG) as f:
+        sim = yaml.safe_load(f)
+    with open(GLOBAL_ROT3D_CONFIG) as f:
+        rot3d = yaml.safe_load(f)
+    d = sim["data"]
+    records, total, peak = global_run(
+        port_main, dev, smi, "global-sim", sim, GLOBAL_LAST_FRAME,
+        {"trans_x": 0.0, "trans_y": 0.0, "rot": -d["omega"], "zoom": 0.0},
+        f"{GLOBAL_SIM_CONFIG} as shipped ({d['height']}x{d['width']}, {d['n_events_per_batch']}-event solves, "
+        f"{sim['solver']['motion_model']}, {sim['optimizer']['n_iter']}-candidate sweep, FD HVP)")
+    if not loop_repeat(port_main, sim, dev, records, peak, smi, "global-sim-repeat", "global similarity"):
+        raise SystemExit("chip_smoke: the loop's run of the global frame 0 did not reproduce the chained result")
+    runs = [(rot3d, "global-rot3d", GLOBAL_LAST_FRAME,
+             f"{GLOBAL_ROT3D_CONFIG} as shipped ({rot3d['data']['height']}x{rot3d['data']['width']}, "
+             f"focal {rot3d['data']['focal']} px, FD HVP)")]
+    big = copy.deepcopy(rot3d)
+    big["data"] = global_346_data(rot3d["data"])
+    big["optimizer"]["hvp_mode"] = "analytic"
+    runs.append((big, "global-rot3d-346", GLOBAL_346_LAST_FRAME,
+                 f"{GLOBAL_ROT3D_CONFIG} at 260x346 (changed: height/width 120x152 -> 260x346, n_dots "
+                 f"{rot3d['data']['n_dots']} -> {big['data']['n_dots']}, event_rate {rot3d['data']['event_rate']} "
+                 f"-> {big['data']['event_rate']:.0f}, focal {rot3d['data']['focal']} dropped for the loader's "
+                 f"(H + W) / 2 = 303; optimizer.hvp_mode: analytic)"))
+    for config, name, last, cell in runs:
+        omega3 = config["data"]["omega3"]
+        records, launches, _ = global_run(port_main, dev, smi, name, config, last,
+                                          {k: -v for k, v in zip(("rot_x", "rot_y", "rot_z"), omega3)}, cell)
+        total = {k: total[k] + launches[k] for k in total}
+    if 0 in (launches["jvp"], launches["hvp_bwd"]):
+        raise SystemExit("chip_smoke: the analytic global solve did not run K3 and K4")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
@@ -1796,7 +1985,7 @@ def main() -> int:
         errs.update(path_errs)
         times.update(path_times)
         bounds.update(path_bounds)
-    for path in (serve_path, mvsec_cli_path, evt2_fwl_path):
+    for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path):
         path_launches = path(dev, smi)
         launches = {k: launches[k] + path_launches[k] for k in launches}
     src = fi.KERNEL_SOURCE

@@ -1,6 +1,5 @@
 """Pure-function cost kernels (port of
-``event_based_optical_flow_tpu/costs/functional.py``, limited to the
-costs of the hybrid objective, the init sweep and the FWL metric).
+``event_based_optical_flow_tpu/costs/functional.py``).
 
 All functions return the 'natural' (unsigned) value; direction handling
 lives in the registry wrappers.  Reductions run over the last two
@@ -32,6 +31,13 @@ def variance(x: Tensor, ddof: int = 1) -> Tensor:
     return torch.square(x - mean).sum() / max(n - ddof, 1)
 
 
+def image_variance(iwe: Tensor, omit_boundary: bool = True, ddof: int = 1) -> Tensor:
+    """Var(IWE) over all elements."""
+    if omit_boundary:
+        iwe = iwe[..., 1:-1, 1:-1]
+    return variance(iwe, ddof)
+
+
 def gradient_magnitude(iwe: Tensor, omit_boundary: bool = True) -> Tensor:
     """mean(||Sobel(IWE)/8||^2) over the image axes."""
     gx, gy = sobel_xy(iwe)
@@ -54,6 +60,29 @@ def normalized_image_variance(iwe: Tensor, orig_iwe: Tensor, omit_boundary: bool
 def normalized_gradient_magnitude(iwe: Tensor, orig_iwe: Tensor, omit_boundary: bool = True) -> Tensor:
     """GradMag(IWE)/GradMag(orig), natural orientation."""
     return gradient_magnitude(iwe, omit_boundary) / gradient_magnitude(orig_iwe, omit_boundary)
+
+
+def multi_focal_normalized_image_variance(
+    orig_iwe: Tensor,
+    forward_iwe: Tensor,
+    backward_iwe: Tensor,
+    middle_iwe=None,
+    omit_boundary: bool = True,
+    ddof: int = 1,
+) -> Tensor:
+    """Multi-reference focal loss, variance flavor, minimize orientation:
+    Var(orig)/Var(fwd) + Var(orig)/Var(bwd) [+ 2 Var(orig)/Var(mid)]; the
+    warped images are cropped before the ratio, the orig image is not."""
+    if omit_boundary:
+        forward_iwe = forward_iwe[..., 1:-1, 1:-1]
+        backward_iwe = backward_iwe[..., 1:-1, 1:-1]
+        if middle_iwe is not None:
+            middle_iwe = middle_iwe[..., 1:-1, 1:-1]
+    var_orig = variance(orig_iwe, ddof)
+    loss = var_orig / variance(forward_iwe, ddof) + var_orig / variance(backward_iwe, ddof)
+    if middle_iwe is not None:
+        loss = loss + 2.0 * var_orig / variance(middle_iwe, ddof)
+    return loss
 
 
 def multi_focal_normalized_gradient_magnitude(

@@ -1,11 +1,11 @@
 """Cost registry with the reference's class/config surface (port of
-``event_based_optical_flow_tpu/costs/registry.py``, limited to the costs
-of the hybrid objective the eval configs use).
+``event_based_optical_flow_tpu/costs/registry.py``: its seven costs and
+the hybrid).
 
-Same names, ``direction`` semantics and ``required_keys`` (they decide
-which warped IWEs the objective assembles); the math lives in
-functional.py.  The other five costs of the JAX registry, and the loss
-history the JAX visualizer plots, are still to be ported.
+Same names, ``direction`` semantics (the reference's quirks included) and
+``required_keys`` (they decide which warped IWEs the objective
+assembles); the math lives in functional.py.  The loss history the JAX
+visualizer plots is still to be ported.
 """
 
 from typing import List
@@ -26,6 +26,77 @@ class CostBase:
 
     def calculate(self, arg: dict):
         raise NotImplementedError
+
+
+class ImageVariance(CostBase):
+    """Var(IWE) (Gallego CVPR'18), negated to minimize."""
+
+    name = "image_variance"
+    required_keys = ["iwe", "omit_boundary"]
+
+    def calculate(self, arg: dict):
+        loss = F.image_variance(arg["iwe"], arg["omit_boundary"])
+        if self.direction == "minimize":
+            loss = -loss
+        return loss
+
+
+class GradientMagnitude(CostBase):
+    """mean ||Sobel(IWE)/8||^2 (Gallego CVPR'19), negated to minimize."""
+
+    name = "gradient_magnitude"
+    required_keys = ["iwe", "omit_boundary"]
+
+    def calculate(self, arg: dict):
+        loss = F.gradient_magnitude(arg["iwe"], arg["omit_boundary"])
+        if self.direction == "minimize":
+            loss = -loss
+        return loss
+
+
+class NormalizedImageVariance(CostBase):
+    """Var(IWE)/Var(orig), inverted to minimize."""
+
+    name = "normalized_image_variance"
+    required_keys = ["orig_iwe", "iwe", "omit_boundary"]
+
+    def calculate(self, arg: dict):
+        ratio = F.normalized_image_variance(arg["iwe"], arg["orig_iwe"], arg["omit_boundary"])
+        return 1.0 / ratio if self.direction == "minimize" else ratio
+
+
+class NormalizedGradientMagnitude(CostBase):
+    """GradMag(IWE)/GradMag(orig), inverted to minimize."""
+
+    name = "normalized_gradient_magnitude"
+    required_keys = ["orig_iwe", "iwe", "omit_boundary"]
+
+    def calculate(self, arg: dict):
+        ratio = F.normalized_gradient_magnitude(arg["iwe"], arg["orig_iwe"], arg["omit_boundary"])
+        return 1.0 / ratio if self.direction == "minimize" else ratio
+
+
+class MultiFocalNormalizedImageVariance(CostBase):
+    """The multi-focal cost, variance flavor."""
+
+    name = "multi_focal_normalized_image_variance"
+    required_keys = ["forward_iwe", "backward_iwe", "middle_iwe", "omit_boundary", "orig_iwe"]
+
+    def calculate(self, arg: dict):
+        middle = arg.get("middle_iwe", None)
+        if self.direction in ("minimize", "maximize"):
+            loss = F.multi_focal_normalized_image_variance(
+                arg["orig_iwe"], arg["forward_iwe"], arg["backward_iwe"], middle, arg["omit_boundary"]
+            )
+            if self.direction == "maximize":
+                loss = -loss
+        else:  # 'natural' sums the per-warp natural ratios (reference quirk)
+            omit = arg["omit_boundary"]
+            loss = F.normalized_image_variance(arg["forward_iwe"], arg["orig_iwe"], omit)
+            loss = loss + F.normalized_image_variance(arg["backward_iwe"], arg["orig_iwe"], omit)
+            if middle is not None:
+                loss = loss + 2.0 * F.normalized_image_variance(middle, arg["orig_iwe"], omit)
+        return loss
 
 
 class MultiFocalNormalizedGradientMagnitude(CostBase):
@@ -67,6 +138,11 @@ class TotalVariation(CostBase):
 functions = {
     k.name: k
     for k in (
+        ImageVariance,
+        GradientMagnitude,
+        NormalizedImageVariance,
+        NormalizedGradientMagnitude,
+        MultiFocalNormalizedImageVariance,
         MultiFocalNormalizedGradientMagnitude,
         TotalVariation,
     )

@@ -19,8 +19,11 @@ with GT runs the fleet evaluation: ``fleet_batch`` frames per lockstep
 solve, independent (``data.warm_start: false``) or each batch warm-started
 from the previous batch's last solution (``data.warm_start: batch``).
 ``output.save_flow`` (``dsec_png`` or ``npz``) dumps every frame's
-displacement into ``<output_dir>/flow_submission/``.  Visualization (PNGs)
-is not ported yet.
+displacement into ``<output_dir>/flow_submission/``.  The global solver
+(``solver.method: global_contrast_maximization``) runs through the same
+loops: its solution, warm start and checkpoint are one parameter array
+(``eval_state.npz`` key ``array``, as the JAX CLI writes it).
+Visualization (PNGs) is not ported yet.
 """
 
 import argparse

@@ -1,6 +1,7 @@
-"""Op layer of the port: warp, IWE rasterization, blur, sobel, tile
-interpolation, the fused warp+vote kernels (submodule ``fused_iwe``, K1-K7)
-and the standalone vote kernel (submodule ``vote``, K8)."""
+"""Op layer of the port: warp and the global motion models' fields, IWE
+rasterization, blur, sobel, tile interpolation, the fused warp+vote
+kernels (submodule ``fused_iwe``, K1-K7) and the standalone vote kernel
+(submodule ``vote``, K8)."""
 
 from . import fused_iwe, vote
 
@@ -8,15 +9,21 @@ from .blur import gaussian_blur3, gaussian_filter
 from .interp import pyramid_expand, pyramid_reduce, tile_to_dense_flow
 from .iwe import bilinear_vote, create_iwe, event_mask
 from .sobel import sobel_flow, sobel_xy
-from .warp import (calculate_dt, calculate_reftime, multi_direction_dense_warp, warp_2dof,
+from .warp import (Warp, calculate_dt, calculate_reftime, calib_tuple, flow_from_2d_translation,
+                   flow_from_rotation, flow_from_similarity, multi_direction_dense_warp, warp_2dof,
                    warp_dense_flow, warp_voxel_flow)
 
 __all__ = [
+    "Warp",
     "bilinear_vote",
     "calculate_dt",
     "calculate_reftime",
+    "calib_tuple",
     "create_iwe",
     "event_mask",
+    "flow_from_2d_translation",
+    "flow_from_rotation",
+    "flow_from_similarity",
     "gaussian_blur3",
     "gaussian_filter",
     "multi_direction_dense_warp",

@@ -1,11 +1,12 @@
 """Solver layer of the port and its registry (same registry names as the
 JAX package): the pyramidal tile solver, its fleet form (batches of
-independent frames in one lockstep Newton-CG per scale) and the
-single-scale tile solvers (plain and time-aware), each with the device
-Newton-CG."""
+independent frames in one lockstep Newton-CG per scale), the
+single-scale tile solvers (plain and time-aware) and the global
+motion-model solver, each with the device Newton-CG."""
 
 from .base import SolverBase
 from .fleet import BatchedNewtonCG, FleetPyramidalSolver
+from .global_motion import GlobalMotionContrastMaximization
 from .newton_cg import NewtonCG, build_newton_cg
 from .objective import FleetEvents, FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe
 from .mixed import MixedPatchContrastMaximization
@@ -15,6 +16,7 @@ from .time_aware import TimeAwarePatchContrastMaximization
 
 collections = {
     "fleet_pyramidal_patch_contrast_maximization": FleetPyramidalSolver,
+    "global_contrast_maximization": GlobalMotionContrastMaximization,
     "mixed_patch_contrast_maximization": MixedPatchContrastMaximization,
     "pyramidal_patch_contrast_maximization": PyramidalPatchContrastMaximization,
     "time_aware_mixed_patch_contrast_maximization": TimeAwarePatchContrastMaximization,
@@ -29,6 +31,7 @@ __all__ = [
     "MixedPatchContrastMaximization",
     "PyramidalPatchContrastMaximization",
     "FleetPyramidalSolver",
+    "GlobalMotionContrastMaximization",
     "TimeAwarePatchContrastMaximization",
     "NewtonCG",
     "build_newton_cg",

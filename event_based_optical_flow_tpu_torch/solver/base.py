@@ -22,7 +22,7 @@ from ..costs import functional as F
 from ..flow import voxel
 from ..flow.metrics import calculate_flow_error
 from ..ops.iwe import create_iwe, event_mask
-from ..ops.warp import calculate_reftime, warp_dense_flow, warp_voxel_flow
+from ..ops.warp import Warp, calculate_reftime, warp_dense_flow, warp_voxel_flow
 from ..state import from_jax
 from ..utils import check_key_and_bool
 
@@ -38,8 +38,10 @@ def resolve_dtype(precision, device: torch.device) -> torch.dtype:
 class SolverBase:
     """Params:
         image_shape (tuple) ... (H, W)
-        calibration_parameter, output_config (dict) ... taken for the JAX
-            package's signature; no ported solver reads them yet.
+        calibration_parameter (dict) ... the loader's calibration; the
+            "3-rotation" motion model reads its ``K`` (``ops/warp.py``).
+        output_config (dict) ... taken for the JAX package's signature; no
+            ported solver reads it yet.
         solver_config / optimizer_config (dict) ... the JAX package's
             YAML schema.
         device, dtype ... where and in what type the solve runs (dtype
@@ -59,13 +61,19 @@ class SolverBase:
         candidates_fn: Optional[Callable] = None,
     ):
         self.image_shape = tuple(image_shape)
+        self.calib_param = calibration_parameter
         self.opt_config = optimizer_config
         self.slv_config = solver_config
         self.iwe_config = solver_config["iwe"]
         self.device = torch.device(device)
         self.dtype = dtype or resolve_dtype(solver_config.get("precision"), self.device)
         self.previous_frame_best_estimation = None
-        self.motion_vector_size = 2  # 2d-translation per tile
+        self.warper = Warp(self.image_shape, normalize_t=True, calib_param=self.calib_param)
+        # a tile solver's model is its tiles' (2d-translation); a global
+        # solver optimizes the model's own parameters
+        self.motion_model = solver_config.get("motion_model", "2d-translation")
+        self.motion_model_keys = self.warper.get_key_names(self.motion_model)
+        self.motion_vector_size = self.warper.get_motion_vector_size(self.motion_model)
         self.seed = int(solver_config.get("seed", 0))
         self._rng = np.random.default_rng(self.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -105,15 +113,21 @@ class SolverBase:
 
     def set_previous_frame_best_estimation(self, previous_best):
         """Warm start from a per-scale motion dict (port tensors, or the
-        JAX layout's numpy arrays, as a loaded state file holds them), or
-        from a list of such dicts, one per frame of a fleet batch (None: a
-        frame without warm state)."""
-        if isinstance(previous_best, (list, tuple)):
+        JAX layout's numpy arrays, as a loaded state file holds them), from
+        a list of such dicts, one per frame of a fleet batch (None: a frame
+        without warm state), or from one motion array (a single-scale
+        solver's, e.g. the global solver's parameters), kept as a float64
+        host array as the JAX package keeps it."""
+        if isinstance(previous_best, dict):
+            self.previous_frame_best_estimation = self._motion_dict(previous_best)
+        elif isinstance(previous_best, (list, tuple)) and all(d is None or isinstance(d, dict)
+                                                             for d in previous_best):
             self.previous_frame_best_estimation = [
                 None if d is None else self._motion_dict(d) for d in previous_best
             ]
         else:
-            self.previous_frame_best_estimation = self._motion_dict(previous_best)
+            motion = previous_best.detach().cpu() if torch.is_tensor(previous_best) else previous_best
+            self.previous_frame_best_estimation = np.array(motion, dtype=np.float64)
 
     def rng_state(self):
         """A snapshot of the solver's randomness: the init sweep's

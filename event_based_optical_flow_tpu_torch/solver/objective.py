@@ -1,14 +1,18 @@
-"""The CMax objective of one pyramid scale (port of
-``event_based_optical_flow_tpu/solver/objective.py``: ``motion_to_dense_flow``
-for tiles, the objective body of ``build_objective_banded``, the hoisted
-orig IWE of ``build_orig_iwe_banded``, and the analytic Hessian-vector
-products ``build_objective_banded_hvp`` / ``_hvp_staged``).
+"""The CMax objective of one pyramid scale or one global motion model
+(port of ``event_based_optical_flow_tpu/solver/objective.py``:
+``motion_to_dense_flow``, the objective body of ``build_objective_banded``,
+the hoisted orig IWE of ``build_orig_iwe_banded``, and the analytic
+Hessian-vector products ``build_objective_banded_hvp`` / ``_hvp_staged``).
 
 One evaluation: tile motion -> dense flow (x ``t_scale``) -> the fused
 warp+vote kernel for the reference-time offsets the cost needs (0 first,
 1 last, 0.5 middle) -> 3-tap blur -> cost (hybrid: multi-focal normalized
 gradient magnitude + total variation of the raw tile motion) ->
-``nan_to_penalty``.  The orig IWE never depends on the motion: it is
+``nan_to_penalty``.  A global motion model (``ObjectiveSpec.motion_model``
+other than "tiles") takes the model's parameter vector instead: scaled
+per parameter by ``param_scale`` and mapped to the model's analytic dense
+field (``ops/warp.py``), the rest as for tiles; its cost has no TV term.
+The orig IWE never depends on the motion: it is
 voted and blurred once per frame and passed in.  A time-aware objective
 propagates the dense flow into a ``[time_bin, 2, H, W]`` voxel (Burgers,
 upwind or a direct scheme, ``flow/voxel.py``) and votes each event with
@@ -16,7 +20,8 @@ its time bin's slice (K5; the orig IWE is the same image as from a zero
 voxel).
 
 The analytic HVP (Gauss-Newton by default): with L(m) = C(F(flow(m)), m),
-F the vote and flow(m) linear in m,
+F the vote and flow(m) linear in m (the tile interpolation, and every
+global model's field with its ``param_scale``),
 ``H p = flow^T [dF(flow)[dflow]^T g1 + F(flow)^T g2] + dC_mm`` where
 ``dflow = flow(p)``, ``g1 = dC/dimages`` and ``(g2, dC_mm)`` its
 directional derivative along ``(dimages, p)``.  The kernels give
@@ -33,6 +38,7 @@ from the masked time min/max, as the JAX banded path packs them, and cast
 once to the solver's device and dtype.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -45,6 +51,7 @@ from ..ops.blur import gaussian_blur3
 from ..ops.fused_iwe import Frames, fused_iwe, fused_iwe_hvp_bwd, fused_iwe_jvp
 from ..flow.voxel import DEVICE_SCHEMES, construct_dense_flow_voxel
 from ..ops.interp import tile_to_dense_flow
+from ..ops.warp import flow_from_2d_translation, flow_from_rotation, flow_from_similarity
 
 Tensor = torch.Tensor
 
@@ -67,6 +74,20 @@ class ObjectiveSpec:
     flow_interpolation: Optional[str] = None
     t0_location: Optional[str] = None
     scale_later: bool = False
+    # "tiles": the motion is the per-tile translations, interpolated to the
+    # dense flow; a global model's name makes it the model's parameter
+    # vector and the dense flow its analytic field (solver/global_motion.py)
+    motion_model: str = "tiles"
+    # per-parameter scale applied before a model's map: the solver works in
+    # pixel-equivalent units
+    param_scale: Optional[Tuple[float, ...]] = None
+    # (f_row, f_col, c_row, c_col) of a calibrated model ("3-rotation")
+    calib: Optional[Tuple[float, float, float, float]] = None
+
+
+# the global motion models the objective maps (each field linear in its
+# parameters, so the analytic HVP's assembly is exact for them)
+MODEL_FLOWS = ("2d-translation", "rigid-optical-flow", "4-param-similarity", "3-rotation")
 
 
 @dataclass
@@ -191,16 +212,41 @@ def make_cost(spec: ObjectiveSpec):
     return costs_mod.functions[spec.cost_name](direction="minimize")
 
 
+@functools.lru_cache(maxsize=64)
+def _param_scale_table(param_scale: Tuple[float, ...], device: torch.device, dtype: torch.dtype) -> Tensor:
+    """``param_scale`` on the device, once per spec: a table built per call
+    would copy from the host in every evaluation, which a CUDA graph
+    cannot capture."""
+    return torch.as_tensor(param_scale, dtype=dtype, device=device)
+
+
+def model_flow(spec: ObjectiveSpec, motion: Tensor) -> Tensor:
+    """A global model's dense [2, H, W] field of its parameters ``[P]``:
+    multiplied by ``param_scale``, then mapped (the JAX package's order)."""
+    if spec.param_scale is not None:
+        motion = motion * _param_scale_table(spec.param_scale, motion.device, motion.dtype)
+    if spec.motion_model == "4-param-similarity":
+        return flow_from_similarity(motion, spec.image_shape)
+    if spec.motion_model == "3-rotation":
+        return flow_from_rotation(motion, spec.image_shape, spec.calib)
+    if spec.motion_model in ("2d-translation", "rigid-optical-flow"):
+        return flow_from_2d_translation(motion, spec.image_shape)
+    raise NotImplementedError(f"objective motion model {spec.motion_model!r} not implemented")
+
+
 def motion_to_dense_flow(spec: ObjectiveSpec, motion_flat: Tensor, t_scale=1.0) -> Tensor:
-    """Tile motion [2 * h_p * w_p] -> dense flow [2, H, W], or for a
-    time-aware spec the voxel [time_bin, 2, H, W]: the chain runs on
-    ``dense * t_scale / scale`` (``scale`` the dense flow's max with
-    ``scale_later``, else 1) and the voxel is rescaled by
-    ``scale / t_scale``, in the JAX package's order."""
-    dense = tile_to_dense_flow(
-        motion_flat, spec.patch_image_size, spec.image_shape, spec.patch_size,
-        spec.sliding_window, spec.patch_shift, spec.filter_type,
-    )
+    """Tile motion [2 * h_p * w_p] (or a global model's parameters, mapped
+    by ``model_flow``) -> dense flow [2, H, W], or for a time-aware spec the
+    voxel [time_bin, 2, H, W]: the chain runs on ``dense * t_scale / scale``
+    (``scale`` the dense flow's max with ``scale_later``, else 1) and the
+    voxel is rescaled by ``scale / t_scale``, in the JAX package's order."""
+    if spec.motion_model != "tiles":
+        dense = model_flow(spec, motion_flat)
+    else:
+        dense = tile_to_dense_flow(
+            motion_flat, spec.patch_image_size, spec.image_shape, spec.patch_size,
+            spec.sliding_window, spec.patch_shift, spec.filter_type,
+        )
     if not spec.time_aware:
         return dense
     scale = torch.amax(dense) if spec.scale_later else 1.0
@@ -243,6 +289,9 @@ def cost_of_images(spec: ObjectiveSpec):
     (loss, components)): the objective after the vote."""
     cost = make_cost(spec)
     required = set(cost.required_keys)
+    if spec.motion_model != "tiles" and "flow" in required:
+        raise ValueError("cost key 'flow' (total_variation) requires tile motion; "
+                         "global motion models have no tile grid to regularize")
     directions = _directions(required)
     need_orig = "orig_iwe" in required
 
@@ -305,10 +354,14 @@ def build_objective(spec: ObjectiveSpec):
 
 def objective_supports_analytic_hvp(spec: ObjectiveSpec, gauss_newton: bool = True) -> bool:
     """Whether the analytic HVP applies to this objective: it needs at
-    least one warped direction image (the kernels compute no orig image).
-    The dense tile motion -> flow map is linear, so the assembly is exact,
-    full Hessian included; the time-aware motion -> voxel map is not, so
-    a time-aware objective takes the Gauss-Newton form only."""
+    least one warped direction image (the kernels compute no orig image)
+    and a motion -> flow map the assembly handles.  The dense maps (tile
+    interpolation, the global models' fields with their ``param_scale``)
+    are linear, so the assembly is exact, full Hessian included; the
+    time-aware motion -> voxel map is not, so a time-aware objective takes
+    the Gauss-Newton form only."""
+    if spec.motion_model != "tiles" and spec.motion_model not in MODEL_FLOWS:
+        return False
     return bool(cost_of_images(spec)[0]) and (gauss_newton or not spec.time_aware)
 
 
@@ -330,9 +383,13 @@ def _hvp_assembly(spec: ObjectiveSpec, gauss_newton: bool):
 
 
 def _flow_and_tangent(spec: ObjectiveSpec, motion_flat: Tensor, p: Tensor, frame: FrameEvents):
-    """(flow, dflow, the map's transpose).  The dense map is linear, so
-    its tangent along p is the map of p; the time-aware map is not, so its
-    tangent is ``torch.func.jvp``'s."""
+    """(flow, dflow, the map's transpose).  A dense map is linear: the
+    tile interpolation, and a global model's field of the scaled
+    parameters (``param_scale`` times p, then a field whose every term is a
+    fixed coefficient grid times one parameter), so its tangent along p is
+    the map of p, exactly (``tests/test_torch_global.py`` holds it to
+    ``torch.func.jvp``); the time-aware map is not, so its tangent is
+    ``torch.func.jvp``'s."""
     flow_fn = lambda m: _flow(spec, m, frame)  # noqa: E731
     flow, flow_vjp = torch.func.vjp(flow_fn, motion_flat)
     if spec.time_aware:

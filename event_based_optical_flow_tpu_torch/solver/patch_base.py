@@ -110,6 +110,7 @@ class PatchContrastMaximization(SolverBase):
             flow_interpolation=self.flow_interpolation,
             t0_location=self.t0_flow_location,
             scale_later=self.scale_later,
+            motion_model=getattr(self, "objective_motion_model", "tiles"),
         )
 
     def _want_analytic(self, warm: bool, finest: bool) -> bool:
@@ -177,7 +178,7 @@ class PatchContrastMaximization(SolverBase):
                     orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
                     warm: bool = False, gtol: float = 1e-5, stage=None):
         """One Newton-CG solve of this scale's objective from ``x0``
-        (flat [2 * n_patch]); returns (best_x, best_f, n_iter, hvp), hvp
+        (flat [2 * n_patch], or a global model's [P]); returns (best_x, best_f, n_iter, hvp), hvp
         naming the curvature model: "fd", "analytic-gn" or
         "analytic-full".  With ``stage`` (a ``graphs.Stage`` whose buffers
         are ``frame`` and ``orig``) the evaluations are the stage's,

@@ -1,5 +1,5 @@
 """The solver's carried state: the per-scale warm-start motion
-``{scale: [2, h_s, w_s]}``.
+``{scale: [2, h_s, w_s]}`` (a single-scale solver's: one motion array).
 
 The JAX package keeps it as float64 numpy arrays and checkpoints it in
 ``eval_state.npz`` (``utils/checkpoint.py``, keys ``scale_<s>``); the port
@@ -26,7 +26,10 @@ def from_jax(motion_by_scale: Dict[int, np.ndarray], device, dtype) -> MotionSta
 
 def to_numpy(state):
     """The port's state -> the JAX layout (float64 numpy arrays): a dict per
-    scale, or one array for a single-scale solver's motion."""
+    scale, or one array for a single-scale solver's motion (a tensor, or
+    the global solver's host array)."""
     if torch.is_tensor(state):
         return state.detach().to("cpu", torch.float64).numpy()
+    if isinstance(state, np.ndarray):
+        return np.asarray(state, dtype=np.float64)
     return {int(s): m.detach().to("cpu", torch.float64).numpy() for s, m in state.items()}

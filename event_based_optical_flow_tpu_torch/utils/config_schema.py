@@ -7,7 +7,9 @@ solver, optimizer or cost, a host griddata voxel scheme, outer padding,
 the L-BFGS solvers, device meshes, the DNN path) fails fast here with the
 YAML path of the entry, instead of deep inside a solve.  Unknown keys, and
 the raw-camera filters on a dataset that ignores them, produce the JAX
-package's warnings.
+package's warnings; a global motion model under a tile solver, and a TV
+term under the global solver, are refused as the JAX package refuses
+them.
 """
 
 import logging
@@ -141,14 +143,34 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         cww = _require(slv, "cost_with_weight", dict, "solver")
         for name in cww:
             _choice({"c": name}, "c", set(cost_functions), "solver.cost_with_weight")
-    _choice(slv, "motion_model", {"2d-translation", "rigid-optical-flow"}, "solver")
+    _choice(
+        slv, "motion_model",
+        {"2d-translation", "rigid-optical-flow", "dense-flow", "4-param-similarity", "3-rotation"},
+        "solver",
+    )
+    is_global = slv.get("method") == "global_contrast_maximization"
+    if is_global:
+        if slv.get("cost") == "hybrid" and "total_variation" in (slv.get("cost_with_weight") or {}):
+            raise ConfigError(
+                "solver.method global_contrast_maximization has no tile grid: "
+                "drop total_variation from solver.cost_with_weight"
+            )
+    elif slv.get("motion_model") in ("4-param-similarity", "3-rotation"):
+        raise ConfigError(
+            f"solver.motion_model {slv['motion_model']} requires solver.method "
+            "global_contrast_maximization (tile solvers parameterize per-tile translations)"
+        )
     _choice(
         slv, "warp_direction",
         {"first", "middle", "last", "random", "before", "after"}, "solver",
     )
-    patch = _require(slv, "patch", dict, "solver")
-    _choice(patch, "initialize", {"random", "zero"}, "solver.patch")
-    _choice(patch, "filter_type", {"bilinear", "nearest"}, "solver.patch")
+    if is_global:
+        patch = slv.get("patch") or {}  # optional: only 'initialize' applies
+        _choice(patch, "initialize", {"random", "zero"}, "solver.patch")
+    else:
+        patch = _require(slv, "patch", dict, "solver")
+        _choice(patch, "initialize", {"random", "zero"}, "solver.patch")
+        _choice(patch, "filter_type", {"bilinear", "nearest"}, "solver.patch")
     iwe = _require(slv, "iwe", dict, "solver")
     _choice(iwe, "method", {"bilinear_vote"}, "solver.iwe")
     _require(iwe, "blur_sigma", _NUM, "solver.iwe")

@@ -226,14 +226,17 @@ def test_port_imports_and_runs_without_jax(tmp_path):
 
 PORTED_CONFIGS = {"synthetic_fleet.yaml", "synthetic_mvsec_geometry.yaml", "synthetic_quickstart.yaml",
                   "mvsec_indoor_no_timeaware.yaml", "mvsec_indoor_burgers.yaml", "dsec_zurich_city.yaml",
-                  "ecd_slider_depth.yaml", "evt2_raw.yaml"}
+                  "ecd_slider_depth.yaml", "evt2_raw.yaml", "synthetic_rotation_global.yaml",
+                  "synthetic_rotation3d_global.yaml"}
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (REPO / "configs").glob("*.yaml")))
 def test_config_validation(name):
     """Every shipped config the JAX package accepts either validates in the
     port with the same warnings, or is refused up front with a ConfigError
-    naming what is not ported yet."""
+    naming what is not ported yet.  Both refuse a global motion model
+    under a tile solver, and a TV term under the global solver."""
+    from event_based_optical_flow_tpu.utils import ConfigError as JaxConfigError
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
     from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
 
@@ -248,6 +251,16 @@ def test_config_validation(name):
         for section, update in (("solver", griddata), ("optimizer", {"device_solver": "lbfgs"})):
             with pytest.raises(ConfigError, match="not ported yet"):
                 validate_config({**config, section: {**config[section], **update}})
+        if config["solver"]["method"] == "global_contrast_maximization":
+            bad = {**config, "solver": {**config["solver"], "cost": "hybrid", "cost_with_weight": {
+                "multi_focal_normalized_gradient_magnitude": 1.0, "total_variation": 0.01}}}
+            match = "no tile grid"
+        else:
+            bad = {**config, "solver": {**config["solver"], "motion_model": "3-rotation"}}
+            match = "requires solver.method global_contrast_maximization"
+        for validate, error in ((validate_config, ConfigError), (jax_validate, JaxConfigError)):
+            with pytest.raises(error, match=match):
+                validate(bad)
     else:
         with pytest.raises(ConfigError, match="not ported yet|must be one of"):
             validate_config(config)
