@@ -144,7 +144,25 @@ Phases (each prints one informative line; any failure exits nonzero):
    with ``hvp_mode: analytic`` (K3, K4), frames 0..1.  Per frame: seconds,
    EPE against the zero flow's, PRED_FWL, host syncs, the solve's K1-K4
    launches and the recovered parameters beside the scene's rates in the
-   solver's sign convention.
+   solver's sign convention;
+14. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on ``DNN_CONFIG``'s
+   first training batch (64x80, batch 2, 20 000 events), float64 and
+   float32: the voxel grids (one K8 launch, polarity-signed weights) and
+   the multi-scale CMax loss with its gradient w.r.t. the four flow heads
+   (one K8 launch per scale; the backward a gather, no launch) against the
+   plain vote on the same tensors, each K8 call against the exact model of
+   its bits (max|err| 0), and the network's forward on the card against
+   the CPU from the same converted weights; ``[dnn-train]`` runs
+   ``DNN_CONFIG`` as shipped through ``main.run(..., eval_mode=True)`` (300
+   steps, then the eval windows): median seconds per step, the first and
+   last losses (the mean of the last 10 must be below the first), K8
+   launches per step, per-frame AEE beside the zero flow's, peak memory;
+   the checkpoint and ``dnn_flow_error.txt`` must exist; ``[dnn-repeat]``
+   trains ``DNN_REPEAT_STEPS`` steps twice from the seed: the same losses
+   and parameter bits; ``[dnn-346]`` trains ``DNN_346_STEPS`` steps at
+   256x336 (``dnn_346_config``: the MVSEC slice's data block, 30 000
+   events, K8's finest loss call on its global path); ``[dnn-vote-time]``
+   times K8 at both cells' voxel and finest loss calls.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
@@ -152,8 +170,10 @@ times: chained, again, the loop) and 4..7 (warm), the time-aware fleet's
 0..1, the serving path's windows 0..2 (its warm pushes are the on-card
 check of the sequential warm start), window 0 again, windows 0..3 of
 the warm finest-only server, the MVSEC recording's frames 0..1, the EVT2
-recording's windows 0..1, and the global configs' frames 0..2 (the
-similarity's frame 0 again with the loop) and the 346 cell's 0..1.  Every path runs chained, the sequential
+recording's windows 0..1, the global configs' frames 0..2 (the
+similarity's frame 0 again with the loop) and the 346 cell's 0..1, and the
+DNN's training runs (300 steps and 7 eval windows, 20 steps twice, 20
+steps at 256x336).  Every path runs chained, the sequential
 repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
 serving push) starts with every kernel launch count at 0 and reads them
 at its end (a replayed graph adds the launches its capture counted); the
@@ -165,6 +185,7 @@ seconds.  The script imports nothing of JAX.
 """
 
 import copy
+import hashlib
 import io
 import json
 import os
@@ -297,6 +318,12 @@ EVT2_WINDOWS = 2
 # `omega` rad/s about the image center (the solver's `rot` is its negation),
 # the rotation scene's camera at `omega3` (the solver's rot_x..rot_z are
 # its negation)
+# The EV-FlowNet path: the DNN config as shipped (64x80, 300 steps), the
+# repeat's steps, and the steps of the 256x336 cell (the MVSEC slice's data
+# block).
+DNN_CONFIG = "configs/synthetic_dnn.yaml"
+DNN_REPEAT_STEPS = 20
+DNN_346_STEPS = 20
 GLOBAL_SIM_CONFIG = "configs/synthetic_rotation_global.yaml"
 GLOBAL_ROT3D_CONFIG = "configs/synthetic_rotation3d_global.yaml"
 GLOBAL_LAST_FRAME = 2
@@ -1232,26 +1259,16 @@ def sweep_call(port_main, config: dict, events: np.ndarray, dev, scale=None):
     ``events``, as K8 gets it in a solve of ``config``: (the ``[P, K, C,
     4]`` warped patch events, their ``[P, 1, C]`` weights), recorded from a
     real sweep from random tile motions of a few px/s."""
-    from event_based_optical_flow_tpu_torch.ops import vote
-
     _, solv = port_main.build(config, dev)
     s = solv.patch_scales - 1 if scale is None else scale
     solv.overload_patch_configuration(s)
     motion0 = solv.tensor(np.random.default_rng(1).uniform(-20.0, 20.0, (2, solv.n_patch)))
     n_cand = max(4, int(config["optimizer"]["n_iter"] / max(1, s - solv.coarsest_scale)))
-    calls, kernel = [], vote.bilinear_vote_kernel
-
-    def record(ev, image_size, weight=1.0, eps=1e-6):
-        calls.append((ev, weight))
-        return kernel(ev, image_size, weight, eps)
-
-    vote.bilinear_vote_kernel = record
-    try:
+    with recorded_votes() as calls:
         solv.initialize_guess_from_patch_search(events, motion0, n_cand)
-    finally:
-        vote.bilinear_vote_kernel = kernel
     torch.cuda.synchronize()
-    return max(calls, key=lambda c: c[0].numel()), tuple(solv.patch_size)
+    ev, weight, _ = max(calls, key=lambda c: c[0].numel())
+    return (ev, weight), tuple(solv.patch_size)
 
 
 def vote_bound(events: torch.Tensor, weight, image_size):
@@ -1890,6 +1907,298 @@ def global_path(dev, smi) -> dict:
     return total
 
 
+# ---- the EV-FlowNet path ------------------------------------------------------
+
+
+def dnn_batch(config: dict, dev, dtype):
+    """The first training batch of ``config`` as ``run_dnn_flow`` draws it
+    (``np.random.default_rng(0)``, windows cropped to multiples of 16 and
+    padded to ``n_events_per_batch``): (events ``[B, N, 4]``, weights
+    ``[B, N]``, image size)."""
+    from event_based_optical_flow_tpu_torch.data import collections
+    from event_based_optical_flow_tpu_torch.types import pad_events
+
+    d = config["data"]
+    loader = collections[d["dataset"]](config=d)
+    loader.set_sequence(d["sequence"])
+    hc, wc = d["height"] // 16 * 16, d["width"] // 16 * 16
+    n, total, rng = d["n_events_per_batch"], len(loader), np.random.default_rng(0)
+    evs, wts = [], []
+    for _ in range(int(config["dnn"]["batch_size"])):
+        start = int(rng.integers(0, max(1, total - n)))
+        ev = loader.load_event(start, min(start + n, total))
+        ev[:, 2] -= ev[:, 2].min()
+        p, w = pad_events(ev[(ev[:, 0] < hc) & (ev[:, 1] < wc)], target_n=n)
+        evs.append(p)
+        wts.append(w)
+    t = lambda a: torch.as_tensor(np.stack(a), dtype=dtype, device=dev)
+    return t(evs), t(wts), (hc, wc)
+
+
+class plain_votes:
+    """Inside: every standalone vote (``ops.iwe.bilinear_vote``, which the
+    voxel featurizer and ``create_iwe`` call) runs K8's plain version on the
+    same tensors, autograd differentiating it."""
+
+    def __enter__(self):
+        from event_based_optical_flow_tpu_torch.ops import iwe, vote
+
+        self.saved = iwe.bilinear_vote
+        iwe.bilinear_vote = vote.bilinear_vote_plain
+
+    def __exit__(self, *exc):
+        from event_based_optical_flow_tpu_torch.ops import iwe
+
+        iwe.bilinear_vote = self.saved
+
+
+class recorded_votes:
+    """Inside: K8's launches are recorded as (events, weight, image size)."""
+
+    def __enter__(self):
+        from event_based_optical_flow_tpu_torch.ops import vote
+
+        self.calls, self.kernel = [], vote.bilinear_vote_kernel
+
+        def record(ev, image_size, weight=1.0, eps=1e-6):
+            self.calls.append((ev, weight, tuple(image_size)))
+            return self.kernel(ev, image_size, weight, eps)
+
+        vote.bilinear_vote_kernel = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        from event_based_optical_flow_tpu_torch.ops import vote
+
+        vote.bilinear_vote_kernel = self.kernel
+
+
+def dnn_step_terms(config: dict, dev, dtype, model=None):
+    """One training step's forward terms on the card: (model, voxel grids,
+    flows as leaves that require grad, the multi-scale loss per item,
+    events, weights, image size)."""
+    from event_based_optical_flow_tpu_torch.models import EVFlowNet, events_to_voxel_grid
+    from event_based_optical_flow_tpu_torch.models.train import multi_scale_cmax_loss
+
+    ev, wt, size = dnn_batch(config, dev, dtype)
+    dnn = config["dnn"]
+    if model is None:
+        model = EVFlowNet(dnn["n_bin"], float(dnn.get("scale_time", min(128.0, max(size) / 2)))).to(dev, dtype)
+    voxel = events_to_voxel_grid(ev, size, dnn["n_bin"], wt)
+    with torch.no_grad():
+        flows = {k: v.requires_grad_(True) for k, v in model(voxel).items()}
+    return model, voxel, flows, multi_scale_cmax_loss(flows, ev, size, wt), ev, wt, size
+
+
+def dnn_check(dev, smi) -> dict:
+    """``[dnn-check]`` on the first batch of ``DNN_CONFIG`` (64x80, batch 2,
+    20 000 events), float64 and float32: the voxel grids (one K8 launch)
+    and the multi-scale loss with its gradient w.r.t. the four flow heads
+    (one K8 launch per scale; the backward a gather) against the plain vote
+    on the same tensors; K8's signed-weight images against the exact model
+    of its bits (max|err| 0); the full network's forward on the card
+    against the CPU from the same converted weights.  Returns the K8
+    launches of one step's forward and backward."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.models import EVFlowNet, convert
+    from event_based_optical_flow_tpu_torch.ops import vote
+
+    with open(DNN_CONFIG) as f:
+        config = yaml.safe_load(f)
+    per_step = {}
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL[dtype]
+        ops.reset_launch_counts()
+        with recorded_votes() as calls:
+            model, voxel, flows, loss, ev, wt, size = dnn_step_terms(config, dev, dtype)
+        forward = ops.launch_counts()["vote"]
+        grads = torch.autograd.grad(loss.sum(), list(flows.values()))
+        per_step = {"forward": forward, "backward": ops.launch_counts()["vote"] - forward}
+        with plain_votes():
+            _, p_voxel, p_flows, p_loss, *_ = dnn_step_terms(config, dev, dtype, model)
+            p_grads = torch.autograd.grad(p_loss.sum(), list(p_flows.values()))
+        rel = lambda a, b: (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        errs = {"voxel": rel(voxel, p_voxel), "loss": rel(loss.detach(), p_loss.detach()),
+                "grad": max(rel(g, pg) for g, pg in zip(grads, p_grads))}
+        signed = bool((calls[0][1] < 0).any())  # the voxel's polarity-signed votes
+        exact = max(exact_err(vote.bilinear_vote_kernel(e, s, w), vote.bilinear_vote_fixed_reference(
+            e.cpu(), s, w.cpu() if torch.is_tensor(w) else w)) for e, w, s in calls)
+        cpu = EVFlowNet(model.n_bin, model.scale_time).to(dtype)
+        cpu.load_state_dict(convert.params_from_flax(convert.params_to_flax(model.state_dict())))
+        with torch.no_grad():
+            want = cpu(voxel.cpu())
+            got = model(voxel)
+        errs["net"] = max(rel(got[k].cpu(), want[k]) for k in want)
+        ok = (max(errs.values()) <= tol and exact == 0 and signed and forward == 1 + len(flows)
+              and per_step["backward"] == 0)
+        phase("dnn-check", f"{str(dtype)[6:]} {DNN_CONFIG} batch {list(ev.shape)} -> {size[0]}x{size[1]}: "
+                           f"voxel (K8, signed weights {signed}) rel err {errs['voxel']:.3e}, multi-scale loss "
+                           f"{[round(v, 6) for v in loss.tolist()]} rel err {errs['loss']:.3e}, flow grads rel "
+                           f"err {errs['grad']:.3e} (K8 vs the plain vote on the same tensors), network forward "
+                           f"card vs CPU from converted weights rel err {errs['net']:.3e}, tol {tol:g} x scale; "
+                           f"exact model of K8's {len(calls)} calls: max|err| {exact:g}; K8 launches forward "
+                           f"{forward} (voxel 1 + loss {len(flows)} scales), backward {per_step['backward']}: "
+                           + ("ok" if ok else "FAIL"))
+        if not ok:
+            raise SystemExit("chip_smoke: the DNN path on the card disagrees with its plain version, the exact "
+                             "model or the CPU")
+    return per_step
+
+
+def dnn_run(port_main, config: dict, dev, eval_mode: bool):
+    """``main.run`` of ``config`` in a fresh output dir, K8 counted from 0:
+    (run result, seconds, peak GiB, launches, output dir)."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    config = copy.deepcopy(config)
+    config["output"]["output_dir"] = tempfile.mkdtemp(prefix="dnn_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = port_main.run(config, eval_mode, dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (run, seconds, torch.cuda.max_memory_allocated() / 2**30, ops.launch_counts(),
+            config["output"]["output_dir"])
+
+
+def dnn_zero_flow_epe(config: dict) -> list:
+    """The zero flow's EPE on each eval window of ``_evaluate_dnn`` (the
+    same events, mask and GT crop)."""
+    from event_based_optical_flow_tpu_torch.data import collections
+    from event_based_optical_flow_tpu_torch.flow.metrics import calculate_flow_error_numpy
+
+    d = config["data"]
+    loader = collections[d["dataset"]](config=d)
+    loader.set_sequence(d["sequence"])
+    hc, wc = d["height"] // 16 * 16, d["width"] // 16 * 16
+    ts, dt = loader.eval_frame_time_list(), int(d.get("eval_dt", 1))
+    out = []
+    for i in range(len(ts) - dt):
+        ev = loader.load_event(loader.time_to_index(ts[i]), loader.time_to_index(ts[i + dt]))
+        ev = ev[(ev[:, 0] < hc) & (ev[:, 1] < wc)]
+        mask = np.zeros((hc, wc), bool)
+        mask[ev[:, 0].astype(int), ev[:, 1].astype(int)] = True
+        gt = np.transpose(loader.load_optical_flow(ts[i], ts[i + dt])[:hc, :wc], (2, 0, 1))
+        out.append(calculate_flow_error_numpy(gt[None], np.zeros_like(gt)[None], mask[None, None])["EPE"])
+    return out
+
+
+def params_hash(model) -> str:
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dnn_346_config() -> dict:
+    """EV-FlowNet on ``CONFIG``'s data block (260x346 cropped to 256x336,
+    30 000-event windows) with ``DNN_CONFIG``'s dnn block, ``DNN_346_STEPS``
+    steps, the tanh range at the JAX package's default (128)."""
+    with open(DNN_CONFIG) as f:
+        config = yaml.safe_load(f)
+    with open(CONFIG) as f:
+        config["data"] = yaml.safe_load(f)["data"]
+    config["dnn"]["n_steps"] = DNN_346_STEPS
+    del config["dnn"]["scale_time"]
+    return config
+
+
+def dnn_vote_time(smi, config: dict, dev, name: str) -> list:
+    """K8 at one training step's shapes of ``config`` (the voxel call and the
+    finest scale's loss call, float32): kernel, plain version, one
+    deterministic ``index_add`` of the corner terms, and the bound."""
+    from event_based_optical_flow_tpu_torch.ops import vote
+
+    with recorded_votes() as calls:
+        dnn_step_terms(config, dev, torch.float32)
+    out = []
+    for what, (ev, wt, size) in (("voxel", calls[0]), ("loss-finest", calls[-1])):
+        inds, vals, batch = vote.corner_terms(ev, size, wt)
+        image = torch.zeros(int(np.prod(batch)) * size[0] * size[1], dtype=torch.float32, device=dev)
+        t = {"ms": cuda_ms(lambda: vote.bilinear_vote_kernel(ev, size, wt)),
+             "plain_ms": cuda_ms(lambda: vote.bilinear_vote_plain(ev, size, wt)),
+             "library_ms": cuda_ms(lambda: image.index_add(0, inds, vals))}
+        b_ms, b_by = vote_bound(ev, wt, size)
+        path = "shared memory" if size[0] * size[1] <= vote.shared_pixels() else "global sums"
+        out.append({"shape": f"{name} {what}", "events": list(ev.shape), "image": list(size), "path": path, **t,
+                    "bound_ms": b_ms, "bound_by": b_by})
+        phase("dnn-vote-time", f"{smi}: float32 {name} {what} {list(ev.shape)} -> {size[0]}x{size[1]} ({path}): "
+                               f"kernel {t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} ms, library (index_add) "
+                               f"{t['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def dnn_path(dev, smi):
+    """The EV-FlowNet path: ``[dnn-check]``, ``[dnn-train]`` (``DNN_CONFIG`` as
+    shipped through ``main.run(..., eval_mode=True)``: 300 steps, the eval
+    windows), ``[dnn-repeat]`` (``DNN_REPEAT_STEPS`` steps twice, the same
+    bits), ``[dnn-346]`` (``dnn_346_config``), then K8's times at the DNN's
+    shapes.  Returns (the runs' launches, K8's DNN entry for the ``kernels``
+    line)."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+
+    per_step = dnn_check(dev, smi)
+    with open(DNN_CONFIG) as f:
+        config = yaml.safe_load(f)
+    run, seconds, peak, launches, out_dir = dnn_run(port_main, config, dev, eval_mode=True)
+    losses, steps = run["losses"], config["dnn"]["n_steps"]
+    frames = len(run["eval"])
+    zero = dnn_zero_flow_epe(config)
+    aee = [round(r["EPE"], 4) for r in run["eval"]]
+    ckpt = os.path.join(out_dir, "checkpoints", f"step_{steps}", "state.pt")
+    txt = os.path.join(out_dir, "dnn_flow_error.txt")
+    want_launches = steps * per_step["forward"] + frames
+    ok = (len(losses) == steps and np.isfinite(losses).all() and np.mean(losses[-10:]) < losses[0]
+          and os.path.exists(ckpt) and os.path.exists(txt) and count_lines(txt) == frames + 1 and frames > 0
+          and launches["vote"] == want_launches)
+    phase("dnn-train", f"{smi}: {DNN_CONFIG} as shipped ({config['data']['height']}x{config['data']['width']}, "
+                       f"batch {config['dnn']['batch_size']}, {config['data']['n_events_per_batch']} events, "
+                       f"multi-scale), {steps} steps: median {np.median(run['step_seconds']):.4f} s/step, loss "
+                       f"first {losses[0]:.6f}, last {losses[-1]:.6f}, mean of last 10 {np.mean(losses[-10:]):.6f}; "
+                       f"K8 launches {launches['vote']} = {steps} steps x {per_step['forward']} (forward; backward "
+                       f"{per_step['backward']}) + {frames} eval frames x 1; eval AEE per frame {aee} vs zero flow "
+                       f"{[round(z, 4) for z in zero]} (mean {np.mean(aee):.4f} vs {np.mean(zero):.4f}); peak "
+                       f"{peak:.3f} GiB; phase {seconds:.2f} s: " + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise SystemExit("chip_smoke: DNN training did not descend, a loss is not finite, or the checkpoint, "
+                         "dnn_flow_error.txt or K8's launches are missing")
+    total = dict(launches)
+
+    repeat = copy.deepcopy(config)
+    repeat["dnn"]["n_steps"] = DNN_REPEAT_STEPS
+    runs = []
+    for _ in range(2):
+        r, s, _, launches, _ = dnn_run(port_main, repeat, dev, eval_mode=False)
+        runs.append((r["losses"], params_hash(r["model"]), s))
+        total = {k: total[k] + launches[k] for k in total}
+    same = runs[0][:2] == runs[1][:2]
+    phase("dnn-repeat", f"{DNN_REPEAT_STEPS} steps from seed 0, twice: losses {runs[0][0][:3]}... last "
+                        f"{runs[0][0][-1]:.9f} vs {runs[1][0][-1]:.9f}, params hash {runs[0][1]} vs {runs[1][1]} "
+                        f"({runs[0][2]:.2f} s, {runs[1][2]:.2f} s): same bits: {same}: " + ("ok" if same else "FAIL"))
+    if not same:
+        raise SystemExit("chip_smoke: two DNN runs from one seed gave different bits")
+
+    big = dnn_346_config()
+    run, seconds, peak, launches, _ = dnn_run(port_main, big, dev, eval_mode=False)
+    total = {k: total[k] + launches[k] for k in total}
+    losses = run["losses"]
+    ok = (len(losses) == DNN_346_STEPS and np.isfinite(losses).all()
+          and launches["vote"] == DNN_346_STEPS * per_step["forward"])
+    phase("dnn-346", f"{smi}: EV-FlowNet on {CONFIG}'s data block ({big['data']['height']}x{big['data']['width']} "
+                     f"-> 256x336, {big['data']['n_events_per_batch']} events, batch {big['dnn']['batch_size']}, "
+                     f"multi-scale, scale_time 128), {DNN_346_STEPS} steps: median "
+                     f"{np.median(run['step_seconds']):.4f} s/step, loss first {losses[0]:.6f}, last "
+                     f"{losses[-1]:.6f}; K8 launches {launches['vote']}; peak {peak:.3f} GiB; phase {seconds:.2f} s: "
+                     + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise SystemExit("chip_smoke: the 256x336 DNN run failed")
+    shapes = dnn_vote_time(smi, config, dev, "64x80") + dnn_vote_time(smi, big, dev, "256x336")
+    return total, {"launches_per_step": per_step, "shapes": shapes}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
@@ -1988,6 +2297,8 @@ def main() -> int:
     for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path):
         path_launches = path(dev, smi)
         launches = {k: launches[k] + path_launches[k] for k in launches}
+    dnn_launches, k8_dnn = dnn_path(dev, smi)
+    launches = {k: launches[k] + dnn_launches[k] for k in launches}
     src = fi.KERNEL_SOURCE
     pb = "event_based_optical_flow_tpu/ops/pallas_objective_banded.py"
     kernels = [
@@ -2001,7 +2312,8 @@ def main() -> int:
     kernels.append({"name": "vote", "route": "cuda", "source": vote.KERNEL_SOURCE,
                     "replaces": "event_based_optical_flow_tpu/ops/pallas_iwe.py:101", "launches": launches["vote"],
                     "max_abs_err": k8["err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
-                    "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": k8["library_ms"]})
+                    "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": k8["library_ms"],
+                    "dnn": k8_dnn})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")

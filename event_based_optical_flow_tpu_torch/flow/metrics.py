@@ -8,6 +8,7 @@ are normalized per batch item.
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -41,3 +42,15 @@ def calculate_flow_error(flow_gt: Tensor, flow_pred: Tensor, event_mask: Optiona
     ae = torch.arccos(cosang.clamp(-1.0, 1.0))
     errors["AE"] = (ae.sum(dim=(1, 2)) / n_points).mean()
     return errors
+
+
+def calculate_flow_error_numpy(flow_gt: np.ndarray, flow_pred: np.ndarray,
+                               event_mask: Optional[np.ndarray] = None) -> dict:
+    """Host convenience wrapper returning python floats (the arrays keep
+    their dtypes, as the JAX package's ``jnp.asarray`` keeps them)."""
+    out = calculate_flow_error(
+        torch.as_tensor(np.asarray(flow_gt)),
+        torch.as_tensor(np.asarray(flow_pred)),
+        None if event_mask is None else torch.as_tensor(np.asarray(event_mask)),
+    )
+    return {k: float(v) for k, v in out.items()}

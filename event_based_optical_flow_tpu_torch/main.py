@@ -22,8 +22,13 @@ from the previous batch's last solution (``data.warm_start: batch``).
 displacement into ``<output_dir>/flow_submission/``.  The global solver
 (``solver.method: global_contrast_maximization``) runs through the same
 loops: its solution, warm start and checkpoint are one parameter array
-(``eval_state.npz`` key ``array``, as the JAX CLI writes it).
-Visualization (PNGs) is not ported yet.
+(``eval_state.npz`` key ``array``, as the JAX CLI writes it).  An
+``is_dnn: true`` config (``configs/synthetic_dnn.yaml``) trains EV-FlowNet
+with the unsupervised CMax loss (``models/``; checkpoints under
+``dnn.checkpoint_dir``, default ``<output_dir>/checkpoints/step_<n>/``, a
+rerun resumes) and with ``--eval`` evaluates it per gray-frame window
+into ``<output_dir>/dnn_flow_error.txt``.  Visualization (PNGs) is not
+ported yet.
 """
 
 import argparse
@@ -252,9 +257,30 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
     return records
 
 
+def run_dnn(config: dict, eval_mode: bool, device) -> dict:
+    """``is_dnn``: train EV-FlowNet on the loaded sequence (and evaluate it
+    with ``--eval``), no solver built.  The image shape is
+    ``data.preprocess.crop``'s where a config has one (the JAX CLI's
+    ``image_shape``; the network itself crops ``data.height``/``width`` to
+    multiples of 16, as in the JAX package).  Returns ``run_dnn_flow``'s
+    result."""
+    from .models.train import run_dnn_flow
+
+    data_config = config["data"]
+    image_shape = (data_config["height"], data_config["width"])
+    if "crop" in data_config.get("preprocess", {}):
+        crop = data_config["preprocess"]["crop"]
+        image_shape = (crop["height"], crop["width"])
+    logger.info(f"EV-FlowNet path (is_dnn), image shape {image_shape}")
+    loader = data.collections[data_config["dataset"]](config=data_config)
+    loader.set_sequence(data_config["sequence"])
+    return run_dnn_flow(config, loader, device, evaluate=eval_mode)
+
+
 def run(config: dict, eval_mode: bool, device, candidates_fn=None):
-    """What the CLI runs, after logging is set up: validate, build, solve.
-    Returns the per-frame records (eval) or the single-frame result."""
+    """What the CLI runs, after logging is set up: validate, build, solve
+    (``is_dnn``: ``run_dnn``).  Returns the per-frame records (eval), the
+    single-frame result, or the DNN run's."""
     validate_config(config)
     set_numerics()
     if check_key_and_bool(config, "fix_random_seed"):
@@ -262,6 +288,8 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     data_config = config["data"]
     out_dir = config["output"]["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
+    if config.get("is_dnn"):
+        return run_dnn(config, eval_mode, device)
     loader, solv = build(config, device, candidates_fn)
     if eval_mode:
         eval_ts = loader.eval_frame_time_list()

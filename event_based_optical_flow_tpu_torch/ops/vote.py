@@ -14,7 +14,9 @@ weight that is a scalar or broadcastable to ``[..., n]`` give images
 ``w (1 - fx) fy``, ``w fx fy`` into the corners ``floor(c + eps)`` and
 ``+1`` (``fx = x - floor(x + eps)``), corners outside the image are dropped,
 zero-weight (padded) events are inert, a NaN position votes nothing (the
-events of an empty sweep patch, whose reference time is 0/0).  Every image of a batched call is
+events of an empty sweep patch, whose reference time is 0/0) and has a zero
+gradient on either route (the JAX package's Pallas kernel gives NaN images
+there, its scatter form NaN gradients).  Every image of a batched call is
 voted in one launch (the init sweep votes P patches x K candidates at once).
 
 Routing: ``bilinear_vote`` runs the plain version for a tensor on the CPU and
@@ -125,8 +127,11 @@ def corner_terms(events: Tensor, image_size: Tuple[int, int], weight: Union[floa
     y = events[..., 1]
     fl_x = torch.floor(x + eps)
     fl_y = torch.floor(y + eps)
-    fx = x - fl_x
-    fy = y - fl_y
+    # a non-finite position votes nothing (no corner is inside) and, with its
+    # fractions held at 0, has a zero gradient rather than a NaN one
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    fx = torch.where(finite, x - fl_x, torch.zeros_like(x))
+    fy = torch.where(finite, y - fl_y, torch.zeros_like(y))
     wgt = torch.as_tensor(weight, dtype=x.dtype, device=x.device)
     batch = x.shape[:-1]
     base = (torch.arange(math.prod(batch), device=x.device) * (h * w)).reshape(batch + (1,))
@@ -226,17 +231,21 @@ def _vote_backward(events: Tensor, weight: Union[float, Tensor], g: Tensor, eps:
     d weight ``[..., n]``)."""
     h, w = g.shape[-2], g.shape[-1]
     x, y = events[..., 0], events[..., 1]
+    zero = torch.zeros_like(x)
+    # a non-finite position (which votes nothing) gets a zero gradient: its
+    # fractions are held at 0 and its corners masked, whatever integer
+    # floor(NaN) converts to (INT64_MIN on the CPU, 0 on the GPU)
+    finite = torch.isfinite(x) & torch.isfinite(y)
     fx = torch.floor(x + eps)
     fy = torch.floor(y + eps)
-    ax = x - fx
-    ay = y - fy
-    r0 = fx.to(torch.int64)
-    c0 = fy.to(torch.int64)
+    ax = torch.where(finite, x - fx, zero)
+    ay = torch.where(finite, y - fy, zero)
+    r0 = torch.where(finite, fx, zero).to(torch.int64)
+    c0 = torch.where(finite, fy, zero).to(torch.int64)
     flat = g.reshape(g.shape[:-2] + (h * w,))
-    zero = torch.zeros_like(x)
 
     def corner(r, c):
-        ok = (r >= 0) & (r < h) & (c >= 0) & (c < w)
+        ok = finite & (r >= 0) & (r < h) & (c >= 0) & (c < w)
         return torch.where(ok, torch.gather(flat, -1, torch.where(ok, r * w + c, 0)), zero)
 
     g00, g10, g01, g11 = corner(r0, c0), corner(r0 + 1, c0), corner(r0, c0 + 1), corner(r0 + 1, c0 + 1)

@@ -118,13 +118,18 @@ def warp_2dof(
 
 
 def _gather_flow_clipped(flow: Tensor, events: Tensor, image_size: Tuple[int, int]):
-    """(u, v) of a [2, H, W] flow at the clipped integer event positions."""
+    """(u, v) of a ``[..., 2, H, W]`` flow at the clipped integer positions
+    of ``[..., n, 4]`` events (batch axes broadcast); a ``gather``, whose
+    backward is deterministic on the GPU."""
     h, w = image_size
     ix = events[..., 0].to(torch.int64).clamp(0, h - 1)
     iy = events[..., 1].to(torch.int64).clamp(0, w - 1)
-    flat = flow.reshape(2, -1)
     lin = ix * w + iy
-    return flat[0, lin], flat[1, lin]
+    flat = flow.reshape(flow.shape[:-3] + (2, h * w))
+    batch = torch.broadcast_shapes(flat.shape[:-2], lin.shape[:-1])
+    index = lin[..., None, :].expand(batch + (2, lin.shape[-1]))
+    uv = torch.gather(flat.expand(batch + flat.shape[-2:]), -1, index)
+    return uv[..., 0, :], uv[..., 1, :]
 
 
 def warp_dense_flow(
@@ -135,7 +140,8 @@ def warp_dense_flow(
     normalize_t: bool = False,
     weights: Optional[Tensor] = None,
 ) -> Tensor:
-    """Dense-flow warp of [n, 4] events: x' = x - dt * flow[0, x, y]."""
+    """Dense-flow warp of ``[..., n, 4]`` events with a ``[..., 2, H, W]``
+    flow: x' = x - dt * flow[..., 0, x, y]."""
     dt = calculate_dt(events, reference_time, normalize_t, weights=weights)
     u, v = _gather_flow_clipped(flow, events, image_size)
     return _replace_xy_t(events, events[..., 0] - dt * u, events[..., 1] - dt * v, dt)

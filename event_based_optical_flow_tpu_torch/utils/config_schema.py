@@ -4,8 +4,10 @@
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
 solver, optimizer or cost, a host griddata voxel scheme, outer padding,
-the L-BFGS solvers, device meshes, the DNN path) fails fast here with the
-YAML path of the entry, instead of deep inside a solve.  Unknown keys, and
+the L-BFGS solvers, device meshes, the DNN's multi-device train step)
+fails fast here with the YAML path of the entry, instead of deep inside a
+solve.  An ``is_dnn`` config (the EV-FlowNet path) validates its ``dnn``
+keys and its solver blocks, as the JAX package validates them.  Unknown keys, and
 the raw-camera filters on a dataset that ignores them, produce the JAX
 package's warnings; a global motion model under a tile solver, and a TV
 term under the global solver, are refused as the JAX package refuses
@@ -68,6 +70,11 @@ _KNOWN_OPT_KEYS = {
     "coarse_max_iter", "coarse_cg_maxiter", "device_solver", "lbfgs_memory",
     "warm_finest_only", "warm_full_every", "fd_polish",
 }
+_KNOWN_DNN_KEYS = {
+    "n_bin", "batch_size", "n_steps", "lr", "data_parallel",
+    "checkpoint_dir", "checkpoint_every", "eval_only", "multi_scale", "resume", "scale_time",
+    "supervised",
+}
 
 # JAX-package options that select a part of the system the port does not
 # run yet: (section, key, value the port runs, reason)
@@ -106,8 +113,9 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
 
     for section in ("data", "output", "solver", "optimizer"):
         _require(config, section, dict, "<root>")
-    if config.get("is_dnn"):
-        raise ConfigError("'is_dnn: true' (the EV-FlowNet path) is not ported yet")
+    if config.get("is_dnn") and (config.get("dnn") or {}).get("data_parallel"):
+        raise ConfigError("'dnn.data_parallel: true' (the multi-device DNN train step, "
+                          "dnn_train_step_parallel) is not ported yet")
     if config.get("parallel"):
         raise ConfigError("'parallel' (multi-device meshes, the fleet's frame sharding among them) "
                           "is not ported yet")
@@ -123,10 +131,15 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         )
     _require(data, "height", int, "data")
     _require(data, "width", int, "data")
-    _require(data, "n_events_per_batch", int, "data")
+    if not config.get("is_dnn"):
+        _require(data, "n_events_per_batch", int, "data")
     for key in data:
         if key not in _KNOWN_DATA_KEYS:
             warnings.append(f"unknown config key 'data.{key}' (ignored?)")
+
+    for key in config.get("dnn", {}) or {}:
+        if key not in _KNOWN_DNN_KEYS:
+            warnings.append(f"unknown config key 'dnn.{key}' (ignored?)")
 
     out = config["output"]
     _require(out, "output_dir", str, "output")

@@ -227,7 +227,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
 PORTED_CONFIGS = {"synthetic_fleet.yaml", "synthetic_mvsec_geometry.yaml", "synthetic_quickstart.yaml",
                   "mvsec_indoor_no_timeaware.yaml", "mvsec_indoor_burgers.yaml", "dsec_zurich_city.yaml",
                   "ecd_slider_depth.yaml", "evt2_raw.yaml", "synthetic_rotation_global.yaml",
-                  "synthetic_rotation3d_global.yaml"}
+                  "synthetic_rotation3d_global.yaml", "synthetic_dnn.yaml"}
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (REPO / "configs").glob("*.yaml")))

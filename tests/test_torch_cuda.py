@@ -4,7 +4,9 @@ their time-aware voxel forms, K5/K6; the batched forms of all of them, K7;
 the standalone vote, K8) against their plain PyTorch versions, every
 kernel against the exact model of its bits (error 0),
 each batched frame against the single-frame kernel on that frame alone, and the fused objective and its
-analytic HVP (dense and time-aware) on the GPU against the same on the CPU.  Every test needs an NVIDIA GPU and skips
+analytic HVP (dense and time-aware) on the GPU against the same on the CPU, and the EV-FlowNet path (the voxel
+featurizer's K8 launch against the plain vote and the exact model, the CMax loss and its flow gradient through K8
+and its backward against the CPU, far-out and NaN positions, deterministic train steps).  Every test needs an NVIDIA GPU and skips
 without one (``cuda`` marker).
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -1194,3 +1196,136 @@ def test_no_garbage_collection_inside_a_capture(cuda_device, deterministic):
     staged.value(m)
     staged.value(m + 1.0)
     assert seen == [True, False] and gc.isenabled()
+
+
+# ---- the EV-FlowNet path: K8 forward and backward under the DNN's loss ----
+
+
+def _dnn_batch(seed=0, b=2, n=3000, pad=1000, h=32, w=48):
+    """[b, n + pad, 4] events with signed polarity and padded rows, their
+    weights, and random smooth flows per decoder scale (px/s, a 0.1 s
+    window)."""
+    rng = np.random.default_rng(seed)
+    ev = np.zeros((b, n + pad, 4))
+    ev[:, :n, 0] = rng.uniform(0, h - 1, (b, n))
+    ev[:, :n, 1] = rng.uniform(0, w - 1, (b, n))
+    ev[:, :n, 2] = np.sort(rng.uniform(0, 0.1, (b, n)), axis=-1)
+    ev[:, :n, 3] = rng.integers(0, 2, (b, n))
+    wt = np.zeros((b, n + pad))
+    wt[:, :n] = 1.0
+    flows = {f"flow{i}": 30.0 * rng.normal(size=(b, 2, h >> (3 - i), w >> (3 - i))) for i in range(4)}
+    return ev, wt, flows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)])
+def test_dnn_voxel_grid_kernel_matches_plain_and_exact_model(cuda_device, dtype, tol):
+    """The voxel featurizer's one K8 launch (signed, temporally weighted
+    votes in [-1, 1] of every bin and item): the plain vote on the same
+    tensors to rounding, the exact model of K8's fixed-point bits to 0."""
+    from event_based_optical_flow_tpu_torch.models.ev_flownet import events_to_voxel_grid
+
+    ev_np, wt_np, _ = _dnn_batch()
+    ev = torch.as_tensor(ev_np, dtype=dtype, device=cuda_device)
+    wt = torch.as_tensor(wt_np, dtype=dtype, device=cuda_device)
+    VOTE.reset_launch_counts()
+    got = events_to_voxel_grid(ev, (32, 48), 4, wt)
+    assert VOTE.launch_counts()["vote"] == 1 and got.shape == (2, 4, 32, 48)
+    calls = []
+    kernel = VOTE.bilinear_vote_kernel
+    VOTE.bilinear_vote_kernel = lambda e, s, w=1.0, eps=1e-6: calls.append((e, w)) or kernel(e, s, w, eps)
+    try:
+        events_to_voxel_grid(ev, (32, 48), 4, wt)
+    finally:
+        VOTE.bilinear_vote_kernel = kernel
+    (planes, weight), = calls
+    assert (weight < 0).any() and weight.abs().max() <= 1.0
+    want = VOTE.bilinear_vote_plain(planes, (32, 48), weight)
+    assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+    exact = VOTE.bilinear_vote_fixed_reference(planes.cpu(), (32, 48), weight.cpu())
+    assert torch.equal(got.cpu(), exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multi_scale", [False, True])
+def test_dnn_loss_and_flow_gradient_on_gpu_match_cpu(cuda_device, deterministic, multi_scale):
+    """The CMax loss of the DNN (K8 forward, the analytic four-corner
+    backward) in float64 on the GPU against the same on the CPU (the plain
+    vote and its autograd): per-item values and the flow gradients."""
+    from event_based_optical_flow_tpu_torch.models import train as TT
+
+    ev_np, wt_np, flows_np = _dnn_batch(1)
+    keys = [f"flow{i}" for i in range(4)] if multi_scale else ["flow3"]
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        flows = {k: torch.as_tensor(flows_np[k], device=dev).requires_grad_(True) for k in keys}
+        ev, wt = (torch.as_tensor(a, device=dev) for a in (ev_np, wt_np))
+        VOTE.reset_launch_counts()
+        if multi_scale:
+            loss = TT.multi_scale_cmax_loss(flows, ev, (32, 48), wt)
+        else:
+            loss = TT.unsupervised_cmax_loss(flows["flow3"], ev, (32, 48), wt)
+        forward = VOTE.launch_counts()["vote"]
+        loss.sum().backward()
+        assert VOTE.launch_counts()["vote"] == forward  # the backward is a gather, no launch
+        assert forward == (len(keys) if dev.type == "cuda" else 0)
+        out[dev.type] = (loss.detach().cpu(), [flows[k].grad.cpu() for k in keys])
+    (want, want_g), (got, got_g) = out["cpu"], out["cuda"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-9 * max(1.0, want.abs().max().item())
+    for g, wg in zip(got_g, want_g):
+        assert wg.abs().max() > 0
+        assert (g - wg).abs().max().item() <= 1e-9 * max(1.0, wg.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_vote_far_and_nan_positions_on_gpu(cuda_device, deterministic):
+    """Events at +-1e6, inf and NaN positions through K8 and its backward:
+    no vote, a zero gradient (floor(NaN) converts to 0 on the GPU, so the
+    backward masks non-finite positions itself), the other events as on the
+    CPU."""
+    rng = np.random.default_rng(3)
+    n, h, w = 400, 9, 11
+    ev = np.stack([rng.uniform(0, h - 1, n), rng.uniform(0, w - 1, n), rng.uniform(0, 1, n), np.ones(n)], 1)
+    ev[:8, :2] = [[1e6, 3.0], [-1e6, 2.0], [4.0, 1e6], [2.0, -1e6], [np.nan, 3.0], [2.0, np.nan],
+                  [np.inf, 1.0], [np.nan, np.nan]]
+    wt = rng.uniform(-1.0, 1.0, n)
+    g = rng.normal(size=(h, w))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        e = torch.as_tensor(ev, device=dev).requires_grad_(True)
+        image = VOTE.bilinear_vote(e, (h, w), torch.as_tensor(wt, device=dev))
+        (image * torch.as_tensor(g, device=dev)).sum().backward()
+        out[dev.type] = (image.detach().cpu(), e.grad.cpu())
+    assert torch.isfinite(out["cuda"][0]).all() and torch.isfinite(out["cuda"][1]).all()
+    assert not out["cuda"][1][:8].any()
+    # K8's images are its fixed-point bits: the exact model's, and the plain sums' to rounding
+    assert torch.equal(out["cuda"][0], VOTE.bilinear_vote_fixed_reference(
+        torch.as_tensor(ev), (h, w), torch.as_tensor(wt)))
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-9 * max(1.0, out["cpu"][0].abs().max().item())
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-10
+
+
+@pytest.mark.cuda
+def test_dnn_train_steps_on_gpu_are_deterministic_and_match_cpu(cuda_device, deterministic):
+    """Three multi-scale Adam steps of EV-FlowNet (cuDNN convolutions, the
+    slice-sum upsample and reflect pad, K8) in float64 from one seed, twice
+    on the GPU: the same loss and parameter bits; and against the CPU: the
+    losses to 1e-9 relative, the parameters to 1e-7 x their tensor's
+    largest value (TF32 is off)."""
+    from event_based_optical_flow_tpu_torch.models import train as TT
+
+    ev_np, wt_np, _ = _dnn_batch(2, n=1500, pad=548, h=32, w=32)
+    runs = []
+    for dev in (cuda_device, cuda_device, torch.device("cpu")):
+        model, opt = TT.make_dnn_train_state((32, 32), 4, lr=3e-4, scale_time=8.0, device=dev,
+                                             dtype=torch.float64)
+        step, _ = TT.dnn_train_step(model, opt, (32, 32), 4, multi_scale=True)
+        ev, wt = (torch.as_tensor(a, device=dev) for a in (ev_np, wt_np))
+        losses = [float(step(ev, wt)) for _ in range(3)]
+        runs.append((losses, {k: v.cpu() for k, v in model.state_dict().items()}))
+    (l1, p1), (l2, p2), (lc, pc) = runs
+    assert l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
+    assert np.allclose(l1, lc, rtol=1e-9, atol=0)
+    for k in p1:
+        assert (p1[k] - pc[k]).abs().max().item() <= 1e-7 * max(1.0, pc[k].abs().max().item())

@@ -5,6 +5,7 @@
         [--pattern dots] [--max_iter 2] [--hvp_mode MODE] [--dsec | --time-aware] [--fleet]
         [--chain both|on|off]
     python3 tools/profile_torch_frame.py --multistream 2
+    python3 tools/profile_torch_frame.py --dnn [--config configs/synthetic_dnn.yaml] [--steps 10]
 
 ``--chain`` (default ``both``) profiles the sequential frame (with
 ``--fleet`` the batch and the frame beside it) chained
@@ -32,6 +33,12 @@ serving defaults and full Newton budget): a dense ``MultiStreamFlowEstimator``
 of K streams (windows of the config's data block, 30 000 events each),
 a cold and a warm push, in ``fleet`` and in ``sequential`` mode, in turns
 (fleet, sequential, sequential, fleet), each push ending in a synchronize.
+``--dnn`` profiles ``--steps`` EV-FlowNet train steps of an ``is_dnn``
+config (default configs/synthetic_dnn.yaml) on its first batch
+(``chip_smoke.dnn_batch``), each step ending in its loss's read as in
+``run_dnn_flow``: wall per step, device busy and idle share, kernels per
+step, and the device time under the step's parts (the convolutions
+forward and backward, K8's launches, the vote's backward, Adam).
 
 Solves frame 0 once as a warm-up (kernel build, allocator), once timed
 alone, and once under ``torch.profiler`` (CPU + CUDA activities), all
@@ -179,6 +186,57 @@ def time_multistream(config: dict, n_streams: int) -> None:
                   f"{bool(np.isfinite(flows).all())}, host syncs {syncs}, HVP {hvp}, launches {launches}", flush=True)
 
 
+def profile_dnn(config: dict, top: int, n_steps: int) -> None:
+    """``n_steps`` train steps of an ``is_dnn`` config on its first batch
+    (warm-up, timed alone, profiled); per step: wall, device busy time,
+    idle share, kernels, and the device time under each part of the step."""
+    from chip_smoke import dnn_batch
+    from event_based_optical_flow_tpu_torch.models.train import dnn_train_step, make_dnn_train_state
+
+    dev = torch.device("cuda")
+    ev, wt, size = dnn_batch(config, dev, torch.float32)
+    d = config["dnn"]
+    model, opt = make_dnn_train_state(size, d["n_bin"], lr=float(d.get("lr", 1e-4)), device=dev,
+                                      scale_time=float(d.get("scale_time", min(128.0, max(size) / 2))))
+    step, _ = dnn_train_step(model, opt, size, d["n_bin"], multi_scale=bool(d.get("multi_scale")))
+
+    def run():
+        for _ in range(n_steps):
+            float(step(ev, wt))
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    plain = (time.perf_counter() - t0) / n_steps
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        run()
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / n_steps
+    n = sum(e.count for e in kernels) / n_steps
+    print(f"[profile] dnn {size[0]}x{size[1]}, batch {list(ev.shape)}, {torch.cuda.get_device_name(0)}: "
+          f"{plain:.4f} s per step unprofiled, device busy {busy / 1e3:.3f} ms per step, idle share "
+          f"{1 - busy / 1e6 / plain:.3f}, {n:.0f} kernels per step", flush=True)
+    # the step's parts: device time of the kernels each top-level op launched
+    parts = {"convolutions forward": "aten::conv2d",
+             "convolutions backward": "autograd::engine::evaluate_function: ConvolutionBackward0",
+             "K8 forward (the voxel and the loss votes)": "K8",
+             "the vote's backward (a gather)": "autograd::engine::evaluate_function: BilinearVoteBackward",
+             "Adam": "Optimizer.step#Adam.step"}
+    for what, key in parts.items():
+        if key == "K8":
+            us = sum(e.self_device_time_total for e in kernels if "bilinear_vote" in e.key or "from_fixed" in e.key)
+        else:
+            us = sum(e.device_time_total for e in averages if e.key == key)
+        print(f"[profile] dnn: {what}: {us / n_steps / 1e3:.3f} ms per step, {us / n_steps / max(1.0, busy):.3f} "
+              "of the device time", flush=True)
+    print(averages.table(sort_by="self_device_time_total", row_limit=top, max_name_column_width=60))
+    # a host-bound step: where the host's time goes
+    print(averages.table(sort_by="self_cpu_time_total", row_limit=top, max_name_column_width=60))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="configs/synthetic_mvsec_geometry.yaml")
@@ -196,9 +254,18 @@ def main() -> int:
                     help="the sequential frame (and the fleet) chained, with the loop, or both in turn")
     ap.add_argument("--multistream", type=int, default=0, metavar="K",
                     help="time a cold and a warm push of K dense streams, fleet vs sequential (no profiler)")
+    ap.add_argument("--dnn", action="store_true", help="EV-FlowNet train steps of an is_dnn config")
+    ap.add_argument("--steps", type=int, default=10, help="--dnn: train steps per run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: needs a CUDA device")
+    if args.dnn:
+        config_file = "configs/synthetic_dnn.yaml" if args.config == ap.get_default("config") else args.config
+        with open(config_file) as f:
+            config = yaml.safe_load(f)
+        port_main.set_numerics()
+        profile_dnn(config, args.top, args.steps)
+        return 0
     if args.multistream:
         with open(args.config) as f:
             time_multistream(yaml.safe_load(f), args.multistream)
