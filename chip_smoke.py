@@ -145,9 +145,10 @@ Phases (each prints one informative line; any failure exits nonzero):
    EPE against the zero flow's, PRED_FWL, host syncs, the solve's K1-K4
    launches and the recovered parameters beside the scene's rates in the
    solver's sign convention;
-14. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on ``DNN_CONFIG``'s
-   first training batch (64x80, batch 2, 20 000 events), float64 and
-   float32: the voxel grids (one K8 launch, polarity-signed weights) and
+14. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on the first
+   training batch of ``DNN_CONFIG`` (64x80, batch 2, 20 000 events) and of
+   ``dnn_346_config`` (256x336, 30 000 events: the signed voxel votes and
+   the finest loss votes on K8's global sums), float64 and float32: the voxel grids (one K8 launch, polarity-signed weights) and
    the multi-scale CMax loss with its gradient w.r.t. the four flow heads
    (one K8 launch per scale; the backward a gather, no launch) against the
    plain vote on the same tensors, each K8 call against the exact model of
@@ -161,8 +162,10 @@ Phases (each prints one informative line; any failure exits nonzero):
    trains ``DNN_REPEAT_STEPS`` steps twice from the seed: the same losses
    and parameter bits; ``[dnn-346]`` trains ``DNN_346_STEPS`` steps at
    256x336 (``dnn_346_config``: the MVSEC slice's data block, 30 000
-   events, K8's finest loss call on its global path); ``[dnn-vote-time]``
-   times K8 at both cells' voxel and finest loss calls.
+   events, the shipped dnn block); ``[dnn-346-witness]`` takes
+   ``DNN_WITNESS_STEPS`` float64 steps there on the card and on the CPU:
+   the same losses to ``DNN_WITNESS_TOL``; ``[dnn-vote-time]`` times K8 at
+   both cells' voxel and finest loss calls.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
@@ -324,6 +327,13 @@ EVT2_WINDOWS = 2
 DNN_CONFIG = "configs/synthetic_dnn.yaml"
 DNN_REPEAT_STEPS = 20
 DNN_346_STEPS = 20
+# [dnn-346-witness]: float64 Adam steps at 256x336 on the card and on the
+# CPU, and how far their losses may part (relative): the card's images are
+# K8's fixed-point sums, the CPU's the plain vote's (they differ by ~1e-11
+# in float64), and Adam's first steps divide each gradient entry by its own
+# magnitude, so an entry near 0 can turn either way
+DNN_WITNESS_STEPS = 3
+DNN_WITNESS_TOL = 1e-6
 GLOBAL_SIM_CONFIG = "configs/synthetic_rotation_global.yaml"
 GLOBAL_ROT3D_CONFIG = "configs/synthetic_rotation3d_global.yaml"
 GLOBAL_LAST_FRAME = 2
@@ -1276,23 +1286,27 @@ def vote_bound(events: torch.Tensor, weight, image_size):
     K8 call, counted from this call's data: of the event array only the
     32-byte sectors that the voting (nonzero-weight) rows' x and y fall in
     (a zero-weight row's position is never read; x and y share their sector
-    with the unread t and p), a tensor weight read once at its own shape,
-    the images written once, over the HBM rate; ``OPS_PER_VOTE`` operations
-    per voting event and one per output pixel (the fixed-point conversion)
-    over the float32 rate."""
+    with the unread t and p), each event set read once however many images
+    vote it (the voxel grid's planes: a stride-0 expand, which K8 reads in
+    place), a tensor weight read once at its own shape, the images written
+    once, over the HBM rate; ``OPS_PER_VOTE`` operations per vote and one
+    per output pixel (the fixed-point conversion) over the float32 rate."""
+    from event_based_optical_flow_tpu_torch.ops import vote
+
     h, w = image_size
     rows = events.shape[:-1]
-    n_img = rows.numel() // rows[-1]
+    n = rows[-1]
+    n_img = rows.numel() // n
     item = events.element_size()
-    if torch.is_tensor(weight):
-        voting = torch.broadcast_to(weight != 0, rows).reshape(-1).nonzero().squeeze(1).cpu()
-        weight_bytes = weight.numel() * item
-    else:
-        voting = torch.arange(rows.numel() if weight != 0 else 0)
-        weight_bytes = 0
+    _, rep = vote._event_rows(events, tuple(rows[:-1]))
+    votes = (torch.broadcast_to(weight != 0, rows) if torch.is_tensor(weight)
+             else torch.full(tuple(rows), weight != 0, device=events.device))
+    # the images of one event row are consecutive (image i reads row i // rep)
+    voting = votes.reshape(-1, rep, n).any(dim=1).reshape(-1).nonzero().squeeze(1).cpu()
+    weight_bytes = weight.numel() * item if torch.is_tensor(weight) else 0
     moved = sector_bytes(voting * events.shape[-1], item) + weight_bytes + n_img * h * w * item
     t_bytes = moved / H100_BYTES_PER_S * 1e3
-    t_ops = (OPS_PER_VOTE * len(voting) + n_img * h * w) / H100_FP32_FLOPS * 1e3
+    t_ops = (OPS_PER_VOTE * int(votes.sum()) + n_img * h * w) / H100_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1912,27 +1926,18 @@ def global_path(dev, smi) -> dict:
 
 def dnn_batch(config: dict, dev, dtype):
     """The first training batch of ``config`` as ``run_dnn_flow`` draws it
-    (``np.random.default_rng(0)``, windows cropped to multiples of 16 and
-    padded to ``n_events_per_batch``): (events ``[B, N, 4]``, weights
-    ``[B, N]``, image size)."""
+    (``models.train.draw_batch`` from ``np.random.default_rng(0)``):
+    (events ``[B, N, 4]``, weights ``[B, N]``, image size)."""
     from event_based_optical_flow_tpu_torch.data import collections
-    from event_based_optical_flow_tpu_torch.types import pad_events
+    from event_based_optical_flow_tpu_torch.models import train
 
     d = config["data"]
     loader = collections[d["dataset"]](config=d)
     loader.set_sequence(d["sequence"])
-    hc, wc = d["height"] // 16 * 16, d["width"] // 16 * 16
-    n, total, rng = d["n_events_per_batch"], len(loader), np.random.default_rng(0)
-    evs, wts = [], []
-    for _ in range(int(config["dnn"]["batch_size"])):
-        start = int(rng.integers(0, max(1, total - n)))
-        ev = loader.load_event(start, min(start + n, total))
-        ev[:, 2] -= ev[:, 2].min()
-        p, w = pad_events(ev[(ev[:, 0] < hc) & (ev[:, 1] < wc)], target_n=n)
-        evs.append(p)
-        wts.append(w)
-    t = lambda a: torch.as_tensor(np.stack(a), dtype=dtype, device=dev)
-    return t(evs), t(wts), (hc, wc)
+    size = train.crop_size(d)
+    ev, wt, _ = train.draw_batch(loader, np.random.default_rng(0), size, d["n_events_per_batch"],
+                                 int(config["dnn"]["batch_size"]))
+    return (torch.as_tensor(ev, dtype=dtype, device=dev), torch.as_tensor(wt, dtype=dtype, device=dev), size)
 
 
 class plain_votes:
@@ -1978,12 +1983,12 @@ def dnn_step_terms(config: dict, dev, dtype, model=None):
     flows as leaves that require grad, the multi-scale loss per item,
     events, weights, image size)."""
     from event_based_optical_flow_tpu_torch.models import EVFlowNet, events_to_voxel_grid
-    from event_based_optical_flow_tpu_torch.models.train import multi_scale_cmax_loss
+    from event_based_optical_flow_tpu_torch.models.train import default_scale_time, multi_scale_cmax_loss
 
     ev, wt, size = dnn_batch(config, dev, dtype)
     dnn = config["dnn"]
     if model is None:
-        model = EVFlowNet(dnn["n_bin"], float(dnn.get("scale_time", min(128.0, max(size) / 2)))).to(dev, dtype)
+        model = EVFlowNet(dnn["n_bin"], default_scale_time(dnn, size)).to(dev, dtype)
     voxel = events_to_voxel_grid(ev, size, dnn["n_bin"], wt)
     with torch.no_grad():
         flows = {k: v.requires_grad_(True) for k, v in model(voxel).items()}
@@ -1991,57 +1996,64 @@ def dnn_step_terms(config: dict, dev, dtype, model=None):
 
 
 def dnn_check(dev, smi) -> dict:
-    """``[dnn-check]`` on the first batch of ``DNN_CONFIG`` (64x80, batch 2,
-    20 000 events), float64 and float32: the voxel grids (one K8 launch)
-    and the multi-scale loss with its gradient w.r.t. the four flow heads
-    (one K8 launch per scale; the backward a gather) against the plain vote
-    on the same tensors; K8's signed-weight images against the exact model
-    of its bits (max|err| 0); the full network's forward on the card
-    against the CPU from the same converted weights.  Returns the K8
-    launches of one step's forward and backward."""
+    """``[dnn-check]`` on the first batch of each DNN cell (``DNN_CONFIG``:
+    64x80, batch 2, 20 000 events, every K8 call in shared memory;
+    ``dnn_346_config``: 256x336, 30 000 events, the voxel call and the
+    finest loss call on K8's global sums), float64 and float32: the voxel
+    grids (one K8 launch, polarity-signed weights) and the multi-scale loss
+    with its gradient w.r.t. the four flow heads (one K8 launch per scale;
+    the backward a gather) against the plain vote on the same tensors;
+    every K8 call of the step against the exact model of its bits (max|err|
+    0); the full network's forward on the card against the CPU from the
+    same converted weights.  Returns the K8 launches of one step's forward
+    and backward."""
     from event_based_optical_flow_tpu_torch import ops
     from event_based_optical_flow_tpu_torch.models import EVFlowNet, convert
     from event_based_optical_flow_tpu_torch.ops import vote
 
     with open(DNN_CONFIG) as f:
-        config = yaml.safe_load(f)
+        cells = (("64x80", yaml.safe_load(f)), ("256x336", dnn_346_config()))
     per_step = {}
-    for dtype in (torch.float64, torch.float32):
-        tol = TOL[dtype]
-        ops.reset_launch_counts()
-        with recorded_votes() as calls:
-            model, voxel, flows, loss, ev, wt, size = dnn_step_terms(config, dev, dtype)
-        forward = ops.launch_counts()["vote"]
-        grads = torch.autograd.grad(loss.sum(), list(flows.values()))
-        per_step = {"forward": forward, "backward": ops.launch_counts()["vote"] - forward}
-        with plain_votes():
-            _, p_voxel, p_flows, p_loss, *_ = dnn_step_terms(config, dev, dtype, model)
-            p_grads = torch.autograd.grad(p_loss.sum(), list(p_flows.values()))
-        rel = lambda a, b: (a - b).abs().max().item() / max(1.0, b.abs().max().item())
-        errs = {"voxel": rel(voxel, p_voxel), "loss": rel(loss.detach(), p_loss.detach()),
-                "grad": max(rel(g, pg) for g, pg in zip(grads, p_grads))}
-        signed = bool((calls[0][1] < 0).any())  # the voxel's polarity-signed votes
-        exact = max(exact_err(vote.bilinear_vote_kernel(e, s, w), vote.bilinear_vote_fixed_reference(
-            e.cpu(), s, w.cpu() if torch.is_tensor(w) else w)) for e, w, s in calls)
-        cpu = EVFlowNet(model.n_bin, model.scale_time).to(dtype)
-        cpu.load_state_dict(convert.params_from_flax(convert.params_to_flax(model.state_dict())))
-        with torch.no_grad():
-            want = cpu(voxel.cpu())
-            got = model(voxel)
-        errs["net"] = max(rel(got[k].cpu(), want[k]) for k in want)
-        ok = (max(errs.values()) <= tol and exact == 0 and signed and forward == 1 + len(flows)
-              and per_step["backward"] == 0)
-        phase("dnn-check", f"{str(dtype)[6:]} {DNN_CONFIG} batch {list(ev.shape)} -> {size[0]}x{size[1]}: "
-                           f"voxel (K8, signed weights {signed}) rel err {errs['voxel']:.3e}, multi-scale loss "
-                           f"{[round(v, 6) for v in loss.tolist()]} rel err {errs['loss']:.3e}, flow grads rel "
-                           f"err {errs['grad']:.3e} (K8 vs the plain vote on the same tensors), network forward "
-                           f"card vs CPU from converted weights rel err {errs['net']:.3e}, tol {tol:g} x scale; "
-                           f"exact model of K8's {len(calls)} calls: max|err| {exact:g}; K8 launches forward "
-                           f"{forward} (voxel 1 + loss {len(flows)} scales), backward {per_step['backward']}: "
-                           + ("ok" if ok else "FAIL"))
-        if not ok:
-            raise SystemExit("chip_smoke: the DNN path on the card disagrees with its plain version, the exact "
-                             "model or the CPU")
+    for name, config in cells:
+        for dtype in (torch.float64, torch.float32):
+            tol = TOL[dtype]
+            ops.reset_launch_counts()
+            with recorded_votes() as calls:
+                model, voxel, flows, loss, ev, wt, size = dnn_step_terms(config, dev, dtype)
+            forward = ops.launch_counts()["vote"]
+            grads = torch.autograd.grad(loss.sum(), list(flows.values()))
+            per_step = {"forward": forward, "backward": ops.launch_counts()["vote"] - forward}
+            with plain_votes():
+                _, p_voxel, p_flows, p_loss, *_ = dnn_step_terms(config, dev, dtype, model)
+                p_grads = torch.autograd.grad(p_loss.sum(), list(p_flows.values()))
+            rel = lambda a, b: (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            errs = {"voxel": rel(voxel, p_voxel), "loss": rel(loss.detach(), p_loss.detach()),
+                    "grad": max(rel(g, pg) for g, pg in zip(grads, p_grads))}
+            signed = bool((calls[0][1] < 0).any())  # the voxel's polarity-signed votes
+            paths = ["global" if s[0] * s[1] > vote.shared_pixels() else "shared" for _, _, s in calls]
+            exact = max(exact_err(vote.bilinear_vote_kernel(e, s, w), vote.bilinear_vote_fixed_reference(
+                e.cpu(), s, w.cpu() if torch.is_tensor(w) else w)) for e, w, s in calls)
+            cpu = EVFlowNet(model.n_bin, model.scale_time).to(dtype)
+            cpu.load_state_dict(convert.params_from_flax(convert.params_to_flax(model.state_dict())))
+            with torch.no_grad():
+                want = cpu(voxel.cpu())
+                got = model(voxel)
+            errs["net"] = max(rel(got[k].cpu(), want[k]) for k in want)
+            # the 256x336 cell's signed voxel votes and finest loss votes take the global sums
+            want_paths = ["global", "shared", "shared", "shared", "global"] if name == "256x336" else ["shared"] * 5
+            ok = (max(errs.values()) <= tol and exact == 0 and signed and forward == 1 + len(flows)
+                  and per_step["backward"] == 0 and paths == want_paths)
+            phase("dnn-check", f"{str(dtype)[6:]} {name} batch {list(ev.shape)} -> {size[0]}x{size[1]}: voxel (K8, "
+                               f"signed weights {signed}) rel err {errs['voxel']:.3e}, multi-scale loss "
+                               f"{[round(v, 6) for v in loss.tolist()]} rel err {errs['loss']:.3e}, flow grads "
+                               f"rel err {errs['grad']:.3e} (K8 vs the plain vote on the same tensors), network "
+                               f"forward card vs CPU from converted weights rel err {errs['net']:.3e}, tol {tol:g} "
+                               f"x scale; exact model of K8's {len(calls)} calls (voxel, scales 0-3: {paths}): "
+                               f"max|err| {exact:g}; K8 launches forward {forward} (voxel 1 + loss {len(flows)} "
+                               f"scales), backward {per_step['backward']}: " + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise SystemExit("chip_smoke: the DNN path on the card disagrees with its plain version, the "
+                                 "exact model or the CPU, or a call took another K8 path")
     return per_step
 
 
@@ -2063,28 +2075,6 @@ def dnn_run(port_main, config: dict, dev, eval_mode: bool):
             config["output"]["output_dir"])
 
 
-def dnn_zero_flow_epe(config: dict) -> list:
-    """The zero flow's EPE on each eval window of ``_evaluate_dnn`` (the
-    same events, mask and GT crop)."""
-    from event_based_optical_flow_tpu_torch.data import collections
-    from event_based_optical_flow_tpu_torch.flow.metrics import calculate_flow_error_numpy
-
-    d = config["data"]
-    loader = collections[d["dataset"]](config=d)
-    loader.set_sequence(d["sequence"])
-    hc, wc = d["height"] // 16 * 16, d["width"] // 16 * 16
-    ts, dt = loader.eval_frame_time_list(), int(d.get("eval_dt", 1))
-    out = []
-    for i in range(len(ts) - dt):
-        ev = loader.load_event(loader.time_to_index(ts[i]), loader.time_to_index(ts[i + dt]))
-        ev = ev[(ev[:, 0] < hc) & (ev[:, 1] < wc)]
-        mask = np.zeros((hc, wc), bool)
-        mask[ev[:, 0].astype(int), ev[:, 1].astype(int)] = True
-        gt = np.transpose(loader.load_optical_flow(ts[i], ts[i + dt])[:hc, :wc], (2, 0, 1))
-        out.append(calculate_flow_error_numpy(gt[None], np.zeros_like(gt)[None], mask[None, None])["EPE"])
-    return out
-
-
 def params_hash(model) -> str:
     h = hashlib.sha256()
     for k, v in model.state_dict().items():
@@ -2095,15 +2085,40 @@ def params_hash(model) -> str:
 
 def dnn_346_config() -> dict:
     """EV-FlowNet on ``CONFIG``'s data block (260x346 cropped to 256x336,
-    30 000-event windows) with ``DNN_CONFIG``'s dnn block, ``DNN_346_STEPS``
-    steps, the tanh range at the JAX package's default (128)."""
+    30 000-event windows) with ``DNN_CONFIG``'s dnn block as shipped and
+    ``DNN_346_STEPS`` steps."""
     with open(DNN_CONFIG) as f:
         config = yaml.safe_load(f)
     with open(CONFIG) as f:
         config["data"] = yaml.safe_load(f)["data"]
     config["dnn"]["n_steps"] = DNN_346_STEPS
-    del config["dnn"]["scale_time"]
     return config
+
+
+def dnn_witness(config: dict, dev) -> dict:
+    """``DNN_WITNESS_STEPS`` Adam steps of ``config`` in float64 from the
+    seed on the card and on the CPU (the plain vote), on ``run_dnn_flow``'s
+    first batches: ((losses, seconds) on the card, on the CPU)."""
+    from event_based_optical_flow_tpu_torch.data import collections
+    from event_based_optical_flow_tpu_torch.models import train
+
+    d, dnn = config["data"], config["dnn"]
+    loader = collections[d["dataset"]](config=d)
+    loader.set_sequence(d["sequence"])
+    size = train.crop_size(d)
+    rng = np.random.default_rng(0)
+    batches = [train.draw_batch(loader, rng, size, d["n_events_per_batch"], int(dnn["batch_size"]))[:2]
+               for _ in range(DNN_WITNESS_STEPS)]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        model, opt = train.make_dnn_train_state(size, dnn["n_bin"], lr=float(dnn["lr"]),
+                                                scale_time=train.default_scale_time(dnn, size), device=device,
+                                                dtype=torch.float64)
+        step, _ = train.dnn_train_step(model, opt, size, dnn["n_bin"], multi_scale=bool(dnn.get("multi_scale")))
+        t0 = time.perf_counter()
+        losses = [float(step(*(torch.as_tensor(a, device=device) for a in b))) for b in batches]
+        out.append((losses, time.perf_counter() - t0))
+    return tuple(out)
 
 
 def dnn_vote_time(smi, config: dict, dev, name: str) -> list:
@@ -2135,8 +2150,9 @@ def dnn_path(dev, smi):
     """The EV-FlowNet path: ``[dnn-check]``, ``[dnn-train]`` (``DNN_CONFIG`` as
     shipped through ``main.run(..., eval_mode=True)``: 300 steps, the eval
     windows), ``[dnn-repeat]`` (``DNN_REPEAT_STEPS`` steps twice, the same
-    bits), ``[dnn-346]`` (``dnn_346_config``), then K8's times at the DNN's
-    shapes.  Returns (the runs' launches, K8's DNN entry for the ``kernels``
+    bits), ``[dnn-346]`` (``dnn_346_config``) and its float64 witness (the
+    card's steps against the CPU's), then K8's times at the DNN's shapes.
+    Returns (the runs' launches, K8's DNN entry for the ``kernels``
     line)."""
     from event_based_optical_flow_tpu_torch import main as port_main
 
@@ -2146,7 +2162,7 @@ def dnn_path(dev, smi):
     run, seconds, peak, launches, out_dir = dnn_run(port_main, config, dev, eval_mode=True)
     losses, steps = run["losses"], config["dnn"]["n_steps"]
     frames = len(run["eval"])
-    zero = dnn_zero_flow_epe(config)
+    zero = run["eval_zero_epe"]
     aee = [round(r["EPE"], 4) for r in run["eval"]]
     ckpt = os.path.join(out_dir, "checkpoints", f"step_{steps}", "state.pt")
     txt = os.path.join(out_dir, "dnn_flow_error.txt")
@@ -2189,12 +2205,25 @@ def dnn_path(dev, smi):
           and launches["vote"] == DNN_346_STEPS * per_step["forward"])
     phase("dnn-346", f"{smi}: EV-FlowNet on {CONFIG}'s data block ({big['data']['height']}x{big['data']['width']} "
                      f"-> 256x336, {big['data']['n_events_per_batch']} events, batch {big['dnn']['batch_size']}, "
-                     f"multi-scale, scale_time 128), {DNN_346_STEPS} steps: median "
-                     f"{np.median(run['step_seconds']):.4f} s/step, loss first {losses[0]:.6f}, last "
-                     f"{losses[-1]:.6f}; K8 launches {launches['vote']}; peak {peak:.3f} GiB; phase {seconds:.2f} s: "
+                     f"multi-scale, scale_time {big['dnn']['scale_time']}), {DNN_346_STEPS} steps: median "
+                     f"{np.median(run['step_seconds']):.4f} s/step, losses {[round(v, 4) for v in losses]} (mean "
+                     f"of the first 5 {np.mean(losses[:5]):.4f}, of the last 5 {np.mean(losses[-5:]):.4f}); K8 "
+                     f"launches {launches['vote']}; peak {peak:.3f} GiB; phase {seconds:.2f} s: "
                      + ("ok" if ok else "FAIL"))
     if not ok:
         raise SystemExit("chip_smoke: the 256x336 DNN run failed")
+    # the card's steps at 256x336 against the CPU's, in float64 (the float32
+    # run above printed beside them)
+    (card, card_s), (cpu, cpu_s) = dnn_witness(big, dev)
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+    ok = np.isfinite(card).all() and err <= DNN_WITNESS_TOL
+    phase("dnn-346-witness", f"{DNN_WITNESS_STEPS} float64 Adam steps at 256x336 from the seed on the first "
+                             f"batches: card losses {[round(v, 9) for v in card]} ({card_s:.2f} s), CPU "
+                             f"{[round(v, 9) for v in cpu]} ({cpu_s:.2f} s): max rel err {err:.3e}, tol "
+                             f"{DNN_WITNESS_TOL:g}; the float32 run's first {DNN_WITNESS_STEPS} "
+                             f"{[round(v, 6) for v in losses[:DNN_WITNESS_STEPS]]}: " + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise SystemExit("chip_smoke: the card's float64 DNN steps at 256x336 disagree with the CPU's")
     shapes = dnn_vote_time(smi, config, dev, "64x80") + dnn_vote_time(smi, big, dev, "256x336")
     return total, {"launches_per_step": per_step, "shapes": shapes}
 

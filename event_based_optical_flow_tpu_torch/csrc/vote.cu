@@ -11,9 +11,10 @@
 // every image of a call (the init sweep's P patches x K candidates, or one
 // full-frame metric image) is voted in ONE launch.
 //
-// Contract, for events [n_img, n, 4] (x = row, y = column; the other two
-// columns are not read) and weights (rows of n, image i reading row
-// i / weight_rep: [n_img / weight_rep, n], or one scalar weight): image i of
+// Contract, for events (rows of [n, 4], image i reading row i / event_rep:
+// [n_img / event_rep, n, 4]; x = row, y = column, the other two columns are
+// not read) and weights (rows of n, image i reading row i / weight_rep:
+// [n_img / weight_rep, n], or one scalar weight): image i of
 // [n_img, H, W] is the sum over the events of image i of the bilinear votes
 // of fixed_point.cuh: corners at floor(c + eps) and +1, corners outside the
 // image dropped, zero-weight (padded) events and NaN positions skipped.  The
@@ -60,19 +61,19 @@ constexpr int kSmallPixels = 6144;
 constexpr int kSharedPixels = 232448 / 8;
 constexpr int kLargeThreads = 1024;
 
-// The global path: one thread per (image, event); weight == nullptr votes
-// every event with weight_scalar, else image i reads weight row
-// i / weight_rep.
+// The global path: one thread per (image, event); image i reads event row
+// i / event_rep; weight == nullptr votes every event with weight_scalar,
+// else image i reads weight row i / weight_rep.
 template <typename T>
-__global__ void bilinear_vote_kernel(const T* __restrict__ events, const T* __restrict__ weight, int weight_rep,
-                                     T weight_scalar, int n_total, int n, int H, int W, T eps,
+__global__ void bilinear_vote_kernel(const T* __restrict__ events, int event_rep, const T* __restrict__ weight,
+                                     int weight_rep, T weight_scalar, int n_total, int n, int H, int W, T eps,
                                      unsigned long long* __restrict__ acc) {
   const int hw = H * W;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_total; i += gridDim.x * blockDim.x) {
     const T w = weight == nullptr ? weight_scalar : weight[weight_rep == 1 ? i : (i / n / weight_rep) * n + i % n];
     if (w == T(0)) continue;
-    vote(acc + static_cast<long long>(i / n) * hw, events[4 * static_cast<long long>(i)],
-         events[4 * static_cast<long long>(i) + 1], w, eps, H, W);
+    const long long e = event_rep == 1 ? i : static_cast<long long>(i / n / event_rep) * n + i % n;
+    vote(acc + static_cast<long long>(i / n) * hw, events[4 * e], events[4 * e + 1], w, eps, H, W);
   }
 }
 
@@ -107,8 +108,8 @@ __device__ __forceinline__ void vote_split(unsigned* lo, unsigned* hi, T xw, T y
 // events, write the image as T (from_fixed_kernel's conversion).
 template <typename T, int Threads>
 __global__ void __launch_bounds__(Threads)
-    bilinear_vote_shared_kernel(const T* __restrict__ events, const T* __restrict__ weight, int weight_rep,
-                                T weight_scalar, int n, int H, int W, T eps, T* __restrict__ out) {
+    bilinear_vote_shared_kernel(const T* __restrict__ events, int event_rep, const T* __restrict__ weight,
+                                int weight_rep, T weight_scalar, int n, int H, int W, T eps, T* __restrict__ out) {
   extern __shared__ unsigned sums[];  // the low words [H * W], then the high words
   const int hw = H * W;
   unsigned* lo = sums;
@@ -116,7 +117,7 @@ __global__ void __launch_bounds__(Threads)
   for (int p = threadIdx.x; p < 2 * hw; p += blockDim.x) sums[p] = 0u;
   __syncthreads();
   const long long img = blockIdx.x;
-  const T* ev = events + 4 * img * n;
+  const T* ev = events + 4 * (img / event_rep) * n;
   const T* w_row = weight == nullptr ? nullptr : weight + (img / weight_rep) * n;
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const T w = w_row == nullptr ? weight_scalar : w_row[j];
@@ -131,22 +132,22 @@ __global__ void __launch_bounds__(Threads)
   }
 }
 
-// weight == nullptr votes every event with weight_scalar, else image i
-// reads weight row i / weight_rep.  acc: zeroed int64 scratch of
+// Image i reads event row i / event_rep; weight == nullptr votes every
+// event with weight_scalar, else image i reads weight row i / weight_rep.  acc: zeroed int64 scratch of
 // n_img * H * W for an image of more than kSharedPixels pixels, unused (may
 // be null) otherwise.  A refused opt-in or launch is returned, never worked
 // around.
 template <typename T>
-int launch_vote(const T* events, const T* weight, int weight_rep, double weight_scalar, int n_img, int n,
-                int H, int W, double eps, long long* acc, T* out, void* stream) {
-  if (weight != nullptr && weight_rep < 1) return static_cast<int>(cudaErrorInvalidValue);
+int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep, double weight_scalar, int n_img,
+                int n, int H, int W, double eps, long long* acc, T* out, void* stream) {
+  if (event_rep < 1 || (weight != nullptr && weight_rep < 1)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hw = H * W;
   if (n_img < 1 || hw < 1) return static_cast<int>(cudaGetLastError());
   const size_t smem = 2 * hw * sizeof(unsigned);
   if (hw <= kSmallPixels) {
     bilinear_vote_shared_kernel<T, kThreads><<<n_img, kThreads, smem, s>>>(
-        events, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
+        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
     return static_cast<int>(cudaGetLastError());
   }
   if (hw <= kSharedPixels) {
@@ -164,15 +165,15 @@ int launch_vote(const T* events, const T* weight, int weight_rep, double weight_
       opted_in.fetch_or(bit);
     }
     bilinear_vote_shared_kernel<T, kLargeThreads><<<n_img, kLargeThreads, smem, s>>>(
-        events, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
+        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
     return static_cast<int>(cudaGetLastError());
   }
   if (acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int n_total = n_img * n;
   if (n_total > 0) {
     bilinear_vote_kernel<T><<<grid_for(n_total), kThreads, 0, s>>>(
-        events, weight, weight_rep, static_cast<T>(weight_scalar), n_total, n, H, W, static_cast<T>(eps),
-        reinterpret_cast<unsigned long long*>(acc));
+        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n_total, n, H, W,
+        static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
   }
   const int n_out = n_img * hw;
   from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc, n_out, out);
@@ -187,14 +188,16 @@ extern "C" {
 
 int evflow_vote_shared_pixels() { return kSharedPixels; }
 
-int evflow_vote_f32(const float* events, const float* weight, int weight_rep, double weight_scalar, int n_img,
-                    int n, int H, int W, double eps, long long* acc, float* out, void* stream) {
-  return launch_vote<float>(events, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out, stream);
+int evflow_vote_f32(const float* events, int event_rep, const float* weight, int weight_rep, double weight_scalar,
+                    int n_img, int n, int H, int W, double eps, long long* acc, float* out, void* stream) {
+  return launch_vote<float>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out,
+                          stream);
 }
 
-int evflow_vote_f64(const double* events, const double* weight, int weight_rep, double weight_scalar, int n_img,
-                    int n, int H, int W, double eps, long long* acc, double* out, void* stream) {
-  return launch_vote<double>(events, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out, stream);
+int evflow_vote_f64(const double* events, int event_rep, const double* weight, int weight_rep, double weight_scalar,
+                    int n_img, int n, int H, int W, double eps, long long* acc, double* out, void* stream) {
+  return launch_vote<double>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out,
+                          stream);
 }
 
 }  // extern "C"

@@ -259,19 +259,13 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
 
 def run_dnn(config: dict, eval_mode: bool, device) -> dict:
     """``is_dnn``: train EV-FlowNet on the loaded sequence (and evaluate it
-    with ``--eval``), no solver built.  The image shape is
-    ``data.preprocess.crop``'s where a config has one (the JAX CLI's
-    ``image_shape``; the network itself crops ``data.height``/``width`` to
-    multiples of 16, as in the JAX package).  Returns ``run_dnn_flow``'s
-    result."""
+    with ``--eval``), no solver built.  The network crops
+    ``data.height``/``width`` to multiples of 16, as in the JAX package
+    (whose CLI reads ``data.preprocess.crop`` only for its visualizer).
+    Returns ``run_dnn_flow``'s result."""
     from .models.train import run_dnn_flow
 
     data_config = config["data"]
-    image_shape = (data_config["height"], data_config["width"])
-    if "crop" in data_config.get("preprocess", {}):
-        crop = data_config["preprocess"]["crop"]
-        image_shape = (crop["height"], crop["width"])
-    logger.info(f"EV-FlowNet path (is_dnn), image shape {image_shape}")
     loader = data.collections[data_config["dataset"]](config=data_config)
     loader.set_sequence(data_config["sequence"])
     return run_dnn_flow(config, loader, device, evaluate=eval_mode)

@@ -71,7 +71,9 @@ def events_to_voxel_grid(events: Tensor, image_size: Tuple[int, int], n_bin: int
     weight) times its temporal bilinear weight for bin ``b``, ``max(0, 1 -
     |pos - 0.5 - b|)`` with ``pos = (t - t_min) / span * n_bin`` (the masked
     time range of its own event set).  Every plane of every event set is
-    voted in one call of ``bilinear_vote`` (one K8 launch on the GPU)."""
+    voted in one call of ``bilinear_vote`` (one K8 launch on the GPU, which
+    reads each event set once for its ``n_bin`` planes: the planes' events
+    are a stride-0 expand)."""
     t = events[..., 2]
     t_min = _masked_min(t, weights)[..., None]
     t_max = _masked_max(t, weights)[..., None]

@@ -202,7 +202,45 @@ def restore_dnn_checkpoint(path: str, model: EVFlowNet, optimizer: torch.optim.O
     return int(state["step"])
 
 
-def run_dnn_flow(config: dict, loader, device, evaluate: bool = False, dtype=torch.float32,
+def crop_size(data_cfg: dict) -> Tuple[int, int]:
+    """``data.height`` x ``data.width`` cropped to multiples of 16 (the
+    network's four stride-2 encoders)."""
+    return (data_cfg["height"] // 16) * 16, (data_cfg["width"] // 16) * 16
+
+
+def default_scale_time(dnn_cfg: dict, image_size: Tuple[int, int]) -> float:
+    """``dnn.scale_time``, the tanh heads' flow range in px per normalized
+    window; the JAX package's default ``min(128, max(H, W) / 2)``."""
+    return float(dnn_cfg.get("scale_time", min(128.0, max(image_size) / 2)))
+
+
+def draw_batch(loader, rng, image_size: Tuple[int, int], n_events: int, batch: int, supervised: bool = False):
+    """One training batch as ``run_dnn_flow`` draws it: ``batch`` windows of
+    ``n_events`` from random starts (``rng``), times from 0, cropped to
+    ``image_size`` and padded to ``n_events``.  Numpy (events ``[B, N, 4]``,
+    weights ``[B, N]``, with ``supervised`` the GT displacement over each
+    window ``[B, 2, H, W]`` in float32 as the JAX package casts it, else
+    None)."""
+    Hc, Wc = image_size
+    total = len(loader)
+    evs, wgts, gts = [], [], []
+    for _ in range(batch):
+        start = int(rng.integers(0, max(1, total - n_events)))
+        end = min(start + n_events, total)
+        ev = loader.load_event(start, end)
+        if supervised:
+            # [H, W, 2] loader convention -> [2, Hc, Wc] crop
+            gt_hw2 = np.asarray(loader.load_optical_flow(loader.index_to_time(start), loader.index_to_time(end - 1)))
+            gts.append(np.transpose(gt_hw2[:Hc, :Wc], (2, 0, 1)).astype(np.float32))
+        ev[:, 2] -= ev[:, 2].min()
+        ev = ev[(ev[:, 0] < Hc) & (ev[:, 1] < Wc)]
+        p, w = pad_events(ev, target_n=n_events)
+        evs.append(p)
+        wgts.append(w)
+    return np.stack(evs), np.stack(wgts), (np.stack(gts) if supervised else None)
+
+
+def run_dnn_flow(config: dict, loader, device, evaluate: bool = False,
                  initial_state: Optional[dict] = None) -> dict:
     """CLI entry for ``is_dnn`` configs: train EV-FlowNet unsupervised on
     the loaded sequence (the JAX package's batch draws and resume rules),
@@ -211,22 +249,17 @@ def run_dnn_flow(config: dict, loader, device, evaluate: bool = False, dtype=tor
     replaces the random init, as a checkpoint found there replaces both.
     Returns ``{"model", "losses" (per step of this run), "step_seconds"
     (host clock, each step ending in its loss's read), "eval" (per-frame
-    metrics)}``."""
+    metrics), "eval_zero_epe" (the zero flow's EPE per frame)}``."""
     data_cfg = config["data"]
     dnn_cfg = config.get("dnn", {})
-    H, W = data_cfg["height"], data_cfg["width"]
-    # EV-FlowNet needs dims divisible by 16
-    Hc, Wc = (H // 16) * 16, (W // 16) * 16
-    image_size = (Hc, Wc)
+    image_size = crop_size(data_cfg)
     n_bin = int(dnn_cfg.get("n_bin", 4))
     batch = int(dnn_cfg.get("batch_size", 2))
     steps = int(dnn_cfg.get("n_steps", 50))
     n_events = int(data_cfg.get("n_events_per_batch", 30000))
 
-    # tanh-head flow range in px per normalized window (the JAX package's default)
-    scale_time = float(dnn_cfg.get("scale_time", min(128.0, max(image_size) / 2)))
     model, optimizer = make_dnn_train_state(image_size, n_bin, lr=float(dnn_cfg.get("lr", 1e-4)),
-                                            scale_time=scale_time, device=device, dtype=dtype)
+                                            scale_time=default_scale_time(dnn_cfg, image_size), device=device)
     if initial_state is not None:
         model.load_state_dict(initial_state)
 
@@ -263,9 +296,7 @@ def run_dnn_flow(config: dict, loader, device, evaluate: bool = False, dtype=tor
     step, _ = dnn_train_step(model, optimizer, image_size, n_bin, multi_scale=bool(dnn_cfg.get("multi_scale")),
                              supervised=supervised)
 
-    def tensor(a):
-        return torch.as_tensor(np.stack(a), dtype=dtype, device=device)
-
+    dtype = next(model.parameters()).dtype
     total = len(loader)
     rng = np.random.default_rng(0)
     losses, seconds = [], []
@@ -276,27 +307,11 @@ def run_dnn_flow(config: dict, loader, device, evaluate: bool = False, dtype=tor
             rng.integers(0, max(1, total - n_events))
         for it in range(start_step, steps):
             t0 = time.perf_counter()
-            evs, wgts, gts = [], [], []
-            for _ in range(batch):
-                start = int(rng.integers(0, max(1, total - n_events)))
-                end = min(start + n_events, total)
-                ev = loader.load_event(start, end)
-                if supervised:
-                    # dense GT displacement over THIS window ([H, W, 2]
-                    # loader convention -> [2, Hc, Wc] crop), in float32 as
-                    # the JAX package casts it
-                    gt_hw2 = np.asarray(loader.load_optical_flow(
-                        loader.index_to_time(start), loader.index_to_time(end - 1)))
-                    gts.append(np.transpose(gt_hw2[:Hc, :Wc], (2, 0, 1)).astype(np.float32))
-                ev[:, 2] -= ev[:, 2].min()
-                ev = ev[(ev[:, 0] < Hc) & (ev[:, 1] < Wc)]
-                p, w = pad_events(ev, target_n=n_events)
-                evs.append(p)
-                wgts.append(w)
-            extra = (tensor(gts),) if supervised else ()
+            arrays = draw_batch(loader, rng, image_size, n_events, batch, supervised)
+            tensors = [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays if a is not None]
             # one host read per step: the loss log, and a step time that
             # holds the device's work
-            losses.append(float(step(tensor(evs), tensor(wgts), *extra)))
+            losses.append(float(step(*tensors)))
             seconds.append(time.perf_counter() - t0)
             if it % 10 == 0:
                 logger.info(f"dnn step {it}: loss {losses[-1]:.4f}")
@@ -308,10 +323,10 @@ def run_dnn_flow(config: dict, loader, device, evaluate: bool = False, dtype=tor
         else:
             logger.info("DNN training already complete (checkpoint at target step).")
 
-    results = []
+    results, zero_epe = [], []
     if evaluate and getattr(loader, "gt_flow_available", False):
-        results = _evaluate_dnn(model, loader, data_cfg, image_size, n_bin, config["output"]["output_dir"])
-    return {"model": model, "losses": losses, "step_seconds": seconds, "eval": results}
+        results, zero_epe = _evaluate_dnn(model, loader, data_cfg, image_size, n_bin, config["output"]["output_dir"])
+    return {"model": model, "losses": losses, "step_seconds": seconds, "eval": results, "eval_zero_epe": zero_epe}
 
 
 def _evaluate_dnn(model: EVFlowNet, loader, data_cfg: dict, image_size: Tuple[int, int], n_bin: int,
@@ -319,14 +334,15 @@ def _evaluate_dnn(model: EVFlowNet, loader, data_cfg: dict, image_size: Tuple[in
     """Post-training evaluation: per gray-frame window, predict a dense flow
     with the trained network and report AEE/NPE/AE against GT (the metrics
     of the CMax eval loop); writes ``dnn_flow_error.txt`` as the JAX
-    package does."""
+    package does.  Returns (the metrics per frame, the zero flow's EPE per
+    frame on the same events, mask and GT)."""
     from ..flow.metrics import calculate_flow_error_numpy
 
     eval_dt = int(data_cfg.get("eval_dt", 1))
     eval_ts = loader.eval_frame_time_list()
     Hc, Wc = image_size
     param = next(model.parameters())
-    results = []
+    results, zero_epe = [], []
     for i1 in range(len(eval_ts) - eval_dt):
         t1, t2 = eval_ts[i1], eval_ts[i1 + eval_dt]
         ind1, ind2 = loader.time_to_index(t1), loader.time_to_index(t2)
@@ -345,6 +361,8 @@ def _evaluate_dnn(model: EVFlowNet, loader, data_cfg: dict, image_size: Tuple[in
         mask[ev[:, 0].astype(int), ev[:, 1].astype(int)] = True
         err = calculate_flow_error_numpy(gt_2hw[None], (flow * (t2 - t1))[None], event_mask=mask[None, None])
         results.append(err)
+        zero_epe.append(calculate_flow_error_numpy(gt_2hw[None], np.zeros_like(gt_2hw)[None],
+                                                   event_mask=mask[None, None])["EPE"])
         logger.info(f"dnn eval frame {i1}: {err}")
     if results:
         mean = {k: float(np.mean([r[k] for r in results])) for k in results[0]}
@@ -353,4 +371,4 @@ def _evaluate_dnn(model: EVFlowNet, loader, data_cfg: dict, image_size: Tuple[in
             for i, r in enumerate(results):
                 f.write(f"frame {i}::{r}\n")
             f.write(f"mean::{mean}\n")
-    return results
+    return results, zero_epe

@@ -59,8 +59,8 @@ FIX_BITS = 36  # kFixBits in csrc/fixed_point.cuh
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
-# events, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out, stream
-_VOTE_ARGS = [_PTR, _PTR, _INT, _DBL, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
+# events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out, stream
+_VOTE_ARGS = [_PTR, _INT, _PTR, _INT, _DBL, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # launches of the kernel since the last reset
@@ -114,6 +114,21 @@ def _weight_rows(weight: Tensor, batch: tuple, n: int):
         if all(d == 1 for d in shape[s:-1]):
             return weight, math.prod(batch[s:])
     return torch.broadcast_to(weight, batch + (n,)).contiguous(), 1
+
+
+def _event_rows(events: Tensor, batch: tuple):
+    """(the events as contiguous rows of ``[n, 4]``, the images per row):
+    events whose trailing batch axes are a stride-0 expand (the voxel
+    grid's ``n_bin`` planes of one event set) are read once per set, image
+    ``i`` reading row ``i // rep``; any other layout is copied out to one
+    row per image."""
+    s = len(batch)
+    while s > 0 and (batch[s - 1] == 1 or events.stride(s - 1) == 0):
+        s -= 1
+    rep = math.prod(batch[s:])
+    if rep == 1:
+        return events.contiguous(), 1
+    return events[(slice(None),) * s + (0,) * (len(batch) - s)].contiguous(), rep
 
 
 def corner_terms(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
@@ -183,7 +198,8 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
                          eps: float = 1e-6) -> Tensor:
     """Launch K8 on CUDA tensors: ``[..., n, 4]`` events -> ``[..., H, W]``
     images, one launch for the whole batch (no gradient: see
-    ``BilinearVote``)."""
+    ``BilinearVote``).  Events expanded over trailing batch axes (stride 0)
+    are read in place, once per event set."""
     if events.device.type != "cuda":
         raise ValueError(f"the vote kernel runs on CUDA tensors, got a {events.device} tensor")
     if events.dtype not in _SUFFIX:
@@ -200,7 +216,7 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
                          f"got {n}")
     if n_img * n >= 2**31 or n_img * h * w >= 2**31:
         raise ValueError("the vote kernel indexes with 32-bit ints: too many events or pixels in one call")
-    events = events.contiguous()
+    events, e_rep = _event_rows(events, batch)
     shared = h * w <= shared_pixels()
     w_ptr, w_rep, w_scalar = None, 1, 0.0
     if torch.is_tensor(weight):
@@ -215,7 +231,7 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
     with torch.cuda.device(events.device):
         # the global path's fixed-point sums; none for an image summed in shared memory
         acc = None if shared else torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)
-        rc = _kernel(events.dtype)(events.data_ptr(), w_ptr, w_rep, w_scalar, n_img, n, h, w, float(eps),
+        rc = _kernel(events.dtype)(events.data_ptr(), e_rep, w_ptr, w_rep, w_scalar, n_img, n, h, w, float(eps),
                                    None if acc is None else acc.data_ptr(), out.data_ptr(),
                                    torch.cuda.current_stream(events.device).cuda_stream)
     if rc != 0:

@@ -829,6 +829,41 @@ def test_vote_kernel_equals_the_exact_model(cuda_device, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vote_kernel_reads_expanded_events_in_place(cuda_device, dtype):
+    """Events expanded over trailing batch axes (the voxel grid's planes,
+    read once per event set) with signed per-plane weights, on each of
+    K8's paths (small and opted-in shared memory, global sums): the exact
+    model's bits (max|err| 0), the same bits as the contiguous copy's
+    call, and a gradient through the expand as the plain version's."""
+    rng = np.random.default_rng(11)
+    b, planes, n = 2, 4, 3000
+    for h, w in ((32, 48), (112, 160), (180, 200)):
+        base = np.stack([rng.uniform(-1, h, (b, n)), rng.uniform(-1, w, (b, n)), rng.uniform(0, 1, (b, n)),
+                         np.ones((b, n))], -1)
+        base[:, -200:, :2] = -10.0
+        wt_np = rng.uniform(-1.0, 1.0, (b, planes, n))
+        wt_np[:, :, -200:] = 0.0
+        ev = torch.as_tensor(base, dtype=dtype, device=cuda_device)
+        expanded = ev[:, None].expand(b, planes, n, 4)
+        wt = torch.as_tensor(wt_np, dtype=dtype, device=cuda_device)
+        VOTE.reset_launch_counts()
+        got = VOTE.bilinear_vote_kernel(expanded, (h, w), wt)
+        assert VOTE.launch_counts() == {"vote": 1}
+        assert torch.equal(got, VOTE.bilinear_vote_kernel(expanded.contiguous(), (h, w), wt))
+        want = VOTE.bilinear_vote_fixed_reference(expanded.cpu(), (h, w), wt.cpu())
+        assert torch.equal(got.cpu(), want)
+    g = torch.as_tensor(rng.normal(size=(b, planes, h, w)), dtype=dtype, device=cuda_device)
+    leaf = ev.clone().requires_grad_(True)
+    (d_kernel,) = torch.autograd.grad((VOTE.bilinear_vote(leaf[:, None].expand(b, planes, n, 4), (h, w), wt) * g)
+                                      .sum(), leaf)
+    (d_plain,) = torch.autograd.grad((VOTE.bilinear_vote_plain(leaf[:, None].expand(b, planes, n, 4), (h, w), wt)
+                                      * g).sum(), leaf)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    assert (d_kernel - d_plain).abs().max().item() <= tol * max(1.0, d_plain.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_vote_routing_gradient_and_checks(cuda_device):
     """On CUDA tensors ``bilinear_vote`` (and ``create_iwe`` and
     ``event_mask`` through it) launches K8; its analytic backward on the

@@ -536,9 +536,11 @@ def test_run_dnn_flow_matches_jax(tmp_path, backend, monkeypatch, supervised):
 
     pconfig = _run_config(port_dir, supervised=supervised)
     initial = convert.params_from_flax(made["params"])
-    run = TT.run_dnn_flow(pconfig, _loader(pconfig), torch.device("cpu"), evaluate=True, dtype=torch.float64,
-                          initial_state=initial)
+    make_port = TT.make_dnn_train_state
+    monkeypatch.setattr(TT, "make_dnn_train_state", lambda *a, **kw: make_port(*a, **kw, dtype=torch.float64))
+    run = TT.run_dnn_flow(pconfig, _loader(pconfig), torch.device("cpu"), evaluate=True, initial_state=initial)
     assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()
+    assert len(run["eval_zero_epe"]) == 2 and all(np.isfinite(z) and z > 0 for z in run["eval_zero_epe"])
     ckpt = JT.latest_dnn_checkpoint(str(jax_dir / "checkpoints"))
     jparams, _, step = JT.restore_dnn_checkpoint(ckpt, made["params"], optax.adam(1e-4).init(made["params"]))
     assert step == 2
@@ -554,7 +556,7 @@ def test_run_dnn_flow_matches_jax(tmp_path, backend, monkeypatch, supervised):
         for k in w:
             assert g[k] == pytest.approx(w[k], rel=0, abs=EVAL_TOL), k
     assert TT.latest_dnn_checkpoint(str(port_dir / "checkpoints")).endswith("step_2")
-    rerun = TT.run_dnn_flow(pconfig, _loader(pconfig), torch.device("cpu"), evaluate=True, dtype=torch.float64)
+    rerun = TT.run_dnn_flow(pconfig, _loader(pconfig), torch.device("cpu"), evaluate=True)
     assert rerun["losses"] == []
     for a, b in zip(run["model"].state_dict().values(), rerun["model"].state_dict().values()):
         assert torch.equal(a, b)

@@ -225,3 +225,23 @@ def test_vote_model_bits_do_not_depend_on_event_order(name, dtype):
     want = TV.bilinear_vote_fixed_reference(t(ev), (H, W), t(wt))
     got = TV.bilinear_vote_fixed_reference(t(ev[..., order, :]), (H, W), t(shuffled_wt))
     assert torch.equal(got, want)
+
+
+def test_event_rows_read_an_expand_once():
+    """The kernel wrapper's event layout: events expanded over trailing batch
+    axes (the voxel grid's planes of one event set) are passed as their
+    distinct rows, image ``i`` reading row ``i // rep``, with no copy of a
+    contiguous base; any other layout is copied out to one row per image."""
+    base = torch.as_tensor(_events(np.random.default_rng(6), 300)).reshape(2, 150, 4)
+    planes = base[:, None].expand(2, 4, 150, 4)
+    rows, rep = TV._event_rows(planes, (2, 4))
+    assert rep == 4 and rows.data_ptr() == base.data_ptr() and torch.equal(rows, base)
+    # a plane index that the kernel computes as i // rep reads its set's row
+    flat = planes.reshape(8, 150, 4)
+    assert all(torch.equal(flat[i], rows[i // rep]) for i in range(8))
+    rows, rep = TV._event_rows(base[None, :, None].expand(3, 2, 1, 150, 4), (3, 2, 1))
+    assert rep == 1 and rows.shape == (3, 2, 1, 150, 4) and rows.is_contiguous()
+    rows, rep = TV._event_rows(base[:, None, None].expand(2, 3, 5, 150, 4), (2, 3, 5))
+    assert rep == 15 and torch.equal(rows, base)
+    rows, rep = TV._event_rows(base, (2,))
+    assert rep == 1 and rows.data_ptr() == base.data_ptr()

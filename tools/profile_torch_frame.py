@@ -190,15 +190,20 @@ def profile_dnn(config: dict, top: int, n_steps: int) -> None:
     """``n_steps`` train steps of an ``is_dnn`` config on its first batch
     (warm-up, timed alone, profiled); per step: wall, device busy time,
     idle share, kernels, and the device time under each part of the step."""
-    from chip_smoke import dnn_batch
-    from event_based_optical_flow_tpu_torch.models.train import dnn_train_step, make_dnn_train_state
+    from event_based_optical_flow_tpu_torch.data import collections
+    from event_based_optical_flow_tpu_torch.models import train
 
     dev = torch.device("cuda")
-    ev, wt, size = dnn_batch(config, dev, torch.float32)
-    d = config["dnn"]
-    model, opt = make_dnn_train_state(size, d["n_bin"], lr=float(d.get("lr", 1e-4)), device=dev,
-                                      scale_time=float(d.get("scale_time", min(128.0, max(size) / 2))))
-    step, _ = dnn_train_step(model, opt, size, d["n_bin"], multi_scale=bool(d.get("multi_scale")))
+    data_cfg, d = config["data"], config["dnn"]
+    loader = collections[data_cfg["dataset"]](config=data_cfg)
+    loader.set_sequence(data_cfg["sequence"])
+    size = train.crop_size(data_cfg)
+    ev, wt, _ = train.draw_batch(loader, np.random.default_rng(0), size, data_cfg["n_events_per_batch"],
+                                 int(d["batch_size"]))
+    ev, wt = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (ev, wt))
+    model, opt = train.make_dnn_train_state(size, d["n_bin"], lr=float(d.get("lr", 1e-4)), device=dev,
+                                            scale_time=train.default_scale_time(d, size))
+    step, _ = train.dnn_train_step(model, opt, size, d["n_bin"], multi_scale=bool(d.get("multi_scale")))
 
     def run():
         for _ in range(n_steps):
