@@ -46,7 +46,13 @@ Phases (each prints one informative line; any failure exits nonzero):
    scene's ``data.pattern`` to ``dots``: the config's default lattice scene
    aliases translations by its period (CMax itself, in the original
    reference too, lands ~20 px off there), so no solver beats zero flow on
-   it and the EPE check would test the scene, not the port;
+   it and the EPE check would test the scene, not the port.  ``[viz-check]``
+   then votes frame 0's three visualization IWEs (the window's events as
+   they are, warped by the solved motion to the window's middle, warped by
+   a random smooth GT) through K8 and the plain vote: K8's float images
+   equal their exact model, the uint8 images (clipped as the visualizer
+   clips them) differ from the plain vote's by at most 1 level, and the
+   solver's own images are K8's;
 7. the analytic HVP path: the solver and optimizer blocks of
    configs/dsec_zurich_city.yaml (analytic Gauss-Newton HVP on the finest
    scale, central FD on the coarse scales over a stride-4 event subsample,
@@ -122,7 +128,12 @@ Phases (each prints one informative line; any failure exits nonzero):
    MVSEC's layout written from the synthetic dots scene
    (``mvsec_fixture``), frames 0 and 1 (the second warm-started): per frame
    seconds, EPE against the zero flow's, PRED_FWL, host syncs, the solve's
-   K1/K2/K8 launches; the output files' lines and checkpoint;
+   K1/K2/K8 launches; the output files' lines and checkpoint.  The run
+   writes the JAX CLI's PNGs (``visualize_every`` 1, as shipped):
+   ``[viz-cli]`` lists them per prefix against the JAX CLI's names, gives
+   the images' seconds and K8 launches per frame, and reruns the frames
+   with ``visualize_every: 0``: the same metrics, losses, syncs and
+   launches, its frame seconds beside the images run's;
 12. live-camera ingestion: ``[evt2-fwl]`` runs ``EVT2_CONFIG`` as shipped
    (480x640, 300 000-event windows, zero init, 5 scales) with the hot-pixel
    and refractory filters and ``output.save_flow: npz`` through the CLI's
@@ -145,7 +156,17 @@ Phases (each prints one informative line; any failure exits nonzero):
    EPE against the zero flow's, PRED_FWL, host syncs, the solve's K1-K4
    launches and the recovered parameters beside the scene's rates in the
    solver's sign convention;
-14. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on the first
+14. the host-driven optimizers (``optimizer_path``): the MVSEC slice's
+   frame 0 through the CLI's eval loop with scipy's Newton-CG
+   (``optimizer.device: false``, ``[opt-scipy-newton]``), BFGS
+   (``[opt-bfgs]``), Adam (``[opt-adam]``) and the sampling optimizer
+   (``[opt-sampling]``), ``OPT_PHASES``' settings: seconds, EPE against
+   the zero flow's (``OPT_GATED`` below half of it, the others below it),
+   host syncs, iterations, K1/K2/K8 launches; ``[opt-repeat]`` BFGS again
+   from a fresh solver, bit for bit; then ``[trace]``: one chained frame
+   (Newton budget ``TRACE_MAX_ITER``) with ``output.trace_dir``, whose
+   ``torch.profiler`` trace must name K1's and K8's kernels;
+15. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on the first
    training batch of ``DNN_CONFIG`` (64x80, batch 2, 20 000 events) and of
    ``dnn_346_config`` (256x336, 30 000 events: the signed voxel votes and
    the finest loss votes on K8's global sums), float64 and float32: the voxel grids (one K8 launch, polarity-signed weights) and
@@ -174,7 +195,9 @@ times: chained, again, the loop) and 4..7 (warm), the time-aware fleet's
 check of the sequential warm start), window 0 again, windows 0..3 of
 the warm finest-only server, the MVSEC recording's frames 0..1, the EVT2
 recording's windows 0..1, the global configs' frames 0..2 (the
-similarity's frame 0 again with the loop) and the 346 cell's 0..1, and the
+similarity's frame 0 again with the loop) and the 346 cell's 0..1, the
+MVSEC slice's frame 0 with each host-driven optimizer (BFGS twice) and
+once profiled, and the
 DNN's training runs (300 steps and 7 eval windows, 20 steps twice, 20
 steps at 256x336).  Every path runs chained, the sequential
 repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
@@ -1715,7 +1738,13 @@ def mvsec_cli_path(dev, smi) -> dict:
         raise SystemExit(f"chip_smoke: MVSEC frames {failed}: metrics not finite or not below the zero flow")
     if 0 in (launches["fwd"], launches["bwd"], launches["vote"]) or not files_ok:
         raise SystemExit("chip_smoke: the MVSEC eval did not run K1, K2 and K8 or wrote the wrong outputs")
-    return launches
+    if not MVSEC_H5PY:
+        mvsec.h5py_loader = mvsec_arrays_reader(datasets)
+    try:
+        again = viz_cli(port_main, config, records, out_dir, launches, dev, smi)
+    finally:
+        mvsec.h5py_loader = reader
+    return {k: launches[k] + again[k] for k in launches}
 
 
 def count_lines(path: str) -> int:
@@ -1919,6 +1948,204 @@ def global_path(dev, smi) -> dict:
     if 0 in (launches["jvp"], launches["hvp_bwd"]):
         raise SystemExit("chip_smoke: the analytic global solve did not run K3 and K4")
     return total
+
+
+# ---- the visualizer, the host-driven optimizers, the trace --------------------
+
+# the PNGs the JAX CLI writes per GT frame of a pyramid solve
+# (main.py::evaluate_dataset_with_gt's visualize_*_sequential, the history plot)
+VIZ_PREFIXES = ("original", "pred_warp", "pred_masked", "gt_warp", "gt_flow", "optimization_steps")
+# The host-driven optimizers on the MVSEC slice's frame 0: (phase, optimizer
+# block update, solver.patch update); the repeat reruns the second from a
+# fresh solver.  Adam runs at lr 5 px/s: at the reference's default 0.05 its
+# 40 steps per scale move a tile by at most 2 px/s from the random +-150 px/s
+# coarsest start, and the JAX package's frame lands at EPE 21.56 (zero flow
+# 3.42), at lr 2, 5, 10 at 0.640, 0.618, 0.639.  The sampling optimizer
+# starts from zero: from the random start its 4 rounds of 10 joint
+# candidates keep the coarsest basin (JAX: EPE 3.88), from zero 0.897
+# (tools/screen_host_optimizers.py, the JAX package on the CPU at full size,
+# float64, scatter backend).
+OPT_PHASES = (("opt-scipy-newton", {"method": "Newton-CG", "device": False}, {}),
+              ("opt-bfgs", {"method": "BFGS"}, {}),
+              ("opt-adam", {"method": "Adam", "lr": 5.0}, {}),
+              ("opt-sampling", {"method": "optuna"}, {"initialize": "zero"}))
+# The phases held to EPE_FRACTION x the zero flow: scipy's Newton-CG (the
+# original method's optimizer) and BFGS, the one of BFGS / Adam / optuna that
+# the JAX package brings within it as shipped on this scene (EPE 0.812 against
+# 3.42; at half size none of them is, nor the device Newton-CG with JAX's
+# draws); the others must beat the zero flow.
+OPT_GATED = ("opt-scipy-newton", "opt-bfgs")
+# [trace]: the chained frame's Newton budget, cut from the config's 25 so the
+# profiled frame's trace stays small
+TRACE_MAX_ITER = 3
+
+
+def viz_check(port_main, dev, smi, run_config: dict, out_dir: str, rng) -> None:
+    """``[viz-check]``: the three visualization IWEs of the slice's frame 0
+    (its window's events unwarped, warped to the window's middle by the
+    solved motion as ``visualize_pred_sequential`` warps them, and warped
+    by a random smooth GT as ``visualize_gt_sequential`` does) voted by K8
+    and by the plain vote on the card: K8's float images against its exact
+    model (max|err| 0) and the plain vote's, and the uint8 images' pixels
+    that differ after the clip (at most 1 level, at truncation boundaries);
+    the solver's own ``_warped_viz_iwe`` gives K8's image with one K8
+    launch."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.ops import vote
+    from event_based_optical_flow_tpu_torch.utils import checkpoint as ckpt
+    from event_based_optical_flow_tpu_torch.visualizer import clip_iwe
+
+    loader, solv = port_main.build(run_config, dev)
+    d = run_config["data"]
+    ts = loader.eval_frame_time_list()
+    events = port_main._gather_frame(loader, d, ts[0], ts[d["eval_dt"]])[1]
+    _, motion = ckpt.load_eval_state(out_dir)  # frame 0's solution: the slice warm-starts from it
+    finest = solv.patch_scales - 1
+    solv.overload_patch_configuration(finest)
+    t_scale = solv._t_range(events)
+    h, w = solv.image_shape
+    with torch.no_grad():
+        e = solv.tensor(events)
+        flow = solv.motion_to_dense_flow({finest: solv.tensor(motion[finest])}, t_scale) * t_scale
+        gt = solv.tensor(smooth_flow(h, w, rng))
+        images = {"original": (e, None, "first"), "pred_warp": (e, flow, "middle"), "gt_warp": (e, gt, "first")}
+        failed = []
+        for name, (ev, fl, direction) in images.items():
+            warped = ev if fl is None else solv.warper.warp_event(ev, fl, "dense-flow", direction)
+            got = vote.bilinear_vote_kernel(warped, (h, w))
+            plain = vote.bilinear_vote_plain(warped, (h, w))
+            exact = exact_err(got, vote.bilinear_vote_fixed_reference(warped.cpu(), (h, w)))
+            err = (got - plain).abs().max().item()
+            k8_u8, plain_u8 = clip_iwe(got.cpu().numpy(), solv.iwe_visualize_max_scale), clip_iwe(
+                plain.cpu().numpy(), solv.iwe_visualize_max_scale)
+            levels = np.abs(k8_u8.astype(int) - plain_u8.astype(int))
+            before = ops.launch_counts()["vote"]
+            own = (solv.create_clipped_iwe_for_visualization(events, solv.iwe_visualize_max_scale) if fl is None
+                   else solv._warped_viz_iwe(events, fl, "dense-flow", direction))
+            own_launches = ops.launch_counts()["vote"] - before
+            ok = exact == 0 and levels.max() <= 1 and np.array_equal(own, k8_u8) and own_launches == 1
+            phase("viz-check", f"{name}: {len(events)} events -> {h}x{w} {str(got.dtype)[6:]} on {smi}: K8 against "
+                               f"its exact model max|err| {exact:g}, against the plain vote {err:.3e}; uint8 after "
+                               f"the clip (x{solv.iwe_visualize_max_scale}): {int((levels > 0).sum())} pixels differ "
+                               f"from the plain vote's, by at most {int(levels.max())} level; the solver's image: "
+                               f"K8's bits, {own_launches} K8 launch: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(name)
+    if failed:
+        raise SystemExit(f"chip_smoke: visualization images {failed} disagree with K8's exact model or the plain vote")
+
+
+def viz_cli(port_main, config: dict, records, out_dir: str, launches: dict, dev, smi) -> dict:
+    """``[viz-cli]``: the PNGs the ``[mvsec-cli]`` run wrote (``visualize_every``
+    1, as shipped) against the JAX CLI's names for its frames, the
+    visualization's seconds per frame and K8 launches, and the same config
+    with ``visualize_every: 0`` in a fresh output dir: the same metrics and
+    solver stats bit for bit, its seconds beside the images run's (whose
+    ``seconds`` end before the images).  Returns the second run's
+    launches."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    frames = [r["frame"] for r in records]
+    names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    want = sorted(f"{p}{i}.png" for p in VIZ_PREFIXES for i in range(len(frames)))
+    plain = copy.deepcopy(config)
+    plain["data"]["visualize_every"] = 0
+    plain["output"]["output_dir"] = out_dir + "_no_viz"
+    ops.reset_launch_counts()
+    again = port_main.run(plain, eval_mode=True, device=dev)
+    no_viz = ops.launch_counts()
+    same = [a["metrics"] for a in again] == [r["metrics"] for r in records] and all(
+        a["stats"][k] == r["stats"][k] for a, r in zip(again, records) for k in ("loss", "syncs", "launches"))
+    per_prefix = {p: sorted(f for f in names if f.startswith(p) and f[len(p):-4].isdigit()) for p in VIZ_PREFIXES}
+    viz_k8 = (launches["vote"] - no_viz["vote"]) / len(frames)
+    ok = names == want and same and viz_k8 > 0
+    phase("viz-cli", f"{MVSEC_CONFIG} frames {frames} with visualize_every 1 on {smi}: PNGs {per_prefix} (the JAX "
+                     f"CLI's names: {names == want}); images {', '.join(f'{r['viz_seconds']:.3f}' for r in records)} "
+                     f"s per frame after each record, K8 {viz_k8:g} launches per frame; frame seconds "
+                     f"{', '.join(f'{r['seconds']:.3f}' for r in records)} against visualize_every 0's "
+                     f"{', '.join(f'{a['seconds']:.3f}' for a in again)}; metrics, losses, syncs and launches bit "
+                     f"for bit the same: {same}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the MVSEC CLI's images are not the JAX CLI's, or visualizing changed the solve")
+    return no_viz
+
+
+def optimizer_path(dev, smi) -> dict:
+    """``[opt-*]``: the MVSEC slice's frame 0 through the CLI's eval loop with
+    each host-driven optimizer of ``OPT_PHASES`` (a fresh output dir each):
+    seconds, EPE against the zero flow's, host syncs, the solve's K1/K2
+    launches, iterations per scale; each EPE finite and below the zero
+    flow's, those of ``OPT_GATED`` below ``EPE_FRACTION`` of it.
+    ``[opt-repeat]`` runs the BFGS frame again from a fresh solver: the same
+    metrics, losses, syncs and launches.  Returns the runs' launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    total, failed, runs = None, [], {}
+    for name, update, patch in OPT_PHASES + (("opt-repeat",) + OPT_PHASES[1][1:],):
+        cfg = copy.deepcopy(config)
+        cfg["optimizer"].update(update)
+        cfg["solver"]["patch"].update(patch)
+        ops.reset_launch_counts()
+        records, out_dir, wall, peak = run_slice(port_main, cfg, dev, last_frame=0)
+        launches = ops.launch_counts()
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+        r = runs[name] = records[0]
+        loader, solv = port_main.build(slice_config(cfg, 0, out_dir), dev)
+        zero = zero_flow_epe(loader, cfg["data"], 0, solv)
+        m, st = r["metrics"], r["stats"]
+        solve = solve_launches(st)
+        bound = EPE_FRACTION * zero if name in OPT_GATED else zero
+        ok = np.isfinite(m["EPE"]) and m["EPE"] < bound and np.isfinite(m["PRED_FWL"])
+        if name == "opt-repeat":
+            first = runs[OPT_PHASES[1][0]]
+            ok = ok and m == first["metrics"] and all(st[k] == first["stats"][k] for k in ("loss", "syncs", "launches"))
+        phase(name, f"frame 0, optimizer {update}{', patch ' + str(patch) if patch else ''} on {smi}: "
+                    f"{r['seconds']:.3f} s, EPE {m['EPE']:.4f} (zero flow "
+                    f"{zero:.4f}, gate {'%.1f x zero flow' % EPE_FRACTION if name in OPT_GATED else 'zero flow'}), "
+                    f"PRED_FWL {m['PRED_FWL']:.4f}, host syncs {st['syncs']}, iterations {st['iters']}, loss per "
+                    f"scale { {s: round(v, 6) for s, v in st['loss'].items()} }, the solve's launches K1 "
+                    f"{solve['fwd']} K2 {solve['bwd']} K8 {solve['vote']}, peak {peak:.3f} GiB"
+                    + (", the same bits as [opt-bfgs]" if name == "opt-repeat" else "") + f": {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+        if 0 in (solve["fwd"], launches["vote"]) or (update["method"] != "optuna" and solve["bwd"] == 0):
+            failed.append(f"{name} (launches)")
+    if failed:
+        raise SystemExit(f"chip_smoke: optimizer phases {failed} failed their EPE gate, repeat or launches")
+    return total
+
+
+def trace_path(dev, smi) -> dict:
+    """``[trace]``: one chained frame of the MVSEC slice (frame 0, the coarse
+    and finest Newton budgets cut to ``TRACE_MAX_ITER``) with
+    ``output.trace_dir``: ``profiled_optimize``'s ``torch.profiler`` trace
+    must exist and name K1's kernel (``fused_iwe_fwd_kernel``) and K8's
+    (``bilinear_vote``).  Returns the run's launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    config["optimizer"]["max_iter"] = TRACE_MAX_ITER
+    trace_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_trace_")
+    config["output"]["trace_dir"] = trace_dir
+    ops.reset_launch_counts()
+    records, _, wall, _ = run_slice(port_main, config, dev, last_frame=0)
+    launches = ops.launch_counts()
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".json")]
+    text = open(files[0]).read() if len(files) == 1 else ""
+    names = {k: k in text for k in ("fused_iwe_fwd_kernel", "bilinear_vote")}
+    ok = len(files) == 1 and all(names.values()) and records[0]["stats"]["chain"]
+    phase("trace", f"MVSEC slice frame 0 chained, max_iter {TRACE_MAX_ITER}, profiled on {smi}: "
+                   f"{records[0]['seconds']:.3f} s, trace files {[os.path.basename(f) for f in files]}, "
+                   f"{os.path.getsize(files[0]) / 2**20 if files else 0:.2f} MiB, names {names}, K1 "
+                   f"{launches['fwd']} K8 {launches['vote']} launches: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the profiled solve wrote no trace naming K1 and K8")
+    return launches
 
 
 # ---- the EV-FlowNet path ------------------------------------------------------
@@ -2314,6 +2541,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: the eval loop did not run its windows through K1, K2 and K8")
     if not same:
         raise SystemExit("chip_smoke: the loop's run of frame 0 did not reproduce the chained result")
+    viz_check(port_main, dev, smi, run_config, out_dir, rng)
 
     # each path's run counts from 0; a kernel's launches are all paths' runs'
     paths = (dsec_path, ta_path, lambda *a: fleet_path(*a, sequential_epe=records[0]["metrics"]["EPE"]))
@@ -2323,7 +2551,7 @@ def main() -> int:
         errs.update(path_errs)
         times.update(path_times)
         bounds.update(path_bounds)
-    for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path):
+    for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path, optimizer_path, trace_path):
         path_launches = path(dev, smi)
         launches = {k: launches[k] + path_launches[k] for k in launches}
     dnn_launches, k8_dnn = dnn_path(dev, smi)

@@ -2,13 +2,21 @@
 ``event_based_optical_flow_tpu/costs/registry.py``: its seven costs and
 the hybrid).
 
-Same names, ``direction`` semantics (the reference's quirks included) and
+Same names, ``direction`` semantics (the reference's quirks included),
 ``required_keys`` (they decide which warped IWEs the objective
-assembles); the math lives in functional.py.  The loss history the JAX
-visualizer plots is still to be ported.
+assembles) and history register; the math lives in functional.py.
+
+The history register (``store_history``, ``enable_history_register`` /
+``disable_history_register``, ``clear_history``, ``get_history``; a
+hybrid's per-component histories under its costs' names) holds the loss
+values a solver records per evaluation or per scale for the visualizer's
+history plot.  ``calculate`` never records: the JAX package records only
+host values too (it skips traced ones), and a device value recorded there
+would cost a host read per evaluation.  The solver appends the values its
+loop already read (``SolverBase._history_cb``).
 """
 
-from typing import List
+from typing import Dict, List
 
 import torch
 
@@ -19,10 +27,24 @@ class CostBase:
     required_keys: List[str] = []
     name = "base"
 
-    def __init__(self, direction: str = "minimize"):
+    def __init__(self, direction: str = "minimize", store_history: bool = False):
         if direction not in ("minimize", "maximize", "natural"):
             raise ValueError(f"direction should be minimize/maximize/natural, got {direction}")
         self.direction = direction
+        self.store_history = store_history
+        self.clear_history()
+
+    def clear_history(self) -> None:
+        self.history: Dict[str, list] = {"loss": []}
+
+    def get_history(self) -> dict:
+        return self.history.copy()
+
+    def enable_history_register(self) -> None:
+        self.store_history = True
+
+    def disable_history_register(self) -> None:
+        self.store_history = False
 
     def calculate(self, arg: dict):
         raise NotImplementedError
@@ -154,12 +176,12 @@ class HybridCost(CostBase):
 
     name = "hybrid"
 
-    def __init__(self, direction: str, cost_with_weight: dict):
+    def __init__(self, direction: str, cost_with_weight: dict, store_history: bool = False):
         self.cost_func = {
-            key: {"func": functions[key](direction=direction), "weight": value}
+            key: {"func": functions[key](direction=direction, store_history=store_history), "weight": value}
             for key, value in cost_with_weight.items()
         }
-        super().__init__(direction=direction)
+        super().__init__(direction=direction, store_history=store_history)
         self.required_keys = []
         for name in self.cost_func:
             self.required_keys.extend(self.cost_func[name]["func"].required_keys)
@@ -179,3 +201,25 @@ class HybridCost(CostBase):
             else:
                 loss = loss + entry["weight"] * sub
         return loss, components
+
+    # the history fans out to the component costs
+    def clear_history(self) -> None:
+        self.history = {"loss": []}
+        for entry in getattr(self, "cost_func", {}).values():
+            entry["func"].clear_history()
+
+    def get_history(self) -> dict:
+        dic = self.history.copy()
+        for name, entry in self.cost_func.items():
+            dic[name] = entry["func"].get_history()["loss"]
+        return dic
+
+    def enable_history_register(self) -> None:
+        self.store_history = True
+        for entry in self.cost_func.values():
+            entry["func"].store_history = True
+
+    def disable_history_register(self) -> None:
+        self.store_history = False
+        for entry in self.cost_func.values():
+            entry["func"].store_history = False

@@ -27,8 +27,18 @@ loops: its solution, warm start and checkpoint are one parameter array
 with the unsupervised CMax loss (``models/``; checkpoints under
 ``dnn.checkpoint_dir``, default ``<output_dir>/checkpoints/step_<n>/``, a
 rerun resumes) and with ``--eval`` evaluates it per gray-frame window
-into ``<output_dir>/dnn_flow_error.txt``.  Visualization (PNGs) is not
-ported yet.
+into ``<output_dir>/dnn_flow_error.txt``.
+
+The solver paths write the JAX CLI's PNGs into ``output_dir``
+(``visualizer.py``): every ``data.visualize_every`` frames (default 1; 0:
+none) the sequential eval writes ``original<i>``, ``pred_warp<i>`` (and the
+pyramid's ``pred_masked<i>``), ``gt_warp<i>`` and ``gt_flow<i>``, the GT-free
+eval ``original<i>`` and ``pred_warp<i>``, after the frame's record (its
+``seconds`` do not include them); every solve that records a loss history
+writes ``optimization_steps<i>``; single-frame mode writes the events' IWE
+before and after the solve.  The fleet eval writes none, as in the JAX CLI.
+``output.trace_dir`` traces every solve with ``torch.profiler``
+(``SolverBase.profiled_optimize``).
 """
 
 import argparse
@@ -45,8 +55,10 @@ import yaml
 from . import data, solver
 from .state import to_numpy
 from .flow.io import save_flow_frame
-from .utils import ConfigError, check_key_and_bool, crop_event, set_numerics, fix_random_seed, validate_config
+from .utils import (ConfigError, check_key_and_bool, crop_event, fetch_runtime_info, fix_random_seed, set_numerics,
+                    validate_config)
 from .utils import checkpoint as ckpt
+from .visualizer import Visualizer
 
 logger = logging.getLogger(__name__)
 
@@ -79,8 +91,9 @@ def setup_output(save_dir: str, config_file=None, log_level=logging.INFO):
     )
 
 
-def build(config: dict, device, candidates_fn=None):
-    """(loader, solver) for a validated config."""
+def build(config: dict, device, candidates_fn=None, visualize_module=None):
+    """(loader, solver) for a validated config; the solver visualizes
+    through ``visualize_module`` (None: no images)."""
     data_config = config["data"]
     loader = data.collections[data_config["dataset"]](config=data_config)
     loader.set_sequence(data_config["sequence"])
@@ -90,6 +103,7 @@ def build(config: dict, device, candidates_fn=None):
         solver_config=config["solver"],
         optimizer_config=config["optimizer"],
         output_config=config["output"],
+        visualize_module=visualize_module,
         device=device,
         candidates_fn=candidates_fn,
     )
@@ -139,17 +153,17 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
     warm start chaining (``data.warm_start``), per-frame checkpoint, the
     flow dump of ``save_flow`` (``output.save_flow``).  ``data.ind1``/``ind2``
     select the frame range (frames, as in the JAX CLI: the MVSEC configs'
-    event indices select none).  Returns the per-frame records (frame,
-    metrics, seconds, solver stats) of this run."""
+    event indices select none).  Every ``data.visualize_every`` frames the
+    solver writes the frame's images after its record.  Returns the
+    per-frame records (frame, metrics, seconds, solver stats, and
+    ``viz_seconds`` where images were written) of this run."""
     eval_dt = data_config["eval_dt"]
     warm_start = data_config.get("warm_start", True)
     start_frame, warm_motion = ckpt.load_eval_state(out_dir)
     if warm_motion is not None and warm_start:
         solv.set_previous_frame_best_estimation(warm_motion)
     logger.info(f"Evaluation pipeline, dt={eval_dt}, warm_start={warm_start}, from frame {start_frame}")
-    if int(data_config.get("visualize_every", 1)):
-        logger.info("visualization is not ported yet: no PNGs are written")
-
+    viz_every = int(data_config.get("visualize_every", 1))
     records = []
     for i1 in range(start_frame, len(eval_frame_time_stamp_list) - eval_dt):
         logger.info(f"Frame {i1} of {len(eval_frame_time_stamp_list)}")
@@ -168,6 +182,14 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
         _maybe_save_flow(save_flow, out_dir, solv, i1, best_motion, flow_time)
         ckpt.save_eval_state(out_dir, i1 + 1, to_numpy(best_motion) if warm_start else None)
         records.append(_record(i1, flow_error, time.perf_counter() - t0, solv.last_frame_stats))
+        if viz_every and i1 % viz_every == 0:
+            t_viz = time.perf_counter()
+            solv.visualize_original_sequential(batch_for_gt_slice)
+            solv.visualize_pred_sequential(batch_for_gt_slice, best_motion)
+            solv.visualize_gt_sequential(batch_for_gt_slice, gt_flow)
+            records[-1]["viz_seconds"] = time.perf_counter() - t_viz
+    if solv.visualizer is not None:
+        solv.visualizer.flush()
     return records
 
 
@@ -183,7 +205,9 @@ def evaluate_dataset_fwl_only(eval_frame_time_stamp_list, data_config, loader, s
     flow dump and text/JSONL lines, with PRED_FWL (Var(IWE_orig) /
     Var(IWE_warped) of the predicted flow on the window's events; < 1 is
     better) as the metrics.  Every window is solved: ``data.ind1``/``ind2``
-    are not read.  Returns the per-frame records of this run."""
+    are not read.  Images (original, pred_warp) every
+    ``data.visualize_every`` windows.  Returns the per-frame records of
+    this run."""
     eval_dt = data_config["eval_dt"]
     warm_start = data_config.get("warm_start", True)
     start_frame, warm_motion = ckpt.load_eval_state(out_dir)
@@ -191,13 +215,14 @@ def evaluate_dataset_fwl_only(eval_frame_time_stamp_list, data_config, loader, s
         solv.set_previous_frame_best_estimation(warm_motion)
     logger.info(f"FWL-only evaluation (no GT flow), dt={eval_dt}, warm_start={warm_start}, "
                 f"from frame {start_frame}")
+    viz_every = int(data_config.get("visualize_every", 1))
     records = []
     for i1 in range(start_frame, len(eval_frame_time_stamp_list) - eval_dt):
         logger.info(f"Frame {i1} of {len(eval_frame_time_stamp_list)}")
         t0 = time.perf_counter()
         batch_for_optimization, batch_for_metrics, _, flow_time = _gather_frame(
             loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
-        best_motion = solv.optimize(batch_for_optimization)
+        best_motion = solv.profiled_optimize(batch_for_optimization)
         fwl = solv.calculate_fwl_pred(best_motion, batch_for_metrics, flow_time)
         if warm_start:
             solv.set_previous_frame_best_estimation(best_motion)
@@ -206,6 +231,13 @@ def evaluate_dataset_fwl_only(eval_frame_time_stamp_list, data_config, loader, s
         _maybe_save_flow(save_flow, out_dir, solv, i1, best_motion, flow_time)
         ckpt.save_eval_state(out_dir, i1 + 1, to_numpy(best_motion) if warm_start else None)
         records.append(_record(i1, fwl, time.perf_counter() - t0, solv.last_frame_stats))
+        if viz_every and i1 % viz_every == 0:
+            t_viz = time.perf_counter()
+            solv.visualize_original_sequential(batch_for_metrics)
+            solv.visualize_pred_sequential(batch_for_metrics, best_motion)
+            records[-1]["viz_seconds"] = time.perf_counter() - t_viz
+    if solv.visualizer is not None:
+        solv.visualizer.flush()
     return records
 
 
@@ -273,9 +305,10 @@ def run_dnn(config: dict, eval_mode: bool, device) -> dict:
 
 def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     """What the CLI runs, after logging is set up: validate, build, solve
-    (``is_dnn``: ``run_dnn``).  Returns the per-frame records (eval), the
-    single-frame result, or the DNN run's."""
+    (``is_dnn``: ``run_dnn``), visualize into ``output_dir``.  Returns the
+    per-frame records (eval), the single-frame result, or the DNN run's."""
     validate_config(config)
+    logger.info(f"runtime: {fetch_runtime_info()}")
     set_numerics()
     if check_key_and_bool(config, "fix_random_seed"):
         fix_random_seed()
@@ -284,7 +317,19 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     os.makedirs(out_dir, exist_ok=True)
     if config.get("is_dnn"):
         return run_dnn(config, eval_mode, device)
-    loader, solv = build(config, device, candidates_fn)
+    viz = Visualizer((data_config["height"], data_config["width"]), show=config["output"]["show_interactive_result"],
+                     save=True, save_dir=out_dir, device=device)
+    try:
+        return _solve(config, eval_mode, device, candidates_fn, viz)
+    finally:
+        viz.close()
+
+
+def _solve(config: dict, eval_mode: bool, device, candidates_fn, viz: Visualizer):
+    """``run``'s solver paths: the eval loops, or single-frame mode."""
+    data_config = config["data"]
+    out_dir = config["output"]["output_dir"]
+    loader, solv = build(config, device, candidates_fn, viz)
     if eval_mode:
         eval_ts = loader.eval_frame_time_list()
         fleet_batch = int(data_config.get("fleet_batch", 1))
@@ -310,7 +355,9 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     batch[..., 2] -= np.min(batch[..., 2])
     if check_key_and_bool(data_config, "remove_car"):
         batch = crop_event(batch, 0, 193, 0, 346)
-    best_motion = solv.optimize(batch)
+    solv.visualize_one_batch_warp(batch)
+    best_motion = solv.profiled_optimize(batch)
+    solv.visualize_one_batch_warp(batch, best_motion)
     result = {"motion": to_numpy(best_motion)}
     if loader.gt_flow_available:
         t1 = loader.index_to_time(ind1)

@@ -33,6 +33,7 @@ from ..costs import functional as F
 from ..costs.functional import nan_to_penalty
 from ..ops.iwe import create_iwe
 from ..ops.warp import Warp, _masked_max, _masked_min
+from ..solver.first_order import optax_adam
 from ..types import pad_events
 from .ev_flownet import EVFlowNet, events_to_voxel_grid
 
@@ -120,7 +121,7 @@ def make_dnn_train_state(image_size: Tuple[int, int], n_bin: int = 4, lr: float 
     ``image_size`` is the JAX signature's; the network takes any size
     divisible by 16."""
     model = EVFlowNet(n_bin=n_bin, scale_time=scale_time, seed=seed).to(device=device, dtype=dtype)
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    optimizer = optax_adam(model.parameters(), lr)
     return model, optimizer
 
 

@@ -2,9 +2,11 @@
 JAX package): the pyramidal tile solver, its fleet form (batches of
 independent frames in one lockstep Newton-CG per scale), the
 single-scale tile solvers (plain and time-aware) and the global
-motion-model solver, each with the device Newton-CG."""
+motion-model solver, each with the device Newton-CG or, from the host, a
+scipy method, a first-order rule or the sampling optimizer."""
 
 from .base import SolverBase
+from .first_order import FIRST_ORDER, run_first_order
 from .fleet import BatchedNewtonCG, FleetPyramidalSolver
 from .global_motion import GlobalMotionContrastMaximization
 from .newton_cg import NewtonCG, build_newton_cg
@@ -12,6 +14,7 @@ from .objective import FleetEvents, FrameEvents, ObjectiveSpec, build_objective,
 from .mixed import MixedPatchContrastMaximization
 from .patch_base import PatchContrastMaximization, prepare_patch
 from .pyramid import PyramidalPatchContrastMaximization
+from .scipy_bridge import SCIPY_OPTIMIZERS, minimize
 from .time_aware import TimeAwarePatchContrastMaximization
 
 collections = {
@@ -22,8 +25,10 @@ collections = {
     "time_aware_mixed_patch_contrast_maximization": TimeAwarePatchContrastMaximization,
 }
 
-# optimizer.method values the port runs (the device Newton-CG)
-OPTIMIZERS = ("Newton-CG",)
+# optimizer.method values the port runs: the device Newton-CG (scipy's with
+# optimizer.device: false), the scipy methods, the first-order rules and the
+# sampling optimizer; the JAX package's LBFGS is refused
+OPTIMIZERS = tuple(dict.fromkeys(["Newton-CG"] + SCIPY_OPTIMIZERS + list(FIRST_ORDER) + ["optuna"]))
 
 __all__ = [
     "SolverBase",
@@ -44,4 +49,8 @@ __all__ = [
     "prepare_patch",
     "collections",
     "OPTIMIZERS",
+    "SCIPY_OPTIMIZERS",
+    "FIRST_ORDER",
+    "minimize",
+    "run_first_order",
 ]

@@ -9,6 +9,14 @@ package) and float32 on CUDA.  Randomness is explicit too: a seeded numpy
 draws, reproduced exactly) and a ``torch.Generator`` on the solver's device
 for the init sweep; ``rng_state`` / ``set_rng_state`` snapshot and restore
 both.
+
+The base also holds what every solver shares around the solve: the cost
+registry's history register (``cost_func``, ``_history_cb``: the loss
+values the solve's loop already read, plotted by the visualizer per
+frame), the visualization of a frame (``visualize_*``: IWEs through K8 on
+the card, flows colorized on the host, written by the ``Visualizer``
+passed as ``visualize_module``) and ``profiled_optimize``, a
+``torch.profiler`` trace of the solve into ``output.trace_dir``.
 """
 
 import logging
@@ -18,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import costs as costs_mod
 from ..costs import functional as F
 from ..flow import voxel
 from ..flow.metrics import calculate_flow_error
@@ -25,6 +34,7 @@ from ..ops.iwe import create_iwe, event_mask
 from ..ops.warp import Warp, calculate_reftime, warp_dense_flow, warp_voxel_flow
 from ..state import from_jax
 from ..utils import check_key_and_bool
+from ..visualizer import clip_iwe
 
 logger = logging.getLogger(__name__)
 
@@ -40,10 +50,10 @@ class SolverBase:
         image_shape (tuple) ... (H, W)
         calibration_parameter (dict) ... the loader's calibration; the
             "3-rotation" motion model reads its ``K`` (``ops/warp.py``).
-        output_config (dict) ... taken for the JAX package's signature; no
-            ported solver reads it yet.
-        solver_config / optimizer_config (dict) ... the JAX package's
-            YAML schema.
+        solver_config / optimizer_config / output_config (dict) ... the JAX
+            package's YAML schema (``output.trace_dir``: ``profiled_optimize``).
+        visualize_module ... a ``Visualizer`` (the ``visualize_*`` methods
+            and the history plot write through it), or None.
         device, dtype ... where and in what type the solve runs (dtype
             None: see resolve_dtype).
         candidates_fn ... optional init-sweep draw hook (solver/sampling.py).
@@ -56,6 +66,7 @@ class SolverBase:
         solver_config: dict = {},
         optimizer_config: dict = {},
         output_config: dict = {},
+        visualize_module=None,
         device="cuda",
         dtype: Optional[torch.dtype] = None,
         candidates_fn: Optional[Callable] = None,
@@ -64,7 +75,11 @@ class SolverBase:
         self.calib_param = calibration_parameter
         self.opt_config = optimizer_config
         self.slv_config = solver_config
+        self.out_config = output_config
+        self.visualizer = visualize_module
         self.iwe_config = solver_config["iwe"]
+        self.iwe_visualize_max_scale = solver_config.get("max_scale", 50)
+        self.normalize_t_in_batch = True
         self.device = torch.device(device)
         self.dtype = dtype or resolve_dtype(solver_config.get("precision"), self.device)
         self.previous_frame_best_estimation = None
@@ -78,11 +93,39 @@ class SolverBase:
         self._rng = np.random.default_rng(self.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.candidates_fn = candidates_fn
+        self.setup_cost_func()
         self.setup_time_aware()
         logger.info(
             f"Solver config: {solver_config}; optimizer: {optimizer_config}; "
             f"device {self.device}, dtype {self.dtype}"
         )
+
+    def setup_cost_func(self):
+        """The configured cost as a history register (the objective builds
+        its own cost objects per spec)."""
+        if self.slv_config["cost"] == "hybrid":
+            self.cost_weight = self.slv_config["cost_with_weight"]
+            self.cost_func = costs_mod.HybridCost(direction="minimize", cost_with_weight=self.cost_weight,
+                                                  store_history=True)
+        else:
+            self.cost_weight = None
+            self.cost_func = costs_mod.functions[self.slv_config["cost"]](direction="minimize", store_history=True)
+
+    def _history_cb(self, loss: float, components: Optional[dict] = None) -> None:
+        """Record a host value the solve already read (and a hybrid's
+        component values) in the history register."""
+        if not self.cost_func.store_history:
+            return
+        self.cost_func.history["loss"].append(float(loss))
+        if components and isinstance(self.cost_func, costs_mod.HybridCost):
+            for name, val in components.items():
+                if name in self.cost_func.cost_func:
+                    self.cost_func.cost_func[name]["func"].history["loss"].append(float(val))
+
+    def _plot_history(self) -> None:
+        """The history plot of what the register holds, if any."""
+        if self.visualizer is not None and self.cost_func.get_history()["loss"]:
+            self.visualizer.visualize_scipy_history(self.cost_func.get_history(), self.cost_weight)
 
     def setup_time_aware(self):
         """``solver.time_aware``: the flow is a ``[time_bin, 2, H, W]``
@@ -100,7 +143,9 @@ class SolverBase:
         return flow_voxel[..., voxel.t0_index(flow_voxel.shape[-4], self.t0_flow_location), :, :, :]
 
     def tensor(self, a) -> torch.Tensor:
-        """Host array -> the solver's device and dtype."""
+        """Host array (or a tensor) -> the solver's device and dtype."""
+        if torch.is_tensor(a):
+            return a.to(self.device, self.dtype)
         return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device).to(self.dtype)
 
     # --- warm start and randomness ------------------------------------------
@@ -197,6 +242,104 @@ class SolverBase:
                 flow = self.get_original_flow_from_time_aware_flow_voxel(flow)
             return flow.double().cpu().numpy()
 
+    # --- visualization ---------------------------------------------------------
+    def create_clipped_iwe_for_visualization(self, events, max_scale=50) -> np.ndarray:
+        """The events' unwarped, unblurred IWE, clipped to uint8."""
+        with torch.no_grad():
+            iwe = create_iwe(self.tensor(events), self.image_shape, sigma=0)
+        return clip_iwe(iwe.cpu().numpy(), max_scale)
+
+    def _warped_viz_iwe(self, events, motion, motion_model: str, direction="first", return_warped: bool = False):
+        """The events warped by ``motion`` under ``motion_model`` to
+        ``direction``, voted unblurred and clipped to uint8 (and the warped
+        events on the device with ``return_warped``)."""
+        with torch.no_grad():
+            warped = self.warper.warp_event(self.tensor(events), self.tensor(motion), motion_model, direction)
+            iwe = create_iwe(warped, self.image_shape, sigma=0)
+        clipped = clip_iwe(iwe.cpu().numpy(), self.iwe_visualize_max_scale)
+        return (clipped, warped) if return_warped else clipped
+
+    def _t_range(self, events) -> float:
+        events = np.asarray(events)
+        return float(np.max(events[:, 2]) - np.min(events[:, 2])) if self.normalize_t_in_batch else 1.0
+
+    def _viz_warp(self, events, warp):
+        """(the motion a visualization warps ``events`` with, its motion
+        model, the dense flow the mask composite colorizes) of the solution
+        ``warp`` (per second): the model's parameters times the window's
+        span (the JAX package's ``visualize_*``)."""
+        motion = self.tensor(np.asarray(warp, dtype=np.float64) * self._t_range(events))
+        return motion, self.motion_model, self.motion_to_dense_flow(motion)
+
+    def visualize_one_batch_warp(self, events, warp=None):
+        """The events' IWE (``warp`` None), or their IWE warped by the
+        solution and its flow on the warped events' mask."""
+        if self.visualizer is None:
+            return
+        if warp is None:
+            self.visualizer.visualize_image(self.create_clipped_iwe_for_visualization(
+                events, self.iwe_visualize_max_scale))
+            return
+        motion, model, flow = self._viz_warp(events, warp)
+        clipped, warped = self._warped_viz_iwe(events, motion, model, return_warped=True)
+        self.visualizer.visualize_image(clipped)
+        self.visualizer.visualize_optical_flow_on_event_mask(flow.cpu().numpy(), warped)
+
+    def visualize_original_sequential(self, events):
+        if self.visualizer is None:
+            return
+        clipped = self.create_clipped_iwe_for_visualization(events, self.iwe_visualize_max_scale)
+        self.visualizer.visualize_image(clipped, file_prefix="original")
+
+    def visualize_pred_sequential(self, events, warp):
+        if self.visualizer is None:
+            return
+        motion, model, _ = self._viz_warp(events, warp)
+        self.visualizer.visualize_image(self._warped_viz_iwe(events, motion, model), file_prefix="pred_warp")
+
+    def visualize_gt_sequential(self, events, gt_warp, gt_type: str = "flow"):
+        """The events warped by the GT (a ``[H, W, 2]`` displacement with
+        ``gt_type`` "flow", else the model's parameters) and the GT flow's
+        colorization."""
+        if self.visualizer is None:
+            return
+        if gt_type == "flow":
+            motion_model = "dense-flow"
+            gt_warp = np.transpose(np.asarray(gt_warp), (2, 0, 1))
+        else:
+            motion_model = self.motion_model
+        clipped = self._warped_viz_iwe(events, self.tensor(gt_warp), motion_model)
+        self.visualizer.visualize_image(clipped, file_prefix="gt_warp")
+        if motion_model == "dense-flow":
+            self.visualizer.visualize_optical_flow(gt_warp[0], gt_warp[1], visualize_color_wheel=False,
+                                                   file_prefix="gt_flow")
+
+    def visualize_flows(self, motion, gt_flow, timescale: float = 1.0) -> None:
+        """The prediction and the GT colorized on their shared scale."""
+        if self.visualizer is None:
+            return
+        with torch.no_grad():
+            pred = self.predicted_flow(motion, timescale)
+            if self.is_time_aware:
+                pred = self.get_original_flow_from_time_aware_flow_voxel(pred)
+        self.visualizer.visualize_optical_flow_pred_and_gt(
+            pred.cpu().numpy(), np.transpose(np.asarray(gt_flow), (2, 0, 1)),
+            pred_file_prefix="flow_comparison_pred", gt_file_prefix="flow_comparison_gt")
+
+    # --- the solve ---------------------------------------------------------------
+    def profiled_optimize(self, events: np.ndarray):
+        """``optimize``, inside a ``torch.profiler`` trace (host and, on the
+        card, CUDA activity) written to ``output.trace_dir`` when the config
+        sets it (a ``*.pt.trace.json`` per solve, TensorBoard's layout)."""
+        trace_dir = (self.out_config or {}).get("trace_dir")
+        if not trace_dir:
+            return self.optimize(events)
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+            return self.optimize(events)
+
     def optimize(self, events: np.ndarray):
         raise NotImplementedError
 
@@ -209,6 +352,7 @@ class SolverBase:
         voxel scheme, no trace) decide whether it appends the metrics to the
         chain's dispatch; the port captures no metrics (one evaluation per
         frame), so every solver solves (the pyramid chained when
-        ``_chain_ready``) and then scores."""
-        best = self.optimize(events)
+        ``_chain_ready``; ``profiled_optimize``, as the JAX package's
+        unfused route) and then scores."""
+        best = self.profiled_optimize(events)
         return best, self.calculate_flow_error(best, gt_flow, timescale=timescale, events=metric_events)

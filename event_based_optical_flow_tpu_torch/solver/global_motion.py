@@ -28,8 +28,11 @@ solve's evaluations replay from CUDA graphs (a ``graphs.Stage`` of its
 own, keyed by the spec: a 3- or 4-vector never meets a tile solver's
 graphs); ``chain: false`` runs them eagerly with the same bits.
 
-Only the device Newton-CG is ported: the JAX package's scipy and optax
-branches raise a ``ConfigError``.
+Any other ``optimizer.method`` but the sampling optimizer (which the JAX
+package's global solver has no branch for) solves the same scaled problem
+from the host (a scipy method at gtol 1e-7 or a first-order rule:
+``patch_base._run_host_optimizer``), eagerly.  As in the JAX package, the
+history register is plotted after every frame and never cleared.
 """
 
 import dataclasses
@@ -168,9 +171,8 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
         array."""
         from .. import ops
 
-        if self.opt_config["method"] != "Newton-CG" or not self.opt_config.get("device", True):
-            raise ConfigError(f"optimizer.method {self.opt_config['method']!r} on the host is not ported yet "
-                              "(the device Newton-CG is)")
+        # the JAX package's global solver has no sampling branch either
+        self._check_optimizer(sampling=False)
         logger.info(f"Start global-motion optimization ({self.motion_model}, DoF {self.motion_vector_size})")
         events = np.asarray(events, dtype=np.float64)
         spec = self._current_spec()
@@ -181,18 +183,23 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
         warm = self.previous_frame_best_estimation is not None
         # the solve works in scaled (pixel-equivalent) units
         motion0 = self._initial_motion(spec, frame, orig) / self._param_scale
-        chain = bool(self.opt_config.get("chain", True))
-        stage = None
-        if chain:
-            if self._graphs is None:
-                self._graphs = ChainGraphs(self.device)
-            stage = self._graphs.stage("global", frame, orig)
-            frame, orig = stage.frame, stage.orig
-        best_x, best_f, n_iter, hvp = self._run_newton(spec, self.tensor(motion0), frame, orig,
-                                                       int(self.opt_config.get("max_iter", 25)), finest=True,
-                                                       warm=warm, gtol=1e-7, stage=stage)
-        loss = float(best_f)
-        self.syncs += 1
+        chain = bool(self.opt_config.get("chain", True)) and self._device_newton()
+        if self._device_newton():
+            stage = None
+            if chain:
+                if self._graphs is None:
+                    self._graphs = ChainGraphs(self.device)
+                stage = self._graphs.stage("global", frame, orig)
+                frame, orig = stage.frame, stage.orig
+            best_x, best_f, n_iter, hvp = self._run_newton(spec, self.tensor(motion0), frame, orig,
+                                                           int(self.opt_config.get("max_iter", 25)), finest=True,
+                                                           warm=warm, gtol=1e-7, stage=stage)
+            loss = float(best_f)
+            self.syncs += 1
+            self._history_cb(loss)
+        else:
+            best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, motion0, frame, orig, gtol=1e-7,
+                                                                 sampling=False)
         after = ops.launch_counts()
         best_motion = best_x.detach().to("cpu", torch.float64).numpy().reshape(-1) * self._param_scale
         self.last_frame_stats = {
@@ -200,6 +207,7 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
             "launches": {0: {k: after[k] - before[k] for k in after}}, "chain": chain, "syncs": self.syncs,
             "params": dict(zip(self.motion_model_keys, best_motion.tolist())),
         }
+        self._plot_history()
         logger.info(f"Global solve{' (chained)' if chain else ''}: {n_iter} iters ({hvp} HVP), loss {loss:.6f}; "
                     f"best {dict(zip(self.motion_model_keys, np.round(best_motion, 4)))}")
         return best_motion

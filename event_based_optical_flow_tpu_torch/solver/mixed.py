@@ -1,12 +1,14 @@
 """Single-scale tile CMax solver (port of
 ``event_based_optical_flow_tpu/solver/mixed.py``): one tile grid from
 ``patch.size`` / ``patch.sliding_window``, its motion solved jointly by the
-device Newton-CG (gtol 1e-7, as the JAX package's device branch).
+device Newton-CG (gtol 1e-7, as the JAX package's device branch), or by
+any other ``optimizer.method`` from the host (a scipy method at gtol 1e-7,
+the sampling optimizer, a first-order rule: ``patch_base``).  The
+``global-best`` / ``grid-best`` initializations raise a ``ConfigError``.
 
-Only that branch is ported: the JAX package's host scipy methods, its
-sampling ("optuna") optimizer and its optax first-order loops raise a
-``ConfigError``, and so do the ``global-best`` / ``grid-best``
-initializations.
+The history register is plotted after every frame and, as in the JAX
+package's single-scale solvers, never cleared: a frame's plot shows every
+frame's values so far.
 """
 
 import logging
@@ -47,27 +49,32 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
     def optimize(self, events: np.ndarray) -> torch.Tensor:
         """Solve one frame: the tile motion [2, h_p, w_p] on the solver's
         device."""
-        if self.opt_config["method"] != "Newton-CG" or not self.opt_config.get("device", True):
-            raise ConfigError(f"optimizer.method {self.opt_config['method']!r} on the host is not "
-                              "ported yet (the device Newton-CG is)")
+        from .. import ops
+
+        self._check_optimizer()
         logger.info(f"Start optimization; DoF {self.motion_vector_size * self.n_patch}")
         events = np.asarray(events, dtype=np.float64)
         spec = self._current_spec()
         frame = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
-        from .. import ops
-
         before = ops.launch_counts()
         motion0 = self._initial_motion()
         self.syncs = 0
-        best_x, best_f, n_iter, hvp = self._run_newton(
-            spec, motion0, frame, build_orig_iwe(spec)(frame), int(self.opt_config.get("max_iter", 25)),
-            finest=True, warm=self.previous_frame_best_estimation is not None, gtol=1e-7)
-        loss = float(best_f)
+        orig = build_orig_iwe(spec)(frame)
+        if self._device_newton():
+            best_x, best_f, n_iter, hvp = self._run_newton(
+                spec, motion0, frame, orig, int(self.opt_config.get("max_iter", 25)), finest=True,
+                warm=self.previous_frame_best_estimation is not None, gtol=1e-7)
+            loss = float(best_f)
+            self.syncs += 1
+            self._history_cb(loss)
+        else:
+            best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, motion0, frame, orig, gtol=1e-7)
         after = ops.launch_counts()
         self.last_frame_stats = {
             "iters": {0: n_iter}, "loss": {0: loss}, "hvp": {0: hvp}, "events": {0: len(events)},
-            "launches": {0: {k: after[k] - before[k] for k in after}}, "syncs": self.syncs + 1,
+            "launches": {0: {k: after[k] - before[k] for k in after}}, "syncs": self.syncs,
         }
+        self._plot_history()
         logger.info(f"Done: {n_iter} iters ({hvp} HVP), loss {loss:.6f}")
         return best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
 

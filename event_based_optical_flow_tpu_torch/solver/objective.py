@@ -436,3 +436,52 @@ def build_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool = True):
         return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)
 
     return prep, hvp
+
+
+def build_value_grad_hvp(spec: ObjectiveSpec):
+    """(value_and_grad, hvp, hess) of the objective over the flat motion,
+    for the host-driven optimizers (the scipy bridge, the first-order loop;
+    the JAX package's ``build_value_grad_hvp``):
+
+    * ``value_and_grad(x, orig, frame) -> (loss, grad, components)``: K1
+      forward, K2 in the backward;
+    * ``hvp(x, p, orig, frame)``: the central difference of two gradients
+      at ``x +- eps p``, ``eps = 1e-3 (1 + |x|) / |p|`` (the JAX bridge's
+      step on the fused kernel, whose backward is not itself
+      differentiable; the Newton-CG loop's ``fd_hvp`` steps differently);
+    * ``hess(x, orig, frame)``: the ``[M, M]`` Hessian, one column per
+      unit vector, for ``dogleg`` / ``trust-exact``.  The JAX package takes
+      ``jax.hessian`` of its exact, non-fused backends (its fused route
+      cannot differentiate the kernel twice): the a.e. Hessian, which the
+      analytic full HVP (K3 / K4, ``build_objective_hvp(spec,
+      gauss_newton=False)``) gives column by column to ~1e-15 in float64.
+      The FD HVP's columns differ from it by O(1) relative on the
+      piecewise CMax objective (its steps cross the vote's floors), so
+      they stand in only where the full analytic HVP does not apply (a
+      time-aware objective), symmetrized."""
+    obj = build_objective(spec)
+    exact_hvp = (build_objective_hvp(spec, gauss_newton=False)
+                 if objective_supports_analytic_hvp(spec, gauss_newton=False) else None)
+
+    def value_and_grad(x: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
+        xr = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss, components = obj(xr, orig_blurred, frame)
+            (grad,) = torch.autograd.grad(loss, xr)
+        return loss.detach(), grad, {k: v.detach() for k, v in components.items()}
+
+    def hvp(x: Tensor, p: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents) -> Tensor:
+        eps = 1e-3 * (1.0 + torch.linalg.vector_norm(x)) / (torch.linalg.vector_norm(p) + 1e-12)
+        g_plus = value_and_grad(x + eps * p, orig_blurred, frame)[1]
+        g_minus = value_and_grad(x - eps * p, orig_blurred, frame)[1]
+        return (g_plus - g_minus) / (2.0 * eps)
+
+    def hess(x: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents) -> Tensor:
+        eye = torch.eye(x.numel(), dtype=x.dtype, device=x.device)
+        if exact_hvp is not None:
+            with torch.no_grad():
+                return torch.stack([exact_hvp(x, e, orig_blurred, frame) for e in eye], dim=1)
+        h = torch.stack([hvp(x, e, orig_blurred, frame) for e in eye], dim=1)
+        return (h + h.T) / 2.0
+
+    return value_and_grad, hvp, hess

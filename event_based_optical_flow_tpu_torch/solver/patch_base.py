@@ -12,6 +12,16 @@ IWE is voted once per event set and passed to the solve.  A time-aware
 spec routes to the voxel kernels (K5; K6 for the analytic HVP, whose
 assembly is Gauss-Newton only there: ``analytic-full`` warns and solves
 with the FD HVP).
+
+The other ``optimizer.method`` values solve a scale's objective from the
+host (the JAX package's ``_run_scipy_on_spec``, ``run_first_order`` and
+``_run_sampling_on_spec``): a scipy method through ``scipy_bridge`` (one
+host read per evaluation: the loss, gradient and hybrid components
+together), a first-order rule (``first_order.py``: one read per solve) or
+the sampling ("optuna") search (rounds of candidates drawn from the
+solver's numpy generator in the JAX package's order, each scored by one
+K1 evaluation, one read per round).  ``optimizer.device: false`` sends
+``Newton-CG`` to scipy's.
 """
 
 import logging
@@ -21,16 +31,20 @@ import numpy as np
 import torch
 
 from ..types import FlowPatch
+from ..utils.config_schema import ConfigError
 from .base import SolverBase
+from .first_order import FIRST_ORDER, run_first_order
 from .newton_cg import build_newton_cg
 from .objective import (
     FrameEvents,
     ObjectiveSpec,
     build_objective,
     build_objective_hvp_staged,
+    build_value_grad_hvp,
     objective_supports_analytic_hvp,
 )
 from .sampling import build_patch_search, gather_patch_events
+from .scipy_bridge import SCIPY_OPTIMIZERS, _NEEDS_HESS, _NEEDS_HVP, minimize
 
 logger = logging.getLogger(__name__)
 
@@ -201,6 +215,122 @@ class PatchContrastMaximization(SolverBase):
             best_x, best_f, n_iter = solve.solve(ev, x0)
         self.syncs += solve.syncs
         return best_x, best_f, n_iter, name
+
+    # --- the host-driven optimizers ----------------------------------------------
+    def _device_newton(self) -> bool:
+        return self.opt_config["method"] == "Newton-CG" and bool(self.opt_config.get("device", True))
+
+    def _check_optimizer(self, sampling: bool = True) -> None:
+        """Raise ``ConfigError`` before a solve unless ``optimizer.method``
+        is one this solver runs: the device Newton-CG, a scipy method, a
+        first-order rule, the sampling optimizer with ``sampling``."""
+        method = self.opt_config["method"]
+        if self._device_newton():
+            return
+        if method not in SCIPY_OPTIMIZERS + list(FIRST_ORDER) + (["optuna"] if sampling else []):
+            raise ConfigError(f"optimizer.method {method!r} is not supported by {type(self).__name__}")
+
+    def _run_scipy_on_spec(self, spec: ObjectiveSpec, frame: FrameEvents, orig, motion0, options: dict):
+        """A scipy method on this objective from ``motion0``; each
+        evaluation's loss, gradient and hybrid components come back in one
+        read and go to the history register.  Returns scipy's result."""
+        vg, hvp, hess = build_value_grad_hvp(spec)
+        n = int(np.prod(np.shape(motion0)))
+
+        def read(t: torch.Tensor) -> np.ndarray:
+            self.syncs += 1
+            return t.detach().to("cpu", torch.float64).numpy()
+
+        def vg_np(x):
+            loss, grad, comps = vg(self.tensor(x), orig, frame)
+            host = read(torch.cat([loss.reshape(1), grad.reshape(-1)] + [c.reshape(1) for c in comps.values()]))
+            return host[0], host[1:1 + n], dict(zip(comps, host[1 + n:]))
+
+        return minimize(vg_np, np.asarray(motion0.cpu() if torch.is_tensor(motion0) else motion0,
+                                          dtype=np.float64).reshape(-1),
+                        method=self.opt_config["method"], options=options,
+                        hvp=lambda x, p: read(hvp(self.tensor(x), self.tensor(p), orig, frame)),
+                        hess=lambda x: read(hess(self.tensor(x), orig, frame)),
+                        history_cb=self._history_cb)
+
+    def _run_sampling_on_spec(self, spec: ObjectiveSpec, frame: FrameEvents, orig, motion0, n_iter: int,
+                              n_rounds: int = 4):
+        """The sampling ("optuna") optimizer: ``n_rounds`` rounds of
+        ``n_iter // n_rounds`` candidates of the whole motion (round 0
+        uniform in the ``optimizer.parameters`` box for the ``TPE`` /
+        ``random`` samplers, then gaussians around the incumbent of a
+        halving width), each scored by the objective (K1); the incumbent
+        survives.  The draws are the JAX package's, from the solver's numpy
+        generator.  Returns (best motion, float64 [M], its loss)."""
+        obj = build_objective(spec)
+        p = self.opt_config["parameters"]
+        lo = np.array([p["trans_x"]["min"], p["trans_y"]["min"]])
+        hi = np.array([p["trans_x"]["max"], p["trans_y"]["max"]])
+        k_per_round = max(1, n_iter // n_rounds)
+        best = np.asarray(motion0.cpu() if torch.is_tensor(motion0) else motion0, dtype=np.float64).reshape(-1)
+
+        def losses_of(cands: np.ndarray) -> np.ndarray:
+            with torch.no_grad():
+                losses = torch.stack([obj(x, orig, frame)[0] for x in self.tensor(cands)])
+            self.syncs += 1
+            return losses.cpu().numpy()
+
+        best_loss = float(losses_of(best[None])[0])
+        scale = 1.0
+        for r in range(n_rounds):
+            if r == 0 and self.opt_config.get("sampler", "TPE") in ("TPE", "random"):
+                cands = self._rng.random((k_per_round, best.size))
+                box_lo = np.tile(lo, best.size // 2)
+                box_hi = np.tile(hi, best.size // 2)
+                cands = cands * (box_hi - box_lo) + box_lo
+            else:
+                sigma = (np.tile(hi - lo, best.size // 2)) / 8.0 * scale
+                cands = best[None] + self._rng.standard_normal((k_per_round, best.size)) * sigma
+            losses = losses_of(cands)
+            i = int(np.nanargmin(losses))
+            if losses[i] < best_loss:
+                best_loss = float(losses[i])
+                best = cands[i]
+            scale *= 0.5
+            self._history_cb(best_loss, None)
+        return best, best_loss
+
+    def _run_host_optimizer(self, spec: ObjectiveSpec, x0, frame: FrameEvents, orig, gtol: float,
+                            sampling: bool = True):
+        """One solve of this objective by ``optimizer.method`` other than the
+        device Newton-CG (``_check_optimizer``'s): a scipy method (at most
+        ``max_iter`` iterations, ``gtol``), the sampling optimizer
+        (``sampling``), or a first-order rule.  Returns (best motion, flat
+        on the device; its loss; the iterations; the curvature scipy took:
+        "bridge-fd" HVPs, a "hessian", or "none")."""
+        method = self.opt_config["method"]
+        if method in SCIPY_OPTIMIZERS:
+            self.cost_func.enable_history_register()
+            result = self._run_scipy_on_spec(spec, frame, orig, x0, options={
+                "gtol": gtol, "disp": False, "maxiter": self.opt_config.get("max_iter", 25)})
+            hvp = "bridge-fd" if method in _NEEDS_HVP else "hessian" if method in _NEEDS_HESS else "none"
+            return self.tensor(result.x), float(result.fun), int(getattr(result, "nit", result.nfev)), hvp
+        if method == "optuna" and sampling:
+            best, loss = self._run_sampling_on_spec(spec, frame, orig, x0, int(self.opt_config["n_iter"]))
+            return self.tensor(best), loss, int(self.opt_config["n_iter"]), "none"
+        vg = build_value_grad_hvp(spec)[0]
+        best, loss = run_first_order(lambda x: vg(x, orig, frame)[:2], self.tensor(x0).reshape(-1), method,
+                                     self.opt_config)
+        self.syncs += 1
+        return best, loss, int(self.opt_config["n_iter"]), "none"
+
+    # --- visualization ---------------------------------------------------------
+    def _viz_warp(self, events, warp):
+        """A tile solver warps by the dense flow of its tiles (the flow
+        voxel when time-aware) times the window's span, and colorizes that
+        flow (the voxel's t0 slice).  A deviation from the JAX package's
+        single-scale tile solvers, which hand their tile array to the 2-DoF
+        translation warp, which raises (its pyramid overrides the
+        ``visualize_*`` methods as ``solver/pyramid.py`` does)."""
+        with torch.no_grad():
+            flow = self.motion_to_dense_flow(warp) * self._t_range(events)
+            shown = self.get_original_flow_from_time_aware_flow_voxel(flow) if self.is_time_aware else flow
+        return flow, "dense-flow-voxel" if self.is_time_aware else "dense-flow", shown
 
     # --- per-patch init sweep -----------------------------------------------
     def _patch_capacity(self, n_events: int) -> int:

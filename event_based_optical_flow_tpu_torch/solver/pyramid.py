@@ -32,6 +32,15 @@ finest's ``pyramid_reduce``.  ``optimizer.warm_full_every: K`` runs the
 full pyramid on every K-th consecutive warm frame (the warm streak,
 ``_warm_finest_active``) to re-anchor the basin.  A deviation from the
 original method, which runs every scale; off by default.
+
+Any other ``optimizer.method`` (scipy's, with ``optimizer.device: false``
+its Newton-CG too, a first-order rule or the sampling optimizer) runs the
+loop: every scale's start as above, then that optimizer on the scale's
+objective over every event (``patch_base._run_host_optimizer``).  Each
+route records the history register (a device Newton solve: its best loss
+per scale, the value the loop reads anyway; scipy: every evaluation; the
+sampling optimizer: every round), which the visualizer plots at the end of
+the frame.
 """
 
 import logging
@@ -135,6 +144,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         device (the finest scale is the output flow's tile motion);
         chained when ``_chain_ready``."""
         logger.info(f"Start optimization. DoF {self.motion_vector_size * self.total_n_patch}")
+        self._check_optimizer()
         if self._chain_ready():
             return self._optimize_chain(events)
         if self.opt_config.get("warm_finest_only") and not getattr(self, "_warned_wfo", False):
@@ -214,6 +224,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
                                                        warm=True, stage=stage)
         loss = float(best_f)
         self.syncs += 1
+        self._history_cb(loss)
         after = ops.launch_counts()
         self.last_frame_stats = {
             "iters": {s_fin: n_iter}, "loss": {s_fin: loss}, "hvp": {s_fin: hvp}, "events": {s_fin: len(events)},
@@ -221,8 +232,11 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             "syncs": self.syncs,
         }
         logger.info(f"Warm finest-only solve: {n_iter} iters, loss {loss:.6f}")
-        return self.update_coarse_from_fine({s_fin: best_x.reshape((self.motion_vector_size,)
-                                                                    + tuple(self.patch_image_size))})
+        refined = self.update_coarse_from_fine({s_fin: best_x.reshape((self.motion_vector_size,)
+                                                                       + tuple(self.patch_image_size))})
+        self._plot_history()
+        self.cost_func.clear_history()
+        return refined
 
     def _optimize_scales(self, events: np.ndarray, chain: bool) -> Dict[int, torch.Tensor]:
         """The coarse-to-fine loop; ``chain``: the evaluations from the
@@ -246,14 +260,18 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             newton_events = {name: (st.frame, st.orig) for name, st in stages.items()}
         warm_motion = self.previous_frame_best_estimation
         warm = warm_motion is not None
+        device_newton = self._device_newton()
         self.syncs = 0
+        self.cost_func.enable_history_register()
         stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}, "chain": chain}
         best_motion_per_scale: Dict[int, torch.Tensor] = {}
         for s in range(self.coarsest_scale, self.patch_scales):
             self.overload_patch_configuration(s)
             spec = self._current_spec()
             finest = s == self.patch_scales - 1
-            events_key = "full" if finest or sub is None else "coarse"
+            # the device Newton solves the coarse scales on the subsample;
+            # every other optimizer sees every event
+            events_key = "full" if finest or sub is None or not device_newton else "coarse"
             frame, orig = newton_events[events_key]
             before = ops.launch_counts()
             presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
@@ -262,12 +280,17 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             else:
                 motion0, n_cand = presearch
                 x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
-            scale_mi, scale_cg = self._scale_budget(s)
-            best_x, best_f, n_iter, hvp = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg,
-                                                           finest=finest, warm=warm, stage=stages.get(events_key))
+            if device_newton:
+                scale_mi, scale_cg = self._scale_budget(s)
+                best_x, best_f, n_iter, hvp = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg,
+                                                               finest=finest, warm=warm,
+                                                               stage=stages.get(events_key))
+                loss = float(best_f)
+                self.syncs += 1
+                self._history_cb(loss)
+            else:
+                best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, x0, frame, orig, gtol=1e-5)
             best_motion_per_scale[s] = best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
-            loss = float(best_f)
-            self.syncs += 1
             after = ops.launch_counts()
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, loss, hvp
             stats["events"][s] = frame.x.shape[0]
@@ -279,7 +302,10 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
                             f"loss {loss:.6f}")
         stats["syncs"] = self.syncs
         self.last_frame_stats = stats
-        return self.update_coarse_from_fine(best_motion_per_scale)
+        refined = self.update_coarse_from_fine(best_motion_per_scale)
+        self._plot_history()
+        self.cost_func.clear_history()
+        return refined
 
     def _presearch_motion(self, s: int, coarser: Dict[int, torch.Tensor], warm: Optional[Dict[int, torch.Tensor]]):
         """For scales that refine a coarser result by the per-patch sweep:
@@ -326,3 +352,31 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
 
     def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
         return self.motion_to_dense_flow(motion, timescale) * timescale
+
+    # --------------------------------------------------------- visualization
+    def visualize_one_batch_warp(self, events, warp=None):
+        """The base's images, and the flow's colorization over the warped
+        IWE."""
+        if self.visualizer is None or warp is None:
+            return super().visualize_one_batch_warp(events, warp)
+        flow, model, shown = self._viz_warp(events, warp)
+        clipped, warped = self._warped_viz_iwe(events, flow, model, return_warped=True)
+        shown = shown.cpu().numpy()
+        self.visualizer.visualize_image(clipped)
+        self.visualizer.visualize_optical_flow_on_event_mask(shown, warped)
+        self.visualizer.visualize_overlay_optical_flow_on_event(shown, clipped)
+
+    def visualize_pred_sequential(self, events, warp):
+        """The events warped to the window's middle by the solution's dense
+        flow (voxel) over the window (``pred_warp``), and the flow on the
+        warped events' mask (``pred_masked``)."""
+        if self.visualizer is None:
+            return
+        t_scale = self._t_range(events)
+        with torch.no_grad():
+            flow = self.motion_to_dense_flow(warp, t_scale) * t_scale
+            shown = self.get_original_flow_from_time_aware_flow_voxel(flow) if self.is_time_aware else flow
+        clipped, warped = self._warped_viz_iwe(events, flow, "dense-flow-voxel" if self.is_time_aware
+                                               else "dense-flow", direction="middle", return_warped=True)
+        self.visualizer.visualize_image(clipped, file_prefix="pred_warp")
+        self.visualizer.visualize_optical_flow_on_event_mask(shown.cpu().numpy(), warped, file_prefix="pred_masked")

@@ -4,7 +4,8 @@
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
 solver, optimizer or cost, a host griddata voxel scheme, outer padding,
-the L-BFGS solvers, device meshes, the DNN's multi-device train step)
+the L-BFGS solvers and optax's L-BFGS, device meshes, the DNN's
+multi-device train step)
 fails fast here with the YAML path of the entry, instead of deep inside a
 solve.  An ``is_dnn`` config (the EV-FlowNet path) validates its ``dnn``
 keys and its solver blocks, as the JAX package validates them.  Unknown keys, and
@@ -68,7 +69,7 @@ _KNOWN_OPT_KEYS = {
     "n_iter", "method", "max_iter", "sampler", "parameters", "cg_maxiter", "device",
     "chain", "hvp_central", "hvp_mode", "hvp_max_step", "coarse_event_fraction",
     "coarse_max_iter", "coarse_cg_maxiter", "device_solver", "lbfgs_memory",
-    "warm_finest_only", "warm_full_every", "fd_polish",
+    "warm_finest_only", "warm_full_every", "fd_polish", "lr",
 }
 _KNOWN_DNN_KEYS = {
     "n_bin", "batch_size", "n_steps", "lr", "data_parallel",
@@ -210,9 +211,10 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
 
     opt = config["optimizer"]
     _require(opt, "method", str, "optimizer")
+    if opt["method"] == "LBFGS":
+        raise ConfigError("'optimizer.method: LBFGS' (optax's L-BFGS with its zoom line search) is not ported "
+                          "yet: it comes with the device L-BFGS solvers (optimizer.device_solver: lbfgs)")
     _choice(opt, "method", set(OPTIMIZERS), "optimizer")
-    if opt.get("device", True) is not True:
-        raise ConfigError("'optimizer.device: false' (host scipy Newton-CG) is not ported yet")
     params = opt.get("parameters")
     if isinstance(params, dict):
         for pname, box in params.items():

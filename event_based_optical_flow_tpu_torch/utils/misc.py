@@ -1,6 +1,8 @@
 """Misc helpers (port of ``event_based_optical_flow_tpu/utils/misc.py``)."""
 
+import os
 import random
+import subprocess
 
 import numpy as np
 import torch
@@ -12,6 +14,22 @@ def fix_random_seed(seed: int = 46) -> None:
     ``torch.Generator``."""
     random.seed(seed)
     np.random.seed(seed)
+
+
+def fetch_runtime_info() -> dict:
+    """Reproducibility stamp for the run log: the checkout's git commit
+    ("unknown" outside a git checkout), torch's version and, when CUDA is
+    available, the device's name."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        commit = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True, text=True, timeout=10,
+                                cwd=root).stdout.strip() or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        commit = "unknown"
+    info = {"git_commit": commit, "torch": torch.__version__}
+    if torch.cuda.is_available():
+        info["device"] = torch.cuda.get_device_name(0)
+    return info
 
 
 def check_key_and_bool(config: dict, key: str) -> bool:

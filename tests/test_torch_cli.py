@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from PIL import Image
 
 import chip_smoke
 import main as jax_cli
@@ -477,3 +478,38 @@ def test_data_and_output_keys_validate_as_jax():
         validate_config(config)
     with pytest.raises(Exception, match="save_flow"):
         jax_validate(config)
+
+
+def test_visualized_mvsec_eval_writes_the_jax_cli_pngs_and_traces(tmp_path, mvsec_root):
+    """``data.visualize_every: 1`` on the MVSEC fixture: the port's CLI
+    writes the JAX CLI's PNG names for both frames (original, pred_warp,
+    pred_masked, gt_warp, gt_flow, optimization_steps), the solution-free
+    ones (original, gt_warp, gt_flow) decoding to the JAX CLI's arrays, and
+    the same metrics as a run without images.  Single-frame mode with
+    ``output.trace_dir`` writes the events' IWE before and after the solve
+    and one ``torch.profiler`` trace."""
+    jcfg, tcfg = _mvsec_config(mvsec_root, tmp_path / "jax"), _mvsec_config(mvsec_root, tmp_path / "port")
+    for cfg in (jcfg, tcfg):
+        cfg["data"]["visualize_every"] = 1
+    _jax_eval(jcfg)
+    port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu"), candidates_fn=JaxDraws())
+    pngs = {d: sorted(p.name for p in (tmp_path / d).glob("*.png")) for d in ("jax", "port")}
+    assert pngs["port"] == pngs["jax"] == sorted(f"{p}{i}.png" for i in (0, 1) for p in (
+        "original", "pred_warp", "pred_masked", "gt_warp", "gt_flow", "optimization_steps"))
+    for name in pngs["jax"]:
+        if name.startswith(("original", "gt_")):
+            np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "port" / name)),
+                                          np.asarray(Image.open(tmp_path / "jax" / name)), err_msg=name)
+    plain = _mvsec_config(mvsec_root, tmp_path / "plain")
+    port_cli.run(plain, eval_mode=True, device=torch.device("cpu"), candidates_fn=JaxDraws())
+    assert _metrics(tmp_path / "plain") == _metrics(tmp_path / "port")
+
+    single = _mvsec_config(mvsec_root, tmp_path / "single")
+    single["data"].update(ind1=0, ind2=1500)
+    single["output"]["trace_dir"] = str(tmp_path / "trace")
+    port_cli.run(single, eval_mode=False, device=torch.device("cpu"))
+    assert sorted(p.name for p in (tmp_path / "single").glob("*.png")) == [
+        "0.png", "1.png", "2.png", "3.png", "optimization_steps0.png"]
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert "traceEvents" in json.loads(traces[0].read_text())

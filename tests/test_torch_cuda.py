@@ -1364,3 +1364,62 @@ def test_dnn_train_steps_on_gpu_are_deterministic_and_match_cpu(cuda_device, det
     assert np.allclose(l1, lc, rtol=1e-9, atol=0)
     for k in p1:
         assert (p1[k] - pc[k]).abs().max().item() <= 1e-7 * max(1.0, pc[k].abs().max().item())
+
+
+def _small_solver(dev, **opt):
+    """The single-scale tile solver (2 x 2 tiles, float64) on ``dev`` with
+    the ``optimizer`` entries ``opt``, and the events of a random scene."""
+    from event_based_optical_flow_tpu_torch import solver as S
+
+    method = "mixed_patch_contrast_maximization"
+    slv = {"method": method, "patch": {"initialize": "zero", "size": [20, 26], "sliding_window": [20, 26]},
+           "motion_model": "2d-translation", "cost": "hybrid", "precision": "64",
+           "cost_with_weight": {"multi_focal_normalized_gradient_magnitude": 1.0, "total_variation": 0.01},
+           "iwe": {"method": "bilinear_vote", "blur_sigma": 1}}
+    optimizer = {"n_iter": 8, "max_iter": 2, "method": "Newton-CG", "parameters": {"trans_x": {"min": -20, "max": 20},
+                                                           "trans_y": {"min": -20, "max": 20}}, **opt}
+    rng = np.random.default_rng(3)
+    events = np.stack([rng.uniform(0, H - 1, 4000), rng.uniform(0, W - 1, 4000), np.sort(rng.uniform(0, 0.1, 4000)),
+                       rng.integers(0, 2, 4000)], axis=1)
+    return S.collections[method]((H, W), {}, slv, optimizer, {}, device=dev), events
+
+
+@pytest.mark.cuda
+def test_visualization_images_are_k8_votes(cuda_device, deterministic):
+    """The solvers' visualization IWEs on the card: one K8 launch each, the
+    bits of K8's exact model clipped as the visualizer clips them."""
+    from event_based_optical_flow_tpu_torch.visualizer import clip_iwe
+
+    solv, events = _small_solver(cuda_device)
+    flow = torch.as_tensor(np.random.default_rng(4).uniform(-5, 5, (2, H, W)), device=cuda_device)
+    for direction in ("first", "middle"):
+        VOTE.reset_launch_counts()
+        got = solv._warped_viz_iwe(events, flow, "dense-flow", direction, return_warped=True)
+        assert VOTE.launch_counts()["vote"] == 1
+        want = VOTE.bilinear_vote_fixed_reference(got[1].cpu(), (H, W))
+        np.testing.assert_array_equal(got[0], clip_iwe(want.numpy(), solv.iwe_visualize_max_scale))
+    VOTE.reset_launch_counts()
+    got = solv.create_clipped_iwe_for_visualization(events)
+    assert VOTE.launch_counts()["vote"] == 1
+    want = VOTE.bilinear_vote_fixed_reference(torch.as_tensor(events), (H, W))
+    np.testing.assert_array_equal(got, clip_iwe(want.numpy(), 50))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kernels", [("BFGS", ("fwd", "bwd")), ("trust-exact", ("fwd", "bwd", "jvp", "hvp_bwd")),
+                                            ("Adam", ("fwd", "bwd")), ("optuna", ("fwd",))])
+def test_host_optimizers_launch_the_kernels_and_match_cpu(cuda_device, deterministic, method, kernels):
+    """Each host-driven route on the card runs its kernels (no plain
+    fallback: K1/K2, and K3/K4 for trust-exact's Hessian) and lands where
+    the same float64 solve on the CPU does (to 1e-6)."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        solv, events = _small_solver(dev, method=method)
+        ops.reset_launch_counts()
+        results.append(solv.optimize(events).cpu().numpy())
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+            assert all(counts[k] > 0 for k in kernels), counts
+    np.testing.assert_allclose(results[0], results[1], rtol=0, atol=1e-6)

@@ -236,7 +236,7 @@ def test_single_scale_solver_refuses_unported_optimizers():
     slv = dict(SOLVER, method="mixed_patch_contrast_maximization",
                patch={"initialize": "grid-best", "size": 8, "sliding_window": 8})
     events = np.array([[1.0, 2.0, 0.0, 1.0], [3.0, 4.0, 0.1, 0.0]])
-    for opt, match in ((dict(OPTIMIZER, method="BFGS"), "BFGS"), (OPTIMIZER, "grid-best")):
+    for opt, match in ((dict(OPTIMIZER, method="LBFGS"), "LBFGS"), (OPTIMIZER, "grid-best")):
         st = tsolver.collections[slv["method"]]((16, 16), {}, slv, opt, {}, device="cpu")
         with pytest.raises(ConfigError, match=match):
             st.optimize(events)
