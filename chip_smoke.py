@@ -160,13 +160,32 @@ Phases (each prints one informative line; any failure exits nonzero):
    frame 0 through the CLI's eval loop with scipy's Newton-CG
    (``optimizer.device: false``, ``[opt-scipy-newton]``), BFGS
    (``[opt-bfgs]``), Adam (``[opt-adam]``) and the sampling optimizer
-   (``[opt-sampling]``), ``OPT_PHASES``' settings: seconds, EPE against
+   (``[opt-sampling]``) and optax's L-BFGS (``[opt-lbfgs]``),
+   ``OPT_PHASES``' settings: seconds, EPE against
    the zero flow's (``OPT_GATED`` below half of it, the others below it),
    host syncs, iterations, K1/K2/K8 launches; ``[opt-repeat]`` BFGS again
    from a fresh solver, bit for bit; then ``[trace]``: one chained frame
    (Newton budget ``TRACE_MAX_ITER``) with ``output.trace_dir``, whose
    ``torch.profiler`` trace must name K1's and K8's kernels;
-15. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on the first
+15. the device L-BFGS (``lbfgs_path``, ``optimizer.device_solver: lbfgs``,
+   ``LBFGS_MAX_ITER`` iterations per scale): ``[lbfgs]`` the MVSEC slice's
+   frame 0 chained, then with the loop in a fresh run, bit for bit
+   (``[lbfgs-repeat]``, ``[chain]``); ``[lbfgs-dsec]`` the DSEC path's
+   blocks chained, beside the Newton ``[dsec-frame]``'s seconds, syncs and
+   launches; ``[fleet-lbfgs]`` the fleet of ``FLEET_BATCH`` with the
+   lockstep L-BFGS, chained, twice from fresh solvers, bit for bit.  K1/K2
+   (K7's pair in the fleet) and K8, no K3/K4; every frame below
+   ``EPE_FRACTION`` x its zero flow's;
+16. the cold-start inits (``init_path``): ``[init-grid]`` for
+   ``grid-best`` and ``global-best`` the sweep of the MVSEC slice's frame
+   0 at the coarsest scale as the solver runs it (chunks of
+   ``GRID_SWEEP_CHUNK`` candidates through K7) and with one K1 per
+   candidate (seconds, launches, peak memory of each), against the plain
+   version's sweep (the chosen translation, or a tie within ``TOL``),
+   then frame 0 with that init through the CLI; ``[init-sampling]`` frame
+   0 with ``optuna-sampling``; every frame below ``EPE_FRACTION`` x its
+   zero flow's;
+17. the EV-FlowNet path (``dnn_path``): ``[dnn-check]`` on the first
    training batch of ``DNN_CONFIG`` (64x80, batch 2, 20 000 events) and of
    ``dnn_346_config`` (256x336, 30 000 events: the signed voxel votes and
    the finest loss votes on K8's global sums), float64 and float32: the voxel grids (one K8 launch, polarity-signed weights) and
@@ -197,7 +216,9 @@ the warm finest-only server, the MVSEC recording's frames 0..1, the EVT2
 recording's windows 0..1, the global configs' frames 0..2 (the
 similarity's frame 0 again with the loop) and the 346 cell's 0..1, the
 MVSEC slice's frame 0 with each host-driven optimizer (BFGS twice) and
-once profiled, and the
+once profiled, with the device L-BFGS (twice) and with each init, the
+DSEC path's frame 0 with the device L-BFGS, the L-BFGS fleet's frames
+0..3 (twice), and the
 DNN's training runs (300 steps and 7 eval windows, 20 steps twice, 20
 steps at 256x336).  Every path runs chained, the sequential
 repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
@@ -614,9 +635,10 @@ def loop_repeat(port_main, config: dict, dev, records, peak: float, smi: str, na
     again, _, _, loop_peak = run_slice(port_main, loop_config(config), dev, last_frame=0)
     a, r = again[0], records[0]
     same = (r["stats"]["chain"] and not a["stats"]["chain"] and a["metrics"] == r["metrics"]
-            and all(a["stats"][k] == r["stats"][k] for k in ("loss", "syncs", "launches")))
+            and all(a["stats"][k] == r["stats"][k] for k in ("loss", "iters", "syncs", "launches")))
     phase(name, f"frame 0 in a fresh run with the loop (chain: false, {a['seconds']:.3f} s): metrics, per-scale "
-                f"losses, host syncs and launches bit for bit the chained run's: {'ok' if same else 'FAIL'}")
+                f"losses, iterations, host syncs and launches bit for bit the chained run's: "
+                f"{'ok' if same else 'FAIL'}")
     phase("chain", f"{what} frame 0 on {smi}: chained {r['seconds']:.3f} s, loop {a['seconds']:.3f} s "
                    f"({a['seconds'] / r['seconds']:.2f}x), host syncs {r['stats']['syncs']} / "
                    f"{a['stats']['syncs']}, peak device memory {peak:.3f} / {loop_peak:.3f} GiB")
@@ -865,6 +887,8 @@ def dsec_path(port_main, fi, dev, smi, rng):
         if not ok:
             failed.append(r["frame"])
     phase("dsec", f"{len(records)} windows in {wall:.2f} s, kernel launches {launches}, out {out_dir}")
+    DSEC_NEWTON.update(seconds=records[0]["seconds"], syncs=records[0]["stats"]["syncs"],
+                       epe=records[0]["metrics"]["EPE"], launches=solve_launches(records[0]["stats"]))
     same = loop_repeat(port_main, config, dev, records, peak, smi, "dsec-repeat", "DSEC")
     if failed:
         raise SystemExit(f"chip_smoke: DSEC frames {failed}: metrics, K3/K4 launches or subsample wrong")
@@ -1753,8 +1777,10 @@ def count_lines(path: str) -> int:
 
 
 def solve_launches(stats: dict) -> dict:
-    """K1, K2 and K8 launches of one solve, summed over its scales."""
-    return {k: sum(c[k] for c in stats["launches"].values()) for k in ("fwd", "bwd", "vote")}
+    """Each kernel's launches in one solve, summed over its scales (``fwd``
+    K1, ``bwd`` K2, ``jvp`` K3, ``hvp_bwd`` K4, ``batched_fwd`` K7's
+    forward, ``vote`` K8, ...)."""
+    return {k: sum(c[k] for c in stats["launches"].values()) for k in next(iter(stats["launches"].values()))}
 
 
 def evt2_fwl_path(dev, smi) -> dict:
@@ -1965,19 +1991,33 @@ VIZ_PREFIXES = ("original", "pred_warp", "pred_masked", "gt_warp", "gt_flow", "o
 # candidates keep the coarsest basin (JAX: EPE 3.88), from zero 0.897
 # (tools/screen_host_optimizers.py, the JAX package on the CPU at full size,
 # float64, scatter backend).
+# optax's LBFGS runs at lr 5 (the same screen, full size: lr 1, 5, 20 land
+# the JAX package's frame at EPE 0.6994, 0.6893, 0.7015).
 OPT_PHASES = (("opt-scipy-newton", {"method": "Newton-CG", "device": False}, {}),
               ("opt-bfgs", {"method": "BFGS"}, {}),
               ("opt-adam", {"method": "Adam", "lr": 5.0}, {}),
-              ("opt-sampling", {"method": "optuna"}, {"initialize": "zero"}))
+              ("opt-sampling", {"method": "optuna"}, {"initialize": "zero"}),
+              ("opt-lbfgs", {"method": "LBFGS", "lr": 5.0}, {}))
 # The phases held to EPE_FRACTION x the zero flow: scipy's Newton-CG (the
 # original method's optimizer) and BFGS, the one of BFGS / Adam / optuna that
 # the JAX package brings within it as shipped on this scene (EPE 0.812 against
 # 3.42; at half size none of them is, nor the device Newton-CG with JAX's
 # draws); the others must beat the zero flow.
-OPT_GATED = ("opt-scipy-newton", "opt-bfgs")
+OPT_GATED = ("opt-scipy-newton", "opt-bfgs", "opt-lbfgs")
 # [trace]: the chained frame's Newton budget, cut from the config's 25 so the
 # profiled frame's trace stays small
 TRACE_MAX_ITER = 3
+# [lbfgs], [lbfgs-dsec], [fleet-lbfgs]: optimizer.device_solver lbfgs with
+# max_iter LBFGS_MAX_ITER on every scale, 3x the configs' Newton budget of 25
+# (the JAX package's docstring: 2-4x).  The JAX package on the CPU at full
+# size, float64 (tools/screen_host_optimizers.py): the MVSEC slice's frame 0
+# at max_iter 50, 75, 100 lands at EPE 0.7026, 0.6647, 0.6518 against the
+# zero flow's 3.4166.
+LBFGS_MAX_ITER = 75
+# [init-grid]: the cold starts swept through the coarsest scale's objective
+GRID_INITS = (("grid-best", 30), ("global-best", 10))
+# the Newton DSEC frame's line (dsec_path), printed beside [lbfgs-dsec]'s
+DSEC_NEWTON = {}
 
 
 def viz_check(port_main, dev, smi, run_config: dict, out_dir: str, rng) -> None:
@@ -2146,6 +2186,203 @@ def trace_path(dev, smi) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: the profiled solve wrote no trace naming K1 and K8")
     return launches
+
+
+def lbfgs_config(config: dict) -> dict:
+    """``config`` solved by the device L-BFGS (``optimizer.device_solver:
+    lbfgs``, ``LBFGS_MAX_ITER`` iterations on every scale)."""
+    config = copy.deepcopy(config)
+    config["optimizer"].update(device_solver="lbfgs", max_iter=LBFGS_MAX_ITER)
+    return config
+
+
+def lbfgs_frame(port_main, name: str, config: dict, dev, smi, what: str):
+    """Frame 0 of ``config`` chained: ``[name]``'s line (seconds, EPE against
+    the zero flow's, syncs, L-BFGS iterations and launches per scale).
+    Returns (records, peak GiB, launches, failed)."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    records, out_dir, wall, peak = run_slice(port_main, config, dev, last_frame=0)
+    launches = ops.launch_counts()
+    loader, solv = port_main.build(slice_config(config, 0, out_dir), dev)
+    r = records[0]
+    m, st = r["metrics"], r["stats"]
+    zero = zero_flow_epe(loader, config["data"], 0, solv)
+    solve = solve_launches(st)
+    ok = (np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and np.isfinite(m["PRED_FWL"])
+          and st["chain"] and set(st["hvp"].values()) == {"lbfgs"} and solve["fwd"] > 0 and solve["bwd"] > 0
+          and solve["jvp"] == solve["hvp_bwd"] == 0)
+    phase(name, f"{what} frame 0, device_solver lbfgs, max_iter {LBFGS_MAX_ITER}, chained on {smi}: "
+                f"{r['seconds']:.3f} s, EPE {m['EPE']:.4f} (zero flow {zero:.4f}), PRED_FWL {m['PRED_FWL']:.4f}, "
+                f"host syncs {st['syncs']}, L-BFGS iters {st['iters']}, events {st['events']}, the solve's launches "
+                f"K1 {solve['fwd']} K2 {solve['bwd']} K3 {solve['jvp']} K4 {solve['hvp_bwd']} K8 {solve['vote']}, "
+                f"loss {({s: round(v, 6) for s, v in st['loss'].items()})}, peak {peak:.3f} GiB: "
+                f"{'ok' if ok else 'FAIL'}")
+    return records, peak, launches, [] if ok else [name]
+
+
+def lbfgs_path(dev, smi) -> dict:
+    """``[lbfgs]``: the MVSEC slice's frame 0 with the device L-BFGS
+    (``lbfgs_config``), chained, then in a fresh run with the loop: the same
+    metrics, losses, iterations, syncs and launches (``[lbfgs-repeat]``,
+    ``[chain]``).  ``[lbfgs-dsec]``: the DSEC path's blocks
+    (``dsec_config``) with it, chained, beside the Newton ``[dsec-frame]``.
+    ``[fleet-lbfgs]``: the fleet of ``FLEET_BATCH`` (frames 0..3,
+    ``FLEET_SOLVER_SEED``) with the lockstep L-BFGS, chained, twice from
+    fresh solvers: the same bits.  Every frame below ``EPE_FRACTION`` x its
+    zero flow's; K1/K2 (batched in the fleet) and K8, no K3/K4.  Returns
+    the runs' launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+
+    with open(CONFIG) as f:
+        config = lbfgs_config(yaml.safe_load(f))
+    records, peak, total, failed = lbfgs_frame(port_main, "lbfgs", config, dev, smi, "MVSEC slice")
+    ops.reset_launch_counts()
+    if not loop_repeat(port_main, config, dev, records, peak, smi, "lbfgs-repeat", "MVSEC L-BFGS"):
+        failed.append("lbfgs-repeat")
+    total = {k: total[k] + v for k, v in ops.launch_counts().items()}
+
+    dsec, _, launches, dsec_failed = lbfgs_frame(port_main, "lbfgs-dsec", lbfgs_config(dsec_config()), dev, smi,
+                                                 "DSEC path")
+    total = {k: total[k] + launches[k] for k in total}
+    failed += dsec_failed
+    if DSEC_NEWTON:
+        d = dsec[0]
+        phase("lbfgs-dsec", f"beside the Newton [dsec-frame] 0: {d['seconds']:.3f} s against {DSEC_NEWTON['seconds']:.3f} "
+                            f"s ({d['seconds'] / DSEC_NEWTON['seconds']:.2f}x), host syncs {d['stats']['syncs']} "
+                            f"against {DSEC_NEWTON['syncs']}, EPE {d['metrics']['EPE']:.4f} against "
+                            f"{DSEC_NEWTON['epe']:.4f}, K1 {solve_launches(d['stats'])['fwd']} against "
+                            f"{DSEC_NEWTON['launches']['fwd']}, K2 {solve_launches(d['stats'])['bwd']} against "
+                            f"{DSEC_NEWTON['launches']['bwd']}")
+
+    fleet = lbfgs_config(fleet_config(config, FLEET_BATCH))
+    rule = lambda st: all(c["batched_fwd"] > 0 and c["batched_bwd"] > 0  # noqa: E731
+                          and c["batched_jvp"] == c["batched_hvp_bwd"] == 0 for c in st["launches"].values())
+    runs = []
+    for attempt in range(2):
+        ops.reset_launch_counts()
+        recs, run_config, loader, solv, wall, fpeak = run_fleet(port_main, fleet, dev, FLEET_BATCH)
+        got = ops.launch_counts()
+        total = {k: total[k] + got[k] for k in total}
+        if attempt == 0:
+            failed += [f"fleet-lbfgs {f}" for f in fleet_run_checks(recs, rule, loader, run_config, solv,
+                                                                    "fleet-lbfgs")]
+        runs.append((recs, wall, fpeak))
+    (recs, wall, fpeak), (again, again_wall, _) = runs
+    same = (len(again) == len(recs) == FLEET_BATCH and all(a["metrics"] == r["metrics"] for a, r in zip(again, recs))
+            and all(again[0]["stats"][k] == recs[0]["stats"][k] for k in ("loss", "iters", "syncs", "launches")))
+    phase("fleet-lbfgs", f"{len(recs)} windows in one chained batch in {wall:.2f} s ({wall / FLEET_BATCH:.3f} s per "
+                         f"frame), batch host syncs {recs[0]['stats']['syncs']}, peak {fpeak:.3f} GiB; again from a "
+                         f"fresh solver ({again_wall:.2f} s): metrics, losses, iterations, syncs and launches bit for "
+                         f"bit the same: {'ok' if same else 'FAIL'} on {smi}")
+    if not same:
+        failed.append("fleet-lbfgs repeat")
+    if failed:
+        raise SystemExit(f"chip_smoke: L-BFGS phases {failed} failed their EPE gate, launches or repeat")
+    return total
+
+
+def init_path(dev, smi) -> dict:
+    """``[init-grid]``: for ``grid-best`` (100 candidates) and
+    ``global-best`` (900), the MVSEC slice's frame 0 window at the
+    coarsest scale: the sweep as the solver runs it (chunks of
+    ``GRID_SWEEP_CHUNK`` candidates through the batched objective, K7) and
+    with one K1 evaluation per candidate, each timed with its launches and
+    peak memory, and the plain version's sweep (the plain vote on the
+    card): the chosen translation equal, or the two candidates' plain
+    losses within ``TOL``; then frame 0 through the CLI's eval loop with
+    that init (EPE below ``EPE_FRACTION`` x the zero flow's).
+    ``[init-sampling]``: frame 0 with ``optuna-sampling``.  Returns the
+    frame runs' launches."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.ops import fused_iwe as fi
+    from event_based_optical_flow_tpu_torch.solver import objective, patch_base
+    from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents, build_objective, build_orig_iwe
+
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    total, failed = None, []
+    for init, step in GRID_INITS + (("optuna-sampling", None),):
+        cfg = copy.deepcopy(config)
+        cfg["solver"]["patch"]["initialize"] = init
+        if step is not None:
+            loader, solv = port_main.build(slice_config(cfg, 0, tempfile.mkdtemp(prefix="evflow_chip_smoke_")), dev)
+            d = slice_config(cfg, 0, "")["data"]
+            ts = loader.eval_frame_time_list()
+            events = port_main._gather_frame(loader, d, ts[0], ts[d["eval_dt"]])[0]
+            solv.overload_patch_configuration(solv.coarsest_scale)
+            spec = solv._current_spec()
+            frame = FrameEvents.from_numpy(events, dev, solv.dtype, solv.time_bin)
+            orig = build_orig_iwe(spec)(frame)
+            grid = patch_base.grid_translations(step)
+            tiles = solv.tensor(np.repeat(grid[:, :, None], solv.n_patch, axis=2).reshape(len(grid), -1))
+            per_candidate = lambda motions: torch.stack(  # noqa: E731  the other design: one K1 each
+                [build_objective(spec)(m, orig, frame)[0] for m in motions])
+            timed = {}
+            for arm, sweep in (("kept", lambda m: solv._grid_sweep_losses(spec, frame, orig, m)),
+                               ("per", per_candidate)):
+                with torch.no_grad():
+                    sweep(tiles[:patch_base.GRID_SWEEP_CHUNK])  # warm-up
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    losses = sweep(tiles)
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = {k: v for k, v in ops.launch_counts().items() if v}
+                timed[arm] = (losses, seconds, counts, (torch.cuda.max_memory_allocated() - base) / 2**30)
+            kernels = (objective.fused_iwe, fi.fused_iwe)
+            objective.fused_iwe = fi.fused_iwe = fi.fused_iwe_reference
+            try:
+                t0 = time.perf_counter()
+                plain = solv._grid_sweep_losses(spec, frame, orig, tiles).double().cpu().numpy()
+                torch.cuda.synchronize()
+                plain_seconds = time.perf_counter() - t0
+            finally:
+                objective.fused_iwe, fi.fused_iwe = kernels
+            kept = timed["kept"][0].double().cpu().numpy()
+            per = timed["per"][0].double().cpu().numpy()
+            k, kp = int(np.nanargmin(kept)), int(np.nanargmin(plain))
+            scale = np.abs(plain).max()
+            err = float(np.abs(kept - plain).max() / scale)
+            ok = (err <= TOL[solv.dtype] and float(np.abs(per - plain).max() / scale) <= TOL[solv.dtype]
+                  and (k == kp or abs(plain[k] - plain[kp]) <= TOL[solv.dtype] * scale))
+            (_, s_kept, c_kept, m_kept), (_, s_per, c_per, m_per) = timed["kept"], timed["per"]
+            phase("init-grid", f"{init}: {len(grid)} candidates at scale {solv.coarsest_scale} ({solv.n_patch} tiles) "
+                               f"on {len(events)} events, {str(solv.dtype)[6:]} on {smi}: chosen {grid[k].tolist()} "
+                               f"(plain sweep: {grid[kp].tolist()}), loss {kept[k]:.6f} (plain {plain[k]:.6f}); "
+                               f"sweep in chunks of {patch_base.GRID_SWEEP_CHUNK} {s_kept:.4f} s, launches {c_kept}, "
+                               f"peak +{m_kept:.3f} GiB; one K1 per candidate {s_per:.4f} s, launches {c_per}, "
+                               f"peak +{m_per:.3f} GiB; plain sweep {plain_seconds:.4f} s; max|loss - plain| "
+                               f"{err:.2e} x max|plain| (tol {TOL[solv.dtype]:g}): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{init} sweep")
+        ops.reset_launch_counts()
+        records, out_dir, wall, peak = run_slice(port_main, cfg, dev, last_frame=0)
+        launches = ops.launch_counts()
+        total = launches if total is None else {key: total[key] + v for key, v in launches.items()}
+        loader, solv = port_main.build(slice_config(cfg, 0, out_dir), dev)
+        r = records[0]
+        m, st = r["metrics"], r["stats"]
+        zero = zero_flow_epe(loader, cfg["data"], 0, solv)
+        solve = solve_launches(st)
+        ok = np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero and np.isfinite(m["PRED_FWL"]) and st["chain"]
+        name = "init-grid" if step is not None else "init-sampling"
+        phase(name, f"{init}: frame 0 chained on {smi}: {r['seconds']:.3f} s, EPE {m['EPE']:.4f} (zero flow "
+                    f"{zero:.4f}), PRED_FWL {m['PRED_FWL']:.4f}, host syncs {st['syncs']}, Newton iters "
+                    f"{st['iters']}, the solve's launches K1 {solve['fwd']} K2 {solve['bwd']} K7 "
+                    f"{solve['batched_fwd']} K8 {solve['vote']}, loss "
+                    f"{({s: round(v, 6) for s, v in st['loss'].items()})}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(init)
+    if failed:
+        raise SystemExit(f"chip_smoke: init phases {failed} failed their sweep check or EPE gate")
+    return total
 
 
 # ---- the EV-FlowNet path ------------------------------------------------------
@@ -2551,7 +2788,8 @@ def main() -> int:
         errs.update(path_errs)
         times.update(path_times)
         bounds.update(path_bounds)
-    for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path, optimizer_path, trace_path):
+    for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path, optimizer_path, trace_path, lbfgs_path,
+                 init_path):
         path_launches = path(dev, smi)
         launches = {k: launches[k] + path_launches[k] for k in launches}
     dnn_launches, k8_dnn = dnn_path(dev, smi)

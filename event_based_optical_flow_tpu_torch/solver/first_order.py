@@ -8,17 +8,32 @@ its adam), written here as functions on tensors: ``torch.optim``'s
 defaults differ from optax's in several of them (adagrad's initial
 accumulator, rmsprop's eps, rprop's step bounds).  ``Adam`` and
 ``SparseAdam`` are ``torch.optim.Adam`` with optax's betas and eps, as the
-EV-FlowNet trainer takes it (``models/train.py``).  ``LBFGS`` (optax's
-L-BFGS with its zoom line search) is not ported.
+EV-FlowNet trainer takes it (``models/train.py``).
+
+``LBFGS`` is optax's ``lbfgs(lr)`` (optax 0.2.6), the three steps it
+chains: ``scale_by_lbfgs(memory_size=10, scale_init_precond=True)`` (the
+two-loop recursion over the last 10 differences of iterates and
+gradients, the first step's preconditioner capped at 1/|g|), the
+learning rate, and ``scale_by_zoom_linesearch(max_linesearch_steps=20,
+initial_guess_strategy="one")``: the interval search and zoom of Nocedal
+and Wright's algorithms 3.5-3.6 with cubic, quadratic and bisection
+trial points, Hager and Zhang's approximate decrease test, and optax's
+fallback to the safe (decreasing) step when the search fails
+(``ZoomLinesearch``, written from ``optax/_src/linesearch.py``).  Each
+trial point is one evaluation of the value and gradient, as in the JAX
+loop (optax's state-carried value is not reused there); the search's
+conditions run on the host in float64, one read of the trial's value and
+slope each.
 
 The loop keeps its iterate, the best iterate and the best loss on the
-device: a step reads nothing back, and the best loss is read once at the
-end.
+device: a step of the other rules reads nothing back, and the best loss is
+read once at the end.
 """
 
 import math
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -164,13 +179,203 @@ def make_rule(name: str, x0: Tensor, lr: float) -> Callable[[Tensor, Tensor], Te
     return _Rule(name, x0, lr)
 
 
+LBFGS_MEMORY = 10  # optax.lbfgs's memory_size
+ZOOM_MAX_STEPS = 20  # its zoom line search's max_linesearch_steps
+# scale_by_zoom_linesearch's defaults
+ZOOM_INCREASE = 2.0
+ZOOM_SLOPE_RTOL = 1e-4
+ZOOM_CURV_RTOL = 0.9
+ZOOM_APPROX_DEC_RTOL = 1e-6
+ZOOM_INTERVAL_THRESHOLD = 1e-5
+
+_f64 = np.float64
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """optax's ``_cubicmin``: the critical point of the cubic through (a,
+    fa), (b, fb), (c, fc) with slope fpa at a (NaN when there is none)."""
+    C = fpa
+    db, dc = b - a, c - a
+    denom = (db * dc) * (db * dc) * (db - dc)
+    v0, v1 = fb - fa - C * db, fc - fa - C * dc
+    A = (dc * dc * v0 + -(db * db) * v1) / denom
+    B = (-(dc * (dc * dc)) * v0 + db * (db * db) * v1) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + np.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """optax's ``_quadmin``: the critical point of the quadratic through
+    (a, fa), (b, fb) with slope fpa at a."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+class ZoomLinesearch:
+    """optax's ``zoom_linesearch`` (``tol`` 0, no maximal step) on host
+    float64 scalars: ``search(value_and_slope, f0, s0)`` returns the
+    accepted step size along the update direction, from the value ``f0``
+    and slope ``s0`` at step 0 and ``value_and_slope(eta) -> (f, s)`` at a
+    trial step (one evaluation each); ``trials`` counts them."""
+
+    def __init__(self, max_steps: int = ZOOM_MAX_STEPS):
+        self.max_steps = max_steps
+        self.trials = 0
+
+    @staticmethod
+    def _decrease_error(eta, f, s, f0, s0):
+        err = f - f0 - ZOOM_SLOPE_RTOL * eta * s0
+        approx = np.maximum(s - (2 * ZOOM_SLOPE_RTOL - 1.0) * s0, f - f0 - ZOOM_APPROX_DEC_RTOL * np.abs(f0))
+        err = np.maximum(np.minimum(approx, err), 0.0)
+        return _f64(np.inf) if np.isnan(err) else err
+
+    @staticmethod
+    def _curvature_error(s, s0):
+        err = np.maximum(np.abs(s) - ZOOM_CURV_RTOL * np.abs(s0), 0.0)
+        return _f64(np.inf) if np.isnan(err) else err
+
+    def search(self, value_and_slope: Callable, f0: float, s0: float) -> float:
+        with np.errstate(all="ignore"):
+            return float(self._search(value_and_slope, _f64(f0), _f64(s0)))
+
+    def _search(self, value_and_slope, f0, s0):
+        zero = _f64(0.0)
+        count, eta, f, s = 0, zero, f0, s0
+        low, f_low, s_low = zero, f0, s0
+        high, f_high, s_high = zero, f0, s0
+        cubic_ref, f_cubic_ref = zero, f0
+        safe_eta, safe_f = zero, f0
+        interval_found = done = failed = False
+        dec_err = _f64(np.inf)
+        while not (done or failed):
+            if not interval_found:
+                # interval search (Nocedal and Wright, algorithm 3.5)
+                new = _f64(1.0) if count == 0 else ZOOM_INCREASE * eta
+                nf, ns = (_f64(v) for v in value_and_slope(new))
+                self.trials += 1
+                dec_err = self._decrease_error(new, nf, ns, f0, s0)
+                error = np.maximum(dec_err, self._curvature_error(ns, s0))
+                if dec_err <= 0.0:
+                    safe_eta, safe_f = new, nf
+                set_high = bool(dec_err > 0.0) or (bool(nf >= f) and count > 0)
+                set_low = bool(ns >= 0.0) and not set_high
+                if set_low:
+                    low, f_low, s_low, high, f_high, s_high = new, nf, ns, eta, f, s
+                else:
+                    low, f_low, s_low, high, f_high, s_high = eta, f, s, new, nf, ns
+                interval_found = set_high or set_low or bool(error <= 0.0)
+                done = bool(error <= 0.0)
+                failed = count + 1 >= self.max_steps and not done
+                cubic_ref, f_cubic_ref = low, f_low
+            else:
+                # zoom (algorithm 3.6): cubic, else quadratic, else bisection
+                delta = np.abs(high - low)
+                left, right = np.minimum(high, low), np.maximum(high, low)
+                cubic = _cubicmin(low, f_low, s_low, high, f_high, cubic_ref, f_cubic_ref)
+                quad = _quadmin(low, f_low, s_low, high, f_high)
+                if left + 0.2 * delta < cubic < right - 0.2 * delta:
+                    new = cubic
+                elif left + 0.1 * delta < quad < right - 0.1 * delta:
+                    new = quad
+                else:
+                    new = (low + high) / 2.0
+                nf, ns = (_f64(v) for v in value_and_slope(new))
+                self.trials += 1
+                dec_err = self._decrease_error(new, nf, ns, f0, s0)
+                error = np.maximum(dec_err, self._curvature_error(ns, s0))
+                if dec_err <= 0.0 and nf < safe_f:
+                    safe_eta, safe_f = new, nf
+                done = bool(error <= 0.0)
+                set_high_mid = bool(dec_err > 0.0) or bool(nf >= f_low)
+                set_high_low = bool(ns * (high - low) >= 0.0) and not set_high_mid
+                if set_high_mid or set_high_low:
+                    cubic_ref, f_cubic_ref = high, f_high
+                else:
+                    cubic_ref, f_cubic_ref = low, f_low
+                if set_high_mid:
+                    high, f_high, s_high = new, nf, ns
+                elif set_high_low:
+                    high, f_high, s_high = low, f_low, s_low
+                if not set_high_mid:
+                    low, f_low, s_low = new, nf, ns
+                failed = (count + 1 >= self.max_steps or (bool(delta <= ZOOM_INTERVAL_THRESHOLD)
+                                                          and safe_eta > 0.0)) and not done
+            count += 1
+            eta, f, s = new, nf, ns
+            if failed and (safe_eta > 0.0 or np.isinf(dec_err)):
+                eta = safe_eta  # optax's _try_safe_step
+        return eta
+
+
+def _dot(a: Tensor, b: Tensor) -> Tensor:
+    return torch.sum(a * b)
+
+
+class _OptaxLBFGS:
+    """``optax.lbfgs(lr)``'s update on one flat tensor: ``step(x, loss,
+    grad, value_and_grad) -> x_next``; the memory of differences lives on
+    the device, the zoom search's scalars on the host."""
+
+    def __init__(self, x0: Tensor, lr: float, memory: int = LBFGS_MEMORY):
+        self.lr, self.m, self.count = lr, memory, 0
+        self.params, self.updates = torch.zeros_like(x0), torch.zeros_like(x0)
+        self.dw = x0.new_zeros((memory,) + x0.shape)
+        self.du = x0.new_zeros((memory,) + x0.shape)
+        self.rho = x0.new_zeros((memory,))
+        self.reads = 0
+
+    def _precondition(self, x: Tensor, g: Tensor) -> Tensor:
+        """``scale_by_lbfgs``: store the newest difference pair in slot
+        (count - 1) mod m (zeros at count 0), then the two-loop product,
+        newest pair first, scaled by gamma (1/|g| capped at 1 at count 0)."""
+        m, idx = self.m, self.count % self.m
+        if self.count > 0:
+            dw, du = x - self.params, g - self.updates
+            sy = _dot(du, dw)
+            self.dw[(self.count - 1) % m], self.du[(self.count - 1) % m] = dw, du
+            self.rho[(self.count - 1) % m] = torch.where(sy == 0.0, torch.zeros_like(sy), 1.0 / sy)
+            den = _dot(du, du)
+            gamma = torch.where(den > 0.0, sy / den, torch.ones_like(den))
+        else:
+            self.rho[m - 1] = 0.0
+            self.dw[m - 1], self.du[m - 1] = 0.0, 0.0
+            gamma = torch.clamp(1.0 / torch.sqrt(_dot(g, g)), max=1.0)
+        order = [(idx + j) % m for j in range(m)]
+        vec, alphas = g, {}
+        for i in reversed(order):
+            alphas[i] = self.rho[i] * _dot(self.dw[i], vec)
+            vec = vec + -alphas[i] * self.du[i]
+        vec = gamma * vec
+        for i in order:
+            beta = self.rho[i] * _dot(self.du[i], vec)
+            vec = vec + (alphas[i] - beta) * self.dw[i]
+        self.count += 1
+        self.params, self.updates = x, g
+        return vec
+
+    def step(self, x: Tensor, loss: Tensor, g: Tensor, value_and_grad: Callable) -> Tensor:
+        u = -self.lr * self._precondition(x, g)
+
+        def value_and_slope(eta):
+            f, gt = value_and_grad(x + float(eta) * u)
+            self.reads += 1
+            return torch.stack([f, _dot(gt, u)]).tolist()
+
+        f0, s0 = torch.stack([loss, _dot(u, g)]).tolist()
+        self.reads += 1
+        eta = ZoomLinesearch().search(value_and_slope, f0, s0)
+        return x + eta * u
+
+
 def run_first_order(value_and_grad: Callable, x0: Tensor, method: str, opt_config: dict):
     """``opt_config["n_iter"]`` steps of ``method`` at ``opt_config["lr"]``
     (default 0.05) from ``x0``: ``value_and_grad(x) -> (loss, grad)``.
-    Returns (the best iterate on the device, its loss as a float: the
-    loop's one host read)."""
+    Returns (the best iterate on the device, its loss as a float, the host
+    reads: 1, and for ``LBFGS`` one more per step and per trial point)."""
     lr = float(opt_config.get("lr", 0.05))
-    rule = make_rule(method, x0, lr)
+    lbfgs = _OptaxLBFGS(x0.detach(), lr) if method == "LBFGS" else None
+    rule = None if lbfgs else make_rule(method, x0, lr)
     x = x0.detach().clone()
     best_x, best_loss = x, torch.full((), math.inf, dtype=x.dtype, device=x.device)
     for _ in range(int(opt_config["n_iter"])):
@@ -178,5 +383,5 @@ def run_first_order(value_and_grad: Callable, x0: Tensor, method: str, opt_confi
         improved = loss < best_loss
         best_x = torch.where(improved, x, best_x)
         best_loss = torch.where(improved, loss, best_loss)
-        x = rule(x, grad)
-    return best_x, float(best_loss)
+        x = lbfgs.step(x, loss, grad, value_and_grad) if lbfgs else rule(x, grad)
+    return best_x, float(best_loss), 1 + (lbfgs.reads if lbfgs else 0)

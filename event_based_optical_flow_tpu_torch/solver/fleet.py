@@ -30,8 +30,13 @@ the finest scale only (``_optimize_batch_warm_finest``).
 frame's init sweep on its own (its own draw and capacity), cold starts
 only (a warm motion is dropped with the JAX package's warning).  The two
 draw differently, so their results differ, as in the JAX package.  Its
-mesh (``parallel:``) and batched L-BFGS (``device_solver: lbfgs``) are not
-ported: the config validation refuses them.
+mesh (``parallel:``) is not ported: the config validation refuses it.
+
+``optimizer.device_solver: lbfgs`` replaces the lockstep Newton-CG by the
+lockstep L-BFGS (``BatchedLBFGS``, the JAX package's
+``build_lbfgs_batched``) in the chain and the loop alike.  The cold
+starts keep the JAX package's rule: any ``solver.patch.initialize`` other
+than ``zero`` draws the random init.
 """
 
 import logging
@@ -144,86 +149,19 @@ def _rdot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b, dim=-1)
 
 
-class BatchedNewtonCG:
-    """Lockstep per-frame truncated Newton (``build_newton_cg_batched`` of
-    the JAX package, step for step): ``solve(ev, x0 [B, M]) -> (best_x
-    [B, M], best_f [B], iterations)``, the evaluations taken from ``ev``
-    (``newton_cg.BatchedEvaluations`` of ``value_fn(x, *args) -> [B]``, or
-    ``graphs.StagedEvaluations`` on a batch's stage); ``__call__(x0,
-    *args)`` runs them eagerly.
+class BatchedLineSearches:
+    """The lockstep line searches the fleet's solvers share (the JAX
+    package's ``_batched_line_search`` and ``_batched_escape_probe``), one
+    host read per condition for the whole batch: a subclass sets
+    ``ls_maxiter``, ``armijo_c1`` and ``syncs``."""
 
-    Per frame: the forcing sequence, CG state, negative-curvature fallback
-    and ``done`` mask (frozen frames keep their state); the line search
-    freezes each frame at its first accepted level; the FD HVP steps each
-    frame by ``0.1 (1 + 1e-3 |x_b|) / (|d_b| + 1e-12)``.  The escape probe
-    runs while ANY frame has not improved on its start, and every frame
-    keeps its best over all probes, so a frame's result depends on which
-    frames share its batch (the JAX package's semantics, kept).  Every loop
-    condition is one host read for the whole batch (``syncs``)."""
-
-    def __init__(self, value_fn: Callable, maxiter: int = 25, cg_maxiter: int = 32, xtol: float = 1e-5,
-                 gtol: float = 1e-5, ls_maxiter: int = 16, armijo_c1: float = 1e-4, hvp_mode: str = "fd",
-                 fd_central: bool = True, hvp_fn: Optional[Callable] = None,
-                 hvp_prep_fn: Optional[Callable] = None, max_step: Optional[float] = None,
-                 fd_polish: int = 0):
-        if hvp_mode not in ("fd", "analytic"):
-            raise ValueError(f"hvp_mode must be 'fd' or 'analytic', got {hvp_mode!r}")
-        if (hvp_mode == "analytic") != (hvp_fn is not None) or (hvp_prep_fn is not None and hvp_fn is None):
-            raise ValueError("hvp_fn (and hvp_prep_fn) go with hvp_mode='analytic' only")
-        self.value_fn = value_fn
-        self.maxiter = maxiter
-        self.cg_maxiter = cg_maxiter
-        self.xtol = xtol
-        self.gtol = gtol
-        self.ls_maxiter = ls_maxiter
-        self.armijo_c1 = armijo_c1
-        self.fd_central = fd_central
-        self.hvp_fn = hvp_fn
-        self.hvp_prep_fn = hvp_prep_fn
-        self.max_step = max_step
-        self.fd_polish = fd_polish
-        self.syncs = 0
+    ls_maxiter: int
+    armijo_c1: float
+    syncs: int
 
     def _any(self, mask: Tensor) -> bool:
         self.syncs += 1
         return bool(mask.any())
-
-    def _hvp(self, x, d, g0, ev, aux, analytic, force_central):
-        if analytic:
-            return ev.hvp(aux, x, d)
-        return ev.fd_hvp(x, d, g0, self.fd_central or force_central)
-
-    def _cg_solve(self, x, g, ev, analytic, force_central):
-        g_norm = _rnorm(g)
-        eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
-        # the staged analytic HVP's per-frame value images, once per CG solve
-        aux = ev.prep(x) if analytic and ev.staged else None
-        r, d, p = g, -g, torch.zeros_like(g)
-        done = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
-        i = 0
-        while i < self.cg_maxiter:
-            active = ~done & (_rnorm(r) > eta)
-            if not self._any(active):
-                break
-            hd = self._hvp(x, d, g, ev, aux, analytic, force_central)
-            curv = _rdot(d, hd)
-            rs = _rdot(r, r)
-            neg = curv <= 1e-16 * _rdot(d, d)
-            # scipy semantics: on non-positive curvature at i == 0 take the
-            # 1-D Newton step (rs / curv) d, later keep the accumulated p
-            p_fb = (rs / torch.where(curv == 0, torch.ones_like(curv), curv))[:, None] * d if i == 0 else p
-            alpha = rs / torch.where(neg, torch.ones_like(curv), curv)
-            p_new = p + alpha[:, None] * d
-            r_new = r + alpha[:, None] * hd
-            beta = _rdot(r_new, r_new) / torch.where(rs == 0, torch.ones_like(rs), rs)
-            d_new = -r_new + beta[:, None] * d
-            p_out = torch.where(neg[:, None], p_fb, p_new)
-            upd = active[:, None]  # frozen frames keep their state
-            r, d, p = torch.where(upd, r_new, r), torch.where(upd, d_new, d), torch.where(upd, p_out, p)
-            done = done | (neg & active)
-            i += 1
-        # CG produced nothing (eta met at once): steepest descent
-        return torch.where((_rdot(p, p) > 0)[:, None], p, -g)
 
     def _line_search(self, x, f0, g, p, ev):
         """Per-frame two-sided backtracking in lockstep: each level tries x
@@ -273,6 +211,84 @@ class BatchedNewtonCG:
             if i >= 9 or not self._any(best_f >= f0):
                 break
         return torch.where(best_f < f0, best_a, torch.zeros_like(best_a)), p_hat
+
+
+class BatchedNewtonCG(BatchedLineSearches):
+    """Lockstep per-frame truncated Newton (``build_newton_cg_batched`` of
+    the JAX package, step for step): ``solve(ev, x0 [B, M]) -> (best_x
+    [B, M], best_f [B], iterations)``, the evaluations taken from ``ev``
+    (``newton_cg.BatchedEvaluations`` of ``value_fn(x, *args) -> [B]``, or
+    ``graphs.StagedEvaluations`` on a batch's stage); ``__call__(x0,
+    *args)`` runs them eagerly.
+
+    Per frame: the forcing sequence, CG state, negative-curvature fallback
+    and ``done`` mask (frozen frames keep their state); the line search
+    freezes each frame at its first accepted level; the FD HVP steps each
+    frame by ``0.1 (1 + 1e-3 |x_b|) / (|d_b| + 1e-12)``.  The escape probe
+    runs while ANY frame has not improved on its start, and every frame
+    keeps its best over all probes, so a frame's result depends on which
+    frames share its batch (the JAX package's semantics, kept).  Every loop
+    condition is one host read for the whole batch (``syncs``)."""
+
+    def __init__(self, value_fn: Callable, maxiter: int = 25, cg_maxiter: int = 32, xtol: float = 1e-5,
+                 gtol: float = 1e-5, ls_maxiter: int = 16, armijo_c1: float = 1e-4, hvp_mode: str = "fd",
+                 fd_central: bool = True, hvp_fn: Optional[Callable] = None,
+                 hvp_prep_fn: Optional[Callable] = None, max_step: Optional[float] = None,
+                 fd_polish: int = 0):
+        if hvp_mode not in ("fd", "analytic"):
+            raise ValueError(f"hvp_mode must be 'fd' or 'analytic', got {hvp_mode!r}")
+        if (hvp_mode == "analytic") != (hvp_fn is not None) or (hvp_prep_fn is not None and hvp_fn is None):
+            raise ValueError("hvp_fn (and hvp_prep_fn) go with hvp_mode='analytic' only")
+        self.value_fn = value_fn
+        self.maxiter = maxiter
+        self.cg_maxiter = cg_maxiter
+        self.xtol = xtol
+        self.gtol = gtol
+        self.ls_maxiter = ls_maxiter
+        self.armijo_c1 = armijo_c1
+        self.fd_central = fd_central
+        self.hvp_fn = hvp_fn
+        self.hvp_prep_fn = hvp_prep_fn
+        self.max_step = max_step
+        self.fd_polish = fd_polish
+        self.syncs = 0
+
+    def _hvp(self, x, d, g0, ev, aux, analytic, force_central):
+        if analytic:
+            return ev.hvp(aux, x, d)
+        return ev.fd_hvp(x, d, g0, self.fd_central or force_central)
+
+    def _cg_solve(self, x, g, ev, analytic, force_central):
+        g_norm = _rnorm(g)
+        eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
+        # the staged analytic HVP's per-frame value images, once per CG solve
+        aux = ev.prep(x) if analytic and ev.staged else None
+        r, d, p = g, -g, torch.zeros_like(g)
+        done = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+        i = 0
+        while i < self.cg_maxiter:
+            active = ~done & (_rnorm(r) > eta)
+            if not self._any(active):
+                break
+            hd = self._hvp(x, d, g, ev, aux, analytic, force_central)
+            curv = _rdot(d, hd)
+            rs = _rdot(r, r)
+            neg = curv <= 1e-16 * _rdot(d, d)
+            # scipy semantics: on non-positive curvature at i == 0 take the
+            # 1-D Newton step (rs / curv) d, later keep the accumulated p
+            p_fb = (rs / torch.where(curv == 0, torch.ones_like(curv), curv))[:, None] * d if i == 0 else p
+            alpha = rs / torch.where(neg, torch.ones_like(curv), curv)
+            p_new = p + alpha[:, None] * d
+            r_new = r + alpha[:, None] * hd
+            beta = _rdot(r_new, r_new) / torch.where(rs == 0, torch.ones_like(rs), rs)
+            d_new = -r_new + beta[:, None] * d
+            p_out = torch.where(neg[:, None], p_fb, p_new)
+            upd = active[:, None]  # frozen frames keep their state
+            r, d, p = torch.where(upd, r_new, r), torch.where(upd, d_new, d), torch.where(upd, p_out, p)
+            done = done | (neg & active)
+            i += 1
+        # CG produced nothing (eta met at once): steepest descent
+        return torch.where((_rdot(p, p) > 0)[:, None], p, -g)
 
     def _iterate(self, x, f, g, maxiter, ev, analytic, cap, escape, force_central):
         """Lockstep Newton iterations with one curvature model (``make_body``
@@ -328,11 +344,129 @@ class BatchedNewtonCG:
         return bx, bf, k
 
 
+def _take(A: Tensor, idx: Tensor) -> Tensor:
+    """Row ``idx[b]`` of each frame's buffer: ``A`` [B, m, ...], ``idx``
+    [B] -> [B, ...]."""
+    index = idx.reshape((-1, 1) + (1,) * (A.dim() - 2)).expand((A.shape[0], 1) + A.shape[2:])
+    return torch.gather(A, 1, index)[:, 0]
+
+
+class BatchedLBFGS(BatchedLineSearches):
+    """Lockstep per-frame L-BFGS (``build_lbfgs_batched`` of the JAX
+    package, step for step): ``solve(ev, x0 [B, M]) -> (best_x [B, M],
+    best_f [B], iterations)``, ``ev`` as ``BatchedNewtonCG`` takes it (only
+    its ``value`` and ``value_grad``).  Per frame: the circular (s, y)
+    buffer and its pair count (on the device: the two-loop recursion masks
+    each frame's unstored slots), the curvature-safeguarded pair update,
+    the escape trigger masked by ``~done``; a frozen frame steps 0 (its
+    pair test fails).  Every loop condition is one host read for the whole
+    batch (``syncs``)."""
+
+    hvp_fn = None
+    hvp_prep_fn = None
+
+    def __init__(self, value_fn: Callable, maxiter: int = 100, gtol: float = 1e-5, xtol: float = 1e-5,
+                 memory: int = 8, ls_maxiter: int = 16, armijo_c1: float = 1e-4):
+        self.value_fn = value_fn
+        self.maxiter = maxiter
+        self.gtol = gtol
+        self.xtol = xtol
+        self.memory = int(memory)
+        self.ls_maxiter = ls_maxiter
+        self.armijo_c1 = armijo_c1
+        self.syncs = 0
+
+    def _direction(self, g: Tensor, S: Tensor, Y: Tensor, rho: Tensor, nk: Tensor) -> Tensor:
+        """-H g per frame by the two-loop recursion: age j = 0 (newest) ..
+        m - 1 in slot (nk - 1 - j) mod m, valid while nk - 1 - j >= 0."""
+        m = self.memory
+        zero = g.new_zeros(())
+        q, al = g, []
+        for j in range(m):
+            age = nk - 1 - j
+            idx = age % m
+            a = torch.where(age >= 0, _take(rho, idx) * _rdot(_take(S, idx), q), zero)
+            q = q - a[:, None] * _take(Y, idx)
+            al.append(a)
+        idx0 = (nk - 1) % m
+        s0, y0 = _take(S, idx0), _take(Y, idx0)
+        yy = _rdot(y0, y0)
+        gamma = torch.where(nk > 0, _rdot(s0, y0) / torch.where(yy > 0, yy, torch.ones_like(yy)),
+                            torch.ones_like(yy))
+        r = gamma[:, None] * q
+        for jj in range(m - 1, -1, -1):  # oldest first
+            age = nk - 1 - jj
+            idx = age % m
+            b = _take(rho, idx) * _rdot(_take(Y, idx), r)
+            r = r + torch.where(age >= 0, al[jj] - b, zero)[:, None] * _take(S, idx)
+        return -r
+
+    def __call__(self, x0: Tensor, *args):
+        return self.solve(BatchedEvaluations(self.value_fn, args), x0)
+
+    def solve(self, ev, x0: Tensor):
+        """``(best_x, best_f, iterations)`` from ``x0`` [B, M]."""
+        x = x0.detach()
+        f, g = ev.value_grad(x)
+        bx, bf = x, f
+        bsz, m = x.shape[0], self.memory
+        S, Y = x.new_zeros((bsz, m, x.shape[1])), x.new_zeros((bsz, m, x.shape[1]))
+        rho = x.new_zeros((bsz, m))
+        nk = torch.zeros(bsz, dtype=torch.int64, device=x.device)
+        slots = torch.arange(m, device=x.device)
+        done = torch.zeros_like(f, dtype=torch.bool)
+        k = 0
+        while k < self.maxiter and (k == 0 or self._any(~done)):
+            p = self._direction(g, S, Y, rho, nk)
+            alpha, f_ls = self._line_search(x, f, g, p, ev)
+            # ~done: a frozen frame's zero step must not fire the probe again
+            trigger = alpha == 0.0
+            if k == 0:
+                trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
+            trigger = ~done & trigger
+            if self._any(trigger):
+                a_esc, p_hat = self._escape_probe(x, f, p, ev)
+            else:
+                a_esc, p_hat = torch.zeros_like(alpha), p
+            use_esc = trigger & (a_esc != 0.0)
+            alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
+            step = torch.where(use_esc[:, None], a_esc[:, None] * p_hat, alpha[:, None] * p)
+            step = torch.where(done[:, None], torch.zeros_like(step), step)
+            x_new = x + step
+            f_new, g_new = ev.value_grad(x_new)
+            improved = f_new < bf
+            bx = torch.where(improved[:, None], x_new, bx)
+            bf = torch.where(improved, f_new, bf)
+            # the curvature-safeguarded pair update (a frozen frame: s = 0, skipped)
+            y = g_new - g
+            sy = _rdot(step, y)
+            good = sy > 1e-10 * (_rnorm(step) * _rnorm(y) + 1e-30)
+            hot = ((slots[None, :] == (nk % m)[:, None]) & good[:, None])
+            S = torch.where(hot[:, :, None], step[:, None, :], S)
+            Y = torch.where(hot[:, :, None], y[:, None, :], Y)
+            rho = torch.where(hot, (1.0 / torch.where(sy == 0, torch.ones_like(sy), sy))[:, None], rho)
+            nk = nk + good.to(nk.dtype)
+            small_step = step.abs().sum(dim=-1) <= self.xtol
+            small_grad = g_new.abs().amax(dim=-1) <= self.gtol
+            done = done | small_step | small_grad | (alpha == 0.0)
+            x, f, g = x_new, f_new, g_new
+            k += 1
+        return bx, bf, k
+
+
 class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
     """Pyramidal CMax over a fleet of frames (``optimize_batch``): chained
     (the JAX package's fleet chain, optionally warm) or, with
     ``optimizer.chain: false``, the per-scale loop; ``optimize`` (one frame)
     is the sequential pyramid's."""
+
+    def _init_scale(self, s: int, warm: Optional[Dict[int, Tensor]], *_) -> Tensor:
+        """A frame's coarsest start: its ``warm`` motion, else the zero
+        init for ``solver.patch.initialize: zero`` and the random one for
+        every other value (the JAX package's fleet rule)."""
+        if warm is not None:
+            return warm[s].clone()
+        return self.initialize_zeros() if self.slv_config["patch"]["initialize"] == "zero" else self.initialize_random()
 
     def _coarse_events_list(self, events_list: List[np.ndarray]):
         """Per-frame stride subsamples for the coarse scales, or None when
@@ -376,19 +510,24 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
 
     def _run_fleet_newton(self, spec: ObjectiveSpec, x0: Tensor, fleet: FleetEvents, orig: Tensor,
                           maxiter: int, cg_maxiter=None, finest: bool = True, warm: bool = False, stage=None):
-        """One lockstep Newton-CG solve of this scale's batched objective
-        from ``x0`` [B, M] (``warm``: the batch starts from warm motions);
-        with ``stage`` (a batch's ``graphs.Stage`` whose buffers are
-        ``fleet`` and ``orig``) the evaluations are replayed from CUDA
-        graphs on the card.  Returns (best_x, best_f [B], iterations, hvp)."""
+        """One lockstep solve of this scale's batched objective from ``x0``
+        [B, M] (``warm``: the batch starts from warm motions): Newton-CG, or
+        L-BFGS with ``optimizer.device_solver: lbfgs`` (hvp "lbfgs"); with
+        ``stage`` (a batch's ``graphs.Stage`` whose buffers are ``fleet``
+        and ``orig``) the evaluations are replayed from CUDA graphs on the
+        card.  Returns (best_x, best_f [B], iterations, hvp)."""
         analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_batched_objective(spec)
-        hvp_kw = {}
-        if analytic:
-            prep, hvp = build_batched_objective_hvp_staged(spec, gauss_newton)
-            hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
-        solve = BatchedNewtonCG(obj, **self._newton_options(analytic, finest, maxiter, cg_maxiter), **hvp_kw)
-        name = self._hvp_name(analytic, gauss_newton)
+        lbfgs = self._lbfgs_options(maxiter)
+        if lbfgs is not None:
+            solve, name = BatchedLBFGS(obj, **lbfgs), "lbfgs"
+        else:
+            hvp_kw = {}
+            if analytic:
+                prep, hvp = build_batched_objective_hvp_staged(spec, gauss_newton)
+                hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
+            solve = BatchedNewtonCG(obj, **self._newton_options(analytic, finest, maxiter, cg_maxiter), **hvp_kw)
+            name = self._hvp_name(analytic, gauss_newton)
         x0 = x0.to(self.dtype)
         if stage is None:
             best_x, best_f, n_iter = solve(x0, orig, fleet)

@@ -1,10 +1,13 @@
 """Single-scale tile CMax solver (port of
 ``event_based_optical_flow_tpu/solver/mixed.py``): one tile grid from
 ``patch.size`` / ``patch.sliding_window``, its motion solved jointly by the
-device Newton-CG (gtol 1e-7, as the JAX package's device branch), or by
-any other ``optimizer.method`` from the host (a scipy method at gtol 1e-7,
-the sampling optimizer, a first-order rule: ``patch_base``).  The
-``global-best`` / ``grid-best`` initializations raise a ``ConfigError``.
+device Newton-CG or L-BFGS (gtol 1e-7, as the JAX package's device
+branch), or by any other ``optimizer.method`` from the host (a scipy
+method at gtol 1e-7, the sampling optimizer, a first-order rule, optax's
+L-BFGS: ``patch_base``).  Every
+``solver.patch.initialize`` of the JAX package starts it: ``random``,
+``zero``, ``optuna-sampling``, ``grid-best``, ``global-best``
+(``patch_base.initialize_from_init``).
 
 The history register is plotted after every frame and, as in the JAX
 package's single-scale solvers, never cleared: a frame's plot shows every
@@ -17,7 +20,6 @@ import numpy as np
 import torch
 
 from ..ops.interp import tile_to_dense_flow
-from ..utils.config_schema import ConfigError
 from .objective import FrameEvents, build_orig_iwe
 from .patch_base import PatchContrastMaximization, prepare_patch
 
@@ -36,15 +38,12 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         self.n_patch = len(self.patches)
         self.last_frame_stats: dict = {}
 
-    def _initial_motion(self) -> torch.Tensor:
+    def _initial_motion(self, events_np: np.ndarray, frame: FrameEvents, orig: torch.Tensor) -> torch.Tensor:
+        """The warm motion, else ``solver.patch.initialize``'s cold start
+        (``initialize_from_init``)."""
         if self.previous_frame_best_estimation is not None:
             return self.previous_frame_best_estimation.clone()
-        init = self.slv_config["patch"]["initialize"]
-        if init == "random":
-            return self.initialize_random()
-        if init == "zero":
-            return self.initialize_zeros()
-        raise ConfigError(f"'solver.patch.initialize: {init!r}' is not ported yet")
+        return self.initialize_from_init(self.slv_config["patch"]["initialize"], events_np, frame, orig)
 
     def optimize(self, events: np.ndarray) -> torch.Tensor:
         """Solve one frame: the tile motion [2, h_p, w_p] on the solver's
@@ -57,9 +56,9 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         spec = self._current_spec()
         frame = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
         before = ops.launch_counts()
-        motion0 = self._initial_motion()
         self.syncs = 0
         orig = build_orig_iwe(spec)(frame)
+        motion0 = self._initial_motion(events, frame, orig)
         if self._device_newton():
             best_x, best_f, n_iter, hvp = self._run_newton(
                 spec, motion0, frame, orig, int(self.opt_config.get("max_iter", 25)), finest=True,

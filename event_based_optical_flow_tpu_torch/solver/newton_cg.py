@@ -1,5 +1,6 @@
-"""Truncated Newton (Newton-CG) (port of
-``event_based_optical_flow_tpu/solver/newton_cg.py::build_newton_cg``).
+"""Truncated Newton (Newton-CG) and L-BFGS (port of
+``event_based_optical_flow_tpu/solver/newton_cg.py``: ``build_newton_cg``,
+``build_lbfgs`` and the line searches they share, ``LineSearches``).
 
 Same algorithm, step for step: scipy's forcing sequence
 ``eta = min(0.5, sqrt|g|) |g|`` and negative-curvature fallback in the
@@ -27,6 +28,8 @@ condition reads one boolean back to the host, a device synchronization.
 value and gradient, the HVPs) come from an evaluations object: run as
 called (``EagerEvaluations``), or replayed from CUDA graphs
 (``solver/graphs.py``); the arithmetic between them is the same either way.
+``LBFGS`` (``optimizer.device_solver: lbfgs``) takes the same evaluations
+object and needs its ``value`` and ``value_grad`` only.
 """
 
 from typing import Callable, Optional
@@ -124,89 +127,19 @@ class BatchedEvaluations(EagerEvaluations):
         return batched_fd_hvp(self.value_grad, x, p, g0, central)
 
 
-class NewtonCG:
-    """``solve(x0, *args) -> (x_best, f_best, n_iters)`` for a scalar
-    ``value_fn(x, *args)`` differentiable by autograd."""
+class LineSearches:
+    """The line searches the device solvers share (the JAX package's module
+    functions ``_line_search`` and ``_escape_probe``), with the host-read
+    count: a subclass sets ``ls_maxiter``, ``armijo_c1`` and ``syncs``."""
 
-    def __init__(
-        self,
-        value_fn: Callable,
-        maxiter: int = 25,
-        cg_maxiter: int = 20,
-        xtol: float = 1e-5,
-        gtol: float = 1e-5,
-        ls_maxiter: int = 16,
-        armijo_c1: float = 1e-4,
-        hvp_mode: str = "fd",
-        fd_central: bool = True,
-        hvp_fn: Optional[Callable] = None,
-        hvp_prep_fn: Optional[Callable] = None,
-        max_step: Optional[float] = None,
-        fd_polish: int = 0,
-    ):
-        self.value_fn = value_fn
-        self.maxiter = maxiter
-        self.cg_maxiter = cg_maxiter
-        self.xtol = xtol
-        self.gtol = gtol
-        self.ls_maxiter = ls_maxiter
-        self.armijo_c1 = armijo_c1
-        self.hvp_mode = hvp_mode
-        self.fd_central = fd_central
-        self.hvp_fn = hvp_fn
-        self.hvp_prep_fn = hvp_prep_fn
-        self.max_step = max_step
-        self.fd_polish = fd_polish
-        self.syncs = 0
+    ls_maxiter: int
+    armijo_c1: float
+    syncs: int
 
-    # --- host reads -----------------------------------------------------
     def _flag(self, t: Tensor) -> bool:
         self.syncs += 1
         return bool(t)
 
-    # --- evaluations ----------------------------------------------------
-    def _hvp(self, x, p, ev, g0, aux, mode):
-        if mode == "analytic":
-            return ev.hvp(aux, x, p)
-        return ev.fd_hvp(x, p, g0, self.fd_central or mode == "fd-central")
-
-    # --- inner CG ---------------------------------------------------------
-    def _cg_solve(self, x, g, ev, mode):
-        """Truncated CG on H p = -g (scipy forcing sequence and
-        negative-curvature handling)."""
-        g_norm = _norm(g)
-        eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
-        r, d, p = g, -g, torch.zeros_like(g)
-        aux = None  # the staged analytic HVP's per-solve values, at the first HVP
-        i = 0
-        go = i < self.cg_maxiter and self._flag(_norm(r) > eta)
-        while go:
-            if aux is None and mode == "analytic" and ev.staged:
-                aux = ev.prep(x)
-            hd = self._hvp(x, d, ev, g, aux, mode)
-            curv = _dot(d, hd)
-            rs = _dot(r, r)
-            neg_curv = curv <= 1e-16 * _dot(d, d)
-            alpha = rs / torch.where(neg_curv, torch.ones_like(curv), curv)
-            p_new = p + alpha * d
-            r_new = r + alpha * hd
-            beta = _dot(r_new, r_new) / rs
-            flags = torch.stack([neg_curv, _norm(r_new) > eta])
-            self.syncs += 1
-            neg, more = flags.tolist()
-            if neg:
-                # scipy semantics: on non-positive curvature, at i == 0 take
-                # the 1-D Newton step (rs/curv) d, else keep the accumulated p
-                if i == 0:
-                    p = (rs / torch.where(curv == 0, torch.ones_like(curv), curv)) * d
-                break
-            p, r, d = p_new, r_new, -r_new + beta * d
-            i += 1
-            go = more and i < self.cg_maxiter
-        # CG produced nothing (eta met at once): steepest descent
-        return torch.where(_dot(p, p) > 0, p, -g)
-
-    # --- line searches --------------------------------------------------
     def _line_search(self, x, f0, g, p, ev):
         """Two-sided backtracking: at each level try x +- alpha p and accept
         the first strict improvement (largest such alpha)."""
@@ -251,6 +184,84 @@ class NewtonCG:
                 break
         ok = best_f < f0
         return torch.where(ok, best_a, torch.zeros_like(best_a)), p_hat
+
+
+class NewtonCG(LineSearches):
+    """``solve(x0, *args) -> (x_best, f_best, n_iters)`` for a scalar
+    ``value_fn(x, *args)`` differentiable by autograd."""
+
+    def __init__(
+        self,
+        value_fn: Callable,
+        maxiter: int = 25,
+        cg_maxiter: int = 20,
+        xtol: float = 1e-5,
+        gtol: float = 1e-5,
+        ls_maxiter: int = 16,
+        armijo_c1: float = 1e-4,
+        hvp_mode: str = "fd",
+        fd_central: bool = True,
+        hvp_fn: Optional[Callable] = None,
+        hvp_prep_fn: Optional[Callable] = None,
+        max_step: Optional[float] = None,
+        fd_polish: int = 0,
+    ):
+        self.value_fn = value_fn
+        self.maxiter = maxiter
+        self.cg_maxiter = cg_maxiter
+        self.xtol = xtol
+        self.gtol = gtol
+        self.ls_maxiter = ls_maxiter
+        self.armijo_c1 = armijo_c1
+        self.hvp_mode = hvp_mode
+        self.fd_central = fd_central
+        self.hvp_fn = hvp_fn
+        self.hvp_prep_fn = hvp_prep_fn
+        self.max_step = max_step
+        self.fd_polish = fd_polish
+        self.syncs = 0
+
+    # --- evaluations ----------------------------------------------------
+    def _hvp(self, x, p, ev, g0, aux, mode):
+        if mode == "analytic":
+            return ev.hvp(aux, x, p)
+        return ev.fd_hvp(x, p, g0, self.fd_central or mode == "fd-central")
+
+    # --- inner CG ---------------------------------------------------------
+    def _cg_solve(self, x, g, ev, mode):
+        """Truncated CG on H p = -g (scipy forcing sequence and
+        negative-curvature handling)."""
+        g_norm = _norm(g)
+        eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
+        r, d, p = g, -g, torch.zeros_like(g)
+        aux = None  # the staged analytic HVP's per-solve values, at the first HVP
+        i = 0
+        go = i < self.cg_maxiter and self._flag(_norm(r) > eta)
+        while go:
+            if aux is None and mode == "analytic" and ev.staged:
+                aux = ev.prep(x)
+            hd = self._hvp(x, d, ev, g, aux, mode)
+            curv = _dot(d, hd)
+            rs = _dot(r, r)
+            neg_curv = curv <= 1e-16 * _dot(d, d)
+            alpha = rs / torch.where(neg_curv, torch.ones_like(curv), curv)
+            p_new = p + alpha * d
+            r_new = r + alpha * hd
+            beta = _dot(r_new, r_new) / rs
+            flags = torch.stack([neg_curv, _norm(r_new) > eta])
+            self.syncs += 1
+            neg, more = flags.tolist()
+            if neg:
+                # scipy semantics: on non-positive curvature, at i == 0 take
+                # the 1-D Newton step (rs/curv) d, else keep the accumulated p
+                if i == 0:
+                    p = (rs / torch.where(curv == 0, torch.ones_like(curv), curv)) * d
+                break
+            p, r, d = p_new, r_new, -r_new + beta * d
+            i += 1
+            go = more and i < self.cg_maxiter
+        # CG produced nothing (eta met at once): steepest descent
+        return torch.where(_dot(p, p) > 0, p, -g)
 
     # --- outer loops ------------------------------------------------------
     def _iterate(self, x, f, g, best_x, best_f, maxiter, ev, mode, cap, escape):
@@ -336,3 +347,110 @@ def build_newton_cg(
         raise ValueError("hvp_fn (and hvp_prep_fn) go with hvp_mode='analytic' only")
     return NewtonCG(value_fn, maxiter, cg_maxiter, xtol, gtol, ls_maxiter, armijo_c1, hvp_mode,
                     fd_central, hvp_fn, hvp_prep_fn, max_step, fd_polish)
+
+
+class LBFGS(LineSearches):
+    """L-BFGS with Newton-CG's washboard machinery (port of the JAX
+    package's ``build_lbfgs``, step for step): the two-sided backtracking
+    search, the plateau-escape probe (on a failed search, or a negligible
+    decrease at the first iteration), best-iterate tracking.  One gradient
+    per iteration against Newton's 1 + 2 ``cg_maxiter`` (central FD): the
+    large-event-count lever; ``maxiter`` counts L-BFGS iterations (~2-4x a
+    Newton budget).
+
+    The direction is the two-loop recursion over a ``memory``-slot circular
+    (s, y) buffer, ``gamma`` from the newest pair; a pair enters only when
+    ``s.y > 1e-10 (|s| |y| + 1e-30)``.  It stops on ``sum|step| <= xtol``,
+    ``|g|_inf <= gtol`` or a zero step.  Each iteration's stop condition and
+    pair test come back in one host read (``syncs``), so the pair count
+    lives on the host and the recursion runs over the stored pairs only
+    (the JAX package's masked terms add exact zeros).  ``solve(ev, x0)``
+    takes ``ev``'s ``value`` and ``value_grad`` (``EagerEvaluations`` or a
+    stage's ``graphs.StagedEvaluations``)."""
+
+    hvp_fn = None
+    hvp_prep_fn = None
+
+    def __init__(self, value_fn: Callable, maxiter: int = 100, gtol: float = 1e-5, xtol: float = 1e-5,
+                 memory: int = 8, ls_maxiter: int = 16, armijo_c1: float = 1e-4):
+        self.value_fn = value_fn
+        self.maxiter = maxiter
+        self.gtol = gtol
+        self.xtol = xtol
+        self.memory = int(memory)
+        self.ls_maxiter = ls_maxiter
+        self.armijo_c1 = armijo_c1
+        self.syncs = 0
+
+    def _direction(self, g: Tensor, S: Tensor, Y: Tensor, rho: Tensor, nk: int) -> Tensor:
+        """-H g by the two-loop recursion over the stored pairs: age j = 0
+        (newest) .. min(nk, m) - 1 in slot (nk - 1 - j) mod m."""
+        m = self.memory
+        slots = [(nk - 1 - j) % m for j in range(min(nk, m))]
+        q, al = g, []
+        for i in slots:
+            a = rho[i] * _dot(S[i], q)
+            q = q - a * Y[i]
+            al.append(a)
+        if nk > 0:
+            s0, y0 = S[slots[0]], Y[slots[0]]
+            yy = _dot(y0, y0)
+            q = (_dot(s0, y0) / torch.where(yy > 0, yy, torch.ones_like(yy))) * q
+        for a, i in zip(reversed(al), reversed(slots)):
+            q = q + (a - rho[i] * _dot(Y[i], q)) * S[i]
+        return -q
+
+    def __call__(self, x0: Tensor, *args):
+        return self.solve(EagerEvaluations(self.value_fn, args), x0)
+
+    def solve(self, ev, x0: Tensor):
+        """``(x_best, f_best, n_iters)`` from ``x0``."""
+        x = x0.detach()
+        f, g = ev.value_grad(x)
+        best_x, best_f = x, f
+        m = self.memory
+        S, Y = x.new_zeros((m,) + x.shape), x.new_zeros((m,) + x.shape)
+        rho = x.new_zeros((m,))
+        nk = k = 0
+        done = False
+        while not done and k < self.maxiter:
+            p = self._direction(g, S, Y, rho, nk)
+            alpha, f_ls = self._line_search(x, f, g, p, ev)
+            trigger = alpha == 0.0
+            if k == 0:
+                trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
+            if self._flag(trigger):
+                a_esc, p_hat = self._escape_probe(x, f, p, ev)
+                use_esc = a_esc != 0.0
+                step = torch.where(use_esc, a_esc * p_hat, alpha * p)
+                alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
+            else:
+                step = alpha * p
+            x_new = x + step
+            f_new, g_new = ev.value_grad(x_new)
+            improved = f_new < best_f
+            best_x = torch.where(improved, x_new, best_x)
+            best_f = torch.where(improved, f_new, best_f)
+            y = g_new - g
+            sy = _dot(step, y)
+            good = sy > 1e-10 * (_norm(step) * _norm(y) + 1e-30)
+            stop = (step.abs().sum() <= self.xtol) | (g_new.abs().amax() <= self.gtol) | (alpha == 0.0)
+            x, f, g = x_new, f_new, g_new
+            k += 1
+            if k >= self.maxiter:
+                break  # the budget ends the loop: no read
+            flags = torch.stack([stop, good])
+            self.syncs += 1
+            done, take = flags.tolist()
+            if take:
+                slot = nk % m
+                S[slot], Y[slot], rho[slot] = step, y, 1.0 / sy
+                nk += 1
+        return best_x, best_f, k
+
+
+def build_lbfgs(value_fn: Callable, maxiter: int = 100, gtol: float = 1e-5, xtol: float = 1e-5, memory: int = 8,
+                ls_maxiter: int = 16, armijo_c1: float = 1e-4) -> LBFGS:
+    """Return ``solve(x0, *args) -> (x_best, f_best, n_iters)`` (the JAX
+    package's ``build_lbfgs``)."""
+    return LBFGS(value_fn, maxiter, gtol, xtol, memory, ls_maxiter, armijo_c1)

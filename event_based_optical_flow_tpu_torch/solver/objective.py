@@ -180,6 +180,15 @@ class FleetEvents:
                    Frames.of_sizes([p.x.shape[0] for p in parts], device),
                    None if time_bin is None else cat("bins"))
 
+    @classmethod
+    def copies(cls, frame: FrameEvents, n: int) -> "FleetEvents":
+        """``n`` copies of one frame's events as a batch (``frame``'s own
+        order in each)."""
+        rep = lambda t: t.repeat(n)  # noqa: E731
+        return cls(rep(frame.x), rep(frame.y), rep(frame.dtf), rep(frame.wt), rep(frame.t_scale.reshape(1)),
+                   Frames.of_sizes([frame.x.shape[0]] * n, frame.x.device),
+                   None if frame.bins is None else rep(frame.bins))
+
     def __len__(self) -> int:
         return len(self.frames.sizes)
 

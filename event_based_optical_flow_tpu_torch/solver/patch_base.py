@@ -34,8 +34,9 @@ from ..types import FlowPatch
 from ..utils.config_schema import ConfigError
 from .base import SolverBase
 from .first_order import FIRST_ORDER, run_first_order
-from .newton_cg import build_newton_cg
+from .newton_cg import build_lbfgs, build_newton_cg
 from .objective import (
+    FleetEvents,
     FrameEvents,
     ObjectiveSpec,
     build_objective,
@@ -74,6 +75,19 @@ def prepare_patch(
 HVP_MODES = ("fd", "analytic", "analytic-warm", "analytic-coldfd", "analytic-all", "analytic-full")
 
 
+# the grid-best / global-best sweep: candidates per call of the batched
+# objective (K7 over that many copies of the frame's events)
+GRID_SWEEP_CHUNK = 100
+
+
+def grid_translations(step: int) -> np.ndarray:
+    """The init sweep's shared translations ``[K, 2]``: the ij-meshgrid of
+    ``np.arange(-150, 150, step)`` (``grid-best``: step 30, 100 candidates;
+    ``global-best``: step 10, 900)."""
+    field = np.arange(-150, 150, step, dtype=np.float64)
+    return np.stack(np.meshgrid(field, field, indexing="ij"), -1).reshape(-1, 2)
+
+
 def _next_pow2(x: int) -> int:
     return 1 << max(0, int(np.ceil(np.log2(max(1, x)))))
 
@@ -102,6 +116,54 @@ class PatchContrastMaximization(SolverBase):
 
     def initialize_zeros(self) -> torch.Tensor:
         return torch.zeros((self.motion_vector_size, self.n_patch), dtype=self.dtype, device=self.device)
+
+    def initialize_from_init(self, init: str, events_np: np.ndarray, frame: FrameEvents,
+                             orig: torch.Tensor) -> torch.Tensor:
+        """The cold start ``solver.patch.initialize`` names, ``[2, n_patch]``
+        at the current tile grid: ``random``, ``zero``, ``optuna-sampling``
+        (the per-patch sampling sweep from zero motion, ``optimizer.n_iter``
+        candidates) or ``grid-best`` / ``global-best`` (the best shared
+        translation of ``grid_translations``, tiled over every patch)."""
+        if init == "random":
+            return self.initialize_random()
+        if init == "zero":
+            return self.initialize_zeros()
+        if init == "optuna-sampling":
+            return self.initialize_guess_from_patch_search(events_np, self.initialize_zeros(),
+                                                           self.opt_config["n_iter"])
+        if init in ("grid-best", "global-best"):
+            best = self._grid_best_translation(frame, orig, 10 if init == "global-best" else 30)
+            return self.tensor(np.repeat(best[:, None], self.n_patch, axis=1))
+        raise ConfigError(f"'solver.patch.initialize: {init!r}' is not a known initialization")
+
+    def _grid_sweep_losses(self, spec: ObjectiveSpec, frame: FrameEvents, orig, motions: torch.Tensor,
+                           chunk: int = GRID_SWEEP_CHUNK) -> torch.Tensor:
+        """The objective of ``spec`` (TV included) at each row of ``motions``
+        ``[K, M]``, in chunks of ``chunk`` candidates through the batched
+        objective: one K7 forward over ``chunk`` copies of the frame's
+        events (``chip_smoke.py`` ``[init-grid]`` times it, with its peak
+        memory, against one K1 evaluation per candidate)."""
+        from .fleet import build_batched_objective
+
+        with torch.no_grad():
+            obj = build_batched_objective(spec)
+            losses, copies = [], None
+            for lo in range(0, len(motions), chunk):
+                part = motions[lo:lo + chunk]
+                if copies is None or len(copies) != len(part):
+                    copies = FleetEvents.copies(frame, len(part))
+                losses.append(obj(part, None if orig is None else orig.expand((len(part),) + orig.shape), copies))
+            return torch.cat(losses)
+
+    def _grid_best_translation(self, frame: FrameEvents, orig, step: int) -> np.ndarray:
+        """The JAX package's ``_grid_best_translation``: the current scale's
+        objective at every translation of ``grid_translations(step)`` tiled
+        over the patches; the first minimum (``nanargmin``), read back once."""
+        grid = grid_translations(step)
+        tiles = np.repeat(grid[:, :, None], self.n_patch, axis=2).reshape(len(grid), -1)
+        losses = self._grid_sweep_losses(self._current_spec(), frame, orig, self.tensor(tiles))
+        self.syncs += 1
+        return grid[int(np.nanargmin(losses.cpu().numpy()))]
 
     # --- objective and Newton solve -------------------------------------------
     def _current_spec(self) -> ObjectiveSpec:
@@ -188,26 +250,44 @@ class PatchContrastMaximization(SolverBase):
     def _hvp_name(analytic: bool, gauss_newton: bool) -> str:
         return ("analytic-gn" if gauss_newton else "analytic-full") if analytic else "fd"
 
+    def _lbfgs_options(self, maxiter: int, gtol: float = 1e-5):
+        """The device L-BFGS's options (``optimizer.device_solver: lbfgs``),
+        or None for Newton-CG; warns once of the Newton keys it ignores."""
+        if str(self.opt_config.get("device_solver", "newton-cg")).lower() != "lbfgs":
+            return None
+        ignored = [k for k in ("cg_maxiter", "coarse_cg_maxiter", "hvp_central", "hvp_mode", "fd_polish")
+                   if k in self.opt_config]
+        if ignored and not getattr(self, "_warned_lbfgs_ignored", False):
+            logger.warning(f"optimizer keys {ignored} have no effect under device_solver: lbfgs "
+                           "(no CG inner loop / no HVPs)")
+            self._warned_lbfgs_ignored = True
+        return {"maxiter": maxiter, "xtol": 1e-5, "gtol": gtol, "memory": int(self.opt_config.get("lbfgs_memory", 8))}
+
     def _run_newton(self, spec: ObjectiveSpec, x0: torch.Tensor, frame: FrameEvents,
                     orig: torch.Tensor, maxiter: int, cg_maxiter=None, finest: bool = True,
                     warm: bool = False, gtol: float = 1e-5, stage=None):
-        """One Newton-CG solve of this scale's objective from ``x0``
-        (flat [2 * n_patch], or a global model's [P]); returns (best_x, best_f, n_iter, hvp), hvp
-        naming the curvature model: "fd", "analytic-gn" or
-        "analytic-full".  With ``stage`` (a ``graphs.Stage`` whose buffers
-        are ``frame`` and ``orig``) the evaluations are the stage's,
-        replayed from CUDA graphs on the card (the chain); without, they
-        run eagerly (the loop)."""
+        """One device solve of this scale's objective from ``x0`` (flat [2 *
+        n_patch], or a global model's [P]): Newton-CG, or L-BFGS with
+        ``optimizer.device_solver: lbfgs``; returns (best_x, best_f,
+        n_iter, hvp), hvp naming the curvature model: "fd", "analytic-gn",
+        "analytic-full" or "lbfgs".  With ``stage`` (a ``graphs.Stage``
+        whose buffers are ``frame`` and ``orig``) the evaluations are the
+        stage's, replayed from CUDA graphs on the card (the chain);
+        without, they run eagerly (the loop)."""
         analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_objective(spec)
-        hvp_kw = {"hvp_mode": "fd"}
-        if analytic:
-            prep, hvp = build_objective_hvp_staged(spec, gauss_newton=gauss_newton)
-            hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
-        solve = build_newton_cg(lambda x, *a: obj(x, *a)[0],
-                                **self._newton_options(analytic, finest, maxiter, cg_maxiter, gtol), **hvp_kw)
+        lbfgs = self._lbfgs_options(maxiter, gtol)
+        if lbfgs is not None:
+            solve, name = build_lbfgs(lambda x, *a: obj(x, *a)[0], **lbfgs), "lbfgs"
+        else:
+            hvp_kw = {"hvp_mode": "fd"}
+            if analytic:
+                prep, hvp = build_objective_hvp_staged(spec, gauss_newton=gauss_newton)
+                hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
+            solve = build_newton_cg(lambda x, *a: obj(x, *a)[0],
+                                    **self._newton_options(analytic, finest, maxiter, cg_maxiter, gtol), **hvp_kw)
+            name = self._hvp_name(analytic, gauss_newton)
         x0 = x0.reshape(-1).to(self.dtype)
-        name = self._hvp_name(analytic, gauss_newton)
         if stage is None:
             best_x, best_f, n_iter = solve(x0, orig, frame)
         else:
@@ -222,12 +302,13 @@ class PatchContrastMaximization(SolverBase):
 
     def _check_optimizer(self, sampling: bool = True) -> None:
         """Raise ``ConfigError`` before a solve unless ``optimizer.method``
-        is one this solver runs: the device Newton-CG, a scipy method, a
-        first-order rule, the sampling optimizer with ``sampling``."""
+        is one this solver runs: the device Newton-CG (or L-BFGS), a scipy
+        method, a first-order rule, optax's ``LBFGS``, the sampling optimizer
+        with ``sampling``."""
         method = self.opt_config["method"]
         if self._device_newton():
             return
-        if method not in SCIPY_OPTIMIZERS + list(FIRST_ORDER) + (["optuna"] if sampling else []):
+        if method not in SCIPY_OPTIMIZERS + list(FIRST_ORDER) + ["LBFGS"] + (["optuna"] if sampling else []):
             raise ConfigError(f"optimizer.method {method!r} is not supported by {type(self).__name__}")
 
     def _run_scipy_on_spec(self, spec: ObjectiveSpec, frame: FrameEvents, orig, motion0, options: dict):
@@ -300,7 +381,7 @@ class PatchContrastMaximization(SolverBase):
         """One solve of this objective by ``optimizer.method`` other than the
         device Newton-CG (``_check_optimizer``'s): a scipy method (at most
         ``max_iter`` iterations, ``gtol``), the sampling optimizer
-        (``sampling``), or a first-order rule.  Returns (best motion, flat
+        (``sampling``), a first-order rule or optax's ``LBFGS``.  Returns (best motion, flat
         on the device; its loss; the iterations; the curvature scipy took:
         "bridge-fd" HVPs, a "hessian", or "none")."""
         method = self.opt_config["method"]
@@ -314,9 +395,9 @@ class PatchContrastMaximization(SolverBase):
             best, loss = self._run_sampling_on_spec(spec, frame, orig, x0, int(self.opt_config["n_iter"]))
             return self.tensor(best), loss, int(self.opt_config["n_iter"]), "none"
         vg = build_value_grad_hvp(spec)[0]
-        best, loss = run_first_order(lambda x: vg(x, orig, frame)[:2], self.tensor(x0).reshape(-1), method,
-                                     self.opt_config)
-        self.syncs += 1
+        best, loss, reads = run_first_order(lambda x: vg(x, orig, frame)[:2], self.tensor(x0).reshape(-1), method,
+                                            self.opt_config)
+        self.syncs += reads
         return best, loss, int(self.opt_config["n_iter"]), "none"
 
     # --- visualization ---------------------------------------------------------

@@ -5,9 +5,14 @@ of ``event_based_optical_flow_tpu/solver/pyramid.py``: the per-scale loop
 
 Scales s = 1..patch.scale-1 over a center crop, per-scale non-overlapping
 tile grids (size crop/2^s).  The coarsest scale starts from the warm
-motion or the cold init; every finer scale starts from the expanded
-coarser solution (averaged with the previous frame's when warm), refined
-per patch by the sampling sweep; each scale is then solved by Newton-CG.
+motion or the cold init (``solver.patch.initialize``: ``random``,
+``zero``, the per-patch sampling sweep ``optuna-sampling``, or the best
+shared translation of a 10 x 10 (``grid-best``) or 30 x 30
+(``global-best``) grid swept through the scale's objective); every
+finer scale starts from the expanded coarser solution (averaged with the
+previous frame's when warm), refined per patch by the sampling sweep;
+each scale is then solved by Newton-CG (L-BFGS with
+``optimizer.device_solver: lbfgs``).
 A fine-to-coarse pyramid_reduce feedback produces the per-scale result.
 With ``solver.time_aware`` every scale's objective votes through the flow
 voxel propagated from its tile motion (K5), and the metrics score the
@@ -276,7 +281,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             before = ops.launch_counts()
             presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
             if presearch is None:
-                x0 = self._init_scale(s, warm_motion)
+                x0 = self._init_scale(s, warm_motion, events, *newton_events["full"])
             else:
                 motion0, n_cand = presearch
                 x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
@@ -320,17 +325,14 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         n_cand = max(4, int(self.opt_config["n_iter"] / max(1, s - self.coarsest_scale)))
         return motion0.reshape(2, -1), n_cand
 
-    def _init_scale(self, s: int, warm: Optional[Dict[int, torch.Tensor]]) -> torch.Tensor:
+    def _init_scale(self, s: int, warm: Optional[Dict[int, torch.Tensor]], events_np=None, frame=None,
+                    orig=None) -> torch.Tensor:
         """Coarsest-scale start: the ``warm`` motion, else the configured
-        cold init."""
+        cold init (``initialize_from_init``: the sweeps see every event of
+        the frame, ``events_np`` and its ``frame`` / ``orig``)."""
         if warm is not None:
             return warm[s].clone()
-        init = self.slv_config["patch"]["initialize"]
-        if init == "random":
-            return self.initialize_random()
-        if init == "zero":
-            return self.initialize_zeros()
-        raise NotImplementedError(f"Initialization {init!r} is not ported yet")
+        return self.initialize_from_init(self.slv_config["patch"]["initialize"], events_np, frame, orig)
 
     def update_coarse_from_fine(self, motion_per_scale: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
         """Fine-to-coarse feedback via pyramid_reduce: every scale's entry

@@ -4,9 +4,7 @@
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
 solver, optimizer or cost, a host griddata voxel scheme, outer padding,
-the L-BFGS solvers and optax's L-BFGS, device meshes, the DNN's
-multi-device train step)
-fails fast here with the YAML path of the entry, instead of deep inside a
+device meshes, the DNN's multi-device train step) fails fast here with the YAML path of the entry, instead of deep inside a
 solve.  An ``is_dnn`` config (the EV-FlowNet path) validates its ``dnn``
 keys and its solver blocks, as the JAX package validates them.  Unknown keys, and
 the raw-camera filters on a dataset that ignores them, produce the JAX
@@ -81,7 +79,6 @@ _KNOWN_DNN_KEYS = {
 # run yet: (section, key, value the port runs, reason)
 _UNPORTED = (
     ("solver", "outer_padding", 0, "outer padding"),
-    ("optimizer", "device_solver", "newton-cg", "the device L-BFGS solvers (sequential and fleet)"),
 )
 
 
@@ -183,7 +180,8 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         _choice(patch, "initialize", {"random", "zero"}, "solver.patch")
     else:
         patch = _require(slv, "patch", dict, "solver")
-        _choice(patch, "initialize", {"random", "zero"}, "solver.patch")
+        _choice(patch, "initialize", {"random", "zero", "grid-best", "global-best", "optuna-sampling"},
+                "solver.patch")
         _choice(patch, "filter_type", {"bilinear", "nearest"}, "solver.patch")
     iwe = _require(slv, "iwe", dict, "solver")
     _choice(iwe, "method", {"bilinear_vote"}, "solver.iwe")
@@ -210,11 +208,8 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
             warnings.append(f"unknown config key 'solver.{key}' (ignored?)")
 
     opt = config["optimizer"]
-    _require(opt, "method", str, "optimizer")
-    if opt["method"] == "LBFGS":
-        raise ConfigError("'optimizer.method: LBFGS' (optax's L-BFGS with its zoom line search) is not ported "
-                          "yet: it comes with the device L-BFGS solvers (optimizer.device_solver: lbfgs)")
     _choice(opt, "method", set(OPTIMIZERS), "optimizer")
+    _require(opt, "method", str, "optimizer")
     params = opt.get("parameters")
     if isinstance(params, dict):
         for pname, box in params.items():
@@ -229,7 +224,7 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     frac = opt.get("coarse_event_fraction", 1.0)
     if not isinstance(frac, (int, float)) or not (0.0 < float(frac) <= 1.0):
         raise ConfigError(f"'optimizer.coarse_event_fraction' must be in (0, 1], got {frac!r}")
-    for budget_key in ("coarse_max_iter", "coarse_cg_maxiter", "cg_maxiter"):
+    for budget_key in ("coarse_max_iter", "coarse_cg_maxiter", "lbfgs_memory"):
         if budget_key in opt:
             val = opt[budget_key]
             if not isinstance(val, int) or val < 1:
@@ -242,6 +237,9 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         val = opt["warm_full_every"]
         if not isinstance(val, int) or val < 0:
             raise ConfigError(f"'optimizer.warm_full_every' must be an int >= 0, got {val!r}")
+    dev_solver = opt.get("device_solver", "newton-cg")
+    if str(dev_solver).lower() not in ("newton-cg", "lbfgs"):
+        raise ConfigError(f"'optimizer.device_solver' must be 'newton-cg' or 'lbfgs', got {dev_solver!r}")
     # optimizer.chain (default on): the pyramid and the fleet run chained,
     # their Newton evaluations replayed from CUDA graphs (solver/graphs.py)
     if not isinstance(opt.get("chain", True), bool):

@@ -20,6 +20,7 @@ port's independence from JAX.
   JAX package's warnings; every other one is refused up front.
 """
 
+import copy
 import json
 import os
 import pathlib
@@ -234,8 +235,8 @@ PORTED_CONFIGS = {"synthetic_fleet.yaml", "synthetic_mvsec_geometry.yaml", "synt
 @pytest.mark.parametrize("name", sorted(p.name for p in (REPO / "configs").glob("*.yaml")))
 def test_config_validation(name):
     """Every shipped config the JAX package accepts either validates in the
-    port with the same warnings, or is refused up front with a ConfigError
-    naming what is not ported yet.  Both refuse a global motion model
+    port with the same warnings (with ``device_solver: lbfgs`` too), or is
+    refused up front with a ConfigError naming what is not ported yet.  Both refuse a global motion model
     under a tile solver, and a TV term under the global solver."""
     from event_based_optical_flow_tpu.utils import ConfigError as JaxConfigError
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
@@ -249,9 +250,10 @@ def test_config_validation(name):
         assert validate_config(config) == jax_validate(config) == ["unknown config key 'optimizer.surprise' (ignored?)"]
         griddata = {"time_aware": True, "time_bin": 10, "flow_interpolation": "linear",
                     "t0_flow_location": "middle"}
-        for section, update in (("solver", griddata), ("optimizer", {"device_solver": "lbfgs"})):
-            with pytest.raises(ConfigError, match="not ported yet"):
-                validate_config({**config, section: {**config[section], **update}})
+        with pytest.raises(ConfigError, match="not ported yet"):
+            validate_config({**config, "solver": {**config["solver"], **griddata}})
+        lbfgs = {**config, "optimizer": {**config["optimizer"], "device_solver": "lbfgs"}}
+        assert validate_config(copy.deepcopy(lbfgs)) == jax_validate(copy.deepcopy(lbfgs))
         if config["solver"]["method"] == "global_contrast_maximization":
             bad = {**config, "solver": {**config["solver"], "cost": "hybrid", "cost_with_weight": {
                 "multi_focal_normalized_gradient_magnitude": 1.0, "total_variation": 0.01}}}

@@ -1423,3 +1423,78 @@ def test_host_optimizers_launch_the_kernels_and_match_cpu(cuda_device, determini
             counts = ops.launch_counts()
             assert all(counts[k] > 0 for k in kernels), counts
     np.testing.assert_allclose(results[0], results[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", [False, True])
+def test_chained_lbfgs_equals_the_loop(cuda_device, deterministic, fleet):
+    """``device_solver: lbfgs`` on the card: the chained frame (the
+    sequential pyramid) or batch (the fleet) gives its loop's per-scale
+    losses, iterations, host syncs and launches (K1/K2 only) bit for bit;
+    the sequential one also the same pyramid."""
+    from event_based_optical_flow_tpu_torch import solver as tsolver
+    from event_based_optical_flow_tpu_torch.data.synthetic import SyntheticDataLoader
+
+    h, w = 32, 40
+    loader = SyntheticDataLoader({"height": h, "width": w, "duration": 1.0, "event_rate": 12000, "n_frames": 4,
+                                  "pattern": "dots", "n_dots": 60, "flow_max": 12.0})
+    loader.set_sequence("pyramid")
+    ts = loader.eval_frame_time_list()
+    windows = [loader.load_event(loader.time_to_index(ts[i]), loader.time_to_index(ts[i + 1])) for i in (1, 2)]
+    method = "fleet_pyramidal_patch_contrast_maximization" if fleet else "pyramidal_patch_contrast_maximization"
+    slv = {"method": method, "time_aware": False,
+           "patch": {"initialize": "random", "scale": 3, "crop_height": 32, "crop_width": 40,
+                     "filter_type": "bilinear"},
+           "motion_model": "2d-translation", "warp_direction": "first", "parameters": ["trans_x", "trans_y"],
+           "cost": "hybrid", "outer_padding": 0,
+           "cost_with_weight": {"multi_focal_normalized_gradient_magnitude": 1.0, "total_variation": 0.01},
+           "iwe": {"method": "bilinear_vote", "blur_sigma": 1}}
+    base = {"n_iter": 8, "method": "Newton-CG", "device_solver": "lbfgs", "max_iter": 12,
+            "parameters": {"trans_x": {"min": -20, "max": 20}, "trans_y": {"min": -20, "max": 20}}}
+    out = []
+    for chain in (True, False):
+        st = tsolver.collections[method]((h, w), {}, slv, dict(base, chain=chain), {}, device=cuda_device)
+        if fleet:  # the chain and the loop draw their sweeps differently: same draws from a fixed start
+            st.initialize_guess_from_patch_search_batched = lambda ev, m, n, mx: m
+            st.initialize_guess_from_patch_search = lambda ev, m, n: m
+            best = st.optimize_batch(windows)
+            out.append((best, st.last_batch_stats))
+        else:
+            out.append((st.optimize(windows[0]), st.last_frame_stats))
+    (bc, sc), (bl, sl) = out
+    assert sc["chain"] and not sl["chain"] and sc["hvp"] == {1: "lbfgs", 2: "lbfgs"}
+    for key in ("iters", "loss", "hvp", "events", "launches", "syncs"):
+        assert sc[key] == sl[key], key
+    k = "batched_" if fleet else ""
+    assert all(c[k + "fwd"] > 0 and c[k + "bwd"] > 0 and c[k + "jvp"] == 0 and c[k + "hvp_bwd"] == 0
+               for c in sc["launches"].values())
+    frames = zip(bc, bl) if fleet else [(bc, bl)]
+    assert all(torch.equal(a[s], b[s]) for a, b in frames for s in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 100])
+def test_grid_sweep_matches_plain_version(cuda_device, deterministic, chunk, monkeypatch):
+    """The ``grid-best`` sweep's losses on the card (K7 over chunks of 1 or
+    100 copies of the frame) against the same sweep through the plain vote
+    on the card, float64, to 1e-9 x the largest loss; the same chosen
+    translation."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.solver import objective as O
+    from event_based_optical_flow_tpu_torch.solver import patch_base
+
+    solv, events = _small_solver(cuda_device)
+    spec = solv._current_spec()
+    frame = FrameEvents.from_numpy(events, cuda_device, torch.float64)
+    orig = build_orig_iwe(spec)(frame)
+    grid = patch_base.grid_translations(30)
+    tiles = solv.tensor(np.repeat(grid[:, :, None], solv.n_patch, axis=2).reshape(len(grid), -1))
+    ops.reset_launch_counts()
+    got = solv._grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
+    counts = ops.launch_counts()
+    assert counts["batched_fwd"] == 100 // chunk and counts["fwd"] == 0, counts
+    monkeypatch.setattr(O, "fused_iwe", FI.fused_iwe_reference)  # the single-frame objective's vote
+    monkeypatch.setattr(FI, "fused_iwe", FI.fused_iwe_reference)  # the batched objective's
+    want = solv._grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
+    assert (got - want).abs().max().item() <= 1e-9 * want.abs().max().item()
+    assert int(torch.argmin(got)) == int(torch.argmin(want))

@@ -12,6 +12,8 @@ last-bit differences through the finite-difference HVP (~30x per Newton
 iteration, measured), so that comparison runs 3 iterations to 1e-6.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -229,14 +231,25 @@ def test_single_scale_solvers_match_jax(method, extra):
 
 
 def test_single_scale_solver_refuses_unported_optimizers():
+    """The single-scale solver runs the JAX package's optax ``LBFGS`` and
+    ``grid-best`` init (they validate as the JAX package validates them),
+    and refuses a method neither package has before it solves."""
+    from event_based_optical_flow_tpu.utils import validate_config as jax_validate
     from event_based_optical_flow_tpu_torch import solver as tsolver
-    from event_based_optical_flow_tpu_torch.utils import ConfigError
+    from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
     from test_torch_pyramid import OPTIMIZER, SOLVER
 
     slv = dict(SOLVER, method="mixed_patch_contrast_maximization",
                patch={"initialize": "grid-best", "size": 8, "sliding_window": 8})
-    events = np.array([[1.0, 2.0, 0.0, 1.0], [3.0, 4.0, 0.1, 0.0]])
-    for opt, match in ((dict(OPTIMIZER, method="LBFGS"), "LBFGS"), (OPTIMIZER, "grid-best")):
+    rng = np.random.default_rng(0)
+    events = np.stack([rng.integers(0, 16, 200), rng.integers(0, 16, 200), np.sort(rng.uniform(0, 0.1, 200)),
+                       rng.integers(0, 2, 200)], axis=1).astype(np.float64)
+    for opt in (dict(OPTIMIZER, method="LBFGS", n_iter=2), dict(OPTIMIZER, max_iter=2)):
+        cfg = {"data": {"dataset": "synthetic", "sequence": "s", "height": 16, "width": 16, "n_events_per_batch": 200},
+               "output": {"output_dir": "out", "show_interactive_result": False}, "solver": slv, "optimizer": opt}
+        assert validate_config(copy.deepcopy(cfg)) == jax_validate(copy.deepcopy(cfg))
         st = tsolver.collections[slv["method"]]((16, 16), {}, slv, opt, {}, device="cpu")
-        with pytest.raises(ConfigError, match=match):
-            st.optimize(events)
+        assert np.isfinite(st.optimize(events).numpy()).all()
+    st = tsolver.collections[slv["method"]]((16, 16), {}, slv, dict(OPTIMIZER, method="Nope"), {}, device="cpu")
+    with pytest.raises(ConfigError, match="Nope"):
+        st.optimize(events)

@@ -19,8 +19,9 @@ says otherwise):
   1e-10, and the loop against ``optax_loop.run_first_order`` to 1e-6;
 * the sampling ("optuna") optimizer: the same candidates, best and
   per-round history to 1e-6, and the same numpy generator state after;
-* the config schema: the 27 method names and ``optimizer.device: false``
-  validate, ``lr`` is a known key, ``LBFGS`` is refused.
+* the config schema: the 28 method names (optax's ``LBFGS`` among them)
+  and ``optimizer.device: false`` validate as in the JAX package, ``lr``
+  is a known key.
 """
 
 import copy
@@ -187,7 +188,8 @@ def test_first_order_loop_matches_jax(mixed_problem):
     opt = {"n_iter": 6, "lr": 0.5}
     bj, fj = jax_run_first_order(sj._get_funs(jspec)[0], x0, "Adam", opt, ev, w, jnp.float64)
     vg = build_value_grad_hvp(tspec)[0]
-    bt, ft = first_order.run_first_order(lambda x: vg(x, orig, frame)[:2], torch.as_tensor(x0), "Adam", opt)
+    bt, ft, reads = first_order.run_first_order(lambda x: vg(x, orig, frame)[:2], torch.as_tensor(x0), "Adam", opt)
+    assert reads == 1
     assert ft == pytest.approx(fj, rel=0, abs=TOL)
     np.testing.assert_allclose(bt.numpy(), bj, rtol=0, atol=TOL)
 
@@ -214,12 +216,16 @@ def test_sampling_matches_jax(events):
 
 
 def test_schema_accepts_the_optimizers_and_refuses_lbfgs(tmp_path):
+    """Every ``optimizer.method`` of the JAX package validates in the port
+    as in the JAX package, optax's ``LBFGS`` too (no longer refused)."""
+    from event_based_optical_flow_tpu.solver.base import TORCH_OPTIMIZERS
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
-    from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
+    from event_based_optical_flow_tpu_torch.utils import validate_config
     from test_torch_cli import _config
 
-    assert len(tsolver.OPTIMIZERS) == 27
-    assert set(tsolver.OPTIMIZERS) == set(SCIPY) | set(first_order.FIRST_ORDER) | {"optuna"}
+    assert len(tsolver.OPTIMIZERS) == 28
+    assert set(tsolver.OPTIMIZERS) == set(SCIPY) | set(first_order.FIRST_ORDER) | {"LBFGS", "optuna"}
+    assert set(tsolver.OPTIMIZERS) == set(SCIPY) | set(TORCH_OPTIMIZERS) | {"optuna"}
     config = _config(tmp_path)
     for method in tsolver.OPTIMIZERS:
         cfg = copy.deepcopy(config)
@@ -229,6 +235,6 @@ def test_schema_accepts_the_optimizers_and_refuses_lbfgs(tmp_path):
     cfg["optimizer"].update(device=False, lr=0.1)
     assert validate_config(cfg) == []
     cfg["optimizer"]["method"] = "LBFGS"
-    jax_validate(copy.deepcopy(cfg))
-    with pytest.raises(ConfigError, match="LBFGS.*device L-BFGS"):
-        validate_config(cfg)
+    assert validate_config(copy.deepcopy(cfg)) == []  # the JAX package warns of lr, which it ignores
+    del cfg["optimizer"]["lr"]
+    assert validate_config(copy.deepcopy(cfg)) == jax_validate(copy.deepcopy(cfg)) == []

@@ -283,9 +283,11 @@ def test_defaults_are_not_shared():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ConfigError, match="not ported yet"):
-        TS.StreamingFlowEstimator((H, W), solver_config=SOLVER, optimizer_config={"device_solver": "lbfgs"},
-                                  device="cpu")
+    """The mesh and outer padding are refused by the serving surface's
+    config merge (``check_ported``); the device L-BFGS is taken."""
+    est = TS.StreamingFlowEstimator((H, W), solver_config=SOLVER, optimizer_config={"device_solver": "lbfgs"},
+                                    device="cpu")
+    assert est._solver.opt_config["device_solver"] == "lbfgs"
     with pytest.raises(ConfigError, match="not ported yet"):
         TS.MultiStreamFlowEstimator((H, W), 2, solver_config=SOLVER, optimizer_config=OPTIMIZER,
                                     parallel_config={"data": 2}, device="cpu")

@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
-"""Which host-driven optimizer the JAX package brings within half the
-zero-flow EPE on the MVSEC slice's scene, at a small size on the CPU.
+"""Which optimizer the JAX package brings within half the zero-flow EPE
+on the MVSEC slice's scene (or the DSEC path's), at a small size on the
+CPU.
 
-    JAX_PLATFORMS=cpu python3 tools/screen_host_optimizers.py [--methods BFGS Adam optuna] [--scale 0.5] \
-        [--set optimizer.lr=5 solver.patch.initialize=zero]
+    JAX_PLATFORMS=cpu python3 tools/screen_host_optimizers.py [--methods BFGS Adam optuna LBFGS] [--scale 0.5] \
+        [--set optimizer.lr=5 solver.patch.initialize=zero optimizer.device_solver=lbfgs] [--scene dsec]
 
-The scene is ``chip_smoke.py``'s MVSEC slice (configs/synthetic_mvsec_geometry.yaml,
-``pattern: dots``), frame 0, with its height and width scaled by
+``--methods`` takes any ``optimizer.method`` (the host-driven ones,
+optax's ``LBFGS``, the device ``Newton-CG``); ``--set
+optimizer.device_solver=lbfgs optimizer.max_iter=75`` screens the device
+L-BFGS's budget.  The scene is ``chip_smoke.py``'s MVSEC slice
+(configs/synthetic_mvsec_geometry.yaml, ``pattern: dots``), or with
+``--scene dsec`` its DSEC path (``chip_smoke.dsec_config``: the DSEC
+config's blocks at 480x640, 300 000-event windows), frame 0, with its
+height and width scaled by
 ``--scale`` (the crop to multiples of 16, the event rate and the window's
 event count by the pixel ratio: the same events per pixel).  For each
 method the JAX package's CLI eval loop (``main.evaluate_dataset_with_gt``)
@@ -42,16 +49,20 @@ from event_based_optical_flow_tpu import solver as jsolver  # noqa: E402
 from event_based_optical_flow_tpu import visualizer  # noqa: E402
 
 
-def scaled_config(scale: float, method: str, out_dir: str, overrides=()) -> dict:
-    with open(cs.CONFIG) as f:
-        config = yaml.safe_load(f)
+def scaled_config(scale: float, method: str, out_dir: str, overrides=(), scene: str = "mvsec") -> dict:
+    if scene == "dsec":
+        config = cs.dsec_config()
+    else:
+        with open(cs.CONFIG) as f:
+            config = yaml.safe_load(f)
     config = cs.slice_config(config, last_frame=0, out_dir=out_dir)
     d, patch = config["data"], config["solver"]["patch"]
     h, w = int(round(d["height"] * scale)), int(round(d["width"] * scale))
     ratio = (h * w) / (d["height"] * d["width"])
     d.update(height=h, width=w, event_rate=d["event_rate"] * ratio,
              n_events_per_batch=int(round(d["n_events_per_batch"] * ratio)), visualize_every=0)
-    patch.update(crop_height=h // 16 * 16, crop_width=w // 16 * 16)
+    if scale != 1.0:
+        patch.update(crop_height=h // 16 * 16, crop_width=w // 16 * 16)
     config["solver"].update(iwe_backend="scatter", precision="64")
     config["optimizer"]["method"] = method
     for item in overrides:
@@ -93,11 +104,12 @@ def main(argv=None) -> int:
     parser.add_argument("--scale", type=float, default=0.5)
     parser.add_argument("--set", nargs="*", default=[], metavar="SECTION.KEY=VALUE",
                         help="config overrides, e.g. optimizer.lr=5")
+    parser.add_argument("--scene", choices=("mvsec", "dsec"), default="mvsec")
     args = parser.parse_args(argv)
     root = tempfile.mkdtemp(prefix="screen_host_optimizers_")
     zero = None
     for method in args.methods:
-        config = scaled_config(args.scale, method, os.path.join(root, method), args.set)
+        config = scaled_config(args.scale, method, os.path.join(root, method), args.set, args.scene)
         zero = zero if zero is not None else zero_flow_epe(copy.deepcopy(config))
         t0 = time.perf_counter()
         m = run(config)
