@@ -205,7 +205,24 @@ Phases (each prints one informative line; any failure exits nonzero):
    events, the shipped dnn block); ``[dnn-346-witness]`` takes
    ``DNN_WITNESS_STEPS`` float64 steps there on the card and on the CPU:
    the same losses to ``DNN_WITNESS_TOL``; ``[dnn-vote-time]`` times K8 at
-   both cells' voxel and finest loss calls.
+   both cells' voxel and finest loss calls;
+18. the JAX package's unfused objective's options (``unfused_path``, every
+   config the MVSEC slice's with ``solver.outer_padding: PAD``,
+   ``unfused_config``): ``[pad-check]`` K1 (bilinear and count), K2, K3, K4,
+   K7's four batched kernels on a polarity frame's two-channel table and
+   K8 (bilinear and count, the full frame and the finest sweep call's
+   shape) at pad ``PAD``, float64 and float32, against their plain
+   versions and exact models (max|err| 0), the count vote's tangent and
+   HVP term zeros with no launch, K5 and K6 at pad ``PAD``; ``[pad-time]``
+   K1-K4 at pad ``PAD`` against pad 0, with bounds; frame 0 from the zero
+   start through the CLI's eval loop: ``[pad-frame]`` (K1-K4: the route's
+   exact HVP) and ``[polarity-frame]`` (K7), chained and again with the
+   loop, bit for bit, and ``[pad-ta-frame]`` (K5, K6, chained), below
+   ``EPE_FRACTION`` x the zero flow's; ``[pad-random]`` the pad
+   frame from the config's random start and ``[count-frame]`` (the count
+   vote and the sampling optimizer) printed ungated with the reason;
+   ``[pad-fleet]`` the fleet's frames 0..3 with padding and polarity;
+   ``[pad-serve]`` a serving estimator with ``outer_padding`` on window 0.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
@@ -218,7 +235,8 @@ similarity's frame 0 again with the loop) and the 346 cell's 0..1, the
 MVSEC slice's frame 0 with each host-driven optimizer (BFGS twice) and
 once profiled, with the device L-BFGS (twice) and with each init, the
 DSEC path's frame 0 with the device L-BFGS, the L-BFGS fleet's frames
-0..3 (twice), and the
+0..3 (twice), the unfused frames 0 (pad and polarity twice, the random
+start, count) and serving window 0 with padding, and the
 DNN's training runs (300 steps and 7 eval windows, 20 steps twice, 20
 steps at 256x336).  Every path runs chained, the sequential
 repeats and ``[fleet-loop]`` with the loop.  Each path's run (each
@@ -466,21 +484,24 @@ def exact_err(got, want) -> float:
     return (got.cpu() - want).abs().max().item() if want.numel() else 0.0
 
 
-def compare(fi, frame, flow, g, include_orig, offsets):
+def compare(fi, frame, flow, g, include_orig, offsets, pad=0, count=False):
     """(forward err, backward err or None, forward scale, backward scale,
     whether a second kernel call gave the same bits, max|err| of the
-    forward and backward against their exact models)."""
+    forward and backward against their exact models); ``pad`` and
+    ``count``: the images' outer padding and the count vote (no backward:
+    its flow derivative is 0)."""
     ev = (frame.x, frame.y, frame.dtf, frame.wt)
-    kw = {"bins": frame.bins}  # a voxel's time bins, or None for a dense flow
+    kw = {"bins": frame.bins, "pad": pad}  # a voxel's time bins, or None for a dense flow
     cev, cbins = cpu_copies(frame)
-    ref = fi.fused_iwe_reference(flow, *ev, offsets, include_orig, **kw)
-    got = fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, **kw)
+    ref = fi.fused_iwe_reference(flow, *ev, offsets, include_orig, count=count, **kw)
+    got = fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, count=count, **kw)
     torch.cuda.synchronize()
     fwd_err = (got - ref).abs().max().item()
     fwd_scale = max(1.0, ref.abs().max().item())
-    same = torch.equal(got, fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, **kw))
-    exact = exact_err(got, fi.fused_iwe_fixed_reference(flow.cpu(), *cev, offsets, include_orig, bins=cbins))
-    if not offsets:
+    same = torch.equal(got, fi.fused_iwe_fwd(flow, *ev, offsets, include_orig, count=count, **kw))
+    exact = exact_err(got, fi.fused_iwe_fixed_reference(flow.cpu(), *cev, offsets, include_orig, bins=cbins,
+                                                        pad=pad, count=count))
+    if not offsets or count:
         return fwd_err, None, fwd_scale, None, same, exact
     gk = g[: ref.shape[0]].contiguous()
     flr = flow.clone().requires_grad_(True)
@@ -489,7 +510,7 @@ def compare(fi, frame, flow, g, include_orig, offsets):
     same = same and torch.equal(got_d, fi.fused_iwe_bwd(flow, *ev, gk, offsets, include_orig, **kw))
     torch.cuda.synchronize()
     exact = max(exact, exact_err(got_d, fi.fused_iwe_bwd_ordered_reference(flow.cpu(), *cev, gk.cpu(), offsets,
-                                                                          include_orig, bins=cbins)))
+                                                                          include_orig, bins=cbins, pad=pad)))
     return (fwd_err, (got_d - want).abs().max().item(), fwd_scale, max(1.0, want.abs().max().item()), same,
             exact)
 
@@ -606,6 +627,56 @@ def slice_config(config: dict, last_frame: int, out_dir: str) -> dict:
     return run_config
 
 
+def scaled_config(scale: float, method: str, out_dir: str, overrides=(), scene: str = "mvsec") -> dict:
+    """Frame 0 of the MVSEC slice's scene (``scene: dsec``: the DSEC path's)
+    with its height and width scaled by ``scale`` (the crop to multiples of
+    16, the event rate and the window's event count by the pixel ratio: the
+    same events per pixel), float64 (the JAX package's exact scatter
+    backend), ``optimizer.method: method`` and the ``overrides``
+    (``SECTION.KEY=VALUE``, YAML values): the configs of
+    ``tools/screen_host_optimizers.py`` and ``[pad-random-witness]``."""
+    if scene == "dsec":
+        config = dsec_config()
+    else:
+        with open(CONFIG) as f:
+            config = yaml.safe_load(f)
+    config = slice_config(config, last_frame=0, out_dir=out_dir)
+    d, patch = config["data"], config["solver"]["patch"]
+    h, w = int(round(d["height"] * scale)), int(round(d["width"] * scale))
+    ratio = (h * w) / (d["height"] * d["width"])
+    d.update(height=h, width=w, event_rate=d["event_rate"] * ratio,
+             n_events_per_batch=int(round(d["n_events_per_batch"] * ratio)), visualize_every=0)
+    if scale != 1.0:
+        patch.update(crop_height=h // 16 * 16, crop_width=w // 16 * 16)
+    config["solver"].update(iwe_backend="scatter", precision="64")
+    config["optimizer"]["method"] = method
+    for item in overrides:
+        path, value = item.split("=", 1)
+        *parents, key = path.split(".")
+        node = config
+        for name in parents:
+            node = node[name]
+        node[key] = yaml.safe_load(value)
+    return config
+
+
+def frame0_solve(config: dict, dev, draw_seed=None):
+    """Frame 0 of ``config`` solved once by the port on ``dev`` as the CLI's
+    eval loop solves it, from its configured start, ``draw_seed`` (if given)
+    reseeding the init sweep's generator only (the cold start's numpy draws
+    stay the config's): (its metrics, the zero flow's EPE, the solver's
+    frame stats)."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+
+    loader, solv = port_main.build(config, dev)
+    if draw_seed is not None:
+        solv.generator.manual_seed(int(draw_seed))
+    ts = loader.eval_frame_time_list()
+    batch, window, gt, seconds = port_main._gather_frame(loader, config["data"], ts[0], ts[config["data"]["eval_dt"]])
+    metrics = solv.optimize_with_metrics(batch, gt, seconds, window)[1]
+    return metrics, zero_flow_epe(loader, config["data"], 0, solv), solv.last_frame_stats
+
+
 def run_slice(port_main, config: dict, dev, last_frame: int):
     """(records, output dir, wall seconds, peak device GiB) of the CLI's
     eval loop over frames 0..last_frame, in a fresh output dir."""
@@ -645,13 +716,14 @@ def loop_repeat(port_main, config: dict, dev, records, peak: float, smi: str, na
     return same
 
 
-def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
+def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4"), pad=0):
     """K3 (both ways of emit_value) and K4 (both ways of term_a) against
     their plain versions on the same tensors (K6's two kernels for a voxel
-    and the frame's time bins): (lines, max abs err of the tangent, of the
-    HVP backward without term A, all ok)."""
+    and the frame's time bins; ``pad``: the images' outer padding):
+    (lines, max abs err of the tangent, of the HVP backward without term
+    A, all ok)."""
     ev = (frame.x, frame.y, frame.dtf, frame.wt)
-    kw = {"bins": frame.bins}
+    kw = {"bins": frame.bins, "pad": pad}
 
     def err(got, want):
         torch.cuda.synchronize()
@@ -668,7 +740,7 @@ def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
     (ev_, sv, okv), (et, st, okt) = err(img, ref_img), err(tan, ref_tan)
     cev, cbins = cpu_copies(frame)
     exact = exact_err(tan_only, fi.fused_iwe_jvp_fixed_reference(flow.cpu(), dflow.cpu(), *cev, OFFSETS, False,
-                                                                 bins=cbins))
+                                                                 bins=cbins, pad=pad))
     lines = [f"{names[0]} jvp: value max|err| {ev_:.3e} (scale {sv:.3g}), tangent max|err| {et:.3e} "
              f"(scale {st:.3g}), tol {tol:g} x scale; tangent exact model: max|err| {exact:g}; value == "
              f"fused_iwe_fwd bits: {value_bits}; emit_value=False and a repeat same bits: {repeat}"]
@@ -679,7 +751,7 @@ def check_second_order(fi, frame, flow, dflow, g1, g2, tol, names=("K3", "K4")):
         e, sc, good = err(got, fi.fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
         same = torch.equal(got, fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, term_a, **kw))
         exact = exact_err(got, fi.fused_iwe_bwd_ordered_reference(
-            flow.cpu(), *cev, g2.cpu(), OFFSETS, False, bins=cbins,
+            flow.cpu(), *cev, g2.cpu(), OFFSETS, False, bins=cbins, pad=pad,
             **({"g1": g1.cpu(), "dflow": dflow.cpu()} if term_a else {})))
         good = good and exact == 0
         extra = ""
@@ -740,11 +812,11 @@ def sector_bytes(index: torch.Tensor, itemsize: int) -> int:
     return 32 * np.unique(index.numpy() * itemsize // 32).size
 
 
-def bound_times(kind: str, frame, flow: torch.Tensor):
+def bound_times(kind: str, frame, flow: torch.Tensor, pad: int = 0):
     """(bytes time, operations time) in ms, for one call of a kernel on
     ``frame``'s events, the flow
-    ``flow`` [2, H, W] (a voxel [T, 2, H, W] with the frame's bins) and
-    ``OFFSETS``, counted from these inputs: the event arrays read once; of
+    ``flow`` [2, H, W] (a voxel [T, 2, H, W] with the frame's bins),
+    ``OFFSETS`` and images of outer padding ``pad``, counted from these inputs: the event arrays read once; of
     the flow (and the tangent flow) and of the cotangent images only the
     32-byte sectors that this frame's gathers touch (each voting event's
     source pixel in its bin's slice; the four corners of each warped
@@ -766,14 +838,15 @@ def bound_times(kind: str, frame, flow: torch.Tensor):
     flow_read = sector_bytes(torch.cat([at, at + hw]), item)
     u, v = flow.reshape(-1)[at], flow.reshape(-1)[at + hw]
     corners = []
+    hp, wp = h + 2 * pad, w + 2 * pad  # the images' size
     for k, off in enumerate(OFFSETS):
-        r0, c0 = torch.floor(x - (d - off) * u).long(), torch.floor(y - (d - off) * v).long()
+        r0, c0 = torch.floor(x - (d - off) * u).long() + pad, torch.floor(y - (d - off) * v).long() + pad
         for r, c in ((r0, c0), (r0 + 1, c0), (r0, c0 + 1), (r0 + 1, c0 + 1)):
-            inside = (r >= 0) & (r < h) & (c >= 0) & (c < w)
-            corners.append((k * hw + r * w + c)[inside])
+            inside = (r >= 0) & (r < hp) & (c >= 0) & (c < wp)
+            corners.append((k * hp * wp + r * wp + c)[inside])
     g_read = sector_bytes(torch.cat(corners), item)
     events = len(frame["x"]) * (4 * item + (0 if bins is None else 4))  # x, y, dtf, wt (, int32 bins)
-    images = len(OFFSETS) * hw * item
+    images = len(OFFSETS) * hp * wp * item
     grad = flow.numel() * item
     moved = {"fwd": events + flow_read + images, "bwd": events + flow_read + g_read + grad,
              "jvp": events + 2 * flow_read + images, "hvp_bwd": events + flow_read + g_read + grad}[kind]
@@ -782,29 +855,30 @@ def bound_times(kind: str, frame, flow: torch.Tensor):
     return t_bytes, t_ops
 
 
-def bound(kind: str, frame, flow: torch.Tensor):
+def bound(kind: str, frame, flow: torch.Tensor, pad: int = 0):
     """(least milliseconds one H100 needs, what bounds it: "bytes" or
     "operations") for one call of a kernel on ``frame``'s events and
     ``flow`` (``bound_times``)."""
-    t_bytes, t_ops = bound_times(kind, frame, flow)
+    t_bytes, t_ops = bound_times(kind, frame, flow, pad)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fleet_bound(kind: str, fleet, flows: torch.Tensor):
+def fleet_bound(kind: str, fleet, flows: torch.Tensor, pad: int = 0):
     """``bound`` of one batched call: each frame's bytes and operations
     (``bound_times`` on that frame's events and flow), summed over the
     frames."""
-    t_bytes, t_ops = (sum(t) for t in zip(*(bound_times(kind, fleet.frame(b), flows[b])
+    t_bytes, t_ops = (sum(t) for t in zip(*(bound_times(kind, fleet.frame(b), flows[b], pad)
                                             for b in range(len(fleet)))))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(fi, frame, flow, dflow, g1, g2, names, frames=None) -> dict:
+def time_kernels(fi, frame, flow, dflow, g1, g2, names, frames=None, pad=0) -> dict:
     """Float32 times (ms per call: CUDA events, mean of 50 after 5
     warm-up) of the named kernels and their plain versions on one frame
-    (on a batch of frames, the batched forms, with ``frames``)."""
+    (on a batch of frames, the batched forms, with ``frames``; images of
+    outer padding ``pad``)."""
     ev = (frame.x, frame.y, frame.dtf, frame.wt)
-    kw = {"bins": frame.bins, "frames": frames}
+    kw = {"bins": frame.bins, "frames": frames, "pad": pad}
     flr = flow.clone().requires_grad_(True)
     with torch.enable_grad():
         graph = fi.fused_iwe_reference(flr, *ev, OFFSETS, False, **kw)
@@ -1052,33 +1126,35 @@ def fleet_windows(config: dict, n_frames: int):
     return [port_main._gather_frame(loader, data, ts[i], ts[i + data["eval_dt"]])[0] for i in range(n_frames)]
 
 
-def fleet_kernel_check(fi, fleet, flows, dflows, g, g1, g2, tol):
+def fleet_kernel_check(fi, fleet, flows, dflows, g, g1, g2, tol, pad=0):
     """The four batched kernels of one form (dense, or voxel with the
-    fleet's bins) against their batched plain versions, each frame against
-    the single-frame kernel on that frame alone, and a repeat: (lines,
-    max abs errors, all ok)."""
-    ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": fleet.bins, "frames": fleet.frames}
+    fleet's bins; ``pad``: the images' outer padding) against their
+    batched plain versions, each frame against the single-frame kernel on
+    that frame alone, and a repeat: (lines, max abs errors, all ok)."""
+    ev, kw = (fleet.x, fleet.y, fleet.dtf, fleet.wt), {"bins": fleet.bins, "frames": fleet.frames, "pad": pad}
     flr = flows.clone().requires_grad_(True)
     (ref_grad,) = torch.autograd.grad((fi.fused_iwe_reference(flr, *ev, OFFSETS, False, **kw) * g).sum(), flr)
     ref_val, ref_tan = fi.fused_iwe_jvp_reference(flows, dflows, *ev, OFFSETS, True, **kw)
     calls = {
         "fwd": (lambda: fi.fused_iwe_fwd(flows, *ev, OFFSETS, False, **kw),
-                lambda one, b: fi.fused_iwe_fwd(flows[b], *one, OFFSETS, False, bins=fleet.frame(b).bins),
+                lambda one, b: fi.fused_iwe_fwd(flows[b], *one, OFFSETS, False, bins=fleet.frame(b).bins, pad=pad),
                 fi.fused_iwe_reference(flows, *ev, OFFSETS, False, **kw)),
         "bwd": (lambda: fi.fused_iwe_bwd(flows, *ev, g, OFFSETS, False, **kw),
-                lambda one, b: fi.fused_iwe_bwd(flows[b], *one, g[b], OFFSETS, False, bins=fleet.frame(b).bins),
+                lambda one, b: fi.fused_iwe_bwd(flows[b], *one, g[b], OFFSETS, False, bins=fleet.frame(b).bins,
+                                                pad=pad),
                 ref_grad),
         "jvp": (lambda: fi.fused_iwe_jvp(flows, dflows, *ev, OFFSETS, False, **kw),
-                lambda one, b: fi.fused_iwe_jvp(flows[b], dflows[b], *one, OFFSETS, False, bins=fleet.frame(b).bins),
+                lambda one, b: fi.fused_iwe_jvp(flows[b], dflows[b], *one, OFFSETS, False, bins=fleet.frame(b).bins,
+                                                pad=pad),
                 ref_tan),
         "hvp_bwd": (lambda: fi.fused_iwe_hvp_bwd(flows, dflows, g1, g2, *ev, OFFSETS, True, **kw),
                     lambda one, b: fi.fused_iwe_hvp_bwd(flows[b], dflows[b], g1[b], g2[b], *one, OFFSETS, True,
-                                                        bins=fleet.frame(b).bins),
+                                                        bins=fleet.frame(b).bins, pad=pad),
                     fi.fused_iwe_hvp_bwd_reference(flows, dflows, g1, g2, *ev, OFFSETS, True, **kw)),
     }
     cev = tuple(a.cpu() for a in ev)
     ckw = {"bins": None if fleet.bins is None else fleet.bins.cpu(),
-           "frames": fi.Frames(fleet.frames.ptr.cpu(), fleet.frames.sizes)}
+           "frames": fi.Frames(fleet.frames.ptr.cpu(), fleet.frames.sizes), "pad": pad}
     cpu = lambda a: a.cpu()
     models = {  # the exact models of the forward's, the backward's and the tangent's bits
         "fwd": lambda: fi.fused_iwe_fixed_reference(cpu(flows), *cev, OFFSETS, False, **ckw),
@@ -2016,6 +2092,21 @@ TRACE_MAX_ITER = 3
 LBFGS_MAX_ITER = 75
 # [init-grid]: the cold starts swept through the coarsest scale's objective
 GRID_INITS = (("grid-best", 30), ("global-best", 10))
+# solver.outer_padding of the unfused phases' configs (unfused_config)
+PAD = 8
+# [pad-random-witness]: the pad frame from the config's random start at the
+# screen's scale (scaled_config, float64), held to the JAX package's EPE of
+# the same frame, start and size: `JAX_PLATFORMS=cpu python3
+# tools/screen_host_optimizers.py --scale 0.35 --methods Newton-CG --set
+# solver.outer_padding=8` (91x121, 3672 events; zero flow 3.3850).  The two
+# packages draw their init sweeps from other generators (and the card's from
+# another than the CPU's), and from this start the exact HVP's trajectory
+# takes those draws into the EPE: the port on the CPU with the config's draws
+# and sweep seeds 1-6 gives 25.2885-26.1353 (the screen's --port-seeds 1 2 3
+# 4 5 6), a spread of 3.3% of JAX's EPE.  The band is twice that, rounded up.
+WITNESS_SCALE = 0.35
+WITNESS_JAX_EPE = 25.844328841979678
+WITNESS_BAND = 0.1
 # the Newton DSEC frame's line (dsec_path), printed beside [lbfgs-dsec]'s
 DSEC_NEWTON = {}
 
@@ -2429,9 +2520,9 @@ class recorded_votes:
 
         self.calls, self.kernel = [], vote.bilinear_vote_kernel
 
-        def record(ev, image_size, weight=1.0, eps=1e-6):
+        def record(ev, image_size, weight=1.0, eps=1e-6, padding=0, count=False):
             self.calls.append((ev, weight, tuple(image_size)))
-            return self.kernel(ev, image_size, weight, eps)
+            return self.kernel(ev, image_size, weight, eps, padding, count)
 
         vote.bilinear_vote_kernel = record
         return self.calls
@@ -2692,6 +2783,339 @@ def dnn_path(dev, smi):
     return total, {"launches_per_step": per_step, "shapes": shapes}
 
 
+def unfused_config(config: dict, iwe: str = "bilinear_vote", init: str = "zero", **opt) -> dict:
+    """``config`` on the JAX package's unfused objective: ``solver.outer_padding:
+    PAD``, ``solver.iwe.method: iwe``, the cold start ``init`` and ``opt``
+    in its optimizer block.  The zero start by default: from the config's
+    random start (+-150 px/s) the route's exact HVP, which has no step clip
+    in the JAX package either, diverges (``[pad-random]``)."""
+    config = copy.deepcopy(config)
+    config["solver"]["outer_padding"] = PAD
+    config["solver"]["iwe"] = dict(config["solver"]["iwe"], method=iwe)
+    config["solver"]["patch"] = dict(config["solver"]["patch"], initialize=init)
+    config["optimizer"].update(opt)
+    return config
+
+
+def pad_check(fi, dev, config: dict, events: np.ndarray, rng):
+    """``[pad-check]``: at ``PAD`` and the MVSEC slice's first window, float64
+    and float32, K1 (orig and direction images; the count vote), K2, K3 and
+    K4 against their plain versions (``TOL``) and exact models (max|err| 0),
+    and their voxel forms (K5, K6: the time-aware path's 10 bins);
+    the count vote's tangent and HVP term (zeros, no launch); K7's four
+    batched kernels on a polarity frame's two-channel table; K8 padded and
+    counting at the full frame and at the finest sweep call's shape.
+    Returns the float32 errors of the padded K1-K4 (keyed by kernel)."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.ops import vote
+    from event_based_optical_flow_tpu_torch.solver.objective import FleetEvents, FrameEvents
+
+    h, w = config["data"]["height"], config["data"]["width"]
+    hp, wp = h + 2 * PAD, w + 2 * PAD
+    flow_np, dflow_np = smooth_flow(h, w, rng), rng.normal(0.0, 3.0, (2, h, w))
+    n_bins = ta_config()["solver"]["time_bin"]
+    vox_np, dvox_np = smooth_voxel(h, w, n_bins, rng), smooth_voxel(h, w, n_bins, rng)
+    g_np = rng.normal(size=(1 + len(OFFSETS), hp, wp))
+    g1_np, g2_np = rng.normal(size=(2, len(OFFSETS), hp, wp))
+    (sweep_ev, sweep_wt), patch = sweep_call(port_main, config, events, dev)
+    errs, failed = {}, []
+    for dtype in (torch.float64, torch.float32):
+        frame = FrameEvents.from_numpy(events, dev, dtype)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)  # noqa: E731
+        flow, g, dflow, g1, g2 = t(flow_np), t(g_np), t(dflow_np), t(g1_np), t(g2_np)
+        name = str(dtype)[6:]
+        for include_orig, offsets, count in ((False, OFFSETS, False), (True, (), False), (True, OFFSETS, True)):
+            fe, be, fs, bs, same, exact = compare(fi, frame, flow, g, include_orig, offsets, pad=PAD, count=count)
+            ok = fe <= TOL[dtype] * fs and (be is None or be <= TOL[dtype] * bs) and same and exact == 0
+            phase("pad-check", f"{name} K1{'' if count else '/K2'} pad {PAD} offsets={offsets} orig={include_orig} "
+                               f"{'count' if count else 'bilinear'} N={len(events)} {h}x{w} -> {hp}x{wp}: fwd max|err| "
+                               f"{fe:.3e} (scale {fs:.3g})" + ("" if be is None else f", bwd max|err| {be:.3e} "
+                                                                                        f"(scale {bs:.3g})")
+                               + f", tol {TOL[dtype]:g} x scale; exact model: max|err| {exact:g}; repeat same bits: "
+                               + f"{same}: {'ok' if ok else 'FAIL'}")
+            failed += [] if ok else [f"{name} K1/K2 pad count={count}"]
+            if dtype == torch.float32 and offsets and not count:
+                errs.update(fwd=fe, bwd=be)
+        lines, second, ok = check_second_order(fi, frame, flow, dflow, g1, g2, TOL[dtype], pad=PAD)
+        for line in lines:
+            phase("pad-check", f"{name} pad {PAD}: {line}")
+        failed += [] if ok else [f"{name} K3/K4 pad"]
+        voxel = FrameEvents.from_numpy(events, dev, dtype, time_bin=n_bins)
+        fe, be, fs, bs, same, exact = compare(fi, voxel, t(vox_np), g[1:].contiguous(), False, OFFSETS, pad=PAD)
+        ok = fe <= TOL[dtype] * fs and be <= TOL[dtype] * bs and same and exact == 0
+        lines, _, ok2 = check_second_order(fi, voxel, t(vox_np), t(dvox_np), g1, g2, TOL[dtype], names=("K6", "K6"),
+                                           pad=PAD)
+        for line in [f"K5 fwd max|err| {fe:.3e} (scale {fs:.3g}), bwd max|err| {be:.3e} (scale {bs:.3g}), tol "
+                     f"{TOL[dtype]:g} x scale; exact model: max|err| {exact:g}; repeat same bits: {same}"] + lines:
+            phase("pad-check", f"{name} T={n_bins} pad {PAD}: {line}: {'ok' if ok and ok2 else 'FAIL'}")
+        failed += [] if ok and ok2 else [f"{name} K5/K6 pad"]
+        if dtype == torch.float32:
+            errs.update(second)
+        ev = (frame.x, frame.y, frame.dtf, frame.wt)
+        before = dict(ops.launch_counts())
+        val, tan = fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, True, pad=PAD, count=True)
+        term = fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, True, pad=PAD, count=True)
+        fwd_bits = torch.equal(val, fi.fused_iwe_fwd(flow, *ev, OFFSETS, False, pad=PAD, count=True))
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        ok = fwd_bits and not tan.abs().max().item() and not term.abs().max().item() and launched == {"fwd": 2}
+        phase("pad-check", f"{name} count vote pad {PAD}: tangent and HVP term all zeros, value == K1's count bits: "
+                           f"{fwd_bits}, launches {launched} (K1 only): {'ok' if ok else 'FAIL'}")
+        failed += [] if ok else [f"{name} count tangent"]
+        pol = FrameEvents.from_numpy(events, dev, dtype, polarity=True)
+        fleet = FleetEvents(pol.x, pol.y, pol.dtf, pol.wt, pol.t_scale.repeat(2), pol.channels)
+        two = lambda a: a.expand((2,) + tuple(a.shape)).contiguous()  # noqa: E731
+        lines, batched, ok = fleet_kernel_check(fi, fleet, two(flow), two(dflow), two(g[1:]), two(g1), two(g2),
+                                                TOL[dtype], pad=PAD)
+        for line in lines:
+            phase("pad-check", f"{name} K7 polarity channels (B=2, {fleet.frames.sizes}) pad {PAD}: {line}")
+        failed += [] if ok else [f"{name} K7 pad"]
+        frame_ev = torch.as_tensor(events, dtype=dtype, device=dev)
+        sweep = (sweep_ev.to(dtype), sweep_wt.to(dtype), (patch[0] + 2 * PAD, patch[1] + 2 * PAD))
+        for what, (e, wt, size) in (("frame", (frame_ev, 1.0, (hp, wp))), ("sweep", sweep)):
+            for count in (False, True):
+                got = vote.bilinear_vote_kernel(e, size, wt, padding=PAD, count=count)
+                want = vote.bilinear_vote_plain(e, size, wt, padding=PAD, count=count)
+                torch.cuda.synchronize()
+                err, scale = (got - want).abs().max().item(), max(1.0, want.abs().max().item())
+                cw = wt.cpu() if torch.is_tensor(wt) else wt
+                exact = exact_err(got, vote.bilinear_vote_fixed_reference(e.cpu(), size, cw, padding=PAD,
+                                                                          count=count))
+                same = torch.equal(got, vote.bilinear_vote_kernel(e, size, wt, padding=PAD, count=count))
+                ok = err <= TOL[dtype] * scale and exact == 0 and same
+                phase("pad-check", f"{name} K8 {what} {'count' if count else 'bilinear'} pad {PAD}: events "
+                                   f"{list(e.shape)} -> images {list(got.shape)}: max|err| {err:.3e} (scale "
+                                   f"{scale:.3g}), tol {TOL[dtype]:g} x scale; exact model: max|err| {exact:g}; "
+                                   f"repeat same bits: {same}: {'ok' if ok else 'FAIL'}")
+                failed += [] if ok else [f"{name} K8 {what} count={count}"]
+    if failed:
+        raise SystemExit(f"chip_smoke: padded or counting kernels {failed} disagree with their plain versions or "
+                         "exact models")
+    return errs
+
+
+def pad_time(fi, dev, smi, config: dict, events: np.ndarray, rng) -> dict:
+    """``[pad-time]``: float32 K1-K4 at ``PAD`` against ``pad`` 0 on the
+    MVSEC slice's first window, kernels and plain versions, with each
+    bound; K5/K6 (the time-aware path's 10 bins) and K7 (a polarity
+    frame's two-channel table) at ``PAD``; K8 padded and counting at the
+    finest sweep call's shape and a full frame.  Returns {kernel form:
+    {ms, plain_ms, bound_ms, bound_by[, ms_pad0]}}."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch.ops import vote
+    from event_based_optical_flow_tpu_torch.solver.objective import FleetEvents, FrameEvents
+
+    h, w = config["data"]["height"], config["data"]["width"]
+    frame = FrameEvents.from_numpy(events, dev, torch.float32)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    flow, dflow = t(smooth_flow(h, w, rng)), t(rng.normal(0.0, 3.0, (2, h, w)))
+    out = {}
+    names = ("fwd", "bwd", "jvp", "hvp_bwd")
+    for pad in (0, PAD):
+        g1, g2 = t(rng.normal(size=(2, len(OFFSETS), h + 2 * pad, w + 2 * pad)))
+        out[pad] = time_kernels(fi, frame, flow, dflow, g1, g2, names, pad=pad)
+    rows = {}
+    for name in names:
+        b_ms, b_by = bound(name, frame, flow, PAD)
+        rows[name] = {"ms": out[PAD][name], "plain_ms": out[PAD][f"{name}_plain"], "bound_ms": b_ms,
+                      "bound_by": b_by, "ms_pad0": out[0][name]}
+        phase("pad-time", f"{smi}: float32 {name} N={len(events)} {h}x{w} pad {PAD} ({h + 2 * PAD}x{w + 2 * PAD} "
+                          f"images): kernel {out[PAD][name]:.4f} ms (pad 0: {out[0][name]:.4f} ms, "
+                          f"{out[PAD][name] / out[0][name]:.2f}x) vs plain {out[PAD][f'{name}_plain']:.4f} ms, bound "
+                          f"{b_ms:.6f} ms ({b_by}) (CUDA events, mean of 50 after 5 warm-up; jvp tangent only, "
+                          "hvp_bwd term_a=False)")
+    n_bins = ta_config()["solver"]["time_bin"]
+    voxel = FrameEvents.from_numpy(events, dev, torch.float32, time_bin=n_bins)
+    vox, dvox = t(smooth_voxel(h, w, n_bins, rng)), t(smooth_voxel(h, w, n_bins, rng))
+    pol = FrameEvents.from_numpy(events, dev, torch.float32, polarity=True)
+    fleet = FleetEvents(pol.x, pol.y, pol.dtf, pol.wt, pol.t_scale.repeat(2), pol.channels)
+    two = lambda a: a.expand((2,) + tuple(a.shape)).contiguous()  # noqa: E731
+    g1, g2 = t(rng.normal(size=(2, len(OFFSETS), h + 2 * PAD, w + 2 * PAD)))
+    voxels = FleetEvents.copies(voxel, 2)
+    for form, frame_f, fl, dfl, a1, a2, batch, what in (
+            ("voxel_", voxel, vox, dvox, g1, g2, None, f"T={n_bins}"),
+            ("batched_", fleet, two(flow), two(dflow), two(g1), two(g2), fleet, "polarity channels B=2"),
+            ("batched_voxel_", voxels, two(vox), two(dvox), two(g1), two(g2), voxels, f"T={n_bins} B=2")):
+        times = time_kernels(fi, frame_f, fl, dfl, a1, a2, names, frames=None if batch is None else batch.frames,
+                             pad=PAD)
+        for name in names:
+            b_ms, b_by = bound(name, frame_f, fl, PAD) if batch is None else fleet_bound(name, batch, fl, PAD)
+            rows[form + name] = {"ms": times[name], "plain_ms": times[f"{name}_plain"], "bound_ms": b_ms,
+                                 "bound_by": b_by}
+        bounds = ", ".join(f"{rows[form + n]['bound_ms']:.6f}" for n in names)
+        phase("pad-time", time_line(smi, times, names, f"{what} N={len(events)} {h}x{w} pad {PAD}")
+              + f"; bounds {bounds} ms")
+    (sweep_ev, sweep_wt), patch = sweep_call(port_main, config, events, dev)
+    frame_ev = torch.as_tensor(events, dtype=torch.float32, device=dev)
+    sweep = (sweep_ev.float(), sweep_wt.float(), (patch[0] + 2 * PAD, patch[1] + 2 * PAD))
+    for what, (e, wt, size) in (("sweep", sweep), ("frame", (frame_ev, 1.0, (h + 2 * PAD, w + 2 * PAD)))):
+        for count in (False, True):
+            ms = cuda_ms(lambda: vote.bilinear_vote_kernel(e, size, wt, padding=PAD, count=count))
+            plain_ms = cuda_ms(lambda: vote.bilinear_vote_plain(e, size, wt, padding=PAD, count=count))
+            b_ms, b_by = vote_bound(e, wt, size)
+            rows[f"vote_{what}{'_count' if count else ''}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                                              "bound_by": b_by}
+            phase("pad-time", f"{smi}: float32 K8 {what} {'count' if count else 'bilinear'} pad {PAD} {list(e.shape)}"
+                              f" -> {list(size)}: kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+                              f"({b_by}) (CUDA events, mean of 50 after 5 warm-up)")
+    return rows
+
+
+def unfused_frame(port_main, name: str, config: dict, dev, smi, what: str, rule, gated: bool = True,
+                  repeat: bool = True):
+    """Frame 0 of ``config`` through the CLI's eval loop (chained where its
+    optimizer runs chained): ``[name]``'s line (seconds, EPE against the
+    zero flow's, syncs, iterations, HVP, launches, peak memory), gated at
+    ``EPE_FRACTION`` of the zero flow's with ``gated``; ``rule(launches)``
+    checks the solve's kernels; with ``repeat`` the loop's rerun gives the
+    same bits (``loop_repeat``).  Returns (launches, failed)."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    records, out_dir, wall, peak = run_slice(port_main, config, dev, last_frame=0)
+    total = ops.launch_counts()
+    loader, solv = port_main.build(slice_config(config, 0, out_dir), dev)
+    r = records[0]
+    m, st = r["metrics"], r["stats"]
+    zero = zero_flow_epe(loader, config["data"], 0, solv)
+    solve = solve_launches(st)
+    epe_ok = bool(np.isfinite(m["EPE"]) and m["EPE"] < EPE_FRACTION * zero)
+    ok = np.isfinite(m["EPE"]) and np.isfinite(m["PRED_FWL"]) and rule(solve) and (epe_ok or not gated)
+    used = {k: v for k, v in solve.items() if v}
+    phase(name, f"{what} frame 0 ({'chained' if st['chain'] else 'the loop'}) on {smi}: {r['seconds']:.3f} s, EPE "
+                f"{m['EPE']:.4f} (zero flow {zero:.4f}{'' if gated else '; ungated, see below'}), PRED_FWL "
+                f"{m['PRED_FWL']:.4f}, host syncs {st['syncs']}, iters {st['iters']}, HVP {st['hvp']}, the solve's "
+                f"launches {used}, loss {({s: round(v, 6) for s, v in st['loss'].items()})}, peak {peak:.3f} GiB: "
+                f"{'ok' if ok else 'FAIL'}")
+    failed = [] if ok else [name]
+    if repeat:
+        ops.reset_launch_counts()
+        if not loop_repeat(port_main, config, dev, records, peak, smi, f"{name}-repeat", what):
+            failed.append(f"{name}-repeat")
+        total = {k: total[k] + v for k, v in ops.launch_counts().items()}
+    return total, failed, epe_ok
+
+
+def random_witness(dev, smi, rule) -> list:
+    """``[pad-random-witness]``: ``[pad-random]``'s frame at the screen's
+    ``WITNESS_SCALE``, float64, on the card from the config's random start,
+    its EPE within ``WITNESS_BAND`` of the JAX package's (``WITNESS_JAX_EPE``)
+    and its solve through K1-K4 (``rule``).  Returns the failed names."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    config = scaled_config(WITNESS_SCALE, "Newton-CG", tempfile.mkdtemp(prefix="evflow_chip_smoke_"),
+                           [f"solver.outer_padding={PAD}"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m, zero, st = frame0_solve(config, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    off = abs(m["EPE"] - WITNESS_JAX_EPE) / WITNESS_JAX_EPE
+    ok = bool(np.isfinite(m["EPE"]) and off <= WITNESS_BAND and rule(launches) and set(st["hvp"].values()) == {"exact"})
+    d = config["data"]
+    phase("pad-random-witness", f"{d['height']}x{d['width']}, outer_padding {PAD}, float64, the config's random start "
+                                f"on {smi}: {wall:.3f} s, EPE {m['EPE']!r} against the JAX package's "
+                                f"{WITNESS_JAX_EPE!r} ({off:.2%} off, band {WITNESS_BAND:.0%}; zero flow {zero:.4f}), "
+                                f"iters {st['iters']}, HVP {st['hvp']}, loss {st['loss']}: {'ok' if ok else 'FAIL'}")
+    return [] if ok else ["pad-random-witness"]
+
+
+def unfused_path(fi, dev, smi, config: dict, events: np.ndarray, rng):
+    """The JAX package's unfused objective's options on the MVSEC slice,
+    every config ``unfused_config`` of it (``solver.outer_padding: PAD``):
+    ``[pad-check]``, ``[pad-time]``, then frame 0 through the CLI's eval
+    loop from the zero start: ``[pad-frame]`` (bilinear votes into the
+    padded images: K1-K4), ``[polarity-frame]`` (the two polarity channels:
+    K7's four batched kernels), each chained and again with the loop, bit
+    for bit, gated at ``EPE_FRACTION`` of the zero flow's; ``[pad-random]``
+    the pad frame from the config's random start, printed ungated (the
+    exact HVP's divergence, the JAX package's too:
+    ``tools/screen_host_optimizers.py``); ``[pad-ta-frame]`` the time-aware
+    path's frame 0 (K5, K6 and the voxel map's curvature: the exact HVP),
+    chained, gated; ``[count-frame]`` (the count vote,
+    no image gradient: the sampling optimizer, K1 only), printed ungated
+    (the JAX package's EPE for this draw at this size is not taken: a
+    full-size CPU run of it is not made); ``[pad-fleet]``: the fleet of
+    ``FLEET_BATCH`` with padding and the polarity vote (K7 over the 2B
+    channels' table, the exact HVP), chained, gated; ``[pad-serve]``: a serving
+    estimator with ``outer_padding`` and the zero start takes the serving
+    path's window 0 cold.  Returns (launches of the runs, the float32 errors and the
+    ``[pad-time]`` rows of K1-K4)."""
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.streaming import StreamingFlowEstimator
+
+    errs = pad_check(fi, dev, config, events, rng)
+    rows = pad_time(fi, dev, smi, config, events, rng)
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+    single = lambda s: all(s[k] > 0 for k in ("fwd", "bwd", "jvp", "hvp_bwd"))  # noqa: E731
+    batched = lambda s: all(s[f"batched_{k}"] > 0 for k in ("fwd", "bwd", "jvp", "hvp_bwd"))  # noqa: E731
+    count = lambda s: s["fwd"] > 0 and s["bwd"] == s["jvp"] == s["hvp_bwd"] == 0  # noqa: E731
+    voxel = lambda s: all(s[f"voxel_{k}"] > 0 for k in ("fwd", "bwd", "jvp", "hvp_bwd"))  # noqa: E731
+    total, failed = {}, []
+    for name, cfg, rule, gated, repeat, what in (
+            ("pad-frame", unfused_config(config), single, True, True, f"MVSEC slice, outer_padding {PAD}"),
+            ("polarity-frame", unfused_config(config, "polarity"), batched, True, True,
+             f"MVSEC slice, outer_padding {PAD}, iwe.method polarity"),
+            ("pad-random", unfused_config(config, init="random"), single, False, False,
+             f"MVSEC slice, outer_padding {PAD}, the random start"),
+            ("pad-ta-frame", unfused_config(ta_config(), coarse_max_iter=TA_COARSE_MAX_ITER), voxel, True, False,
+             f"time-aware path (Burgers, T=10, coarse scales cut to {TA_COARSE_MAX_ITER}), outer_padding {PAD}"),
+            ("count-frame", unfused_config(config, "count", method="optuna"), count, False, False,
+             f"MVSEC slice, outer_padding {PAD}, iwe.method count, optimizer.method optuna")):
+        launches, bad, epe_ok = unfused_frame(port_main, name, cfg, dev, smi, what, rule, gated, repeat)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        failed += bad
+        if name == "count-frame":
+            phase(name, f"ungated: the JAX package's EPE for this draw at 260x346 is not measured (no full-size CPU "
+                        f"run); below {EPE_FRACTION} x the zero flow's: {epe_ok}")
+        elif not gated:
+            phase(name, f"ungated: from the random start the exact HVP (no step clip, as in the JAX package) "
+                        f"diverges, the JAX package's too ([pad-random-witness]); below {EPE_FRACTION} x the zero "
+                        f"flow's: {epe_ok}")
+            failed += random_witness(dev, smi, single)
+    ops.reset_launch_counts()
+    recs, run_config, loader, solv, wall, fpeak = run_fleet(port_main, fleet_config(unfused_config(config, "polarity"),
+                                                                                     FLEET_BATCH), dev, FLEET_BATCH)
+    total = {k: total[k] + v for k, v in ops.launch_counts().items()}
+    rule = lambda st: (set(st["hvp"].values()) == {"exact"}  # noqa: E731
+                       and all(batched({k: c.get(k, 0) for k in total}) for c in st["launches"].values()))
+    failed += [f"pad-fleet {f}" for f in fleet_run_checks(recs, rule, loader, run_config, solv, "pad-fleet")]
+    phase("pad-fleet", f"{len(recs)} windows, outer_padding {PAD}, iwe.method polarity, in one chained batch in "
+                       f"{wall:.2f} s ({wall / FLEET_BATCH:.3f} s per frame), peak {fpeak:.3f} GiB on {smi}")
+    windows = serve_windows(config, 1)
+    h, w = config["data"]["height"], config["data"]["width"]
+    est = StreamingFlowEstimator((h, w), solver_config={"seed": SERVE_SOLVER_SEED, "outer_padding": PAD,
+                                                        "patch": {"initialize": "zero"}},
+                                 fixed_event_count=SERVE_EVENT_COUNT, device=dev)
+    events0, gt, seconds = windows[0]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    flow = est.push(events0)
+    span = est.last_span
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    total = {k: total[k] + v for k, v in launches.items()}
+    pred = np.asarray(flow, dtype=np.float64) / span * seconds
+    m, zero = est.metrics(pred, gt, events0), est.metrics(np.zeros_like(pred), gt, events0)["EPE"]
+    stats = est._solver.last_frame_stats
+    ok = (np.isfinite(pred).all() and m["EPE"] < EPE_FRACTION * zero and single(launches)
+          and set(stats["hvp"].values()) == {"exact"})
+    phase("pad-serve", f"window 0 cold (zero start) to a serving estimator with outer_padding {PAD} on {smi}: "
+                       f"{wall:.3f} s, EPE "
+                       f"{m['EPE']:.4f} (zero flow {zero:.4f}), HVP {stats['hvp']}, host syncs {stats['syncs']}, "
+                       f"launches {({k: v for k, v in launches.items() if v})}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("pad-serve")
+    if failed:
+        raise SystemExit(f"chip_smoke: unfused phases {failed} failed their EPE gate, launches or repeat")
+    return total, rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
@@ -2792,6 +3216,8 @@ def main() -> int:
                  init_path):
         path_launches = path(dev, smi)
         launches = {k: launches[k] + path_launches[k] for k in launches}
+    unfused_launches, pad_rows = unfused_path(fi, dev, smi, config, events, rng)
+    launches = {k: launches[k] + unfused_launches[k] for k in launches}
     dnn_launches, k8_dnn = dnn_path(dev, smi)
     launches = {k: launches[k] + dnn_launches[k] for k in launches}
     src = fi.KERNEL_SOURCE
@@ -2801,14 +3227,15 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes a fused gather + warp + vote (or its derivatives)
-         "library_ms": None, **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})}
+         "library_ms": None, **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
+         **({f"pad{PAD}": pad_rows[name]} if name in pad_rows else {})}
         for name, line in KERNEL_LINES.items()
     ]
     kernels.append({"name": "vote", "route": "cuda", "source": vote.KERNEL_SOURCE,
                     "replaces": "event_based_optical_flow_tpu/ops/pallas_iwe.py:101", "launches": launches["vote"],
                     "max_abs_err": k8["err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
                     "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": k8["library_ms"],
-                    "dnn": k8_dnn})
+                    "dnn": k8_dnn, f"pad{PAD}": {k: v for k, v in pad_rows.items() if k.startswith("vote_")}})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")

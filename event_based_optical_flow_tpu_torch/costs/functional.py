@@ -38,15 +38,17 @@ def image_variance(iwe: Tensor, omit_boundary: bool = True, ddof: int = 1) -> Te
     return variance(iwe, ddof)
 
 
-def gradient_magnitude(iwe: Tensor, omit_boundary: bool = True) -> Tensor:
-    """mean(||Sobel(IWE)/8||^2) over the image axes."""
+def gradient_magnitude(iwe: Tensor, omit_boundary: bool = True, image_axes: int = 2) -> Tensor:
+    """mean(||Sobel(IWE)/8||^2) over the last ``image_axes`` axes: 2 for an
+    image, 3 for a polarity IWE's ``[2, H, W]`` (one value over both
+    channels, as the JAX package takes the mean of the whole array)."""
     gx, gy = sobel_xy(iwe)
     gx = gx / 8.0
     gy = gy / 8.0
     if omit_boundary:
         gx = gx[..., 1:-1, 1:-1]
         gy = gy[..., 1:-1, 1:-1]
-    return (torch.square(gx) + torch.square(gy)).mean(dim=(-2, -1))
+    return (torch.square(gx) + torch.square(gy)).mean(dim=tuple(range(-image_axes, 0)))
 
 
 def normalized_image_variance(iwe: Tensor, orig_iwe: Tensor, omit_boundary: bool = True, ddof: int = 1) -> Tensor:
@@ -57,9 +59,11 @@ def normalized_image_variance(iwe: Tensor, orig_iwe: Tensor, omit_boundary: bool
     return variance(iwe, ddof) / variance(orig_iwe, ddof)
 
 
-def normalized_gradient_magnitude(iwe: Tensor, orig_iwe: Tensor, omit_boundary: bool = True) -> Tensor:
+def normalized_gradient_magnitude(iwe: Tensor, orig_iwe: Tensor, omit_boundary: bool = True,
+                                  image_axes: int = 2) -> Tensor:
     """GradMag(IWE)/GradMag(orig), natural orientation."""
-    return gradient_magnitude(iwe, omit_boundary) / gradient_magnitude(orig_iwe, omit_boundary)
+    return (gradient_magnitude(iwe, omit_boundary, image_axes)
+            / gradient_magnitude(orig_iwe, omit_boundary, image_axes))
 
 
 def multi_focal_normalized_image_variance(
@@ -91,22 +95,25 @@ def multi_focal_normalized_gradient_magnitude(
     backward_iwe: Tensor,
     middle_iwe=None,
     omit_boundary: bool = True,
+    image_axes: int = 2,
 ) -> Tensor:
     """Multi-reference focal loss, gradient-magnitude flavor, minimize
     orientation: G(orig)/G(fwd) + G(orig)/G(bwd) [+ 2 G(orig)/G(mid)]."""
-    g_orig = gradient_magnitude(orig_iwe, omit_boundary)
-    loss = g_orig / gradient_magnitude(forward_iwe, omit_boundary)
-    loss = loss + g_orig / gradient_magnitude(backward_iwe, omit_boundary)
+    g_orig = gradient_magnitude(orig_iwe, omit_boundary, image_axes)
+    loss = g_orig / gradient_magnitude(forward_iwe, omit_boundary, image_axes)
+    loss = loss + g_orig / gradient_magnitude(backward_iwe, omit_boundary, image_axes)
     if middle_iwe is not None:
-        loss = loss + 2.0 * g_orig / gradient_magnitude(middle_iwe, omit_boundary)
+        loss = loss + 2.0 * g_orig / gradient_magnitude(middle_iwe, omit_boundary, image_axes)
     return loss
 
 
 def total_variation(flow: Tensor, omit_boundary: bool = True) -> Tensor:
     """mean |Sobel(flow)/8| over the 4 (dxx,dyy,dyx,dxy) channels; the ring
     is cropped only when the spatial dims exceed 2 (reference quirk kept
-    for tiny tile grids)."""
+    for tiny tile grids).  The absolute value takes ``jnp.abs``'s
+    derivative, +1 at 0 (``torch.abs`` takes 0 there): a uniform tile
+    motion, whose Sobel taps are all 0, gets the JAX package's gradient."""
     sob = sobel_flow(flow) / 8.0
     if omit_boundary and sob.shape[-2] > 2 and sob.shape[-1] > 2:
         sob = sob[..., 1:-1, 1:-1]
-    return sob.abs().mean()
+    return torch.where(sob >= 0, sob, -sob).mean()

@@ -70,7 +70,7 @@ class GradientMagnitude(CostBase):
     required_keys = ["iwe", "omit_boundary"]
 
     def calculate(self, arg: dict):
-        loss = F.gradient_magnitude(arg["iwe"], arg["omit_boundary"])
+        loss = F.gradient_magnitude(arg["iwe"], arg["omit_boundary"], arg.get("image_axes", 2))
         if self.direction == "minimize":
             loss = -loss
         return loss
@@ -94,7 +94,8 @@ class NormalizedGradientMagnitude(CostBase):
     required_keys = ["orig_iwe", "iwe", "omit_boundary"]
 
     def calculate(self, arg: dict):
-        ratio = F.normalized_gradient_magnitude(arg["iwe"], arg["orig_iwe"], arg["omit_boundary"])
+        ratio = F.normalized_gradient_magnitude(arg["iwe"], arg["orig_iwe"], arg["omit_boundary"],
+                                                arg.get("image_axes", 2))
         return 1.0 / ratio if self.direction == "minimize" else ratio
 
 
@@ -131,16 +132,17 @@ class MultiFocalNormalizedGradientMagnitude(CostBase):
         middle = arg.get("middle_iwe", None)
         if self.direction in ("minimize", "maximize"):
             loss = F.multi_focal_normalized_gradient_magnitude(
-                arg["orig_iwe"], arg["forward_iwe"], arg["backward_iwe"], middle, arg["omit_boundary"]
+                arg["orig_iwe"], arg["forward_iwe"], arg["backward_iwe"], middle, arg["omit_boundary"],
+                arg.get("image_axes", 2),
             )
             if self.direction == "maximize":
                 loss = -loss
         else:  # 'natural' sums the per-warp natural ratios (reference quirk)
-            omit = arg["omit_boundary"]
-            loss = F.normalized_gradient_magnitude(arg["forward_iwe"], arg["orig_iwe"], omit)
-            loss = loss + F.normalized_gradient_magnitude(arg["backward_iwe"], arg["orig_iwe"], omit)
+            omit, axes = arg["omit_boundary"], arg.get("image_axes", 2)
+            loss = F.normalized_gradient_magnitude(arg["forward_iwe"], arg["orig_iwe"], omit, axes)
+            loss = loss + F.normalized_gradient_magnitude(arg["backward_iwe"], arg["orig_iwe"], omit, axes)
             if middle is not None:
-                loss = loss + 2.0 * F.normalized_gradient_magnitude(middle, arg["orig_iwe"], omit)
+                loss = loss + 2.0 * F.normalized_gradient_magnitude(middle, arg["orig_iwe"], omit, axes)
         return loss
 
 

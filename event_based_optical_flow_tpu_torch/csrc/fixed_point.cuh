@@ -2,7 +2,10 @@
 // (K1-K7, the votes of warped events) and csrc/vote.cu (K8, the standalone
 // vote): corners at floor(c + eps) and +1, weights w(1-fx)(1-fy), w fx(1-fy),
 // w(1-fx)fy, w fx fy with fx = c - floor(c + eps), corners outside the image
-// dropped.  Each vote is rounded to a unit of 2^-kFixBits and added to an
+// dropped.  The count vote (iwe.method: count) adds w at each corner that
+// lands in the image instead.  An image with an outer padding of p pixels a
+// side is (H + 2p) x (W + 2p) and votes at c + p (padded(): c itself when p
+// is 0, so an unpadded vote keeps its bits).  Each vote is rounded to a unit of 2^-kFixBits and added to an
 // int64 with an integer atomicAdd; a second kernel converts the sums.
 // Integer addition is associative, so the images are the same bits whatever
 // order the atomics land in.  A float32 vote of magnitude >= 2^-13 is
@@ -53,18 +56,25 @@ __device__ __forceinline__ void add_fixed(unsigned long long* acc, T value) {
   atomicAdd(acc, static_cast<unsigned long long>(q));
 }
 
+// A coordinate shifted by the image's outer padding.
+template <typename T>
+__device__ __forceinline__ T padded(T c, int pad) {
+  return pad ? c + static_cast<T>(pad) : c;
+}
+
+// count: the count vote (w at each corner), else the bilinear one.
 template <typename T>
 __device__ __forceinline__ void vote(unsigned long long* img, T xw, T yw, T wt, T eps, int H,
-                                     int W) {
+                                     int W, bool count = false) {
   int r0, c0;
   T fx, fy;
   if (!corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy)) return;
   const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H;
   const bool in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
-  if (in_r0 && in_c0) add_fixed(img + r0 * W + c0, (T(1) - fx) * (T(1) - fy) * wt);
-  if (in_r1 && in_c0) add_fixed(img + (r0 + 1) * W + c0, fx * (T(1) - fy) * wt);
-  if (in_r0 && in_c1) add_fixed(img + r0 * W + c0 + 1, (T(1) - fx) * fy * wt);
-  if (in_r1 && in_c1) add_fixed(img + (r0 + 1) * W + c0 + 1, fx * fy * wt);
+  if (in_r0 && in_c0) add_fixed(img + r0 * W + c0, count ? wt : (T(1) - fx) * (T(1) - fy) * wt);
+  if (in_r1 && in_c0) add_fixed(img + (r0 + 1) * W + c0, count ? wt : fx * (T(1) - fy) * wt);
+  if (in_r0 && in_c1) add_fixed(img + r0 * W + c0 + 1, count ? wt : (T(1) - fx) * fy * wt);
+  if (in_r1 && in_c1) add_fixed(img + (r0 + 1) * W + c0 + 1, count ? wt : fx * fy * wt);
 }
 
 template <typename T>

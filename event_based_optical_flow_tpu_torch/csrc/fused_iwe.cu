@@ -52,6 +52,20 @@
 // sum up to the order of a few adds.  No per-event term goes to device
 // memory.
 //
+// Outer padding and the count vote (solver.outer_padding, iwe.method:
+// count; the JAX package's unfused objective, objective.py:192-322, which
+// warps with multi_direction_dense_warp and then votes with
+// EventImageConverter): every kernel takes pad >= 0, and the images, their
+// cotangents and tangents are then (H + 2 pad) x (W + 2 pad); each warped
+// coordinate votes at c + pad (fixed_point.cuh's padded(), c itself for pad
+// 0: an unpadded launch keeps its bits), while the flow is still gathered
+// at the unpadded, truncated source pixel.  The corner derivatives are those
+// of c, so the backward, the tangent and K4 read the padded cotangents at
+// the padded corners with the same expressions.  The forward's count flag
+// votes w at each in-image corner (the JAX package's count_vote); a count
+// image has no flow derivative, so the wrappers launch no backward, tangent
+// or HVP kernel for it (their results are zeros).
+//
 // What bounds them on the H100: the forward's scattered 8-byte integer
 // atomic adds (4 per event per offset) and the backward's gathers of g (4
 // per event per offset) — not FLOPs (a few dozen per event).
@@ -220,17 +234,19 @@ __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restric
                                      const T* __restrict__ dtf, const T* __restrict__ wt,
                                      const int* __restrict__ bins, int n_bins, Frames fr,
                                      int n, const T* __restrict__ flow, Offsets<T> offs,
-                                     int include_orig, int H, int W, T eps,
+                                     int include_orig, int H, int W, int pad, int count, T eps,
                                      unsigned long long* __restrict__ acc) {
   const int hw = H * W;
+  const int Hi = H + 2 * pad, Wi = W + 2 * pad;  // the images' size
+  const int hwi = Hi * Wi;
   const int k0 = include_orig ? 1 : 0;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const T w = wt[i];
     if (w == T(0)) continue;
     const int f = frame_of(fr, i);
-    unsigned long long* img = acc + f * (k0 + offs.n) * hw;  // the frame's image block
+    unsigned long long* img = acc + f * (k0 + offs.n) * hwi;  // the frame's image block
     const T xi = x[i], yi = y[i];
-    if (include_orig) vote(img, xi, yi, w, eps, H, W);
+    if (include_orig) vote(img, padded(xi, pad), padded(yi, pad), w, eps, Hi, Wi, count);
     if (offs.n == 0) continue;
     const int p = source_pixel(xi, yi, H, W);
     const T* fl = flow + 2 * hw * slab_of(f, bins, n_bins, i);
@@ -239,9 +255,9 @@ __global__ void fused_iwe_fwd_kernel(const T* __restrict__ x, const T* __restric
     const T d = dtf[i];
     for (int k = 0; k < offs.n; ++k) {
       const T dt = d - offs.v[k];
-      const T xw = xi - dt * u;
-      const T yw = yi - dt * v;
-      vote(img + (k0 + k) * hw, xw, yw, w, eps, H, W);
+      const T xw = padded(xi - dt * u, pad);
+      const T yw = padded(yi - dt * v, pad);
+      vote(img + (k0 + k) * hwi, xw, yw, w, eps, Hi, Wi, count);
     }
   }
 }
@@ -254,15 +270,16 @@ __device__ __forceinline__ T g_at(const T* g, int r, int c, int H, int W) {
 // du, dv of one event (summed over the offsets) against the cotangent g;
 // with TermA also the vote's mixed second derivative against g1 along the
 // tangent flow (du_g, dv_g) gathered at the event's source pixel (K4).
+// H, W: the images' size (padded by pad).
 template <typename T, bool TermA>
 __device__ __forceinline__ void event_grad(T xi, T yi, T d, T w, T u, T v, const Offsets<T>& offs,
-                                           int k0, int H, int W, T eps, const T* g, const T* g1,
+                                           int k0, int H, int W, int pad, T eps, const T* g, const T* g1,
                                            T du_g, T dv_g, T* du, T* dv) {
   const int hw = H * W;
   for (int k = 0; k < offs.n; ++k) {
     const T dt = d - offs.v[k];
-    const T xw = xi - dt * u;
-    const T yw = yi - dt * v;
+    const T xw = padded(xi - dt * u, pad);
+    const T yw = padded(yi - dt * v, pad);
     int r0, c0;
     T fx, fy;
     if (!corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy)) continue;
@@ -302,9 +319,10 @@ struct GradArgs {
   const T* dflow;  // the tangent flow, read with TermA only
   Offsets<T> offs;
   int k0, H, W;  // k0: 1 when the cotangent's image 0 is the orig image
+  int pad;       // the images' outer padding: they are (H + 2 pad) x (W + 2 pad)
   T eps;
-  const T* g;   // the cotangent [(B,) k0 + K, H, W]
-  const T* g1;  // K4's first cotangent [(B,) K, H, W], read with TermA only
+  const T* g;   // the cotangent [(B,) k0 + K, H + 2 pad, W + 2 pad]
+  const T* g1;  // K4's first cotangent [(B,) K, H + 2 pad, W + 2 pad], read with TermA only
 };
 
 // Event i's run key ((frame * T + bin) * H * W + source pixel, or -1
@@ -321,11 +339,12 @@ __device__ __forceinline__ int event_terms(const GradArgs<T>& a, int i, T* du, T
   const int slab = slab_of(f, a.bins, a.n_bins, i);
   if (w != T(0)) {
     const int off = 2 * hw * slab;
-    const int g_off = f * (a.k0 + a.offs.n) * hw;  // the frame's cotangent block
+    const int Hi = a.H + 2 * a.pad, Wi = a.W + 2 * a.pad;
+    const int g_off = f * (a.k0 + a.offs.n) * Hi * Wi;  // the frame's cotangent block
     const T du_g = TermA ? a.dflow[off + p] : T(0);
     const T dv_g = TermA ? a.dflow[off + hw + p] : T(0);
-    event_grad<T, TermA>(xi, yi, a.dtf[i], w, a.flow[off + p], a.flow[off + hw + p], a.offs, a.k0, a.H,
-                         a.W, a.eps, a.g + g_off, TermA ? a.g1 + g_off : nullptr, du_g, dv_g, du, dv);
+    event_grad<T, TermA>(xi, yi, a.dtf[i], w, a.flow[off + p], a.flow[off + hw + p], a.offs, a.k0, Hi,
+                         Wi, a.pad, a.eps, a.g + g_off, TermA ? a.g1 + g_off : nullptr, du_g, dv_g, du, dv);
   }
   return slab * hw + p;
 }
@@ -559,11 +578,13 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
                                      const int* __restrict__ bins, int n_bins, Frames fr,
                                      int n, const T* __restrict__ flow,
                                      const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
-                                     T eps, int emit_value,
+                                     int pad, T eps, int emit_value,
                                      const unsigned long long* __restrict__ bound,
                                      unsigned long long* __restrict__ acc_val,
                                      unsigned long long* __restrict__ acc_tan) {
   const int hw = H * W;
+  const int Hi = H + 2 * pad, Wi = W + 2 * pad;  // the images' size
+  const int hwi = Hi * Wi;
   const unsigned own_key = 0xffffffe0u + (threadIdx.x & 31);  // no output's index (n_out < 2^31)
   for (int base = blockIdx.x * blockDim.x; base < n; base += gridDim.x * blockDim.x) {
     const int i = base + threadIdx.x;
@@ -588,21 +609,21 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
     }
     const TangentUnit unit(p >= 0 ? frame_exponent(bound, fr, f, n) : kNonFinite);
     const bool tangent = unit.ex != kNonFinite;  // a voting event with a finite bound
-    const int img = f * offs.n * hw;             // the frame's image block
+    const int img = f * offs.n * hwi;            // the frame's image block
     for (int k = 0; k < offs.n; ++k) {
       const T dt = d - offs.v[k];
-      const T xw = xi - dt * u;
-      const T yw = yi - dt * v;
-      if (emit_value && w != T(0)) vote(acc_val + img + k * hw, xw, yw, w, eps, H, W);
+      const T xw = padded(xi - dt * u, pad);
+      const T yw = padded(yi - dt * v, pad);
+      if (emit_value && w != T(0)) vote(acc_val + img + k * hwi, xw, yw, w, eps, Hi, Wi);
       int r0 = 0, c0 = 0;
       T fx = T(0), fy = T(0);
-      const bool any = tangent && corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy);
+      const bool any = tangent && corners(xw, yw, eps, Hi, Wi, &r0, &c0, &fx, &fy);
       const T dxw = -(dt * du), dyw = -(dt * dv);
-      const int cell = img + k * hw + r0 * W + c0;
-      const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H, in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
+      const int cell = img + k * hwi + r0 * Wi + c0;
+      const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < Hi, in_c0 = c0 >= 0, in_c1 = c0 + 1 < Wi;
       const bool ok[4] = {any && in_r0 && in_c0, any && in_r1 && in_c0, any && in_r0 && in_c1,
                           any && in_r1 && in_c1};
-      const int at[4] = {0, W, 1, W + 1};  // the corners' offsets from the cell
+      const int at[4] = {0, Wi, 1, Wi + 1};  // the corners' offsets from the cell
       const T val[4] = {((-dxw) * (T(1) - fy) + (T(1) - fx) * (-dyw)) * w,
                         (dxw * (T(1) - fy) + fx * (-dyw)) * w, ((-dxw) * fy + (T(1) - fx) * dyw) * w,
                         (dxw * fy + fx * dyw) * w};
@@ -687,22 +708,22 @@ Frames make_frames(const int* frame_ptr, int n_frames) {
 // int32 bins [n] and n_bins slices per frame; frame_ptr == nullptr for one
 // frame, else int32 [n_frames + 1] (see the header).  The flow, the tangent
 // flow and the backward's output are [(B,) (T,) 2, H, W], the images and
-// their cotangents [(B,) K, H, W].
+// their cotangents [(B,) K, H + 2 pad, W + 2 pad].
 // acc: zeroed int64 scratch of the out's size.
 template <typename T>
 int launch_fwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                const int* frame_ptr, int n_frames, int n, const T* flow, const double* offsets,
-               int n_off, int include_orig, int H, int W, double eps, long long* acc, T* out,
-               void* stream) {
-  if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+               int n_off, int include_orig, int H, int W, int pad, int count, double eps, long long* acc,
+               T* out, void* stream) {
+  if (n_off < 0 || n_off > kMaxOffsets || pad < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Frames fr = make_frames(frame_ptr, n_frames);
   if (n > 0) {
     fused_iwe_fwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
         x, y, dtf, wt, bins, n_bins, fr, n, flow, make_offsets<T>(offsets, n_off), include_orig,
-        H, W, static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
+        H, W, pad, count, static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
   }
-  const int n_out = fr.n * (n_off + (include_orig ? 1 : 0)) * H * W;
+  const int n_out = fr.n * (n_off + (include_orig ? 1 : 0)) * (H + 2 * pad) * (W + 2 * pad);
   if (n_out > 0) from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc, n_out, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -727,12 +748,12 @@ long long flow_elements(const Frames& fr, int n_bins, int H, int W) {
 template <typename T>
 int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                const int* frame_ptr, int n_frames, int n, const T* flow, const double* offsets,
-               int n_off, int include_orig, int H, int W, double eps, const T* g, T* dflow,
+               int n_off, int include_orig, int H, int W, int pad, double eps, const T* g, T* dflow,
                void* stream) {
-  if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_off < 0 || n_off > kMaxOffsets || pad < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Frames fr = make_frames(frame_ptr, n_frames);
   const GradArgs<T> a{x, y, dtf, wt, bins, n_bins, fr, n, flow, nullptr, make_offsets<T>(offsets, n_off),
-                      include_orig ? 1 : 0, H, W, static_cast<T>(eps), g, nullptr};
+                      include_orig ? 1 : 0, H, W, pad, static_cast<T>(eps), g, nullptr};
   return launch_grad<T, false>(a, flow_elements(fr, n_bins, H, W), dflow, stream);
 }
 
@@ -745,9 +766,9 @@ int launch_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
 template <typename T>
 int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
-               const double* offsets, int n_off, int H, int W, double eps, int emit_value,
+               const double* offsets, int n_off, int H, int W, int pad, double eps, int emit_value,
                long long* scratch, T* out_val, T* out_tan, void* stream) {
-  if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_off < 1 || n_off > kMaxOffsets || pad < 0) return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {static_cast<const void*>(scratch), static_cast<const void*>(out_tan),
                         static_cast<const void*>(emit_value ? out_val : nullptr)}) {
     if (reinterpret_cast<unsigned long long>(p) & 15) return static_cast<int>(cudaErrorMisalignedAddress);
@@ -755,7 +776,7 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets<T> offs = make_offsets<T>(offsets, n_off);
   const Frames fr = make_frames(frame_ptr, n_frames);
-  const int per_frame = n_off * H * W;
+  const int per_frame = n_off * (H + 2 * pad) * (W + 2 * pad);
   const int n_out = fr.n * per_frame;
   const long long n_acc = n_out + (n_out & 1);
   long long* acc_tan = scratch;
@@ -768,7 +789,7 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
     jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, dflow, offs, H, W,
                                                          bound);
     auto* jvp = n >= kAggregateEvents ? fused_iwe_jvp_kernel<T, true> : fused_iwe_jvp_kernel<T, false>;
-    jvp<<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W,
+    jvp<<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, pad,
                                          static_cast<T>(eps), emit_value, bound,
                                          reinterpret_cast<unsigned long long*>(acc_val),
                                          reinterpret_cast<unsigned long long*>(acc_tan));
@@ -782,12 +803,12 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
 template <typename T>
 int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
                    const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
-                   const double* offsets, int n_off, int H, int W, double eps, int term_a,
+                   const double* offsets, int n_off, int H, int W, int pad, double eps, int term_a,
                    const T* g1, const T* g2, T* dflow_out, void* stream) {
-  if (n_off < 1 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_off < 1 || n_off > kMaxOffsets || pad < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Frames fr = make_frames(frame_ptr, n_frames);
   const GradArgs<T> a{x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, make_offsets<T>(offsets, n_off),
-                      0, H, W, static_cast<T>(eps), g2, g1};
+                      0, H, W, pad, static_cast<T>(eps), g2, g1};
   const long long n_out = flow_elements(fr, n_bins, H, W);
   return term_a ? launch_grad<T, true>(a, n_out, dflow_out, stream)
                 : launch_grad<T, false>(a, n_out, dflow_out, stream);
@@ -803,30 +824,30 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
 #define EVFLOW_EVENT_ARGS x, y, dtf, wt, bins, n_bins, frame_ptr, n_frames, n
 #define EVFLOW_ENTRY_POINTS(T, SUFFIX)                                                             \
   int evflow_fused_iwe_fwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const double* offsets,        \
-                                    int n_off, int include_orig, int H, int W, double eps,         \
-                                    long long* acc, T* out, void* stream) {                        \
-    return launch_fwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, eps, acc,    \
-                         out, stream);                                                             \
+                                    int n_off, int include_orig, int H, int W, int pad, int count, \
+                                    double eps, long long* acc, T* out, void* stream) {            \
+    return launch_fwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, pad, count,  \
+                         eps, acc, out, stream);                                                   \
   }                                                                                                \
   int evflow_fused_iwe_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const double* offsets,        \
-                                    int n_off, int include_orig, int H, int W, double eps,         \
-                                    const T* g, T* dflow, void* stream) {                          \
-    return launch_bwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, eps, g,      \
+                                    int n_off, int include_orig, int H, int W, int pad,            \
+                                    double eps, const T* g, T* dflow, void* stream) {              \
+    return launch_bwd<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, pad, eps, g, \
                          dflow, stream);                                                           \
   }                                                                                                \
   int evflow_fused_iwe_jvp_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,               \
-                                    const double* offsets, int n_off, int H, int W, double eps,    \
-                                    int emit_value, long long* scratch, T* out_val, T* out_tan,    \
-                                    void* stream) {                                                \
-    return launch_jvp<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, eps, emit_value,    \
-                         scratch, out_val, out_tan, stream);                                       \
+                                    const double* offsets, int n_off, int H, int W, int pad,       \
+                                    double eps, int emit_value, long long* scratch, T* out_val,    \
+                                    T* out_tan, void* stream) {                                    \
+    return launch_jvp<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, pad, eps,           \
+                         emit_value, scratch, out_val, out_tan, stream);                           \
   }                                                                                                \
   int evflow_fused_iwe_hvp_bwd_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,           \
-                                        const double* offsets, int n_off, int H, int W,            \
+                                        const double* offsets, int n_off, int H, int W, int pad,   \
                                         double eps, int term_a, const T* g1, const T* g2,          \
                                         T* dflow_out, void* stream) {                              \
-    return launch_hvp_bwd<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, eps, term_a,    \
-                             g1, g2, dflow_out, stream);                                           \
+    return launch_hvp_bwd<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, pad, eps,       \
+                             term_a, g1, g2, dflow_out, stream);                                   \
   }
 
 extern "C" {

@@ -19,7 +19,12 @@
 // of fixed_point.cuh: corners at floor(c + eps) and +1, corners outside the
 // image dropped, zero-weight (padded) events and NaN positions skipped.  The
 // sums are int64 fixed point (2^-36 units), so the images are the same bits
-// on every run and on either path below.  Built with -fmad=false, the corner
+// on every run and on either path below.  With pad > 0 the images are the
+// padded ones (H and W are their size) and each event votes at (x + pad, y +
+// pad) (the JAX package's EventImageConverter with outer_padding; K8's
+// Pallas form shifts the same way, pallas_iwe.py:169-170); with count each
+// in-image corner gets w (count_vote) instead of the bilinear fraction.
+// Built with -fmad=false, the corner
 // weights round like the plain PyTorch version's separate elementwise ops;
 // the two then differ only by summation order and the fixed-point rounding
 // (at most 2^-37 per vote).
@@ -66,14 +71,15 @@ constexpr int kLargeThreads = 1024;
 // else image i reads weight row i / weight_rep.
 template <typename T>
 __global__ void bilinear_vote_kernel(const T* __restrict__ events, int event_rep, const T* __restrict__ weight,
-                                     int weight_rep, T weight_scalar, int n_total, int n, int H, int W, T eps,
-                                     unsigned long long* __restrict__ acc) {
+                                     int weight_rep, T weight_scalar, int n_total, int n, int H, int W, int pad,
+                                     int count, T eps, unsigned long long* __restrict__ acc) {
   const int hw = H * W;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_total; i += gridDim.x * blockDim.x) {
     const T w = weight == nullptr ? weight_scalar : weight[weight_rep == 1 ? i : (i / n / weight_rep) * n + i % n];
     if (w == T(0)) continue;
     const long long e = event_rep == 1 ? i : static_cast<long long>(i / n / event_rep) * n + i % n;
-    vote(acc + static_cast<long long>(i / n) * hw, events[4 * e], events[4 * e + 1], w, eps, H, W);
+    vote(acc + static_cast<long long>(i / n) * hw, padded(events[4 * e], pad), padded(events[4 * e + 1], pad), w,
+         eps, H, W, count);
   }
 }
 
@@ -92,16 +98,16 @@ __device__ __forceinline__ void add_split(unsigned* lo, unsigned* hi, int p, T v
 // fixed_point.cuh's vote into the split sums.
 template <typename T>
 __device__ __forceinline__ void vote_split(unsigned* lo, unsigned* hi, T xw, T yw, T wt, T eps, int H,
-                                           int W) {
+                                           int W, bool count) {
   int r0, c0;
   T fx, fy;
   if (!corners(xw, yw, eps, H, W, &r0, &c0, &fx, &fy)) return;
   const bool in_r0 = r0 >= 0, in_r1 = r0 + 1 < H;
   const bool in_c0 = c0 >= 0, in_c1 = c0 + 1 < W;
-  if (in_r0 && in_c0) add_split(lo, hi, r0 * W + c0, (T(1) - fx) * (T(1) - fy) * wt);
-  if (in_r1 && in_c0) add_split(lo, hi, (r0 + 1) * W + c0, fx * (T(1) - fy) * wt);
-  if (in_r0 && in_c1) add_split(lo, hi, r0 * W + c0 + 1, (T(1) - fx) * fy * wt);
-  if (in_r1 && in_c1) add_split(lo, hi, (r0 + 1) * W + c0 + 1, fx * fy * wt);
+  if (in_r0 && in_c0) add_split(lo, hi, r0 * W + c0, count ? wt : (T(1) - fx) * (T(1) - fy) * wt);
+  if (in_r1 && in_c0) add_split(lo, hi, (r0 + 1) * W + c0, count ? wt : fx * (T(1) - fy) * wt);
+  if (in_r0 && in_c1) add_split(lo, hi, r0 * W + c0 + 1, count ? wt : (T(1) - fx) * fy * wt);
+  if (in_r1 && in_c1) add_split(lo, hi, (r0 + 1) * W + c0 + 1, count ? wt : fx * fy * wt);
 }
 
 // One block per image: zero the image's sums in shared memory, vote its
@@ -109,7 +115,8 @@ __device__ __forceinline__ void vote_split(unsigned* lo, unsigned* hi, T xw, T y
 template <typename T, int Threads>
 __global__ void __launch_bounds__(Threads)
     bilinear_vote_shared_kernel(const T* __restrict__ events, int event_rep, const T* __restrict__ weight,
-                                int weight_rep, T weight_scalar, int n, int H, int W, T eps, T* __restrict__ out) {
+                                int weight_rep, T weight_scalar, int n, int H, int W, int pad, int count, T eps,
+                                T* __restrict__ out) {
   extern __shared__ unsigned sums[];  // the low words [H * W], then the high words
   const int hw = H * W;
   unsigned* lo = sums;
@@ -122,7 +129,7 @@ __global__ void __launch_bounds__(Threads)
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const T w = w_row == nullptr ? weight_scalar : w_row[j];
     if (w == T(0)) continue;
-    vote_split(lo, hi, ev[4 * j], ev[4 * j + 1], w, eps, H, W);
+    vote_split(lo, hi, padded(ev[4 * j], pad), padded(ev[4 * j + 1], pad), w, eps, H, W, count);
   }
   __syncthreads();
   T* o = out + img * hw;
@@ -139,15 +146,18 @@ __global__ void __launch_bounds__(Threads)
 // around.
 template <typename T>
 int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep, double weight_scalar, int n_img,
-                int n, int H, int W, double eps, long long* acc, T* out, void* stream) {
-  if (event_rep < 1 || (weight != nullptr && weight_rep < 1)) return static_cast<int>(cudaErrorInvalidValue);
+                int n, int H, int W, int pad, int count, double eps, long long* acc, T* out, void* stream) {
+  if (event_rep < 1 || (weight != nullptr && weight_rep < 1) || pad < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hw = H * W;
   if (n_img < 1 || hw < 1) return static_cast<int>(cudaGetLastError());
   const size_t smem = 2 * hw * sizeof(unsigned);
   if (hw <= kSmallPixels) {
     bilinear_vote_shared_kernel<T, kThreads><<<n_img, kThreads, smem, s>>>(
-        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
+        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, pad, count,
+        static_cast<T>(eps), out);
     return static_cast<int>(cudaGetLastError());
   }
   if (hw <= kSharedPixels) {
@@ -165,14 +175,15 @@ int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep,
       opted_in.fetch_or(bit);
     }
     bilinear_vote_shared_kernel<T, kLargeThreads><<<n_img, kLargeThreads, smem, s>>>(
-        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, static_cast<T>(eps), out);
+        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, pad, count,
+        static_cast<T>(eps), out);
     return static_cast<int>(cudaGetLastError());
   }
   if (acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int n_total = n_img * n;
   if (n_total > 0) {
     bilinear_vote_kernel<T><<<grid_for(n_total), kThreads, 0, s>>>(
-        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n_total, n, H, W,
+        events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n_total, n, H, W, pad, count,
         static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
   }
   const int n_out = n_img * hw;
@@ -189,15 +200,17 @@ extern "C" {
 int evflow_vote_shared_pixels() { return kSharedPixels; }
 
 int evflow_vote_f32(const float* events, int event_rep, const float* weight, int weight_rep, double weight_scalar,
-                    int n_img, int n, int H, int W, double eps, long long* acc, float* out, void* stream) {
-  return launch_vote<float>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out,
-                          stream);
+                    int n_img, int n, int H, int W, int pad, int count, double eps, long long* acc, float* out,
+                    void* stream) {
+  return launch_vote<float>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, pad, count, eps,
+                            acc, out, stream);
 }
 
 int evflow_vote_f64(const double* events, int event_rep, const double* weight, int weight_rep, double weight_scalar,
-                    int n_img, int n, int H, int W, double eps, long long* acc, double* out, void* stream) {
-  return launch_vote<double>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out,
-                          stream);
+                    int n_img, int n, int H, int W, int pad, int count, double eps, long long* acc, double* out,
+                    void* stream) {
+  return launch_vote<double>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, pad, count, eps,
+                             acc, out, stream);
 }
 
 }  // extern "C"

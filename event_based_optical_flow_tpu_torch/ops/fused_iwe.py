@@ -44,9 +44,20 @@ the single-frame kernels' on frame b's events alone (``csrc/fused_iwe.cu``).
 Band/tile packing, row windows, padding to a common chunk count and bf16
 splits were TPU layout and are not carried over.
 
-Routing: ``fused_iwe``, ``fused_iwe_jvp`` and ``fused_iwe_hvp_bwd`` run the
-plain version for a tensor on the CPU and the kernel for a CUDA tensor; a
-CUDA tensor never falls back — an unsupported input raises.
+Outer padding and the count vote (``solver.outer_padding``, ``iwe.method:
+count``; the JAX package's unfused objective warps, then votes with its
+``EventImageConverter``): with ``pad`` p every image, cotangent and tangent
+is ``(H + 2p) x (W + 2p)`` and each position votes at ``c + p``, while the
+flow is still gathered at the unpadded, truncated source pixel; ``pad`` 0
+is the unpadded call, bit for bit.  ``count`` votes ``wt`` into each corner
+inside the image (``fused_iwe`` and its forward only): a count image has
+no flow derivative, so its gradient, tangent and HVP term are zeros,
+launched by no kernel.
+
+Routing: ``fused_iwe``, ``fused_iwe_bwd``, ``fused_iwe_jvp`` and
+``fused_iwe_hvp_bwd`` run the plain version for a tensor on the CPU and the
+kernel for a CUDA tensor; a CUDA tensor never falls back — an unsupported
+input raises.
 
 Float atomics would make every sum depend on the order in which the adds
 land, which changes from run to run.  This pair gives the same bits on
@@ -91,10 +102,10 @@ _DBL = ctypes.c_double
 # x, y, dtf, wt, bins, n_bins, frame_ptr, n_frames, n, then each kernel's own
 _EVENTS = [_PTR] * 5 + [_INT, _PTR, _INT, _INT]
 _ARGS = {
-    "fwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
-    "bwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
-    "jvp": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
-    "hvp_bwd": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
+    "fwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
+    "bwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
+    "jvp": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
+    "hvp_bwd": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 KERNELS = ("fwd", "bwd", "jvp", "hvp_bwd")
@@ -162,8 +173,13 @@ def _lead(frames: Optional[Frames]) -> tuple:
     return () if frames is None else (len(frames.sizes),)
 
 
+def _image_hw(flow: Tensor, pad: int) -> Tuple[int, int]:
+    """The images' size for the flow's and the outer padding ``pad``."""
+    return flow.shape[-2] + 2 * pad, flow.shape[-1] + 2 * pad
+
+
 @functools.lru_cache(maxsize=1024)
-def _check_shapes(flow_shape: tuple, n: int, n_off: int, voxel: bool, sizes: Optional[tuple]):
+def _check_shapes(flow_shape: tuple, n: int, n_off: int, voxel: bool, sizes: Optional[tuple], pad: int = 0):
     """The checks that depend on shapes alone, once per distinct call shape."""
     batched = sizes is not None
     if len(flow_shape) != 3 + voxel + batched or flow_shape[-3] != 2:
@@ -178,13 +194,15 @@ def _check_shapes(flow_shape: tuple, n: int, n_off: int, voxel: bool, sizes: Opt
                          f"got {max(sizes or (n,))}")
     if n >= 2**30:
         raise ValueError(f"fused_iwe indexes events with 32-bit ints: fewer than 2^30, got {n}")
+    if pad < 0:
+        raise ValueError(f"the outer padding must be >= 0, got {pad}")
     slices = max(n_off + 1, 2 * (flow_shape[-4] if voxel else 1))
-    if (len(sizes) if batched else 1) * slices * flow_shape[-2] * flow_shape[-1] >= 2**31:
+    if (len(sizes) if batched else 1) * slices * (flow_shape[-2] + 2 * pad) * (flow_shape[-1] + 2 * pad) >= 2**31:
         raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
 
 
 def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
-           bins: Optional[Tensor], frames: Optional[Frames]):
+           bins: Optional[Tensor], frames: Optional[Frames], pad: int = 0):
     """Raise on anything the kernels do not take: each tensor's device,
     type and layout on every call, the shapes' limits once per shape."""
     if flow.device.type != "cuda":
@@ -210,7 +228,7 @@ def _check(flow: Tensor, events: Sequence[Tensor], offsets: Sequence[float],
                 or not ptr.is_contiguous()):
             raise ValueError(f"frames.ptr must be a contiguous int32 [B + 1] tensor on the flow's device, got "
                              f"{ptr.dtype} {tuple(ptr.shape)} on {ptr.device}")
-    _check_shapes(tuple(flow.shape), n, len(offsets), bins is not None, sizes)
+    _check_shapes(tuple(flow.shape), n, len(offsets), bins is not None, sizes, int(pad))
 
 
 def _event_args(x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, flow: Tensor, bins: Optional[Tensor],
@@ -269,57 +287,75 @@ reset_launch_counts()
 
 def fused_iwe_fwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                   offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
+                  count: bool = False) -> Tensor:
     """Launch the forward kernel (K1; K5 with ``bins``; the batched forms
-    with ``frames``): ``[(B,) (orig) + len(offsets), H, W]`` images."""
-    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
+    with ``frames``): ``[(B,) (orig) + len(offsets), H + 2 pad, W + 2 pad]``
+    images, count votes with ``count``."""
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames, pad)
     h, w = flow.shape[-2], flow.shape[-1]
-    shape = _lead(frames) + (len(offsets) + int(include_orig), h, w)
+    shape = _lead(frames) + (len(offsets) + int(include_orig),) + _image_hw(flow, pad)
     # fixed-point sums; freed on return while the kernels may still run,
     # which is safe: the caching allocator reuses it only in stream order
     acc = torch.zeros(shape, dtype=torch.int64, device=flow.device)
     out = torch.empty(shape, dtype=flow.dtype, device=flow.device)
     _launch("fwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w,
-               float(eps), acc.data_ptr(), out.data_ptr()))
+            + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w, int(pad),
+               int(bool(count)), float(eps), acc.data_ptr(), out.data_ptr()))
     return out
 
 
 def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g: Tensor,
                   offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0) -> Tensor:
     """Launch the backward kernel (K2; K5's backward with ``bins``; the
     batched forms with ``frames``): the gradient of the flow (or voxel), its
-    shape, for the image cotangent ``g [(B,) (orig) + len(offsets), H, W]``."""
-    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
+    shape, for the image cotangent ``g [(B,) (orig) + len(offsets), H + 2
+    pad, W + 2 pad]``.  The plain version (the VJP of
+    ``fused_iwe_reference``) for CPU tensors."""
+    if flow.device.type == "cpu":
+        with torch.enable_grad():
+            fl = flow.detach().requires_grad_(True)
+            images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, include_orig, eps, bins, frames, pad)
+            return torch.autograd.grad(images, fl, g)[0]
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames, pad)
     h, w = flow.shape[-2], flow.shape[-1]
-    _check_like("g", g, _lead(frames) + (len(offsets) + int(include_orig), h, w), flow)
+    _check_like("g", g, _lead(frames) + (len(offsets) + int(include_orig),) + _image_hw(flow, pad), flow)
     dflow = torch.empty_like(flow)  # zeroed by the launcher
     _launch("bwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w,
+            + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w, int(pad),
                float(eps), g.data_ptr(), dflow.data_ptr()))
     return dflow
 
 
 def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                   offsets: Sequence[float], emit_value: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None):
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
+                  count: bool = False):
     """K3 (K6's tangent with ``bins``, ``flow`` and ``dflow`` voxels; the
     batched forms with ``frames``): the direction images' tangent along
-    ``dflow`` (``[(B,) K, H, W]``, ``K = len(offsets)``, no orig image: its
-    tangent is 0), and with ``emit_value`` first the images themselves,
-    ``fused_iwe_fwd``'s bits: ``(images, dimages)``.  The plain version for
-    CPU tensors, the kernel for CUDA tensors."""
+    ``dflow`` (``[(B,) K, H + 2 pad, W + 2 pad]``, ``K = len(offsets)``, no
+    orig image: its tangent is 0), and with ``emit_value`` first the images
+    themselves, ``fused_iwe_fwd``'s bits: ``(images, dimages)``.  The plain
+    version for CPU tensors, the kernel for CUDA tensors.  A count vote's
+    tangent is zeros (its images by the forward alone)."""
+    if count:
+        shape = _lead(frames) + (len(offsets),) + _image_hw(flow, pad)
+        dimages = flow.new_zeros(shape)
+        if not emit_value:
+            return dimages
+        with torch.no_grad():
+            return fused_iwe(flow, x, y, dtf, wt, offsets, False, eps, bins, frames, pad, True), dimages
     if flow.device.type == "cpu":
-        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps, bins, frames)
-    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
+        return fused_iwe_jvp_reference(flow, dflow, x, y, dtf, wt, offsets, emit_value, eps, bins, frames, pad)
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames, pad)
     _check_like("dflow", dflow, flow.shape, flow)
     if not offsets:
         raise ValueError("fused_iwe_jvp computes direction images: give at least one offset")
     h, w = flow.shape[-2], flow.shape[-1]
-    shape = _lead(frames) + (len(offsets), h, w)
+    shape = _lead(frames) + (len(offsets),) + _image_hw(flow, pad)
     n_out = int(np.prod(shape))
     # one int64 scratch, zeroed by the launcher: the tangent's fixed-point
     # sums, the value's (emit_value), each n_out rounded up to even, then the
@@ -330,8 +366,8 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
     out_val = torch.empty(shape, dtype=flow.dtype, device=flow.device) if emit_value else None
     _launch("jvp", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w, float(eps),
-               int(bool(emit_value)), scratch.data_ptr(), out_val.data_ptr() if emit_value else None,
+            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w, int(pad),
+               float(eps), int(bool(emit_value)), scratch.data_ptr(), out_val.data_ptr() if emit_value else None,
                out_tan.data_ptr()))
     return (out_val, out_tan) if emit_value else out_tan
 
@@ -339,28 +375,31 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
 def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor, y: Tensor,
                       dtf: Tensor, wt: Tensor, offsets: Sequence[float], term_a: bool,
                       eps: float = 1e-6, bins: Optional[Tensor] = None,
-                      frames: Optional[Frames] = None) -> Tensor:
+                      frames: Optional[Frames] = None, pad: int = 0, count: bool = False) -> Tensor:
     """K4 (K6's HVP backward with ``bins``, per bin ``[T, 2, H, W]``; the
     batched forms with ``frames``): the vote's flow-space HVP contribution
     from the cost cotangent ``g1`` and its directional derivative ``g2``
     (``[(B,) K, H, W]``): term B, the backward against ``g2``
     (``fused_iwe_bwd(g2)``'s bits with ``term_a`` off), plus with ``term_a``
     the vote's mixed second derivative against ``g1`` along ``dflow``.  The
-    plain version for CPU tensors, the kernel for CUDA tensors."""
+    plain version for CPU tensors, the kernel for CUDA tensors; zeros for a
+    count vote."""
+    if count:
+        return torch.zeros_like(flow)
     if flow.device.type == "cpu":
         return fused_iwe_hvp_bwd_reference(flow, dflow, g1, g2, x, y, dtf, wt, offsets, term_a, eps,
-                                           bins, frames)
-    _check(flow, (x, y, dtf, wt), offsets, bins, frames)
+                                           bins, frames, pad)
+    _check(flow, (x, y, dtf, wt), offsets, bins, frames, pad)
     _check_like("dflow", dflow, flow.shape, flow)
     h, w = flow.shape[-2], flow.shape[-1]
     for name, g in (("g1", g1), ("g2", g2)):
-        _check_like(name, g, _lead(frames) + (len(offsets), h, w), flow)
+        _check_like(name, g, _lead(frames) + (len(offsets),) + _image_hw(flow, pad), flow)
     if not offsets:
         raise ValueError("fused_iwe_hvp_bwd computes direction terms: give at least one offset")
     out = torch.empty_like(flow)  # zeroed by the launcher
     _launch("hvp_bwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
-            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w,
+            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w, int(pad),
                float(eps), int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), out.data_ptr()))
     return out
 
@@ -371,19 +410,41 @@ class FusedIWE(torch.autograd.Function):
     w.r.t. ``flow``."""
 
     @staticmethod
-    def forward(ctx, flow, x, y, dtf, wt, bins, frames, offsets, include_orig, eps):
+    def forward(ctx, flow, x, y, dtf, wt, bins, frames, offsets, include_orig, eps, pad=0):
         flow = flow.contiguous()
         ctx.save_for_backward(flow, x, y, dtf, wt, bins)
-        ctx.config = (frames, offsets, include_orig, eps)
-        return fused_iwe_fwd(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
+        ctx.config = (frames, offsets, include_orig, eps, pad)
+        return fused_iwe_fwd(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames, pad)
 
     @staticmethod
     def backward(ctx, g):
         flow, x, y, dtf, wt, bins = ctx.saved_tensors
-        frames, offsets, include_orig, eps = ctx.config
+        frames, offsets, include_orig, eps, pad = ctx.config
         dflow = fused_iwe_bwd(flow, x, y, dtf, wt, g.contiguous(), offsets, include_orig, eps, bins,
-                              frames)
-        return (dflow,) + (None,) * 9
+                              frames, pad)
+        return (dflow,) + (None,) * 10
+
+
+class CountIWE(torch.autograd.Function):
+    """The count vote (K1's count mode on a CUDA tensor, the plain version
+    on the CPU) as an autograd function: its flow derivative is zero, as
+    the JAX package's (the count image is piecewise constant in the
+    positions), and no backward kernel runs."""
+
+    @staticmethod
+    def forward(ctx, flow, x, y, dtf, wt, bins, frames, offsets, include_orig, eps, pad):
+        ctx.flow_like = (flow.shape, flow.dtype, flow.device)
+        if flow.device.type == "cpu":
+            return fused_iwe_reference(flow.detach(), x, y, dtf, wt, offsets, include_orig, eps, bins, frames, pad,
+                                       True)
+        return fused_iwe_fwd(flow.contiguous(), x, y, dtf, wt, offsets, include_orig, eps, bins, frames, pad,
+                             True)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.flow_like
+        # zeros, not None: a cost of count images alone still has a gradient (0)
+        return (torch.zeros(shape, dtype=dtype, device=device),) + (None,) * 10
 
 
 def _slices(flow: Tensor, x: Tensor, bins: Optional[Tensor], frames: Optional[Frames]):
@@ -414,25 +475,33 @@ def _gather_uv(flow: Tensor, x: Tensor, y: Tensor, bins: Optional[Tensor],
     return torch.where(inside, u, zero), torch.where(inside, v, zero)
 
 
+def _padded(c: Tensor, pad: int) -> Tensor:
+    """A coordinate shifted by the images' outer padding (itself for 0, as
+    the kernels' ``padded``)."""
+    return c + pad if pad else c
+
+
 def _corner_votes(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
                   include_orig: bool, eps: float, bins: Optional[Tensor], frames: Optional[Frames],
-                  dflow: Optional[Tensor] = None):
+                  dflow: Optional[Tensor] = None, pad: int = 0, count: bool = False):
     """(flat output index, value) of every corner vote, 0 at index 0 for a
     corner outside the image, and the images' shape: each value is the
     kernel's expression, an elementwise op per operation.  With ``dflow``
     the tangent votes along it instead (K3's ``vote_tangent``; no orig
     image), 0 for an event that casts none (zero weight, source pixel
-    outside the image)."""
-    h, w = flow.shape[-2], flow.shape[-1]
+    outside the image).  ``pad``: the images' outer padding; ``count``:
+    ``wt`` at every corner inside the image."""
+    fh, fw = flow.shape[-2], flow.shape[-1]
+    h, w = fh + 2 * pad, fw + 2 * pad
     zero = torch.zeros_like(x)
     u, v = _gather_uv(flow, x, y, bins, frames)
-    coords = [(x, y, None)] if include_orig else []
+    coords = [(_padded(x, pad), _padded(y, pad), None)] if include_orig else []
     for off in offsets:
         dt = dtf - off
-        coords.append((x - dt * u, y - dt * v, dt))
+        coords.append((_padded(x - dt * u, pad), _padded(y - dt * v, pad), dt))
     if dflow is not None:
         du, dv = _gather_uv(dflow, x, y, bins, frames)
-        casts = (wt != 0) & (x > -1) & (x < h) & (y > -1) & (y < w)
+        casts = (wt != 0) & (x > -1) & (x < fh) & (y > -1) & (y < fw)
     n_img = len(coords)
     block = 0 if frames is None else frames.index() * (n_img * h * w)  # each event's image block
     inds, vals = [], []
@@ -441,7 +510,9 @@ def _corner_votes(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, o
         fly = torch.floor(yw + eps)
         fx = xw - flx
         fy = yw - fly
-        if dflow is None:
+        if count:
+            weights = (wt,) * 4
+        elif dflow is None:
             weights = ((1 - fx) * (1 - fy) * wt, fx * (1 - fy) * wt, (1 - fx) * fy * wt, fx * fy * wt)
         else:
             dxw, dyw = -(dt * du), -(dt * dv)
@@ -461,19 +532,22 @@ def _corner_votes(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, o
 
 def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                         offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                        bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+                        bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
+                        count: bool = False) -> Tensor:
     """The kernel's plain PyTorch version: gather (from the voxel's bin
     slices with ``bins``, the frame's slices with ``frames``), warp,
     accumulate the corner votes into the frame's image block with one
     ``index_put_(accumulate=True)``; autograd gives the backward."""
-    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
+    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames, None, pad,
+                                      count)
     images = torch.zeros(int(np.prod(shape)), dtype=flow.dtype, device=flow.device)
     return images.index_put((inds,), vals, accumulate=True).reshape(shape)
 
 
 def fused_iwe_fixed_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                               offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                              bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
+                              bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
+                              count: bool = False) -> Tensor:
     """An exact model of the forward kernel's bits, for tests and checks
     (nothing on the main path calls it): each vote's value in the flow's
     type by the kernel's expressions, rounded half to even to an int64 of
@@ -481,7 +555,8 @@ def fused_iwe_fixed_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, w
     gives the same integers), the sums converted to the flow's type.  Run it
     on CPU tensors: the card's own elementwise kernels may contract a
     multiply and an add, which the kernels are built not to do."""
-    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
+    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames, None, pad,
+                                      count)
     fixed = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
     sums = torch.zeros(int(np.prod(shape)), dtype=torch.int64, device=flow.device).index_add_(0, inds, fixed)
     return (sums.double() * 2.0 ** -FIX_BITS).to(flow.dtype).reshape(shape)
@@ -490,7 +565,8 @@ def fused_iwe_fixed_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, w
 def fused_iwe_bwd_ordered_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g: Tensor,
                                     offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
                                     bins: Optional[Tensor] = None, frames: Optional[Frames] = None,
-                                    g1: Optional[Tensor] = None, dflow: Optional[Tensor] = None) -> Tensor:
+                                    g1: Optional[Tensor] = None, dflow: Optional[Tensor] = None,
+                                    pad: int = 0) -> Tensor:
     """An exact model of the backward kernel's bits for events sorted by
     (frame, bin, source pixel), for tests and checks (nothing on the main
     path calls it): each event's du, dv summed over the offsets in
@@ -501,6 +577,7 @@ def fused_iwe_bwd_ordered_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Ten
     zeros.  Run it on CPU tensors (see ``fused_iwe_fixed_reference``)."""
     h, w = flow.shape[-2], flow.shape[-1]
     hw = h * w
+    hi, wi = h + 2 * pad, w + 2 * pad  # the cotangents' size
     term_a = g1 is not None
     inside = (x > -1) & (x < h) & (y > -1) & (y < w)
     zero = torch.zeros_like(x)
@@ -511,23 +588,23 @@ def fused_iwe_bwd_ordered_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Ten
     if term_a:
         du_g, dv_g = _gather_uv(dflow, x, y, bins, frames)
     n_img = len(offsets) + int(include_orig)
-    first = 0 if frames is None else frames.index() * (n_img * hw)  # each event's cotangent block
+    first = 0 if frames is None else frames.index() * (n_img * hi * wi)  # each event's cotangent block
     g_flat, g1_flat = g.reshape(-1), None if g1 is None else g1.reshape(-1)
 
     def at(flat, k, r, c):  # flat[image k of the event's block][r, c], 0 outside
-        ok = (r >= 0) & (r < h) & (c >= 0) & (c < w)
-        idx = first + k * hw + torch.where(ok, r * w + c, zero).to(torch.int64)
+        ok = (r >= 0) & (r < hi) & (c >= 0) & (c < wi)
+        idx = first + k * hi * wi + torch.where(ok, r * wi + c, zero).to(torch.int64)
         return torch.where(ok, flat[torch.where(ok, idx, 0)], zero)
 
     du, dv = zero.clone(), zero.clone()
     k0 = int(include_orig)
     for k, off in enumerate(offsets):
         dt = dtf - off
-        xw = x - dt * u
-        yw = y - dt * v
+        xw = _padded(x - dt * u, pad)
+        yw = _padded(y - dt * v, pad)
         flx = torch.floor(xw + eps)
         fly = torch.floor(yw + eps)
-        ok = (flx >= -1) & (flx <= h - 1) & (fly >= -1) & (fly <= w - 1)
+        ok = (flx >= -1) & (flx <= hi - 1) & (fly >= -1) & (fly <= wi - 1)
         fx = xw - flx
         fy = yw - fly
         g00, g10 = at(g_flat, k0 + k, flx, fly), at(g_flat, k0 + k, flx + 1, fly)
@@ -564,25 +641,29 @@ def fused_iwe_bwd_ordered_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Ten
 
 def fused_iwe(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
               offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-              bins: Optional[Tensor] = None, frames: Optional[Frames] = None) -> Tensor:
-    """``[(B,) (orig) + len(offsets), H, W]`` raw (unblurred) IWEs,
-    differentiable w.r.t. ``flow`` (a voxel ``[(B,) T, 2, H, W]`` with
-    ``bins``, a batch ``[B, ...]`` with ``frames``): the plain version for
-    CPU tensors, the CUDA kernel for CUDA tensors."""
+              bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
+              count: bool = False) -> Tensor:
+    """``[(B,) (orig) + len(offsets), H + 2 pad, W + 2 pad]`` raw
+    (unblurred) IWEs, differentiable w.r.t. ``flow`` (a voxel ``[(B,) T, 2,
+    H, W]`` with ``bins``, a batch ``[B, ...]`` with ``frames``): the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors; count votes
+    (``CountIWE``, a zero flow derivative) with ``count``."""
+    offsets = tuple(float(o) for o in offsets)
+    if count:
+        return CountIWE.apply(flow, x, y, dtf, wt, bins, frames, offsets, bool(include_orig), float(eps), int(pad))
     if flow.device.type == "cpu":
-        return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames)
-    return FusedIWE.apply(flow, x, y, dtf, wt, bins, frames, tuple(float(o) for o in offsets),
-                          bool(include_orig), float(eps))
+        return fused_iwe_reference(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames, int(pad))
+    return FusedIWE.apply(flow, x, y, dtf, wt, bins, frames, offsets, bool(include_orig), float(eps), int(pad))
 
 
 def fused_iwe_jvp_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
                             wt: Tensor, offsets: Sequence[float], emit_value: bool,
                             eps: float = 1e-6, bins: Optional[Tensor] = None,
-                            frames: Optional[Frames] = None):
+                            frames: Optional[Frames] = None, pad: int = 0):
     """K3's and K6's plain version (and their batched forms'):
     ``torch.func.jvp`` of ``fused_iwe_reference``."""
     images, dimages = torch.func.jvp(
-        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps, bins, frames), (flow,),
+        lambda f: fused_iwe_reference(f, x, y, dtf, wt, offsets, False, eps, bins, frames, pad), (flow,),
         (dflow,))
     return (images, dimages) if emit_value else dimages
 
@@ -618,7 +699,7 @@ def _tangent_exponents(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Ten
 def fused_iwe_jvp_fixed_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
                                   wt: Tensor, offsets: Sequence[float], emit_value: bool,
                                   eps: float = 1e-6, bins: Optional[Tensor] = None,
-                                  frames: Optional[Frames] = None):
+                                  frames: Optional[Frames] = None, pad: int = 0):
     """An exact model of K3's bits (all forms), for tests and checks
     (nothing on the main path calls it): each frame's bound and exponent s
     in double as the kernel computes them (``_tangent_exponents``), each
@@ -629,7 +710,7 @@ def fused_iwe_jvp_fixed_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Ten
     ``emit_value`` the value images first, ``fused_iwe_fixed_reference``'s.
     Run it on CPU tensors (see ``fused_iwe_fixed_reference``)."""
     exps = _tangent_exponents(dflow, x, y, dtf, wt, offsets, bins, frames)
-    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, False, eps, bins, frames, dflow)
+    inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, False, eps, bins, frames, dflow, pad)
     per_frame = int(np.prod(shape[-3:]))
     ex = np.array([0 if e is None else e for e in exps], dtype=np.int32)
     nonfinite = np.array([e is None for e in exps])
@@ -642,20 +723,20 @@ def fused_iwe_jvp_fixed_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Ten
     dimages = torch.from_numpy(out).to(flow.dtype).reshape(shape)
     if not emit_value:
         return dimages
-    return fused_iwe_fixed_reference(flow, x, y, dtf, wt, offsets, False, eps, bins, frames), dimages
+    return fused_iwe_fixed_reference(flow, x, y, dtf, wt, offsets, False, eps, bins, frames, pad), dimages
 
 
 def fused_iwe_hvp_bwd_reference(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor,
                                 y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
                                 term_a: bool, eps: float = 1e-6,
                                 bins: Optional[Tensor] = None,
-                                frames: Optional[Frames] = None) -> Tensor:
+                                frames: Optional[Frames] = None, pad: int = 0) -> Tensor:
     """K4's and K6's plain version (and their batched forms'): term B is
     the VJP of ``fused_iwe_reference`` against ``g2``; term A the double
     backward of ``<vjp(flow)(g1), dflow>``."""
     with torch.enable_grad():
         fl = flow.detach().requires_grad_(True)
-        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps, bins, frames)
+        images = fused_iwe_reference(fl, x, y, dtf, wt, offsets, False, eps, bins, frames, pad)
         (out,) = torch.autograd.grad(images, fl, g2, retain_graph=term_a)
         if term_a:
             (vjp1,) = torch.autograd.grad(images, fl, g1, create_graph=True)

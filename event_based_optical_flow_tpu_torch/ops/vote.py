@@ -18,6 +18,11 @@ events of an empty sweep patch, whose reference time is 0/0) and has a zero
 gradient on either route (the JAX package's Pallas kernel gives NaN images
 there, its scatter form NaN gradients).  Every image of a batched call is
 voted in one launch (the init sweep votes P patches x K candidates at once).
+With ``padding`` p (``solver.outer_padding``) each event votes at ``(x + p,
+y + p)`` into images of ``image_size``, the padded size (the JAX package's
+``bilinear_vote(..., padding)``); ``count_vote`` votes ``w`` into each
+corner inside the image instead of the bilinear fraction (``iwe.method:
+count``), with no derivative w.r.t. the positions.
 
 Routing: ``bilinear_vote`` runs the plain version for a tensor on the CPU and
 the kernel for a CUDA tensor; a CUDA tensor never falls back, an input the
@@ -59,8 +64,8 @@ FIX_BITS = 36  # kFixBits in csrc/fixed_point.cuh
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _DBL = ctypes.c_double
-# events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, eps, acc, out, stream
-_VOTE_ARGS = [_PTR, _INT, _PTR, _INT, _DBL, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
+# events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, pad, count, eps, acc, out, stream
+_VOTE_ARGS = [_PTR, _INT, _PTR, _INT, _DBL, _INT, _INT, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # launches of the kernel since the last reset
@@ -132,14 +137,17 @@ def _event_rows(events: Tensor, batch: tuple):
 
 
 def corner_terms(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, padding: int = 0, count: bool = False):
     """The plain version's scatter operands: (flat image indices ``[4 n_img
     n]`` into ``n_img`` images of ``H * W``, the corner votes, the batch
     shape).  An outside corner (any corner of a NaN position) points at its
-    image's pixel 0 with vote 0."""
+    image's pixel 0 with vote 0.  ``padding`` shifts the voted position;
+    ``count`` votes the weight itself into each corner."""
     h, w = image_size
     x = events[..., 0]
     y = events[..., 1]
+    if padding:
+        x, y = x + padding, y + padding
     fl_x = torch.floor(x + eps)
     fl_y = torch.floor(y + eps)
     # a non-finite position votes nothing (no corner is inside) and, with its
@@ -165,22 +173,23 @@ def corner_terms(events: Tensor, image_size: Tuple[int, int], weight: Union[floa
         inds.append((lin + base).reshape(-1))
         # where, not a product with the mask: a NaN position (an empty sweep
         # patch's events) votes nothing, as in the kernel
-        vals.append(torch.where(inside, wr * wc * wgt, zero).reshape(-1))
+        vals.append(torch.where(inside, wgt if count else wr * wc * wgt, zero).reshape(-1))
     return torch.cat(inds), torch.cat(vals), batch
 
 
 def bilinear_vote_plain(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
-                        eps: float = 1e-6) -> Tensor:
+                        eps: float = 1e-6, padding: int = 0, count: bool = False) -> Tensor:
     """K8's plain PyTorch version: the corner votes of every image of the
     call in one flattened ``index_add``; differentiable by autograd."""
     h, w = image_size
-    inds, vals, batch = corner_terms(events, image_size, weight, eps)
+    inds, vals, batch = corner_terms(events, image_size, weight, eps, padding, count)
     image = torch.zeros(math.prod(batch) * h * w, dtype=events.dtype, device=events.device)
     return image.index_add(0, inds, vals).reshape(batch + (h, w))
 
 
 def bilinear_vote_fixed_reference(events: Tensor, image_size: Tuple[int, int],
-                                  weight: Union[float, Tensor] = 1.0, eps: float = 1e-6) -> Tensor:
+                                  weight: Union[float, Tensor] = 1.0, eps: float = 1e-6, padding: int = 0,
+                                  count: bool = False) -> Tensor:
     """An exact model of K8's bits, for tests and checks (nothing on the
     main path calls it): each corner vote in the events' type by the
     kernel's expressions (``corner_terms``), rounded half to even to an
@@ -188,14 +197,14 @@ def bilinear_vote_fixed_reference(events: Tensor, image_size: Tuple[int, int],
     gives the same integers), converted back.  Run it on CPU tensors (see
     ``fused_iwe.fused_iwe_fixed_reference``)."""
     h, w = image_size
-    inds, vals, batch = corner_terms(events, image_size, weight, eps)
+    inds, vals, batch = corner_terms(events, image_size, weight, eps, padding, count)
     fixed = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
     sums = torch.zeros(math.prod(batch) * h * w, dtype=torch.int64, device=events.device).index_add_(0, inds, fixed)
     return (sums.double() * 2.0 ** -FIX_BITS).to(events.dtype).reshape(batch + (h, w))
 
 
 def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
-                         eps: float = 1e-6) -> Tensor:
+                         eps: float = 1e-6, padding: int = 0, count: bool = False) -> Tensor:
     """Launch K8 on CUDA tensors: ``[..., n, 4]`` events -> ``[..., H, W]``
     images, one launch for the whole batch (no gradient: see
     ``BilinearVote``).  Events expanded over trailing batch axes (stride 0)
@@ -209,6 +218,8 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
     h, w = (int(s) for s in image_size)
     if h < 1 or w < 1:
         raise ValueError(f"image_size must be positive, got {image_size}")
+    if int(padding) < 0:
+        raise ValueError(f"padding must be >= 0, got {padding}")
     batch, n = tuple(events.shape[:-2]), int(events.shape[-2])
     n_img = math.prod(batch)
     if n >= MAX_EVENTS:
@@ -231,22 +242,26 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
     with torch.cuda.device(events.device):
         # the global path's fixed-point sums; none for an image summed in shared memory
         acc = None if shared else torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)
-        rc = _kernel(events.dtype)(events.data_ptr(), e_rep, w_ptr, w_rep, w_scalar, n_img, n, h, w, float(eps),
-                                   None if acc is None else acc.data_ptr(), out.data_ptr(),
-                                   torch.cuda.current_stream(events.device).cuda_stream)
+        rc = _kernel(events.dtype)(events.data_ptr(), e_rep, w_ptr, w_rep, w_scalar, n_img, n, h, w, int(padding),
+                                   int(bool(count)), float(eps), None if acc is None else acc.data_ptr(),
+                                   out.data_ptr(), torch.cuda.current_stream(events.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"evflow_vote_{_SUFFIX[events.dtype]} failed: cudaGetLastError() = {rc}")
     _LAUNCHES["vote"] += 1
     return out
 
 
-def _vote_backward(events: Tensor, weight: Union[float, Tensor], g: Tensor, eps: float):
+def _vote_backward(events: Tensor, weight: Union[float, Tensor], g: Tensor, eps: float, padding: int = 0,
+                   count: bool = False):
     """The analytic four-corner backward (``pallas_iwe.py::_fused_bwd``):
     each event gathers the cotangent at its four corners (0 outside the
     image); (d events ``[..., n, 4]``: dx, dy and zeros for t and p,
-    d weight ``[..., n]``)."""
+    d weight ``[..., n]``).  A count vote has no position derivative and
+    the sum of its corners' cotangents as the weight's."""
     h, w = g.shape[-2], g.shape[-1]
     x, y = events[..., 0], events[..., 1]
+    if padding:
+        x, y = x + padding, y + padding
     zero = torch.zeros_like(x)
     # a non-finite position (which votes nothing) gets a zero gradient: its
     # fractions are held at 0 and its corners masked, whatever integer
@@ -266,6 +281,8 @@ def _vote_backward(events: Tensor, weight: Union[float, Tensor], g: Tensor, eps:
 
     g00, g10, g01, g11 = corner(r0, c0), corner(r0 + 1, c0), corner(r0, c0 + 1), corner(r0 + 1, c0 + 1)
     wt = weight if torch.is_tensor(weight) else torch.full_like(x, float(weight))
+    if count:
+        return torch.zeros_like(events), g00 + g10 + g01 + g11
     dwt = (1 - ax) * (1 - ay) * g00 + ax * (1 - ay) * g10 + (1 - ax) * ay * g01 + ax * ay * g11
     dx = wt * ((1 - ay) * (g10 - g00) + ay * (g11 - g01))
     dy = wt * ((1 - ax) * (g01 - g00) + ax * (g11 - g10))
@@ -279,30 +296,42 @@ class BilinearVote(torch.autograd.Function):
     weight."""
 
     @staticmethod
-    def forward(ctx, events, weight, image_size, eps):
+    def forward(ctx, events, weight, image_size, eps, padding=0, count=False):
         ctx.save_for_backward(events, weight if torch.is_tensor(weight) else None)
-        ctx.config = (weight if not torch.is_tensor(weight) else None, eps)
+        ctx.config = (weight if not torch.is_tensor(weight) else None, eps, padding, count)
         if events.device.type == "cpu":
-            return bilinear_vote_plain(events, image_size, weight, eps)
-        return bilinear_vote_kernel(events, image_size, weight, eps)
+            return bilinear_vote_plain(events, image_size, weight, eps, padding, count)
+        return bilinear_vote_kernel(events, image_size, weight, eps, padding, count)
 
     @staticmethod
     def backward(ctx, g):
         events, weight_t = ctx.saved_tensors
-        scalar, eps = ctx.config
+        scalar, eps, padding, count = ctx.config
         weight = scalar if weight_t is None else torch.broadcast_to(weight_t, events.shape[:-1])
-        d_events, d_weight = _vote_backward(events, weight, g, eps)
+        d_events, d_weight = _vote_backward(events, weight, g, eps, padding, count)
         if weight_t is None or not ctx.needs_input_grad[1]:
-            return d_events, None, None, None
-        return d_events, d_weight.sum_to_size(weight_t.shape), None, None
+            return d_events, None, None, None, None, None
+        return d_events, d_weight.sum_to_size(weight_t.shape), None, None, None, None
 
 
 def bilinear_vote(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
-                  eps: float = 1e-6) -> Tensor:
+                  eps: float = 1e-6, padding: int = 0) -> Tensor:
     """Bilinear voting of ``[..., n, 4]`` events into ``[..., H, W]``:
     the plain version for a CPU tensor, K8 for a CUDA tensor.  ``weight``
     is a scalar or a tensor broadcastable to ``[..., n]``; zero weights make
-    padded events inert."""
+    padded events inert; ``padding`` shifts the voted positions into images
+    of ``image_size``, the padded size."""
     if events.device.type == "cpu":
-        return bilinear_vote_plain(events, image_size, weight, eps)
-    return BilinearVote.apply(events, weight, tuple(int(s) for s in image_size), float(eps))
+        return bilinear_vote_plain(events, image_size, weight, eps, int(padding))
+    return BilinearVote.apply(events, weight, tuple(int(s) for s in image_size), float(eps), int(padding), False)
+
+
+def count_vote(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
+               eps: float = 1e-6, padding: int = 0) -> Tensor:
+    """The count vote (the JAX package's ``count_vote``): ``w`` into each of
+    the four corners ``floor(c + eps)``, ``+1`` that lies in the image, the
+    reference's quirk kept; the plain version for a CPU tensor, K8's count
+    mode for a CUDA tensor.  No derivative w.r.t. the positions."""
+    if events.device.type == "cpu":
+        return bilinear_vote_plain(events, image_size, weight, eps, int(padding), True)
+    return BilinearVote.apply(events, weight, tuple(int(s) for s in image_size), float(eps), int(padding), True)

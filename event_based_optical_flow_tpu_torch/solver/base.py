@@ -17,6 +17,14 @@ frame), the visualization of a frame (``visualize_*``: IWEs through K8 on
 the card, flows colorized on the host, written by the ``Visualizer``
 passed as ``visualize_module``) and ``profiled_optimize``, a
 ``torch.profiler`` trace of the solve into ``output.trace_dir``.
+
+``solver.outer_padding`` p (``padding``) grows every image the solver
+votes by p pixels a side, as the JAX package's ``EventImageConverter``
+does: the metrics' orig and FWL images are the padded bilinear images
+(their variances taken over the padded image), the event mask is the
+padded one cropped back to the sensor, and the visualizations vote by
+``iwe.method`` (``iwe_method``) and are cropped back (a polarity IWE is
+drawn as the sum of its two channels).
 """
 
 import logging
@@ -78,6 +86,8 @@ class SolverBase:
         self.out_config = output_config
         self.visualizer = visualize_module
         self.iwe_config = solver_config["iwe"]
+        self.iwe_method = self.iwe_config.get("method", "bilinear_vote")
+        self.padding = int(solver_config.get("outer_padding", 0))
         self.iwe_visualize_max_scale = solver_config.get("max_scale", 50)
         self.normalize_t_in_batch = True
         self.device = torch.device(device)
@@ -200,8 +210,13 @@ class SolverBase:
         voxel of them); < 1 is better."""
         warp = warp_voxel_flow if flow.ndim == 4 else warp_dense_flow
         warped = warp(events, flow, calculate_reftime(events, "first"), self.image_shape, normalize_t=True)
-        warped_iwe = create_iwe(warped, self.image_shape, sigma=1, blur_mode="scipy")
+        warped_iwe = create_iwe(warped, self.image_shape, sigma=1, blur_mode="scipy", padding=self.padding)
         return 1.0 / F.normalized_image_variance(warped_iwe, orig_iwe, omit_boundary=False, ddof=0)
+
+    def _crop(self, image):
+        """An image of the padded size cropped back to the sensor's."""
+        p = self.padding
+        return image[..., p:-p, p:-p] if p > 0 else image
 
     def calculate_flow_error(self, motion, gt_flow: np.ndarray, timescale: float, events: np.ndarray) -> dict:
         """AEE/NPE/AE with the event mask, plus GT_FWL and PRED_FWL, of the
@@ -214,8 +229,8 @@ class SolverBase:
             gt = self.tensor(np.transpose(np.asarray(gt_flow), (2, 0, 1)))
             pred = self.predicted_flow(motion, timescale)
             pred_t0 = self.get_original_flow_from_time_aware_flow_voxel(pred) if self.is_time_aware else pred
-            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy")
-            mask = event_mask(e, self.image_shape)[None]
+            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy", padding=self.padding)
+            mask = self._crop(event_mask(e, self.image_shape, padding=self.padding))[None]
             err = calculate_flow_error(gt[None], pred_t0[None], mask)
             err["GT_FWL"] = self._fwl(e, gt, orig_iwe)
             err["PRED_FWL"] = self._fwl(e, pred, orig_iwe)
@@ -229,7 +244,7 @@ class SolverBase:
         through its whole voxel)."""
         with torch.no_grad():
             e = self.tensor(events)
-            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy")
+            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy", padding=self.padding)
             return {"PRED_FWL": float(self._fwl(e, self.predicted_flow(motion, timescale), orig_iwe))}
 
     def dense_displacement(self, motion, timescale: float) -> np.ndarray:
@@ -243,11 +258,18 @@ class SolverBase:
             return flow.double().cpu().numpy()
 
     # --- visualization ---------------------------------------------------------
+    def _viz_iwe(self, events: torch.Tensor) -> np.ndarray:
+        """The unblurred IWE of ``iwe.method`` a visualization draws,
+        cropped back to the sensor (a polarity IWE's channels summed)."""
+        iwe = create_iwe(events, self.image_shape, sigma=0, padding=self.padding, method=self.iwe_method)
+        if self.iwe_method == "polarity":
+            iwe = iwe.sum(-3)
+        return self._crop(iwe).cpu().numpy()
+
     def create_clipped_iwe_for_visualization(self, events, max_scale=50) -> np.ndarray:
         """The events' unwarped, unblurred IWE, clipped to uint8."""
         with torch.no_grad():
-            iwe = create_iwe(self.tensor(events), self.image_shape, sigma=0)
-        return clip_iwe(iwe.cpu().numpy(), max_scale)
+            return clip_iwe(self._viz_iwe(self.tensor(events)), max_scale)
 
     def _warped_viz_iwe(self, events, motion, motion_model: str, direction="first", return_warped: bool = False):
         """The events warped by ``motion`` under ``motion_model`` to
@@ -255,8 +277,7 @@ class SolverBase:
         events on the device with ``return_warped``)."""
         with torch.no_grad():
             warped = self.warper.warp_event(self.tensor(events), self.tensor(motion), motion_model, direction)
-            iwe = create_iwe(warped, self.image_shape, sigma=0)
-        clipped = clip_iwe(iwe.cpu().numpy(), self.iwe_visualize_max_scale)
+            clipped = clip_iwe(self._viz_iwe(warped), self.iwe_visualize_max_scale)
         return (clipped, warped) if return_warped else clipped
 
     def _t_range(self, events) -> float:

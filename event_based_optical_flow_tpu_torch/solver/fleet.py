@@ -32,6 +32,16 @@ only (a warm motion is dropped with the JAX package's warning).  The two
 draw differently, so their results differ, as in the JAX package.  Its
 mesh (``parallel:``) is not ported: the config validation refuses it.
 
+The unfused objective's options (``solver.outer_padding``, ``iwe.method:
+count`` / ``polarity``: ``objective.is_unfused``) run as in the sequential
+objective, on the batched kernels: padding and the count vote are the
+kernels' ``pad`` and ``count``; a polarity batch votes its 2B channels
+(each frame's events twice) through one frame table
+(``FleetEvents.channels``), each frame's flow read by both of its
+channels; the lockstep Newton takes the exact HVP (a time-aware batch
+with the voxel map's own curvature), no step clip, as the JAX package's
+fleet differentiates its unfused objective twice.
+
 ``optimizer.device_solver: lbfgs`` replaces the lockstep Newton-CG by the
 lockstep L-BFGS (``BatchedLBFGS``, the JAX package's
 ``build_lbfgs_batched``) in the chain and the loop alike.  The cold
@@ -49,7 +59,8 @@ from ..ops import fused_iwe as fi
 from ..ops.blur import gaussian_blur3
 from .graphs import ChainGraphs
 from .newton_cg import BatchedEvaluations
-from .objective import FleetEvents, ObjectiveSpec, check_events, cost_of_images, flow_of
+from .objective import (FleetEvents, ObjectiveSpec, check_events, cost_of_images, flow_of, kernel_call,
+                        map_curvature)
 from .pyramid import COARSE_SUBSAMPLE_MIN_EVENTS, PyramidalPatchContrastMaximization, coarse_subsample
 
 logger = logging.getLogger(__name__)
@@ -62,6 +73,35 @@ def _batched_flow(spec: ObjectiveSpec, motion: Tensor, fleet: FleetEvents) -> Te
     ``[B, T, 2, H, W]`` when time-aware), each frame x its ``t_scale``."""
     check_events(spec, fleet)
     return torch.func.vmap(lambda m, ts: flow_of(spec, m, ts))(motion, fleet.t_scales)
+
+
+def _to_kernels(fleet: FleetEvents, t: Tensor) -> Tensor:
+    """A per-frame ``[B, ...]`` flow (or tangent flow) as the kernels take
+    it: each frame's read by both its polarity channels (``[2B, ...]``)."""
+    return t if fleet.channels is None else t.repeat_interleave(2, dim=0).contiguous()
+
+
+def _images_of(fleet: FleetEvents, imgs: Tensor) -> Tensor:
+    """The kernels' images ``[B', K, H', W']`` per frame: ``[B, K, H',
+    W']``, a polarity batch's ``[B, K, 2, H', W']``."""
+    if fleet.channels is None:
+        return imgs
+    return imgs.reshape((len(fleet), 2) + tuple(imgs.shape[1:])).transpose(1, 2)
+
+
+def _images_to_kernels(fleet: FleetEvents, g: Tensor) -> Tensor:
+    """``_images_of``'s inverse, for the cotangents the kernels take."""
+    if fleet.channels is None:
+        return g.contiguous()
+    return g.transpose(1, 2).reshape((-1,) + tuple(g.shape[1:2]) + tuple(g.shape[3:])).contiguous()
+
+
+def _per_frame(fleet: FleetEvents, dflows: Tensor) -> Tensor:
+    """The kernels' flow gradient per frame: a polarity frame's channels
+    summed (``_to_kernels``' transpose)."""
+    if fleet.channels is None:
+        return dflows
+    return dflows.reshape((len(fleet), 2) + tuple(dflows.shape[1:])).sum(1)
 
 
 def _over_frames(fn, orig: Optional[Tensor], n_args: int):
@@ -77,8 +117,9 @@ def build_orig_iwe_batched(spec: ObjectiveSpec):
     def orig_fn(fleet: FleetEvents) -> Tensor:
         with torch.no_grad():
             h, w = spec.image_shape
-            zeros = fleet.x.new_zeros((len(fleet), 2, h, w))
-            imgs = fi.fused_iwe(zeros, fleet.x, fleet.y, fleet.dtf, fleet.wt, (), True, frames=fleet.frames)
+            zeros = fleet.x.new_zeros((len(fleet.kernel_frames.sizes), 2, h, w))
+            call = dict(kernel_call(spec, fleet), bins=None)  # a dense zero flow: the orig image reads no bin
+            imgs = _images_of(fleet, fi.fused_iwe(zeros, fleet.x, fleet.y, fleet.dtf, fleet.wt, (), True, **call))
             if spec.blur_sigma > 0:
                 imgs = gaussian_blur3(imgs, spec.blur_sigma)
             return imgs[:, 0]
@@ -96,10 +137,9 @@ def build_batched_objective(spec: ObjectiveSpec):
         return cost_of(imgs, motion_flat, orig_blurred)[0]
 
     def objective(motion: Tensor, orig: Optional[Tensor], fleet: FleetEvents) -> Tensor:
-        flows = _batched_flow(spec, motion, fleet).contiguous()
-        imgs = fi.fused_iwe(flows, fleet.x, fleet.y, fleet.dtf, fleet.wt, offsets, False, bins=fleet.bins,
-                            frames=fleet.frames)
-        return _over_frames(loss_of, orig, 2)(imgs, motion, orig)
+        flows = _to_kernels(fleet, _batched_flow(spec, motion, fleet).contiguous())
+        imgs = fi.fused_iwe(flows, fleet.x, fleet.y, fleet.dtf, fleet.wt, offsets, False, **kernel_call(spec, fleet))
+        return _over_frames(loss_of, orig, 2)(_images_of(fleet, imgs), motion, orig)
 
     return objective
 
@@ -121,22 +161,27 @@ def build_batched_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool =
 
     def prep(motion: Tensor, orig: Optional[Tensor], fleet: FleetEvents) -> Tensor:
         with torch.no_grad():
-            flows = _batched_flow(spec, motion, fleet).contiguous()
-            return fi.fused_iwe(flows, fleet.x, fleet.y, fleet.dtf, fleet.wt, offsets, False, bins=fleet.bins,
-                                frames=fleet.frames)
+            flows = _to_kernels(fleet, _batched_flow(spec, motion, fleet).contiguous())
+            return _images_of(fleet, fi.fused_iwe(flows, fleet.x, fleet.y, fleet.dtf, fleet.wt, offsets, False,
+                                                  **kernel_call(spec, fleet)))
 
     def hvp(images: Tensor, motion: Tensor, p: Tensor, orig: Optional[Tensor], fleet: FleetEvents) -> Tensor:
         flow_fn = lambda m: _batched_flow(spec, m, fleet)  # noqa: E731
         flows, flow_vjp = torch.func.vjp(flow_fn, motion)
         # the dense map is linear: its tangent along p is the map of p
         dflows = torch.func.jvp(flow_fn, (motion,), (p,))[1] if spec.time_aware else flow_fn(p)
-        flows, dflows = flows.contiguous(), dflows.contiguous()
-        ev = (fleet.x, fleet.y, fleet.dtf, fleet.wt)
-        dimages = fi.fused_iwe_jvp(flows, dflows, *ev, offsets, False, bins=fleet.bins, frames=fleet.frames)
+        kflows, kdflows = _to_kernels(fleet, flows.contiguous()), _to_kernels(fleet, dflows.contiguous())
+        ev, call = (fleet.x, fleet.y, fleet.dtf, fleet.wt), kernel_call(spec, fleet)
+        dimages = _images_of(fleet, fi.fused_iwe_jvp(kflows, kdflows, *ev, offsets, False, **call))
         g1, g2, dgm = _over_frames(cost_jvp, orig, 4)(images, motion, p, dimages, orig)
-        dgflow = fi.fused_iwe_hvp_bwd(flows, dflows, g1.contiguous(), g2.contiguous(), *ev, offsets,
-                                      not gauss_newton, bins=fleet.bins, frames=fleet.frames)
-        return flow_vjp(dgflow)[0] + dgm
+        kg1 = _images_to_kernels(fleet, g1)
+        dgflow = fi.fused_iwe_hvp_bwd(kflows, kdflows, kg1, _images_to_kernels(fleet, g2), *ev, offsets,
+                                      not gauss_newton, **call)
+        out = flow_vjp(_per_frame(fleet, dgflow))[0] + dgm
+        if spec.time_aware and not gauss_newton:
+            out = out + map_curvature(flow_fn, motion, p, kflows, kg1, ev, offsets, call,
+                                      lambda g: _per_frame(fleet, g))
+        return out
 
     return prep, hvp
 
@@ -499,7 +544,8 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
             sets["coarse"] = subs
         out = {}
         for name, evs in sets.items():
-            fleet = FleetEvents.from_numpy(evs, self.device, self.dtype, self.time_bin)
+            fleet = FleetEvents.from_numpy(evs, self.device, self.dtype, self.time_bin,
+                                           polarity=self.iwe_method == "polarity")
             orig = orig_fn(fleet)
             if chain:
                 st = self._graphs.stage(f"fleet-{name}", fleet, orig)
@@ -516,18 +562,17 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         ``stage`` (a batch's ``graphs.Stage`` whose buffers are ``fleet``
         and ``orig``) the evaluations are replayed from CUDA graphs on the
         card.  Returns (best_x, best_f [B], iterations, hvp)."""
-        analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_batched_objective(spec)
         lbfgs = self._lbfgs_options(maxiter)
         if lbfgs is not None:
             solve, name = BatchedLBFGS(obj, **lbfgs), "lbfgs"
         else:
+            name = self._curvature(spec, warm, finest)
             hvp_kw = {}
-            if analytic:
-                prep, hvp = build_batched_objective_hvp_staged(spec, gauss_newton)
-                hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
-            solve = BatchedNewtonCG(obj, **self._newton_options(analytic, finest, maxiter, cg_maxiter), **hvp_kw)
-            name = self._hvp_name(analytic, gauss_newton)
+            if name != "fd":
+                prep, hvp = build_batched_objective_hvp_staged(spec, name == "analytic-gn")
+                hvp_kw = {"hvp_fn": hvp, "hvp_prep_fn": prep}
+            solve = BatchedNewtonCG(obj, **self._newton_options(name, finest, maxiter, cg_maxiter), **hvp_kw)
         x0 = x0.to(self.dtype)
         if stage is None:
             best_x, best_f, n_iter = solve(x0, orig, fleet)

@@ -178,7 +178,7 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
         spec = self._current_spec()
         before = ops.launch_counts()
         self.syncs = 0
-        frame = FrameEvents.from_numpy(events, self.device, self.dtype)
+        frame = self.frame_events(events)
         orig = build_orig_iwe(spec)(frame)
         warm = self.previous_frame_best_estimation is not None
         # the solve works in scaled (pixel-equivalent) units

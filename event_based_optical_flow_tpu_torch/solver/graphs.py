@@ -83,9 +83,9 @@ class ChainGraphs:
         ``frame`` and ``orig`` as its buffers (its graphs are captured
         anew)."""
         if isinstance(frame, FleetEvents):
-            key = (len(frame), frame.frames.sizes, frame.bins is not None, frame.x.dtype)
+            key = (len(frame), frame.frames.sizes, frame.bins is not None, frame.channels is not None, frame.x.dtype)
         else:
-            key = (frame.x.shape[0], frame.bins is not None, frame.x.dtype)
+            key = (frame.x.shape[0], frame.bins is not None, frame.channels is not None, frame.x.dtype)
         stage = self.stages.get(name)
         if stage is None or stage.key != key:
             stage = self.stages[name] = Stage(self, key, frame, orig)

@@ -54,7 +54,7 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         logger.info(f"Start optimization; DoF {self.motion_vector_size * self.n_patch}")
         events = np.asarray(events, dtype=np.float64)
         spec = self._current_spec()
-        frame = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
+        frame = self.frame_events(events)
         before = ops.launch_counts()
         self.syncs = 0
         orig = build_orig_iwe(spec)(frame)

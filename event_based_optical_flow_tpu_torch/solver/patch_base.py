@@ -11,7 +11,11 @@ and HVP-backward kernels (full Hessian with ``analytic-full``).  The orig
 IWE is voted once per event set and passed to the solve.  A time-aware
 spec routes to the voxel kernels (K5; K6 for the analytic HVP, whose
 assembly is Gauss-Newton only there: ``analytic-full`` warns and solves
-with the FD HVP).
+with the FD HVP).  A spec of the JAX package's unfused route (an outer
+padding, a count or polarity vote: ``objective.is_unfused``) solves with
+the full analytic HVP and no step clip or FD polish whatever
+``optimizer.hvp_mode`` says, as the JAX package's Newton takes its exact
+autodiff HVP there (``patch_base.py:414-419``).
 
 The other ``optimizer.method`` values solve a scale's objective from the
 host (the JAX package's ``_run_scipy_on_spec``, ``run_first_order`` and
@@ -42,6 +46,7 @@ from .objective import (
     build_objective,
     build_objective_hvp_staged,
     build_value_grad_hvp,
+    is_unfused,
     objective_supports_analytic_hvp,
 )
 from .sampling import build_patch_search, gather_patch_events
@@ -187,7 +192,16 @@ class PatchContrastMaximization(SolverBase):
             t0_location=self.t0_flow_location,
             scale_later=self.scale_later,
             motion_model=getattr(self, "objective_motion_model", "tiles"),
+            outer_padding=self.padding,
+            iwe_method=self.iwe_method,
         )
+
+    def frame_events(self, events: np.ndarray) -> FrameEvents:
+        """A frame's events as this solver's objective takes them: its
+        device and dtype, time bins when time-aware, polarity channels with
+        ``iwe.method: polarity``."""
+        return FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin,
+                                      polarity=self.iwe_method == "polarity")
 
     def _want_analytic(self, warm: bool, finest: bool) -> bool:
         """The hvp-mode routing table: does the solve of this (warmth,
@@ -208,47 +222,53 @@ class PatchContrastMaximization(SolverBase):
             return bool(warm and finest)
         return False
 
-    def _curvature(self, spec: ObjectiveSpec, warm: bool, finest: bool):
-        """(analytic, gauss_newton): whether this (warmth, scale) solve takes
-        the analytic HVP (``_want_analytic``, and the objective supports
-        it) and in which form; warns once on an unknown ``hvp_mode`` and on
-        an analytic mode the objective does not support."""
+    def _curvature(self, spec: ObjectiveSpec, warm: bool, finest: bool) -> str:
+        """The curvature model of this (warmth, scale) Newton solve: "exact"
+        on an unfused spec whatever ``hvp_mode`` says (the full analytic
+        HVP, as the JAX package's autodiff there), else "analytic-gn" /
+        "analytic-full" where ``_want_analytic`` asks for it and the
+        objective supports it, else "fd"; warns once on an unknown
+        ``hvp_mode`` and on an analytic mode the objective does not
+        support."""
+        if is_unfused(spec):
+            return "exact"
         mode = str(self.opt_config.get("hvp_mode", "fd")).lower()
         if mode not in HVP_MODES and not getattr(self, "_warned_hvp_mode", False):
             logger.warning(f"optimizer.hvp_mode: {mode!r} is not recognized ({' | '.join(HVP_MODES)}) "
                            "— using fd")
             self._warned_hvp_mode = True
         gauss_newton = mode != "analytic-full"
-        analytic = self._want_analytic(warm, finest)
-        if analytic and not objective_supports_analytic_hvp(spec, gauss_newton=gauss_newton):
+        if not self._want_analytic(warm, finest):
+            return "fd"
+        if not objective_supports_analytic_hvp(spec, gauss_newton=gauss_newton):
             if not getattr(self, "_warned_analytic_hvp", False):
                 logger.warning("optimizer.hvp_mode: analytic is not supported for this objective "
                                "(time-aware: analytic-full) — falling back to the FD HVP")
                 self._warned_analytic_hvp = True
-            analytic = False
-        return analytic, gauss_newton
+            return "fd"
+        return "analytic-gn" if gauss_newton else "analytic-full"
 
-    def _newton_options(self, analytic: bool, finest: bool, maxiter: int, cg_maxiter=None,
+    def _newton_options(self, curvature: str, finest: bool, maxiter: int, cg_maxiter=None,
                         gtol: float = 1e-5) -> dict:
-        """The Newton-CG budget and curvature options of one solve (the
-        sequential and the fleet Newton take the same)."""
+        """The Newton-CG budget and curvature options of one solve of
+        ``curvature`` (``_curvature``'s; the sequential and the fleet Newton
+        take the same): the HVP's mode, and the analytic HVPs' step clip and
+        FD polish (the exact HVP takes neither, as the JAX package's
+        autodiff mode)."""
         kw = {
             "maxiter": maxiter,
             "cg_maxiter": int(cg_maxiter if cg_maxiter is not None else self.opt_config.get("cg_maxiter", 32)),
             "xtol": 1e-5,
             "gtol": gtol,
             "fd_central": bool(self.opt_config.get("hvp_central", True)),
+            "hvp_mode": "fd" if curvature == "fd" else "analytic",
         }
-        if analytic:
+        if curvature.startswith("analytic"):
             # the analytic curvature needs the per-component step clip (px/s);
             # central-FD refinement iterations: finest scale only
             kw["max_step"] = float(self.opt_config.get("hvp_max_step", 10.0))
             kw["fd_polish"] = int(self.opt_config.get("fd_polish", 0)) if finest else 0
         return kw
-
-    @staticmethod
-    def _hvp_name(analytic: bool, gauss_newton: bool) -> str:
-        return ("analytic-gn" if gauss_newton else "analytic-full") if analytic else "fd"
 
     def _lbfgs_options(self, maxiter: int, gtol: float = 1e-5):
         """The device L-BFGS's options (``optimizer.device_solver: lbfgs``),
@@ -269,24 +289,23 @@ class PatchContrastMaximization(SolverBase):
         """One device solve of this scale's objective from ``x0`` (flat [2 *
         n_patch], or a global model's [P]): Newton-CG, or L-BFGS with
         ``optimizer.device_solver: lbfgs``; returns (best_x, best_f,
-        n_iter, hvp), hvp naming the curvature model: "fd", "analytic-gn",
-        "analytic-full" or "lbfgs".  With ``stage`` (a ``graphs.Stage``
+        n_iter, hvp), hvp naming the curvature model: ``_curvature``'s, or
+        "lbfgs".  With ``stage`` (a ``graphs.Stage``
         whose buffers are ``frame`` and ``orig``) the evaluations are the
         stage's, replayed from CUDA graphs on the card (the chain);
         without, they run eagerly (the loop)."""
-        analytic, gauss_newton = self._curvature(spec, warm, finest)
         obj = build_objective(spec)
         lbfgs = self._lbfgs_options(maxiter, gtol)
         if lbfgs is not None:
             solve, name = build_lbfgs(lambda x, *a: obj(x, *a)[0], **lbfgs), "lbfgs"
         else:
-            hvp_kw = {"hvp_mode": "fd"}
-            if analytic:
-                prep, hvp = build_objective_hvp_staged(spec, gauss_newton=gauss_newton)
-                hvp_kw = {"hvp_mode": "analytic", "hvp_fn": hvp, "hvp_prep_fn": prep}
+            name = self._curvature(spec, warm, finest)
+            hvp_kw = {}
+            if name != "fd":
+                prep, hvp = build_objective_hvp_staged(spec, gauss_newton=name == "analytic-gn")
+                hvp_kw = {"hvp_fn": hvp, "hvp_prep_fn": prep}
             solve = build_newton_cg(lambda x, *a: obj(x, *a)[0],
-                                    **self._newton_options(analytic, finest, maxiter, cg_maxiter, gtol), **hvp_kw)
-            name = self._hvp_name(analytic, gauss_newton)
+                                    **self._newton_options(name, finest, maxiter, cg_maxiter, gtol), **hvp_kw)
         x0 = x0.reshape(-1).to(self.dtype)
         if stage is None:
             best_x, best_f, n_iter = solve(x0, orig, frame)
@@ -425,6 +444,7 @@ class PatchContrastMaximization(SolverBase):
         search = build_patch_search(
             tuple(self.patch_size), int(n_candidates),
             blur_sigma=self.iwe_config["blur_sigma"], candidates_fn=self.candidates_fn,
+            iwe_method=self.iwe_method, outer_padding=self.padding,
         )
         return search(self.tensor(patch_events), self.tensor(weights), torch.as_tensor(counts, device=self.device),
                       motion0.to(self.dtype).contiguous(), self.generator)

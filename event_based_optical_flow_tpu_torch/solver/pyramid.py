@@ -219,7 +219,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         s_fin = self.patch_scales - 1
         self.overload_patch_configuration(s_fin)
         spec = self._current_spec()
-        full = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
+        full = self.frame_events(events)
         stage = self._graphs.stage("full", full, build_orig_iwe(spec)(full))
         self.syncs = 0
         before = ops.launch_counts()
@@ -253,11 +253,11 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         orig_fn = build_orig_iwe(self._current_spec())
         # (FrameEvents, orig IWE) of the full frame and of the coarse scales'
         # subsample: the orig IWE depends on the events only
-        full = FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin)
+        full = self.frame_events(events)
         newton_events = {"full": (full, orig_fn(full))}
         sub = coarse_subsample(events, float(self.opt_config.get("coarse_event_fraction", 1.0)))
         if sub is not None:
-            coarse = FrameEvents.from_numpy(sub, self.device, self.dtype, self.time_bin)
+            coarse = self.frame_events(sub)
             newton_events["coarse"] = (coarse, orig_fn(coarse))
         stages = {}
         if chain:
@@ -298,12 +298,12 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             best_motion_per_scale[s] = best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
             after = ops.launch_counts()
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, loss, hvp
-            stats["events"][s] = frame.x.shape[0]
+            stats["events"][s] = frame.n_events
             stats["launches"][s] = {k: after[k] - before[k] for k in after}
             if chain:
                 logger.info(f"Scale {s} done (chained): {n_iter} iters, loss {loss:.6f}")
             else:
-                logger.info(f"Scale {s} done: {n_iter} iters ({hvp} HVP, {frame.x.shape[0]} events), "
+                logger.info(f"Scale {s} done: {n_iter} iters ({hvp} HVP, {frame.n_events} events), "
                             f"loss {loss:.6f}")
         stats["syncs"] = self.syncs
         self.last_frame_stats = stats

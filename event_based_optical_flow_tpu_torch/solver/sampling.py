@@ -6,7 +6,9 @@ Each finer pyramid scale refines the expanded coarser motion per tile with
 a batched candidate sweep: round 1 draws uniformly in the tile's search
 box, round 2 draws gaussians around the round-1 best; the incumbent always
 competes.  A candidate's cost is the normalized gradient magnitude of the
-tile's middle-reference-time 2-DoF warp (lower = better).  All patches x
+tile's middle-reference-time 2-DoF warp (lower = better), its IWE voted by
+``iwe.method`` into the tile grown by ``solver.outer_padding`` (the JAX
+package's ``_patch_cost_fn``).  All patches x
 candidates of a round are scored in ONE batched scatter vote, not a loop
 over patches.
 
@@ -133,6 +135,8 @@ def build_patch_search(
     rel_range: Tuple[float, float] = (0.8, 1.2),
     min_events: int = 10,
     candidates_fn: Optional[Callable] = None,
+    iwe_method: str = "bilinear_vote",
+    outer_padding: int = 0,
 ):
     """Build the per-scale init sweep.
 
@@ -144,14 +148,17 @@ def build_patch_search(
     """
     k1 = max(1, n_candidates // 2)
     k2 = max(1, n_candidates - k1)
+    axes = 3 if iwe_method == "polarity" else 2  # a polarity IWE's two channels
+
+    def magnitude(events, weights):
+        iwe = create_iwe(events, patch_size, blur_sigma, weight=weights, padding=outer_padding, method=iwe_method)
+        return gradient_magnitude(iwe, omit_boundary=False, image_axes=axes)
 
     def score(cands, events, weights, t_scale, orig_mag, ref):
         """Loss of every candidate translation [P, K, 2] -> [P, K]."""
         warped = warp_2dof(events[:, None], cands * t_scale[:, None, None], ref[:, None],
                            normalize_t=True, weights=weights[:, None])
-        iwe = create_iwe(warped, patch_size, blur_sigma, weight=weights[:, None])
-        mag = gradient_magnitude(iwe, omit_boundary=False)
-        return nan_to_penalty(orig_mag[:, None] / mag)
+        return nan_to_penalty(orig_mag[:, None] / magnitude(warped, weights[:, None]))
 
     def pick(cands, losses):
         return cands[torch.arange(cands.shape[0], device=cands.device), losses.argmin(dim=1)]
@@ -171,9 +178,7 @@ def build_patch_search(
         one = torch.ones_like(t_max)
         t_scale = torch.where(counts > 0, t_max - t_min, one)
         t_scale = torch.where(t_scale > 0, t_scale, one)
-        orig_mag = gradient_magnitude(
-            create_iwe(patch_events, patch_size, blur_sigma, weight=weights), omit_boundary=False
-        )
+        orig_mag = magnitude(patch_events, weights)
         ref = calculate_reftime(patch_events, 0.5, weights)
 
         lo = torch.minimum(rel_range[0] * motion0, motion0 - abs_range)

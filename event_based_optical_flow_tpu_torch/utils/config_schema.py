@@ -3,9 +3,9 @@
 
 Same known-key sets and the same hard errors as the JAX package, checked
 against the port's own registries: a config the port cannot run (another
-solver, optimizer or cost, a host griddata voxel scheme, outer padding,
-device meshes, the DNN's multi-device train step) fails fast here with the YAML path of the entry, instead of deep inside a
-solve.  An ``is_dnn`` config (the EV-FlowNet path) validates its ``dnn``
+solver, optimizer or cost, a host griddata voxel scheme, device meshes, the
+DNN's multi-device train step) fails fast here with the YAML
+path of the entry, instead of deep inside a solve.  An ``is_dnn`` config (the EV-FlowNet path) validates its ``dnn``
 keys and its solver blocks, as the JAX package validates them.  Unknown keys, and
 the raw-camera filters on a dataset that ignores them, produce the JAX
 package's warnings; a global motion model under a tile solver, and a TV
@@ -15,6 +15,8 @@ them.
 
 import logging
 from typing import Any, Dict, List
+
+from ..ops.iwe import IWE_METHODS
 
 logger = logging.getLogger(__name__)
 
@@ -75,28 +77,21 @@ _KNOWN_DNN_KEYS = {
     "supervised",
 }
 
-# JAX-package options that select a part of the system the port does not
-# run yet: (section, key, value the port runs, reason)
-_UNPORTED = (
-    ("solver", "outer_padding", 0, "outer padding"),
-)
-
 
 def check_ported(sections: Dict[str, dict]) -> None:
-    """Raise ``ConfigError`` for an entry of ``_UNPORTED`` that selects
-    what the port does not run (``sections``: some of ``data``, ``solver``,
-    ``optimizer``; the CLI's validation and the serving surface's config
-    merge both call it)."""
-    if sections.get("solver", {}).get("parallel"):
+    """Raise ``ConfigError`` for an option that selects what the port does
+    not run, or a value no solver takes (``sections``: some of ``data``,
+    ``solver``, ``optimizer``; the CLI's validation and the serving
+    surface's config merge both call it): device meshes; an outer padding
+    that is not an int >= 0, an ``iwe.method`` outside ``IWE_METHODS``."""
+    slv = sections.get("solver", {})
+    if slv.get("parallel"):
         raise ConfigError("'solver.parallel' (multi-device meshes, the fleet's frame sharding among them) "
                           "is not ported yet")
-    for section, key, runs, what in _UNPORTED:
-        val = sections.get(section, {}).get(key, runs)
-        if (str(val).lower() if isinstance(runs, str) else val) != runs:
-            raise ConfigError(
-                f"config key '{section}.{key}: {val!r}' selects {what}, "
-                "which is not ported yet"
-            )
+    pad = slv.get("outer_padding", 0)
+    if not isinstance(pad, int) or isinstance(pad, bool) or pad < 0:
+        raise ConfigError(f"config key 'solver.outer_padding' must be an int >= 0, got {pad!r}")
+    _choice(slv.get("iwe") or {}, "method", set(IWE_METHODS), "solver.iwe")
 
 
 def validate_config(config: Dict[str, Any]) -> List[str]:
@@ -184,7 +179,7 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
                 "solver.patch")
         _choice(patch, "filter_type", {"bilinear", "nearest"}, "solver.patch")
     iwe = _require(slv, "iwe", dict, "solver")
-    _choice(iwe, "method", {"bilinear_vote"}, "solver.iwe")
+    _choice(iwe, "method", set(IWE_METHODS), "solver.iwe")
     _require(iwe, "blur_sigma", _NUM, "solver.iwe")
     _choice(slv, "precision", {"32", "64", 32, 64}, "solver")
     _choice(slv, "iwe_backend", {"auto", "scatter", "matmul", "pallas", "pallas_bf16"}, "solver")
@@ -201,7 +196,8 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
         if scheme in HOST_SCHEMES:
             raise ConfigError(
                 f"config key 'solver.flow_interpolation: {scheme!r}' selects a host scipy griddata "
-                "scheme, which the JAX package solves on its non-fused objective: not ported yet"
+                "scheme, which the JAX package cannot solve either (its objective hands the traced flow "
+                "to scipy there and raises, flow/voxel.py): not ported yet"
             )
     for key in slv:
         if key not in _KNOWN_SOLVER_KEYS:

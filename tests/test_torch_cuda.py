@@ -1268,7 +1268,7 @@ def test_dnn_voxel_grid_kernel_matches_plain_and_exact_model(cuda_device, dtype,
     assert VOTE.launch_counts()["vote"] == 1 and got.shape == (2, 4, 32, 48)
     calls = []
     kernel = VOTE.bilinear_vote_kernel
-    VOTE.bilinear_vote_kernel = lambda e, s, w=1.0, eps=1e-6: calls.append((e, w)) or kernel(e, s, w, eps)
+    VOTE.bilinear_vote_kernel = lambda e, s, w=1.0, eps=1e-6, *a: calls.append((e, w)) or kernel(e, s, w, eps, *a)
     try:
         events_to_voxel_grid(ev, (32, 48), 4, wt)
     finally:
@@ -1498,3 +1498,150 @@ def test_grid_sweep_matches_plain_version(cuda_device, deterministic, chunk, mon
     want = solv._grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
     assert (got - want).abs().max().item() <= 1e-9 * want.abs().max().item()
     assert int(torch.argmin(got)) == int(torch.argmin(want))
+
+
+PAD = 3
+
+
+def _padded_cotangents(lead, dtype, device, seed=7):
+    """Cotangents of the orig + K padded images and two of the K (``lead``:
+    the frame axis of a batched form, or ())."""
+    rng = np.random.default_rng(seed)
+    shape = (H + 2 * PAD, W + 2 * PAD)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return (t(rng.normal(size=lead + (1 + len(OFFSETS),) + shape)), t(rng.normal(size=lead + (len(OFFSETS),) + shape)),
+            t(rng.normal(size=lead + (len(OFFSETS),) + shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "batched"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_padded_and_count_kernels_equal_the_exact_models(cuda_device, form, dtype):
+    """With an outer padding (``pad``) the forward (bilinear and count),
+    the backward, the HVP backward and the tangent give the exact models'
+    bits; the count vote's tangent and HVP term are zeros and launch no
+    kernel; pad 0 is the unpadded call."""
+    ev, kw, fl, _, dfl, _, _ = _form_inputs(form, dtype, cuda_device)
+    lead = (len(kw["frames"].sizes),) if form == "batched" else ()
+    g, g1, g2 = _padded_cotangents(lead, dtype, cuda_device)
+    cev, ckw = _on_cpu(*ev), dict(_model_kw(kw), pad=PAD)
+    cfl, cdfl, cg1, cg2 = _on_cpu(fl, dfl, g1, g2)
+    kw = dict(kw, pad=PAD)
+    k = (slice(None),) if lead else ()
+    for offsets, orig in ((OFFSETS, True), ((), True), (OFFSETS, False)):
+        for count in (False, True):
+            got = FI.fused_iwe_fwd(fl, *ev, offsets, orig, count=count, **kw).cpu()
+            assert got.shape[-2:] == (H + 2 * PAD, W + 2 * PAD)
+            assert torch.equal(got, FI.fused_iwe_fixed_reference(cfl, *cev, offsets, orig, count=count, **ckw))
+        if offsets:
+            gk = g[k + (slice(int(not orig), None),)].contiguous()
+            got = FI.fused_iwe_bwd(fl, *ev, gk, offsets, orig, **kw).cpu()
+            assert torch.equal(got, FI.fused_iwe_bwd_ordered_reference(cfl, *cev, gk.cpu(), offsets, orig, **ckw))
+    for term_a in (False, True):
+        got = FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, term_a, **kw).cpu()
+        want = FI.fused_iwe_bwd_ordered_reference(cfl, *cev, cg2, OFFSETS, False, **ckw,
+                                                  **({"g1": cg1, "dflow": cdfl} if term_a else {}))
+        assert torch.equal(got, want)
+    for emit_value in (False, True):
+        got = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, emit_value, **kw)
+        want = FI.fused_iwe_jvp_fixed_reference(cfl, cdfl, *cev, OFFSETS, emit_value, **ckw)
+        for a, b in zip(got, want) if emit_value else ((got, want),):
+            assert torch.equal(a.cpu(), b)
+    FI.reset_launch_counts()
+    val, tan = FI.fused_iwe_jvp(fl, dfl, *ev, OFFSETS, True, count=True, **kw)
+    term = FI.fused_iwe_hvp_bwd(fl, dfl, g1, g2, *ev, OFFSETS, True, count=True, **kw)
+    assert not tan.abs().max().item() and not term.abs().max().item()
+    assert torch.equal(val, FI.fused_iwe_fwd(fl, *ev, OFFSETS, False, count=True, **kw))
+    assert FI.launch_counts() == _counts(**{FI.form(kw["bins"], kw.get("frames")) + "fwd": 2})
+    unpadded = dict(kw, pad=0)
+    assert torch.equal(FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, **unpadded),
+                       FI.fused_iwe_fwd(fl, *ev, OFFSETS, True, bins=kw["bins"], frames=kw.get("frames")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_padded_and_count_votes_equal_the_exact_model(cuda_device, dtype):
+    """K8 with a padding and in count mode on both launch paths (a
+    full-frame image: global sums; a batch of patches: shared memory):
+    the exact model's bits; the count vote's position gradient is 0."""
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)  # noqa: E731
+    frame = t(np.stack([rng.uniform(-3, 262, 20000), rng.uniform(-3, 348, 20000), rng.uniform(0, 1, 20000),
+                        rng.choice([-1.0, 1.0], 20000)], 1))
+    patches = t(np.concatenate([rng.uniform(-2, 18, (6, 3, 500, 2)), rng.uniform(0, 1, (6, 3, 500, 2))], -1))
+    wt = t(rng.uniform(0, 1, (6, 1, 500)))
+    for ev, w, size in ((frame, 1.0, (260 + 2 * PAD, 346 + 2 * PAD)), (patches, wt, (16 + 2 * PAD, 21 + 2 * PAD))):
+        cw = w.cpu() if torch.is_tensor(w) else w
+        for count in (False, True):
+            got = VOTE.bilinear_vote_kernel(ev, size, w, padding=PAD, count=count).cpu()
+            assert torch.equal(got, VOTE.bilinear_vote_fixed_reference(ev.cpu(), size, cw, padding=PAD, count=count))
+    ev = patches.clone().requires_grad_(True)
+    (d,) = torch.autograd.grad(VOTE.count_vote(ev, (16, 21), wt, padding=PAD).sum(), ev)
+    assert not d.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,pad", [("bilinear_vote", PAD), ("count", PAD), ("polarity", 0)])
+def test_unfused_objective_and_exact_hvp_on_gpu_match_cpu(cuda_device, deterministic, method, pad):
+    """The unfused objective's value, gradient and exact HVP (K1-K4; K7's
+    two-channel table for polarity) in float64 on the GPU against the
+    plain versions on the CPU."""
+    import dataclasses
+
+    from event_based_optical_flow_tpu_torch.solver.objective import build_value_grad_hvp
+
+    rng = np.random.default_rng(5)
+    events, spec = _objective_problem(rng)
+    events[:, 3] = np.where(events[:, 3] > 0, 1.0, -1.0)
+    spec = dataclasses.replace(spec, outer_padding=pad, iwe_method=method)
+    motion, p = rng.uniform(-20, 20, 8), rng.normal(size=8)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        frame = FrameEvents.from_numpy(events, dev, torch.float64, polarity=method == "polarity")
+        orig = build_orig_iwe(spec)(frame)
+        vg, hvp, _ = build_value_grad_hvp(spec)
+        m, pp = (torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (motion, p))
+        loss, grad, _ = vg(m, orig, frame)
+        out[str(dev)] = (loss.item(), grad.cpu().numpy(), hvp(m, pp, orig, frame).cpu().numpy())
+    (l_cpu, g_cpu, h_cpu), (l_gpu, g_gpu, h_gpu) = out["cpu"], out[str(cuda_device)]
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-9)
+    np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(h_gpu, h_cpu, rtol=0, atol=1e-9 * max(1e-3, np.abs(h_cpu).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bilinear_vote", "polarity"])
+def test_time_aware_exact_hvp_on_gpu_matches_cpu(cuda_device, deterministic, method):
+    """The padded time-aware exact HVP (K6 with term A, and the voxel map's
+    own curvature against K5's backward: ``objective.map_curvature``),
+    sequential and batched (B=2), in float64 on the GPU against the plain
+    versions on the CPU, to 1e-9 of max|Hp|."""
+    import dataclasses
+
+    from event_based_optical_flow_tpu_torch.solver.fleet import (
+        build_batched_objective_hvp_staged,
+        build_orig_iwe_batched,
+    )
+
+    rng = np.random.default_rng(9)
+    events, spec = _objective_problem(rng)
+    events[:, 3] = np.where(events[:, 3] > 0, 1.0, -1.0)
+    spec = dataclasses.replace(spec, time_aware=True, time_bin=T_BINS, flow_interpolation="burgers",
+                               t0_location="middle", outer_padding=PAD, iwe_method=method)
+    motion, p = rng.uniform(-20, 20, (2, 8)), rng.normal(size=(2, 8))
+    polarity = method == "polarity"
+    out = {}
+    for dev in ("cpu", cuda_device):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        frame = FrameEvents.from_numpy(events, dev, torch.float64, time_bin=T_BINS, polarity=polarity)
+        orig = build_orig_iwe(spec)(frame)
+        prep, hvp = build_objective_hvp_staged(spec, False)
+        one = hvp(prep(t(motion[0]), orig, frame), t(motion[0]), t(p[0]), orig, frame)
+        fleet = FleetEvents.from_numpy([events, events[:3000]], dev, torch.float64, time_bin=T_BINS,
+                                       polarity=polarity)
+        borig = build_orig_iwe_batched(spec)(fleet)
+        bprep, bhvp = build_batched_objective_hvp_staged(spec, False)
+        batch = bhvp(bprep(t(motion), borig, fleet), t(motion), t(p), borig, fleet)
+        out[str(dev)] = (one.cpu().numpy(), batch.cpu().numpy())
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())

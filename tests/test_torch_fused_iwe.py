@@ -143,6 +143,21 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert FI.launch_counts() == before
 
 
+@pytest.mark.parametrize("include_orig", [True, False])
+def test_backward_plain_version_matches_pallas(include_orig):
+    """``fused_iwe_bwd`` on CPU tensors runs the plain version (the VJP of
+    ``fused_iwe_reference``), launching nothing: the Pallas banded
+    kernel's flow gradient."""
+    padded, wgt, dtf, flow, g = _inputs()
+    _, want = _jax_banded(padded, wgt, dtf, flow, OFFSETS, include_orig, g)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+    before = FI.launch_counts()
+    got = FI.fused_iwe_bwd(t(flow), t(padded[:, 0]), t(padded[:, 1]), t(dtf), t(wgt),
+                           t(g[: len(OFFSETS) + int(include_orig)]), OFFSETS, include_orig)
+    assert FI.launch_counts() == before
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_frame_events_sorted_by_source_pixel(dtype):
     """``FrameEvents`` orders the events by their truncated source pixel in

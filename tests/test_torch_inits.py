@@ -11,10 +11,10 @@
 * The solves: the single-scale tile solver and the pyramid's loop with each
   init against the JAX package (``iwe_backend: pallas``, interpret mode,
   JAX's sweep draws injected): the start to 1e-9 and the motions to 1e-6;
-  the pyramid's chain gives its loop's bits.  These solves drop the TV
+  the pyramid's chain gives its loop's bits.  These solves keep the TV
   term: a tiled translation is a uniform motion, where the TV's
-  ``|Sobel|`` sits at 0, and JAX differentiates ``|0|`` as +1, torch as 0
-  (``test_tv_gradient_at_uniform_motion``, ROADMAP Queue 3).
+  ``|Sobel|`` sits at 0, and the port takes JAX's derivative of ``|0|``
+  there, +1 (``test_tv_gradient_at_uniform_motion``).
 * The fleet keeps the JAX package's rule: any init but ``zero`` is the
   random draw.
 """
@@ -110,7 +110,7 @@ def test_mixed_solver_init_matches_jax(events, init):
     """The single-scale tile solver from each init: JAX's start (the tiled
     translation, or the per-patch sweep from zero with JAX's draws) and
     JAX's solve to 1e-6."""
-    slv = dict(MIXED, patch=dict(MIXED["patch"], initialize=init), **NO_TV)
+    slv = dict(MIXED, patch=dict(MIXED["patch"], initialize=init))
     opt = dict(OPTIMIZER, max_iter=2)
     sj, st = _pair(slv, opt, candidates_fn=JaxDraws())
     starts_j, starts_t = [], []
@@ -131,7 +131,7 @@ def test_pyramid_init_matches_jax_and_the_chain_the_loop(events, init):
     chained frame gives the loop's bits."""
     from test_torch_chain import _same_solve, _solve
 
-    slv = dict(SOLVER, patch=dict(SOLVER["patch"], initialize=init), **NO_TV)
+    slv = dict(SOLVER, patch=dict(SOLVER["patch"], initialize=init))
     sj, st = _pair(slv, OPTIMIZER, candidates_fn=JaxDraws())
     starts_j, starts_t = [], []
     _record(sj, ["_init_scale"], starts_j, np.asarray)
@@ -164,12 +164,11 @@ def test_fleet_keeps_jax_init_rule(init):
 
 
 def test_tv_gradient_at_uniform_motion(events):
-    """The one known difference from the JAX package at a tiled
-    translation (ROADMAP Queue 3): the hybrid objective's gradient there
-    differs only in the TV term, by JAX's derivative of ``|0|`` (+1; the
-    port's ``abs``, torch's, takes 0): without TV the gradients agree to
-    1e-15; with it they differ by ``0.01 / 8 / n`` times JAX's count of
-    zero Sobel taps; off the lattice of uniform motions they agree."""
+    """At a tiled translation every Sobel tap of the TV term is 0, where
+    JAX differentiates ``|0|`` as +1 (``torch.abs`` would take 0): the
+    port's TV takes JAX's derivative, so the hybrid objective's gradient
+    agrees to 1e-15 there, with and without TV, and off the lattice of
+    uniform motions."""
     from event_based_optical_flow_tpu.solver import objective as JO
     from event_based_optical_flow_tpu_torch.solver.objective import build_objective
 
@@ -191,4 +190,4 @@ def test_tv_gradient_at_uniform_motion(events):
             diffs[name, start] = np.abs(gj - gt.numpy()).max()
     assert diffs["no-tv", "uniform"] < 1e-15 and diffs["no-tv", "varied"] < 1e-15
     assert diffs["hybrid", "varied"] < 1e-15
-    assert diffs["hybrid", "uniform"] > 1e-5  # the TV term's |0|
+    assert diffs["hybrid", "uniform"] < 1e-15  # the TV term's |0|: JAX's +1

@@ -283,8 +283,9 @@ def test_defaults_are_not_shared():
 
 
 def test_unported_options_raise():
-    """The mesh and outer padding are refused by the serving surface's
-    config merge (``check_ported``); the device L-BFGS is taken."""
+    """The mesh is refused by the serving surface's config merge
+    (``check_ported``); the device L-BFGS and outer padding (both modes)
+    are taken."""
     est = TS.StreamingFlowEstimator((H, W), solver_config=SOLVER, optimizer_config={"device_solver": "lbfgs"},
                                     device="cpu")
     assert est._solver.opt_config["device_solver"] == "lbfgs"
@@ -293,8 +294,10 @@ def test_unported_options_raise():
                                     parallel_config={"data": 2}, device="cpu")
     with pytest.raises(ConfigError, match="not ported yet"):
         TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, parallel={"data": 2}), device="cpu")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, outer_padding=2), device="cpu")
+    assert TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, outer_padding=2),
+                                     device="cpu")._solver.padding == 2
+    assert TS.MultiStreamFlowEstimator((H, W), 2, solver_config=dict(SOLVER, outer_padding=2),
+                                       optimizer_config=OPTIMIZER, batching="fleet", device="cpu")._solver.padding == 2
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -23,6 +23,10 @@ solves the frame with the config's solver and optimizer blocks and that
 scatter backend, float64; the script prints the EPE, the zero flow's EPE
 on the same window and their ratio, and the seconds.  ``chip_smoke.py``
 gates on the card the method whose ratio here is below 0.5.
+``--port-seeds`` also solves the frame with the port on the CPU (the
+device Newton-CG, float64), with the config's init-sweep draws and with
+each seed's (the cold start stays the config's): the spread that
+``chip_smoke.py``'s ``[pad-random-witness]`` band is set from.
 """
 
 import argparse
@@ -32,8 +36,6 @@ import os
 import sys
 import tempfile
 import time
-
-import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -47,32 +49,6 @@ import main as jax_cli  # noqa: E402
 from event_based_optical_flow_tpu import data as jdata  # noqa: E402
 from event_based_optical_flow_tpu import solver as jsolver  # noqa: E402
 from event_based_optical_flow_tpu import visualizer  # noqa: E402
-
-
-def scaled_config(scale: float, method: str, out_dir: str, overrides=(), scene: str = "mvsec") -> dict:
-    if scene == "dsec":
-        config = cs.dsec_config()
-    else:
-        with open(cs.CONFIG) as f:
-            config = yaml.safe_load(f)
-    config = cs.slice_config(config, last_frame=0, out_dir=out_dir)
-    d, patch = config["data"], config["solver"]["patch"]
-    h, w = int(round(d["height"] * scale)), int(round(d["width"] * scale))
-    ratio = (h * w) / (d["height"] * d["width"])
-    d.update(height=h, width=w, event_rate=d["event_rate"] * ratio,
-             n_events_per_batch=int(round(d["n_events_per_batch"] * ratio)), visualize_every=0)
-    if scale != 1.0:
-        patch.update(crop_height=h // 16 * 16, crop_width=w // 16 * 16)
-    config["solver"].update(iwe_backend="scatter", precision="64")
-    config["optimizer"]["method"] = method
-    for item in overrides:
-        path, value = item.split("=", 1)
-        *parents, key = path.split(".")
-        node = config
-        for name in parents:
-            node = node[name]
-        node[key] = yaml.safe_load(value)
-    return config
 
 
 def zero_flow_epe(config: dict) -> float:
@@ -105,18 +81,28 @@ def main(argv=None) -> int:
     parser.add_argument("--set", nargs="*", default=[], metavar="SECTION.KEY=VALUE",
                         help="config overrides, e.g. optimizer.lr=5")
     parser.add_argument("--scene", choices=("mvsec", "dsec"), default="mvsec")
+    parser.add_argument("--port-seeds", nargs="*", type=int, default=None, metavar="SEED",
+                        help="also solve the frame with the port on the CPU (float64), with the config's init-sweep "
+                             "draws and with each SEED's")
     args = parser.parse_args(argv)
     root = tempfile.mkdtemp(prefix="screen_host_optimizers_")
     zero = None
     for method in args.methods:
-        config = scaled_config(args.scale, method, os.path.join(root, method), args.set, args.scene)
+        config = cs.scaled_config(args.scale, method, os.path.join(root, method), args.set, args.scene)
         zero = zero if zero is not None else zero_flow_epe(copy.deepcopy(config))
         t0 = time.perf_counter()
         m = run(config)
         d = config["data"]
-        print(f"{method}: {d['height']}x{d['width']}, {d['n_events_per_batch']} events, frame 0: EPE {m['EPE']:.4f}, "
+        print(f"{method}: {d['height']}x{d['width']}, {d['n_events_per_batch']} events, frame 0: EPE {m['EPE']!r}, "
               f"zero flow {zero:.4f}, ratio {m['EPE'] / zero:.3f} ({'within' if m['EPE'] < 0.5 * zero else 'not within'} "
               f"0.5), {time.perf_counter() - t0:.1f} s (JAX package, CPU, float64, scatter backend"
+              + (f", {' '.join(args.set)}" if args.set else "") + ")", flush=True)
+    for seed in [] if args.port_seeds is None else [None] + args.port_seeds:
+        config = cs.scaled_config(args.scale, "Newton-CG", os.path.join(root, f"port-{seed}"), args.set, args.scene)
+        t0 = time.perf_counter()
+        m, zero_port, _ = cs.frame0_solve(config, "cpu", seed)
+        print(f"port, Newton-CG, sweep draws {'of the config' if seed is None else f'of seed {seed}'}: EPE "
+              f"{m['EPE']!r}, zero flow {zero_port:.4f}, {time.perf_counter() - t0:.1f} s (CPU, float64"
               + (f", {' '.join(args.set)}" if args.set else "") + ")", flush=True)
     return 0
 
