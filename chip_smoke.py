@@ -222,7 +222,38 @@ Phases (each prints one informative line; any failure exits nonzero):
    frame from the config's random start and ``[count-frame]`` (the count
    vote and the sampling optimizer) printed ungated with the reason;
    ``[pad-fleet]`` the fleet's frames 0..3 with padding and polarity;
-   ``[pad-serve]`` a serving estimator with ``outer_padding`` on window 0.
+   ``[pad-serve]`` a serving estimator with ``outer_padding`` on window 0;
+19. the multi-device layer (``mesh_path``) on meshes that repeat this card
+   (``parallel.make_mesh(devices=[cuda:0] * k)``: every partition and every
+   reduction runs, on one card): ``[mesh-check]`` each kernel's sharded form
+   over ``MESH_SHARDS`` run-aligned shards of the MVSEC slice's first window
+   (K1/K5 into per-shard int64 sums, K2/K5's backward per shard, K3/K6 in
+   the frame's reduced bound, K4/K6's HVP backward; K7 as one call per data
+   shard; K8 per even shard into int64 sums, full frame and sweep-patch
+   images), float64 and float32, against the unsharded kernel: max|err| 0,
+   with the sharded call's time; ``[mesh-dsec]`` the DSEC config with the
+   ``parallel: {data: 1, event: MESH_SHARDS}`` block its own comment names,
+   frame 0 through ``main.run(..., mesh=...)``: the EPE, per-scale losses
+   and iterations of ``[dsec-frame]`` bit for bit, K1-K4 launched
+   ``MESH_SHARDS`` times per single-device launch; ``[mesh-fleet]`` the fleet
+   cell's blocks on frames 0..``MESH_FLEET_FRAMES - 1`` with ``parallel:
+   {data: 2}`` (the odd batch pads with its last frame): each frame the bits
+   of a single-device fleet run of its half from the padded batch's draws;
+   ``[mesh-dnn]`` ``dnn_train_step_parallel`` over 2 data devices at 64x80
+   against ``dnn_train_step``: ``MESH_DNN_STEPS`` steps in float64 at the
+   JAX package's bounds (loss rel 1e-6, parameters atol 1e-5); one step in
+   float32 (the JAX test's protocol), its loss at the same bound and its
+   averaged gradient to 1e-5 of the largest, its parameters and the later
+   steps' printed with the element that moved most apart and both runs'
+   gradients there (a gradient below Adam's eps moves its weight by ~lr
+   whatever its size, so float32's reordered sums can move one by lr).
+
+``python3 chip_smoke.py --distinct-devices`` (``distinct_main``, a host with
+``MESH_SHARDS`` cards or more) builds the kernels and runs ``[mesh-check]``,
+``[mesh-dsec]``, ``[mesh-fleet]`` and ``[mesh-dnn]`` with every mesh over
+distinct cards, against the same single-device results on cuda:0: the
+cross-device copies, device switches and per-device streams that a
+repeated card never exercises.
 
 The paths' frames: MVSEC, DSEC and time-aware FD frame 0, each of them
 again, the time-aware analytic frame 0, the fleet's frames 0..3 (three
@@ -250,6 +281,7 @@ seconds.  The script imports nothing of JAX.
 """
 
 import copy
+import dataclasses
 import hashlib
 import io
 import json
@@ -961,6 +993,8 @@ def dsec_path(port_main, fi, dev, smi, rng):
         if not ok:
             failed.append(r["frame"])
     phase("dsec", f"{len(records)} windows in {wall:.2f} s, kernel launches {launches}, out {out_dir}")
+    DSEC_NEWTON.update(loss=records[0]["stats"]["loss"], iters=records[0]["stats"]["iters"],
+                       scale_launches=records[0]["stats"]["launches"])
     DSEC_NEWTON.update(seconds=records[0]["seconds"], syncs=records[0]["stats"]["syncs"],
                        epe=records[0]["metrics"]["EPE"], launches=solve_launches(records[0]["stats"]))
     same = loop_repeat(port_main, config, dev, records, peak, smi, "dsec-repeat", "DSEC")
@@ -2109,6 +2143,17 @@ WITNESS_JAX_EPE = 25.844328841979678
 WITNESS_BAND = 0.1
 # the Newton DSEC frame's line (dsec_path), printed beside [lbfgs-dsec]'s
 DSEC_NEWTON = {}
+# the multi-device layer's phases (mesh_path)
+MESH_SHARDS = 4
+MESH_FLEET_FRAMES = 3
+MESH_DNN_STEPS = 5
+MESH_DNN_LOSS_REL = 1e-6  # the JAX package's bounds (tests/test_models.py)
+MESH_DNN_PARAM_ATOL = 1e-5
+# float32's gate on the averaged gradient, relative to the largest: 2^-23
+# times the reductions' ~100-term depth, with margin (the CPU: 7.2e-7)
+MESH_DNN_GRAD_REL = 1e-5
+# ``--distinct-devices``: the mesh phases over distinct cards (``distinct_main``)
+DISTINCT_DEVICES = False
 
 
 def viz_check(port_main, dev, smi, run_config: dict, out_dir: str, rng) -> None:
@@ -3116,6 +3161,406 @@ def unfused_path(fi, dev, smi, config: dict, events: np.ndarray, rng):
     return total, rows
 
 
+def smoke_mesh(dev, data: int, event: int):
+    """A ``data`` x ``event`` mesh whose every device is this card; with
+    ``--distinct-devices``, over the first ``data * event`` visible cards."""
+    from event_based_optical_flow_tpu_torch.parallel import make_mesh
+
+    if DISTINCT_DEVICES:
+        return make_mesh(data * event, data=data, event=event)
+    card = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    return make_mesh(data * event, data=data, event=event, devices=[card] * (data * event))
+
+
+def mesh_text(mesh) -> str:
+    """The mesh's devices, for the phase lines."""
+    devices = list(mesh.devices.reshape(-1))
+    if len(set(devices)) == 1:
+        return f"{len(devices)} x this card"
+    return ", ".join(str(d) for d in devices)
+
+
+def mesh_check(dev, smi, config: dict, events: np.ndarray, rng):
+    """``[mesh-check]``: each kernel's sharded form against the unsharded
+    kernel on the same inputs (max|err| 0), float64 and float32, and the
+    float32 sharded call's time against the unsharded one's.  Returns
+    ({kernel: max|err|}, {kernel: (sharded ms, unsharded ms)}, the check's
+    mesh launches)."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.ops import fused_iwe as fi
+    from event_based_optical_flow_tpu_torch.ops import vote
+    from event_based_optical_flow_tpu_torch.parallel.sharded import sharded_vote, sum_on
+    from event_based_optical_flow_tpu_torch.solver import objective as obj
+    from event_based_optical_flow_tpu_torch.solver.objective import FleetEvents, FrameEvents
+
+    h, w = config["data"]["height"], config["data"]["width"]
+    n_bins = ta_config()["solver"]["time_bin"]
+    mesh = smoke_mesh(dev, 1, MESH_SHARDS)
+    devices = mesh.event_devices()
+    flows = {None: smooth_flow(h, w, rng), n_bins: smooth_voxel(h, w, n_bins, rng)}
+    dflows = {None: smooth_flow(h, w, rng), n_bins: smooth_voxel(h, w, n_bins, rng)}
+    g_np = rng.normal(size=(3, len(OFFSETS), h, w))
+    windows = fleet_windows(config, FLEET_BATCH)
+    fleet_flows = {None: np.stack([smooth_flow(h, w, rng) for _ in windows]),
+                   n_bins: np.stack([smooth_voxel(h, w, n_bins, rng) for _ in windows])}
+    errs, times = {}, {}
+    ops.reset_launch_counts()
+    for dtype in (torch.float64, torch.float32):
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)  # noqa: E731
+        g, g1, g2 = (t(a) for a in g_np)
+        for tb in (None, n_bins):
+            frame = FrameEvents.from_numpy(events, dev, dtype, tb)
+            sf = frame.shard(devices)
+            ev = (frame.x, frame.y, frame.dtf, frame.wt)
+            flow, dflow, pre = t(flows[tb]), t(dflows[tb]), "" if tb is None else "voxel_"
+            # the orig image: a dense zero flow, no bins (the objective's orig call)
+            zeros = torch.zeros((2, h, w), dtype=dtype, device=dev)
+            dense_sf = obj.ShardedFrame(tuple(dataclasses.replace(sh, bins=None) for sh in sf.shards), sf.t_scale,
+                                        sf.n_total)
+
+            def parts(fn):
+                return sum_on((fn(sh) for sh in sf.voting()), sf.lead, flow)
+
+            calls = {
+                "fwd": (lambda: obj._sharded_images(flow, sf, OFFSETS, False),
+                        lambda: fi.fused_iwe_fwd(flow, *ev, OFFSETS, False, bins=frame.bins)),
+                "fwd_orig": (lambda: obj._sharded_images(zeros, dense_sf, (), True),
+                             lambda: fi.fused_iwe_fwd(zeros, *ev, (), True)),
+                "bwd": (lambda: parts(lambda sh: fi.fused_iwe_bwd(flow.to(sh.x.device), sh.x, sh.y, sh.dtf, sh.wt,
+                                                                    g.to(sh.x.device), OFFSETS, False, bins=sh.bins,
+                                                                    mesh=True)),
+                        lambda: fi.fused_iwe_bwd(flow, *ev, g, OFFSETS, False, bins=frame.bins)),
+                "jvp": (lambda: obj._sharded_tangent(flow, dflow, sf, OFFSETS),
+                        lambda: fi.fused_iwe_jvp(flow, dflow, *ev, OFFSETS, False, bins=frame.bins)),
+                "hvp_bwd": (lambda: obj._sharded_hvp_bwd(flow, dflow, g1, g2, sf, OFFSETS, False),
+                            lambda: fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, False, bins=frame.bins)),
+                "hvp_bwd_term_a": (lambda: obj._sharded_hvp_bwd(flow, dflow, g1, g2, sf, OFFSETS, True),
+                                   lambda: fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, *ev, OFFSETS, True,
+                                                                bins=frame.bins)),
+            }
+            line = []
+            for name, (sharded, single) in calls.items():
+                a, b = sharded(), single()
+                err = (a - b).abs().max().item() if torch.equal(torch.isnan(a), torch.isnan(b)) else float("inf")
+                key = pre + name.replace("_orig", "").replace("_term_a", "")
+                errs[key] = max(errs.get(key, 0.0), err)
+                line.append(f"{name} {err:g}")
+                if dtype == torch.float32 and name in ("fwd", "bwd", "jvp", "hvp_bwd"):
+                    times[key] = (cuda_ms(sharded, 3, 20), cuda_ms(single, 3, 20))
+            ok = all(errs[k] == 0 for k in errs)
+            phase("mesh-check", f"{str(dtype)[6:]} N={len(events)} {h}x{w}{'' if tb is None else f' T={tb}'} "
+                                f"offsets={OFFSETS}, {MESH_SHARDS} run-aligned shards of "
+                                f"{[sh.x.shape[0] for sh in sf.shards]} events on {mesh_text(mesh)} ({smi}): sharded "
+                                f"vs unsharded "
+                                f"max|err| {', '.join(line)}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("chip_smoke: a sharded kernel differs from the unsharded kernel")
+        # K7: one batched call per data shard (2 + 2 frames) against one call over the batch
+        for tb in (None, n_bins):
+            whole = FleetEvents.from_numpy(windows, dev, dtype, tb)
+            halves = [(i, FleetEvents.from_numpy(windows[i:i + 2], dev, dtype, tb)) for i in (0, 2)]
+            fl = t(fleet_flows[tb])
+            dfl = torch.flip(fl, (0,)).contiguous()
+            gb, gb1, gb2 = (torch.as_tensor(rng.normal(size=(len(windows), len(OFFSETS), h, w)), dtype=dtype,
+                                            device=dev) for _ in range(3))
+
+            def per_shard(fn):
+                return torch.cat([fn(fl[i:i + 2], dfl[i:i + 2], gb[i:i + 2], gb1[i:i + 2], gb2[i:i + 2], hv)
+                                  for i, hv in halves])
+
+            def ev(f):
+                return (f.x, f.y, f.dtf, f.wt)
+
+            calls = {
+                "fwd": lambda f, d, g, g1, g2, fr: fi.fused_iwe_fwd(f, *ev(fr), OFFSETS, False, bins=fr.bins,
+                                                                    frames=fr.frames),
+                "bwd": lambda f, d, g, g1, g2, fr: fi.fused_iwe_bwd(f, *ev(fr), g, OFFSETS, False, bins=fr.bins,
+                                                                    frames=fr.frames),
+                "jvp": lambda f, d, g, g1, g2, fr: fi.fused_iwe_jvp(f, d, *ev(fr), OFFSETS, False, bins=fr.bins,
+                                                                    frames=fr.frames),
+                "hvp_bwd": lambda f, d, g, g1, g2, fr: fi.fused_iwe_hvp_bwd(f, d, g1, g2, *ev(fr), OFFSETS, True,
+                                                                            bins=fr.bins, frames=fr.frames),
+            }
+            line = []
+            for name, fn in calls.items():
+                key = "batched_" + ("" if tb is None else "voxel_") + name
+                err = (per_shard(fn) - fn(fl, dfl, gb, gb1, gb2, whole)).abs().max().item()
+                errs[key] = max(errs.get(key, 0.0), err)
+                line.append(f"{name} {err:g}")
+            ok = all(errs[k] == 0 for k in errs)
+            phase("mesh-check", f"{str(dtype)[6:]} K7 over {len(windows)} frames {list(whole.frames.sizes)}"
+                                f"{'' if tb is None else f' T={tb}'}: one call per data shard (2 + 2 frames) vs one "
+                                f"call, max|err| {', '.join(line)}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("chip_smoke: a data shard's batched call differs from the batch's")
+        # K8: even shards into int64 sums, a full-frame image (global path) and sweep-patch images (shared)
+        ev_t = t(events)
+        wt_t = torch.ones(len(events), dtype=dtype, device=dev)
+        for size in ((h, w), (h // 8, w // 8)):
+            pieces = [p.to(d) for p, d in zip(torch.tensor_split(ev_t, MESH_SHARDS), devices)]
+            wpieces = [p.to(d) for p, d in zip(torch.tensor_split(wt_t, MESH_SHARDS), devices)]
+            sharded = lambda: sharded_vote(pieces, wpieces, size, dev)  # noqa: E731
+            single = lambda: vote.bilinear_vote_kernel(ev_t, size, wt_t)  # noqa: E731
+            err = (sharded() - single()).abs().max().item()
+            errs["vote"] = max(errs.get("vote", 0.0), err)
+            if dtype == torch.float32 and size == (h, w):
+                times["vote"] = (cuda_ms(sharded, 3, 20), cuda_ms(single, 3, 20))
+            route = "global sums" if size[0] * size[1] > vote.shared_pixels() else "shared memory"
+            phase("mesh-check", f"{str(dtype)[6:]} K8 {size[0]}x{size[1]} ({route}), {MESH_SHARDS} even shards: "
+                                f"max|err| {err:g}: {'ok' if err == 0 else 'FAIL'}")
+            if err != 0:
+                raise SystemExit("chip_smoke: the sharded vote differs from the unsharded vote")
+    timing = ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+    phase("mesh-time", f"float32, {MESH_SHARDS} shards on {mesh_text(mesh)} ({smi}), sharded / unsharded ms per call: "
+                       f"{timing}")
+    return errs, times, ops.mesh_launch_counts()
+
+
+def mesh_dsec(port_main, dev, smi) -> dict:
+    """``[mesh-dsec]``: the DSEC config with ``parallel: {data: 1, event:
+    MESH_SHARDS}`` (its own comment's block), frame 0 through ``main.run``
+    with a mesh that repeats this card, against ``[dsec-frame]``'s bits (a
+    single-device run here when that phase did not run).  Returns the run's
+    launches and mesh launches."""
+    from event_based_optical_flow_tpu_torch import ops
+
+    config = dsec_config()
+    if not DSEC_NEWTON:
+        records, _, _, _ = run_slice(port_main, config, dev, last_frame=0)
+        st = records[0]["stats"]
+        DSEC_NEWTON.update(epe=records[0]["metrics"]["EPE"], loss=st["loss"], iters=st["iters"],
+                           scale_launches=st["launches"], seconds=records[0]["seconds"])
+    config["parallel"] = {"data": 1, "event": MESH_SHARDS}
+    out_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_mesh_")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mesh = smoke_mesh(dev, 1, MESH_SHARDS)
+    records = port_main.run(slice_config(config, 0, out_dir), eval_mode=True, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, mesh_launches = ops.launch_counts(), ops.mesh_launch_counts()
+    r, ref = records[0], DSEC_NEWTON
+    st = r["stats"]
+    per_shard = all(st["launches"][s][k] == MESH_SHARDS * ref["scale_launches"][s][k]
+                    for s in st["launches"] for k in ("fwd", "bwd", "jvp", "hvp_bwd"))
+    same = r["metrics"]["EPE"] == ref["epe"] and st["loss"] == ref["loss"] and st["iters"] == ref["iters"]
+    ok = same and per_shard and not st["chain"]
+    phase("mesh-dsec", f"{smi}: {DSEC_CONFIG} with parallel {config['parallel']} on {mesh_text(mesh)}, "
+                       f"frame 0 (the loop): {r['seconds']:.3f} s (single device chained {ref['seconds']:.3f} s), "
+                       f"EPE {r['metrics']['EPE']!r} vs {ref['epe']!r}, loss {st['loss']} vs {ref['loss']}, "
+                       f"iters {st['iters']} vs {ref['iters']}: same bits {same}; K1-K4 per scale "
+                       f"{ {s: {k: c[k] for k in ('fwd', 'bwd', 'jvp', 'hvp_bwd')} for s, c in st['launches'].items()} } "
+                       f"= {MESH_SHARDS} x the single device's: {per_shard}; mesh launches {mesh_launches}; phase "
+                       f"{wall:.2f} s: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the event-sharded DSEC frame differs from the single-device frame")
+    return launches, mesh_launches
+
+
+def mesh_fleet(port_main, dev, smi) -> dict:
+    """``[mesh-fleet]``: the fleet cell's blocks (``fleet_config``) on frames
+    0..MESH_FLEET_FRAMES-1 with ``parallel: {data: 2}`` through the fleet
+    eval loop: the odd batch pads with its last frame to [0, 1, 2, 2], and
+    each frame's metrics and per-scale losses are the bits of a
+    single-device fleet solver's run of its half whose generator first
+    skips the starts the shards before it drew (the padded batch's starts
+    in frame order; the first sweep draws of a fresh generator serve both
+    halves, as the JAX package's replicated key does; the frames hold
+    equal event counts, so the halves' sweeps take the padded batch's
+    patch capacity).  Returns the run's launches."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.utils import validate_config
+
+    with open(CONFIG) as f:
+        base = yaml.safe_load(f)
+    config = fleet_config(base, MESH_FLEET_FRAMES)
+    meshed = copy.deepcopy(config)
+    meshed["parallel"] = {"data": 2}
+    out_dir = tempfile.mkdtemp(prefix="evflow_chip_smoke_mesh_fleet_")
+    run_config = slice_config(meshed, MESH_FLEET_FRAMES - 1, out_dir)
+    validate_config(run_config)
+    mesh = smoke_mesh(dev, 2, 1)
+    loader, solv = port_main.build(run_config, dev, mesh=mesh)
+    data = run_config["data"]
+    ts = loader.eval_frame_time_list()[: MESH_FLEET_FRAMES + data["eval_dt"]]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = port_main.evaluate_dataset_fleet(ts, data, loader, solv, out_dir, data["fleet_batch"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    shard_losses = [st["loss"] for st in solv.last_batch_stats["shards"]]
+    gathered = [port_main._gather_frame(loader, data, ts[i], ts[i + data["eval_dt"]])
+                for i in range(MESH_FLEET_FRAMES)]
+    sizes = [len(g[0]) for g in gathered]
+    halves = [[0, 1], [2, 2]]  # the padded batch's halves
+    oks, lines = [len(set(sizes)) == 1], []
+    for d, half in enumerate(halves):
+        _, ref = port_main.build(slice_config(config, MESH_FLEET_FRAMES - 1, out_dir), dev)
+        ref.overload_patch_configuration(ref.coarsest_scale)
+        for _ in range(len(half) * d):  # the starts of the shards before this one
+            ref._init_scale(ref.coarsest_scale, None)
+        best = ref.optimize_batch([gathered[i][0] for i in half])
+        same_loss = ref.last_batch_stats["loss"] == shard_losses[d]
+        for b, i in enumerate(half[:2 if d == 0 else 1]):
+            _, gt_slice, gt_flow, flow_time = gathered[i]
+            m = ref.calculate_flow_error(best[b], gt_flow, timescale=flow_time, events=gt_slice)
+            same = m == records[i]["metrics"] and same_loss
+            oks.append(same)
+            lines.append(f"frame {i} EPE {records[i]['metrics']['EPE']:.6f} vs {m['EPE']:.6f} (half {d}; zero flow "
+                         f"{zero_flow_epe(loader, data, i, ref):.4f})")
+    ok = all(oks) and len(records) == MESH_FLEET_FRAMES
+    phase("mesh-fleet", f"{smi}: the fleet cell on frames 0..{MESH_FLEET_FRAMES - 1} ({sizes} events), parallel "
+                        f"{meshed['parallel']} on {mesh_text(mesh)} (padded to 4: halves {halves}): "
+                        f"{'; '.join(lines)}; metrics and per-scale losses the single-device halves' bits from "
+                        f"the padded batch's draws: {all(oks)}; {wall:.2f} s, K7 launches "
+                        f"{ {k: v for k, v in launches.items() if k.startswith('batched') and v} }: "
+                        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: a data-sharded fleet frame differs from its half's single-device run")
+    return launches
+
+
+def mesh_dnn(dev, smi) -> dict:
+    """``[mesh-dnn]``: ``MESH_DNN_STEPS`` steps of ``dnn_train_step_parallel``
+    over two data devices against ``dnn_train_step``, from one seed on
+    ``DNN_CONFIG``'s batches: in float64 every step's loss to
+    ``MESH_DNN_LOSS_REL`` and the parameters after the last to
+    ``MESH_DNN_PARAM_ATOL`` (the JAX package's bounds); in float32 the
+    first step's loss to ``MESH_DNN_LOSS_REL`` and its averaged gradient
+    to ``MESH_DNN_GRAD_REL`` of the largest, its parameters and the later
+    steps' printed with the element that moved most apart and both runs'
+    gradients there (Adam's first update ``lr g / (|g| + eps)`` follows
+    the sign of a gradient below its eps, which float32's reordered sums
+    can flip).  Returns the K8 launches of the parallel steps."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.data import collections
+    from event_based_optical_flow_tpu_torch.models import train
+
+    with open(DNN_CONFIG) as f:
+        config = yaml.safe_load(f)
+    d, dnn = config["data"], config["dnn"]
+    loader = collections[d["dataset"]](config=d)
+    loader.set_sequence(d["sequence"])
+    size = train.crop_size(d)
+    mesh = smoke_mesh(dev, 2, 1)
+
+    def apart(model_s, model_p):
+        """(max|err| of the parameters, the worst element's description)."""
+        worst = (0.0, "none")
+        for (name, p), q in zip(model_s.named_parameters(), model_p.parameters()):
+            diff = (p - q.to(p.device)).abs().reshape(-1)
+            i = int(diff.argmax())
+            if diff[i].item() > worst[0]:
+                gs, gp = (float("nan") if t.grad is None else t.grad.reshape(-1)[i].item() for t in (p, q))
+                worst = (diff[i].item(), f"{name}[{i}] apart {diff[i].item():.3e}, gradients there {gs:.3e} / "
+                                         f"{gp:.3e}")
+        return worst
+
+    launches, out = 0, {}
+    for dtype in (torch.float64, torch.float32):
+        kw = dict(n_bin=dnn["n_bin"], lr=float(dnn["lr"]), scale_time=train.default_scale_time(dnn, size),
+                  device=dev, dtype=dtype)
+        model_s, opt_s = train.make_dnn_train_state(size, **kw)
+        model_p, opt_p = train.make_dnn_train_state(size, **kw)
+        step_s, _ = train.dnn_train_step(model_s, opt_s, size, dnn["n_bin"], multi_scale=True)
+        step_p, _ = train.dnn_train_step_parallel(model_p, opt_p, size, mesh, dnn["n_bin"], multi_scale=True)
+        rng = np.random.default_rng(0)
+        losses, first = [], None
+        for _ in range(MESH_DNN_STEPS):
+            arrays = train.draw_batch(loader, rng, size, d["n_events_per_batch"], int(dnn["batch_size"]))
+            ev, wt = (torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays[:2])
+            ls = float(step_s(ev, wt))
+            ops.reset_launch_counts()
+            lp = float(step_p(ev, wt))
+            launches += ops.launch_counts()["vote"]
+            losses.append((ls, lp))
+            if first is None:
+                pairs = list(zip(model_s.parameters(), model_p.parameters()))
+                grad_err = max((p.grad - q.grad.to(p.device)).abs().max().item() for p, q in pairs)
+                grad_max = max(p.grad.abs().max().item() for p, _ in pairs)
+                first = (abs(ls - lp) / abs(ls), grad_err / grad_max, apart(model_s, model_p))
+        rel = max(abs(a - b) / abs(a) for a, b in losses)
+        out[dtype] = (losses, rel, apart(model_s, model_p), first)
+    losses, rel, (perr, _), _ = out[torch.float64]
+    l32, rel32, (perr32, worst32), (rel1, grad1, (perr1, worst1)) = out[torch.float32]
+    ok64 = rel <= MESH_DNN_LOSS_REL and perr <= MESH_DNN_PARAM_ATOL and np.isfinite(losses).all()
+    ok32 = rel1 <= MESH_DNN_LOSS_REL and grad1 <= MESH_DNN_GRAD_REL and np.isfinite(l32).all()
+    ok = ok64 and ok32
+    phase("mesh-dnn", f"{smi}: {DNN_CONFIG} ({size[0]}x{size[1]}, batch {dnn['batch_size']}) over 2 data devices "
+                      f"({mesh_text(mesh)}) vs one device, the JAX package's bounds (loss rel "
+                      f"{MESH_DNN_LOSS_REL:g}, params atol {MESH_DNN_PARAM_ATOL:g}): float64, {MESH_DNN_STEPS} "
+                      f"steps: losses {[(round(a, 9), round(b, 9)) for a, b in losses]}, max rel err {rel:.3e}, "
+                      f"params max|err| {perr:.3e}: {ok64}; float32, 1 step: loss rel err {rel1:.3e}, gradient "
+                      f"max|err| / max|g| {grad1:.3e} (tol {MESH_DNN_GRAD_REL:g}): {ok32}; its params max|err| "
+                      f"{perr1:.3e} (printed: {worst1}); float32 after {MESH_DNN_STEPS} steps (printed): max rel "
+                      f"err {rel32:.3e}, params max|err| {perr32:.3e} ({worst32}); K8 launches {launches}: "
+                      f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the data-parallel DNN steps left JAX's bounds")
+    return {"vote": launches}
+
+
+def mesh_path(port_main, dev, smi, config: dict, events: np.ndarray, rng):
+    """Phase 19; returns (the mesh runs' launches, their mesh launches, each
+    kernel's sharded max|err| and times)."""
+    errs, times, check_launches = mesh_check(dev, smi, config, events, rng)
+    launches, mesh_launches = mesh_dsec(port_main, dev, smi)
+    fleet_launches = mesh_fleet(port_main, dev, smi)
+    launches = {k: launches[k] + fleet_launches[k] for k in launches}
+    dnn_launches = mesh_dnn(dev, smi)
+    launches["vote"] += dnn_launches["vote"]
+    return launches, mesh_launches, check_launches, errs, times
+
+
+def build_kernels() -> None:
+    """The CUDA kernels, one ``nvcc`` per source, all started together."""
+    from event_based_optical_flow_tpu_torch.ops import cuda_build
+
+    with ThreadPoolExecutor() as pool:
+        built = list(pool.map(cuda_build.load_kernel_library, ("fused_iwe", "vote")))
+    for kl in built:
+        ptxas = " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l or "spill" in l)
+        phase("build", f"{kl.path.name}: {kl.build_seconds:.2f} s (nvcc sm_90a); {ptxas or 'cached'}")
+
+
+def distinct_main() -> int:
+    """``python3 chip_smoke.py --distinct-devices`` (a host with at least
+    ``MESH_SHARDS`` cards): the mesh phases of phase 19 with every mesh
+    over distinct cards (cuda:0, cuda:1, ...) instead of one card repeated:
+    ``[mesh-check]``, ``[mesh-dsec]``, ``[mesh-fleet]`` and ``[mesh-dnn]``,
+    each against the same single-device results on cuda:0 and gated as in
+    the one-card run, which runs every partition and reduction but none of
+    the cross-device copies, device switches and per-device streams."""
+    global DISTINCT_DEVICES
+    DISTINCT_DEVICES = True
+    t_start = time.perf_counter()
+    smi = environment()
+    if torch.cuda.device_count() < MESH_SHARDS:
+        raise SystemExit(f"chip_smoke: --distinct-devices needs {MESH_SHARDS} cards, {torch.cuda.device_count()} "
+                         "are visible")
+    dev = torch.device("cuda", 0)
+
+    from event_based_optical_flow_tpu_torch import main as port_main
+    from event_based_optical_flow_tpu_torch.utils import set_numerics
+
+    set_numerics()
+    build_kernels()
+    with open(CONFIG) as f:
+        config = yaml.safe_load(f)
+    _, events = first_window(config)
+    errs, times, _ = mesh_check(dev, smi, config, events, np.random.default_rng(0))
+    mesh_dsec(port_main, dev, smi)
+    mesh_fleet(port_main, dev, smi)
+    mesh_dnn(dev, smi)
+    phase("wall", f"the mesh phases over {torch.cuda.device_count()} cards, builds included: "
+                  f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"mesh": {"max_abs_err": errs, "sharded_unsharded_ms": times}}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
@@ -3123,19 +3568,13 @@ def main() -> int:
 
     from event_based_optical_flow_tpu_torch import main as port_main
     from event_based_optical_flow_tpu_torch import ops
-    from event_based_optical_flow_tpu_torch.ops import cuda_build
     from event_based_optical_flow_tpu_torch.ops import fused_iwe as fi
     from event_based_optical_flow_tpu_torch.ops import vote
     from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents
     from event_based_optical_flow_tpu_torch.utils import set_numerics
 
     set_numerics()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor() as pool:
-        built = list(pool.map(cuda_build.load_kernel_library, ("fused_iwe", "vote")))
-    for kl in built:
-        ptxas = " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l or "spill" in l)
-        phase("build", f"{kl.path.name}: {kl.build_seconds:.2f} s (nvcc sm_90a); {ptxas or 'cached'}")
+    build_kernels()
 
     with open(CONFIG) as f:
         config = yaml.safe_load(f)
@@ -3220,6 +3659,18 @@ def main() -> int:
     launches = {k: launches[k] + unfused_launches[k] for k in launches}
     dnn_launches, k8_dnn = dnn_path(dev, smi)
     launches = {k: launches[k] + dnn_launches[k] for k in launches}
+    mesh_launches, mesh_counts, mesh_check_counts, mesh_errs, mesh_times = mesh_path(port_main, dev, smi, config,
+                                                                                     events, rng)
+    launches = {k: launches[k] + mesh_launches[k] for k in launches}
+
+    def mesh_entry(name: str) -> dict:
+        """A kernel's sharded form: its launches on a shard in the mesh
+        runs (K7: its data shards' calls), in ``[mesh-check]``, its max|err|
+        against the unsharded kernel and the sharded / unsharded ms."""
+        runs = mesh_launches[name] if name.startswith("batched") else mesh_counts.get(name, 0)
+        ms = mesh_times.get(name, (None, None))
+        return {"launches": runs, "check_launches": mesh_check_counts.get(name, 0),
+                "max_abs_err": mesh_errs.get(name), "ms": ms[0], "unsharded_ms": ms[1]}
     src = fi.KERNEL_SOURCE
     pb = "event_based_optical_flow_tpu/ops/pallas_objective_banded.py"
     kernels = [
@@ -3228,14 +3679,16 @@ def main() -> int:
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes a fused gather + warp + vote (or its derivatives)
          "library_ms": None, **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
-         **({f"pad{PAD}": pad_rows[name]} if name in pad_rows else {})}
+         **({f"pad{PAD}": pad_rows[name]} if name in pad_rows else {}),
+         **({"mesh": mesh_entry(name)} if name in mesh_errs else {})}
         for name, line in KERNEL_LINES.items()
     ]
     kernels.append({"name": "vote", "route": "cuda", "source": vote.KERNEL_SOURCE,
                     "replaces": "event_based_optical_flow_tpu/ops/pallas_iwe.py:101", "launches": launches["vote"],
                     "max_abs_err": k8["err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
                     "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": k8["library_ms"],
-                    "dnn": k8_dnn, f"pad{PAD}": {k: v for k, v in pad_rows.items() if k.startswith("vote_")}})
+                    "dnn": k8_dnn, f"pad{PAD}": {k: v for k, v in pad_rows.items() if k.startswith("vote_")},
+                    "mesh": mesh_entry("vote")})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels {missing} were not launched on their paths")
@@ -3249,4 +3702,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(distinct_main() if sys.argv[1:] == ["--distinct-devices"] else main())

@@ -8,12 +8,16 @@ assembles) and history register; the math lives in functional.py.
 
 The history register (``store_history``, ``enable_history_register`` /
 ``disable_history_register``, ``clear_history``, ``get_history``; a
-hybrid's per-component histories under its costs' names) holds the loss
-values a solver records per evaluation or per scale for the visualizer's
-history plot.  ``calculate`` never records: the JAX package records only
-host values too (it skips traced ones), and a device value recorded there
-would cost a host read per evaluation.  The solver appends the values its
-loop already read (``SolverBase._history_cb``).
+hybrid's per-component histories under its costs' names) holds loss
+values for the visualizer's history plot.  As in the JAX package, every
+cost's ``calculate`` (the hybrid's: its total, and each component's own
+``calculate``) returns ``register(loss)``, which records ``float(loss)``
+when ``store_history`` is on; it skips a value that cannot be read there,
+as the JAX package skips a traced one: inside a CUDA graph capture and
+inside a ``torch.func`` transform.  The objective builds its costs with
+``store_history`` off (``solver/objective.py::make_cost``), so a solve
+reads nothing for them; the solvers append the values their loops already
+read (``SolverBase._history_cb``).
 """
 
 from typing import Dict, List
@@ -21,6 +25,14 @@ from typing import Dict, List
 import torch
 
 from . import functional as F
+
+
+def _unreadable(loss) -> bool:
+    """Whether ``loss`` has no value to read now: a CUDA graph is being
+    captured, or it is a ``torch.func`` transform's wrapped tensor."""
+    if torch.is_tensor(loss) and torch._C._functorch.is_functorch_wrapped_tensor(loss):
+        return True
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 class CostBase:
@@ -46,6 +58,13 @@ class CostBase:
     def disable_history_register(self) -> None:
         self.store_history = False
 
+    def register(self, loss):
+        """Record ``float(loss)`` with ``store_history`` on (not inside a
+        CUDA graph capture or a ``torch.func`` transform); returns ``loss``."""
+        if self.store_history and not _unreadable(loss):
+            self.history["loss"].append(float(loss))
+        return loss
+
     def calculate(self, arg: dict):
         raise NotImplementedError
 
@@ -60,7 +79,7 @@ class ImageVariance(CostBase):
         loss = F.image_variance(arg["iwe"], arg["omit_boundary"])
         if self.direction == "minimize":
             loss = -loss
-        return loss
+        return self.register(loss)
 
 
 class GradientMagnitude(CostBase):
@@ -73,7 +92,7 @@ class GradientMagnitude(CostBase):
         loss = F.gradient_magnitude(arg["iwe"], arg["omit_boundary"], arg.get("image_axes", 2))
         if self.direction == "minimize":
             loss = -loss
-        return loss
+        return self.register(loss)
 
 
 class NormalizedImageVariance(CostBase):
@@ -84,7 +103,7 @@ class NormalizedImageVariance(CostBase):
 
     def calculate(self, arg: dict):
         ratio = F.normalized_image_variance(arg["iwe"], arg["orig_iwe"], arg["omit_boundary"])
-        return 1.0 / ratio if self.direction == "minimize" else ratio
+        return self.register(1.0 / ratio if self.direction == "minimize" else ratio)
 
 
 class NormalizedGradientMagnitude(CostBase):
@@ -96,7 +115,7 @@ class NormalizedGradientMagnitude(CostBase):
     def calculate(self, arg: dict):
         ratio = F.normalized_gradient_magnitude(arg["iwe"], arg["orig_iwe"], arg["omit_boundary"],
                                                 arg.get("image_axes", 2))
-        return 1.0 / ratio if self.direction == "minimize" else ratio
+        return self.register(1.0 / ratio if self.direction == "minimize" else ratio)
 
 
 class MultiFocalNormalizedImageVariance(CostBase):
@@ -119,7 +138,7 @@ class MultiFocalNormalizedImageVariance(CostBase):
             loss = loss + F.normalized_image_variance(arg["backward_iwe"], arg["orig_iwe"], omit)
             if middle is not None:
                 loss = loss + 2.0 * F.normalized_image_variance(middle, arg["orig_iwe"], omit)
-        return loss
+        return self.register(loss)
 
 
 class MultiFocalNormalizedGradientMagnitude(CostBase):
@@ -143,7 +162,7 @@ class MultiFocalNormalizedGradientMagnitude(CostBase):
             loss = loss + F.normalized_gradient_magnitude(arg["backward_iwe"], arg["orig_iwe"], omit, axes)
             if middle is not None:
                 loss = loss + 2.0 * F.normalized_gradient_magnitude(middle, arg["orig_iwe"], omit, axes)
-        return loss
+        return self.register(loss)
 
 
 class TotalVariation(CostBase):
@@ -156,7 +175,7 @@ class TotalVariation(CostBase):
         loss = F.total_variation(torch.as_tensor(arg["flow"]), arg["omit_boundary"])
         if self.direction != "minimize":  # reference returns -loss otherwise
             loss = -loss
-        return loss
+        return self.register(loss)
 
 
 functions = {
@@ -189,10 +208,11 @@ class HybridCost(CostBase):
             self.required_keys.extend(self.cost_func[name]["func"].required_keys)
 
     def calculate(self, arg: dict):
-        return self.calculate_with_components(arg)[0]
+        return self.register(self.calculate_with_components(arg)[0])
 
     def calculate_with_components(self, arg: dict):
-        """Return (total, {name: unweighted sub-loss})."""
+        """Return (total, {name: unweighted sub-loss}); the components
+        register themselves, the total does not (the JAX package's)."""
         components = {}
         loss = 0.0
         for name, entry in self.cost_func.items():

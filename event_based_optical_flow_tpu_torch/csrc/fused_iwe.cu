@@ -158,6 +158,23 @@
 // run sums see the same terms, and a frame never reads another's unit.
 // The TPU grids over (frame, chunk); here the frame is an offset, as the
 // time bin is.
+//
+// An event-sharded frame (the parallel: mesh; ops/fused_iwe.py's
+// sharded entry points, solver/objective.py's sharded objective) runs the
+// same kernels in another order.  The forward splits into its vote into
+// the caller's zeroed int64 sums (fused_iwe_fwd_acc: one per shard) and
+// the conversion (fused_iwe_from_fixed: once, on the integer sum of the
+// shards' sums), so the images are the unsharded call's bits.  The tangent
+// splits into its bound pass (fused_iwe_jvp_bound: per shard, reduced by a
+// max), its vote in the unit of the reduced bound and of the whole frame's
+// event count (fused_iwe_jvp_acc, unit_events) and its conversion
+// (fused_iwe_from_scaled): every tangent vote is then rounded to the
+// unsharded call's unit, and the integer sums add up to its sums.  The
+// backward and K4 need no split: cut at run boundaries of the sort key,
+// each (bin,) pixel's run lies in one shard, whose one-pass kernel sums it
+// from the run's head as the unsharded kernel does; the other shards add
+// exact zeros there.  The split entry points take one frame (no frame
+// table).
 
 #include "fixed_point.cuh"
 
@@ -568,7 +585,9 @@ __device__ __forceinline__ void red_aggregated(unsigned long long* acc, unsigned
 }
 
 // K3: tangent votes in the frame's unit, taken once per event, and with
-// emit_value the value votes (K1's code, K1's unit).  With Aggregate every
+// emit_value the value votes (K1's code, K1's unit).  unit_n: the event
+// count of a single frame's unit (n, or the whole frame's for a shard of
+// it); a frame table's frames take their own counts.  With Aggregate every
 // lane of a warp runs the same rounds (one event each) and each set of equal
 // destinations is summed in registers first: one RED per distinct pixel
 // instead of one per vote.
@@ -578,7 +597,7 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
                                      const int* __restrict__ bins, int n_bins, Frames fr,
                                      int n, const T* __restrict__ flow,
                                      const T* __restrict__ dflow, Offsets<T> offs, int H, int W,
-                                     int pad, T eps, int emit_value,
+                                     int pad, T eps, int emit_value, int unit_n,
                                      const unsigned long long* __restrict__ bound,
                                      unsigned long long* __restrict__ acc_val,
                                      unsigned long long* __restrict__ acc_tan) {
@@ -607,7 +626,7 @@ __global__ void fused_iwe_jvp_kernel(const T* __restrict__ x, const T* __restric
         }
       }
     }
-    const TangentUnit unit(p >= 0 ? frame_exponent(bound, fr, f, n) : kNonFinite);
+    const TangentUnit unit(p >= 0 ? frame_exponent(bound, fr, f, unit_n) : kNonFinite);
     const bool tangent = unit.ex != kNonFinite;  // a voting event with a finite bound
     const int img = f * offs.n * hwi;            // the frame's image block
     for (int k = 0; k < offs.n; ++k) {
@@ -790,7 +809,7 @@ int launch_jvp(const T* x, const T* y, const T* dtf, const T* wt, const int* bin
                                                          bound);
     auto* jvp = n >= kAggregateEvents ? fused_iwe_jvp_kernel<T, true> : fused_iwe_jvp_kernel<T, false>;
     jvp<<<grid_for(n), kThreads, 0, s>>>(x, y, dtf, wt, bins, n_bins, fr, n, flow, dflow, offs, H, W, pad,
-                                         static_cast<T>(eps), emit_value, bound,
+                                         static_cast<T>(eps), emit_value, n, bound,
                                          reinterpret_cast<unsigned long long*>(acc_val),
                                          reinterpret_cast<unsigned long long*>(acc_tan));
   }
@@ -812,6 +831,90 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
   const long long n_out = flow_elements(fr, n_bins, H, W);
   return term_a ? launch_grad<T, true>(a, n_out, dflow_out, stream)
                 : launch_grad<T, false>(a, n_out, dflow_out, stream);
+}
+
+// --- the event mesh's split entry points (see the header) ------------------
+
+// K1 (K5): the vote alone, into the caller's zeroed int64 sums acc [(orig)
+// + K, H + 2 pad, W + 2 pad]; no conversion.
+template <typename T>
+int launch_fwd_acc(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+                   const int* frame_ptr, int n_frames, int n, const T* flow, const double* offsets,
+                   int n_off, int include_orig, int H, int W, int pad, int count, double eps, long long* acc,
+                   void* stream) {
+  if (n_off < 0 || n_off > kMaxOffsets || pad < 0 || frame_ptr != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    fused_iwe_fwd_kernel<T><<<grid_for(n), kThreads, 0, s>>>(
+        x, y, dtf, wt, bins, n_bins, make_frames(nullptr, 1), n, flow, make_offsets<T>(offsets, n_off),
+        include_orig, H, W, pad, count, static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's conversion of n_out fixed-point sums.
+template <typename T>
+int launch_from_fixed(const long long* acc, int n_out, T* out, void* stream) {
+  if (n_out > 0) {
+    from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(acc, n_out, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 (K6): the bound pass alone, into the caller's zeroed bound[1] (the
+// bits of the shard's bound b).
+template <typename T>
+int launch_jvp_bound(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+                     const int* frame_ptr, int n_frames, int n, const T* dflow, const double* offsets, int n_off,
+                     int H, int W, long long* bound, void* stream) {
+  if (n_off < 1 || n_off > kMaxOffsets || frame_ptr != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    jvp_bound_kernel<T><<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, y, dtf, wt, bins, n_bins, make_frames(nullptr, 1), n, dflow, make_offsets<T>(offsets, n_off), H, W,
+        reinterpret_cast<unsigned long long*>(bound));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 (K6): the vote alone in the unit of bound[1] (the frame's, reduced
+// over its shards) and of unit_events (the frame's event count), into the
+// caller's zeroed int64 sums acc_tan and, with emit_value, acc_val.
+template <typename T>
+int launch_jvp_acc(const T* x, const T* y, const T* dtf, const T* wt, const int* bins, int n_bins,
+                   const int* frame_ptr, int n_frames, int n, const T* flow, const T* dflow,
+                   const double* offsets, int n_off, int H, int W, int pad, double eps, int emit_value,
+                   int unit_events, const long long* bound, long long* acc_val, long long* acc_tan,
+                   void* stream) {
+  if (n_off < 1 || n_off > kMaxOffsets || pad < 0 || frame_ptr != nullptr || unit_events < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    auto* jvp = n >= kAggregateEvents ? fused_iwe_jvp_kernel<T, true> : fused_iwe_jvp_kernel<T, false>;
+    jvp<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, y, dtf, wt, bins, n_bins, make_frames(nullptr, 1), n, flow, dflow, make_offsets<T>(offsets, n_off), H,
+        W, pad, static_cast<T>(eps), emit_value, unit_events, reinterpret_cast<const unsigned long long*>(bound),
+        reinterpret_cast<unsigned long long*>(acc_val), reinterpret_cast<unsigned long long*>(acc_tan));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's conversion of one frame's n_out sums in the unit of bound[1] and
+// unit_events (acc_val may be null); the sums and outputs 16-byte aligned.
+template <typename T>
+int launch_from_scaled(const long long* acc_tan, const long long* acc_val, int n_out, const long long* bound,
+                       int unit_events, T* out_tan, T* out_val, void* stream) {
+  for (const void* p : {static_cast<const void*>(acc_tan), static_cast<const void*>(acc_val),
+                        static_cast<const void*>(out_tan), static_cast<const void*>(out_val)}) {
+    if (reinterpret_cast<unsigned long long>(p) & 15) return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (n_out > 0) {
+    from_scaled_kernel<T><<<grid_for((n_out + 1) / 2), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        acc_tan, acc_val, n_out, n_out, reinterpret_cast<const unsigned long long*>(bound), make_frames(nullptr, 1),
+        unit_events, out_tan, out_val);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -848,6 +951,34 @@ int launch_hvp_bwd(const T* x, const T* y, const T* dtf, const T* wt, const int*
                                         T* dflow_out, void* stream) {                              \
     return launch_hvp_bwd<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, pad, eps,       \
                              term_a, g1, g2, dflow_out, stream);                                   \
+  }                                                                                                \
+  int evflow_fused_iwe_fwd_acc_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const double* offsets,    \
+                                        int n_off, int include_orig, int H, int W, int pad,        \
+                                        int count, double eps, long long* acc, void* stream) {     \
+    return launch_fwd_acc<T>(EVFLOW_EVENT_ARGS, flow, offsets, n_off, include_orig, H, W, pad,     \
+                             count, eps, acc, stream);                                             \
+  }                                                                                                \
+  int evflow_fused_iwe_from_fixed_##SUFFIX(const long long* acc, int n_out, T* out, void* stream) {\
+    return launch_from_fixed<T>(acc, n_out, out, stream);                                          \
+  }                                                                                                \
+  int evflow_fused_iwe_jvp_bound_##SUFFIX(EVFLOW_EVENTS(T), const T* dflow, const double* offsets, \
+                                          int n_off, int H, int W, long long* bound,               \
+                                          void* stream) {                                          \
+    return launch_jvp_bound<T>(EVFLOW_EVENT_ARGS, dflow, offsets, n_off, H, W, bound, stream);     \
+  }                                                                                                \
+  int evflow_fused_iwe_jvp_acc_##SUFFIX(EVFLOW_EVENTS(T), const T* flow, const T* dflow,           \
+                                        const double* offsets, int n_off, int H, int W, int pad,   \
+                                        double eps, int emit_value, int unit_events,               \
+                                        const long long* bound, long long* acc_val,                \
+                                        long long* acc_tan, void* stream) {                        \
+    return launch_jvp_acc<T>(EVFLOW_EVENT_ARGS, flow, dflow, offsets, n_off, H, W, pad, eps,       \
+                             emit_value, unit_events, bound, acc_val, acc_tan, stream);            \
+  }                                                                                                \
+  int evflow_fused_iwe_from_scaled_##SUFFIX(const long long* acc_tan, const long long* acc_val,    \
+                                            int n_out, const long long* bound, int unit_events,    \
+                                            T* out_tan, T* out_val, void* stream) {                \
+    return launch_from_scaled<T>(acc_tan, acc_val, n_out, bound, unit_events, out_tan, out_val,    \
+                                 stream);                                                          \
   }
 
 extern "C" {

@@ -48,6 +48,14 @@
 //   DSEC's 480x640) keeps global 64-bit atomics into a zeroed int64
 //   scratch, one thread per (image, event), then a conversion pass.
 //
+// An event-sharded vote (the parallel: mesh's sharded_iwe and
+// sharded_multifocal_loss) splits the call: each shard's vote writes its
+// int64 sums into the caller's buffer (evflow_vote_acc: the shared path
+// writes them in place of the images, the global path adds into the zeroed
+// buffer and skips the conversion), the shards' sums are added as
+// integers, and one conversion (evflow_vote_from_fixed) gives the unsharded
+// call's bits.
+//
 // What bounds it on the H100: the scattered atomic adds, four per voting
 // event (8-byte RED to device memory on the global path, shared-memory
 // atomics on the other), and the 16-byte event read (the x, y pair shares
@@ -111,12 +119,13 @@ __device__ __forceinline__ void vote_split(unsigned* lo, unsigned* hi, T xw, T y
 }
 
 // One block per image: zero the image's sums in shared memory, vote its
-// events, write the image as T (from_fixed_kernel's conversion).
+// events, write the image as T (from_fixed_kernel's conversion), or with
+// fixed the int64 sums themselves.
 template <typename T, int Threads>
 __global__ void __launch_bounds__(Threads)
     bilinear_vote_shared_kernel(const T* __restrict__ events, int event_rep, const T* __restrict__ weight,
                                 int weight_rep, T weight_scalar, int n, int H, int W, int pad, int count, T eps,
-                                T* __restrict__ out) {
+                                T* __restrict__ out, long long* __restrict__ fixed) {
   extern __shared__ unsigned sums[];  // the low words [H * W], then the high words
   const int hw = H * W;
   unsigned* lo = sums;
@@ -132,10 +141,13 @@ __global__ void __launch_bounds__(Threads)
     vote_split(lo, hi, padded(ev[4 * j], pad), padded(ev[4 * j + 1], pad), w, eps, H, W, count);
   }
   __syncthreads();
-  T* o = out + img * hw;
   for (int p = threadIdx.x; p < hw; p += blockDim.x) {
     const long long sum = static_cast<long long>((static_cast<unsigned long long>(hi[p]) << 32) | lo[p]);
-    o[p] = static_cast<T>(static_cast<double>(sum) * kFixUnit);
+    if (fixed != nullptr) {
+      fixed[img * hw + p] = sum;
+    } else {
+      out[img * hw + p] = static_cast<T>(static_cast<double>(sum) * kFixUnit);
+    }
   }
 }
 
@@ -144,12 +156,17 @@ __global__ void __launch_bounds__(Threads)
 // n_img * H * W for an image of more than kSharedPixels pixels, unused (may
 // be null) otherwise.  A refused opt-in or launch is returned, never worked
 // around.
+// With fixed_only the int64 sums are the result (the event mesh's split):
+// the shared path writes them into acc (which then needs no zeroing), the
+// global path adds into the zeroed acc and converts nothing; out is unused.
 template <typename T>
 int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep, double weight_scalar, int n_img,
-                int n, int H, int W, int pad, int count, double eps, long long* acc, T* out, void* stream) {
-  if (event_rep < 1 || (weight != nullptr && weight_rep < 1) || pad < 0) {
+                int n, int H, int W, int pad, int count, double eps, long long* acc, T* out, void* stream,
+                bool fixed_only = false) {
+  if (event_rep < 1 || (weight != nullptr && weight_rep < 1) || pad < 0 || (fixed_only && acc == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  long long* fixed = fixed_only ? acc : nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hw = H * W;
   if (n_img < 1 || hw < 1) return static_cast<int>(cudaGetLastError());
@@ -157,7 +174,7 @@ int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep,
   if (hw <= kSmallPixels) {
     bilinear_vote_shared_kernel<T, kThreads><<<n_img, kThreads, smem, s>>>(
         events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, pad, count,
-        static_cast<T>(eps), out);
+        static_cast<T>(eps), out, fixed);
     return static_cast<int>(cudaGetLastError());
   }
   if (hw <= kSharedPixels) {
@@ -176,7 +193,7 @@ int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep,
     }
     bilinear_vote_shared_kernel<T, kLargeThreads><<<n_img, kLargeThreads, smem, s>>>(
         events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n, H, W, pad, count,
-        static_cast<T>(eps), out);
+        static_cast<T>(eps), out, fixed);
     return static_cast<int>(cudaGetLastError());
   }
   if (acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -186,6 +203,7 @@ int launch_vote(const T* events, int event_rep, const T* weight, int weight_rep,
         events, event_rep, weight, weight_rep, static_cast<T>(weight_scalar), n_total, n, H, W, pad, count,
         static_cast<T>(eps), reinterpret_cast<unsigned long long*>(acc));
   }
+  if (fixed_only) return static_cast<int>(cudaGetLastError());
   const int n_out = n_img * hw;
   from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, s>>>(acc, n_out, out);
   return static_cast<int>(cudaGetLastError());
@@ -212,5 +230,26 @@ int evflow_vote_f64(const double* events, int event_rep, const double* weight, i
   return launch_vote<double>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, pad, count, eps,
                              acc, out, stream);
 }
+
+// The event mesh's split (see the header): a shard's int64 sums into acc
+// [n_img, H, W] (zeroed by the caller for an image of more than
+// kSharedPixels pixels), and the conversion of n_out sums.
+#define EVFLOW_VOTE_SPLIT(T, SUFFIX)                                                                         \
+  int evflow_vote_acc_##SUFFIX(const T* events, int event_rep, const T* weight, int weight_rep,              \
+                               double weight_scalar, int n_img, int n, int H, int W, int pad, int count,     \
+                               double eps, long long* acc, void* stream) {                                   \
+    return launch_vote<T>(events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, pad, count,  \
+                          eps, acc, nullptr, stream, true);                                                  \
+  }                                                                                                          \
+  int evflow_vote_from_fixed_##SUFFIX(const long long* acc, int n_out, T* out, void* stream) {               \
+    if (n_out > 0) {                                                                                         \
+      from_fixed_kernel<T><<<grid_for(n_out), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(acc, n_out,  \
+                                                                                                out);        \
+    }                                                                                                        \
+    return static_cast<int>(cudaGetLastError());                                                             \
+  }
+
+EVFLOW_VOTE_SPLIT(float, f32)
+EVFLOW_VOTE_SPLIT(double, f64)
 
 }  // extern "C"

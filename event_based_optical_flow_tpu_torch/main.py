@@ -91,12 +91,18 @@ def setup_output(save_dir: str, config_file=None, log_level=logging.INFO):
     )
 
 
-def build(config: dict, device, candidates_fn=None, visualize_module=None):
+def build(config: dict, device, candidates_fn=None, visualize_module=None, mesh=None):
     """(loader, solver) for a validated config; the solver visualizes
-    through ``visualize_module`` (None: no images)."""
+    through ``visualize_module`` (None: no images).  The top-level
+    ``parallel:`` block goes to the solver as ``solver.parallel`` (its
+    device mesh, ``SolverBase._setup_parallel``); ``mesh``, a prebuilt
+    ``parallel.Mesh`` (one that repeats a device, say), replaces it."""
     data_config = config["data"]
     loader = data.collections[data_config["dataset"]](config=data_config)
     loader.set_sequence(data_config["sequence"])
+    if config.get("parallel"):
+        config["solver"]["parallel"] = config["parallel"]
+    kw = {} if mesh is None else {"mesh": mesh}
     solv = solver.collections[config["solver"]["method"]](
         (data_config["height"], data_config["width"]),
         calibration_parameter=loader.load_calib(),
@@ -106,6 +112,7 @@ def build(config: dict, device, candidates_fn=None, visualize_module=None):
         visualize_module=visualize_module,
         device=device,
         candidates_fn=candidates_fn,
+        **kw,
     )
     return loader, solv
 
@@ -250,7 +257,9 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
     checkpoint once per chunk.  With ``data.warm_start: batch`` every frame
     of a chunk warm-starts from the previous chunk's last solution (the
     checkpoint keeps it, so a resumed run continues the chain); else the
-    frames are independent.  ``save_flow`` dumps each frame's flow.
+    frames are independent.  A solver with a data mesh shards each chunk
+    over its devices (``FleetPyramidalSolver._optimize_batch_sharded``).
+    ``save_flow`` dumps each frame's flow.
     ``data.ind1``/``ind2`` are not read.  Returns
     the per-frame records (frame, metrics, the chunk's seconds / B, the
     chunk's solver stats)."""
@@ -303,10 +312,11 @@ def run_dnn(config: dict, eval_mode: bool, device) -> dict:
     return run_dnn_flow(config, loader, device, evaluate=eval_mode)
 
 
-def run(config: dict, eval_mode: bool, device, candidates_fn=None):
+def run(config: dict, eval_mode: bool, device, candidates_fn=None, mesh=None):
     """What the CLI runs, after logging is set up: validate, build, solve
     (``is_dnn``: ``run_dnn``), visualize into ``output_dir``.  Returns the
-    per-frame records (eval), the single-frame result, or the DNN run's."""
+    per-frame records (eval), the single-frame result, or the DNN run's.
+    ``mesh``: a prebuilt device mesh for the solver (``build``)."""
     validate_config(config)
     logger.info(f"runtime: {fetch_runtime_info()}")
     set_numerics()
@@ -320,16 +330,16 @@ def run(config: dict, eval_mode: bool, device, candidates_fn=None):
     viz = Visualizer((data_config["height"], data_config["width"]), show=config["output"]["show_interactive_result"],
                      save=True, save_dir=out_dir, device=device)
     try:
-        return _solve(config, eval_mode, device, candidates_fn, viz)
+        return _solve(config, eval_mode, device, candidates_fn, viz, mesh)
     finally:
         viz.close()
 
 
-def _solve(config: dict, eval_mode: bool, device, candidates_fn, viz: Visualizer):
+def _solve(config: dict, eval_mode: bool, device, candidates_fn, viz: Visualizer, mesh=None):
     """``run``'s solver paths: the eval loops, or single-frame mode."""
     data_config = config["data"]
     out_dir = config["output"]["output_dir"]
-    loader, solv = build(config, device, candidates_fn, viz)
+    loader, solv = build(config, device, candidates_fn, viz, mesh)
     if eval_mode:
         eval_ts = loader.eval_frame_time_list()
         fleet_batch = int(data_config.get("fleet_batch", 1))

@@ -14,6 +14,15 @@ Functions take batches: losses map ``[..., 2, h, w]`` flows and ``[..., n,
 4]`` events (``[..., n]`` weights) to ``[...]`` per-item losses, as the JAX
 package's ``vmap`` of its per-item losses does.
 
+``dnn.data_parallel`` (``dnn_train_step_parallel``): one process drives a
+replica of the model on each data device, each replica takes its contiguous
+part of the batch, the replicas' gradients and losses are averaged on the
+lead device in mesh order (equal parts: the mean of the parts' means is the
+batch mean, as the JAX package's ``pmean``), one optimizer step runs there,
+and the parameters are copied back out.  The CLI takes it only when more
+than one CUDA device is visible and the batch divides over them (the JAX
+package's rule), else the single-device step, with a log line.
+
 A checkpoint is the port's own ``torch.save`` of the model, the optimizer
 and the step in ``<checkpoint_dir>/step_<n>/state.pt``; the JAX package's
 orbax checkpoint there is refused, not read (carry its parameters across
@@ -161,6 +170,50 @@ def dnn_train_step(model: EVFlowNet, optimizer: torch.optim.Optimizer, image_siz
     return step, loss_fn
 
 
+def dnn_train_step_parallel(model: EVFlowNet, optimizer: torch.optim.Optimizer, image_size: Tuple[int, int], mesh,
+                            n_bin: int = 4, multi_scale: bool = False, supervised: bool = False):
+    """(step, loss_fn): ``dnn_train_step``'s step over the mesh's data
+    devices (``mesh.data_devices()``; a device may repeat): ``model`` on the
+    lead device, a replica on each other device (parameters copied from the
+    model before every step), the batch cut into equal contiguous parts
+    (one per device, its batch a multiple of the data axis, as the JAX
+    ``shard_map`` requires), each part's loss and gradients on its device,
+    their means on the lead device in mesh order, one optimizer step there.
+    ``loss_fn`` is the model's single-device batch loss."""
+    import copy
+
+    devices = list(mesh.data_devices())
+    lead = devices[0]
+    replicas = [model if d == lead else copy.deepcopy(model).to(d) for d in devices]
+    loss_fns = [make_loss_fn(r, image_size, n_bin, multi_scale, supervised) for r in replicas]
+
+    def step(events: Tensor, weights: Tensor, *gt: Tensor) -> Tensor:
+        b = events.shape[0]
+        if b % len(devices):
+            raise ValueError(f"a batch of {b} does not divide over the mesh's {len(devices)} data devices")
+        with torch.no_grad():
+            for r in replicas:
+                if r is not model:
+                    for p, q in zip(r.parameters(), model.parameters()):
+                        p.copy_(q)
+        per = b // len(devices)
+        grads, losses = None, []
+        for k, (r, fn, dev) in enumerate(zip(replicas, loss_fns, devices)):
+            part = [t[k * per:(k + 1) * per].to(dev) for t in (events, weights) + gt]
+            loss = fn(*part)
+            g = torch.autograd.grad(loss, list(r.parameters()))
+            g = [x.to(lead) for x in g]
+            grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+            losses.append(loss.detach().to(lead))
+        optimizer.zero_grad(set_to_none=True)
+        for p, g in zip(model.parameters(), grads):
+            p.grad = g / len(devices)
+        optimizer.step()
+        return torch.stack(losses).mean()
+
+    return step, make_loss_fn(model, image_size, n_bin, multi_scale, supervised)
+
+
 def save_dnn_checkpoint(ckpt_dir: str, model: EVFlowNet, optimizer: torch.optim.Optimizer, step: int) -> str:
     """``torch.save`` of (model, optimizer, step) at ``<ckpt_dir>/step_<step>``
     (written to a temporary name, then renamed)."""
@@ -294,8 +347,19 @@ def run_dnn_flow(config: dict, loader, device, evaluate: bool = False,
     if supervised and dnn_cfg.get("multi_scale"):
         logger.warning("dnn.supervised trains the full-resolution head only; "
                        "dnn.multi_scale is ignored")
-    step, _ = dnn_train_step(model, optimizer, image_size, n_bin, multi_scale=bool(dnn_cfg.get("multi_scale")),
-                             supervised=supervised)
+    n_dev = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    multi_scale = bool(dnn_cfg.get("multi_scale"))
+    if dnn_cfg.get("data_parallel") and n_dev > 1 and batch % n_dev == 0:
+        from ..parallel.sharded import make_mesh
+
+        step, _ = dnn_train_step_parallel(model, optimizer, image_size, make_mesh(n_dev, data=n_dev), n_bin,
+                                          multi_scale=multi_scale, supervised=supervised)
+        logger.info(f"data-parallel DNN training over {n_dev} devices")
+    else:
+        step, _ = dnn_train_step(model, optimizer, image_size, n_bin, multi_scale=multi_scale, supervised=supervised)
+        if dnn_cfg.get("data_parallel"):
+            logger.info(f"dnn.data_parallel: {n_dev} device(s) visible for a batch of {batch}; "
+                        "training on one device")
 
     dtype = next(model.parameters()).dtype
     total = len(loader)

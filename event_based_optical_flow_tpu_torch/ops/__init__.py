@@ -37,6 +37,7 @@ __all__ = [
     "warp_voxel_flow",
     "add_launch_counts",
     "launch_counts",
+    "mesh_launch_counts",
     "reset_launch_counts",
 ]
 
@@ -45,6 +46,13 @@ def launch_counts() -> dict:
     """Launches of every hand-written kernel since the last reset: the
     ``fused_iwe`` forms (``fused_iwe.launch_counts``) and ``vote`` (K8)."""
     return {**fused_iwe.launch_counts(), **vote.launch_counts()}
+
+
+def mesh_launch_counts() -> dict:
+    """Of the launches since the last reset, those on a shard of an
+    event-sharded frame (``fused_iwe.mesh_launch_counts``, and K8's keyed
+    ``vote`` and ``vote_from_fixed``)."""
+    return {**fused_iwe.mesh_launch_counts(), **vote.mesh_launch_counts()}
 
 
 def reset_launch_counts() -> None:

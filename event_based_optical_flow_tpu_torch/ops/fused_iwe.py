@@ -106,11 +106,20 @@ _ARGS = {
     "bwd": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR],
     "jvp": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
     "hvp_bwd": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _INT] + [_PTR] * 4,
+    # the event mesh's split entry points
+    "fwd_acc": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR],
+    "from_fixed": [_PTR, _INT, _PTR, _PTR],
+    "jvp_bound": _EVENTS + [_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR],
+    "jvp_acc": _EVENTS + [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _DBL, _INT, _INT] + [_PTR] * 4,
+    "from_scaled": [_PTR, _PTR, _INT, _PTR, _INT, _PTR, _PTR, _PTR],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 KERNELS = ("fwd", "bwd", "jvp", "hvp_bwd")
 # the launch counts' forms of each kernel: single frame or batched, dense or voxel
 FORMS = ("", "voxel_", "batched_", "batched_voxel_")
+# the event mesh's counts (form + kernel, ``mesh_launch_counts``): the
+# launches of each kernel on a shard of a frame, and of the split's own passes
+MESH_KERNELS = KERNELS + ("jvp_bound", "from_fixed", "from_scaled")
 
 
 class Frames(NamedTuple):
@@ -240,8 +249,10 @@ def _event_args(x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, flow: Tensor, bin
             None if frames is None else frames.ptr.data_ptr(), _n_frames(frames), x.shape[0])
 
 
-# launches per kernel and form since the last reset
+# launches per kernel and form since the last reset, and of them (and of
+# the split's passes) those on a shard of an event-sharded frame
 _LAUNCHES = {}
+_MESH_LAUNCHES = {}
 
 
 def form(bins: Optional[Tensor], frames: Optional[Frames]) -> str:
@@ -249,7 +260,11 @@ def form(bins: Optional[Tensor], frames: Optional[Frames]) -> str:
     return ("batched_" if frames is not None else "") + ("voxel_" if bins is not None else "")
 
 
-def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], frames: Optional[Frames], args):
+def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], frames: Optional[Frames], args,
+            count_as: Optional[str] = None, mesh: bool = False):
+    """Call entry point ``kernel`` for ``flow``'s type on its device's
+    stream; count one launch of ``count_as`` (default ``kernel``) in the
+    call's form, and with ``mesh`` one of ``mesh_`` + that (a shard's)."""
     fn = _kernel(kernel, flow.dtype)
     device = flow.device
     if device.index == torch.cuda.current_device():
@@ -259,7 +274,11 @@ def _launch(kernel: str, flow: Tensor, bins: Optional[Tensor], frames: Optional[
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"evflow_fused_iwe_{kernel}_{_SUFFIX[flow.dtype]} failed: cudaGetLastError() = {rc}")
-    _LAUNCHES[form(bins, frames) + kernel] += 1
+    key = form(bins, frames) + (count_as or kernel)
+    if key in _LAUNCHES:
+        _LAUNCHES[key] += 1
+    if mesh:
+        _MESH_LAUNCHES[key] += 1
 
 
 def launch_counts() -> dict:
@@ -267,6 +286,14 @@ def launch_counts() -> dict:
     ``jvp``, ``hvp_bwd`` (K1-K4), their ``voxel_`` forms (K5, K6) and the
     ``batched_`` and ``batched_voxel_`` forms of all four (K7, K9)."""
     return dict(_LAUNCHES)
+
+
+def mesh_launch_counts() -> dict:
+    """Of the launches since the last reset, those on a shard of an
+    event-sharded frame, keyed as ``launch_counts`` keys them (dense and
+    ``voxel_``), with the split's own passes: ``jvp_bound`` and the
+    conversions ``from_fixed``, ``from_scaled``."""
+    return dict(_MESH_LAUNCHES)
 
 
 def add_launch_counts(counts: dict) -> None:
@@ -280,6 +307,8 @@ def reset_launch_counts() -> None:
     for prefix in FORMS:
         for k in KERNELS:
             _LAUNCHES[prefix + k] = 0
+    for k in MESH_KERNELS + tuple("voxel_" + k for k in KERNELS + ("jvp_bound",)):
+        _MESH_LAUNCHES[k] = 0
 
 
 reset_launch_counts()
@@ -308,12 +337,14 @@ def fused_iwe_fwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
 
 def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g: Tensor,
                   offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
-                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0) -> Tensor:
+                  bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
+                  mesh: bool = False) -> Tensor:
     """Launch the backward kernel (K2; K5's backward with ``bins``; the
     batched forms with ``frames``): the gradient of the flow (or voxel), its
     shape, for the image cotangent ``g [(B,) (orig) + len(offsets), H + 2
     pad, W + 2 pad]``.  The plain version (the VJP of
-    ``fused_iwe_reference``) for CPU tensors."""
+    ``fused_iwe_reference``) for CPU tensors.  ``mesh``: the events are a
+    shard of a frame (counted as such)."""
     if flow.device.type == "cpu":
         with torch.enable_grad():
             fl = flow.detach().requires_grad_(True)
@@ -326,7 +357,7 @@ def fused_iwe_bwd(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, g
     _launch("bwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), int(include_orig), h, w, int(pad),
-               float(eps), g.data_ptr(), dflow.data_ptr()))
+               float(eps), g.data_ptr(), dflow.data_ptr()), mesh=mesh)
     return dflow
 
 
@@ -375,7 +406,8 @@ def fused_iwe_jvp(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor
 def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Tensor, y: Tensor,
                       dtf: Tensor, wt: Tensor, offsets: Sequence[float], term_a: bool,
                       eps: float = 1e-6, bins: Optional[Tensor] = None,
-                      frames: Optional[Frames] = None, pad: int = 0, count: bool = False) -> Tensor:
+                      frames: Optional[Frames] = None, pad: int = 0, count: bool = False,
+                      mesh: bool = False) -> Tensor:
     """K4 (K6's HVP backward with ``bins``, per bin ``[T, 2, H, W]``; the
     batched forms with ``frames``): the vote's flow-space HVP contribution
     from the cost cotangent ``g1`` and its directional derivative ``g2``
@@ -400,7 +432,142 @@ def fused_iwe_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, x: Te
     _launch("hvp_bwd", flow, bins, frames,
             _event_args(x, y, dtf, wt, flow, bins, frames)
             + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(tuple(offsets)), len(offsets), h, w, int(pad),
-               float(eps), int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), out.data_ptr()))
+               float(eps), int(bool(term_a)), g1.data_ptr(), g2.data_ptr(), out.data_ptr()), mesh=mesh)
+    return out
+
+
+# --- the event mesh's split entry points ------------------------------------
+# An event-sharded frame (``parallel/sharded.py``, the sharded objective of
+# ``solver/objective.py``) reaches K1/K5 and K3/K6 in another order: each
+# shard votes into its own int64 sums, the sums are added as integers in
+# mesh order, and one conversion gives the unsharded call's bits (K3's votes
+# in the unit of the frame's bound, reduced over the shards by a max, and of
+# the frame's event count).  One frame each (no frame table).  On a CPU
+# tensor each runs its plain version, which for an integer sum is its exact
+# model (``fused_iwe_fixed_reference(..., fixed=True)`` and
+# ``fused_iwe_jvp_fixed_reference(..., bound=, unit_events=, fixed=True)``).
+
+
+def _split_check(flow: Tensor, events, offsets, bins, pad, acc: Tensor, shape):
+    _check(flow, events, offsets, bins, None, pad)
+    if tuple(acc.shape) != tuple(shape) or acc.dtype != torch.int64 or acc.device != flow.device \
+            or not acc.is_contiguous():
+        raise ValueError(f"the sums must be a contiguous int64 {tuple(shape)} tensor on the flow's device, got "
+                         f"{acc.dtype} {tuple(acc.shape)} on {acc.device}")
+
+
+def fused_iwe_fwd_acc(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                      include_orig: bool, acc: Tensor, eps: float = 1e-6, bins: Optional[Tensor] = None,
+                      pad: int = 0, count: bool = False) -> Tensor:
+    """K1's (K5's with ``bins``) vote alone: adds these events' fixed-point
+    votes (2^-36 units) into ``acc``, int64 ``[(orig) + K, H + 2 pad, W +
+    2 pad]`` (the caller zeroes it); returns ``acc``.  Convert the sum with
+    ``fused_iwe_from_fixed``."""
+    offsets = tuple(float(o) for o in offsets)
+    shape = (len(offsets) + int(include_orig),) + _image_hw(flow, pad)
+    if flow.device.type == "cpu":
+        return acc.add_(fused_iwe_fixed_reference(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, None, pad,
+                                                  count, fixed=True))
+    _split_check(flow, (x, y, dtf, wt), offsets, bins, pad, acc, shape)
+    h, w = flow.shape[-2], flow.shape[-1]
+    _launch("fwd_acc", flow, bins, None,
+            _event_args(x, y, dtf, wt, flow, bins, None)
+            + (flow.data_ptr(), _offsets_array(offsets), len(offsets), int(include_orig), h, w, int(pad),
+               int(bool(count)), float(eps), acc.data_ptr()), count_as="fwd", mesh=True)
+    return acc
+
+
+def fused_iwe_from_fixed(acc: Tensor, dtype: torch.dtype) -> Tensor:
+    """K1's conversion: the images of the int64 sums ``acc`` (2^-36 units)
+    in ``dtype``."""
+    if acc.device.type == "cpu":
+        return (acc.double() * 2.0 ** -FIX_BITS).to(dtype)
+    acc = acc.contiguous()
+    out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
+    if acc.numel() >= 2**31:
+        raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
+    _launch("from_fixed", out, None, None, (acc.data_ptr(), acc.numel(), out.data_ptr()), mesh=True)
+    return out
+
+
+def fused_iwe_jvp_bound(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                        bins: Optional[Tensor] = None) -> Tensor:
+    """K3's (K6's) bound pass alone: the bits of these events' tangent bound
+    b = max |wt| max_k |dtf - o_k| (|du| + |dv|) over the voting events (a
+    non-finite b as +inf), an int64 ``[1]``.  A frame's bound is the max of
+    its shards' (non-negative doubles order as their bits)."""
+    offsets = tuple(float(o) for o in offsets)
+    if dflow.device.type == "cpu":
+        b = _tangent_bounds(dflow, x, y, dtf, wt, offsets, bins, None)[0]
+        return torch.tensor([b], dtype=torch.float64).view(torch.int64)
+    _check(dflow, (x, y, dtf, wt), offsets, bins, None)
+    if not offsets:
+        raise ValueError("fused_iwe_jvp_bound bounds direction images: give at least one offset")
+    bound = torch.zeros(1, dtype=torch.int64, device=dflow.device)
+    _launch("jvp_bound", dflow, bins, None,
+            _event_args(x, y, dtf, wt, dflow, bins, None)
+            + (dflow.data_ptr(), _offsets_array(offsets), len(offsets), dflow.shape[-2], dflow.shape[-1],
+               bound.data_ptr()), mesh=True)
+    return bound
+
+
+def fused_iwe_jvp_acc(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
+                      offsets: Sequence[float], bound: Tensor, unit_events: int, acc_tan: Tensor,
+                      acc_val: Optional[Tensor] = None, eps: float = 1e-6, bins: Optional[Tensor] = None,
+                      pad: int = 0) -> Tuple[Tensor, Optional[Tensor]]:
+    """K3's (K6's) vote alone, in the unit of the frame's ``bound`` (int64
+    ``[1]``, ``fused_iwe_jvp_bound``'s, reduced over the shards) and of
+    ``unit_events`` (the frame's event count): adds the tangent votes into
+    ``acc_tan`` and, given ``acc_val``, the value votes (K1's unit) into it,
+    each int64 ``[K, H + 2 pad, W + 2 pad]`` zeroed by the caller.  Convert
+    with ``fused_iwe_from_scaled``."""
+    offsets = tuple(float(o) for o in offsets)
+    shape = (len(offsets),) + _image_hw(flow, pad)
+    if int(unit_events) < x.shape[0]:
+        raise ValueError(f"unit_events {unit_events} must count at least these {x.shape[0]} events")
+    if flow.device.type == "cpu":
+        tan = fused_iwe_jvp_fixed_reference(flow, dflow, x, y, dtf, wt, offsets, False, eps, bins, None, pad,
+                                            bound=float(bound.view(torch.float64)[0]), unit_events=int(unit_events),
+                                            fixed=True)
+        acc_tan.add_(tan)
+        if acc_val is not None:
+            acc_val.add_(fused_iwe_fixed_reference(flow, x, y, dtf, wt, offsets, False, eps, bins, None, pad,
+                                                   fixed=True))
+        return acc_tan, acc_val
+    _split_check(flow, (x, y, dtf, wt), offsets, bins, pad, acc_tan, shape)
+    _check_like("dflow", dflow, flow.shape, flow)
+    if acc_val is not None:
+        _split_check(flow, (x, y, dtf, wt), offsets, bins, pad, acc_val, shape)
+    if not offsets:
+        raise ValueError("fused_iwe_jvp_acc computes direction images: give at least one offset")
+    if bound.dtype != torch.int64 or bound.device != flow.device or bound.numel() != 1:
+        raise ValueError("the bound must be an int64 [1] tensor on the flow's device")
+    _launch("jvp_acc", flow, bins, None,
+            _event_args(x, y, dtf, wt, flow, bins, None)
+            + (flow.data_ptr(), dflow.data_ptr(), _offsets_array(offsets), len(offsets), flow.shape[-2],
+               flow.shape[-1], int(pad), float(eps), int(acc_val is not None), int(unit_events), bound.data_ptr(),
+               None if acc_val is None else acc_val.data_ptr(), acc_tan.data_ptr()), count_as="jvp", mesh=True)
+    return acc_tan, acc_val
+
+
+def fused_iwe_from_scaled(acc_tan: Tensor, bound: Tensor, unit_events: int, dtype: torch.dtype) -> Tensor:
+    """K3's conversion: the tangent images of one frame's int64 sums in the
+    unit of ``bound`` and ``unit_events`` (NaN for a non-finite bound), in
+    ``dtype``."""
+    if acc_tan.device.type == "cpu":
+        ex = _exponent_of(float(bound.view(torch.float64)[0]), int(unit_events))
+        if ex is None:
+            return torch.full(acc_tan.shape, float("nan"), dtype=dtype)
+        return torch.from_numpy(np.ldexp(acc_tan.double().numpy(), -ex)).to(dtype)
+    acc_tan = acc_tan.contiguous()
+    if acc_tan.numel() >= 2**31:
+        raise ValueError("fused_iwe indexes with 32-bit ints: too many pixels")
+    if acc_tan.data_ptr() % 16:  # the conversion reads two sums at a time
+        acc_tan = acc_tan.clone()
+    out = torch.empty(acc_tan.shape, dtype=dtype, device=acc_tan.device)
+    _launch("from_scaled", out, None, None,
+            (acc_tan.data_ptr(), None, acc_tan.numel(), bound.data_ptr(), int(unit_events), out.data_ptr(), None),
+            mesh=True)
     return out
 
 
@@ -547,18 +714,21 @@ def fused_iwe_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Ten
 def fused_iwe_fixed_reference(flow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor,
                               offsets: Sequence[float], include_orig: bool, eps: float = 1e-6,
                               bins: Optional[Tensor] = None, frames: Optional[Frames] = None, pad: int = 0,
-                              count: bool = False) -> Tensor:
+                              count: bool = False, fixed: bool = False) -> Tensor:
     """An exact model of the forward kernel's bits, for tests and checks
     (nothing on the main path calls it): each vote's value in the flow's
     type by the kernel's expressions, rounded half to even to an int64 of
     2^-36 units, the votes summed with an integer ``index_add_`` (any order
-    gives the same integers), the sums converted to the flow's type.  Run it
+    gives the same integers), the sums converted to the flow's type (with
+    ``fixed`` the int64 sums themselves: ``fused_iwe_fwd_acc``'s).  Run it
     on CPU tensors: the card's own elementwise kernels may contract a
     multiply and an add, which the kernels are built not to do."""
     inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, include_orig, eps, bins, frames, None, pad,
                                       count)
-    fixed = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
-    sums = torch.zeros(int(np.prod(shape)), dtype=torch.int64, device=flow.device).index_add_(0, inds, fixed)
+    units = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
+    sums = torch.zeros(int(np.prod(shape)), dtype=torch.int64, device=flow.device).index_add_(0, inds, units)
+    if fixed:
+        return sums.reshape(shape)
     return (sums.double() * 2.0 ** -FIX_BITS).to(flow.dtype).reshape(shape)
 
 
@@ -668,14 +838,12 @@ def fused_iwe_jvp_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, d
     return (images, dimages) if emit_value else dimages
 
 
-def _tangent_exponents(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
-                       bins: Optional[Tensor], frames: Optional[Frames]) -> list:
-    """Each frame's tangent exponent s (the unit 2^-s), None for a
-    non-finite bound, as ``jvp_bound_kernel`` and ``tangent_exponent``
-    compute it: b = max over the frame's casting events of |wt| max_k|dtf
-    - o_k| (|du| + |dv|) in double (the offsets in the flow's type), s =
-    61 - ceil(log2 N) - e with frexp's e of b (N the frame's events), 0 for
-    b == 0."""
+def _tangent_bounds(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                    bins: Optional[Tensor], frames: Optional[Frames]) -> list:
+    """Each frame's tangent bound, as ``jvp_bound_kernel`` computes it: b =
+    max over the frame's casting events of |wt| max_k|dtf - o_k| (|du| +
+    |dv|) in double (the offsets in the flow's type), +inf for a NaN or inf
+    b, 0.0 for a frame that casts none."""
     h, w = dflow.shape[-2], dflow.shape[-1]
     du, dv = _gather_uv(dflow, x, y, bins, frames)
     d = dtf.double()
@@ -687,19 +855,35 @@ def _tangent_exponents(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Ten
     casts = (wt != 0) & (x > -1) & (x < h) & (y > -1) & (y < w)
     b = torch.where(casts, b, 0.0)
     sizes = (len(x),) if frames is None else frames.sizes
-    exps, start = [], 0
+    bounds, start = [], 0
     for size in sizes:
-        bf = float(b[start:start + size].max()) if size else 0.0
+        bounds.append(float(b[start:start + size].max()) if size else 0.0)
         start += size
-        scale_bits = 61 - ((size - 1).bit_length() if size > 1 else 0)
-        exps.append(None if not math.isfinite(bf) else 0 if bf == 0.0 else scale_bits - math.frexp(bf)[1])
-    return exps
+    return bounds
+
+
+def _exponent_of(b: float, n_events: int) -> Optional[int]:
+    """The tangent exponent s (the unit 2^-s) of a frame's bound ``b`` and
+    event count, as ``tangent_exponent`` computes it: s = 61 - ceil(log2 N)
+    - e with frexp's e of b, 0 for b == 0, None for a non-finite b."""
+    scale_bits = 61 - ((n_events - 1).bit_length() if n_events > 1 else 0)
+    return None if not math.isfinite(b) else 0 if b == 0.0 else scale_bits - math.frexp(b)[1]
+
+
+def _tangent_exponents(dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor, wt: Tensor, offsets: Sequence[float],
+                       bins: Optional[Tensor], frames: Optional[Frames]) -> list:
+    """Each frame's tangent exponent s (the unit 2^-s), None for a
+    non-finite bound (``_tangent_bounds``, ``_exponent_of``)."""
+    sizes = (len(x),) if frames is None else frames.sizes
+    return [_exponent_of(b, n) for b, n in zip(_tangent_bounds(dflow, x, y, dtf, wt, offsets, bins, frames), sizes)]
 
 
 def fused_iwe_jvp_fixed_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Tensor, dtf: Tensor,
                                   wt: Tensor, offsets: Sequence[float], emit_value: bool,
                                   eps: float = 1e-6, bins: Optional[Tensor] = None,
-                                  frames: Optional[Frames] = None, pad: int = 0):
+                                  frames: Optional[Frames] = None, pad: int = 0,
+                                  bound: Optional[float] = None, unit_events: Optional[int] = None,
+                                  fixed: bool = False):
     """An exact model of K3's bits (all forms), for tests and checks
     (nothing on the main path calls it): each frame's bound and exponent s
     in double as the kernel computes them (``_tangent_exponents``), each
@@ -708,16 +892,25 @@ def fused_iwe_jvp_fixed_reference(flow: Tensor, dflow: Tensor, x: Tensor, y: Ten
     with an integer ``index_add_``, the sums converted with ``ldexp(sum,
     -s)`` to the flow's type, a frame of a non-finite bound NaN; with
     ``emit_value`` the value images first, ``fused_iwe_fixed_reference``'s.
-    Run it on CPU tensors (see ``fused_iwe_fixed_reference``)."""
-    exps = _tangent_exponents(dflow, x, y, dtf, wt, offsets, bins, frames)
+    A shard of one frame (no ``frames``) takes the frame's ``bound`` (a
+    double, the max over its shards) and event count ``unit_events``
+    (``fused_iwe_jvp_acc``'s unit); with ``fixed`` the int64 sums come back
+    unconverted (the tangent's alone).  Run it on CPU tensors (see
+    ``fused_iwe_fixed_reference``)."""
+    if bound is None:
+        exps = _tangent_exponents(dflow, x, y, dtf, wt, offsets, bins, frames)
+    else:
+        exps = [_exponent_of(bound, len(x) if unit_events is None else int(unit_events))]
     inds, vals, shape = _corner_votes(flow, x, y, dtf, wt, offsets, False, eps, bins, frames, dflow, pad)
     per_frame = int(np.prod(shape[-3:]))
     ex = np.array([0 if e is None else e for e in exps], dtype=np.int32)
     nonfinite = np.array([e is None for e in exps])
     frame = inds.numpy() // per_frame
     votes = np.where(nonfinite[frame], 0.0, vals.double().numpy())  # such a frame is NaN whatever its votes
-    fixed = np.rint(np.ldexp(votes, ex[frame])).astype(np.int64)
+    fixed_only, fixed = fixed, np.rint(np.ldexp(votes, ex[frame])).astype(np.int64)
     sums = torch.zeros(int(np.prod(shape)), dtype=torch.int64).index_add_(0, inds, torch.from_numpy(fixed))
+    if fixed_only:
+        return sums.reshape(shape)
     out = np.ldexp(sums.double().numpy(), -np.repeat(ex, per_frame))
     out[np.repeat(nonfinite, per_frame)] = np.nan
     dimages = torch.from_numpy(out).to(flow.dtype).reshape(shape)

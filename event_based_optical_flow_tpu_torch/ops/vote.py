@@ -66,15 +66,28 @@ _INT = ctypes.c_int
 _DBL = ctypes.c_double
 # events, event_rep, weight, weight_rep, weight_scalar, n_img, n, H, W, pad, count, eps, acc, out, stream
 _VOTE_ARGS = [_PTR, _INT, _PTR, _INT, _DBL, _INT, _INT, _INT, _INT, _INT, _INT, _DBL, _PTR, _PTR, _PTR]
+_ARGS = {"": _VOTE_ARGS,
+         # the event mesh's split: the vote into int64 sums (no out), their conversion
+         "acc_": _VOTE_ARGS[:13] + [_PTR],
+         "from_fixed_": [_PTR, _INT, _PTR, _PTR]}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-# launches of the kernel since the last reset
+# launches of the kernel since the last reset, and of them those on a shard
+# of an event-sharded vote (with the split's conversions)
 _LAUNCHES = {"vote": 0}
+_MESH_LAUNCHES = {"vote": 0, "vote_from_fixed": 0}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset: ``vote`` (K8)."""
     return dict(_LAUNCHES)
+
+
+def mesh_launch_counts() -> dict:
+    """Of the launches since the last reset, those on a shard of an
+    event-sharded vote (``vote``), and the split's conversions
+    (``vote_from_fixed``)."""
+    return dict(_MESH_LAUNCHES)
 
 
 def add_launch_counts(counts: dict) -> None:
@@ -84,13 +97,15 @@ def add_launch_counts(counts: dict) -> None:
 
 def reset_launch_counts() -> None:
     _LAUNCHES["vote"] = 0
+    for k in _MESH_LAUNCHES:
+        _MESH_LAUNCHES[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(dtype: torch.dtype):
-    """The C entry point of one type, bound once."""
-    fn = getattr(load_kernel_library("vote").lib, f"evflow_vote_{_SUFFIX[dtype]}")
-    fn.argtypes = _VOTE_ARGS
+def _kernel(dtype: torch.dtype, entry: str = ""):
+    """The C entry point ``evflow_vote_<entry><type>``, bound once."""
+    fn = getattr(load_kernel_library("vote").lib, f"evflow_vote_{entry}{_SUFFIX[dtype]}")
+    fn.argtypes = _ARGS[entry]
     fn.restype = ctypes.c_int
     return fn
 
@@ -189,26 +204,30 @@ def bilinear_vote_plain(events: Tensor, image_size: Tuple[int, int], weight: Uni
 
 def bilinear_vote_fixed_reference(events: Tensor, image_size: Tuple[int, int],
                                   weight: Union[float, Tensor] = 1.0, eps: float = 1e-6, padding: int = 0,
-                                  count: bool = False) -> Tensor:
+                                  count: bool = False, fixed: bool = False) -> Tensor:
     """An exact model of K8's bits, for tests and checks (nothing on the
     main path calls it): each corner vote in the events' type by the
     kernel's expressions (``corner_terms``), rounded half to even to an
     int64 of 2^-36 units, summed with an integer ``index_add_`` (any order
-    gives the same integers), converted back.  Run it on CPU tensors (see
+    gives the same integers), converted back (with ``fixed`` the int64 sums
+    themselves: ``vote_acc``'s).  Run it on CPU tensors (see
     ``fused_iwe.fused_iwe_fixed_reference``)."""
     h, w = image_size
     inds, vals, batch = corner_terms(events, image_size, weight, eps, padding, count)
-    fixed = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
-    sums = torch.zeros(math.prod(batch) * h * w, dtype=torch.int64, device=events.device).index_add_(0, inds, fixed)
+    units = torch.round(vals.double() * 2.0 ** FIX_BITS).to(torch.int64)
+    sums = torch.zeros(math.prod(batch) * h * w, dtype=torch.int64, device=events.device).index_add_(0, inds, units)
+    if fixed:
+        return sums.reshape(batch + (h, w))
     return (sums.double() * 2.0 ** -FIX_BITS).to(events.dtype).reshape(batch + (h, w))
 
 
 def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0,
-                         eps: float = 1e-6, padding: int = 0, count: bool = False) -> Tensor:
+                         eps: float = 1e-6, padding: int = 0, count: bool = False, fixed: bool = False) -> Tensor:
     """Launch K8 on CUDA tensors: ``[..., n, 4]`` events -> ``[..., H, W]``
     images, one launch for the whole batch (no gradient: see
     ``BilinearVote``).  Events expanded over trailing batch axes (stride 0)
-    are read in place, once per event set."""
+    are read in place, once per event set.  With ``fixed`` the images' int64
+    sums (2^-36 units) instead, unconverted: ``vote_acc``."""
     if events.device.type != "cuda":
         raise ValueError(f"the vote kernel runs on CUDA tensors, got a {events.device} tensor")
     if events.dtype not in _SUFFIX:
@@ -238,16 +257,60 @@ def bilinear_vote_kernel(events: Tensor, image_size: Tuple[int, int], weight: Un
         w_ptr = weight.data_ptr()
     else:
         w_scalar = float(weight)
-    out = torch.empty(batch + (h, w), dtype=events.dtype, device=events.device)
     with torch.cuda.device(events.device):
-        # the global path's fixed-point sums; none for an image summed in shared memory
-        acc = None if shared else torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)
-        rc = _kernel(events.dtype)(events.data_ptr(), e_rep, w_ptr, w_rep, w_scalar, n_img, n, h, w, int(padding),
-                                   int(bool(count)), float(eps), None if acc is None else acc.data_ptr(),
-                                   out.data_ptr(), torch.cuda.current_stream(events.device).cuda_stream)
+        if fixed:  # the shared path writes every sum, the global path adds into zeros
+            acc = (torch.empty if shared else torch.zeros)(batch + (h, w), dtype=torch.int64, device=events.device)
+            rc = _kernel(events.dtype, "acc_")(events.data_ptr(), e_rep, w_ptr, w_rep, w_scalar, n_img, n, h, w,
+                                               int(padding), int(bool(count)), float(eps), acc.data_ptr(),
+                                               torch.cuda.current_stream(events.device).cuda_stream)
+            out = acc
+        else:
+            out = torch.empty(batch + (h, w), dtype=events.dtype, device=events.device)
+            # the global path's fixed-point sums; none for an image summed in shared memory
+            acc = None if shared else torch.zeros(batch + (h, w), dtype=torch.int64, device=events.device)
+            rc = _kernel(events.dtype)(events.data_ptr(), e_rep, w_ptr, w_rep, w_scalar, n_img, n, h, w,
+                                       int(padding), int(bool(count)), float(eps),
+                                       None if acc is None else acc.data_ptr(), out.data_ptr(),
+                                       torch.cuda.current_stream(events.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"evflow_vote_{_SUFFIX[events.dtype]} failed: cudaGetLastError() = {rc}")
+        raise RuntimeError(f"evflow_vote_{'acc_' if fixed else ''}{_SUFFIX[events.dtype]} failed: "
+                           f"cudaGetLastError() = {rc}")
     _LAUNCHES["vote"] += 1
+    if fixed:
+        _MESH_LAUNCHES["vote"] += 1
+    return out
+
+
+def vote_acc(events: Tensor, image_size: Tuple[int, int], weight: Union[float, Tensor] = 1.0, eps: float = 1e-6,
+             padding: int = 0) -> Tensor:
+    """K8's vote alone, for one shard of an event-sharded vote: the int64
+    sums (2^-36 units) ``[..., H, W]`` of these events' bilinear votes; add
+    the shards' sums as integers and convert them once with
+    ``vote_from_fixed``, which gives the unsharded vote's bits.  On a CPU
+    tensor its plain version, the exact model
+    (``bilinear_vote_fixed_reference(..., fixed=True)``)."""
+    if events.device.type == "cpu":
+        return bilinear_vote_fixed_reference(events, image_size, weight, eps, int(padding), fixed=True)
+    return bilinear_vote_kernel(events, image_size, weight, eps, int(padding), fixed=True)
+
+
+def vote_from_fixed(acc: Tensor, dtype: torch.dtype) -> Tensor:
+    """K8's conversion of int64 sums ``acc`` (2^-36 units) to images in
+    ``dtype`` (the plain conversion on a CPU tensor)."""
+    if acc.device.type == "cpu":
+        return (acc.double() * 2.0 ** -FIX_BITS).to(dtype)
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the vote kernel converts to float32 or float64, got {dtype}")
+    acc = acc.contiguous()
+    if acc.numel() >= 2**31:
+        raise ValueError("the vote kernel indexes with 32-bit ints: too many pixels in one call")
+    out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
+    with torch.cuda.device(acc.device):
+        rc = _kernel(dtype, "from_fixed_")(acc.data_ptr(), acc.numel(), out.data_ptr(),
+                                           torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"evflow_vote_from_fixed_{_SUFFIX[dtype]} failed: cudaGetLastError() = {rc}")
+    _MESH_LAUNCHES["vote_from_fixed"] += 1
     return out
 
 

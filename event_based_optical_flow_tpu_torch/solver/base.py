@@ -65,6 +65,8 @@ class SolverBase:
         device, dtype ... where and in what type the solve runs (dtype
             None: see resolve_dtype).
         candidates_fn ... optional init-sweep draw hook (solver/sampling.py).
+        mesh ... a prebuilt ``parallel.Mesh`` (``_setup_parallel``); it
+            replaces the one ``solver.parallel`` would build.
     """
 
     def __init__(
@@ -78,6 +80,7 @@ class SolverBase:
         device="cuda",
         dtype: Optional[torch.dtype] = None,
         candidates_fn: Optional[Callable] = None,
+        mesh=None,
     ):
         self.image_shape = tuple(image_shape)
         self.calib_param = calibration_parameter
@@ -103,12 +106,53 @@ class SolverBase:
         self._rng = np.random.default_rng(self.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.candidates_fn = candidates_fn
+        self._setup_parallel(solver_config.get("parallel") or {}, mesh)
         self.setup_cost_func()
         self.setup_time_aware()
         logger.info(
             f"Solver config: {solver_config}; optimizer: {optimizer_config}; "
             f"device {self.device}, dtype {self.dtype}"
         )
+
+    def _setup_parallel(self, parallel_config: dict, mesh=None):
+        """The ("data", "event") device mesh of the ``parallel:`` block (the
+        JAX package's rules): ``event: M`` shards each frame's events over M
+        devices inside the fused objective (partial votes reduced on the
+        lead device, ``solver/objective.py``); ``data: N`` is the fleet's
+        frame axis.  No block, or 1x1, leaves the solver on one device with
+        no mesh.  On CUDA the mesh takes the visible devices (a block that
+        asks for more raises); on the CPU it repeats the CPU device, as the
+        JAX tests' virtual devices do.  ``mesh``, a prebuilt mesh (one that
+        repeats a device, say), replaces the block's."""
+        from ..parallel.sharded import make_mesh
+
+        self.parallel_config = parallel_config
+        self.mesh = None
+        self.n_event_shards = 1
+        if mesh is not None:
+            if mesh.size > 1:
+                self.mesh = mesh
+                self.n_event_shards = mesh.shape["event"]
+                logger.info(f"Parallel mesh: data={mesh.shape['data']}, event={mesh.shape['event']} over "
+                            f"{list(mesh.devices.reshape(-1))} (given)")
+            return
+        if not parallel_config:
+            return
+        data = int(parallel_config.get("data", 1))
+        event = int(parallel_config.get("event", 1))
+        if data * event <= 1:
+            return
+        if self.device.type == "cuda":
+            n_avail = torch.cuda.device_count()
+            if data * event > n_avail:
+                raise ValueError(f"config 'parallel' asks for data={data} x event={event} = {data * event} "
+                                 f"devices but only {n_avail} are visible")
+            devices = [torch.device("cuda", i) for i in range(n_avail)]
+        else:
+            devices = [self.device] * (data * event)
+        self.mesh = make_mesh(data * event, data=data, event=event, devices=devices)
+        self.n_event_shards = event
+        logger.info(f"Parallel mesh: data={data}, event={event} over {data * event} devices")
 
     def setup_cost_func(self):
         """The configured cost as a history register (the objective builds

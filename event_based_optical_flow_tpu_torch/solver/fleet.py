@@ -29,8 +29,25 @@ the finest scale only (``_optimize_batch_warm_finest``).
 ``optimizer.chain: false`` runs the JAX package's per-scale loop: each
 frame's init sweep on its own (its own draw and capacity), cold starts
 only (a warm motion is dropped with the JAX package's warning).  The two
-draw differently, so their results differ, as in the JAX package.  Its
-mesh (``parallel:``) is not ported: the config validation refuses it.
+draw differently, so their results differ, as in the JAX package.
+
+A ``parallel:`` mesh shards the frames over its devices (the JAX package's
+rule: data x event collapses onto "data", the batched kernels do not
+event-shard a frame).  The batch pads to a multiple of the shards with
+copies of its last frame (dropped from the results), and on the chain data
+shard d solves its contiguous sub-batch on its own device with a solver of
+its own (``_shard_solver``: this class, this configuration, no mesh), one
+shard after another; the frames' results come back to the lead device.
+The batch draws as the JAX package's meshed chain draws: this solver
+decides the batch's warm mode once and takes the coarsest starts of the
+whole padded batch from its own generator, shard d gets its slice, and
+each finer scale's init sweep takes one draw at a shard's patch count,
+which every shard reuses (``_ReplicatedSweeps``: the JAX chain replicates
+the scale's key over "data"), at the padded batch's patch capacity.  No
+collective runs, so a shard's frames are the bits of a single-device chain
+of its sub-batch from the same starts and draws.  The per-scale loop is
+not sharded, as in the JAX package: its padded batch solves on the lead
+device.
 
 The unfused objective's options (``solver.outer_padding``, ``iwe.method:
 count`` / ``polarity``: ``objective.is_unfused``) run as in the sequential
@@ -62,6 +79,7 @@ from .newton_cg import BatchedEvaluations
 from .objective import (FleetEvents, ObjectiveSpec, check_events, cost_of_images, flow_of, kernel_call,
                         map_curvature)
 from .pyramid import COARSE_SUBSAMPLE_MIN_EVENTS, PyramidalPatchContrastMaximization, coarse_subsample
+from .sampling import draw_candidates
 
 logger = logging.getLogger(__name__)
 
@@ -499,11 +517,115 @@ class BatchedLBFGS(BatchedLineSearches):
         return bx, bf, k
 
 
+class _ReplicatedSweeps:
+    """The data shards' init-sweep draws: the JAX package's meshed fleet
+    chain replicates each finer scale's sweep key over "data", so the k-th
+    sweep of every shard takes the same draw (at a shard's patch count),
+    made once by ``draw`` (the parent solver's).  ``restart()`` before each
+    shard's chain; the object is that shard's ``candidates_fn``."""
+
+    def __init__(self, draw: Callable):
+        self._draw, self._made, self._k = draw, [], 0
+
+    def restart(self) -> "_ReplicatedSweeps":
+        self._k = 0
+        return self
+
+    def __call__(self, n_patch: int, k1: int, k2: int):
+        if self._k == len(self._made):
+            self._made.append(((n_patch, k1, k2), self._draw(n_patch, k1, k2)))
+        shape, draw = self._made[self._k]
+        if shape != (n_patch, k1, k2):
+            raise ValueError(f"data shard sweep {self._k} draws {(n_patch, k1, k2)}, the first shard's {shape}")
+        self._k += 1
+        return draw
+
+
 class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
     """Pyramidal CMax over a fleet of frames (``optimize_batch``): chained
     (the JAX package's fleet chain, optionally warm) or, with
     ``optimizer.chain: false``, the per-scale loop; ``optimize`` (one frame)
     is the sequential pyramid's."""
+
+    def _setup_parallel(self, parallel_config: dict, mesh=None):
+        """The base's mesh, collapsed onto "data": every configured device
+        is a frame shard (the JAX package's fleet rule, logged when the
+        block asks for an event axis)."""
+        from ..parallel.sharded import make_mesh
+
+        super()._setup_parallel(parallel_config, mesh)
+        self.n_data_shards = 1
+        self._shard_solvers: List["FleetPyramidalSolver"] = []
+        if self.mesh is not None:
+            if self.n_event_shards > 1:
+                logger.info("fleet solver: frames shard over ALL parallel devices (data x event collapsed onto "
+                            "'data'); its batched kernels do not event-shard within a frame")
+            self.n_data_shards = self.mesh.size
+            self.mesh = make_mesh(self.mesh.size, data=self.mesh.size, event=1,
+                                  devices=list(self.mesh.devices.reshape(-1)))
+            self.n_event_shards = 1
+
+    def _shard_solver(self, d: int) -> "FleetPyramidalSolver":
+        """Data shard ``d``'s solver: this class with this configuration,
+        no mesh, on the shard's device (made at its first batch).  It
+        draws nothing of its own: its starts and its sweeps' draws are this
+        solver's (``_optimize_batch_sharded``)."""
+        while len(self._shard_solvers) <= d:
+            k = len(self._shard_solvers)
+            slv = {key: v for key, v in self.slv_config.items() if key != "parallel"}
+            self._shard_solvers.append(type(self)(self.image_shape, self.calib_param, slv, self.opt_config,
+                                                  self.out_config, device=self.mesh.event_devices(k)[0],
+                                                  dtype=self.dtype))
+        return self._shard_solvers[d]
+
+    def _sweep_draw(self, n_patch: int, k1: int, k2: int):
+        """One init-sweep draw: the hook's (``candidates_fn``), else this
+        solver's generator's."""
+        if self.candidates_fn is not None:
+            return self.candidates_fn(n_patch, k1, k2)
+        return draw_candidates(n_patch, k1, k2, self.generator, self.dtype, self.device)
+
+    def _optimize_batch_sharded(self, events_list: List[np.ndarray], warm) -> List[Dict[int, Tensor]]:
+        """The padded batch's chain over the data shards (the module
+        docstring): the warm mode and the coarsest starts of the whole
+        batch here, shard d's contiguous sub-batch solved by
+        ``_shard_solver(d)`` from its slice of them, every shard's sweeps
+        from one ``_ReplicatedSweeps``; the results on the lead device.
+        ``last_batch_stats`` holds the shards' stats (``shards``), the
+        frames' losses per scale and the host syncs summed."""
+        n = self.n_data_shards
+        bsz = len(events_list)
+        per = bsz // n
+        fast, warms, use_warm = self._chain_warms(warm, bsz)
+        starts = None
+        if not fast:
+            self.overload_patch_configuration(self.coarsest_scale)
+            starts = torch.stack([self._init_scale(self.coarsest_scale, w).reshape(-1) for w in warms])
+        sweeps = _ReplicatedSweeps(self._sweep_draw)
+        max_events = max(len(e) for e in events_list)
+        results, shard_stats = [], []
+        for d in range(n):
+            sv, part = self._shard_solver(d), slice(d * per, (d + 1) * per)
+            sv.candidates_fn = sweeps.restart()
+            wp = [None if w is None else sv._motion_dict(w) for w in warms[part]]
+            if fast:
+                results.extend(sv._optimize_batch_warm_finest(events_list[part], wp))
+            else:
+                results.extend(sv._chain_scales(events_list[part], wp, use_warm, starts[part], max_events))
+            shard_stats.append(sv.last_batch_stats)
+        self.overload_patch_configuration(sv.current_scale)  # the metrics read the scale the solves ended at
+        results = [{s: m.to(self.device) for s, m in r.items()} for r in results]
+        scales = sorted(shard_stats[0]["loss"])
+        self.last_batch_stats = {
+            "shards": shard_stats, "chain": shard_stats[0]["chain"],
+            "loss": {s: [v for st in shard_stats for v in st["loss"][s]] for s in scales},
+            "iters": {s: [st["iters"][s] for st in shard_stats] for s in scales},
+            "syncs": sum(st["syncs"] for st in shard_stats),
+        }
+        if fast:
+            self.last_batch_stats["warm_finest"] = True
+        logger.info(f"fleet batch of {bsz} frames over {n} data shards ({per} frames each)")
+        return results
 
     def _init_scale(self, s: int, warm: Optional[Dict[int, Tensor]], *_) -> Tensor:
         """A frame's coarsest start: its ``warm`` motion, else the zero
@@ -536,6 +658,8 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         event sets (the coarse scales' subsample when ``coarse`` and
         configured) with their orig IWEs; chained, staged into the solver's
         CUDA graph buffers (stage None for the loop)."""
+        if chain and self._graphs is None:
+            self._graphs = ChainGraphs(self.device)
         self.overload_patch_configuration(self.coarsest_scale)
         orig_fn = build_orig_iwe_batched(self._current_spec())
         sets = {"full": events_list}
@@ -624,29 +748,53 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         the solver's device).  Chained when ``_chain_ready`` (warm from
         ``previous_frame_best_estimation``: a per-scale dict for every
         frame, or a list of them, one per frame); else the per-scale loop,
-        cold."""
+        cold.  With a data mesh the batch pads to a shard multiple (a
+        per-frame warm list with it) and the chain runs
+        ``_optimize_batch_sharded``; the loop solves the padded batch here,
+        as the JAX package's (its loop is not sharded)."""
         events_list = [np.asarray(e, dtype=np.float64) for e in events_list]
+        bsz = len(events_list)
+        warm = self.previous_frame_best_estimation
+        pad = -(-bsz // self.n_data_shards) * self.n_data_shards - bsz
+        if pad:
+            events_list = events_list + [events_list[-1]] * pad
+            if isinstance(warm, (list, tuple)) and len(warm) == bsz:
+                warm = list(warm) + [warm[-1]] * pad
         if self._chain_ready():
-            return self._optimize_batch_chain(events_list)
-        if self.previous_frame_best_estimation is not None:
+            if self.n_data_shards > 1:
+                return self._drop_padding(self._optimize_batch_sharded(events_list, warm), bsz)
+            return self._optimize_batch_chain(events_list, warm)
+        if warm is not None:
             logger.warning("fleet batch warm start is only supported on the chain path (optimizer.chain with "
                            "device Newton-CG); falling back to cold initialization for this batch")
             self.previous_frame_best_estimation = None
+        if self.n_data_shards > 1:
+            logger.info(f"fleet solver: the per-scale loop (optimizer.chain: false) is not sharded; its "
+                        f"{len(events_list)} frames solve on {self.device}")
         newton_events = self._newton_events(events_list, chain=False)
         warms = [None] * len(events_list)
         best = self._run_scales(range(self.coarsest_scale, self.patch_scales),
                                 lambda s, best: self._scale_start(events_list, s, best, warms, False),
                                 newton_events, False, False)
-        return [self.update_coarse_from_fine({s: best[s][b] for s in best}) for b in range(len(events_list))]
+        return self._drop_padding([self.update_coarse_from_fine({s: best[s][b] for s in best})
+                                   for b in range(len(events_list))], bsz)
+
+    def _drop_padding(self, results: list, bsz: int) -> list:
+        """The first ``bsz`` frames' results, their losses in
+        ``last_batch_stats`` alike (a data mesh's padding copies dropped)."""
+        stats = self.last_batch_stats
+        stats["loss"] = {s: v[:bsz] for s, v in stats["loss"].items()}
+        return results[:bsz]
 
     def _scale_start(self, events_list: List[np.ndarray], s: int, best: Dict[int, Tensor], warms: list,
-                     batched_sweep: bool) -> Tensor:
+                     batched_sweep: bool, max_events: Optional[int] = None) -> Tensor:
         """The batch's start at scale ``s`` ([B, M]), frame ``b`` warm from
         ``warms[b]`` (or cold: None): at the coarsest scale the warm motion
         or the cold init (drawn frame by frame); else the expanded coarser
         solution (averaged with the warm one) refined by the init sweep:
-        one call over the batch's patches (``batched_sweep``, the chain) or
-        one per frame at its own capacity (the loop)."""
+        one call over the batch's patches (``batched_sweep``, the chain; at
+        the patch capacity of ``max_events``, by default the batch's
+        largest frame) or one per frame at its own capacity (the loop)."""
         bsz = len(events_list)
         pre = [self._presearch_motion(s, {s - 1: best[s - 1][b]} if s > self.coarsest_scale else {}, warms[b])
                for b in range(bsz)]
@@ -655,51 +803,70 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         if batched_sweep:
             motion0 = torch.stack([m for m, _ in pre])
             return self.initialize_guess_from_patch_search_batched(
-                events_list, motion0, pre[0][1], max(len(e) for e in events_list)).reshape(bsz, -1)
+                events_list, motion0, pre[0][1], max_events or max(len(e) for e in events_list)).reshape(bsz, -1)
         return torch.stack([self.initialize_guess_from_patch_search(e, *p).reshape(-1)
                             for e, p in zip(events_list, pre)])
 
-    def _optimize_batch_chain(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
-        """The JAX package's fleet chain (``_optimize_batch_chain``): the
-        cold starts of all frames first, one batched init sweep per finer
-        scale (``initialize_guess_from_patch_search_batched``), each scale's
-        lockstep Newton from the batch's staged evaluations.  Warm modes
-        (the JAX package's predicates): ``per_frame`` (a list with one
-        full per-scale dict per frame), ``shared`` (one full per-scale dict,
+    def _chain_warms(self, warm, bsz: int):
+        """A chained batch's warm start, by the JAX package's predicates:
+        ``(fast, warms, use_warm)``: whether the batch takes the warm
+        finest-only fast path (decided here, once per batch: it counts the
+        warm streak), each frame's warm dict or None, and whether the chain
+        starts warm.  Warm modes: ``per_frame`` (a list with one full
+        per-scale dict per frame), ``shared`` (one full per-scale dict,
         broadcast over the batch), else cold."""
-        if self._graphs is None:
-            self._graphs = ChainGraphs(self.device)
-        bsz = len(events_list)
         scales = list(range(self.coarsest_scale, self.patch_scales))
-        warm = self.previous_frame_best_estimation
-        per_frame = (isinstance(warm, (list, tuple)) and len(warm) > 0
-                     and all(isinstance(w, dict) and all(s in w for s in scales) for w in warm))
         if isinstance(warm, (list, tuple)) and len(warm) != bsz:
             raise ValueError(f"a per-frame warm list of {len(warm)} frames for a batch of {bsz}")
+        per_frame = (isinstance(warm, (list, tuple)) and len(warm) > 0
+                     and all(isinstance(w, dict) and all(s in w for s in scales) for w in warm))
         use_warm = per_frame or (isinstance(warm, dict) and all(s in warm for s in scales))
         # the fast-path gate takes the shared warmth predicate, so a stream's
         # streak cadence is the sequential surface's
         if self._warm_finest_active(self._warm_has_finest(warm, scales[-1])):
-            return self._optimize_batch_warm_finest(events_list, warm)
+            return True, list(warm) if isinstance(warm, (list, tuple)) else [warm] * bsz, True
+        return False, list(warm) if per_frame else [warm if use_warm else None] * bsz, use_warm
+
+    def _optimize_batch_chain(self, events_list: List[np.ndarray], warm) -> List[Dict[int, Tensor]]:
+        """The JAX package's fleet chain (``_optimize_batch_chain``) from
+        ``warm`` (``_chain_warms``): the warm finest-only fast path, or
+        ``_chain_scales``."""
+        fast, warms, use_warm = self._chain_warms(warm, len(events_list))
+        if fast:
+            return self._optimize_batch_warm_finest(events_list, warms)
+        return self._chain_scales(events_list, warms, use_warm)
+
+    def _chain_scales(self, events_list: List[np.ndarray], warms: list, use_warm: bool,
+                      starts: Optional[Tensor] = None, max_events: Optional[int] = None) -> List[Dict[int, Tensor]]:
+        """The fleet chain's scales: the cold starts of all frames first
+        (or ``starts`` [B, M]), one batched init sweep per finer scale
+        (``initialize_guess_from_patch_search_batched``, at the capacity of
+        ``max_events``), each scale's lockstep Newton from the batch's
+        staged evaluations."""
+        bsz = len(events_list)
+        scales = list(range(self.coarsest_scale, self.patch_scales))
         newton_events = self._newton_events(events_list, chain=True)
-        warms = list(warm) if per_frame else [warm if use_warm else None] * bsz
-        best = self._run_scales(scales, lambda s, best: self._scale_start(events_list, s, best, warms, True),
-                                newton_events, use_warm, True)
+
+        def start(s, best):
+            if starts is not None and s == scales[0]:
+                return starts.to(self.device)
+            return self._scale_start(events_list, s, best, warms, True, max_events)
+
+        best = self._run_scales(scales, start, newton_events, use_warm, True)
         losses = self.last_batch_stats["loss"][scales[-1]]
         logger.info(f"fleet chain done ({bsz} frames, {len(scales)} scales); losses {losses}")
         return [self.update_coarse_from_fine({s: best[s][b] for s in best}) for b in range(bsz)]
 
-    def _optimize_batch_warm_finest(self, events_list: List[np.ndarray], warm) -> List[Dict[int, Tensor]]:
+    def _optimize_batch_warm_finest(self, events_list: List[np.ndarray], warms: list) -> List[Dict[int, Tensor]]:
         """The fleet's warm finest-only fast path (the JAX package's
         ``_optimize_batch_warm_finest``): every frame solves the finest
-        scale only, from its own warm motion (a per-frame list) or the
-        shared one, on the full events, as one lockstep solve from the
-        batch's staged evaluations; the coarse entries are the finest's
-        ``pyramid_reduce`` (``update_coarse_from_fine``)."""
+        scale only, from its warm motion ``warms[b]``, on the full events,
+        as one lockstep solve from the batch's staged evaluations; the
+        coarse entries are the finest's ``pyramid_reduce``
+        (``update_coarse_from_fine``)."""
         bsz = len(events_list)
         s_fin = self.patch_scales - 1
         newton_events = self._newton_events(events_list, chain=True, coarse=False)
-        warms = list(warm) if isinstance(warm, (list, tuple)) else [warm] * bsz
         best = self._run_scales([s_fin], lambda s, best: torch.stack([w[s].reshape(-1) for w in warms]),
                                 newton_events, True, True)
         self.last_batch_stats["warm_finest"] = True

@@ -9,6 +9,9 @@ L-BFGS: ``patch_base``).  Every
 ``zero``, ``optuna-sampling``, ``grid-best``, ``global-best``
 (``patch_base.initialize_from_init``).
 
+With a ``parallel:`` mesh whose event axis is > 1 the device solve takes
+the frame's events sharded over the mesh's first row (``patch_base``).
+
 The history register is plotted after every frame and, as in the JAX
 package's single-scale solvers, never cleared: a frame's plot shows every
 frame's values so far.
@@ -61,7 +64,8 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         motion0 = self._initial_motion(events, frame, orig)
         if self._device_newton():
             best_x, best_f, n_iter, hvp = self._run_newton(
-                spec, motion0, frame, orig, int(self.opt_config.get("max_iter", 25)), finest=True,
+                spec, motion0, self._newton_frame(frame, self._shards_events()), orig,
+                int(self.opt_config.get("max_iter", 25)), finest=True,
                 warm=self.previous_frame_best_estimation is not None, gtol=1e-7)
             loss = float(best_f)
             self.syncs += 1

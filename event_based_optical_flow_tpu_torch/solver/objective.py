@@ -53,12 +53,32 @@ whatever ``optimizer.hvp_mode`` says (``patch_base``).
 Per-frame event inputs (``FrameEvents``) are built on the host in float64
 from the masked time min/max, as the JAX banded path packs them, and cast
 once to the solver's device and dtype.
+
+An event-sharded frame (the ``parallel:`` mesh's event axis, the JAX
+package's ``build_objective_banded(mesh=...)``; ``ShardedFrame``,
+``FrameEvents.shard``): the frame's pixel-sorted events cut into
+contiguous shards at run boundaries of the sort key, shard s on the mesh
+row's device s, the frame's own time normalization and ``t_scale``.  The
+objectives above take such a frame in place of a ``FrameEvents``: the
+flow, the cost, the blur and the voxel run once on the lead device (the
+row's first); each shard votes its events on its device (K1/K5 into its
+own int64 sums, added as integers on the lead device in mesh order, then
+one conversion; K3/K6 in the unit of the frame's bound, reduced over the
+shards by a max); the backward kernels (K2/K4, K5/K6's) run per shard on
+the cotangents copied to it, their disjoint ``dflow`` partials added on
+the lead device.  On the card every image, gradient, tangent and HVP is
+the single-device call's bits (``csrc/fused_iwe.cu``'s header).  On the
+CPU the plain versions run on the whole frame, the shards' events gathered
+back in order on the lead device: float partials added across shards would
+differ from the single-device sums by rounding, which the Newton iterates
+amplify, so the CPU keeps the single-device bits too.  The unfused route (padding, count,
+polarity) is not sharded (``patch_base``).
 """
 
 import dataclasses
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,9 +86,11 @@ import torch
 from .. import costs as costs_mod
 from ..costs.functional import nan_to_penalty
 from ..ops.blur import gaussian_blur3
+from ..ops import fused_iwe as fi
 from ..ops.fused_iwe import Frames, fused_iwe, fused_iwe_bwd, fused_iwe_hvp_bwd, fused_iwe_jvp
 from ..ops.iwe import IWE_METHODS
 from ..flow.voxel import DEVICE_SCHEMES, construct_dense_flow_voxel
+from ..parallel.sharded import sum_on
 from ..ops.interp import tile_to_dense_flow
 from ..ops.warp import flow_from_2d_translation, flow_from_rotation, flow_from_similarity
 
@@ -143,6 +165,8 @@ class FrameEvents:
     t_scale: Tensor
     bins: Optional[Tensor] = None
     channels: Optional[Frames] = None
+    # ``shard``'s last cut (devices, ShardedFrame), dropped by ``copy_``
+    _cut: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
     def n_events(self) -> int:
@@ -191,6 +215,40 @@ class FrameEvents:
                    torch.as_tensor(t_max - t_min, dtype=dtype, device=device),
                    None if bins is None else torch.as_tensor(bins, dtype=torch.int32, device=device), channels)
 
+    def shard(self, devices: Sequence) -> "ShardedFrame":
+        """The frame cut into ``len(devices)`` contiguous shards, shard s on
+        ``devices[s]`` (a mesh row's event axis; a device may repeat): each
+        cut at the boundary between two runs of one sort key ((bin,) source
+        pixel) nearest the even split, so every run lies in one shard and
+        the backward's ordered run sums are the unsharded call's.  A shard
+        may be empty.  The shards keep the frame's ``dtf`` and ``t_scale``
+        (the frame's time min/max, as the JAX package's pmin/pmax make
+        them).  One host read of the run heads; the cut is kept for the
+        next call on the same devices until ``copy_``.  Not for polarity
+        channels (their unfused route runs on one device)."""
+        if self.channels is not None:
+            raise ValueError("a polarity frame is not event-sharded: its unfused route runs on one device")
+        devices = tuple(torch.device(d) for d in devices)
+        if self._cut is not None and self._cut[0] == devices:
+            return self._cut[1]
+        n = self.x.shape[0]
+        heads = np.zeros(0, dtype=np.int64)
+        if n > 1:
+            xt, yt = self.x.trunc(), self.y.trunc()
+            change = (xt[1:] != xt[:-1]) | (yt[1:] != yt[:-1])
+            if self.bins is not None:
+                change = change | (self.bins[1:] != self.bins[:-1])
+            heads = torch.nonzero(change).squeeze(1).cpu().numpy() + 1
+        cuts = run_cuts(heads, n, len(devices))
+        shards = []
+        for s, dev in enumerate(devices):
+            part = slice(cuts[s], cuts[s + 1])
+            to = lambda t: t[part].to(dev)  # noqa: E731
+            shards.append(FrameEvents(to(self.x), to(self.y), to(self.dtf), to(self.wt), self.t_scale.to(dev),
+                                      None if self.bins is None else to(self.bins)))
+        self._cut = (devices, ShardedFrame(tuple(shards), self.t_scale.to(devices[0]), n))
+        return self._cut[1]
+
     def copy_(self, other: "FrameEvents") -> "FrameEvents":
         """Copy ``other``'s events into this instance's tensors, in place
         (a captured CUDA graph reads them): the same event count, dtype,
@@ -202,7 +260,163 @@ class FrameEvents:
                              f"{other.x.shape[0]} {other.x.dtype} on {other.x.device}")
         for name in ("x", "y", "dtf", "wt", "t_scale") + (() if self.bins is None else ("bins",)):
             getattr(self, name).copy_(getattr(other, name))
+        self._cut = None
         return self
+
+
+def run_cuts(heads: np.ndarray, n: int, n_shards: int) -> list:
+    """The ``n_shards + 1`` bounds of contiguous shards of ``n`` sorted
+    events whose runs start at ``heads`` (ascending, each in ``[1, n)``):
+    cut s at the run boundary (0, a head, or n) nearest ``s n /
+    n_shards`` (the lower on a tie), never before cut s - 1."""
+    bounds = np.concatenate([[0], np.asarray(heads, dtype=np.int64), [n]])
+    cuts = [0]
+    for s in range(1, n_shards):
+        target = s * n / n_shards
+        i = int(np.searchsorted(bounds, target))
+        lo, hi = bounds[max(i - 1, 0)], bounds[min(i, len(bounds) - 1)]
+        cut = int(lo if target - lo <= hi - target else hi)
+        cuts.append(max(cut, cuts[-1]))
+    return cuts + [n]
+
+
+@dataclass
+class ShardedFrame:
+    """One frame's events cut over a mesh row's event axis
+    (``FrameEvents.shard``): ``shards[s]`` on the row's device s (a
+    ``FrameEvents`` each, possibly empty, with the frame's ``t_scale``),
+    ``t_scale`` on the lead device (the row's first), ``n_total`` the
+    frame's events.  The objectives take it in place of a ``FrameEvents``
+    (the module docstring)."""
+
+    shards: Tuple[FrameEvents, ...]
+    t_scale: Tensor
+    n_total: int
+    channels = None  # never polarity
+    _whole: Optional[FrameEvents] = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def n_events(self) -> int:
+        return self.n_total
+
+    @property
+    def bins(self) -> Optional[Tensor]:
+        """The first shard's bins: None exactly when the frame has none."""
+        return self.shards[0].bins
+
+    @property
+    def lead(self) -> torch.device:
+        return self.t_scale.device
+
+    def voting(self):
+        """The shards with events."""
+        return [sh for sh in self.shards if sh.x.shape[0] > 0]
+
+    def whole(self) -> FrameEvents:
+        """The shards' events gathered back in order on the lead device
+        (the CPU's plain route; made once)."""
+        if self._whole is None:
+            cat = lambda name: torch.cat([getattr(sh, name).to(self.lead) for sh in self.shards])  # noqa: E731
+            self._whole = FrameEvents(cat("x"), cat("y"), cat("dtf"), cat("wt"), self.t_scale,
+                                      None if self.bins is None else cat("bins"))
+        return self._whole
+
+
+def _sharded_images(flow: Tensor, frame: ShardedFrame, offsets, include_orig: bool, eps: float = 1e-6) -> Tensor:
+    """The frame's raw images ``[(orig) + K, H, W]`` on the lead device: on
+    the card each shard's K1 (K5) votes into its own int64 sums, added as
+    integers, converted once (the unsharded call's bits); on the CPU the
+    plain version of the whole frame."""
+    h, w = flow.shape[-2], flow.shape[-1]
+    shape = (len(offsets) + int(include_orig), h, w)
+    if frame.lead.type == "cpu":
+        fr = frame.whole()
+        return fi.fused_iwe_reference(flow, fr.x, fr.y, fr.dtf, fr.wt, offsets, include_orig, eps, fr.bins)
+    sums = []
+    for sh in frame.voting():
+        acc = torch.zeros(shape, dtype=torch.int64, device=sh.x.device)
+        sums.append(fi.fused_iwe_fwd_acc(flow.to(sh.x.device), sh.x, sh.y, sh.dtf, sh.wt, offsets, include_orig,
+                                         acc, eps, sh.bins))
+    return fi.fused_iwe_from_fixed(sum_on(sums, frame.lead, torch.zeros(shape, dtype=torch.int64,
+                                                                            device=frame.lead)), flow.dtype)
+
+
+class ShardedFusedIWE(torch.autograd.Function):
+    """The event-sharded vote (``_sharded_images``) as an autograd function
+    of the flow (or voxel): the backward copies the image cotangent to each
+    shard, runs K2 (K5's backward) there and adds the disjoint ``dflow``
+    partials on the lead device in mesh order."""
+
+    @staticmethod
+    def forward(ctx, flow, frame, offsets, include_orig, eps):
+        flow = flow.contiguous()
+        ctx.save_for_backward(flow)
+        ctx.config = (frame, offsets, include_orig, eps)
+        return _sharded_images(flow, frame, offsets, include_orig, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flow,) = ctx.saved_tensors
+        frame, offsets, include_orig, eps = ctx.config
+        g = g.contiguous()
+        if frame.lead.type == "cpu":
+            fr = frame.whole()
+            return (fi.fused_iwe_bwd(flow, fr.x, fr.y, fr.dtf, fr.wt, g, offsets, include_orig, eps, fr.bins),) \
+                + (None,) * 4
+        parts = (fi.fused_iwe_bwd(flow.to(sh.x.device), sh.x, sh.y, sh.dtf, sh.wt, g.to(sh.x.device), offsets,
+                                  include_orig, eps, sh.bins, mesh=True) for sh in frame.voting())
+        return (sum_on(parts, frame.lead, flow),) + (None,) * 4
+
+
+def _sharded_tangent(flow: Tensor, dflow: Tensor, frame: ShardedFrame, offsets, eps: float = 1e-6) -> Tensor:
+    """K3's (K6's) tangent images of the sharded frame on the lead device:
+    on the card each shard's bound, their max (copied back to every shard),
+    each shard's votes in that unit and the frame's event count, the int64
+    sums added, one conversion (the unsharded call's bits); on the CPU the
+    plain version of the whole frame."""
+    h, w = flow.shape[-2], flow.shape[-1]
+    shape = (len(offsets), h, w)
+    voting = frame.voting()
+    if frame.lead.type == "cpu":
+        fr = frame.whole()
+        return fi.fused_iwe_jvp_reference(flow, dflow, fr.x, fr.y, fr.dtf, fr.wt, offsets, False, eps, fr.bins)
+    bound = None
+    for sh in voting:
+        b = fi.fused_iwe_jvp_bound(dflow.to(sh.x.device), sh.x, sh.y, sh.dtf, sh.wt, offsets, sh.bins).to(frame.lead)
+        bound = b if bound is None else torch.maximum(bound, b)
+    if bound is None:
+        bound = torch.zeros(1, dtype=torch.int64, device=frame.lead)
+    sums = []
+    for sh in voting:
+        acc = torch.zeros(shape, dtype=torch.int64, device=sh.x.device)
+        fi.fused_iwe_jvp_acc(flow.to(sh.x.device), dflow.to(sh.x.device), sh.x, sh.y, sh.dtf, sh.wt, offsets,
+                             bound.to(sh.x.device), frame.n_total, acc, None, eps, sh.bins)
+        sums.append(acc)
+    total = sum_on(sums, frame.lead, torch.zeros(shape, dtype=torch.int64, device=frame.lead))
+    return fi.fused_iwe_from_scaled(total, bound, frame.n_total, flow.dtype)
+
+
+def _sharded_hvp_bwd(flow: Tensor, dflow: Tensor, g1: Tensor, g2: Tensor, frame: ShardedFrame, offsets,
+                     term_a: bool, eps: float = 1e-6) -> Tensor:
+    """K4 (K6's HVP backward) per shard on the cotangents copied to it, the
+    disjoint partials added on the lead device in mesh order (on the CPU
+    the plain version of the whole frame)."""
+    if frame.lead.type == "cpu":
+        fr = frame.whole()
+        return fi.fused_iwe_hvp_bwd(flow, dflow, g1, g2, fr.x, fr.y, fr.dtf, fr.wt, offsets, term_a, eps, fr.bins)
+    parts = (fi.fused_iwe_hvp_bwd(flow.to(sh.x.device), dflow.to(sh.x.device), g1.to(sh.x.device),
+                                  g2.to(sh.x.device), sh.x, sh.y, sh.dtf, sh.wt, offsets, term_a, eps, sh.bins,
+                                  mesh=True) for sh in frame.voting())
+    return sum_on(parts, frame.lead, flow)
+
+
+def _sharded_on(mesh, frame):
+    """``frame`` for an objective built with ``mesh``: a ``FrameEvents``
+    cut over the mesh's first row (``FrameEvents.shard``: once per frame),
+    anything else as it is."""
+    if mesh is not None and isinstance(frame, FrameEvents):
+        return frame.shard(mesh.event_devices())
+    return frame
 
 
 @dataclass
@@ -360,23 +574,41 @@ def _channels(frame: FrameEvents, t: Tensor) -> Tensor:
     return t if frame.channels is None else t.expand((2,) + tuple(t.shape)).contiguous()
 
 
+def _check_sharded(spec: ObjectiveSpec) -> None:
+    if is_unfused(spec):
+        raise ValueError("an event-sharded frame takes the fused objective: the unfused route (outer padding, "
+                         "count or polarity votes) runs on one device")
+
+
 def _vote(spec: ObjectiveSpec, flow: Tensor, frame: FrameEvents, offsets, include_orig: bool) -> Tensor:
     """The kernel's raw images ``[(orig) + K, (2,) H', W']`` of this spec's
-    padding and vote; a polarity frame's two channels at axis 1."""
+    padding and vote; a polarity frame's two channels at axis 1; an
+    event-sharded frame's by ``ShardedFusedIWE``."""
+    if isinstance(frame, ShardedFrame):
+        _check_sharded(spec)
+        return ShardedFusedIWE.apply(flow, frame, tuple(float(o) for o in offsets), bool(include_orig), 1e-6)
     imgs = fused_iwe(_channels(frame, flow), frame.x, frame.y, frame.dtf, frame.wt, offsets, include_orig,
                      **kernel_call(spec, frame))
     return imgs if frame.channels is None else imgs.transpose(0, 1)
 
 
-def build_orig_iwe(spec: ObjectiveSpec):
+def build_orig_iwe(spec: ObjectiveSpec, mesh=None):
     """fn(frame) -> the motion-independent blurred orig IWE [(2,) H', W']
-    (the kernel's orig-only call), computed once per frame."""
+    (the kernel's orig-only call), computed once per frame; with ``mesh``
+    (or a ``ShardedFrame``) voted by the frame's shards."""
 
     def orig_fn(frame: FrameEvents) -> Tensor:
+        frame = _sharded_on(mesh, frame)
         with torch.no_grad():
             h, w = spec.image_shape
-            zeros = frame.x.new_zeros((2, h, w))  # a dense zero flow: the orig image reads no bin
-            imgs = _vote(spec, zeros, dataclasses.replace(frame, bins=None), (), True)
+            if isinstance(frame, ShardedFrame):  # a dense zero flow: the orig image reads no bin
+                zeros = torch.zeros((2, h, w), dtype=frame.t_scale.dtype, device=frame.lead)
+                frame = dataclasses.replace(frame, shards=tuple(dataclasses.replace(sh, bins=None)
+                                                                for sh in frame.shards))
+            else:
+                zeros = frame.x.new_zeros((2, h, w))
+                frame = dataclasses.replace(frame, bins=None)
+            imgs = _vote(spec, zeros, frame, (), True)
             if spec.blur_sigma > 0:
                 imgs = gaussian_blur3(imgs, spec.blur_sigma)
             return imgs[0]
@@ -446,11 +678,14 @@ def _flow(spec: ObjectiveSpec, motion_flat: Tensor, frame: FrameEvents) -> Tenso
     return flow_of(spec, motion_flat, frame.t_scale)
 
 
-def build_objective(spec: ObjectiveSpec):
-    """fn(motion_flat, orig_blurred, frame) -> (loss, components)."""
+def build_objective(spec: ObjectiveSpec, mesh=None):
+    """fn(motion_flat, orig_blurred, frame) -> (loss, components); with
+    ``mesh`` (or a ``ShardedFrame``) the frame's events sharded over the
+    mesh's event axis."""
     offsets, cost_of = cost_of_images(spec)
 
     def objective(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
+        frame = _sharded_on(mesh, frame)
         return cost_of(_vote(spec, _flow(spec, motion_flat, frame), frame, offsets, False), motion_flat,
                        orig_blurred)
 
@@ -474,7 +709,12 @@ def objective_supports_analytic_hvp(spec: ObjectiveSpec, gauss_newton: bool = Tr
 
 def _tangent(spec: ObjectiveSpec, flow: Tensor, dflow: Tensor, frame: FrameEvents, offsets, emit_value: bool):
     """K3 on this spec's padding and vote (``_vote``'s layout):
-    ``(images, dimages)`` with ``emit_value``, else ``dimages``."""
+    ``(images, dimages)`` with ``emit_value``, else ``dimages``; an
+    event-sharded frame's by ``_sharded_tangent``."""
+    if isinstance(frame, ShardedFrame):
+        _check_sharded(spec)
+        dimages = _sharded_tangent(flow, dflow, frame, offsets)
+        return (_sharded_images(flow, frame, offsets, False), dimages) if emit_value else dimages
     out = fused_iwe_jvp(_channels(frame, flow), _channels(frame, dflow), frame.x, frame.y, frame.dtf, frame.wt,
                         offsets, emit_value, **kernel_call(spec, frame))
     if frame.channels is None:
@@ -512,6 +752,10 @@ def _hvp_assembly(spec: ObjectiveSpec, gauss_newton: bool):
             lambda ii, mm: grad_cost(ii, mm, orig_blurred), (images, motion_flat), (dimages, p))
         if frame.channels is not None:  # the kernels take the channel axis first
             g1, g2 = g1.transpose(0, 1), g2.transpose(0, 1)
+        if isinstance(frame, ShardedFrame):
+            _check_sharded(spec)
+            return flow_vjp(_sharded_hvp_bwd(flow, dflow, g1.contiguous(), g2.contiguous(), frame, offsets,
+                                             not gauss_newton))[0] + dgm
         kflow, g1, call = _channels(frame, flow), g1.contiguous(), kernel_call(spec, frame)
         events = (frame.x, frame.y, frame.dtf, frame.wt)
         per_flow = lambda g: g if frame.channels is None else g.sum(0)  # noqa: E731
@@ -542,13 +786,15 @@ def _flow_and_tangent(spec: ObjectiveSpec, motion_flat: Tensor, p: Tensor, frame
     return flow.contiguous(), dflow.contiguous(), flow_vjp
 
 
-def build_objective_hvp(spec: ObjectiveSpec, gauss_newton: bool = True):
+def build_objective_hvp(spec: ObjectiveSpec, gauss_newton: bool = True, mesh=None):
     """hvp(motion_flat, p, orig_blurred, frame) -> H p in one call: K3
     emits the direction images and their tangent together (the unstaged
-    form; ``build_objective_hvp_staged`` is the CG loop's)."""
+    form; ``build_objective_hvp_staged`` is the CG loop's); ``mesh`` as
+    for ``build_objective``."""
     offsets, assemble = _hvp_assembly(spec, gauss_newton)
 
     def hvp(motion_flat: Tensor, p: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents):
+        frame = _sharded_on(mesh, frame)
         flow, dflow, flow_vjp = _flow_and_tangent(spec, motion_flat, p, frame)
         images, dimages = _tangent(spec, flow, dflow, frame, offsets, True)
         return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)
@@ -556,20 +802,22 @@ def build_objective_hvp(spec: ObjectiveSpec, gauss_newton: bool = True):
     return hvp
 
 
-def build_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool = True):
+def build_objective_hvp_staged(spec: ObjectiveSpec, gauss_newton: bool = True, mesh=None):
     """``(prep, hvp)`` for the CG loop: ``aux = prep(motion, orig, frame)``
     votes the direction images once per CG solve (K1: they depend on the
     iterate, not on the CG direction); ``hvp(aux, motion, p, orig, frame)``
     runs K3 for the tangent only, the cost's jvp-of-grad and K4 (K6 for
-    a time-aware objective)."""
+    a time-aware objective); ``mesh`` as for ``build_objective``."""
     offsets, assemble = _hvp_assembly(spec, gauss_newton)
 
     def prep(motion_flat: Tensor, orig_blurred: Optional[Tensor], frame: FrameEvents) -> Tensor:
+        frame = _sharded_on(mesh, frame)
         with torch.no_grad():
             return _vote(spec, _flow(spec, motion_flat, frame), frame, offsets, False)
 
     def hvp(images: Tensor, motion_flat: Tensor, p: Tensor, orig_blurred: Optional[Tensor],
             frame: FrameEvents):
+        frame = _sharded_on(mesh, frame)
         flow, dflow, flow_vjp = _flow_and_tangent(spec, motion_flat, p, frame)
         dimages = _tangent(spec, flow, dflow, frame, offsets, False)
         return assemble(images, dimages, flow, dflow, flow_vjp, motion_flat, p, orig_blurred, frame)

@@ -26,6 +26,11 @@ the sampling ("optuna") search (rounds of candidates drawn from the
 solver's numpy generator in the JAX package's order, each scored by one
 K1 evaluation, one read per round).  ``optimizer.device: false`` sends
 ``Newton-CG`` to scipy's.
+
+With a ``parallel:`` mesh (``SolverBase._setup_parallel``) the device
+solves take an event-sharded frame (``objective.ShardedFrame``) and its
+sharded objective; the sweeps and the host optimizers see the unsharded
+frame on the lead device.
 """
 
 import logging
@@ -203,6 +208,26 @@ class PatchContrastMaximization(SolverBase):
         return FrameEvents.from_numpy(events, self.device, self.dtype, self.time_bin,
                                       polarity=self.iwe_method == "polarity")
 
+    def _shards_events(self) -> bool:
+        """Whether the device solve shards its frames' events: a mesh with
+        an event axis > 1 and the fused objective (the unfused route runs on
+        one device, with the JAX package's warning, once)."""
+        if self.mesh is None or self.n_event_shards <= 1:
+            return False
+        if is_unfused(self._current_spec()):
+            if not getattr(self, "_warned_mesh_unused", False):
+                logger.warning("a 'parallel' mesh is configured but the objective does not route through the fused "
+                               f"kernel (outer_padding {self.padding}, iwe.method {self.iwe_method!r}); the solve "
+                               "runs single-device")
+                self._warned_mesh_unused = True
+            return False
+        return True
+
+    def _newton_frame(self, frame: FrameEvents, sharded: bool):
+        """The device solve's frame: cut over the mesh's first row when
+        ``sharded``, else ``frame``."""
+        return frame.shard(self.mesh.event_devices()) if sharded else frame
+
     def _want_analytic(self, warm: bool, finest: bool) -> bool:
         """The hvp-mode routing table: does the solve of this (warmth,
         scale) pair use the analytic HVP?  ``analytic``: the finest scale
@@ -293,7 +318,9 @@ class PatchContrastMaximization(SolverBase):
         "lbfgs".  With ``stage`` (a ``graphs.Stage``
         whose buffers are ``frame`` and ``orig``) the evaluations are the
         stage's, replayed from CUDA graphs on the card (the chain);
-        without, they run eagerly (the loop)."""
+        without, they run eagerly (the loop).  An event-sharded ``frame``
+        (``objective.ShardedFrame``) takes the sharded objective and HVP
+        (the JAX package's ``_build_newton`` with its mesh), L-BFGS's too."""
         obj = build_objective(spec)
         lbfgs = self._lbfgs_options(maxiter, gtol)
         if lbfgs is not None:

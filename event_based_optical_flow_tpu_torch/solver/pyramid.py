@@ -38,6 +38,15 @@ full pyramid on every K-th consecutive warm frame (the warm streak,
 ``_warm_finest_active``) to re-anchor the basin.  A deviation from the
 original method, which runs every scale; off by default.
 
+With a ``parallel:`` mesh whose event axis is > 1 (``n_event_shards``),
+the device Newton (or L-BFGS) solves every scale on the frame's events
+sharded over the mesh's first row (``objective.ShardedFrame``, cut once
+per event set): on the card the single-device solve's bits.  Such a frame
+runs the loop (``chain`` off: a CUDA graph per device is not captured
+across distinct cards); the warm finest-only path runs it too.  The init
+sweeps and the metrics stay on the lead device, and the unfused route and
+the host optimizers run on one device, with the JAX package's warning.
+
 Any other ``optimizer.method`` (scipy's, with ``optimizer.device: false``
 its Newton-CG too, a first-order rule or the sampling optimizer) runs the
 loop: every scale's start as above, then that optimizer on the scale's
@@ -171,14 +180,15 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         their captured buffers, and the init sweeps stay eager (one call
         per scale, with their draws).  The JAX chain's contract is the
         loop's result ("same kernels, same key order"); here it is the
-        loop's bits."""
-        if self._graphs is None:
+        loop's bits.  An event-sharded solve runs the loop (its bits)."""
+        sharded = self._shards_events()
+        if self._graphs is None and not sharded:
             self._graphs = ChainGraphs(self.device)
         warm = self.previous_frame_best_estimation
         # a dict only: a per-frame warm list here is a fleet's state
         if self._warm_finest_active(isinstance(warm, dict) and self._warm_has_finest(warm, self.patch_scales - 1)):
             return self._optimize_warm_finest(events)
-        return self._optimize_scales(events, chain=True)
+        return self._optimize_scales(events, chain=not sharded)
 
     @staticmethod
     def _warm_has_finest(warm, s_fin: int) -> bool:
@@ -219,13 +229,17 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         s_fin = self.patch_scales - 1
         self.overload_patch_configuration(s_fin)
         spec = self._current_spec()
-        full = self.frame_events(events)
-        stage = self._graphs.stage("full", full, build_orig_iwe(spec)(full))
+        full = self._newton_frame(self.frame_events(events), self._shards_events())
+        if isinstance(full, objective.ShardedFrame):
+            stage, frame, orig = None, full, build_orig_iwe(spec)(full)
+        else:
+            stage = self._graphs.stage("full", full, build_orig_iwe(spec)(full))
+            frame, orig = stage.frame, stage.orig
         self.syncs = 0
         before = ops.launch_counts()
         scale_mi, scale_cg = self._scale_budget(s_fin)
         best_x, best_f, n_iter, hvp = self._run_newton(spec, self.previous_frame_best_estimation[s_fin],
-                                                       stage.frame, stage.orig, scale_mi, scale_cg, finest=True,
+                                                       frame, orig, scale_mi, scale_cg, finest=True,
                                                        warm=True, stage=stage)
         loss = float(best_f)
         self.syncs += 1
@@ -233,7 +247,8 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         after = ops.launch_counts()
         self.last_frame_stats = {
             "iters": {s_fin: n_iter}, "loss": {s_fin: loss}, "hvp": {s_fin: hvp}, "events": {s_fin: len(events)},
-            "launches": {s_fin: {k: after[k] - before[k] for k in after}}, "chain": True, "warm_finest": True,
+            "launches": {s_fin: {k: after[k] - before[k] for k in after}}, "chain": stage is not None,
+            "warm_finest": True,
             "syncs": self.syncs,
         }
         logger.info(f"Warm finest-only solve: {n_iter} iters, loss {loss:.6f}")
@@ -251,13 +266,24 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         events = np.asarray(events, dtype=np.float64)
         self.overload_patch_configuration(self.coarsest_scale)
         orig_fn = build_orig_iwe(self._current_spec())
+        device_newton = self._device_newton()
+        sharded = device_newton and self._shards_events()
+        if self.mesh is not None and self.n_event_shards > 1 and not device_newton \
+                and not getattr(self, "_warned_mesh_host", False):
+            logger.warning(f"a 'parallel' mesh is configured but optimizer.method {self.opt_config['method']!r} "
+                           "solves from the host; the solve runs single-device")
+            self._warned_mesh_host = True
         # (FrameEvents, orig IWE) of the full frame and of the coarse scales'
-        # subsample: the orig IWE depends on the events only
+        # subsample: the orig IWE depends on the events only; the device
+        # Newton's frames cut over the mesh's row when sharded (the init
+        # sweeps take the unsharded full frame)
         full = self.frame_events(events)
-        newton_events = {"full": (full, orig_fn(full))}
+        full_newton = self._newton_frame(full, sharded)
+        newton_events = {"full": (full_newton, orig_fn(full_newton))}
+        init_events = (full, newton_events["full"][1])
         sub = coarse_subsample(events, float(self.opt_config.get("coarse_event_fraction", 1.0)))
         if sub is not None:
-            coarse = self.frame_events(sub)
+            coarse = self._newton_frame(self.frame_events(sub), sharded)
             newton_events["coarse"] = (coarse, orig_fn(coarse))
         stages = {}
         if chain:
@@ -265,7 +291,6 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             newton_events = {name: (st.frame, st.orig) for name, st in stages.items()}
         warm_motion = self.previous_frame_best_estimation
         warm = warm_motion is not None
-        device_newton = self._device_newton()
         self.syncs = 0
         self.cost_func.enable_history_register()
         stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}, "chain": chain}
@@ -281,7 +306,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             before = ops.launch_counts()
             presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
             if presearch is None:
-                x0 = self._init_scale(s, warm_motion, events, *newton_events["full"])
+                x0 = self._init_scale(s, warm_motion, events, *init_events)
             else:
                 motion0, n_cand = presearch
                 x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)

@@ -13,9 +13,11 @@ candidates of a round are scored in ONE batched scatter vote, not a loop
 over patches.
 
 Randomness is explicit: the draws come from the solver's
-``torch.Generator``, or from an optional ``candidates_fn(n_patch, k1, k2)
--> (uniform [P, k1, 2], normal [P, k2, 2])`` hook (tests use it to feed
-the JAX package's ``jax.random`` draws to the port).
+``torch.Generator`` (``draw_candidates``), or from an optional
+``candidates_fn(n_patch, k1, k2) -> (uniform [P, k1, 2], normal [P, k2,
+2])`` hook (numpy arrays or tensors; tests use it to feed the JAX
+package's ``jax.random`` draws to the port, a data-sharded fleet its
+parent solver's draws).
 """
 
 import logging
@@ -127,6 +129,15 @@ def _gather_lattice_fast(events: np.ndarray, patches: dict, capacity: int):
     return out, wgt, counts
 
 
+def draw_candidates(n_patch: int, k1: int, k2: int, generator: torch.Generator, dtype, device):
+    """The sweep's draws from ``generator``: uniform ``[n_patch, k1, 2]``
+    (the first round's candidates in the search box) and standard normal
+    ``[n_patch, k2, 2]`` (the second round's, around the first's best)."""
+    kw = {"dtype": dtype, "device": device}
+    return (torch.rand((n_patch, k1, 2), generator=generator, **kw),
+            torch.randn((n_patch, k2, 2), generator=generator, **kw))
+
+
 def build_patch_search(
     patch_size: Tuple[int, int],
     n_candidates: int,
@@ -167,10 +178,10 @@ def build_patch_search(
         n_patch = patch_events.shape[0]
         kw = {"dtype": patch_events.dtype, "device": patch_events.device}
         if candidates_fn is None:
-            u1 = torch.rand((n_patch, k1, 2), generator=generator, **kw)
-            n2 = torch.randn((n_patch, k2, 2), generator=generator, **kw)
+            u1, n2 = draw_candidates(n_patch, k1, k2, generator, **kw)
         else:
-            u1, n2 = (torch.tensor(np.asarray(a), **kw) for a in candidates_fn(n_patch, k1, k2))
+            u1, n2 = (a.to(**kw) if torch.is_tensor(a) else torch.tensor(np.asarray(a), **kw)
+                      for a in candidates_fn(n_patch, k1, k2))
         t = patch_events[..., 2]
         big = torch.finfo(t.dtype).max
         t_max = torch.where(weights > 0, t, t.new_tensor(-big)).amax(dim=-1)

@@ -357,10 +357,14 @@ class MultiStreamFlowEstimator:
       (``solver/fleet.py``), each frame warm-started from its own stream's
       motion.  A lockstep Newton runs every frame for the slowest frame's
       iterations at every scale.
+      Required when the streams shard over a ``parallel_config={"data":
+      N}`` device mesh: there the batch is the scaling mechanism (each data
+      shard solves its streams on its own device, ``solver/fleet.py``).
     - ``"auto"`` (default): the JAX package's rule, measured there on one
-      TPU chip: ``"sequential"`` for time-aware configs (lockstep
-      stragglers dominated the deep voxel solves), ``"fleet"`` for dense
-      ones.  Its H100 measurement is in ``PERF.md``.
+      TPU chip: ``"fleet"`` with a data mesh; else ``"sequential"`` for
+      time-aware configs (lockstep stragglers dominated the deep voxel
+      solves), ``"fleet"`` for dense ones.  Its H100 measurement is in
+      ``PERF.md``.
 
     Same config surface as :class:`StreamingFlowEstimator`; all streams
     share one sensor geometry and solver configuration.  Warm state is a
@@ -394,13 +398,17 @@ class MultiStreamFlowEstimator:
             raise ValueError(
                 f"batching must be auto|fleet|sequential, got {batching!r}"
             )
-        if parallel_config:
-            raise ConfigError("parallel_config (streams sharded over a device mesh) is not ported yet")
         H, W = image_shape
         slv, opt = _prepare_configs(image_shape, solver_config, optimizer_config)
         set_numerics()  # the solve on the card is deterministic only under these
+        data_mesh = bool(parallel_config) and int((parallel_config or {}).get("data", 1)) > 1
         if batching == "auto":
-            batching = "sequential" if slv.get("time_aware") else "fleet"
+            batching = "sequential" if (slv.get("time_aware") and not data_mesh) else "fleet"
+        if batching == "sequential" and data_mesh:
+            raise ValueError("batching='sequential' cannot shard streams over a parallel data mesh; "
+                             "use batching='fleet'")
+        if parallel_config:
+            slv = dict(slv, parallel=dict(parallel_config))
         self.image_shape = (H, W)
         self.n_streams = int(n_streams)
         self.warm_start = warm_start

@@ -65,6 +65,7 @@ _KNOWN_SOLVER_KEYS = {
     "cost", "cost_with_weight", "outer_padding", "iwe", "max_scale",
     "precision", "iwe_backend", "seed", "parallel",
 }
+_KNOWN_PARALLEL_KEYS = {"data", "event"}
 _KNOWN_OPT_KEYS = {
     "n_iter", "method", "max_iter", "sampler", "parameters", "cg_maxiter", "device",
     "chain", "hvp_central", "hvp_mode", "hvp_max_step", "coarse_event_fraction",
@@ -82,12 +83,9 @@ def check_ported(sections: Dict[str, dict]) -> None:
     """Raise ``ConfigError`` for an option that selects what the port does
     not run, or a value no solver takes (``sections``: some of ``data``,
     ``solver``, ``optimizer``; the CLI's validation and the serving
-    surface's config merge both call it): device meshes; an outer padding
-    that is not an int >= 0, an ``iwe.method`` outside ``IWE_METHODS``."""
+    surface's config merge both call it): an outer padding that is not an
+    int >= 0, an ``iwe.method`` outside ``IWE_METHODS``."""
     slv = sections.get("solver", {})
-    if slv.get("parallel"):
-        raise ConfigError("'solver.parallel' (multi-device meshes, the fleet's frame sharding among them) "
-                          "is not ported yet")
     pad = slv.get("outer_padding", 0)
     if not isinstance(pad, int) or isinstance(pad, bool) or pad < 0:
         raise ConfigError(f"config key 'solver.outer_padding' must be an int >= 0, got {pad!r}")
@@ -106,12 +104,6 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
 
     for section in ("data", "output", "solver", "optimizer"):
         _require(config, section, dict, "<root>")
-    if config.get("is_dnn") and (config.get("dnn") or {}).get("data_parallel"):
-        raise ConfigError("'dnn.data_parallel: true' (the multi-device DNN train step, "
-                          "dnn_train_step_parallel) is not ported yet")
-    if config.get("parallel"):
-        raise ConfigError("'parallel' (multi-device meshes, the fleet's frame sharding among them) "
-                          "is not ported yet")
 
     data = config["data"]
     _require(data, "dataset", str, "data")
@@ -202,6 +194,20 @@ def validate_config(config: Dict[str, Any]) -> List[str]:
     for key in slv:
         if key not in _KNOWN_SOLVER_KEYS:
             warnings.append(f"unknown config key 'solver.{key}' (ignored?)")
+
+    # top-level parallel: {data: N, event: M}, the device mesh's axes;
+    # main.py forwards it to the solver as solver_config["parallel"]
+    par = config.get("parallel")
+    if par is not None:
+        if not isinstance(par, dict):
+            raise ConfigError(f"config key 'parallel' must be a dict, got {type(par).__name__}")
+        for axis in ("data", "event"):
+            v = par.get(axis, 1)
+            if not isinstance(v, int) or v < 1:
+                raise ConfigError(f"config key 'parallel.{axis}' must be a positive int, got {v!r}")
+        for key in par:
+            if key not in _KNOWN_PARALLEL_KEYS:
+                warnings.append(f"unknown config key 'parallel.{key}' (ignored?)")
 
     opt = config["optimizer"]
     _choice(opt, "method", set(OPTIMIZERS), "optimizer")

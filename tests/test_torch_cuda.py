@@ -1645,3 +1645,83 @@ def test_time_aware_exact_hvp_on_gpu_matches_cpu(cuda_device, deterministic, met
         out[str(dev)] = (one.cpu().numpy(), batch.cpu().numpy())
     for got, want in zip(out[str(cuda_device)], out["cpu"]):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_bin", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_event_sharded_objective_keeps_the_single_device_bits(cuda_device, deterministic, time_bin, dtype):
+    """A frame cut over 3 shards of one card (``FrameEvents.shard``): the
+    orig IWE, the objective, its gradient and the staged analytic HVP (K1/K5
+    into per-shard int64 sums, K2/K5's backward per shard, K3/K6 in the
+    reduced bound, K4/K6's backward per shard) are the unsharded objective's
+    bits, and K1-K4 launch once per shard."""
+    import dataclasses
+
+    from event_based_optical_flow_tpu_torch import ops
+
+    rng = np.random.default_rng(9)
+    events, spec = _objective_problem(rng)
+    events[:1500, :2] = (11.0, 17.0)  # a run across the even cuts
+    if time_bin:
+        spec = dataclasses.replace(spec, time_aware=True, time_bin=time_bin, flow_interpolation="burgers",
+                                   t0_location="middle")
+    frame = FrameEvents.from_numpy(events, cuda_device, dtype, time_bin)
+    sharded = frame.shard([cuda_device] * 3)
+    motion = torch.as_tensor(rng.uniform(-20, 20, 8), dtype=dtype, device=cuda_device)
+    p = torch.as_tensor(rng.normal(size=8), dtype=dtype, device=cuda_device)
+    out = []
+    for fr in (frame, sharded):
+        ops.reset_launch_counts()
+        orig = build_orig_iwe(spec)(fr)
+        m = motion.clone().requires_grad_(True)
+        loss, _ = build_objective(spec)(m, orig, fr)
+        (grad,) = torch.autograd.grad(loss, m)
+        prep, hvp = build_objective_hvp_staged(spec)
+        out.append((orig, loss.detach(), grad, hvp(prep(motion, orig, fr), motion, p, orig, fr),
+                    ops.launch_counts()))
+    (o1, l1, g1, h1, c1), (o2, l2, g2, h2, c2) = out
+    assert torch.equal(o1, o2) and torch.equal(l1, l2) and torch.equal(g1, g2) and torch.equal(h1, h2)
+    pre = "voxel_" if time_bin else ""
+    assert c1[pre + "jvp"] == 1 and c2[pre + "jvp"] == 3 and c2[pre + "hvp_bwd"] == 3 and c2[pre + "bwd"] == 3
+    assert c2["fwd"] == 3 * c1["fwd"]  # the orig votes (dense), each evaluation's forward
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_split_entry_points_equal_their_exact_models(cuda_device, dtype):
+    """K1's vote into int64 sums and its conversion, K3's bound, vote and
+    conversion, K8's sums and conversion, each on one shard of a frame,
+    against the exact models' sums (error 0)."""
+    rng = np.random.default_rng(10)
+    events, _ = _objective_problem(rng)
+    frame = FrameEvents.from_numpy(events, cuda_device, dtype)
+    sh = frame.shard([cuda_device] * 2).shards[1]
+    cpu = [t.cpu() for t in (sh.x, sh.y, sh.dtf, sh.wt)]
+    flow = torch.as_tensor(rng.normal(size=(2, H, W)) * 3, dtype=dtype, device=cuda_device)
+    dflow = torch.as_tensor(rng.normal(size=(2, H, W)), dtype=dtype, device=cuda_device)
+    offsets = (0.0, 1.0, 0.5)
+    acc = torch.zeros((4, H, W), dtype=torch.int64, device=cuda_device)
+    FI.fused_iwe_fwd_acc(flow, sh.x, sh.y, sh.dtf, sh.wt, offsets, True, acc)
+    want = FI.fused_iwe_fixed_reference(flow.cpu(), *cpu, offsets, True, fixed=True)
+    assert torch.equal(acc.cpu(), want)
+    assert torch.equal(FI.fused_iwe_from_fixed(acc, dtype).cpu(), FI.fused_iwe_from_fixed(want, dtype))
+    bound = FI.fused_iwe_jvp_bound(dflow, sh.x, sh.y, sh.dtf, sh.wt, offsets)
+    assert torch.equal(bound.cpu(), FI.fused_iwe_jvp_bound(dflow.cpu(), *cpu, offsets))
+    n = frame.x.shape[0]
+    tan = torch.zeros((3, H, W), dtype=torch.int64, device=cuda_device)
+    val = torch.zeros((3, H, W), dtype=torch.int64, device=cuda_device)
+    FI.fused_iwe_jvp_acc(flow, dflow, sh.x, sh.y, sh.dtf, sh.wt, offsets, bound, n, tan, val)
+    b = float(bound.cpu().view(torch.float64)[0])
+    want_tan = FI.fused_iwe_jvp_fixed_reference(flow.cpu(), dflow.cpu(), *cpu, offsets, False, bound=b,
+                                                unit_events=n, fixed=True)
+    assert torch.equal(tan.cpu(), want_tan)
+    assert torch.equal(val.cpu(), FI.fused_iwe_fixed_reference(flow.cpu(), *cpu, offsets, False, fixed=True))
+    assert torch.equal(FI.fused_iwe_from_scaled(tan, bound, n, dtype).cpu(),
+                       FI.fused_iwe_from_scaled(want_tan, bound.cpu(), n, dtype))
+    pos = torch.as_tensor(events, dtype=dtype, device=cuda_device)
+    for size in ((H, W), (400, 400)):  # shared memory, global sums
+        sums = VOTE.vote_acc(pos, size)
+        want = VOTE.bilinear_vote_fixed_reference(pos.cpu(), size, fixed=True)
+        assert torch.equal(sums.cpu(), want)
+        assert torch.equal(VOTE.vote_from_fixed(sums, dtype).cpu(), VOTE.vote_from_fixed(want, dtype))

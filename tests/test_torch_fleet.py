@@ -353,11 +353,11 @@ def test_fleet_eval_matches_jax_cli_and_rerun_adds_nothing(tmp_path):
 
 
 def test_unported_fleet_options_are_refused(tmp_path):
-    """The frame-sharding mesh is refused by the config validation, and a
-    fleet eval with per-frame warm-start chaining by the CLI (the JAX CLI
-    asserts the same); the fleet chain's ``warm_start: batch`` and the
-    batched L-BFGS (``device_solver: lbfgs``) validate as in the JAX
-    package."""
+    """A fleet eval with per-frame warm-start chaining is refused by the CLI
+    (the JAX CLI asserts the same); the frame-sharding mesh (``solver.parallel``
+    and the top-level ``parallel``), the fleet chain's ``warm_start:
+    batch`` and the batched L-BFGS (``device_solver: lbfgs``) validate as in
+    the JAX package."""
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
 
     config = _cli_config(tmp_path / "out")
@@ -365,10 +365,9 @@ def test_unported_fleet_options_are_refused(tmp_path):
     assert validate_config({**config, "data": {**config["data"], "warm_start": "batch"}}) == []
     lbfgs = {**config, "optimizer": {**config["optimizer"], "device_solver": "lbfgs"}}
     assert validate_config(copy.deepcopy(lbfgs)) == jax_validate(copy.deepcopy(lbfgs))
-    with pytest.raises(ConfigError, match="not ported yet"):
-        validate_config({**config, "solver": {**config["solver"], "parallel": {"data": 2}}})
-    with pytest.raises(ConfigError, match="not ported yet"):
-        validate_config({**config, "parallel": {"data": 2}})
+    for meshed in ({**config, "solver": {**config["solver"], "parallel": {"data": 2}}},
+                   {**config, "parallel": {"data": 2}}):
+        assert validate_config(copy.deepcopy(meshed)) == jax_validate(copy.deepcopy(meshed)) == []
     chained = copy.deepcopy(config)
     chained["data"]["warm_start"] = True
     with pytest.raises(ConfigError, match="warm_start: false"):

@@ -574,10 +574,10 @@ def test_run_dnn_flow_matches_jax(tmp_path, backend, monkeypatch, supervised):
 def test_dnn_config_validates_as_in_jax():
     """configs/synthetic_dnn.yaml validates with the JAX package's warnings,
     also with an unknown ``dnn`` key and without ``data.n_events_per_batch``
-    (not required of a DNN config); ``dnn.data_parallel: true`` (the
-    multi-device train step) is refused as not ported."""
+    (not required of a DNN config) and with ``dnn.data_parallel: true``
+    (the multi-device train step)."""
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
-    from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
+    from event_based_optical_flow_tpu_torch.utils import validate_config
 
     config = yaml.safe_load((REPO / "configs" / "synthetic_dnn.yaml").read_text())
     assert validate_config(config) == jax_validate(config)
@@ -587,6 +587,4 @@ def test_dnn_config_validates_as_in_jax():
     assert want == ["unknown config key 'dnn.surprise' (ignored?)"]
     assert validate_config(config) == want
     config["dnn"]["data_parallel"] = True
-    jax_validate(config)
-    with pytest.raises(ConfigError, match="data_parallel"):
-        validate_config(config)
+    assert validate_config(config) == jax_validate(config) == want

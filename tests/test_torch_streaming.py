@@ -283,17 +283,17 @@ def test_defaults_are_not_shared():
 
 
 def test_unported_options_raise():
-    """The mesh is refused by the serving surface's config merge
-    (``check_ported``); the device L-BFGS and outer padding (both modes)
-    are taken."""
+    """The serving surface takes the mesh (``parallel_config``, and
+    ``solver.parallel``: the CPU's mesh repeats the CPU device), the device
+    L-BFGS and outer padding (both modes)."""
     est = TS.StreamingFlowEstimator((H, W), solver_config=SOLVER, optimizer_config={"device_solver": "lbfgs"},
                                     device="cpu")
     assert est._solver.opt_config["device_solver"] == "lbfgs"
-    with pytest.raises(ConfigError, match="not ported yet"):
-        TS.MultiStreamFlowEstimator((H, W), 2, solver_config=SOLVER, optimizer_config=OPTIMIZER,
-                                    parallel_config={"data": 2}, device="cpu")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, parallel={"data": 2}), device="cpu")
+    multi = TS.MultiStreamFlowEstimator((H, W), 2, solver_config=SOLVER, optimizer_config=OPTIMIZER,
+                                        parallel_config={"data": 2}, device="cpu")
+    assert multi.batching == "fleet" and multi._solver.n_data_shards == 2
+    single = TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, parallel={"data": 2}), device="cpu")
+    assert single._solver.mesh.shape == {"data": 2, "event": 1}
     assert TS.StreamingFlowEstimator((H, W), solver_config=dict(SOLVER, outer_padding=2),
                                      device="cpu")._solver.padding == 2
     assert TS.MultiStreamFlowEstimator((H, W), 2, solver_config=dict(SOLVER, outer_padding=2),

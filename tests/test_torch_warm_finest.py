@@ -197,8 +197,8 @@ def test_fast_path_and_batch_warm_configs_validate(name):
     """With ``warm_finest_only: true``, ``warm_full_every: 8`` and
     ``data.warm_start: batch`` every ported config validates with the JAX
     package's warnings; a non-bool flag and a negative cadence are refused
-    by both; the mesh stays refused, and ``device_solver: lbfgs`` validates
-    as in the JAX package."""
+    by both; the mesh (``solver.parallel``) and ``device_solver: lbfgs``
+    validate as in the JAX package."""
     from event_based_optical_flow_tpu.utils import validate_config as jax_validate
     from event_based_optical_flow_tpu_torch.utils import ConfigError, validate_config
 
@@ -213,5 +213,5 @@ def test_fast_path_and_batch_warm_configs_validate(name):
                 validate(copy.deepcopy(bad))
     lbfgs = {**config, "optimizer": {**config["optimizer"], "device_solver": "lbfgs"}}
     assert validate_config(copy.deepcopy(lbfgs)) == jax_validate(copy.deepcopy(lbfgs))
-    with pytest.raises(ConfigError, match="not ported yet"):
-        validate_config({**config, "solver": {**config["solver"], "parallel": {"data": 2}}})
+    meshed = {**config, "solver": {**config["solver"], "parallel": {"data": 2}}}
+    assert validate_config(copy.deepcopy(meshed)) == jax_validate(copy.deepcopy(meshed))
