@@ -8,7 +8,12 @@ Phases (each prints one informative line; any failure exits nonzero):
 1. environment: torch and CUDA versions, the card's name and power limit;
    a GPU is required (there is no CPU route);
 2. build: the CUDA kernels from ``event_based_optical_flow_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, and the native host decoders from ``native/``, one
+   ``g++`` per source, all started together; ``[native-decode]`` holds the
+   decoders to their numpy plain versions on the card's host, arrays equal,
+   each timed: ``evt2_fixture``'s words, a seeded EVT3 stream
+   (``evt3_stream``) and a DSEC GT frame's PNG payload with Paeth and
+   Average rows (``NATIVE_PNG_SHAPE``, byte-equal);
 3. kernel vs plain version at the main path's shape (the first 30 000-event
    window of configs/synthetic_mvsec_geometry.yaml, 260x346, a random smooth
    flow of a few px), forward images and the flow gradient, in float64 and
@@ -52,7 +57,14 @@ Phases (each prints one informative line; any failure exits nonzero):
    a random smooth GT) through K8 and the plain vote: K8's float images
    equal their exact model, the uint8 images (clipped as the visualizer
    clips them) differ from the plain vote's by at most 1 level, and the
-   solver's own images are K8's;
+   solver's own images are K8's; ``[surface]`` (``surface_path``) checks
+   the public names the port took over last on the card: ``calculate_fwl``
+   on frame 0's solution gives the metrics' GT_FWL and PRED_FWL bit for
+   bit, ``prepare_events`` lands on the card, ``resize_flow`` and
+   ``warp_voxel_flow_streaming`` match their CPU float64 runs within
+   ``TOL``, and ``build_global_search`` over ``SURFACE_FIELD``'s grid on the
+   coarsest scale's objective picks the CPU's argmin (K1, K7 launches and
+   ms);
 7. the analytic HVP path: the solver and optimizer blocks of
    configs/dsec_zurich_city.yaml (analytic Gauss-Newton HVP on the finest
    scale, central FD on the coarse scales over a stride-4 event subsample,
@@ -140,7 +152,9 @@ Phases (each prints one informative line; any failure exits nonzero):
    GT-free loop on a Prophesee RAW EVT2 file (``evt2_fixture``: dots
    translating, hot pixels), ``EVT2_WINDOWS`` windows: PRED_FWL must be
    finite and below 1, and each dumped flow's EPE against the synthesized
-   displacement below half the zero flow's;
+   displacement below half the zero flow's; the RAW file decodes natively
+   (``read_raw_evt2``) to numpy's arrays, its seconds printed beside
+   window 0's, and each window's PRED_FWL keeps ``EVT2_PRED_FWL``;
 13. the global motion-model solver (``solver.method:
    global_contrast_maximization``): ``[global-check]`` holds each model's
    objective (2d-translation, 4-param-similarity, 3-rotation) at 260x346 on
@@ -247,6 +261,10 @@ Phases (each prints one informative line; any failure exits nonzero):
    steps' printed with the element that moved most apart and both runs'
    gradients there (a gradient below Adam's eps moves its weight by ~lr
    whatever its size, so float32's reordered sums can move one by lr).
+
+``[quickstart]`` (``quickstart_path``, after the cold-start inits) runs
+``examples/api_quickstart_torch.py`` on the card, ``QUICKSTART_WINDOWS``
+windows: each line's mean flow within 1 px of the scene's.
 
 ``python3 chip_smoke.py --distinct-devices`` (``distinct_main``, a host with
 ``MESH_SHARDS`` cards or more) builds the kernels and runs ``[mesh-check]``,
@@ -410,6 +428,19 @@ EVT2_FIXTURE = {"n_dots": 4000, "events": 660_000, "seconds": 0.3, "velocity": (
                 "n_hot": 8, "hot_period_us": 50}
 EVT2_FILTERS = {"hot_pixel_sigma": 5.0, "refractory_us": 50}
 EVT2_WINDOWS = 2
+# [evt2-fwl]'s PRED_FWL per window to 4 places as the runs on numpy-decoded
+# events printed them: the native decode must keep them (it gives the same
+# arrays, and the solve on the card is deterministic)
+EVT2_PRED_FWL = (0.3718, 0.3721)
+# [native-decode]: the PNG payload (a DSEC GT frame: 480 rows of 640
+# 16-bit RGB pixels, Paeth and Average rows) and the seeded EVT3 stream
+NATIVE_PNG_SHAPE = (480, 640)
+NATIVE_EVT3_WORDS = 1_000_000
+# [surface]: build_global_search's field (7 x 7 shared translations, px/s)
+# on the coarsest scale of the MVSEC slice's first window, and the
+# quickstart's windows
+SURFACE_FIELD = tuple(range(-120, 121, 40))
+QUICKSTART_WINDOWS = 2
 # The global motion-model solver's shipped configs ([global-sim],
 # [global-rot3d]) and their scenes' rates: the similarity scene rotates at
 # `omega` rad/s about the image center (the solver's `rot` is its negation),
@@ -1947,14 +1978,256 @@ def evt2_fwl_path(dev, smi) -> dict:
     n_dumps = len(os.listdir(os.path.join(out_dir, "flow_submission")))
     lines = count_lines(os.path.join(out_dir, "eval_metrics.jsonl"))
     files_ok = n_dumps == lines == EVT2_WINDOWS
+    decode_ok = evt2_decode_share(os.path.join(root, d["sequence"] + ".raw"), records, wall)
     phase("evt2-fwl", f"{EVT2_CONFIG} on {smi}: {len(records)} windows ({len(loader)} events after the filters "
                       f"{EVT2_FILTERS}) in {wall:.2f} s, peak device memory {peak:.3f} GiB, kernel launches "
                       f"{ {k: v for k, v in launches.items() if v} }; flow dumps {n_dumps}, metric lines {lines}: "
                       f"{'ok' if files_ok else 'FAIL'}")
     if failed or len(records) != EVT2_WINDOWS or not files_ok:
         raise SystemExit(f"chip_smoke: EVT2 windows {failed}: PRED_FWL or the dumped flow wrong, or outputs missing")
+    if not decode_ok:
+        raise SystemExit("chip_smoke: the native EVT2 decode differs from numpy's, or PRED_FWL moved")
     if 0 in (launches["fwd"], launches["bwd"], launches["vote"]):
         raise SystemExit("chip_smoke: the EVT2 FWL eval did not run K1, K2 and K8")
+    return launches
+
+
+def timed(fn, *args, repeat: int = 1):
+    """(fn(*args), the least wall-clock ms of ``repeat`` calls)."""
+    best = None
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        ms = (time.perf_counter() - t0) * 1e3
+        best = ms if best is None else min(best, ms)
+    return out, best
+
+
+def same_arrays(got, want) -> bool:
+    return len(got) == len(want) and all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def evt2_decode_share(raw_path: str, records, wall: float) -> bool:
+    """``[evt2-fwl]``'s decode line: the RAW file decoded as the loader
+    decodes it (``read_raw_evt2``: the native decoder) and by the numpy
+    decoder, the arrays equal, its seconds beside window 0's and the run's;
+    each window's PRED_FWL in full beside ``EVT2_PRED_FWL``."""
+    from event_based_optical_flow_tpu_torch.data.evt2 import decode_evt2_numpy, read_raw_evt2, read_raw_header
+
+    decoded, native_ms = timed(read_raw_evt2, raw_path, repeat=3)
+    payload = read_raw_header(raw_path, "EVT2")
+    words = np.frombuffer(payload[: len(payload) - len(payload) % 4], dtype="<u4")
+    plain, numpy_ms = timed(decode_evt2_numpy, words, repeat=3)
+    same = same_arrays(decoded, plain)
+    fwl = tuple(r["metrics"]["PRED_FWL"] for r in records)
+    kept = tuple(round(v, 4) for v in fwl) == EVT2_PRED_FWL
+    window = records[0]["seconds"]
+    phase("evt2-fwl", f"decode of the {os.path.getsize(raw_path) / 2**20:.1f} MiB RAW file ({len(words)} words, "
+                      f"{len(decoded[0])} events) on the card's host: read_raw_evt2 (native) {native_ms / 1e3:.4f} s, "
+                      f"numpy {numpy_ms / 1e3:.4f} s, arrays equal: {same}; beside window 0's {window:.3f} s: "
+                      f"{native_ms / 1e3 / window:.4f} of it ({native_ms / 1e3 / wall:.4f} of the run's {wall:.2f} "
+                      f"s; the loader decodes the file once); PRED_FWL {[repr(v) for v in fwl]}, to 4 places "
+                      f"{EVT2_PRED_FWL} as before: {kept}: {'ok' if same and kept else 'FAIL'}")
+    return same and kept
+
+
+def evt3_stream(n_words: int, seed: int) -> np.ndarray:
+    """A seeded EVT3 word stream: rows, times (TIME_HIGH going back: a
+    rollover), single events, vector bases and 12 / 8-lane vectors, and
+    words of types the decoder skips."""
+    rng = np.random.default_rng(seed)
+    types = rng.choice([0x0, 0x2, 0x3, 0x4, 0x5, 0x6, 0x8, 0xA, 0xE], size=n_words,
+                       p=[0.12, 0.4, 0.08, 0.12, 0.08, 0.1, 0.04, 0.03, 0.03])
+    return ((types << 12) | rng.integers(0, 1 << 12, n_words)).astype(np.uint16)
+
+
+def native_path(smi) -> None:
+    """``[native-decode]``: the native host decoders against their numpy
+    plain versions, arrays equal, each timed on the card's host: the words
+    of ``evt2_fixture``'s RAW file, a seeded EVT3 stream
+    (``evt3_stream``), and a DSEC GT frame's PNG payload
+    (``NATIVE_PNG_SHAPE``, 6 bytes per pixel, Paeth and Average rows)
+    through ``png_defilter`` and ``_defilter``, byte-equal."""
+    from event_based_optical_flow_tpu_torch import native
+    from event_based_optical_flow_tpu_torch.data.evt2 import decode_evt2_numpy, read_raw_header
+    from event_based_optical_flow_tpu_torch.data.evt3 import decode_evt3_numpy
+    from event_based_optical_flow_tpu_torch.flow.io import _defilter
+
+    raw_path = os.path.join(tempfile.mkdtemp(prefix="evflow_chip_smoke_native_"), "rec.raw")
+    evt2_fixture(raw_path, 480, 640)
+    payload = read_raw_header(raw_path, "EVT2")
+    words2 = np.frombuffer(payload[: len(payload) - len(payload) % 4], dtype="<u4")
+    failed = []
+    for fmt, words, decode, plain in (("EVT2", words2, native.decode_evt2, decode_evt2_numpy),
+                                      ("EVT3", evt3_stream(NATIVE_EVT3_WORDS, 3), native.decode_evt3, decode_evt3_numpy)):
+        (got, ms), (want, plain_ms) = timed(decode, words, repeat=3), timed(plain, words, repeat=3)
+        ok = same_arrays(got, want)
+        phase("native-decode", f"{fmt}: {len(words)} words -> {len(got[0])} events on the host of {smi}: native "
+                               f"{ms:.2f} ms, numpy {plain_ms:.2f} ms, arrays equal: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(fmt)
+    h, w = NATIVE_PNG_SHAPE
+    stride = w * 6
+    rows = np.random.default_rng(4).integers(0, 256, (h, stride), dtype=np.uint8)
+    raw = b"".join(bytes([4 - i % 2]) + rows[i].tobytes() for i in range(h))
+    (got, ms), (want, plain_ms) = timed(native.png_defilter, raw, h, stride, 6, repeat=3), timed(_defilter, raw, h,
+                                                                                              stride, 6)
+    ok = got.tobytes() == want.tobytes()
+    phase("native-decode", f"PNG defilter: {h} rows x {stride} bytes (bpp 6, Paeth and Average rows) on the host of "
+                           f"{smi}: png_defilter {ms:.2f} ms, _defilter {plain_ms:.1f} ms, bytes equal: "
+                           f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("PNG")
+    if failed:
+        raise SystemExit(f"chip_smoke: the native decoders differ from their plain versions on {failed}")
+
+
+def surface_path(port_main, dev, smi, run_config: dict, records, events: np.ndarray) -> dict:
+    """``[surface]``: the public names the port took over last, on the card.
+    ``calculate_fwl`` on the slice's frame 0 solution (its state file) gives
+    the GT_FWL and PRED_FWL ``calculate_flow_error`` reported, bit for bit;
+    ``prepare_events`` lands on the card; ``resize_flow`` (bilinear up and
+    down, nearest) and ``warp_voxel_flow_streaming`` (Burgers and upwind,
+    10 bins, the first window's events) in float64 and float32 against
+    their CPU float64 runs within ``TOL``; ``build_global_search`` over
+    ``SURFACE_FIELD``'s grid on the coarsest scale's objective (K1's orig
+    image, K7 in chunks) against the CPU's plain search: the same argmin,
+    or the two candidates' CPU losses within ``TOL``.  Its random inputs come
+    from a generator of its own, so the later phases' draws stay as they
+    were.  Returns the search's launches."""
+    from event_based_optical_flow_tpu_torch import ops
+    from event_based_optical_flow_tpu_torch.ops.interp import resize_flow
+    from event_based_optical_flow_tpu_torch.ops.warp import calculate_reftime, warp_voxel_flow_streaming
+    from event_based_optical_flow_tpu_torch.solver.objective import FrameEvents, build_orig_iwe
+    from event_based_optical_flow_tpu_torch.solver.sampling import build_global_search, grid_sweep_losses
+    from event_based_optical_flow_tpu_torch.utils import checkpoint as ckpt
+
+    failed = []
+    loader, solv = port_main.build(run_config, dev)
+    d = run_config["data"]
+    ts = loader.eval_frame_time_list()
+    _, window, gt, seconds = port_main._gather_frame(loader, d, ts[0], ts[d["eval_dt"]])
+    solv.set_previous_frame_best_estimation(ckpt.load_eval_state(run_config["output"]["output_dir"])[1])
+    motion = solv.previous_frame_best_estimation
+    solv.overload_patch_configuration(max(motion))
+    fwl = solv.calculate_fwl(motion, np.transpose(gt, (2, 0, 1)), seconds, window)
+    m = records[0]["metrics"]
+    ok = fwl["GT_FWL"] == m["GT_FWL"] and fwl["PRED_FWL"] == m["PRED_FWL"]
+    phase("surface", f"calculate_fwl on frame 0's solution on {smi}: GT_FWL {fwl['GT_FWL']!r}, PRED_FWL "
+                     f"{fwl['PRED_FWL']!r}; calculate_flow_error reported {m['GT_FWL']!r}, {m['PRED_FWL']!r}: "
+                     f"{'ok' if ok else 'FAIL'}")
+    failed += [] if ok else ["calculate_fwl"]
+    pe, pw = solv.prepare_events(window)
+    ok = pe.device.type == "cuda" and pe.dtype == pw.dtype == solv.dtype and float(pw.sum()) == len(window)
+    phase("surface", f"prepare_events: {len(window)} events -> {tuple(pe.shape)} {str(pe.dtype)[6:]} on {pe.device}, "
+                     f"weights summing to {float(pw.sum()):.0f}: {'ok' if ok else 'FAIL'}")
+    failed += [] if ok else ["prepare_events"]
+
+    h, w = solv.image_shape
+    rng = np.random.default_rng(17)
+    tiles, dense = rng.normal(size=(2, 16, 21)) * 20.0, smooth_flow(h, w, rng)
+    flow0 = smooth_flow(h, w, rng) * 0.05
+    placed = {}  # the first window's events per (device, dtype)
+
+    def resize(method, out):
+        return lambda x: resize_flow(x, out, method)
+
+    def stream(scheme):
+        def run(f):
+            key = (str(f.device), f.dtype)
+            if key not in placed:
+                placed[key] = torch.as_tensor(events, dtype=f.dtype, device=f.device)
+            e = placed[key]
+            return warp_voxel_flow_streaming(e, f, 10, calculate_reftime(e, "first"), (h, w), normalize_t=True,
+                                             scheme=scheme)
+        return run
+
+    cases = [(f"resize_flow {method} {tuple(a.shape[1:])} -> {out}", resize(method, out), a)
+             for method, a, out in (("bilinear", tiles, (h, w)), ("bilinear", dense, (h // 4 + 1, w // 4 + 1)),
+                                    ("nearest", tiles, (h, w)))]
+    cases += [(f"warp_voxel_flow_streaming {scheme}, 10 bins, {len(events)} events", stream(scheme), flow0)
+              for scheme in ("burgers", "upwind")]
+    for name, fn, arg in cases:
+        want = fn(torch.as_tensor(arg, dtype=torch.float64))
+        scale = float(want.abs().max())
+        for dtype in (torch.float64, torch.float32):
+            x = torch.as_tensor(arg, dtype=dtype, device=dev)
+            got = fn(x)
+            ms = cuda_ms(lambda: fn(x), n_warm=2, n_iter=10)
+            err = float((got.double().cpu() - want).abs().max())
+            ok = err <= TOL[dtype] * scale
+            phase("surface", f"{name}, {str(dtype)[6:]} on {smi} against the CPU's float64: max|err| {err:.3e} "
+                             f"(scale {scale:.4g}, tol {TOL[dtype]:g} x scale), {ms:.3f} ms: {'ok' if ok else 'FAIL'}")
+            failed += [] if ok else [f"{name} {dtype}"]
+
+    solv.overload_patch_configuration(solv.coarsest_scale)
+    spec = solv._current_spec()
+    field = np.asarray(SURFACE_FIELD, dtype=np.float64)
+    search = build_global_search(solv.image_shape, spec, field)
+    pe, pw = solv.prepare_events(events)
+    search(pe, pw)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best, loss = search(pe, pw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    (best_cpu, loss_cpu), cpu_ms = timed(search, pe.double().cpu(), pw.double().cpu())
+    best, best_cpu = best.double().cpu().numpy(), best_cpu.numpy()
+    ok = np.array_equal(best, best_cpu)
+    tie = ""
+    if not ok:  # the card's pick scored on the CPU
+        frame = FrameEvents.from_numpy(events, "cpu", torch.float64)
+        n = int(np.prod(spec.patch_image_size))
+        at = grid_sweep_losses(spec, frame, build_orig_iwe(spec)(frame),
+                               torch.as_tensor(np.repeat(best[:, None], n, axis=1).reshape(1, -1)))
+        ok = abs(float(at[0]) - float(loss_cpu)) <= TOL[solv.dtype] * abs(float(loss_cpu))
+        tie = f", the card's pick's CPU loss {float(at[0]):.6f}"
+    phase("surface", f"build_global_search: {len(field) ** 2} shared translations at scale {solv.coarsest_scale} "
+                     f"({solv.n_patch} tiles) on {len(events)} events, {str(solv.dtype)[6:]} on {smi}: best "
+                     f"{best.tolist()} loss {float(loss):.6f} in {seconds * 1e3:.2f} ms, launches K1 "
+                     f"{launches['fwd']} K7 {launches['batched_fwd']}; the CPU's plain search (float64) "
+                     f"{best_cpu.tolist()} loss {float(loss_cpu):.6f} in {cpu_ms:.0f} ms{tie}: {'ok' if ok else 'FAIL'}")
+    failed += [] if ok else ["build_global_search"]
+    if failed:
+        raise SystemExit(f"chip_smoke: [surface] checks {failed} failed")
+    return launches
+
+
+def quickstart_path(dev, smi) -> dict:
+    """``[quickstart]``: ``examples/api_quickstart_torch.py --windows
+    QUICKSTART_WINDOWS`` on the card (its default device), in this
+    process: one line per window, its mean flow finite and within 1 px of
+    the scene's.  Returns its launches."""
+    import contextlib
+    import re
+    import runpy
+
+    from event_based_optical_flow_tpu_torch import ops
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "api_quickstart_torch.py")
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = [script, "--windows", str(QUICKSTART_WINDOWS)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(script, run_name="__main__")
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, ops.launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    pattern = r"window \d+: mean flow \(([-+]\d+\.\d), ([-+]\d+\.\d)\) px  vs GT \(([-+]\d+\.\d), ([-+]\d+\.\d)\)"
+    parsed = [re.fullmatch(pattern, line) for line in lines]
+    ok = len(lines) == QUICKSTART_WINDOWS and all(
+        p and abs(float(p[1]) - float(p[3])) < 1.0 and abs(float(p[2]) - float(p[4])) < 1.0 for p in parsed)
+    phase("quickstart", f"examples/api_quickstart_torch.py --windows {QUICKSTART_WINDOWS} on {smi}: {wall:.2f} s, "
+                        f"{lines}, kernel launches { {k: v for k, v in launches.items() if v} }: "
+                        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the quickstart's lines are missing, not finite or off the scene's flow")
     return launches
 
 
@@ -2458,7 +2731,7 @@ def init_path(dev, smi) -> dict:
             per_candidate = lambda motions: torch.stack(  # noqa: E731  the other design: one K1 each
                 [build_objective(spec)(m, orig, frame)[0] for m in motions])
             timed = {}
-            for arm, sweep in (("kept", lambda m: solv._grid_sweep_losses(spec, frame, orig, m)),
+            for arm, sweep in (("kept", lambda m: patch_base.grid_sweep_losses(spec, frame, orig, m)),
                                ("per", per_candidate)):
                 with torch.no_grad():
                     sweep(tiles[:patch_base.GRID_SWEEP_CHUNK])  # warm-up
@@ -2476,7 +2749,7 @@ def init_path(dev, smi) -> dict:
             objective.fused_iwe = fi.fused_iwe = fi.fused_iwe_reference
             try:
                 t0 = time.perf_counter()
-                plain = solv._grid_sweep_losses(spec, frame, orig, tiles).double().cpu().numpy()
+                plain = patch_base.grid_sweep_losses(spec, frame, orig, tiles).double().cpu().numpy()
                 torch.cuda.synchronize()
                 plain_seconds = time.perf_counter() - t0
             finally:
@@ -3514,14 +3787,21 @@ def mesh_path(port_main, dev, smi, config: dict, events: np.ndarray, rng):
 
 
 def build_kernels() -> None:
-    """The CUDA kernels, one ``nvcc`` per source, all started together."""
+    """The CUDA kernels, one ``nvcc`` per source, and the native host
+    decoders, one ``g++`` per source, all started together."""
+    from event_based_optical_flow_tpu_torch import native
     from event_based_optical_flow_tpu_torch.ops import cuda_build
 
     with ThreadPoolExecutor() as pool:
-        built = list(pool.map(cuda_build.load_kernel_library, ("fused_iwe", "vote")))
+        cuda = pool.map(cuda_build.load_kernel_library, ("fused_iwe", "vote"))
+        host = pool.map(native.load_library, native.SOURCES)
+        built, host = list(cuda), list(host)
     for kl in built:
         ptxas = " | ".join(l.strip() for l in kl.build_log.splitlines() if "registers" in l or "spill" in l)
         phase("build", f"{kl.path.name}: {kl.build_seconds:.2f} s (nvcc sm_90a); {ptxas or 'cached'}")
+    for kl in host:
+        phase("build", f"{kl.path.name}: {kl.build_seconds:.2f} s (g++ {' '.join(native.GXX_FLAGS)}; "
+                       f"{'built' if kl.build_seconds else 'cached'})")
 
 
 def distinct_main() -> int:
@@ -3575,6 +3855,7 @@ def main() -> int:
 
     set_numerics()
     build_kernels()
+    native_path(smi)
 
     with open(CONFIG) as f:
         config = yaml.safe_load(f)
@@ -3642,6 +3923,8 @@ def main() -> int:
     if not same:
         raise SystemExit("chip_smoke: the loop's run of frame 0 did not reproduce the chained result")
     viz_check(port_main, dev, smi, run_config, out_dir, rng)
+    surface_launches = surface_path(port_main, dev, smi, run_config, records, events)
+    launches = {k: launches[k] + surface_launches[k] for k in launches}
 
     # each path's run counts from 0; a kernel's launches are all paths' runs'
     paths = (dsec_path, ta_path, lambda *a: fleet_path(*a, sequential_epe=records[0]["metrics"]["EPE"]))
@@ -3652,7 +3935,7 @@ def main() -> int:
         times.update(path_times)
         bounds.update(path_bounds)
     for path in (serve_path, mvsec_cli_path, evt2_fwl_path, global_path, optimizer_path, trace_path, lbfgs_path,
-                 init_path):
+                 init_path, quickstart_path):
         path_launches = path(dev, smi)
         launches = {k: launches[k] + path_launches[k] for k in launches}
     unfused_launches, pad_rows = unfused_path(fi, dev, smi, config, events, rng)

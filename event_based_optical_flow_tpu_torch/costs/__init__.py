@@ -3,6 +3,7 @@ and their hybrid."""
 
 from .functional import (
     gradient_magnitude,
+    hybrid_loss,
     image_variance,
     multi_focal_normalized_image_variance,
     multi_focal_normalized_gradient_magnitude,
@@ -36,6 +37,7 @@ __all__ = [
     "NormalizedImageVariance",
     "TotalVariation",
     "gradient_magnitude",
+    "hybrid_loss",
     "image_variance",
     "multi_focal_normalized_gradient_magnitude",
     "multi_focal_normalized_image_variance",

@@ -107,6 +107,16 @@ def multi_focal_normalized_gradient_magnitude(
     return loss
 
 
+def hybrid_loss(values: dict, weights: dict):
+    """The weighted sum of named cost values, a weight of "inv" adding
+    1 / value (the JAX package's convention): tensors or floats."""
+    total = 0.0
+    for name, value in values.items():
+        w = weights[name]
+        total = total + (1.0 / value if w == "inv" else w * value)
+    return total
+
+
 def total_variation(flow: Tensor, omit_boundary: bool = True) -> Tensor:
     """mean |Sobel(flow)/8| over the 4 (dxx,dyy,dyx,dxy) channels; the ring
     is cropped only when the spatial dims exceed 2 (reference quirk kept

@@ -207,22 +207,21 @@ class HybridCost(CostBase):
         for name in self.cost_func:
             self.required_keys.extend(self.cost_func[name]["func"].required_keys)
 
+    def update_weight(self, cost_with_weight: dict) -> None:
+        """New weights for the same named costs (the key sets must match)."""
+        assert set(self.cost_func.keys()) == set(cost_with_weight.keys())
+        for key, value in cost_with_weight.items():
+            self.cost_func[key]["weight"] = value
+
     def calculate(self, arg: dict):
         return self.register(self.calculate_with_components(arg)[0])
 
     def calculate_with_components(self, arg: dict):
         """Return (total, {name: unweighted sub-loss}); the components
         register themselves, the total does not (the JAX package's)."""
-        components = {}
-        loss = 0.0
-        for name, entry in self.cost_func.items():
-            sub = entry["func"].calculate(arg)
-            components[name] = sub
-            if entry["weight"] == "inv":
-                loss = loss + 1.0 / sub
-            else:
-                loss = loss + entry["weight"] * sub
-        return loss, components
+        components = {name: entry["func"].calculate(arg) for name, entry in self.cost_func.items()}
+        weights = {name: entry["weight"] for name, entry in self.cost_func.items()}
+        return F.hybrid_loss(components, weights), components
 
     # the history fans out to the component costs
     def clear_history(self) -> None:

@@ -8,8 +8,10 @@ carry a 6-bit microsecond remainder (bits 22-27), an 11-bit sensor column
 (bits 11-21) and an 11-bit sensor row (bits 0-10); EVT_TIME_HIGH (0x8)
 carries the upper 28 timestamp bits; every other type is skipped.
 
-Decoding is vectorized numpy (the JAX package's ctypes C++ decoders give
-the same arrays and stay there).  Events come out in the port's
+The loader decodes through the port's native C++ decoder
+(``native.decode_evt2``, built with g++ at first use);
+``decode_evt2_numpy`` is its plain version, the same arrays in vectorized
+numpy, which the tests hold the native one to.  Events come out in the port's
 convention, (x=height, y=width, t seconds, polarity +-1): the sensor
 (column, row) pair swaps, as in the MVSEC loader.  Raw streams have no
 dense GT flow, so the eval runs the FWL-only protocol.
@@ -20,6 +22,7 @@ import os
 
 import numpy as np
 
+from .. import native
 from ..ops.filters import apply_config_filters
 from .base import EventArrayLoader
 
@@ -72,11 +75,12 @@ def read_raw_header(path: str, fmt_tag: str) -> bytes:
 
 
 def read_raw_evt2(path: str):
-    """A Prophesee EVT2 .raw file -> (x_col, y_row, t_us, polarity); a
-    trailing partial word (a capture cut mid-word) is dropped."""
+    """A Prophesee EVT2 .raw file -> (x_col, y_row, t_us, polarity),
+    decoded natively; a trailing partial word (a capture cut mid-word) is
+    dropped."""
     payload = read_raw_header(path, "EVT2")
     payload = payload[: len(payload) - len(payload) % 4]
-    return decode_evt2_numpy(np.frombuffer(payload, dtype="<u4"))
+    return native.decode_evt2(np.frombuffer(payload, dtype="<u4"))
 
 
 class Evt2DataLoader(EventArrayLoader):

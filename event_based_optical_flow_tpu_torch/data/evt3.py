@@ -11,13 +11,17 @@ base column and polarity; VECT_12 (0x4) / VECT_8 (0x5) emit one event per
 set bit of their 12 / 8-bit mask at base + lane, then advance the base by
 12 / 8.  Other types are skipped.  The registers start at 0.
 
-The decode rebuilds the register state with forward fills (searchsorted)
-and, for the vector base, segmented cumulative sums (each VECT_BASE_X
-starts a segment).
+The loader decodes through the port's native C++ decoder
+(``native.decode_evt3``, one sequential pass over the registers).
+``decode_evt3_numpy`` is its plain version: it rebuilds the register state
+with forward fills (searchsorted) and, for the vector base, segmented
+cumulative sums (each VECT_BASE_X starts a segment), and gives the same
+arrays.
 """
 
 import numpy as np
 
+from .. import native
 from .evt2 import Evt2DataLoader, read_raw_header
 
 
@@ -101,11 +105,11 @@ def decode_evt3_numpy(words: np.ndarray):
 
 
 def read_raw_evt3(path: str):
-    """A Prophesee EVT3 .raw file -> (x_col, y_row, t_us, polarity); a
-    trailing odd byte is dropped."""
+    """A Prophesee EVT3 .raw file -> (x_col, y_row, t_us, polarity),
+    decoded natively; a trailing odd byte is dropped."""
     payload = read_raw_header(path, "EVT3")
     payload = payload[: len(payload) - len(payload) % 2]
-    return decode_evt3_numpy(np.frombuffer(payload, dtype="<u2"))
+    return native.decode_evt3(np.frombuffer(payload, dtype="<u2"))
 
 
 class Evt3DataLoader(Evt2DataLoader):

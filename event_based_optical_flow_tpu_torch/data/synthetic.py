@@ -183,6 +183,11 @@ class SyntheticDataLoader(DataLoaderBase):
     def eval_frame_time_list(self):
         return self.gray_ts
 
+    def gt_time_list(self):
+        """The GT timestamps: the gray frames' (the GT is exact at any
+        window)."""
+        return self.gray_ts
+
     def load_optical_flow(self, t1: float, t2: float) -> np.ndarray:
         """GT displacement over [t1, t2]: [H, W, 2] (height, width).
 

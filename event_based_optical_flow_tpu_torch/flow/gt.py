@@ -8,7 +8,16 @@ behavioral parity with reference ``src/utils/flow_utils.py:763-857``).
 This is per-frame I/O-adjacent work, so it stays on the host.
 """
 
+from typing import Tuple
+
 import numpy as np
+
+
+def generate_dense_optical_flow(image_size: Tuple[int, int], max_val: int = 30) -> np.ndarray:
+    """A uniform random ``[2, H, W]`` flow in [-max_val, max_val) for tests,
+    drawn from numpy's global generator as the JAX package draws it (one
+    ``np.random.seed`` gives both packages the same field)."""
+    return np.random.uniform(-max_val, max_val, (2,) + tuple(image_size))
 
 
 def _remap_nearest(src: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:

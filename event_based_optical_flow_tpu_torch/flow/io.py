@@ -9,8 +9,10 @@ inverse of the DSEC loader's decode (``data/dsec.py``).
 PIL cannot write 48-bit RGB PNGs and silently truncates them to 8 bits
 on reading, so both directions are written here from the PNG spec
 (zlib, 16-bit big-endian samples).  The port decodes with this spec
-decoder on every machine (the JAX package prefers cv2 where it imports,
-and a native defilter); the two give the same arrays.
+decoder on every machine (the JAX package prefers cv2 where it imports);
+its scanlines go through the native C++ defilter (``native.png_defilter``,
+built with g++ at first use), whose plain version is ``_defilter``.  Both
+give the same bytes.
 """
 
 import os
@@ -18,6 +20,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .. import native
 
 
 def encode_png16(img: np.ndarray) -> bytes:
@@ -43,10 +47,11 @@ def encode_png16(img: np.ndarray) -> bytes:
 
 def _defilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """PNG scanline reconstruction (RFC 2083 §6): inflated IDAT payload
-    -> [h, stride] uint8.  None and Up are whole-row numpy operations, Sub
-    a wrapping prefix sum per byte-offset residue class mod ``bpp``;
-    Average and Paeth need the running left neighbour and go byte by
-    byte."""
+    -> [h, stride] uint8; the plain version of ``native.png_defilter``
+    (the tests hold the two to the same bytes).  None and Up are whole-row
+    numpy operations, Sub a wrapping prefix sum per byte-offset residue
+    class mod ``bpp``; Average and Paeth need the running left neighbour
+    and go byte by byte."""
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for i in range(h):
@@ -113,7 +118,7 @@ def decode_png16(data: bytes) -> np.ndarray:
     stride = w * 6  # 3 channels x 2 bytes
     if len(raw) != h * (stride + 1):
         raise ValueError(f"PNG payload size {len(raw)} != {h}x({stride}+1)")
-    out = _defilter(raw, h, stride, bpp=6)  # the filters work bytewise at pixel offsets
+    out = native.png_defilter(raw, h, stride, bpp=6)  # the filters work bytewise at pixel offsets
     return (out.reshape(h, w, 3, 2).astype(np.uint16)[..., 0] << 8) | out.reshape(h, w, 3, 2)[..., 1]
 
 

@@ -1,21 +1,25 @@
 """Op layer of the port: warp and the global motion models' fields, IWE
-rasterization, blur, sobel, tile interpolation, the fused warp+vote
+rasterization (``EventImageConverter``, the bilinear and count votes),
+blur, sobel, tile interpolation and flow resizing, the fused warp+vote
 kernels (submodule ``fused_iwe``, K1-K7) and the standalone vote kernel
 (submodule ``vote``, K8)."""
 
 from . import fused_iwe, vote
 
 from .blur import gaussian_blur3, gaussian_filter
-from .interp import pyramid_expand, pyramid_reduce, tile_to_dense_flow
-from .iwe import bilinear_vote, create_iwe, event_mask
+from .interp import pyramid_expand, pyramid_reduce, resize_flow, tile_to_dense_flow
+from .iwe import EventImageConverter, bilinear_vote, create_iwe, event_mask
 from .sobel import sobel_flow, sobel_xy
 from .warp import (Warp, calculate_dt, calculate_reftime, calib_tuple, flow_from_2d_translation,
                    flow_from_rotation, flow_from_similarity, multi_direction_dense_warp, warp_2dof,
-                   warp_dense_flow, warp_voxel_flow)
+                   warp_dense_flow, warp_voxel_flow, warp_voxel_flow_streaming)
+from .vote import count_vote
 
 __all__ = [
+    "EventImageConverter",
     "Warp",
     "bilinear_vote",
+    "count_vote",
     "calculate_dt",
     "calculate_reftime",
     "calib_tuple",
@@ -29,12 +33,14 @@ __all__ = [
     "multi_direction_dense_warp",
     "pyramid_expand",
     "pyramid_reduce",
+    "resize_flow",
     "sobel_flow",
     "sobel_xy",
     "tile_to_dense_flow",
     "warp_2dof",
     "warp_dense_flow",
     "warp_voxel_flow",
+    "warp_voxel_flow_streaming",
     "add_launch_counts",
     "launch_counts",
     "mesh_launch_counts",

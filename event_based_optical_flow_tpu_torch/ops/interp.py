@@ -1,6 +1,12 @@
 """Tile-grid -> dense-flow interpolation and pyramid resampling (port of
 ``event_based_optical_flow_tpu/ops/interp.py``).
 
+* ``resize_flow`` — resize the last two axes as the JAX package's does:
+  ``bilinear`` is ``jax.image.resize(method="linear")``, the half-pixel
+  convention with edge clamping when upsampling (torch
+  ``align_corners=False``) and a triangle filter widened by the factor
+  (antialiased) along an axis that shrinks; ``nearest`` reads
+  ``floor(dst * in / out)`` (torch's nearest).
 * ``tile_to_dense_flow`` — negate the per-tile motion, replicate-pad by a
   patch-geometry-derived margin, upscale by the sliding-window factor
   (bilinear, half-pixel convention with edge clamping, as
@@ -78,6 +84,43 @@ def _resize_nearest(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     return img.index_select(-2, ih).index_select(-1, iw)
 
 
+@functools.lru_cache(maxsize=256)
+def _triangle_weights(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype) -> Tensor:
+    """The ``[n_out, n_in]`` weights of ``jax.image.resize``'s linear
+    kernel along one axis (its ``compute_weight_mat``): the triangle at
+    each half-pixel sample, widened by ``n_in / n_out`` when the axis
+    shrinks, normalized to sum 1."""
+    inv_scale = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[:, None] - np.arange(n_in)[None, :]) / max(inv_scale, 1.0)
+    weights = np.maximum(0.0, 1.0 - x)
+    total = weights.sum(axis=1, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, 1.0), 0.0)
+    weights = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[:, None], weights, 0.0)
+    return torch.as_tensor(weights, dtype=dtype, device=device)
+
+
+def resize_flow(flow: Tensor, out_hw: Tuple[int, int], method: str = "bilinear") -> Tensor:
+    """Resize a ``[..., H, W]`` tensor to ``[..., *out_hw]`` on its device,
+    as the JAX package's ``resize_flow``: ``bilinear`` is the half-pixel
+    lerp with edge clamping (torch ``align_corners=False``) when neither
+    axis shrinks, else ``jax.image.resize``'s antialiased linear filter
+    (two small matrix products); ``nearest`` reads ``floor(dst * in /
+    out)``; any other method raises ``ValueError``."""
+    out_hw = tuple(out_hw)
+    if method == "bilinear":
+        in_h, in_w = flow.shape[-2:]
+        if out_hw[0] >= in_h and out_hw[1] >= in_w:
+            return _resize_bilinear(flow, out_hw)
+        wy = _triangle_weights(in_h, out_hw[0], flow.device, flow.dtype)
+        wx = _triangle_weights(in_w, out_hw[1], flow.device, flow.dtype)
+        return wy @ flow @ wx.T
+    if method == "nearest":
+        return _resize_nearest(flow, tuple(out_hw))
+    raise ValueError(f"Unknown filter type {method!r}")
+
+
 def tile_to_dense_flow(
     motion: Tensor,
     patch_image_size: Tuple[int, int],
@@ -97,12 +140,7 @@ def tile_to_dense_flow(
         n = arr.shape[axis]
         arr = arr.index_select(axis, _index_table("clamp", n, pad, arr.device))
     out_hw = (arr.shape[1] * sliding_window[0], arr.shape[2] * sliding_window[1])
-    if filter_type == "bilinear":
-        dense = _resize_bilinear(arr, out_hw)
-    elif filter_type == "nearest":
-        dense = _resize_nearest(arr, out_hw)
-    else:
-        raise ValueError(f"Unknown filter type {filter_type!r}")
+    dense = resize_flow(arr, out_hw, filter_type)
     cx, cy = dense.shape[1] // 2, dense.shape[2] // 2
     h1 = cx - image_shape[0] // 2
     w1 = cy - image_shape[1] // 2

@@ -7,6 +7,9 @@
   the clipped integer event position (the FWL metric).
 * ``warp_voxel_flow`` — the same with a ``[T, 2, H, W]`` flow voxel, each
   event reading its time bin's slice (the time-aware FWL metric).
+* ``warp_voxel_flow_streaming`` — the time-aware warp of a ``[2, H, W]``
+  flow propagated bin by bin (Burgers or upwind), each bin's events
+  warped by the current field: the ``[T, 2, H, W]`` voxel is never built.
 * ``multi_direction_dense_warp`` — one flow gather, several reference times
   (the plain version of the objective's warps).
 * ``flow_from_2d_translation``, ``flow_from_similarity``,
@@ -174,6 +177,53 @@ def warp_voxel_flow(
     lin = ix * w + iy
     u = flat[bin_id, 0, lin]
     v = flat[bin_id, 1, lin]
+    return _replace_xy_t(events, events[..., 0] - dt * u, events[..., 1] - dt * v, dt)
+
+
+def warp_voxel_flow_streaming(
+    events: Tensor,
+    flow0: Tensor,
+    n_time_bin: int,
+    reference_time: Tensor,
+    image_size: Tuple[int, int],
+    normalize_t: bool = False,
+    weights: Optional[Tensor] = None,
+    scheme: str = "burgers",
+) -> Tensor:
+    """Time-aware warp of ``[n, 4]`` events that propagates the ``[2, H, W]``
+    flow one bin at a time (``scheme``: ``burgers`` or ``upwind``,
+    ``flow/voxel.py``'s steps of 1 / ``n_time_bin``) and warps each bin's
+    events with the current field, holding one ``[2, H, W]`` field at a
+    time instead of the ``[T, 2, H, W]`` voxel.  Bins split the masked
+    ``dt`` range as ``warp_voxel_flow``'s do.  The JAX package's semantics
+    (its reference's "optimized" voxel warp): the flow is propagated once
+    *before* bin 0 is consumed, so bin k reads the (k+1)-step field, where
+    ``construct_dense_flow_voxel(t0_location='first')``'s bin 0 is the
+    unpropagated flow.  An unknown ``scheme`` raises ``ValueError`` (the
+    JAX package runs upwind for any name but ``burgers``)."""
+    from ..flow.voxel import burgers_step, upwind_step
+
+    steps = {"burgers": burgers_step, "upwind": upwind_step}
+    if scheme not in steps:
+        raise ValueError(f"scheme must be one of {tuple(steps)}, got {scheme!r}")
+    h, w = image_size
+    dt = calculate_dt(events, reference_time, normalize_t, weights=weights)
+    t_min = _masked_min(dt, weights)
+    t_max = _masked_max(dt, weights)
+    span = torch.where(t_max > t_min, t_max - t_min, torch.ones_like(t_max))
+    bin_id = torch.floor((dt - t_min) / span * n_time_bin).to(torch.int64).clamp(0, n_time_bin - 1)
+    ix = events[..., 0].to(torch.int64).clamp(0, h - 1)
+    iy = events[..., 1].to(torch.int64).clamp(0, w - 1)
+    lin = ix * w + iy
+    u = torch.zeros_like(dt)
+    v = torch.zeros_like(dt)
+    flow = flow0
+    for k in range(n_time_bin):
+        flow = steps[scheme](flow, 1.0 / n_time_bin)
+        flat = flow.reshape(2, -1)
+        in_bin = bin_id == k
+        u = torch.where(in_bin, flat[0, lin], u)
+        v = torch.where(in_bin, flat[1, lin], v)
     return _replace_xy_t(events, events[..., 0] - dt * u, events[..., 1] - dt * v, dt)
 
 

@@ -11,7 +11,7 @@ from .first_order import FIRST_ORDER, run_first_order
 from .fleet import BatchedLBFGS, BatchedNewtonCG, FleetPyramidalSolver
 from .global_motion import GlobalMotionContrastMaximization
 from .newton_cg import LBFGS, NewtonCG, build_lbfgs, build_newton_cg
-from .objective import FleetEvents, FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe
+from .objective import FleetEvents, FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe, build_value_grad_hvp
 from .mixed import MixedPatchContrastMaximization
 from .patch_base import PatchContrastMaximization, prepare_patch
 from .pyramid import PyramidalPatchContrastMaximization
@@ -50,6 +50,7 @@ __all__ = [
     "ObjectiveSpec",
     "build_objective",
     "build_orig_iwe",
+    "build_value_grad_hvp",
     "prepare_patch",
     "collections",
     "OPTIMIZERS",

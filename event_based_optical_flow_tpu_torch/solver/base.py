@@ -18,6 +18,15 @@ the card, flows colorized on the host, written by the ``Visualizer``
 passed as ``visualize_module``) and ``profiled_optimize``, a
 ``torch.profiler`` trace of the solve into ``output.trace_dir``.
 
+The JAX package's public helpers are here too: the motion-model
+conversions (``motion_model_to_motion``, ``motion_to_motion_model``,
+``motion_to_dense_flow`` through ``ops.warp.Warp``), the warm start's
+rescaling (``update_time_scale_for_previous_frame_best_estimation``), the
+base's cold inits, ``prepare_events`` (padded events and weights on the
+solver's device), ``calculate_fwl`` (the same FWL evaluation
+``calculate_flow_error`` reports), ``undistort_image`` (cv2) and the
+no-op ``setup_single_training`` / ``train``.
+
 ``solver.outer_padding`` p (``padding``) grows every image the solver
 votes by p pixels a side, as the JAX package's ``EventImageConverter``
 does: the metrics' orig and FWL images are the padded bilinear images
@@ -41,6 +50,7 @@ from ..flow.metrics import calculate_flow_error
 from ..ops.iwe import create_iwe, event_mask
 from ..ops.warp import Warp, calculate_reftime, warp_dense_flow, warp_voxel_flow
 from ..state import from_jax
+from ..types import pad_events
 from ..utils import check_key_and_bool
 from ..visualizer import clip_iwe
 
@@ -228,6 +238,49 @@ class SolverBase:
             motion = previous_best.detach().cpu() if torch.is_tensor(previous_best) else previous_best
             self.previous_frame_best_estimation = np.array(motion, dtype=np.float64)
 
+    def update_time_scale_for_previous_frame_best_estimation(self, scale: float) -> None:
+        """Multiply the warm motion by ``scale`` in whichever form it is held:
+        a per-scale dict, a list of per-frame dicts (None entries kept), or
+        one motion array or tensor."""
+        prev = self.previous_frame_best_estimation
+        if isinstance(prev, dict):
+            self.previous_frame_best_estimation = {k: v * scale for k, v in prev.items()}
+        elif isinstance(prev, list):
+            self.previous_frame_best_estimation = [
+                None if d is None else {k: v * scale for k, v in d.items()} for d in prev
+            ]
+        elif prev is not None:
+            self.previous_frame_best_estimation = prev * scale
+
+    # --- motion conversions and the base's cold inits -------------------------
+    def motion_model_to_motion(self, params: dict) -> np.ndarray:
+        """A parameter dict of ``motion_model`` -> its motion vector."""
+        return self.warper.motion_model_to_motion(self.motion_model, params)
+
+    def motion_to_motion_model(self, motion) -> dict:
+        """A motion vector -> the parameter dict of ``motion_model``."""
+        return self.warper.motion_model_from_motion(motion, self.motion_model)
+
+    def motion_to_dense_flow(self, motion) -> torch.Tensor:
+        """The model's dense ``[2, H, W]`` field (px/s) of ``motion`` on the
+        solver's device (the tile solvers interpolate their tiles instead)."""
+        return self.warper.get_flow_from_motion(self.tensor(motion), self.motion_model)
+
+    def initialize_random(self) -> np.ndarray:
+        """Uniform in [-0.005, 0.005) per parameter, from the cold init's
+        numpy generator (the JAX package's draws)."""
+        return self._rng.random(self.motion_vector_size).astype(np.float64) * 0.01 - 0.005
+
+    def initialize_zeros(self) -> np.ndarray:
+        return np.zeros(self.motion_vector_size, dtype=np.float64)
+
+    def prepare_events(self, events: np.ndarray):
+        """``[n, 4]`` events -> (padded events ``[N, 4]``, weights ``[N]``) on
+        the solver's device and dtype, N the next bucket of
+        ``types.pad_events``."""
+        padded, weights = pad_events(np.asarray(events, dtype=np.float64))
+        return self.tensor(padded), self.tensor(weights)
+
     def rng_state(self):
         """A snapshot of the solver's randomness: the init sweep's
         ``torch.Generator`` and the cold init's numpy generator."""
@@ -262,6 +315,22 @@ class SolverBase:
         p = self.padding
         return image[..., p:-p, p:-p] if p > 0 else image
 
+    def _fwl_pair(self, events: torch.Tensor, gt: torch.Tensor, pred: torch.Tensor) -> dict:
+        """GT_FWL of the GT displacement ``gt [2, H, W]`` and PRED_FWL of the
+        prediction (dense or a voxel), against the events' orig IWE."""
+        orig_iwe = create_iwe(events, self.image_shape, sigma=1, blur_mode="scipy", padding=self.padding)
+        return {"GT_FWL": self._fwl(events, gt, orig_iwe), "PRED_FWL": self._fwl(events, pred, orig_iwe)}
+
+    def calculate_fwl(self, motion, gt_flow, timescale: float, events: np.ndarray) -> dict:
+        """{"GT_FWL", "PRED_FWL"} of the solution over a window of
+        ``timescale`` seconds against the GT displacement ``gt_flow`` in the
+        JAX package's ``[2, H, W]`` layout: the values
+        ``calculate_flow_error`` reports (a pyramid's prediction takes the
+        timescale through ``predicted_flow``)."""
+        with torch.no_grad():
+            fwl = self._fwl_pair(self.tensor(events), self.tensor(gt_flow), self.predicted_flow(motion, timescale))
+            return {k: float(v) for k, v in fwl.items()}
+
     def calculate_flow_error(self, motion, gt_flow: np.ndarray, timescale: float, events: np.ndarray) -> dict:
         """AEE/NPE/AE with the event mask, plus GT_FWL and PRED_FWL, of the
         solution against the GT displacement ``gt_flow [H, W, 2]`` over a
@@ -273,11 +342,9 @@ class SolverBase:
             gt = self.tensor(np.transpose(np.asarray(gt_flow), (2, 0, 1)))
             pred = self.predicted_flow(motion, timescale)
             pred_t0 = self.get_original_flow_from_time_aware_flow_voxel(pred) if self.is_time_aware else pred
-            orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy", padding=self.padding)
             mask = self._crop(event_mask(e, self.image_shape, padding=self.padding))[None]
             err = calculate_flow_error(gt[None], pred_t0[None], mask)
-            err["GT_FWL"] = self._fwl(e, gt, orig_iwe)
-            err["PRED_FWL"] = self._fwl(e, pred, orig_iwe)
+            err.update(self._fwl_pair(e, gt, pred))
             flow_error = {k: float(v) for k, v in err.items()}
         logger.info(f"flow_error = {flow_error} for time period {timescale} sec.")
         return flow_error
@@ -391,6 +458,15 @@ class SolverBase:
             pred.cpu().numpy(), np.transpose(np.asarray(gt_flow), (2, 0, 1)),
             pred_file_prefix="flow_comparison_pred", gt_file_prefix="flow_comparison_gt")
 
+    def undistort_image(self, image: np.ndarray) -> np.ndarray:
+        """The image undistorted by the calibration's ``K`` and ``D`` (cv2 on
+        the host, as the JAX package does it, its arguments included)."""
+        import cv2
+
+        newcameramtx, _ = cv2.getOptimalNewCameraMatrix(self.calib_param["K"], self.calib_param["D"],
+                                                        self.image_shape, 1, self.image_shape)
+        return cv2.undistort(image, self.calib_param["K"], self.calib_param["D"], None, newcameramtx)
+
     # --- the solve ---------------------------------------------------------------
     def profiled_optimize(self, events: np.ndarray):
         """``optimize``, inside a ``torch.profiler`` trace (host and, on the
@@ -407,6 +483,13 @@ class SolverBase:
 
     def optimize(self, events: np.ndarray):
         raise NotImplementedError
+
+    def setup_single_training(self, *args, **kwargs):
+        """A no-op: the contrast-maximization solvers train nothing (the
+        JAX package's hook)."""
+
+    def train(self, *args, **kwargs):
+        """A no-op (see ``setup_single_training``)."""
 
     def optimize_with_metrics(self, events: np.ndarray, gt_flow: np.ndarray, timescale: float,
                               metric_events: np.ndarray):

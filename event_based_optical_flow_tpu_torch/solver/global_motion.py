@@ -43,6 +43,7 @@ import torch
 
 from ..ops.warp import calib_tuple
 from ..utils.config_schema import ConfigError
+from .base import SolverBase
 from .graphs import ChainGraphs
 from .objective import FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe
 from .patch_base import PatchContrastMaximization
@@ -91,9 +92,9 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
                                    calib=self._calib)
 
     # --- the model's field (metrics, save_flow) ------------------------------
-    def motion_to_dense_flow(self, motion) -> torch.Tensor:
-        """The model's dense [2, H, W] field (px/s) of the parameters."""
-        return self.warper.get_flow_from_motion(self.tensor(motion), self.motion_model)
+    # the model's dense [2, H, W] field (px/s) of the parameters, not a
+    # tile interpolation
+    motion_to_dense_flow = SolverBase.motion_to_dense_flow
 
     def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
         return self.motion_to_dense_flow(np.asarray(motion, dtype=np.float64) * timescale)

@@ -22,7 +22,6 @@ import logging
 import numpy as np
 import torch
 
-from ..ops.interp import tile_to_dense_flow
 from .objective import FrameEvents, build_orig_iwe
 from .patch_base import PatchContrastMaximization, prepare_patch
 
@@ -34,9 +33,7 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
                  optimizer_config: dict = {}, output_config: dict = {}, **kwargs):
         super().__init__(image_shape, calibration_parameter, solver_config, optimizer_config,
                          output_config, **kwargs)
-        size, sw = self.slv_config["patch"]["size"], self.slv_config["patch"]["sliding_window"]
-        self.patch_size = (size, size) if isinstance(size, int) else tuple(size)
-        self.sliding_window = (sw, sw) if isinstance(sw, int) else tuple(sw)
+        self.set_patch_size_and_sliding_window()
         self.patches, self.patch_image_size = prepare_patch(image_shape, self.patch_size, self.sliding_window)
         self.n_patch = len(self.patches)
         self.last_frame_stats: dict = {}
@@ -86,10 +83,6 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         the JAX layout's numpy array)."""
         self.previous_frame_best_estimation = self.tensor(
             previous_best.detach().cpu() if torch.is_tensor(previous_best) else previous_best)
-
-    def motion_to_dense_flow(self, motion: torch.Tensor) -> torch.Tensor:
-        return tile_to_dense_flow(torch.as_tensor(motion).reshape(-1), self.patch_image_size, self.image_shape,
-                                  self.patch_size, self.sliding_window, self.patch_shift, self.filter_type)
 
     def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
         return self.motion_to_dense_flow(torch.as_tensor(motion) * timescale)

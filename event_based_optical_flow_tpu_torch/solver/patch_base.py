@@ -39,13 +39,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..ops.interp import tile_to_dense_flow
 from ..types import FlowPatch
 from ..utils.config_schema import ConfigError
 from .base import SolverBase
 from .first_order import FIRST_ORDER, run_first_order
 from .newton_cg import build_lbfgs, build_newton_cg
 from .objective import (
-    FleetEvents,
     FrameEvents,
     ObjectiveSpec,
     build_objective,
@@ -54,7 +54,7 @@ from .objective import (
     is_unfused,
     objective_supports_analytic_hvp,
 )
-from .sampling import build_patch_search, gather_patch_events
+from .sampling import GRID_SWEEP_CHUNK, build_patch_search, gather_patch_events, grid_sweep_losses  # noqa: F401
 from .scipy_bridge import SCIPY_OPTIMIZERS, _NEEDS_HESS, _NEEDS_HVP, minimize
 
 logger = logging.getLogger(__name__)
@@ -85,11 +85,6 @@ def prepare_patch(
 HVP_MODES = ("fd", "analytic", "analytic-warm", "analytic-coldfd", "analytic-all", "analytic-full")
 
 
-# the grid-best / global-best sweep: candidates per call of the batched
-# objective (K7 over that many copies of the frame's events)
-GRID_SWEEP_CHUNK = 100
-
-
 def grid_translations(step: int) -> np.ndarray:
     """The init sweep's shared translations ``[K, 2]``: the ij-meshgrid of
     ``np.arange(-150, 150, step)`` (``grid-best``: step 30, 100 candidates;
@@ -113,6 +108,26 @@ class PatchContrastMaximization(SolverBase):
                          output_config, **kwargs)
         self.filter_type = self.slv_config.get("patch", {}).get("filter_type", "bilinear")
         self.syncs = 0  # host reads of device values in the current frame
+
+    def set_patch_size_and_sliding_window(self) -> None:
+        """``solver.patch.size`` and ``sliding_window`` (an int or an
+        (h, w) pair) as (h, w) pairs."""
+        size = self.slv_config["patch"]["size"]
+        self.patch_size = (size, size) if isinstance(size, int) else tuple(size)
+        sw = self.slv_config["patch"]["sliding_window"]
+        self.sliding_window = (sw, sw) if isinstance(sw, int) else tuple(sw)
+
+    # --- tile -> dense ------------------------------------------------------
+    def interpolate_dense_flow_from_patch(self, motion_array) -> torch.Tensor:
+        """The current tile grid's motions (``[2, h_p, w_p]`` or flat) -> the
+        dense ``[2, H, W]`` flow (``ops.tile_to_dense_flow``), on the
+        motion's device (a host array goes to the solver's)."""
+        motion = motion_array if torch.is_tensor(motion_array) else self.tensor(motion_array)
+        return tile_to_dense_flow(motion.reshape(-1), self.patch_image_size, self.image_shape, self.patch_size,
+                                  self.sliding_window, self.patch_shift, self.filter_type)
+
+    def motion_to_dense_flow(self, motion_array) -> torch.Tensor:
+        return self.interpolate_dense_flow_from_patch(motion_array)
 
     # --- initialization strategies ------------------------------------------
     def initialize_random(self) -> torch.Tensor:
@@ -146,32 +161,13 @@ class PatchContrastMaximization(SolverBase):
             return self.tensor(np.repeat(best[:, None], self.n_patch, axis=1))
         raise ConfigError(f"'solver.patch.initialize: {init!r}' is not a known initialization")
 
-    def _grid_sweep_losses(self, spec: ObjectiveSpec, frame: FrameEvents, orig, motions: torch.Tensor,
-                           chunk: int = GRID_SWEEP_CHUNK) -> torch.Tensor:
-        """The objective of ``spec`` (TV included) at each row of ``motions``
-        ``[K, M]``, in chunks of ``chunk`` candidates through the batched
-        objective: one K7 forward over ``chunk`` copies of the frame's
-        events (``chip_smoke.py`` ``[init-grid]`` times it, with its peak
-        memory, against one K1 evaluation per candidate)."""
-        from .fleet import build_batched_objective
-
-        with torch.no_grad():
-            obj = build_batched_objective(spec)
-            losses, copies = [], None
-            for lo in range(0, len(motions), chunk):
-                part = motions[lo:lo + chunk]
-                if copies is None or len(copies) != len(part):
-                    copies = FleetEvents.copies(frame, len(part))
-                losses.append(obj(part, None if orig is None else orig.expand((len(part),) + orig.shape), copies))
-            return torch.cat(losses)
-
     def _grid_best_translation(self, frame: FrameEvents, orig, step: int) -> np.ndarray:
         """The JAX package's ``_grid_best_translation``: the current scale's
         objective at every translation of ``grid_translations(step)`` tiled
         over the patches; the first minimum (``nanargmin``), read back once."""
         grid = grid_translations(step)
         tiles = np.repeat(grid[:, :, None], self.n_patch, axis=2).reshape(len(grid), -1)
-        losses = self._grid_sweep_losses(self._current_spec(), frame, orig, self.tensor(tiles))
+        losses = grid_sweep_losses(self._current_spec(), frame, orig, self.tensor(tiles))
         self.syncs += 1
         return grid[int(np.nanargmin(losses.cpu().numpy()))]
 

@@ -378,6 +378,8 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
                                               t_scale)
 
     def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
+        """The JAX pyramid's timescale form (its ``calculate_fwl_pred``):
+        the window's voxel, not the per-second one scaled."""
         return self.motion_to_dense_flow(motion, timescale) * timescale
 
     # --------------------------------------------------------- visualization

@@ -1,6 +1,6 @@
-"""Per-patch sampling init sweep (port of
-``event_based_optical_flow_tpu/solver/sampling.py``: ``gather_patch_events``
-and ``build_patch_search``).
+"""Per-patch sampling init sweep and the global grid search (port of
+``event_based_optical_flow_tpu/solver/sampling.py``: ``gather_patch_events``,
+``build_patch_search`` and ``build_global_search``).
 
 Each finer pyramid scale refines the expanded coarser motion per tile with
 a batched candidate sweep: round 1 draws uniformly in the tile's search
@@ -11,6 +11,12 @@ tile's middle-reference-time 2-DoF warp (lower = better), its IWE voted by
 package's ``_patch_cost_fn``).  All patches x
 candidates of a round are scored in ONE batched scatter vote, not a loop
 over patches.
+
+``build_global_search`` sweeps a dense grid of shared 2-DoF translations
+through one objective and keeps the least loss; on the port's own
+objective it scores the grid as the ``grid-best`` / ``global-best`` inits
+do (``grid_sweep_losses``: chunks of candidates through the batched
+objective, one K7 forward per chunk on the card).
 
 Randomness is explicit: the draws come from the solver's
 ``torch.Generator`` (``draw_candidates``), or from an optional
@@ -29,10 +35,15 @@ import torch
 from ..costs.functional import gradient_magnitude, nan_to_penalty
 from ..ops.iwe import create_iwe
 from ..ops.warp import calculate_reftime, warp_2dof
+from .objective import FleetEvents, FrameEvents, ObjectiveSpec, build_orig_iwe
 
 logger = logging.getLogger(__name__)
 
 Tensor = torch.Tensor
+
+# the grid sweeps' candidates per call of the batched objective (K7 over
+# that many copies of the frame's events)
+GRID_SWEEP_CHUNK = 100
 
 
 def gather_patch_events(
@@ -206,5 +217,78 @@ def build_patch_search(
 
         best = pick(torch.cat([cands1, cands2], dim=1), torch.cat([losses1, losses2], dim=1))
         return torch.where((counts > min_events)[:, None], best, motion0)
+
+    return search
+
+
+def grid_sweep_losses(spec: ObjectiveSpec, frame: FrameEvents, orig: Optional[Tensor], motions: Tensor,
+                      chunk: int = GRID_SWEEP_CHUNK) -> Tensor:
+    """The objective of ``spec`` (TV included) at each row of ``motions``
+    ``[K, M]``, in chunks of ``chunk`` candidates through the batched
+    objective: one K7 forward over ``chunk`` copies of the frame's events
+    (``chip_smoke.py`` ``[init-grid]`` times it, with its peak memory,
+    against one K1 evaluation per candidate)."""
+    from .fleet import build_batched_objective
+
+    with torch.no_grad():
+        obj = build_batched_objective(spec)
+        losses, copies = [], None
+        for lo in range(0, len(motions), chunk):
+            part = motions[lo:lo + chunk]
+            if copies is None or len(copies) != len(part):
+                copies = FleetEvents.copies(frame, len(part))
+            losses.append(obj(part, None if orig is None else orig.expand((len(part),) + orig.shape), copies))
+        return torch.cat(losses)
+
+
+def build_global_search(image_shape: Tuple[int, int], objective, sampling_field, chunk: int = GRID_SWEEP_CHUNK):
+    """The dense grid sweep of a global 2-DoF translation: every candidate
+    of the ij-meshgrid of ``sampling_field`` with itself.
+
+    fn(events [N, 4], weights [N]) -> (best [2], loss): the first candidate
+    of least loss and its loss, tensors on the events' device (no host
+    read).
+
+    ``objective`` is either the port's own objective, an ``ObjectiveSpec``
+    of a 2-DoF motion (a tile grid, each candidate shared by every tile, or
+    the ``2d-translation`` model), scored as the grid inits score it
+    (``grid_sweep_losses`` on the weighted events' frame and orig IWE); or
+    a callable ``objective(c [2], events, weights) -> loss`` (the JAX
+    package's contract), every candidate in one ``torch.func.vmap`` pass
+    where the callable allows it (a custom kernel's autograd function or a
+    host read does not), else one call per candidate."""
+    field = np.asarray(sampling_field, dtype=np.float64)
+    grid = np.stack(np.meshgrid(field, field, indexing="ij"), -1).reshape(-1, 2)
+
+    if isinstance(objective, ObjectiveSpec):
+        spec = objective
+        if tuple(spec.image_shape) != tuple(image_shape):
+            raise ValueError(f"the objective's image shape {spec.image_shape} is not {tuple(image_shape)}")
+        if spec.motion_model == "tiles":
+            n_tiles = int(np.prod(spec.patch_image_size))
+        elif spec.motion_model in ("2d-translation", "rigid-optical-flow"):
+            n_tiles = 1
+        else:
+            raise ValueError(f"a 2-DoF grid does not fit the {spec.motion_model!r} model's parameters")
+        motions = np.repeat(grid[:, :, None], n_tiles, axis=2).reshape(len(grid), -1)
+
+        def losses_of(events: Tensor, weights: Tensor) -> Tensor:
+            frame = FrameEvents.from_numpy(events[weights > 0].double().cpu().numpy(), events.device, events.dtype,
+                                           spec.time_bin if spec.time_aware else None,
+                                           polarity=spec.iwe_method == "polarity")
+            cands = torch.as_tensor(motions, dtype=events.dtype, device=events.device)
+            return grid_sweep_losses(spec, frame, build_orig_iwe(spec)(frame), cands, chunk)
+    else:
+        def losses_of(events: Tensor, weights: Tensor) -> Tensor:
+            cands = torch.as_tensor(grid, dtype=events.dtype, device=events.device)
+            try:
+                return torch.func.vmap(lambda c: objective(c, events, weights))(cands)
+            except RuntimeError:
+                return torch.stack([torch.as_tensor(objective(c, events, weights)) for c in cands])
+
+    def search(events: Tensor, weights: Tensor):
+        losses = losses_of(events, weights)
+        best = losses.argmin()
+        return torch.as_tensor(grid, dtype=losses.dtype, device=losses.device)[best], losses[best]
 
     return search

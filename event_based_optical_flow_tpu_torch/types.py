@@ -9,6 +9,7 @@ accepts the mask and padded entries contribute nothing.  Host-side numpy,
 identical to the JAX package so both pad to the same layout.
 """
 
+import copy
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -17,7 +18,7 @@ import numpy as np
 
 @dataclass
 class FlowPatch:
-    """One tile of the patch grid: center coordinates and shape.
+    """One tile of the patch grid: center coordinates, shape, flow value.
 
     Mirrors the reference dataclass (reference ``src/types/flow_patch.py:8-60``)
     so that solver tiling semantics (x_min/x_max rounding) are identical.
@@ -26,6 +27,8 @@ class FlowPatch:
     x: float  # center, height direction
     y: float  # center, width direction
     shape: Tuple[int, int]  # (height, width)
+    u: float = 0.0
+    v: float = 0.0
 
     @property
     def h(self) -> int:
@@ -50,6 +53,21 @@ class FlowPatch:
     @property
     def y_max(self) -> int:
         return int(self.y + np.floor(self.w / 2))
+
+    @property
+    def position(self) -> np.ndarray:
+        return np.array([self.x, self.y])
+
+    @property
+    def flow(self) -> np.ndarray:
+        return np.array([self.u, self.v])
+
+    def update_flow(self, u: float, v: float) -> None:
+        self.u = u
+        self.v = v
+
+    def copy(self) -> "FlowPatch":
+        return copy.deepcopy(self)
 
 
 def pad_events(

@@ -2,7 +2,7 @@
 
 from .config_schema import ConfigError, check_ported, validate_config
 from .events import crop_event, crop_event_mask, generate_events, set_event_origin_to_zero, undistort_events
-from .misc import check_key_and_bool, fetch_runtime_info, fix_random_seed, set_numerics
+from .misc import check_key_and_bool, fetch_runtime_info, fix_random_seed, profile_section, set_numerics
 
 __all__ = [
     "ConfigError",
@@ -17,4 +17,5 @@ __all__ = [
     "fetch_runtime_info",
     "set_numerics",
     "fix_random_seed",
+    "profile_section",
 ]

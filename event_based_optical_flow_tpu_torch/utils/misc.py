@@ -1,8 +1,11 @@
 """Misc helpers (port of ``event_based_optical_flow_tpu/utils/misc.py``)."""
 
+import contextlib
 import os
 import random
 import subprocess
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -62,3 +65,33 @@ def set_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+_TIMINGS: Dict[str, list] = {}
+
+
+@contextlib.contextmanager
+def profile_section(name: str, timings: Optional[Dict[str, list]] = None):
+    """Wall-clock section timer on the host: appends the seconds the block
+    took to ``timings[name]`` (a module-wide store by default) for
+    ``timing_report``.  It does not synchronize the device: CUDA work the
+    block queued but that has not finished is not counted (call
+    ``torch.cuda.synchronize()`` inside the block to count it)."""
+    store = _TIMINGS if timings is None else timings
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        store.setdefault(name, []).append(time.perf_counter() - t0)
+
+
+def timing_report(timings: Optional[Dict[str, list]] = None) -> str:
+    """One line per section, sorted by name: count, total and mean (the
+    JAX package's format)."""
+    store = _TIMINGS if timings is None else timings
+    return "\n".join(f"{name}: n={len(vals)} total={sum(vals):.3f}s mean={sum(vals) / len(vals) * 1e3:.1f}ms"
+                     for name, vals in sorted(store.items()))
+
+
+def clear_timings() -> None:
+    _TIMINGS.clear()

@@ -1490,12 +1490,12 @@ def test_grid_sweep_matches_plain_version(cuda_device, deterministic, chunk, mon
     grid = patch_base.grid_translations(30)
     tiles = solv.tensor(np.repeat(grid[:, :, None], solv.n_patch, axis=2).reshape(len(grid), -1))
     ops.reset_launch_counts()
-    got = solv._grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
+    got = patch_base.grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
     counts = ops.launch_counts()
     assert counts["batched_fwd"] == 100 // chunk and counts["fwd"] == 0, counts
     monkeypatch.setattr(O, "fused_iwe", FI.fused_iwe_reference)  # the single-frame objective's vote
     monkeypatch.setattr(FI, "fused_iwe", FI.fused_iwe_reference)  # the batched objective's
-    want = solv._grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
+    want = patch_base.grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk)
     assert (got - want).abs().max().item() <= 1e-9 * want.abs().max().item()
     assert int(torch.argmin(got)) == int(torch.argmin(want))
 

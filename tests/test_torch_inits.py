@@ -98,7 +98,7 @@ def test_sweep_matches_jax(events, init, solver):
     tiles = st.tensor(np.repeat(grid[:, :, None], st.n_patch, axis=2).reshape(len(grid), -1))
     scale = np.abs(want).max()
     for chunk in (1, 64, patch_base.GRID_SWEEP_CHUNK):
-        got = st._grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk).numpy()
+        got = patch_base.grid_sweep_losses(spec, frame, orig, tiles, chunk=chunk).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * scale, err_msg=f"chunk {chunk}")
     chosen = st._grid_best_translation(frame, orig, step)
     np.testing.assert_array_equal(chosen, sj._grid_best_translation(events, step))

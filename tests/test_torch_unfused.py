@@ -293,7 +293,7 @@ def test_grid_sweep_matches_jax(scene, case):
     spec = st._current_spec()
     frame = st.frame_events(events)
     orig = TO.build_orig_iwe(spec)(frame)
-    _close(st._grid_sweep_losses(spec, frame, orig, st.tensor(tiles)).numpy(), want)
+    _close(patch_base.grid_sweep_losses(spec, frame, orig, st.tensor(tiles)).numpy(), want)
     np.testing.assert_array_equal(st._grid_best_translation(frame, orig, 30), sj._grid_best_translation(events, 30))
 
 
