@@ -1425,6 +1425,7 @@ def fleet_graph_check(port_main, dev, windows):
     syncs bit for bit, on the scale below the finest (central FD HVP) and
     the finest (the analytic HVP's prep and HVP).  Returns (lines, ok)."""
     from event_based_optical_flow_tpu_torch.solver.graphs import ChainGraphs
+    from event_based_optical_flow_tpu_torch.utils.tracing import synced
 
     with open(CONFIG) as f:
         config = yaml.safe_load(f)
@@ -1438,11 +1439,11 @@ def fleet_graph_check(port_main, dev, windows):
         x0 = solv.tensor(np.random.default_rng(s).uniform(-20.0, 20.0, (len(windows), 2 * solv.n_patch)))
         out = []
         for staged in (None, stage):
-            solv.syncs = 0
+            mark = synced()
             t0 = time.perf_counter()
             bx, bf, k, hvp = solv._run_fleet_newton(spec, x0, stage.frame, stage.orig, 3, None, True, False, staged)
             torch.cuda.synchronize()
-            out.append((bx, bf, k, solv.syncs, time.perf_counter() - t0))
+            out.append((bx, bf, k, synced() - mark, time.perf_counter() - t0))
         (xe, fe, ke, se, te), (xs, fs, ks, ss, ts) = out
         ok = torch.equal(xe, xs) and torch.equal(fe, fs) and (ke, se) == (ks, ss)
         all_ok = all_ok and ok

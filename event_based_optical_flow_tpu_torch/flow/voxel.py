@@ -35,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.tracing import read
+
 Tensor = torch.Tensor
 
 
@@ -271,9 +273,10 @@ def _propagate_single(flow_0: Tensor, dt: float, method: str) -> Tensor:
     if method in HOST_SCHEMES:
         import scipy.interpolate
 
-        f0 = flow_0.detach().cpu().numpy()
-        pts = np.stack([tx.detach().cpu().numpy(), ty.detach().cpu().numpy()], axis=1)
-        dst = np.stack([rows.cpu().numpy(), cols.cpu().numpy()], axis=1)
+        host = read({"f0": flow_0, "tx": tx, "ty": ty, "rows": rows, "cols": cols}, "voxel")
+        f0 = host["f0"].numpy()
+        pts = np.stack([host["tx"].numpy(), host["ty"].numpy()], axis=1)
+        dst = np.stack([host["rows"].numpy(), host["cols"].numpy()], axis=1)
         out = np.stack([scipy.interpolate.griddata(pts, f0[k].reshape(-1), dst, method=method)
                         for k in range(2)])
         return torch.as_tensor(out.reshape(2, h, w), dtype=flow_0.dtype, device=flow_0.device)

@@ -38,7 +38,14 @@ eval ``original<i>`` and ``pred_warp<i>``, after the frame's record (its
 writes ``optimization_steps<i>``; single-frame mode writes the events' IWE
 before and after the solve.  The fleet eval writes none, as in the JAX CLI.
 ``output.trace_dir`` traces every solve with ``torch.profiler``
-(``SolverBase.profiled_optimize``).
+(``SolverBase.profiled_optimize``), its spans in a file beside the trace.
+
+Under a recording profiler each frame (a fleet batch) is the span
+``eval_loop.frame`` (``frame``: the frame, a batch's first frame) over
+``eval_loop.gather`` (``_gather_frame``), ``eval_loop.solve``,
+``eval_loop.metrics`` and ``eval_loop.write`` (the text and JSONL lines,
+the flow dump, the checkpoint); the images are ``eval_loop.viz``
+(``utils.tracing``).
 """
 
 import argparse
@@ -58,6 +65,7 @@ from .flow.io import save_flow_frame
 from .utils import (ConfigError, check_key_and_bool, crop_event, fetch_runtime_info, fix_random_seed, set_numerics,
                     validate_config)
 from .utils import checkpoint as ckpt
+from .utils.tracing import read, span, traced
 from .visualizer import Visualizer
 
 logger = logging.getLogger(__name__)
@@ -133,6 +141,7 @@ def _optimization_batch(loader, data_config, ind1: int, ind2: int) -> np.ndarray
     return batch
 
 
+@traced("eval_loop.gather")
 def _gather_frame(loader, data_config, t1: float, t2: float):
     """One eval window: (optimization batch, the window's own events for
     the metrics, GT flow or None when the loader has none, window
@@ -178,26 +187,37 @@ def evaluate_dataset_with_gt(eval_frame_time_stamp_list, data_config, loader, so
             if i1 < data_config["ind1"] or i1 > data_config["ind2"]:
                 continue
         t0 = time.perf_counter()
-        batch_for_optimization, batch_for_gt_slice, gt_flow, flow_time = _gather_frame(
-            loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
-        best_motion, flow_error = solv.optimize_with_metrics(batch_for_optimization, gt_flow, flow_time,
-                                                             batch_for_gt_slice)
-        if warm_start:
-            solv.set_previous_frame_best_estimation(best_motion)
-        solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
-        ckpt.append_frame_metrics(out_dir, i1, flow_error)
-        _maybe_save_flow(save_flow, out_dir, solv, i1, best_motion, flow_time)
-        ckpt.save_eval_state(out_dir, i1 + 1, to_numpy(best_motion) if warm_start else None)
+        with span("eval_loop.frame", frame=i1):
+            batch_for_optimization, batch_for_gt_slice, gt_flow, flow_time = _gather_frame(
+                loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
+            best_motion, flow_error = solv.optimize_with_metrics(batch_for_optimization, gt_flow, flow_time,
+                                                                 batch_for_gt_slice)
+            if warm_start:
+                solv.set_previous_frame_best_estimation(best_motion)
+            _write_frame(out_dir, solv, i1, flow_error, save_flow, best_motion, flow_time, warm_start)
         records.append(_record(i1, flow_error, time.perf_counter() - t0, solv.last_frame_stats))
         if viz_every and i1 % viz_every == 0:
             t_viz = time.perf_counter()
-            solv.visualize_original_sequential(batch_for_gt_slice)
-            solv.visualize_pred_sequential(batch_for_gt_slice, best_motion)
-            solv.visualize_gt_sequential(batch_for_gt_slice, gt_flow)
+            with span("eval_loop.viz", frame=i1):
+                solv.visualize_original_sequential(batch_for_gt_slice)
+                solv.visualize_pred_sequential(batch_for_gt_slice, best_motion)
+                solv.visualize_gt_sequential(batch_for_gt_slice, gt_flow)
             records[-1]["viz_seconds"] = time.perf_counter() - t_viz
     if solv.visualizer is not None:
         solv.visualizer.flush()
     return records
+
+
+@traced("eval_loop.write")
+def _write_frame(out_dir: str, solv, frame: int, metrics: dict, save_flow, motion, flow_time: float,
+                 checkpoint_motion: bool) -> None:
+    """A frame's outputs: its text and JSONL lines, its flow dump
+    (``save_flow``), and the checkpoint of the next frame (with ``motion``
+    as its warm start where ``checkpoint_motion``)."""
+    solv.save_flow_error_as_text(out_dir, frame, metrics, "flow_error_per_frame_with_mask.txt")
+    ckpt.append_frame_metrics(out_dir, frame, metrics)
+    _maybe_save_flow(save_flow, out_dir, solv, frame, motion, flow_time)
+    ckpt.save_eval_state(out_dir, frame + 1, to_numpy(read(motion, "checkpoint")) if checkpoint_motion else None)
 
 
 def _record(frame: int, metrics: dict, seconds: float, stats: dict) -> dict:
@@ -227,21 +247,20 @@ def evaluate_dataset_fwl_only(eval_frame_time_stamp_list, data_config, loader, s
     for i1 in range(start_frame, len(eval_frame_time_stamp_list) - eval_dt):
         logger.info(f"Frame {i1} of {len(eval_frame_time_stamp_list)}")
         t0 = time.perf_counter()
-        batch_for_optimization, batch_for_metrics, _, flow_time = _gather_frame(
-            loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
-        best_motion = solv.profiled_optimize(batch_for_optimization)
-        fwl = solv.calculate_fwl_pred(best_motion, batch_for_metrics, flow_time)
-        if warm_start:
-            solv.set_previous_frame_best_estimation(best_motion)
-        solv.save_flow_error_as_text(out_dir, i1, fwl, "flow_error_per_frame_with_mask.txt")
-        ckpt.append_frame_metrics(out_dir, i1, fwl)
-        _maybe_save_flow(save_flow, out_dir, solv, i1, best_motion, flow_time)
-        ckpt.save_eval_state(out_dir, i1 + 1, to_numpy(best_motion) if warm_start else None)
+        with span("eval_loop.frame", frame=i1):
+            batch_for_optimization, batch_for_metrics, _, flow_time = _gather_frame(
+                loader, data_config, eval_frame_time_stamp_list[i1], eval_frame_time_stamp_list[i1 + eval_dt])
+            best_motion = solv.profiled_optimize(batch_for_optimization)
+            fwl = solv.calculate_fwl_pred(best_motion, batch_for_metrics, flow_time)
+            if warm_start:
+                solv.set_previous_frame_best_estimation(best_motion)
+            _write_frame(out_dir, solv, i1, fwl, save_flow, best_motion, flow_time, warm_start)
         records.append(_record(i1, fwl, time.perf_counter() - t0, solv.last_frame_stats))
         if viz_every and i1 % viz_every == 0:
             t_viz = time.perf_counter()
-            solv.visualize_original_sequential(batch_for_metrics)
-            solv.visualize_pred_sequential(batch_for_metrics, best_motion)
+            with span("eval_loop.viz", frame=i1):
+                solv.visualize_original_sequential(batch_for_metrics)
+                solv.visualize_pred_sequential(batch_for_metrics, best_motion)
             records[-1]["viz_seconds"] = time.perf_counter() - t_viz
     if solv.visualizer is not None:
         solv.visualizer.flush()
@@ -275,20 +294,24 @@ def evaluate_dataset_fleet(eval_frame_time_stamp_list, data_config, loader, solv
     for chunk_start in range(0, len(frames), fleet_batch):
         chunk = frames[chunk_start : chunk_start + fleet_batch]
         t0 = time.perf_counter()
-        gathered = [_gather_frame(loader, data_config, eval_frame_time_stamp_list[i],
-                                  eval_frame_time_stamp_list[i + eval_dt]) for i in chunk]
-        motions = solv.optimize_batch([g[0] for g in gathered])
-        if batch_warm:
-            # the next chunk's frames start from this chunk's last solution
-            solv.set_previous_frame_best_estimation(motions[-1])
-        errors = []
-        for i1, (_, gt_slice, gt_flow, flow_time), best in zip(chunk, gathered, motions):
-            flow_error = solv.calculate_flow_error(best, gt_flow, timescale=flow_time, events=gt_slice)
-            solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
-            ckpt.append_frame_metrics(out_dir, i1, flow_error)
-            _maybe_save_flow(save_flow, out_dir, solv, i1, best, flow_time)
-            errors.append(flow_error)
-        ckpt.save_eval_state(out_dir, chunk[-1] + 1, to_numpy(motions[-1]) if batch_warm else None)
+        with span("eval_loop.frame", frame=chunk[0]):
+            gathered = [_gather_frame(loader, data_config, eval_frame_time_stamp_list[i],
+                                      eval_frame_time_stamp_list[i + eval_dt]) for i in chunk]
+            motions = solv.optimize_batch([g[0] for g in gathered])
+            if batch_warm:
+                # the next chunk's frames start from this chunk's last solution
+                solv.set_previous_frame_best_estimation(motions[-1])
+            errors = []
+            for i1, (_, gt_slice, gt_flow, flow_time), best in zip(chunk, gathered, motions):
+                flow_error = solv.calculate_flow_error(best, gt_flow, timescale=flow_time, events=gt_slice)
+                with span("eval_loop.write"):
+                    solv.save_flow_error_as_text(out_dir, i1, flow_error, "flow_error_per_frame_with_mask.txt")
+                    ckpt.append_frame_metrics(out_dir, i1, flow_error)
+                    _maybe_save_flow(save_flow, out_dir, solv, i1, best, flow_time)
+                errors.append(flow_error)
+            with span("eval_loop.write"):
+                ckpt.save_eval_state(out_dir, chunk[-1] + 1,
+                                     to_numpy(read(motions[-1], "checkpoint")) if batch_warm else None)
         seconds = (time.perf_counter() - t0) / len(chunk)
         stats = dict(solv.last_batch_stats)
         logger.info(f"Frames {chunk[0]}..{chunk[-1]}: {seconds:.3f} s per frame, {stats['syncs']} host syncs "

@@ -52,9 +52,17 @@ from ..ops.warp import Warp, calculate_reftime, warp_dense_flow, warp_voxel_flow
 from ..state import from_jax
 from ..types import pad_events
 from ..utils import check_key_and_bool
+from ..utils import tracing
+from ..utils.tracing import read, traced
 from ..visualizer import clip_iwe
 
 logger = logging.getLogger(__name__)
+
+
+def _host_values(values: dict) -> dict:
+    """A dict of 0-d device values as Python floats, in one host read."""
+    host = read(torch.stack([v.reshape(()) for v in values.values()]), "metrics").tolist()
+    return dict(zip(values, host))
 
 
 def resolve_dtype(precision, device: torch.device) -> torch.dtype:
@@ -210,7 +218,9 @@ class SolverBase:
         """Host array (or a tensor) -> the solver's device and dtype."""
         if torch.is_tensor(a):
             return a.to(self.device, self.dtype)
-        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device).to(self.dtype)
+        t = torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device)
+        tracing.count("h2d_bytes", tracing.device_bytes(t))
+        return t.to(self.dtype)
 
     # --- warm start and randomness ------------------------------------------
     def _motion_dict(self, motion: dict) -> dict:
@@ -235,8 +245,7 @@ class SolverBase:
                 None if d is None else self._motion_dict(d) for d in previous_best
             ]
         else:
-            motion = previous_best.detach().cpu() if torch.is_tensor(previous_best) else previous_best
-            self.previous_frame_best_estimation = np.array(motion, dtype=np.float64)
+            self.previous_frame_best_estimation = np.array(read(previous_best, "start"), dtype=np.float64)
 
     def update_time_scale_for_previous_frame_best_estimation(self, scale: float) -> None:
         """Multiply the warm motion by ``scale`` in whichever form it is held:
@@ -328,9 +337,10 @@ class SolverBase:
         ``calculate_flow_error`` reports (a pyramid's prediction takes the
         timescale through ``predicted_flow``)."""
         with torch.no_grad():
-            fwl = self._fwl_pair(self.tensor(events), self.tensor(gt_flow), self.predicted_flow(motion, timescale))
-            return {k: float(v) for k, v in fwl.items()}
+            return _host_values(self._fwl_pair(self.tensor(events), self.tensor(gt_flow),
+                                               self.predicted_flow(motion, timescale)))
 
+    @traced("eval_loop.metrics")
     def calculate_flow_error(self, motion, gt_flow: np.ndarray, timescale: float, events: np.ndarray) -> dict:
         """AEE/NPE/AE with the event mask, plus GT_FWL and PRED_FWL, of the
         solution against the GT displacement ``gt_flow [H, W, 2]`` over a
@@ -345,10 +355,11 @@ class SolverBase:
             mask = self._crop(event_mask(e, self.image_shape, padding=self.padding))[None]
             err = calculate_flow_error(gt[None], pred_t0[None], mask)
             err.update(self._fwl_pair(e, gt, pred))
-            flow_error = {k: float(v) for k, v in err.items()}
+            flow_error = _host_values(err)
         logger.info(f"flow_error = {flow_error} for time period {timescale} sec.")
         return flow_error
 
+    @traced("eval_loop.metrics")
     def calculate_fwl_pred(self, motion, events: np.ndarray, timescale: float = 1.0) -> dict:
         """{"PRED_FWL": ...} of the solution over a window of ``timescale``
         seconds, the GT-free eval's metric (a time-aware solution warps
@@ -356,7 +367,7 @@ class SolverBase:
         with torch.no_grad():
             e = self.tensor(events)
             orig_iwe = create_iwe(e, self.image_shape, sigma=1, blur_mode="scipy", padding=self.padding)
-            return {"PRED_FWL": float(self._fwl(e, self.predicted_flow(motion, timescale), orig_iwe))}
+            return _host_values({"PRED_FWL": self._fwl(e, self.predicted_flow(motion, timescale), orig_iwe)})
 
     def dense_displacement(self, motion, timescale: float) -> np.ndarray:
         """The solution as a ``[2, H, W]`` displacement over ``timescale``
@@ -366,7 +377,7 @@ class SolverBase:
             flow = self.predicted_flow(motion, timescale)
             if self.is_time_aware:
                 flow = self.get_original_flow_from_time_aware_flow_voxel(flow)
-            return flow.double().cpu().numpy()
+            return read(flow, "flow_dump").double().numpy()
 
     # --- visualization ---------------------------------------------------------
     def _viz_iwe(self, events: torch.Tensor) -> np.ndarray:
@@ -375,7 +386,7 @@ class SolverBase:
         iwe = create_iwe(events, self.image_shape, sigma=0, padding=self.padding, method=self.iwe_method)
         if self.iwe_method == "polarity":
             iwe = iwe.sum(-3)
-        return self._crop(iwe).cpu().numpy()
+        return read(self._crop(iwe), "viz").numpy()
 
     def create_clipped_iwe_for_visualization(self, events, max_scale=50) -> np.ndarray:
         """The events' unwarped, unblurred IWE, clipped to uint8."""
@@ -415,7 +426,7 @@ class SolverBase:
         motion, model, flow = self._viz_warp(events, warp)
         clipped, warped = self._warped_viz_iwe(events, motion, model, return_warped=True)
         self.visualizer.visualize_image(clipped)
-        self.visualizer.visualize_optical_flow_on_event_mask(flow.cpu().numpy(), warped)
+        self.visualizer.visualize_optical_flow_on_event_mask(read(flow, "viz").numpy(), warped)
 
     def visualize_original_sequential(self, events):
         if self.visualizer is None:
@@ -455,7 +466,7 @@ class SolverBase:
             if self.is_time_aware:
                 pred = self.get_original_flow_from_time_aware_flow_voxel(pred)
         self.visualizer.visualize_optical_flow_pred_and_gt(
-            pred.cpu().numpy(), np.transpose(np.asarray(gt_flow), (2, 0, 1)),
+            read(pred, "viz").numpy(), np.transpose(np.asarray(gt_flow), (2, 0, 1)),
             pred_file_prefix="flow_comparison_pred", gt_file_prefix="flow_comparison_gt")
 
     def undistort_image(self, image: np.ndarray) -> np.ndarray:
@@ -468,18 +479,38 @@ class SolverBase:
         return cv2.undistort(image, self.calib_param["K"], self.calib_param["D"], None, newcameramtx)
 
     # --- the solve ---------------------------------------------------------------
+    @traced("eval_loop.solve")
     def profiled_optimize(self, events: np.ndarray):
         """``optimize``, inside a ``torch.profiler`` trace (host and, on the
         card, CUDA activity) written to ``output.trace_dir`` when the config
-        sets it (a ``*.pt.trace.json`` per solve, TensorBoard's layout)."""
+        sets it: a ``<worker>.<ns>.pt.trace.json`` per solve (TensorBoard's
+        layout) and beside it ``<worker>.<ns>.spans.json``, the solve's
+        spans (``utils.tracing``, drained) as Chrome trace events in the
+        profiler trace's time base, its counters under ``counters``."""
         trace_dir = (self.out_config or {}).get("trace_dir")
         if not trace_dir:
             return self.optimize(events)
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+        import socket
+        import time
+
+        from torch.profiler import ProfilerActivity, profile
+
+        written = []
+
+        def export(prof) -> None:
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json")
+            prof.export_chrome_trace(path)
+            written.append(path)
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
-        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
-            return self.optimize(events)
+        with profile(activities=activities, on_trace_ready=export):
+            result = self.optimize(events)
+        records, counts = tracing.drain()
+        for path in written:
+            tracing.write_chrome(path[: -len(".pt.trace.json")] + ".spans.json", records,
+                                 tracing.trace_base_ns(path), counts)
+        return result
 
     def optimize(self, events: np.ndarray):
         raise NotImplementedError

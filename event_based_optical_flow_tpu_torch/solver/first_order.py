@@ -36,6 +36,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ..utils.tracing import read
+
 Tensor = torch.Tensor
 
 ADAM_BETAS = (0.9, 0.999)
@@ -360,9 +362,9 @@ class _OptaxLBFGS:
         def value_and_slope(eta):
             f, gt = value_and_grad(x + float(eta) * u)
             self.reads += 1
-            return torch.stack([f, _dot(gt, u)]).tolist()
+            return read(torch.stack([f, _dot(gt, u)]), "host_opt").tolist()
 
-        f0, s0 = torch.stack([loss, _dot(u, g)]).tolist()
+        f0, s0 = read(torch.stack([loss, _dot(u, g)]), "host_opt").tolist()
         self.reads += 1
         eta = ZoomLinesearch().search(value_and_slope, f0, s0)
         return x + eta * u
@@ -384,4 +386,4 @@ def run_first_order(value_and_grad: Callable, x0: Tensor, method: str, opt_confi
         best_x = torch.where(improved, x, best_x)
         best_loss = torch.where(improved, loss, best_loss)
         x = lbfgs.step(x, loss, grad, value_and_grad) if lbfgs else rule(x, grad)
-    return best_x, float(best_loss), 1 + (lbfgs.reads if lbfgs else 0)
+    return best_x, float(read(best_loss, "host_opt")), 1 + (lbfgs.reads if lbfgs else 0)

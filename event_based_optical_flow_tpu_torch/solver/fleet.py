@@ -74,8 +74,9 @@ import torch
 
 from ..ops import fused_iwe as fi
 from ..ops.blur import gaussian_blur3
+from ..utils.tracing import read, span, synced, traced
 from .graphs import ChainGraphs
-from .newton_cg import BatchedEvaluations
+from .newton_cg import BatchedEvaluations, device_solve
 from .objective import (FleetEvents, ObjectiveSpec, check_events, cost_of_images, flow_of, kernel_call,
                         map_curvature)
 from .pyramid import COARSE_SUBSAMPLE_MIN_EVENTS, PyramidalPatchContrastMaximization, coarse_subsample
@@ -212,20 +213,21 @@ def _rdot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+def _any(mask: Tensor, site: str) -> bool:
+    """Whether any frame's ``mask`` holds: one host read for the batch."""
+    return bool(read(mask.any(), site))
+
+
 class BatchedLineSearches:
     """The lockstep line searches the fleet's solvers share (the JAX
     package's ``_batched_line_search`` and ``_batched_escape_probe``), one
     host read per condition for the whole batch: a subclass sets
-    ``ls_maxiter``, ``armijo_c1`` and ``syncs``."""
+    ``ls_maxiter`` and ``armijo_c1``."""
 
     ls_maxiter: int
     armijo_c1: float
-    syncs: int
 
-    def _any(self, mask: Tensor) -> bool:
-        self.syncs += 1
-        return bool(mask.any())
-
+    @traced("newton.line_search")
     def _line_search(self, x, f0, g, p, ev):
         """Per-frame two-sided backtracking in lockstep: each level tries x
         +- a p; a frame freezes at its first level that meets the Armijo
@@ -247,11 +249,12 @@ class BatchedLineSearches:
             f_cur = torch.where(accepted, f_cur, f_cand)
             accepted = accepted | (f_cur < f0 - c1 * alpha.abs() * gtp_abs)
             i += 1
-            if i >= self.ls_maxiter or not self._any(~accepted):
+            if i >= self.ls_maxiter or not _any(~accepted, "line_search"):
                 break
         zero = torch.zeros_like(alpha)
         return torch.where(accepted, alpha, zero), torch.where(accepted, f_cur, f0)
 
+    @traced("newton.escape")
     def _escape_probe(self, x, f0, p, ev):
         """Outward two-sided exponential probe along p-hat per frame, while
         any frame has not improved; a signed step (p-hat units) or 0."""
@@ -271,7 +274,7 @@ class BatchedLineSearches:
             best_f = torch.where(better, f_cand, best_f)
             mag *= 2.0
             i += 1
-            if i >= 9 or not self._any(best_f >= f0):
+            if i >= 9 or not _any(best_f >= f0, "escape"):
                 break
         return torch.where(best_f < f0, best_a, torch.zeros_like(best_a)), p_hat
 
@@ -321,6 +324,7 @@ class BatchedNewtonCG(BatchedLineSearches):
             return ev.hvp(aux, x, d)
         return ev.fd_hvp(x, d, g0, self.fd_central or force_central)
 
+    @traced("newton.cg")
     def _cg_solve(self, x, g, ev, analytic, force_central):
         g_norm = _rnorm(g)
         eta = torch.minimum(g_norm.new_tensor(0.5), torch.sqrt(g_norm)) * g_norm
@@ -331,7 +335,7 @@ class BatchedNewtonCG(BatchedLineSearches):
         i = 0
         while i < self.cg_maxiter:
             active = ~done & (_rnorm(r) > eta)
-            if not self._any(active):
+            if not _any(active, "cg"):
                 break
             hd = self._hvp(x, d, g, ev, aux, analytic, force_central)
             curv = _rdot(d, hd)
@@ -359,7 +363,7 @@ class BatchedNewtonCG(BatchedLineSearches):
         bx, bf = x, f
         done = torch.zeros_like(f, dtype=torch.bool)
         k = 0
-        while k < maxiter and (k == 0 or self._any(~done)):
+        while k < maxiter and (k == 0 or _any(~done, "done")):
             p = self._cg_solve(x, g, ev, analytic, force_central)
             if cap is not None:
                 # per component, not a per-frame inf-norm rescale
@@ -371,7 +375,7 @@ class BatchedNewtonCG(BatchedLineSearches):
             if k == 0:
                 trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
             trigger = ~done & trigger
-            if escape and self._any(trigger):
+            if escape and _any(trigger, "trigger"):
                 a_esc, p_hat = self._escape_probe(x, f, p, ev)
             else:
                 a_esc, p_hat = torch.zeros_like(alpha), p
@@ -392,6 +396,7 @@ class BatchedNewtonCG(BatchedLineSearches):
     def __call__(self, x0: Tensor, *args):
         return self.solve(BatchedEvaluations(self.value_fn, args, self.hvp_fn, self.hvp_prep_fn), x0)
 
+    @device_solve
     def solve(self, ev, x0: Tensor):
         """``(best_x, best_f, iterations)`` from ``x0`` [B, M]."""
         x = x0.detach()
@@ -467,6 +472,7 @@ class BatchedLBFGS(BatchedLineSearches):
     def __call__(self, x0: Tensor, *args):
         return self.solve(BatchedEvaluations(self.value_fn, args), x0)
 
+    @device_solve
     def solve(self, ev, x0: Tensor):
         """``(best_x, best_f, iterations)`` from ``x0`` [B, M]."""
         x = x0.detach()
@@ -479,7 +485,7 @@ class BatchedLBFGS(BatchedLineSearches):
         slots = torch.arange(m, device=x.device)
         done = torch.zeros_like(f, dtype=torch.bool)
         k = 0
-        while k < self.maxiter and (k == 0 or self._any(~done)):
+        while k < self.maxiter and (k == 0 or _any(~done, "done")):
             p = self._direction(g, S, Y, rho, nk)
             alpha, f_ls = self._line_search(x, f, g, p, ev)
             # ~done: a frozen frame's zero step must not fire the probe again
@@ -487,7 +493,7 @@ class BatchedLBFGS(BatchedLineSearches):
             if k == 0:
                 trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
             trigger = ~done & trigger
-            if self._any(trigger):
+            if _any(trigger, "trigger"):
                 a_esc, p_hat = self._escape_probe(x, f, p, ev)
             else:
                 a_esc, p_hat = torch.zeros_like(alpha), p
@@ -653,6 +659,7 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
                         "on all events")
         return [e if s is None else s for s, e in zip(subs, events_list)]
 
+    @traced("solver.prep")
     def _newton_events(self, events_list: List[np.ndarray], chain: bool, coarse: bool = True) -> dict:
         """{"full": (fleet, orig IWEs, stage), "coarse": ...}: the batch's
         event sets (the coarse scales' subsample when ``coarse`` and
@@ -703,7 +710,6 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         else:
             ev = stage.evaluations((spec, name), solve.value_fn, solve.hvp_fn, solve.hvp_prep_fn)
             best_x, best_f, n_iter = solve.solve(ev, x0)
-        self.syncs += solve.syncs
         return best_x, best_f, n_iter, name
 
     def _run_scales(self, scales, start: Callable, newton_events: dict, warm: bool, chain: bool) -> Dict[int, Tensor]:
@@ -716,33 +722,35 @@ class FleetPyramidalSolver(PyramidalPatchContrastMaximization):
         from .. import ops
 
         bsz = len(newton_events["full"][0])
-        self.syncs = 0
+        mark = synced()
         stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}, "chain": chain}
         best: Dict[int, Tensor] = {}
         for s in scales:
-            self.overload_patch_configuration(s)
-            spec = self._current_spec()
-            finest = s == self.patch_scales - 1
-            fleet, orig, stage = newton_events["full" if finest or "coarse" not in newton_events else "coarse"]
-            before = ops.launch_counts()
-            x0 = start(s, best)
-            scale_mi, scale_cg = self._scale_budget(s)
-            bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest, warm,
-                                                         stage)
-            best[s] = bx.reshape((bsz, self.motion_vector_size) + tuple(self.patch_image_size))
-            losses = bf.tolist()
-            self.syncs += 1
-            after = ops.launch_counts()
+            with span("solver.scale", scale=s):
+                self.overload_patch_configuration(s)
+                spec = self._current_spec()
+                finest = s == self.patch_scales - 1
+                fleet, orig, stage = newton_events["full" if finest or "coarse" not in newton_events else "coarse"]
+                before = ops.launch_counts()
+                with span("solver.init"):
+                    x0 = start(s, best)
+                scale_mi, scale_cg = self._scale_budget(s)
+                bx, bf, n_iter, hvp = self._run_fleet_newton(spec, x0, fleet, orig, scale_mi, scale_cg, finest,
+                                                             warm, stage)
+                best[s] = bx.reshape((bsz, self.motion_vector_size) + tuple(self.patch_image_size))
+                losses = read(bf, "scale_loss").tolist()
+                after = ops.launch_counts()
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, losses, hvp
             stats["events"][s] = list(fleet.frames.sizes)
             stats["launches"][s] = {k: after[k] - before[k] for k in after}
             if not chain:
                 logger.info(f"Fleet scale {s} done ({bsz} frames): {n_iter} lockstep iters ({hvp} HVP), "
                             f"losses {[round(v, 6) for v in losses]}")
-        stats["syncs"] = self.syncs
+        stats["syncs"] = synced() - mark
         self.last_batch_stats = stats
         return best
 
+    @traced("eval_loop.solve")
     def optimize_batch(self, events_list: List[np.ndarray]) -> List[Dict[int, Tensor]]:
         """Solve B frames together: one per-scale motion dict per frame (on
         the solver's device).  Chained when ``_chain_ready`` (warm from

@@ -43,6 +43,7 @@ import torch
 
 from ..ops.warp import calib_tuple
 from ..utils.config_schema import ConfigError
+from ..utils.tracing import read, span, synced
 from .base import SolverBase
 from .graphs import ChainGraphs
 from .objective import FrameEvents, ObjectiveSpec, build_objective, build_orig_iwe
@@ -162,8 +163,7 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
         with torch.no_grad():
             xs = self.tensor(cands / self._param_scale[None, :])  # the objective's scaled units
             losses = torch.stack([obj(x, orig, frame)[0] for x in xs])
-            best = int(torch.argmin(losses))
-        self.syncs += 1
+            best = int(read(torch.argmin(losses), "sweep"))
         return cands[best]
 
     # --- main -----------------------------------------------------------------
@@ -178,9 +178,10 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
         events = np.asarray(events, dtype=np.float64)
         spec = self._current_spec()
         before = ops.launch_counts()
-        self.syncs = 0
-        frame = self.frame_events(events)
-        orig = build_orig_iwe(spec)(frame)
+        mark = synced()
+        with span("solver.prep"):
+            frame = self.frame_events(events)
+            orig = build_orig_iwe(spec)(frame)
         warm = self.previous_frame_best_estimation is not None
         # the solve works in scaled (pixel-equivalent) units
         motion0 = self._initial_motion(spec, frame, orig) / self._param_scale
@@ -195,17 +196,16 @@ class GlobalMotionContrastMaximization(PatchContrastMaximization):
             best_x, best_f, n_iter, hvp = self._run_newton(spec, self.tensor(motion0), frame, orig,
                                                            int(self.opt_config.get("max_iter", 25)), finest=True,
                                                            warm=warm, gtol=1e-7, stage=stage)
-            loss = float(best_f)
-            self.syncs += 1
+            loss = float(read(best_f, "scale_loss"))
             self._history_cb(loss)
         else:
             best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, motion0, frame, orig, gtol=1e-7,
                                                                  sampling=False)
         after = ops.launch_counts()
-        best_motion = best_x.detach().to("cpu", torch.float64).numpy().reshape(-1) * self._param_scale
+        best_motion = read(best_x, "solution").to(torch.float64).numpy().reshape(-1) * self._param_scale
         self.last_frame_stats = {
             "iters": {0: n_iter}, "loss": {0: loss}, "hvp": {0: hvp}, "events": {0: len(events)},
-            "launches": {0: {k: after[k] - before[k] for k in after}}, "chain": chain, "syncs": self.syncs,
+            "launches": {0: {k: after[k] - before[k] for k in after}}, "chain": chain, "syncs": synced() - mark,
             "params": dict(zip(self.motion_model_keys, best_motion.tolist())),
         }
         self._plot_history()

@@ -59,6 +59,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from .. import ops
+from ..utils.tracing import span
 from .newton_cg import BatchedEvaluations, EagerEvaluations
 from .objective import FleetEvents, FrameEvents
 
@@ -116,11 +117,12 @@ class Stage:
 
 
 class _Captured:
-    """One evaluation: static input buffers and, on CUDA, the graph
-    captured at the first call."""
+    """One evaluation of one ``kind`` (``value``, ``value_grad``, ...): static
+    input buffers and, on CUDA, the graph captured at the first call (the
+    span ``graphs.capture``; each later call is a ``graphs.replay``)."""
 
-    def __init__(self, graphs: ChainGraphs, body: Callable):
-        self.graphs, self.body = graphs, body
+    def __init__(self, graphs: ChainGraphs, kind: str, body: Callable):
+        self.graphs, self.kind, self.body = graphs, kind, body
         self.inputs: Optional[Tuple[Tensor, ...]] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Tuple[Tensor, ...] = ()
@@ -134,10 +136,12 @@ class _Captured:
         if not self.graphs.cuda:
             return self.body(*self.inputs)
         if self.graph is None:
-            return self._warm_up_and_capture()
-        self.graph.replay()
-        ops.add_launch_counts(self.launches)
-        return tuple(o.clone() for o in self.outputs)
+            with span("graphs.capture", kind=self.kind):
+                return self._warm_up_and_capture()
+        with span("graphs.replay", kind=self.kind):
+            self.graph.replay()
+            ops.add_launch_counts(self.launches)
+            return tuple(o.clone() for o in self.outputs)
 
     def _warm_up_and_capture(self) -> Tuple[Tensor, ...]:
         g = self.graphs
@@ -174,12 +178,12 @@ class StagedEvaluations:
         eager = eager_cls(value_fn, (stage.orig, stage.frame), hvp_fn, hvp_prep_fn)
         self.staged = eager.staged
         g = stage.graphs
-        self._value = _Captured(g, lambda x: (eager.value(x),))
-        self._value_grad = _Captured(g, eager.value_grad)
-        self._fd_central = _Captured(g, lambda x, p: (eager.fd_hvp(x, p, None, True),))
-        self._fd_one_sided = _Captured(g, lambda x, p, g0: (eager.fd_hvp(x, p, g0, False),))
-        self._prep = _Captured(g, lambda x: (eager.prep(x),))
-        self._hvp = _Captured(g, lambda aux, x, p: (eager.hvp(aux, x, p),))
+        self._value = _Captured(g, "value", lambda x: (eager.value(x),))
+        self._value_grad = _Captured(g, "value_grad", eager.value_grad)
+        self._fd_central = _Captured(g, "fd_central", lambda x, p: (eager.fd_hvp(x, p, None, True),))
+        self._fd_one_sided = _Captured(g, "fd_one_sided", lambda x, p, g0: (eager.fd_hvp(x, p, g0, False),))
+        self._prep = _Captured(g, "prep", lambda x: (eager.prep(x),))
+        self._hvp = _Captured(g, "hvp", lambda aux, x, p: (eager.hvp(aux, x, p),))
 
     def value(self, x: Tensor) -> Tensor:
         return self._value(x)[0]

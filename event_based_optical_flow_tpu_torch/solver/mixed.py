@@ -22,6 +22,7 @@ import logging
 import numpy as np
 import torch
 
+from ..utils.tracing import read, span, synced
 from .objective import FrameEvents, build_orig_iwe
 from .patch_base import PatchContrastMaximization, prepare_patch
 
@@ -54,25 +55,25 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         logger.info(f"Start optimization; DoF {self.motion_vector_size * self.n_patch}")
         events = np.asarray(events, dtype=np.float64)
         spec = self._current_spec()
-        frame = self.frame_events(events)
         before = ops.launch_counts()
-        self.syncs = 0
-        orig = build_orig_iwe(spec)(frame)
+        mark = synced()
+        with span("solver.prep"):
+            frame = self.frame_events(events)
+            orig = build_orig_iwe(spec)(frame)
         motion0 = self._initial_motion(events, frame, orig)
         if self._device_newton():
             best_x, best_f, n_iter, hvp = self._run_newton(
                 spec, motion0, self._newton_frame(frame, self._shards_events()), orig,
                 int(self.opt_config.get("max_iter", 25)), finest=True,
                 warm=self.previous_frame_best_estimation is not None, gtol=1e-7)
-            loss = float(best_f)
-            self.syncs += 1
+            loss = float(read(best_f, "scale_loss"))
             self._history_cb(loss)
         else:
             best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, motion0, frame, orig, gtol=1e-7)
         after = ops.launch_counts()
         self.last_frame_stats = {
             "iters": {0: n_iter}, "loss": {0: loss}, "hvp": {0: hvp}, "events": {0: len(events)},
-            "launches": {0: {k: after[k] - before[k] for k in after}}, "syncs": self.syncs,
+            "launches": {0: {k: after[k] - before[k] for k in after}}, "syncs": synced() - mark,
         }
         self._plot_history()
         logger.info(f"Done: {n_iter} iters ({hvp} HVP), loss {loss:.6f}")
@@ -82,7 +83,7 @@ class MixedPatchContrastMaximization(PatchContrastMaximization):
         """Warm start from the previous frame's tile motion (a tensor, or
         the JAX layout's numpy array)."""
         self.previous_frame_best_estimation = self.tensor(
-            previous_best.detach().cpu() if torch.is_tensor(previous_best) else previous_best)
+            read(previous_best, "start"))
 
     def predicted_flow(self, motion, timescale: float) -> torch.Tensor:
         return self.motion_to_dense_flow(torch.as_tensor(motion) * timescale)

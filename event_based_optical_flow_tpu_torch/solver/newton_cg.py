@@ -23,8 +23,9 @@ plateau-escape probe; best-iterate tracking.  Hessian-vector products:
 
 The JAX package runs each loop as a ``lax.while_loop`` inside one device
 program.  Here the loops are Python loops over device tensors: every loop
-condition reads one boolean back to the host, a device synchronization.
-``NewtonCG.syncs`` counts them.  The evaluations between the reads (value,
+condition reads one boolean back to the host, a device synchronization,
+through ``utils.tracing.read`` (one site per kind of condition);
+``NewtonCG.syncs`` counts a solve's.  The evaluations between the reads (value,
 value and gradient, the HVPs) come from an evaluations object: run as
 called (``EagerEvaluations``), or replayed from CUDA graphs
 (``solver/graphs.py``); the arithmetic between them is the same either way.
@@ -32,9 +33,12 @@ called (``EagerEvaluations``), or replayed from CUDA graphs
 object and needs its ``value`` and ``value_grad`` only.
 """
 
+import functools
 from typing import Callable, Optional
 
 import torch
+
+from ..utils.tracing import read, span, synced, traced
 
 Tensor = torch.Tensor
 
@@ -127,19 +131,35 @@ class BatchedEvaluations(EagerEvaluations):
         return batched_fd_hvp(self.value_grad, x, p, g0, central)
 
 
+def device_solve(solve: Callable) -> Callable:
+    """A device solver's ``solve(ev, x0)``: inside the span ``newton.solve``,
+    its host syncs (``utils.tracing.synced``) counted into ``syncs``."""
+
+    @functools.wraps(solve)
+    def counted(self, ev, x0):
+        mark = synced()
+        try:
+            with span("newton.solve"):
+                return solve(self, ev, x0)
+        finally:
+            self.syncs = synced() - mark
+
+    return counted
+
+
+def _flag(t: Tensor, site: str) -> bool:
+    return bool(read(t, site))
+
+
 class LineSearches:
     """The line searches the device solvers share (the JAX package's module
-    functions ``_line_search`` and ``_escape_probe``), with the host-read
-    count: a subclass sets ``ls_maxiter``, ``armijo_c1`` and ``syncs``."""
+    functions ``_line_search`` and ``_escape_probe``): a subclass sets
+    ``ls_maxiter`` and ``armijo_c1``."""
 
     ls_maxiter: int
     armijo_c1: float
-    syncs: int
 
-    def _flag(self, t: Tensor) -> bool:
-        self.syncs += 1
-        return bool(t)
-
+    @traced("newton.line_search")
     def _line_search(self, x, f0, g, p, ev):
         """Two-sided backtracking: at each level try x +- alpha p and accept
         the first strict improvement (largest such alpha)."""
@@ -158,11 +178,12 @@ class LineSearches:
             f_best = torch.where(take_minus, f_minus, f_plus)
             alpha = torch.where(take_minus, -alpha, alpha)
             i += 1
-            if i >= self.ls_maxiter or not self._flag(f_best >= f0 - c1 * alpha.abs() * gtp_abs):
+            if i >= self.ls_maxiter or not _flag(f_best >= f0 - c1 * alpha.abs() * gtp_abs, "line_search"):
                 break
         ok = f_best < f0 - c1 * alpha.abs() * gtp_abs
         return torch.where(ok, alpha, torch.zeros_like(alpha)), torch.where(ok, f_best, f0)
 
+    @traced("newton.escape")
     def _escape_probe(self, x, f0, p, ev):
         """Outward two-sided exponential search along p-hat after a failed
         backtracking search; returns a signed step (p-hat units) or 0."""
@@ -180,7 +201,7 @@ class LineSearches:
             best_a = torch.where(better, a_cand, best_a)
             best_f = torch.where(better, f_cand, best_f)
             mag *= 2.0
-            if i == 8 or not self._flag(best_f >= f0):
+            if i == 8 or not _flag(best_f >= f0, "escape"):
                 break
         ok = best_f < f0
         return torch.where(ok, best_a, torch.zeros_like(best_a)), p_hat
@@ -228,6 +249,7 @@ class NewtonCG(LineSearches):
         return ev.fd_hvp(x, p, g0, self.fd_central or mode == "fd-central")
 
     # --- inner CG ---------------------------------------------------------
+    @traced("newton.cg")
     def _cg_solve(self, x, g, ev, mode):
         """Truncated CG on H p = -g (scipy forcing sequence and
         negative-curvature handling)."""
@@ -236,7 +258,7 @@ class NewtonCG(LineSearches):
         r, d, p = g, -g, torch.zeros_like(g)
         aux = None  # the staged analytic HVP's per-solve values, at the first HVP
         i = 0
-        go = i < self.cg_maxiter and self._flag(_norm(r) > eta)
+        go = i < self.cg_maxiter and _flag(_norm(r) > eta, "cg")
         while go:
             if aux is None and mode == "analytic" and ev.staged:
                 aux = ev.prep(x)
@@ -248,9 +270,7 @@ class NewtonCG(LineSearches):
             p_new = p + alpha * d
             r_new = r + alpha * hd
             beta = _dot(r_new, r_new) / rs
-            flags = torch.stack([neg_curv, _norm(r_new) > eta])
-            self.syncs += 1
-            neg, more = flags.tolist()
+            neg, more = read(torch.stack([neg_curv, _norm(r_new) > eta]), "cg_flags").tolist()
             if neg:
                 # scipy semantics: on non-positive curvature, at i == 0 take
                 # the 1-D Newton step (rs/curv) d, else keep the accumulated p
@@ -283,7 +303,7 @@ class NewtonCG(LineSearches):
             trigger = alpha == 0.0
             if k == 0:
                 trigger = trigger | (f - f_new <= 1e-6 * (1.0 + f.abs()))
-            if escape and self._flag(trigger):
+            if escape and _flag(trigger, "trigger"):
                 a_esc, p_hat = self._escape_probe(x, f, p, ev)
                 use_esc = a_esc != 0.0
                 alpha = torch.where(use_esc, torch.ones_like(alpha), alpha)
@@ -297,7 +317,7 @@ class NewtonCG(LineSearches):
             best_f = torch.where(improved, f_new2, best_f)
             small_step = step.abs().sum() <= self.xtol
             small_grad = g_new.abs().amax() <= self.gtol
-            done = self._flag(small_step | small_grad | (alpha == 0.0))
+            done = _flag(small_step | small_grad | (alpha == 0.0), "done")
             x, f, g = x_new, f_new2, g_new
             k += 1
         return best_x, best_f, k
@@ -305,6 +325,7 @@ class NewtonCG(LineSearches):
     def __call__(self, x0: Tensor, *args):
         return self.solve(EagerEvaluations(self.value_fn, args, self.hvp_fn, self.hvp_prep_fn), x0)
 
+    @device_solve
     def solve(self, ev, x0: Tensor):
         """``(x_best, f_best, n_iters)`` from ``x0``, the evaluations taken
         from ``ev`` (``EagerEvaluations`` or ``graphs.StagedEvaluations``)."""
@@ -403,6 +424,7 @@ class LBFGS(LineSearches):
     def __call__(self, x0: Tensor, *args):
         return self.solve(EagerEvaluations(self.value_fn, args), x0)
 
+    @device_solve
     def solve(self, ev, x0: Tensor):
         """``(x_best, f_best, n_iters)`` from ``x0``."""
         x = x0.detach()
@@ -419,7 +441,7 @@ class LBFGS(LineSearches):
             trigger = alpha == 0.0
             if k == 0:
                 trigger = trigger | (f - f_ls <= 1e-6 * (1.0 + f.abs()))
-            if self._flag(trigger):
+            if _flag(trigger, "trigger"):
                 a_esc, p_hat = self._escape_probe(x, f, p, ev)
                 use_esc = a_esc != 0.0
                 step = torch.where(use_esc, a_esc * p_hat, alpha * p)
@@ -439,9 +461,7 @@ class LBFGS(LineSearches):
             k += 1
             if k >= self.maxiter:
                 break  # the budget ends the loop: no read
-            flags = torch.stack([stop, good])
-            self.syncs += 1
-            done, take = flags.tolist()
+            done, take = read(torch.stack([stop, good]), "done").tolist()
             if take:
                 slot = nk % m
                 S[slot], Y[slot], rho[slot] = step, y, 1.0 / sy

@@ -93,6 +93,7 @@ from ..flow.voxel import DEVICE_SCHEMES, construct_dense_flow_voxel
 from ..parallel.sharded import sum_on
 from ..ops.interp import tile_to_dense_flow
 from ..ops.warp import flow_from_2d_translation, flow_from_rotation, flow_from_similarity
+from ..utils.tracing import count, device_bytes, read
 
 Tensor = torch.Tensor
 
@@ -200,8 +201,10 @@ class FrameEvents:
         order = np.lexsort(keys)
         ev, dtf = ev[order], dtf[order]
 
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+        def dev(a, a_dtype=dtype):
+            t = torch.as_tensor(np.ascontiguousarray(a), dtype=a_dtype, device=device)
+            count("h2d_bytes", device_bytes(t))
+            return t
 
         bins = None if bins is None else bins[order]
         wt = np.ones(len(ev))
@@ -211,9 +214,9 @@ class FrameEvents:
             ev, dtf, wt = np.concatenate([ev, ev]), np.concatenate([dtf, dtf]), np.concatenate([pos, 1.0 - pos])
             bins = None if bins is None else np.concatenate([bins, bins])
             channels = Frames.of_sizes([len(pos)] * 2, device)
-        return cls(dev(ev[:, 0]), dev(ev[:, 1]), dev(dtf), dev(wt),
-                   torch.as_tensor(t_max - t_min, dtype=dtype, device=device),
-                   None if bins is None else torch.as_tensor(bins, dtype=torch.int32, device=device), channels)
+        t_scale = torch.as_tensor(t_max - t_min, dtype=dtype, device=device)
+        return cls(dev(ev[:, 0]), dev(ev[:, 1]), dev(dtf), dev(wt), t_scale,
+                   None if bins is None else dev(bins, torch.int32), channels)
 
     def shard(self, devices: Sequence) -> "ShardedFrame":
         """The frame cut into ``len(devices)`` contiguous shards, shard s on
@@ -238,7 +241,7 @@ class FrameEvents:
             change = (xt[1:] != xt[:-1]) | (yt[1:] != yt[:-1])
             if self.bins is not None:
                 change = change | (self.bins[1:] != self.bins[:-1])
-            heads = torch.nonzero(change).squeeze(1).cpu().numpy() + 1
+            heads = read(torch.nonzero(change).squeeze(1), "shard_heads").numpy() + 1
         cuts = run_cuts(heads, n, len(devices))
         shards = []
         for s, dev in enumerate(devices):

@@ -42,6 +42,7 @@ import torch
 from ..ops.interp import tile_to_dense_flow
 from ..types import FlowPatch
 from ..utils.config_schema import ConfigError
+from ..utils.tracing import read
 from .base import SolverBase
 from .first_order import FIRST_ORDER, run_first_order
 from .newton_cg import build_lbfgs, build_newton_cg
@@ -107,7 +108,6 @@ class PatchContrastMaximization(SolverBase):
         super().__init__(image_shape, calibration_parameter, solver_config, optimizer_config,
                          output_config, **kwargs)
         self.filter_type = self.slv_config.get("patch", {}).get("filter_type", "bilinear")
-        self.syncs = 0  # host reads of device values in the current frame
 
     def set_patch_size_and_sliding_window(self) -> None:
         """``solver.patch.size`` and ``sliding_window`` (an int or an
@@ -168,8 +168,7 @@ class PatchContrastMaximization(SolverBase):
         grid = grid_translations(step)
         tiles = np.repeat(grid[:, :, None], self.n_patch, axis=2).reshape(len(grid), -1)
         losses = grid_sweep_losses(self._current_spec(), frame, orig, self.tensor(tiles))
-        self.syncs += 1
-        return grid[int(np.nanargmin(losses.cpu().numpy()))]
+        return grid[int(np.nanargmin(read(losses, "sweep").numpy()))]
 
     # --- objective and Newton solve -------------------------------------------
     def _current_spec(self) -> ObjectiveSpec:
@@ -335,7 +334,6 @@ class PatchContrastMaximization(SolverBase):
         else:
             ev = stage.evaluations((spec, name), solve.value_fn, solve.hvp_fn, solve.hvp_prep_fn)
             best_x, best_f, n_iter = solve.solve(ev, x0)
-        self.syncs += solve.syncs
         return best_x, best_f, n_iter, name
 
     # --- the host-driven optimizers ----------------------------------------------
@@ -360,20 +358,18 @@ class PatchContrastMaximization(SolverBase):
         vg, hvp, hess = build_value_grad_hvp(spec)
         n = int(np.prod(np.shape(motion0)))
 
-        def read(t: torch.Tensor) -> np.ndarray:
-            self.syncs += 1
-            return t.detach().to("cpu", torch.float64).numpy()
+        def host(t: torch.Tensor) -> np.ndarray:
+            return read(t, "host_opt").to(torch.float64).numpy()
 
         def vg_np(x):
             loss, grad, comps = vg(self.tensor(x), orig, frame)
-            host = read(torch.cat([loss.reshape(1), grad.reshape(-1)] + [c.reshape(1) for c in comps.values()]))
-            return host[0], host[1:1 + n], dict(zip(comps, host[1 + n:]))
+            values = host(torch.cat([loss.reshape(1), grad.reshape(-1)] + [c.reshape(1) for c in comps.values()]))
+            return values[0], values[1:1 + n], dict(zip(comps, values[1 + n:]))
 
-        return minimize(vg_np, np.asarray(motion0.cpu() if torch.is_tensor(motion0) else motion0,
-                                          dtype=np.float64).reshape(-1),
+        return minimize(vg_np, np.asarray(read(motion0, "start"), dtype=np.float64).reshape(-1),
                         method=self.opt_config["method"], options=options,
-                        hvp=lambda x, p: read(hvp(self.tensor(x), self.tensor(p), orig, frame)),
-                        hess=lambda x: read(hess(self.tensor(x), orig, frame)),
+                        hvp=lambda x, p: host(hvp(self.tensor(x), self.tensor(p), orig, frame)),
+                        hess=lambda x: host(hess(self.tensor(x), orig, frame)),
                         history_cb=self._history_cb)
 
     def _run_sampling_on_spec(self, spec: ObjectiveSpec, frame: FrameEvents, orig, motion0, n_iter: int,
@@ -390,13 +386,12 @@ class PatchContrastMaximization(SolverBase):
         lo = np.array([p["trans_x"]["min"], p["trans_y"]["min"]])
         hi = np.array([p["trans_x"]["max"], p["trans_y"]["max"]])
         k_per_round = max(1, n_iter // n_rounds)
-        best = np.asarray(motion0.cpu() if torch.is_tensor(motion0) else motion0, dtype=np.float64).reshape(-1)
+        best = np.asarray(read(motion0, "start"), dtype=np.float64).reshape(-1)
 
         def losses_of(cands: np.ndarray) -> np.ndarray:
             with torch.no_grad():
                 losses = torch.stack([obj(x, orig, frame)[0] for x in self.tensor(cands)])
-            self.syncs += 1
-            return losses.cpu().numpy()
+            return read(losses, "host_opt").numpy()
 
         best_loss = float(losses_of(best[None])[0])
         scale = 1.0
@@ -437,9 +432,8 @@ class PatchContrastMaximization(SolverBase):
             best, loss = self._run_sampling_on_spec(spec, frame, orig, x0, int(self.opt_config["n_iter"]))
             return self.tensor(best), loss, int(self.opt_config["n_iter"]), "none"
         vg = build_value_grad_hvp(spec)[0]
-        best, loss, reads = run_first_order(lambda x: vg(x, orig, frame)[:2], self.tensor(x0).reshape(-1), method,
-                                            self.opt_config)
-        self.syncs += reads
+        best, loss, _ = run_first_order(lambda x: vg(x, orig, frame)[:2], self.tensor(x0).reshape(-1), method,
+                                        self.opt_config)
         return best, loss, int(self.opt_config["n_iter"]), "none"
 
     # --- visualization ---------------------------------------------------------

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from ..ops.interp import pyramid_expand, pyramid_reduce
+from ..utils.tracing import read, span, synced
 from . import objective
 from .graphs import ChainGraphs
 from .objective import FrameEvents, build_orig_iwe
@@ -229,27 +230,28 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         s_fin = self.patch_scales - 1
         self.overload_patch_configuration(s_fin)
         spec = self._current_spec()
-        full = self._newton_frame(self.frame_events(events), self._shards_events())
-        if isinstance(full, objective.ShardedFrame):
-            stage, frame, orig = None, full, build_orig_iwe(spec)(full)
-        else:
-            stage = self._graphs.stage("full", full, build_orig_iwe(spec)(full))
-            frame, orig = stage.frame, stage.orig
-        self.syncs = 0
+        with span("solver.prep"):
+            full = self._newton_frame(self.frame_events(events), self._shards_events())
+            if isinstance(full, objective.ShardedFrame):
+                stage, frame, orig = None, full, build_orig_iwe(spec)(full)
+            else:
+                stage = self._graphs.stage("full", full, build_orig_iwe(spec)(full))
+                frame, orig = stage.frame, stage.orig
+        mark = synced()
         before = ops.launch_counts()
         scale_mi, scale_cg = self._scale_budget(s_fin)
-        best_x, best_f, n_iter, hvp = self._run_newton(spec, self.previous_frame_best_estimation[s_fin],
-                                                       frame, orig, scale_mi, scale_cg, finest=True,
-                                                       warm=True, stage=stage)
-        loss = float(best_f)
-        self.syncs += 1
+        with span("solver.scale", scale=s_fin):
+            best_x, best_f, n_iter, hvp = self._run_newton(spec, self.previous_frame_best_estimation[s_fin],
+                                                           frame, orig, scale_mi, scale_cg, finest=True,
+                                                           warm=True, stage=stage)
+            loss = float(read(best_f, "scale_loss"))
         self._history_cb(loss)
         after = ops.launch_counts()
         self.last_frame_stats = {
             "iters": {s_fin: n_iter}, "loss": {s_fin: loss}, "hvp": {s_fin: hvp}, "events": {s_fin: len(events)},
             "launches": {s_fin: {k: after[k] - before[k] for k in after}}, "chain": stage is not None,
             "warm_finest": True,
-            "syncs": self.syncs,
+            "syncs": synced() - mark,
         }
         logger.info(f"Warm finest-only solve: {n_iter} iters, loss {loss:.6f}")
         refined = self.update_coarse_from_fine({s_fin: best_x.reshape((self.motion_vector_size,)
@@ -277,21 +279,22 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         # subsample: the orig IWE depends on the events only; the device
         # Newton's frames cut over the mesh's row when sharded (the init
         # sweeps take the unsharded full frame)
-        full = self.frame_events(events)
-        full_newton = self._newton_frame(full, sharded)
-        newton_events = {"full": (full_newton, orig_fn(full_newton))}
-        init_events = (full, newton_events["full"][1])
-        sub = coarse_subsample(events, float(self.opt_config.get("coarse_event_fraction", 1.0)))
-        if sub is not None:
-            coarse = self._newton_frame(self.frame_events(sub), sharded)
-            newton_events["coarse"] = (coarse, orig_fn(coarse))
-        stages = {}
-        if chain:
-            stages = {name: self._graphs.stage(name, *fo) for name, fo in newton_events.items()}
-            newton_events = {name: (st.frame, st.orig) for name, st in stages.items()}
+        with span("solver.prep"):
+            full = self.frame_events(events)
+            full_newton = self._newton_frame(full, sharded)
+            newton_events = {"full": (full_newton, orig_fn(full_newton))}
+            init_events = (full, newton_events["full"][1])
+            sub = coarse_subsample(events, float(self.opt_config.get("coarse_event_fraction", 1.0)))
+            if sub is not None:
+                coarse = self._newton_frame(self.frame_events(sub), sharded)
+                newton_events["coarse"] = (coarse, orig_fn(coarse))
+            stages = {}
+            if chain:
+                stages = {name: self._graphs.stage(name, *fo) for name, fo in newton_events.items()}
+                newton_events = {name: (st.frame, st.orig) for name, st in stages.items()}
         warm_motion = self.previous_frame_best_estimation
         warm = warm_motion is not None
-        self.syncs = 0
+        mark = synced()
         self.cost_func.enable_history_register()
         stats = {"iters": {}, "loss": {}, "hvp": {}, "events": {}, "launches": {}, "chain": chain}
         best_motion_per_scale: Dict[int, torch.Tensor] = {}
@@ -304,22 +307,23 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             events_key = "full" if finest or sub is None or not device_newton else "coarse"
             frame, orig = newton_events[events_key]
             before = ops.launch_counts()
-            presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
-            if presearch is None:
-                x0 = self._init_scale(s, warm_motion, events, *init_events)
-            else:
-                motion0, n_cand = presearch
-                x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
-            if device_newton:
-                scale_mi, scale_cg = self._scale_budget(s)
-                best_x, best_f, n_iter, hvp = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg,
-                                                               finest=finest, warm=warm,
-                                                               stage=stages.get(events_key))
-                loss = float(best_f)
-                self.syncs += 1
-                self._history_cb(loss)
-            else:
-                best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, x0, frame, orig, gtol=1e-5)
+            with span("solver.scale", scale=s):
+                with span("solver.init"):
+                    presearch = self._presearch_motion(s, best_motion_per_scale, warm_motion)
+                    if presearch is None:
+                        x0 = self._init_scale(s, warm_motion, events, *init_events)
+                    else:
+                        motion0, n_cand = presearch
+                        x0 = self.initialize_guess_from_patch_search(events, motion0, n_cand)
+                if device_newton:
+                    scale_mi, scale_cg = self._scale_budget(s)
+                    best_x, best_f, n_iter, hvp = self._run_newton(spec, x0, frame, orig, scale_mi, scale_cg,
+                                                                   finest=finest, warm=warm,
+                                                                   stage=stages.get(events_key))
+                    loss = float(read(best_f, "scale_loss"))
+                    self._history_cb(loss)
+                else:
+                    best_x, loss, n_iter, hvp = self._run_host_optimizer(spec, x0, frame, orig, gtol=1e-5)
             best_motion_per_scale[s] = best_x.reshape((self.motion_vector_size,) + tuple(self.patch_image_size))
             after = ops.launch_counts()
             stats["iters"][s], stats["loss"][s], stats["hvp"][s] = n_iter, loss, hvp
@@ -330,7 +334,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             else:
                 logger.info(f"Scale {s} done: {n_iter} iters ({hvp} HVP, {frame.n_events} events), "
                             f"loss {loss:.6f}")
-        stats["syncs"] = self.syncs
+        stats["syncs"] = synced() - mark
         self.last_frame_stats = stats
         refined = self.update_coarse_from_fine(best_motion_per_scale)
         self._plot_history()
@@ -390,7 +394,7 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
             return super().visualize_one_batch_warp(events, warp)
         flow, model, shown = self._viz_warp(events, warp)
         clipped, warped = self._warped_viz_iwe(events, flow, model, return_warped=True)
-        shown = shown.cpu().numpy()
+        shown = read(shown, "viz").numpy()
         self.visualizer.visualize_image(clipped)
         self.visualizer.visualize_optical_flow_on_event_mask(shown, warped)
         self.visualizer.visualize_overlay_optical_flow_on_event(shown, clipped)
@@ -408,4 +412,5 @@ class PyramidalPatchContrastMaximization(PatchContrastMaximization):
         clipped, warped = self._warped_viz_iwe(events, flow, "dense-flow-voxel" if self.is_time_aware
                                                else "dense-flow", direction="middle", return_warped=True)
         self.visualizer.visualize_image(clipped, file_prefix="pred_warp")
-        self.visualizer.visualize_optical_flow_on_event_mask(shown.cpu().numpy(), warped, file_prefix="pred_masked")
+        self.visualizer.visualize_optical_flow_on_event_mask(read(shown, "viz").numpy(), warped,
+                                                             file_prefix="pred_masked")

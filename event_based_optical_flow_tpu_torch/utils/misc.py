@@ -4,11 +4,12 @@ import contextlib
 import os
 import random
 import subprocess
-import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from .tracing import timed
 
 
 def fix_random_seed(seed: int = 46) -> None:
@@ -72,17 +73,19 @@ _TIMINGS: Dict[str, list] = {}
 
 @contextlib.contextmanager
 def profile_section(name: str, timings: Optional[Dict[str, list]] = None):
-    """Wall-clock section timer on the host: appends the seconds the block
-    took to ``timings[name]`` (a module-wide store by default) for
+    """Wall-clock section timer on the host, a span of ``utils.tracing``
+    (recorded there while a profiler records): appends the seconds the
+    block took to ``timings[name]`` (a module-wide store by default) for
     ``timing_report``.  It does not synchronize the device: CUDA work the
     block queued but that has not finished is not counted (call
     ``torch.cuda.synchronize()`` inside the block to count it)."""
     store = _TIMINGS if timings is None else timings
-    t0 = time.perf_counter()
+    section = timed(name)
     try:
-        yield
+        with section:
+            yield
     finally:
-        store.setdefault(name, []).append(time.perf_counter() - t0)
+        store.setdefault(name, []).append(section.seconds)
 
 
 def timing_report(timings: Optional[Dict[str, list]] = None) -> str:

@@ -32,6 +32,7 @@ import torch
 from PIL import Image, ImageDraw
 
 from .ops.iwe import bilinear_vote, create_iwe, event_mask
+from .utils.tracing import read
 
 # the history plot: canvas, plot-area margins (left, top, right, bottom) and
 # one color per series (matplotlib's default cycle)
@@ -216,7 +217,7 @@ class Visualizer:
     def create_clipped_iwe_for_visualization(self, events, max_scale=50) -> np.ndarray:
         with torch.no_grad():
             iwe = create_iwe(self._events(events), self._image_size, sigma=0)
-        return clip_iwe(iwe.cpu().numpy(), max_scale)
+        return clip_iwe(read(iwe, "viz").numpy(), max_scale)
 
     # --- optical flow ---------------------------------------------------------
     def color_optical_flow(self, flow_x, flow_y, max_magnitude=None, ord: float = 1.0):
@@ -287,7 +288,7 @@ class Visualizer:
         self._show, self._save = False, False
         try:
             with torch.no_grad():
-                mask = event_mask(self._events(events), self._image_size).cpu().numpy()
+                mask = read(event_mask(self._events(events), self._image_size), "viz").numpy()
             flow = np.asarray(flow)
             if max_color_on_mask:
                 masked = flow * mask
@@ -320,7 +321,7 @@ class Visualizer:
                         ignore_polarity: bool = False, file_prefix=None) -> Image.Image:
         """The events at their truncated (clipped) pixels: a polarity (or
         count) histogram in gray, or red / blue per polarity."""
-        events = np.array(events.cpu() if torch.is_tensor(events) else events, dtype=np.float64, copy=True)
+        events = np.array(read(events, "viz"), dtype=np.float64, copy=True)
         events[:, 0] = np.clip(events[:, 0], 0, self._image_size[0] - 1)
         events[:, 1] = np.clip(events[:, 1], 0, self._image_size[1] - 1)
         pixels = events[:, :2].astype(np.int32)
@@ -333,7 +334,7 @@ class Visualizer:
             at = np.concatenate([pixels, np.zeros((len(pixels), 2))], axis=1)
             with torch.no_grad():
                 counts = bilinear_vote(self._events(at), self._image_size, weight)
-            return self.visualize_event_image(1.0 + counts.cpu().numpy(), background_color, file_prefix)
+            return self.visualize_event_image(1.0 + read(counts, "viz").numpy(), background_color, file_prefix)
         image = np.full(self._image_size + (3,), 255, dtype=np.uint8)
         colors = np.where(events[:, 3:4] == 1, np.array([[255, 0, 0]]), np.array([[0, 0, 255]]))
         image[pixels[:, 0], pixels[:, 1]] = colors
