@@ -86,11 +86,14 @@ Phases (each prints one informative line; any failure exits nonzero):
    finest scale's objective with its gradient through the Burgers chain
    and its staged Gauss-Newton HVP on the card to the CPU, ``[voxel-time]``
    times K5/K6, then, with the coarse scales cut to ``TA_COARSE_MAX_ITER``
-   Newton iterations, ``[ta-frame]`` frame 0 through the CLI's eval loop
-   (EPE, PRED_FWL through the voxel, K5 launched on every scale),
-   ``[ta-analytic-frame]`` frame 0 with ``optimizer.hvp_mode: analytic``
-   (K6 launched on the finest scale only), and ``[ta-repeat]`` the FD
-   frame 0 again with the loop, bit for bit (``[chain]``);
+   Newton iterations and from the zero start, ``[ta-frame]`` frame 0
+   through the CLI's eval loop (EPE, PRED_FWL through the voxel, K5
+   launched on every scale), ``[ta-analytic-frame]`` frame 0 with
+   ``optimizer.hvp_mode: analytic`` (K6 launched on the finest scale
+   only), and ``[ta-repeat]`` the FD frame 0 again with the loop, bit for
+   bit (``[chain]``); ``[ta-random]`` the FD frame 0 from the config's
+   random start, printed ungated (that start lies on the edge of a
+   coarse basin: the last bits of a gradient move its EPE);
 9. the fleet path: ``solver.method: fleet_pyramidal_patch_contrast_maximization``
    with ``data.fleet_batch`` frames per lockstep Newton-CG, ``hvp_mode:
    analytic`` (``fleet_config``), chained (the fleet chain: one init sweep
@@ -1107,9 +1110,11 @@ def ta_path(port_main, fi, dev, smi, rng):
     times = {f"voxel_{k}": v for k, v in times.items()}
     bounds = {f"voxel_{k}": bound(k, frame, t(vox_np)) for k in names}
 
-    # the config's FD HVP, coarse scales cut to TA_COARSE_MAX_ITER: K5 on every scale, no K6
+    # the config's FD HVP, coarse scales cut to TA_COARSE_MAX_ITER: K5 on every scale, no K6; gated from the
+    # zero start (the config's random start is printed below, ungated)
     fd = copy.deepcopy(config)
     fd["optimizer"]["coarse_max_iter"] = TA_COARSE_MAX_ITER
+    fd["solver"]["patch"] = dict(fd["solver"]["patch"], initialize="zero")
     last = TA_LAST_FRAME
     ops.reset_launch_counts()
     records, out_dir, wall, peak = run_slice(port_main, fd, dev, last_frame=last)
@@ -1134,6 +1139,13 @@ def ta_path(port_main, fi, dev, smi, rng):
                                   for s, c in st["launches"].items()), loader, a_config, solv, "ta-analytic-frame")
     phase("ta-analytic", f"{len(a_records)} window in {a_wall:.2f} s, kernel launches {a_launches}, out {a_dir}")
     same = loop_repeat(port_main, fd, dev, records, peak, smi, "ta-repeat", "time-aware FD")
+    random = copy.deepcopy(fd)
+    random["solver"]["patch"]["initialize"] = config["solver"]["patch"]["initialize"]
+    r_records, r_dir, _, _ = run_slice(port_main, random, dev, last_frame=0)
+    r_failed = ta_run_checks(r_records, lambda st: True, loader, slice_config(random, last_frame=0, out_dir=r_dir),
+                             solv, "ta-random")
+    phase("ta-random", f"ungated: from the config's {random['solver']['patch']['initialize']} start, on the edge of a "
+                       f"coarse basin; below {EPE_FRACTION} x the zero flow's: {not r_failed}")
     if failed or a_failed:
         raise SystemExit(f"chip_smoke: time-aware frames {failed} (FD), {a_failed} (analytic): metrics or "
                          "K5/K6 launches wrong")
@@ -2572,7 +2584,8 @@ def trace_path(dev, smi) -> dict:
     """``[trace]``: one chained frame of the MVSEC slice (frame 0, the coarse
     and finest Newton budgets cut to ``TRACE_MAX_ITER``) with
     ``output.trace_dir``: ``profiled_optimize``'s ``torch.profiler`` trace
-    must exist and name K1's kernel (``fused_iwe_fwd_kernel``) and K8's
+    (``*.pt.trace.json``, its ``*.spans.json`` beside it) must exist and
+    name K1's kernel (``fused_iwe_fwd_kernel``) and K8's
     (``bilinear_vote``).  Returns the run's launches."""
     from event_based_optical_flow_tpu_torch import main as port_main
     from event_based_optical_flow_tpu_torch import ops
@@ -2585,12 +2598,14 @@ def trace_path(dev, smi) -> dict:
     ops.reset_launch_counts()
     records, _, wall, _ = run_slice(port_main, config, dev, last_frame=0)
     launches = ops.launch_counts()
-    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".json")]
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    spans = [f for f in os.listdir(trace_dir) if f.endswith(".spans.json")]
     text = open(files[0]).read() if len(files) == 1 else ""
     names = {k: k in text for k in ("fused_iwe_fwd_kernel", "bilinear_vote")}
-    ok = len(files) == 1 and all(names.values()) and records[0]["stats"]["chain"]
+    ok = len(files) == len(spans) == 1 and all(names.values()) and records[0]["stats"]["chain"]
     phase("trace", f"MVSEC slice frame 0 chained, max_iter {TRACE_MAX_ITER}, profiled on {smi}: "
                    f"{records[0]['seconds']:.3f} s, trace files {[os.path.basename(f) for f in files]}, "
+                   f"spans files {spans}, "
                    f"{os.path.getsize(files[0]) / 2**20 if files else 0:.2f} MiB, names {names}, K1 "
                    f"{launches['fwd']} K8 {launches['vote']} launches: {'ok' if ok else 'FAIL'}")
     if not ok:

@@ -9,27 +9,86 @@ order as the JAX package.
   with *reflect* padding (edge not repeated); the optimization path.
 * ``gaussian_filter`` — scipy ``ndimage.gaussian_filter`` semantics
   (radius = round(4*sigma), *symmetric* padding); the metrics path.
+
+The pads (``pad_axis``, also ``ops/interp.py``'s) and every other static
+gather of the objective (``take``) are slices of the input joined by
+``torch.cat``: their adjoint is slice copies and sums in a fixed order.
+An ``index_select`` gather's backward under deterministic algorithms
+sorts its indices and scatters them (``index_put`` with accumulate), and
+``F.pad``'s reflect and replicate backward use atomics.
 """
 
+import functools
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
 
-def _pad_index(n: int, r: int, mode: str, device) -> Tensor:
-    """Source indices of a length-n axis padded by r on both sides."""
-    idx = torch.arange(-r, n + r, device=device)
+@functools.lru_cache(maxsize=1024)
+def _runs(table: Tuple[int, ...]) -> Tuple[Tuple[int, int, int], ...]:
+    """(first source, step, length) of each maximal run of ``table`` whose
+    sources step by -1, 0 or +1, left to right."""
+    runs, i = [], 0
+    while i < len(table):
+        step = table[i + 1] - table[i] if i + 1 < len(table) else 1
+        step = step if step in (-1, 0, 1) else 1
+        j = i + 1
+        while j < len(table) and table[j] - table[j - 1] == step:
+            j += 1
+        runs.append((table[i], step, j - i))
+        i = j
+    return tuple(runs)
+
+
+def take(x: Tensor, axis: int, table: Tuple[int, ...]) -> Tensor:
+    """``x.index_select(axis, table)`` for a static ``table`` (a tuple of
+    ints), as narrow, flipped and expanded slices of ``x`` joined by
+    ``torch.cat``: the same values, and an adjoint of slice copies and
+    sums in a fixed order (no sort, no scatter, no atomics)."""
+    pieces = []
+    for first, step, length in _runs(table):
+        if step == 0:
+            shape = list(x.shape)
+            shape[axis] = length
+            pieces.append(x.narrow(axis, first, 1).expand(shape))
+        elif step == 1:
+            pieces.append(x if length == x.shape[axis] else x.narrow(axis, first, length))
+        else:
+            pieces.append(x.narrow(axis, first - length + 1, length).flip(axis))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, axis)
+
+
+@functools.lru_cache(maxsize=256)
+def _pad_sides(n: int, r: int, mode: str) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Source indices of the r entries before and the r after a length-n
+    axis padded on both sides."""
+    idx = np.arange(-r, n + r)
     if mode == "reflect":  # ... 2 1 | 0 1 2 ... n-1 | n-2 ...
         period = max(2 * (n - 1), 1)
-        idx = idx.remainder(period)
-        return torch.where(idx > n - 1, period - idx, idx)
-    if mode == "symmetric":  # ... 1 0 | 0 1 ... n-1 | n-1 n-2 ...
-        idx = idx.remainder(2 * n)
-        return torch.where(idx > n - 1, 2 * n - 1 - idx, idx)
-    raise ValueError(f"unknown pad mode {mode!r}")
+        idx = idx % period
+        idx = np.where(idx > n - 1, period - idx, idx)
+    elif mode == "symmetric":  # ... 1 0 | 0 1 ... n-1 | n-1 n-2 ...
+        idx = idx % (2 * n)
+        idx = np.where(idx > n - 1, 2 * n - 1 - idx, idx)
+    elif mode == "clamp":  # 0 0 | 0 1 ... n-1 | n-1 n-1
+        idx = np.clip(idx, 0, n - 1)
+    else:
+        raise ValueError(f"unknown pad mode {mode!r}")
+    return tuple(idx[:r].tolist()), tuple(idx[n + r:].tolist())
+
+
+def pad_axis(x: Tensor, axis: int, r: int, mode: str) -> Tensor:
+    """``x`` padded by ``r`` on both sides of ``axis`` (``reflect``,
+    ``symmetric`` or ``clamp``): ``x`` itself between the two sides'
+    ``take``."""
+    if r == 0:
+        return x
+    before, after = _pad_sides(x.shape[axis], r, mode)
+    return torch.cat([take(x, axis, before), x, take(x, axis, after)], axis)
 
 
 def _separable_blur(image: Tensor, kernel: Sequence[float], pad_mode: str) -> Tensor:
@@ -37,9 +96,9 @@ def _separable_blur(image: Tensor, kernel: Sequence[float], pad_mode: str) -> Te
     k = len(kernel)
     r = k // 2
     h, w = image.shape[-2], image.shape[-1]
-    padded = image.index_select(-2, _pad_index(h, r, pad_mode, image.device))
+    padded = pad_axis(image, -2, r, pad_mode)
     out = sum(kernel[i] * padded[..., i : i + h, :] for i in range(k))
-    padded = out.index_select(-1, _pad_index(w, r, pad_mode, image.device))
+    padded = pad_axis(out, -1, r, pad_mode)
     return sum(kernel[i] * padded[..., :, i : i + w] for i in range(k))
 
 

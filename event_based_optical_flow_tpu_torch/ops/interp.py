@@ -18,8 +18,15 @@
   JAX package runs these in host numpy; here they run on the solver's
   device so the warm-start state never leaves it.
 
-The resizes are written as four static-index gathers and a lerp (index
-and weight tables from numpy): no ``F.interpolate`` and no convolution.
+The bilinear resize is a lerp along the width, then one along the height
+(index and weight tables from numpy): no ``F.interpolate`` and no
+convolution.  Where an axis grows by a whole factor ``s`` (always in
+``tile_to_dense_flow``), its output is viewed as ``[n, s]`` and each run
+of phases that reads the same sources is one broadcast lerp of two
+``blur.take`` slices of the input; otherwise the axis gathers with
+``index_select``, whose backward under deterministic algorithms is a
+sort and a scatter (on the benchmark's geometries only
+``pyramid_reduce``'s, which runs under ``no_grad``).
 """
 
 import functools
@@ -29,59 +36,81 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .blur import _pad_index
+from .blur import pad_axis, take
 
 Tensor = torch.Tensor
 
 
-@functools.lru_cache(maxsize=256)
-def _bilinear_tables(in_h: int, in_w: int, oh: int, ow: int, device: torch.device, dtype: torch.dtype):
-    """(y0, y1, x0, x1, wy, wx) of a half-pixel resize, on the device, once
-    per geometry: a table built per call would copy from the host in every
-    evaluation, which a CUDA graph cannot capture."""
-    ys = (np.arange(oh) + 0.5) * in_h / oh - 0.5
-    xs = (np.arange(ow) + 0.5) * in_w / ow - 0.5
-    y0 = np.clip(np.floor(ys).astype(int), 0, in_h - 1)
-    x0 = np.clip(np.floor(xs).astype(int), 0, in_w - 1)
-    y1 = np.clip(y0 + 1, 0, in_h - 1)
-    x1 = np.clip(x0 + 1, 0, in_w - 1)
-    wy = torch.as_tensor(np.clip(ys - y0, 0.0, 1.0), dtype=dtype, device=device)
-    wx = torch.as_tensor(np.clip(xs - x0, 0.0, 1.0), dtype=dtype, device=device)
-    return tuple(torch.as_tensor(a, device=device) for a in (y0, y1, x0, x1)) + (wy, wx)
+def _lerp_table(n_in: int, n_out: int):
+    """(i0, i1, w) of a half-pixel resize of one axis with edge clamping
+    (numpy): output i reads sources i0 and i1, weighted 1 - w and w."""
+    src = (np.arange(n_out) + 0.5) * n_in / n_out - 0.5
+    i0 = np.clip(np.floor(src).astype(int), 0, n_in - 1)
+    i1 = np.clip(i0 + 1, 0, n_in - 1)
+    return i0, i1, np.clip(src - i0, 0.0, 1.0)
 
 
 @functools.lru_cache(maxsize=256)
-def _index_table(kind: str, n: int, m: int, device: torch.device) -> Tensor:
-    """A static gather index on the device, once per geometry: ``clamp``,
-    the n indices of an axis replicate-padded by m on both sides;
-    ``nearest``, the m sources of a nearest resize of n."""
-    if kind == "clamp":
-        values = np.clip(np.arange(-m, n + m), 0, n - 1)
-    else:
-        values = np.arange(m) * n // m
-    return torch.as_tensor(values, device=device)
+def _axis_lerp(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype):
+    """(phases, gather) of one axis' resize, on the device once per
+    geometry (a table built per call would copy from the host in every
+    evaluation, which a CUDA graph cannot capture).  When ``n_out`` is a
+    whole multiple ``s`` of ``n_in``, ``phases`` holds, for each run of
+    phases ``p`` whose sources over ``q`` (output ``q * s + p``) are the
+    same, the source tables and the weights ``1 - w`` and ``w`` as ``[n_in,
+    run]``; else ``gather`` holds ``(i0, i1, 1 - w, w)`` as device
+    vectors."""
+    i0, i1, w = _lerp_table(n_in, n_out)
+    w = torch.as_tensor(w, dtype=dtype, device=device)
+    if n_out % n_in:
+        return None, tuple(torch.as_tensor(a, device=device) for a in (i0, i1)) + (1 - w, w)
+    s = n_out // n_in
+    i0, i1, w = i0.reshape(n_in, s), i1.reshape(n_in, s), w.reshape(n_in, s)
+    phases, p = [], 0
+    for q in range(1, s + 1):
+        if q == s or not (np.array_equal(i0[:, q], i0[:, p]) and np.array_equal(i1[:, q], i1[:, p])):
+            phases.append((tuple(i0[:, p].tolist()), tuple(i1[:, p].tolist()), 1 - w[:, p:q], w[:, p:q]))
+            p = q
+    return tuple(phases), None
+
+
+def _lerp_axis(u: Tensor, axis: int, n_out: int) -> Tensor:
+    """The half-pixel resize of ``u``'s ``axis`` (-1 or -2) to ``n_out``:
+    ``u[i0] * (1 - w) + u[i1] * w`` per output."""
+    phases, gather = _axis_lerp(u.shape[axis], n_out, u.device, u.dtype)
+    if phases is None:
+        i0, i1, w0, w1 = gather
+        shape = (-1,) if axis == -1 else (-1, 1)
+        return u.index_select(axis, i0) * w0.view(shape) + u.index_select(axis, i1) * w1.view(shape)
+    parts = []
+    for t0, t1, w0, w1 in phases:  # [.., n, run] (width) or [.., n, run, W] (height)
+        if axis == -2:
+            w0, w1 = w0[..., None], w1[..., None]
+        parts.append(take(u, axis, t0).unsqueeze(axis) * w0 + take(u, axis, t1).unsqueeze(axis) * w1)
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, axis)
+    return out.flatten(axis - 1, axis)
 
 
 def _resize_bilinear(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
-    """Half-pixel bilinear resize with edge clamping, last two axes."""
-    y0, y1, x0, x1, wy, wx = _bilinear_tables(img.shape[-2], img.shape[-1], out_hw[0], out_hw[1],
-                                              img.device, img.dtype)
-    rows0 = img.index_select(-2, y0)
-    rows1 = img.index_select(-2, y1)
-    a = rows0.index_select(-1, x0)
-    b = rows0.index_select(-1, x1)
-    c = rows1.index_select(-1, x0)
-    d = rows1.index_select(-1, x1)
-    top = a * (1 - wx)[None, :] + b * wx[None, :]
-    bot = c * (1 - wx)[None, :] + d * wx[None, :]
-    return top * (1 - wy)[:, None] + bot * wy[:, None]
+    """Half-pixel bilinear resize with edge clamping, last two axes: the
+    width's lerp of every input row, then the height's lerp of those rows,
+    so each output is ``(a (1 - wx) + b wx) (1 - wy) + (c (1 - wx) + d wx)
+    wy`` of its four corners, in that order."""
+    return _lerp_axis(_lerp_axis(img, -1, out_hw[1]), -2, out_hw[0])
 
 
 def _resize_nearest(img: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """torch nearest semantics: src = floor(dst * in / out)."""
-    ih = _index_table("nearest", img.shape[-2], out_hw[0], img.device)
-    iw = _index_table("nearest", img.shape[-1], out_hw[1], img.device)
+    ih = _nearest_index(img.shape[-2], out_hw[0], img.device)
+    iw = _nearest_index(img.shape[-1], out_hw[1], img.device)
     return img.index_select(-2, ih).index_select(-1, iw)
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(n: int, m: int, device: torch.device) -> Tensor:
+    """The m sources of a nearest resize of n, on the device once per
+    geometry."""
+    return torch.as_tensor(np.arange(m) * n // m, device=device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -134,11 +163,10 @@ def tile_to_dense_flow(
     pad_h = int(patch_size[0] / 2 // sliding_window[0]) + patch_shift[0] // sliding_window[0] + 1
     pad_w = int(patch_size[1] / 2 // sliding_window[1]) + patch_shift[1] // sliding_window[1] + 1
     arr = -motion.reshape((2,) + tuple(patch_image_size))
-    # replicate padding as clamped gathers: their backward is a scatter add
-    # that deterministic mode orders (replicate pad's own backward is not)
-    for axis, pad in ((-2, pad_h), (-1, pad_w)):
-        n = arr.shape[axis]
-        arr = arr.index_select(axis, _index_table("clamp", n, pad, arr.device))
+    # replicate padding as the edge slices expanded: their backward is a
+    # slice copy and a sum over the expanded axis (``F.pad``'s replicate
+    # backward uses atomics)
+    arr = pad_axis(pad_axis(arr, -2, pad_h, "clamp"), -1, pad_w, "clamp")
     out_hw = (arr.shape[1] * sliding_window[0], arr.shape[2] * sliding_window[1])
     dense = resize_flow(arr, out_hw, filter_type)
     cx, cy = dense.shape[1] // 2, dense.shape[2] // 2
@@ -162,7 +190,7 @@ def _smooth(img: Tensor, sigma: float) -> Tensor:
     out = img
     for axis in (-2, -1):
         n = out.shape[axis]
-        padded = out.index_select(axis, _pad_index(n, r, "symmetric", out.device))
+        padded = pad_axis(out, axis, r, "symmetric")
         acc = torch.zeros_like(out)
         for i, c in enumerate(k):
             acc = acc + float(c) * padded.narrow(axis, i, n)

@@ -55,12 +55,16 @@ def set_numerics() -> None:
       a later layer adds must not silently drop to TF32's ~3 decimal
       digits.
     * Deterministic algorithms: PyTorch's scatter adds (the init sweep's
-      votes, the backward of ``index_select``) then sum in a fixed order,
-      as the fused kernel does, so a solve on the GPU gives the same bits
-      on every run.  Without this, float atomics reorder sums from run to
-      run, and the finite-difference Hessian of Newton-CG turns those last
-      bits into different iterates.  Uninitialized memory is not filled:
-      the port reads none.
+      votes, the time-aware voxel's ``index_select`` shifts' backward)
+      then sum in a fixed order, as the fused kernel does, so a solve on
+      the GPU gives the same bits on every run.  Without this, float
+      atomics reorder sums from run to run, and the finite-difference
+      Hessian of Newton-CG turns those last bits into different iterates.
+      The objective chain's static gathers (the blur's and the tile map's
+      pads, the tile map's upsample) are slices (``ops.blur.take``), whose
+      backward needs neither atomics nor the sort that deterministic
+      ``index_select`` backward takes.  Uninitialized memory is not
+      filled: the port reads none.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -390,24 +390,29 @@ def test_mvsec_eval_matches_jax_cli_and_rerun_adds_nothing(tmp_path, mvsec_root)
     assert _text_lines(tmp_path / "port") == port_lines and len(_metrics(tmp_path / "port")) == 2
 
 
-def _ecd_config(root, out_dir) -> dict:
+def _ecd_config(root, out_dir, initialize: str = "random") -> dict:
     """configs/ecd_slider_depth.yaml's data block on a 36x44 ECD text
-    fixture (3 clock times: two windows), the tiny solver of ``_config``,
-    ``output.save_flow: dsec_png``."""
+    fixture (3 clock times: two windows), the tiny solver of ``_config``
+    from the cold start ``initialize``, ``output.save_flow: dsec_png``."""
     config = _config(out_dir)
     shipped = yaml.safe_load((REPO / "configs" / "ecd_slider_depth.yaml").read_text())["data"]
     config["data"] = {**shipped, "root": str(root), "height": 36, "width": 44, "n_events_per_batch": 2000,
                       "eval_n_frames": 3, "visualize_every": 0}
+    config["solver"]["patch"]["initialize"] = initialize
     config["output"]["save_flow"] = "dsec_png"
     return config
 
 
 def test_fwl_only_eval_matches_jax_on_ecd_and_resumes(tmp_path):
     """The GT-free protocol on an ECD text fixture (the synthetic dots
-    scene written as ``t x y p`` lines): both windows give the JAX CLI's
-    PRED_FWL to 1e-6 with its draws injected, the same text lines,
-    checkpoint and DSEC-PNG dumps (to one 1/128 px quantum); a rerun adds
-    no lines."""
+    scene written as ``t x y p`` lines).  From ``_config``'s random start,
+    with the JAX CLI's draws injected: the first window gives its PRED_FWL
+    to 1e-6 and its DSEC-PNG dump (to one 1/128 px quantum), both windows
+    the same text lines and checkpoint, and a rerun adds no lines.  From
+    that start the second window is chaotic (a relative noise of 1e-15 on
+    the tile map's gradient moves its PRED_FWL by up to 1e-3), so it is
+    compared from the shipped config's start (``zero``), where both
+    windows give the JAX CLI's PRED_FWL and dumps."""
     scene = tdata.collections["synthetic"](config={"height": 36, "width": 44, "duration": 0.5, "event_rate": 9000,
                                                    "pattern": "dots", "n_dots": 80})
     scene.set_sequence("slider_depth")
@@ -415,27 +420,32 @@ def test_fwl_only_eval_matches_jax_on_ecd_and_resumes(tmp_path):
     (tmp_path / "data" / "slider_depth").mkdir(parents=True)
     np.savetxt(tmp_path / "data" / "slider_depth" / "events.txt", np.stack([ev[:, 2], ev[:, 1], ev[:, 0], ev[:, 3]], 1),
                fmt="%.9f %d %d %d")
-    jcfg, tcfg = (_ecd_config(tmp_path / "data", tmp_path / name) for name in ("jax", "port"))
-    _jax_eval(jcfg)
-    records = port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu"), candidates_fn=JaxDraws())
-    assert [r["frame"] for r in records] == [0, 1]
-    want, got = _metrics(tmp_path / "jax"), _metrics(tmp_path / "port")
-    assert [sorted(r) for r in got] == [sorted(r) for r in want] == [["PRED_FWL", "frame"]] * 2
-    for g, w in zip(got, want):
-        assert g["frame"] == w["frame"] and g["PRED_FWL"] == pytest.approx(w["PRED_FWL"], rel=0, abs=TOL)
-        assert np.isfinite(g["PRED_FWL"])
-    port_lines = _text_lines(tmp_path / "port")
-    assert [l.split("::")[0] for l in port_lines] == [l.split("::")[0] for l in _text_lines(tmp_path / "jax")]
-    with np.load(tmp_path / "jax" / "eval_state.npz") as j, np.load(tmp_path / "port" / "eval_state.npz") as t:
-        assert sorted(j.files) == sorted(t.files) and int(t["__next_frame"]) == int(j["__next_frame"]) == 2
     from event_based_optical_flow_tpu_torch.flow.io import read_png16
 
-    jd, td = _dumps(tmp_path / "jax"), _dumps(tmp_path / "port")
-    assert list(td) == list(jd) == ["000000.png", "000001.png"]
-    for name in jd:
-        np.testing.assert_allclose(read_png16(td[name]), read_png16(jd[name]), rtol=0, atol=1)
-    assert port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu")) == []
-    assert _text_lines(tmp_path / "port") == port_lines and len(_metrics(tmp_path / "port")) == 2
+    shipped = yaml.safe_load((REPO / "configs" / "ecd_slider_depth.yaml").read_text())["solver"]["patch"]["initialize"]
+    for initialize, compared in (("random", 1), (shipped, 2)):
+        jax_dir, port_dir = tmp_path / f"jax_{initialize}", tmp_path / f"port_{initialize}"
+        jcfg, tcfg = (_ecd_config(tmp_path / "data", d, initialize) for d in (jax_dir, port_dir))
+        _jax_eval(jcfg)
+        records = port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu"), candidates_fn=JaxDraws())
+        assert [r["frame"] for r in records] == [0, 1]
+        want, got = _metrics(jax_dir), _metrics(port_dir)
+        assert [sorted(r) for r in got] == [sorted(r) for r in want] == [["PRED_FWL", "frame"]] * 2
+        for g, w in zip(got, want):
+            assert g["frame"] == w["frame"] and np.isfinite(g["PRED_FWL"])
+        for g, w in zip(got[:compared], want[:compared]):
+            assert g["PRED_FWL"] == pytest.approx(w["PRED_FWL"], rel=0, abs=TOL)
+        port_lines = _text_lines(port_dir)
+        assert [l.split("::")[0] for l in port_lines] == [l.split("::")[0] for l in _text_lines(jax_dir)]
+        with np.load(jax_dir / "eval_state.npz") as j, np.load(port_dir / "eval_state.npz") as t:
+            assert sorted(j.files) == sorted(t.files) and int(t["__next_frame"]) == int(j["__next_frame"]) == 2
+        jd, td = _dumps(jax_dir), _dumps(port_dir)
+        assert list(td) == list(jd) == ["000000.png", "000001.png"]
+        for name in list(jd)[:compared]:
+            np.testing.assert_allclose(read_png16(td[name]), read_png16(jd[name]), rtol=0, atol=1)
+        if initialize == "random":
+            assert port_cli.run(tcfg, eval_mode=True, device=torch.device("cpu")) == []
+            assert _text_lines(port_dir) == port_lines and len(_metrics(port_dir)) == 2
 
 
 def test_time_aware_eval_runs_on_the_mvsec_fixture(tmp_path, mvsec_root):
