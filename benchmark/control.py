@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""The readings that the limits of ``reference/compare.py`` are set from,
-on the card, at a cell's own size (the benchmark's runs do not run this):
+"""The readings that a reference's limits (``LIMITS`` of the module that
+the cell's configuration names, ``reference/plain.py`` by default) are set
+from, on the card, at a cell's own size (the benchmark's runs do not run
+this):
 
     python benchmark/control.py --workload <cell> --seeds 1 2 3 --seconds <s> [--fault NAME]
 
 For each seed, one process-local run of the cell (set-up, a window of
 ``--seconds``), then the compared numbers of the program's answers and of
-the control's: the plain reference in the program's place, computed with
-TF32 products (``plain.round_tf32``), the step below the configuration's
+the control's: the reference in the program's place, computed with TF32
+products (``plain.round_tf32``), the step below the configuration's
 float32 with TF32 off.  ``--fault`` plants one of ``faults.NAMES`` under
 the timed path first and prints the program's numbers.  One JSON line per
 seed and kind on standard output, with each frame's descent gain."""
@@ -38,6 +40,7 @@ def main(argv=None) -> int:
         return 3
     workload = cells.find(cells.load_manifest()["workloads"], args.workload, "workload")
     config, traffic = cells.load_json("configs", workload["config"]), cells.load_json("traffic", workload["traffic"])
+    reference = cells.reference(config)
     device = torch.device("cuda")
     if args.fault:
         faults.plant(args.fault, faults.Patcher().setattr)
@@ -45,10 +48,10 @@ def main(argv=None) -> int:
         measured = harness.measure(config, traffic, seed, device, args.seconds, False, time.perf_counter())
         kinds = [(args.fault or "program", False)] + ([] if args.fault else [("control_tf32", True)])
         for kind, tf32 in kinds:
-            reference, values, failed = harness.judge(measured, device, tf32=tf32)
+            ref, values, failed = harness.judge(measured, device, reference, tf32=tf32)
             print(json.dumps({"workload": args.workload, "seed": seed, "kind": kind,
                               "frames": len(measured["answers"]), "failed_frames": failed, **values,
-                              "gains": [r[3] for r in reference]}), flush=True)
+                              "gains": [r[3] for r in ref]}), flush=True)
         del measured
     return 0
 

@@ -12,7 +12,8 @@ the loop's own checkpoint, as the CLI's loop runs, until a call ends after
 output directory.  With ``--trace 1`` the window's first call runs under
 the profiler, whole (``profiling.trace_call``; ``TRACE_LIMIT_S`` guards
 the run's time).  After the window the solver is
-freed and the plain reference judges every frame the window solved
+freed and the configuration's reference (``cells.reference``, found
+before set-up) judges every frame the window solved
 (``reference.compare``)."""
 
 import argparse
@@ -159,8 +160,8 @@ class Driver:
         return self.batch, stats
 
 
-def check_lines(values: dict) -> list:
-    return [f"check {k}: {values[k]:.6g} (limit {compare.LIMITS[k]:g})" for k in compare.LIMITS]
+def check_lines(values: dict, limits: dict) -> list:
+    return [f"check {k}: {values[k]:.6g} (limit {limits[k]:g})" for k in cells.LIMIT_KEYS]
 
 
 def measure(config: dict, traffic: dict, seed: int, device, seconds: float, trace: bool, t_start: float) -> dict:
@@ -220,27 +221,30 @@ def measure(config: dict, traffic: dict, seed: int, device, seconds: float, trac
     return out
 
 
-def judge(measured: dict, device, tf32: bool = False):
-    """(the reference's (loss, AEE, zero-flow AEE) per frame, the compared
-    numbers, frames beyond a per-frame limit) of a measured window; with
-    ``tf32`` the control's answers take the program's place."""
+def judge(measured: dict, device, reference, tf32: bool = False):
+    """(the reference's (loss, AEE, zero-flow AEE, descent gain) per frame,
+    the compared numbers, frames beyond a per-frame limit) of a measured
+    window, by ``reference`` (``cells.reference``: its answers and its
+    ``LIMITS``); with ``tf32`` the control's answers take the program's
+    place."""
     answers, seq = measured["answers"], measured["seq"]
+    limits = reference.LIMITS
     t_ref = time.perf_counter()
-    reference = compare.reference_answers(answers, seq.events, seq, measured["config"], device)
+    ref = reference.reference_answers(answers, seq.events, seq, measured["config"], device)
     print(f"reference: {len(answers)} frames in {time.perf_counter() - t_ref:.3f} s", file=sys.stderr)
     if tf32:
-        control = compare.reference_answers(answers, seq.events, seq, measured["config"], device, tf32=True)
+        control = reference.reference_answers(answers, seq.events, seq, measured["config"], device, tf32=True)
         losses, aees = [c[0] for c in control], [c[1] for c in control]
     else:
         losses, aees = [a.loss for a in answers], [a.aee for a in answers]
-    print("per frame: AEE " + " ".join(f"{r[1]:.3f}" for r in reference) + "; zero flow "
-          + " ".join(f"{r[2]:.3f}" for r in reference) + "; descent gain "
-          + " ".join(f"{r[3]:.3g}" for r in reference), file=sys.stderr)
-    values = compare.numbers(losses, aees, reference)
-    failed = sum(1 for loss, aee, ref in zip(losses, aees, reference)
-                 if not (abs(loss - ref[0]) <= compare.LIMITS["loss_gap"] * abs(ref[0])
-                         and abs(aee - ref[1]) <= compare.LIMITS["aee_gap"] * ref[1]))
-    return reference, values, failed
+    print("per frame: AEE " + " ".join(f"{r[1]:.3f}" for r in ref) + "; zero flow "
+          + " ".join(f"{r[2]:.3f}" for r in ref) + "; descent gain "
+          + " ".join(f"{r[3]:.3g}" for r in ref), file=sys.stderr)
+    values = compare.numbers(losses, aees, ref)
+    failed = sum(1 for loss, aee, r in zip(losses, aees, ref)
+                 if not (abs(loss - r[0]) <= limits["loss_gap"] * abs(r[0])
+                         and abs(aee - r[1]) <= limits["aee_gap"] * r[1]))
+    return ref, values, failed
 
 
 def main(argv=None, t_start=None, device=None, require_cuda: bool = True, cell=None) -> int:
@@ -253,6 +257,9 @@ def main(argv=None, t_start=None, device=None, require_cuda: bool = True, cell=N
     manifest = cells.load_manifest()
     workload = cells.find(manifest["workloads"], args.workload, "workload")
     set_cache_dirs()
+    config, traffic = cell or (cells.load_json("configs", workload["config"]),
+                               cells.load_json("traffic", workload["traffic"]))
+    reference = cells.reference(config)
     import torch
 
     if require_cuda:
@@ -262,13 +269,11 @@ def main(argv=None, t_start=None, device=None, require_cuda: bool = True, cell=N
             print(f"benchmark: {args.workload} needs {chips} CUDA device(s), {visible} visible", file=sys.stderr)
             return 3
     device = torch.device(device or "cuda")
-    config, traffic = cell or (cells.load_json("configs", workload["config"]),
-                               cells.load_json("traffic", workload["traffic"]))
     on_card = device.type == "cuda"
     measured = measure(config, traffic, args.seed, device, args.seconds, bool(args.trace), t_start)
     run = measured["run"]
-    reference, values, failed = judge(measured, device)
-    correct = compare.verdict(values) and failed == 0
+    ref, values, failed = judge(measured, device, reference)
+    correct = compare.verdict(values, reference.LIMITS) and failed == 0
 
     if args.trace:
         metrics = {}
@@ -278,7 +283,7 @@ def main(argv=None, t_start=None, device=None, require_cuda: bool = True, cell=N
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
         e2e = {"setup_s": measured["setup_s"], "frame_s": measured["window_s"] / run["frames"],
-               "aee_px": sum(ref[1] for ref in reference) / len(reference)}
+               "aee_px": sum(r[1] for r in ref) / len(ref)}
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                    for m in cells.cell_metrics(manifest, args.workload, "end_to_end")}
     result = {"correct": bool(correct), "attempted": len(measured["answers"]), "failed": failed,
@@ -291,7 +296,7 @@ def main(argv=None, t_start=None, device=None, require_cuda: bool = True, cell=N
         sliced = run["trace"]
         result["device"].update(busy_s=sliced["busy_s"], window_s=sliced["window_s"])
         result["breakdown"] = {"device_ops": sliced["device_ops"], "idle_gaps": sliced["idle_gaps"]}
-    result["checks"] = {k: {"value": values[k], "limit": compare.LIMITS[k]} for k in compare.LIMITS}
+    result["checks"] = {k: {"value": values[k], "limit": reference.LIMITS[k]} for k in cells.LIMIT_KEYS}
     result["checks"]["failed_frames"] = {"value": failed, "limit": 0}
 
     found = forbidden_modules()
@@ -299,7 +304,7 @@ def main(argv=None, t_start=None, device=None, require_cuda: bool = True, cell=N
         print(f"benchmark: the run loaded {found}: no JAX and no JAX package on the measured path",
               file=sys.stderr)
         return 4
-    lines = check_lines(values) + [f"check failed_frames: {failed} (limit 0)"]
+    lines = check_lines(values, reference.LIMITS) + [f"check failed_frames: {failed} (limit 0)"]
     print("\n".join(lines), file=sys.stderr, flush=True)
     print(json.dumps(result), flush=True)
     return 0

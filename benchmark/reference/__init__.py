@@ -1,2 +1,4 @@
-"""The plain reference that decides ``correct`` (``plain.py``) and the
-comparison of the timed path's answers with it (``compare.py``)."""
+"""The references that decide ``correct``: ``plain.py``, the default, and
+any other module a configuration names (``"reference"``), each keeping the
+contract that ``compare.py`` states; and the comparison of the timed
+path's answers with the reference's (``compare.py``)."""

@@ -1,11 +1,25 @@
 """What decides ``correct``: the timed path's answers for every frame it
-solved in the window, held to the plain reference's at the same motion.
+solved in the window, held to the answers of the cell's reference at the
+same motion.
+
+Each configuration names its reference: ``"reference": "<module>"`` in
+its file picks ``reference/<module>.py``, and a file without the key is
+judged by ``plain.py`` (``cells.reference`` finds it by path, before
+set-up).  A reference module keeps this contract and needs nothing else:
+
+* ``reference_answers(answers, stream, scene, config, device, tf32=False)``
+  returns one ``(loss, AEE, zero-flow AEE, descent gain)`` per answer
+  (``Answer``), worked out from the stream, the scene's ground truth and
+  the port's config, in float64; with ``tf32`` the control's answers
+  (the step below the configuration's precision) take the program's
+  place;
+* ``LIMITS`` holds exactly the four numbers below, each a finite limit,
+  set from that reference's own readings of sound runs, of its control
+  and of the planted faults (``control.py``), which ``PERF.md`` records.
 
 For each frame the program gives its finest-scale tile motion, the
 objective value its solver reported there and the AEE its eval loop
-reported.  The reference works out the frame's window from the stream,
-the dense flow, the objective at that motion and the AEE against the
-scene's exact ground truth, and compares (``numbers``):
+reported.  ``numbers`` compares them with the reference's:
 
 * ``loss_gap``: the largest relative gap between the program's objective
   value and the reference's, over the frames (the warp, vote, blur and
@@ -20,8 +34,7 @@ scene's exact ground truth, and compares (``numbers``):
   motion (``plain.descent_gain``): a solve that stopped short of its
   minimum, as the init sweeps alone do, reads more than a converged one.
 
-``LIMITS`` holds each number's limit; ``PERF.md`` gives the readings each
-was set from.
+``LIMITS`` and ``reference_answers`` here are the plain reference's.
 """
 
 from dataclasses import dataclass
@@ -29,11 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import plain
-
-# each number's limit: above the largest reading of sound runs, below the
-# control's (TF32) and the planted faults' smallest readings (PERF.md)
-LIMITS = {"loss_gap": 5e-6, "aee_gap": 2e-6, "aee_share": 0.8, "descent_gain": 6.5e-4}
+from .plain import LIMITS, reference_answers  # noqa: F401 (the plain reference's, by their old names)
 
 
 @dataclass
@@ -48,28 +57,6 @@ class Answer:
     aee: float
 
 
-def reference_answers(answers, stream: np.ndarray, scene, config: dict, device, tf32: bool = False) -> list:
-    """The reference's (loss, AEE, zero-flow AEE, descent gain) of each
-    frame at the program's motion: float64, or the control's TF32 products
-    (``tf32``; no descent gain, NaN).  ``scene.load_optical_flow`` gives
-    the ground truth."""
-    lin = plain.Linear(tf32, device)
-    objective = plain.Objective(config, lin)
-    n_events = int(config["data"]["n_events_per_batch"])
-    out = []
-    for a in answers:
-        batch, metric = plain.window(stream, a.t1, a.t2, n_events)
-        motion = a.motion.to(device=lin.device, dtype=torch.float64)
-        mask = plain.event_mask(metric, objective.shape, lin.device)
-        gt = scene.load_optical_flow(a.t1, a.t2)
-        pred = plain.dense_displacement(objective, motion, a.t2 - a.t1)
-        ev = objective.prepare(batch)
-        loss = float(objective.value(ev, motion))
-        gain = float("nan") if tf32 else plain.descent_gain(objective, ev, motion)
-        out.append((loss, plain.aee(gt, pred, mask), plain.aee(gt, None, mask), gain))
-    return out
-
-
 def numbers(losses, aees, reference) -> dict:
     """The compared numbers of answers (``losses``, ``aees`` per frame)
     against the reference's ``(loss, AEE, zero-flow AEE, descent gain)``
@@ -82,6 +69,7 @@ def numbers(losses, aees, reference) -> dict:
             "descent_gain": float(ref[:, 3].mean())}
 
 
-def verdict(values: dict) -> bool:
-    """Every number finite and within its limit."""
-    return all(np.isfinite(values[k]) and values[k] <= LIMITS[k] for k in LIMITS)
+def verdict(values: dict, limits: dict) -> bool:
+    """Every number finite and within its limit in ``limits`` (the cell's
+    reference's ``LIMITS``)."""
+    return all(np.isfinite(values[k]) and values[k] <= limits[k] for k in limits)

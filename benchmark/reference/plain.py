@@ -10,6 +10,11 @@ matrix product, so ``tf32=True`` computes the control: the same arithmetic
 in float32 with each product's inputs rounded to TF32's 10-bit mantissa,
 as tensor cores round them (``round_tf32``; explicit, so a CPU gives the
 same numbers as the card).
+
+It is the reference of every configuration whose file names none (no
+``"reference"`` key), and keeps the contract of a reference module
+(``compare.py``): ``reference_answers`` and ``LIMITS``, set from the
+readings that ``PERF.md`` section 2 records.
 """
 
 from typing import Optional, Tuple
@@ -304,3 +309,31 @@ def aee(gt: np.ndarray, pred: Optional[Tensor], mask: Tensor) -> float:
 def dense_displacement(objective: Objective, motion: Tensor, seconds: float) -> Tensor:
     """The tile motion's dense displacement over ``seconds``: [2, H, W]."""
     return objective.dense(motion) * seconds
+
+
+# --- the contract of a reference module (compare.py) ----------------------------
+# each number's limit: above the largest reading of sound runs, below the
+# control's (TF32) and the planted faults' smallest readings (PERF.md)
+LIMITS = {"loss_gap": 5e-6, "aee_gap": 2e-6, "aee_share": 0.8, "descent_gain": 6.5e-4}
+
+
+def reference_answers(answers, stream: np.ndarray, scene, config: dict, device, tf32: bool = False) -> list:
+    """The reference's (loss, AEE, zero-flow AEE, descent gain) of each
+    frame at the program's motion: float64, or the control's TF32 products
+    (``tf32``; no descent gain, NaN).  ``scene.load_optical_flow`` gives
+    the ground truth."""
+    lin = Linear(tf32, device)
+    objective = Objective(config, lin)
+    n_events = int(config["data"]["n_events_per_batch"])
+    out = []
+    for a in answers:
+        batch, metric = window(stream, a.t1, a.t2, n_events)
+        motion = a.motion.to(device=lin.device, dtype=torch.float64)
+        mask = event_mask(metric, objective.shape, lin.device)
+        gt = scene.load_optical_flow(a.t1, a.t2)
+        pred = dense_displacement(objective, motion, a.t2 - a.t1)
+        ev = objective.prepare(batch)
+        loss = float(objective.value(ev, motion))
+        gain = float("nan") if tf32 else descent_gain(objective, ev, motion)
+        out.append((loss, aee(gt, pred, mask), aee(gt, None, mask), gain))
+    return out

@@ -53,7 +53,11 @@ def _top_level_after(code: str) -> set:
 
 
 def test_reference_loads_neither_jax_nor_the_port():
-    names = _top_level_after("import benchmark.reference.plain, benchmark.reference.compare, benchmark.scene")
+    """The reference modules as the harness loads them: each configuration's
+    through ``cells.reference``, and the comparison."""
+    names = _top_level_after("import benchmark.reference.compare, benchmark.scene; from benchmark import cells; "
+                             "[cells.reference(cells.load_json('configs', c['name'])) "
+                             "for c in cells.load_manifest()['configs']]")
     assert not names & FORBIDDEN
     assert PORT not in names
 

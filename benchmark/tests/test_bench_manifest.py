@@ -109,6 +109,8 @@ def test_every_cell_is_found(manifest):
             assert run[section][key] == value
         listed = next(c for c in manifest["configs"] if c["name"] == w["config"])
         assert listed["reduced"] == config["reduced"]
+        reference = cells.reference(config)  # stops the run if it breaks its contract
+        assert callable(reference.reference_answers) and set(reference.LIMITS) == set(cells.LIMIT_KEYS)
     for m in manifest["per_layer"]:
         assert callable(cells.metric_reader(m["name"]))
 
